@@ -20,7 +20,20 @@ failing with a non-zero exit on any error:
    kernel path against the eager opt-out path for a few steps;
 5. server: a ``ServingEngine`` (buckets 24 and 96, tiers 1/16/64) answering
    mixed requests, and one seed served alone against the same seed inside
-   a full batch.
+   a full batch;
+6. block-kernel phase: ``fused_dit_block`` and its backward
+   (``_fused_block_diff_bwd``) at the train step's full width (B=1024,
+   N=480, bf16, random adaLN vectors) against the plain twin and autograd
+   over it, every one of the 10 gradients with its error, correlation and
+   mean error against an f32 truth; again in f32 at a small batch; CUDA-event
+   times, the twin's times, the bounds, device time by part, and torch SDPA
+   forward+backward over the block's attention as a yardstick;
+7. train phase: the flagship denoiser train step (B=1024 series of length
+   96, LA-VAE encode inside the step, flow matching over 100 steps, one-cycle
+   AdamW at 1e-4) for 2 warm-up and 10 timed steps: steps/s, peak memory,
+   device time by part, launch counts per step checked, loss finite; and at
+   B=128 the kernel path's loss and gradients against the eager bf16 and
+   f32 opt-out paths on the same injected draws.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -30,6 +43,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -46,6 +60,7 @@ H100_BYTES = 3.35e12          # HBM3 bytes/s
 # main-path geometry: the reference-scale T2S DiT over the 64x30 latent
 B_SERIES, N_TOK, D_MODEL, HEADS, HIDDEN, DEPTH = 256, 480, 128, 4, 256, 4
 STEPS, CFG, OUT_LEN = 100, 7.0, 96
+B_TRAIN, TRAIN_STEPS, TRAIN_WARMUP = 1024, 10, 2       # bench.py:124-166
 
 
 def log(*a):
@@ -152,8 +167,7 @@ def kernel_phase(gen):
             split = device_ms_by_kernel(
                 lambda: fused_dit_stack(x, mod, *ws, HEADS), STACK_PARTS)
             log("kernel bf16 device time by part (torch.profiler, one call): "
-                + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-                   if split else "not measured (no device time recorded)"))
+                + fmt_split(split))
             out["sdpa_ms"] = sdpa_attention_ms(gen, B)
             log(f"yardstick: SDPA over the stack's attention alone "
                 f"(B={B}, {HEADS} heads, N={N_TOK}, d={D_MODEL // HEADS}, "
@@ -167,8 +181,10 @@ STACK_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_kernel")
 
 def device_ms_by_kernel(fn, names):
     """Device time (ms) of the kernels whose names contain one of ``names``
-    over one call of ``fn``, summed over launches, from torch.profiler.
-    Empty when the profiler records no device time for them."""
+    over one call of ``fn``, summed over launches, from torch.profiler,
+    and every kernel's under "(all device time)". Empty when the profiler
+    records no device time for them."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -176,13 +192,22 @@ def device_ms_by_kernel(fn, names):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {}
+    split, total = {}, 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         for n in names:
             if n in ev.key and us > 0:
                 split[n] = split.get(n, 0.0) + us / 1e3
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            total += us / 1e3
+    if split and total > 0:
+        split["(all device time)"] = total
     return split
+
+
+def fmt_split(split):
+    return (", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) if split
+            else "not measured (no device time recorded)")
 
 
 def sdpa_attention_ms(gen, B):
@@ -323,6 +348,240 @@ def server_phase(dit, vae, seed):
           "server path launched the stack kernel")
 
 
+# --------------------------------------------- the train step's block kernels
+
+# the CUDA kernels of one fused_dit_block call and of one backward call
+BLOCK_PARTS = STACK_PARTS
+BWD_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_bwd_kernel",
+             "attn_out_bwd_kernel", "attn_dq_kernel", "attn_dkdv_kernel",
+             "qkv_bwd_kernel", "wgrad_kernel", "sum_splits_kernel",
+             "dmod_reduce_kernel")
+GRAD_NAMES = ("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj", "dwfc1",
+              "dbfc1", "dwfc2", "dbfc2")
+
+
+def block_work(B, N, D, H, hidden, tensors_fwd, tensors_bwd):
+    """(forward flops, backward flops, forward bytes, backward bytes) of one
+    block call and one block-VJP call. The VJP (whose residuals are the
+    inputs, as in the JAX kernel) recomputes the forward and then does two
+    products per dense product and four per attention product (dP, dQ, dK,
+    dV). Bytes: each input read once and each output written once."""
+    rows = B * N
+    dense = 2 * rows * (D * 3 * D + D * D + 2 * D * hidden)
+    attn = 2 * 2 * B * H * N * N * (D // H)
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    return (dense + attn, (dense + attn) + 2 * dense + 2 * attn,
+            nb(tensors_fwd), nb(tensors_bwd))
+
+
+def _vjp(fn, args, dy):
+    ts = [a.detach().requires_grad_() for a in args]
+    out = fn(*ts, HEADS)
+    return out, torch.autograd.grad(out, ts, dy)
+
+
+def _err(g, w):
+    g, w = g.float(), w.float()
+    ref = w.abs().max().item()
+    err = (g - w).abs().max().item()
+    corr = torch.corrcoef(torch.stack([g.flatten(), w.flatten()]))[0, 1]
+    return err, ref, corr.item()
+
+
+def block_phase(gen):
+    """Kernels #2 and #3 against their twins at the train step's width."""
+    from t2ms_tpu_torch.ops.dit_block import (_launch_block_bwd,
+                                              fused_dit_block,
+                                              fused_dit_block_diffable,
+                                              fused_dit_block_reference)
+    dev = torch.device("cuda")
+    f = lambda *s_: torch.randn(*s_, generator=gen, device=dev)
+
+    def inputs(B, dt):
+        D, hid = D_MODEL, HIDDEN
+        # f32 weights (the params), x and mod in the compute dtype
+        ws = [0.2 * f(D, 3 * D), 0.1 * f(3 * D), 0.2 * f(D, D), 0.1 * f(D),
+              0.2 * f(D, hid), 0.1 * f(hid), 0.2 * f(hid, D), 0.1 * f(D)]
+        return [f(B, N_TOK, D).to(dt), (0.3 * f(B, 6, D)).to(dt), *ws]
+
+    out = {}
+    # tolerances: forward as the stack's (bf16 3e-2, f32 2e-4 * max|ref|);
+    # backward bf16 5e-2 * max|ref| against a twin that rounds each op of
+    # its backward to bf16, f32 5e-4 (summation order over up to B*N rows)
+    for dt, B, tol_f, tol_b in ((torch.bfloat16, B_TRAIN, 3e-2, 5e-2),
+                                (torch.float32, 8, 2e-4, 5e-4)):
+        args = inputs(B, dt)
+        dy = f(B, N_TOK, D_MODEL).to(dt)
+        got_y, got = _vjp(fused_dit_block_diffable, args, dy)
+        want_y, want = _vjp(fused_dit_block_reference, args, dy)
+        torch.cuda.synchronize()
+        truth = None
+        if dt == torch.bfloat16:
+            _, truth = _vjp(fused_dit_block_reference,
+                            [a.float() for a in args], dy.float())
+        errs = {}
+        for name, g, w, t in zip(("y",) + GRAD_NAMES, (got_y, *got),
+                                 (want_y, *want),
+                                 (None,) * 11 if truth is None
+                                 else (None, *truth)):
+            check(bool(torch.isfinite(g.float()).all()), f"{dt} {name} finite")
+            err, ref, corr = _err(g, w)
+            tol = tol_f if name == "y" else tol_b
+            line = (f"block {dt} B={B} {name}: max_abs_err={err:.6g} "
+                    f"max|ref|={ref:.6g} rel={err / ref:.3e} (tol {tol:g}) "
+                    f"corr={corr:.8f}")
+            if t is not None:
+                ek = (g.float() - t).abs().mean().item()
+                et = (w.float() - t).abs().mean().item()
+                line += (f"; mean_abs_err vs f32 truth kernel {ek:.4e} twin "
+                         f"{et:.4e} ratio {ek / et:.4f} (tol 1.5)")
+                check(ek <= 1.5 * et, f"{dt} {name} rounds worse than twin")
+            log(line)
+            check(err <= tol * ref, f"{dt} {name} kernel vs twin")
+            check(corr >= 0.999, f"{dt} {name} corr {corr}")
+            errs[name] = err
+        del truth, got, want
+        fwd = lambda: fused_dit_block(*args, HEADS)
+        bwd = lambda: _launch_block_bwd(args[0], args[1], args[2:], dy, HEADS,
+                                        1e-6)
+        with torch.no_grad():
+            ms_f = cuda_ms(fwd)
+            plain_f = cuda_ms(lambda: fused_dit_block_reference(*args, HEADS))
+            ms_b = cuda_ms(bwd)
+        ts = [a.detach().requires_grad_() for a in args]
+        graph = fused_dit_block_reference(*ts, HEADS)
+        plain_b = cuda_ms(lambda: torch.autograd.grad(graph, ts, dy,
+                                                      retain_graph=True))
+        del graph, ts
+        fl_f, fl_b, by_f, by_b = block_work(
+            B, N_TOK, D_MODEL, HEADS, HIDDEN, [*args, args[0]],
+            [*args, dy, args[0], args[1], *args[2:]])
+        peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS
+        res = {}
+        for name, ms, plain, fl, nb in (("fwd", ms_f, plain_f, fl_f, by_f),
+                                        ("bwd", ms_b, plain_b, fl_b, by_b)):
+            t_ops, t_bytes = fl / peak * 1e3, nb / H100_BYTES * 1e3
+            res[name] = dict(ms=ms, plain=plain, bound=max(t_ops, t_bytes),
+                             by="operations" if t_ops >= t_bytes else "bytes")
+            log(f"block {dt} B={B} {name}: {ms:.4f} ms, twin {plain:.4f} ms, "
+                f"bound {max(t_ops, t_bytes):.4f} ms ({fl / 1e12:.4f} TFLOP, "
+                f"{nb / 1e9:.4f} GB)")
+        res["fwd"]["err"] = errs["y"]
+        res["bwd"]["err"] = max(v for k, v in errs.items() if k != "y")
+        out[dt] = res
+        if dt == torch.bfloat16:
+            with torch.no_grad():
+                log("block bf16 forward device time by part (torch.profiler, "
+                    "one call): " + fmt_split(device_ms_by_kernel(
+                        fwd, BLOCK_PARTS)))
+                log("block bf16 backward device time by part (torch.profiler,"
+                    " one call): " + fmt_split(device_ms_by_kernel(
+                        bwd, BWD_PARTS)))
+            out["sdpa_ms"] = sdpa_fwd_bwd_ms(gen, B)
+            log(f"yardstick: SDPA forward+backward over the block's attention "
+                f"alone (B={B}, {HEADS} heads, N={N_TOK}, "
+                f"d={D_MODEL // HEADS}): {out['sdpa_ms']:.4f} ms")
+        del args, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_fwd_bwd_ms(gen, B):
+    """torch SDPA forward and backward on the block's attention part alone
+    (yardstick only; no single PyTorch call computes the block or its
+    VJP)."""
+    import torch.nn.functional as F
+    f = lambda: torch.randn(B, HEADS, N_TOK, D_MODEL // HEADS, generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+    q, k, v = (f().requires_grad_() for _ in range(3))
+    g = f()
+
+    def run():
+        o = F.scaled_dot_product_attention(q, k, v)
+        torch.autograd.grad(o, (q, k, v), g)
+    return cuda_ms(run)
+
+
+def train_phase(dit, vae, gen):
+    """The flagship train step (bench.py:124-166) on a copy of the DiT."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import BLOCK_BWD_KERNEL, BLOCK_KERNEL
+    from t2ms_tpu_torch.training import (make_denoiser_train_step,
+                                         onecycle_adamw)
+    model = copy.deepcopy(dit)
+    opt = onecycle_adamw(model.parameters(), TRAIN_WARMUP + TRAIN_STEPS,
+                         max_lr=1e-4)
+    step = make_denoiser_train_step(model, vae, opt, total_step=STEPS)
+    x = torch.randn(B_TRAIN, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(B_TRAIN, D_MODEL, generator=gen, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    losses = [step(x, emb, generator=g) for _ in range(TRAIN_WARMUP)]
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step(x, emb, generator=g) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lv = torch.stack(losses).tolist()
+    check(all(np.isfinite(lv)), f"train losses finite {lv}")
+    for name in (BLOCK_KERNEL, BLOCK_BWD_KERNEL):
+        check(launches.get(name, 0) == DEPTH * TRAIN_STEPS,
+              f"{name} launched {launches.get(name, 0)} times in "
+              f"{TRAIN_STEPS} steps, want {DEPTH} per step")
+    log(f"train flagship: B={B_TRAIN} len {OUT_LEN} depth {DEPTH} bf16, "
+        f"{TRAIN_STEPS} steps in {dt:.3f} s: {TRAIN_STEPS / dt:.4f} steps/s, "
+        f"peak memory {peak_gb:.3f} GB, launches {launches} "
+        f"({launches[BLOCK_KERNEL] // TRAIN_STEPS} forward and "
+        f"{launches[BLOCK_BWD_KERNEL] // TRAIN_STEPS} backward per step), "
+        f"losses {[round(v, 5) for v in lv]}")
+    split = device_ms_by_kernel(lambda: step(x, emb, generator=g),
+                                tuple(dict.fromkeys(BLOCK_PARTS + BWD_PARTS)))
+    log("train step device time by part (torch.profiler, one step): "
+        + fmt_split(split))
+
+    # the kernel path against the eager opt-out paths on the same draws
+    Bs = 128
+    xs, es = x[:Bs], emb[:Bs]
+    draws = dict(u=torch.rand(Bs, generator=g, device="cuda"),
+                 x_0=torch.randn(Bs, 64, 30, generator=g, device="cuda"),
+                 coin=torch.tensor(0.9, device="cuda"))
+    res = {}
+    for name, dt_, impl in (("kernel", torch.bfloat16, "auto"),
+                            ("eager bf16", torch.bfloat16, "einsum"),
+                            ("eager f32", torch.float32, "einsum")):
+        m = DiT(latent_len=30, latent_dim=64, d_model=D_MODEL, depth=DEPTH,
+                num_heads=HEADS, mlp_ratio=HIDDEN / D_MODEL,
+                compute_dtype=dt_, attention_impl=impl)
+        m.load_state_dict(dit.state_dict())
+        s_ = make_denoiser_train_step(
+            m, vae, torch.optim.SGD(m.parameters(), lr=0.0),
+            total_step=STEPS)
+        loss = s_(xs, es, **draws).item()
+        res[name] = (loss, {n: p.grad.float() for n, p in
+                            m.named_parameters()})
+    (lk, gk), (lb, gb), (lt, gt) = (res[k] for k in ("kernel", "eager bf16",
+                                                     "eager f32"))
+    worst = 0.0
+    for n in gt:
+        ek = (gk[n] - gt[n]).abs().mean().item()
+        eb = (gb[n] - gt[n]).abs().mean().item()
+        worst = max(worst, ek / max(eb, 1e-30))
+        check(ek <= 1.5 * eb, f"train grad {n}: kernel path {ek:.4e} vs "
+              f"eager bf16 {eb:.4e} from f32")
+    # a scalar can land near the f32 value by chance: a floor of 1e-3
+    check(abs(lk - lt) <= max(1.5 * abs(lb - lt), 1e-3 * abs(lt)),
+          f"train loss kernel {lk} eager bf16 {lb} f32 {lt}")
+    log(f"train B={Bs} same draws: loss kernel {lk:.6f} eager bf16 {lb:.6f} "
+        f"eager f32 {lt:.6f}; every parameter's grad: kernel path's mean "
+        f"error vs f32 at most {worst:.4f}x the eager bf16 path's (tol 1.5)")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -332,7 +591,8 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     from t2ms_tpu_torch.ops import _build
-    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
+                                              STACK_KERNEL)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -354,16 +614,25 @@ def main(argv=None):
     dit, vae = build_models(args.seed)
     launches = offline_phase(dit, vae, gen)
     server_phase(dit, vae, args.seed)
+    blk = block_phase(gen)[torch.bfloat16]
+    t_launches = train_phase(dit, vae, gen)
 
     bf = k[torch.bfloat16]
-    table = {"kernels": [{
-        "name": STACK_KERNEL, "route": "cuda",
-        "source": "t2ms_tpu_torch/ops/csrc/dit_stack.cu",
-        "replaces": "t2ms_tpu/ops/dit_block.py:218",
-        "launches": launches.get(STACK_KERNEL, 0),
-        "max_abs_err": bf["err"], "ms": bf["ms"], "plain_ms": bf["plain"],
-        "bound_ms": bf["bound"], "bound_by": bf["by"], "library_ms": None,
-    }]}
+    entry = lambda name, src, rep, n, r: {
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
+        "plain_ms": r["plain"], "bound_ms": r["bound"],
+        "bound_by": r["by"], "library_ms": None}
+    table = {"kernels": [
+        entry(STACK_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_stack.cu",
+              "t2ms_tpu/ops/dit_block.py:218",
+              launches.get(STACK_KERNEL, 0), bf),
+        entry(BLOCK_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_stack.cu",
+              "t2ms_tpu/ops/dit_block.py:188",
+              t_launches.get(BLOCK_KERNEL, 0), blk["fwd"]),
+        entry(BLOCK_BWD_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_block_bwd.cu",
+              "t2ms_tpu/ops/dit_block.py:348",
+              t_launches.get(BLOCK_BWD_KERNEL, 0), blk["bwd"])]}
     print(smi, flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,23 @@
 """t2ms_tpu_torch — the PyTorch / CUDA port of t2ms_tpu for NVIDIA Hopper.
 
 The JAX package ``t2ms_tpu`` is the reference; this package reproduces its
-serving path in PyTorch, with every TPU (Pallas) kernel on that path
-rewritten by hand as a CUDA C++ kernel for ``sm_90a``. It imports torch and
+serving and training paths in PyTorch, with every TPU (Pallas) kernel on
+those paths rewritten by hand as a CUDA C++ kernel for ``sm_90a``. It imports torch and
 numpy only: never jax, and nothing from ``t2ms_tpu`` or ``tools``.
 
 Layout (mirrors t2ms_tpu):
   ops/                  resize-as-matmul, conv1d, attention oracles, the
-                        fused DiT stack (CUDA kernel + plain twin), build
+                        fused DiT stack and block, forward and backward
+                        (CUDA kernels + plain twins), build
   models/vae/           LA-VAE
   models/backbones/     rectified flow
-  models/denoisers/     eager DiT + the fused serving forward (dit_fast)
+  models/denoisers/     eager DiT + the fused serving and training
+                        forwards (dit_fast)
   sampling/             CFG sampler (euler / heun / midpoint)
   serving/              dynamic-batching ServingEngine
-  convert.py            JAX param tree -> port state_dict
+  training/             AdamW with optax's semantics and schedules, the
+                        denoiser and LA-VAE train steps
+  convert.py            JAX param tree / optax AdamW state -> port
 
 Entry points take ``device=None``, which means CUDA; without a card they
 raise unless the caller passes ``device="cpu"``. Kernels build at their

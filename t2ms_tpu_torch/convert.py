@@ -8,6 +8,12 @@ the reference Conv2d(1, 4, k=2, s=2) layout; Conv1d (O, C, K) and
 ConvTranspose1d (C, O, K) weights copy as they are; LayerNorm scale/bias
 become weight/bias. The inverse direction is
 ``tools/import_torch_ckpt.py`` (reference state_dict -> flax tree).
+
+The rules only rearrange elements (transposes and reshapes), so
+``dit_params_from_jax`` maps any tree shaped like the params the same way:
+a gradient tree, or optax's Adam moments. ``adamw_state_from_optax`` uses
+that to carry an ``optax.adamw`` state into a torch AdamW, so a port run
+resumes a JAX run.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["dit_params_from_jax", "lavae_params_from_jax"]
+__all__ = ["dit_params_from_jax", "lavae_params_from_jax",
+           "adamw_state_from_optax"]
 
 
 def _inner(tree) -> dict:
@@ -87,3 +94,31 @@ def lavae_params_from_jax(tree) -> Dict[str, torch.Tensor]:
         _conv(sd, "decoder._conv_trans_1", dec["convt1"])
         _conv(sd, "decoder._conv_trans_2", dec["convt2"])
     return sd
+
+
+def adamw_state_from_optax(optimizer: torch.optim.Optimizer,
+                           model: torch.nn.Module, opt_state,
+                           params_from_jax=dit_params_from_jax) -> None:
+    """Load an ``optax.adamw`` state (numpy leaves, as ``jax.device_get``
+    gives) into ``optimizer``, a torch AdamW over ``model``'s parameters:
+    optax's ``ScaleByAdamState`` (count, mu, nu) becomes each parameter's
+    ``step``, ``exp_avg`` and ``exp_avg_sq``, mapped by the same rules as
+    the params (``params_from_jax``). The Adam state is found by its
+    fields, so the chain's other states are skipped."""
+    stack = [opt_state]
+    adam = None
+    while stack and adam is None:
+        node = stack.pop()
+        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+            adam = node
+        elif isinstance(node, (tuple, list)):
+            stack.extend(reversed(node))
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) found")
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    step = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype).reshape(p.shape),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).reshape(p.shape)}

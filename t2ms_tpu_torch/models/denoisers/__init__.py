@@ -1,4 +1,4 @@
-"""Denoisers: the eager DiT and its fused serving forward."""
+"""Denoisers: the eager DiT and its fused serving and training forwards."""
 
 from t2ms_tpu_torch.models.denoisers.dit import DiT
 

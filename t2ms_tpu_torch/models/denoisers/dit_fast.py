@@ -1,12 +1,18 @@
-"""Serving-path DiT forward with the whole transformer stack in the fused
-kernel (counterpart of t2ms_tpu/models/denoisers/dit_fast.py).
+"""DiT forwards through the fused kernels (counterpart of
+t2ms_tpu/models/denoisers/dit_fast.py).
 
-``fast_dit_forward`` mirrors ``DiT.forward``: the same ``embed`` and
-``finalize`` halves, with the L adaLN-zero blocks run by
+``fast_dit_forward`` (serving) mirrors ``DiT.forward``: the same ``embed``
+and ``finalize`` halves, with the L adaLN-zero blocks run by
 ``ops.dit_block.fused_dit_stack`` (the hand-written CUDA kernel on a CUDA
 tensor, its plain twin on a CPU tensor). The per-layer weights are stacked
 and cast once per parameter version and cached on the module: eager torch
-would otherwise restack them on every one of the sampler's steps.
+would otherwise restack them on every one of the sampler's steps. That
+cache is built under ``no_grad``, so it serves inference only.
+
+``fast_dit_train_forward`` (training) runs each block as
+``ops.dit_block.fused_dit_block_diffable``, whose forward and backward are
+the hand-written block kernels on CUDA; its weights are views of the
+parameters, so the grads reach them.
 """
 
 from __future__ import annotations
@@ -16,10 +22,13 @@ from typing import Optional
 import torch
 
 from t2ms_tpu_torch.models.denoisers.dit import DiT
-from t2ms_tpu_torch.ops.dit_block import (fused_dit_stack,
+from t2ms_tpu_torch.ops.dit_block import (block_kernel_supported,
+                                          fused_dit_block_diffable,
+                                          fused_dit_stack,
                                           stack_kernel_supported)
 
 __all__ = ["fast_dit_forward", "fast_forward_supported",
+           "fast_dit_train_forward", "train_forward_supported",
            "fused_path_eligible"]
 
 _WEIGHTS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
@@ -42,6 +51,18 @@ def fast_forward_supported(dit: DiT) -> bool:
     the kernel library itself (``ops.dit_block.stack_kernel_supported``;
     needs nvcc and a card)."""
     return stack_kernel_supported(dit.d_model, int(dit.d_model
+                                                   * dit.mlp_ratio),
+                                  dit.num_heads, dit.compute_dtype)
+
+
+def train_forward_supported(dit: DiT) -> bool:
+    """Whether the CUDA block kernels (forward and backward) take this
+    DiT's geometry, asked of the backward's library
+    (``ops.dit_block.block_kernel_supported``; needs nvcc and a card). An
+    explicit ``attention_impl`` opts out, as in the JAX gate."""
+    if getattr(dit, "attention_impl", "auto") != "auto":
+        return False
+    return block_kernel_supported(dit.d_model, int(dit.d_model
                                                    * dit.mlp_ratio),
                                   dit.num_heads, dit.compute_dtype)
 
@@ -83,4 +104,20 @@ def fast_dit_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
                         for blk in dit.layers], dim=1)        # (B, L, 6, D)
     h = fused_dit_stack(h, mods, *_stacked_weights(dit, h.dtype),
                         dit.num_heads)
+    return dit.finalize(h, x.dtype)
+
+
+def fast_dit_train_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
+                           text_emb: Optional[torch.Tensor] = None,
+                           text_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Differentiable DiT forward with each block in
+    ``fused_dit_block_diffable`` (adaLN vectors in the compute dtype)."""
+    h, c = dit.embed(x, t, text_emb, text_mask)
+    for blk in dit.layers:
+        a, m = blk.attn, blk.mlp
+        h = fused_dit_block_diffable(
+            h, blk.modulation(c, dit.compute_dtype), a.qkv.weight.t(),
+            a.qkv.bias, a.proj.weight.t(), a.proj.bias, m.fc1.weight.t(),
+            m.fc1.bias, m.fc2.weight.t(), m.fc2.bias, dit.num_heads)
     return dit.finalize(h, x.dtype)

@@ -128,9 +128,18 @@ def _declare(lib: ctypes.CDLL) -> None:
             f = getattr(lib, fn)
             f.argtypes = [P] * 13 + [I] * 6 + [F, F, P]
             f.restype = I
-    if hasattr(lib, "dit_stack_check"):
-        lib.dit_stack_check.argtypes = [I] * 4
-        lib.dit_stack_check.restype = I
+    for fn in ("dit_block_backward_bf16", "dit_block_backward_f32"):
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes = [P] * 22 + [I] * 5 + [F, F, P]
+            f.restype = I
+    if hasattr(lib, "dit_block_backward_workspace"):
+        lib.dit_block_backward_workspace.argtypes = [I] * 6
+        lib.dit_block_backward_workspace.restype = ctypes.c_longlong
+    for fn in ("dit_stack_check", "dit_block_check"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [I] * 4
+            getattr(lib, fn).restype = I
     if hasattr(lib, "t2ms_cuda_error_string"):
         lib.t2ms_cuda_error_string.argtypes = [I]
         lib.t2ms_cuda_error_string.restype = ctypes.c_char_p

@@ -51,7 +51,10 @@ def attn_heads_natural(q_all, k_all, v_all, num_heads: int, scale: float):
         k = k_all[..., sl]
         v = v_all[..., sl]
         s = torch.matmul(q.float(), k.float().transpose(-1, -2))  # f32
-        m = s.amax(dim=-1, keepdim=True)
+        # the max is detached as the JAX recipe stops its gradient: the
+        # exact gradient through it is zero, but in bf16 amax's backward
+        # would hand rounding residue to the tied maxima
+        m = s.amax(dim=-1, keepdim=True).detach()
         e = torch.exp((s - m).to(dt))                 # exp at input width
         r = e.float().sum(dim=-1)                     # f32 row sum
         o = torch.matmul(e.float(), v.float())        # f32 PV

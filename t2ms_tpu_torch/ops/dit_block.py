@@ -1,18 +1,23 @@
-"""The whole adaLN-zero transformer stack of the DiT (counterpart of
-t2ms_tpu/ops/dit_block.py ``fused_dit_stack``).
+"""The adaLN-zero blocks of the DiT (counterpart of
+t2ms_tpu/ops/dit_block.py ``fused_dit_stack``, ``fused_dit_block`` and
+``fused_dit_block_diffable``).
 
-``fused_dit_stack`` keeps the JAX signature and layouts: x (B, N, D),
-per-sample per-layer adaLN vectors mod (B, L, 6, D), flax Dense-layout
-weights (kernel (in, out), bias (out,)) stacked over the layer axis, and
-weights/biases cast to x's dtype as the JAX wrapper's ``w(a)`` does.
+All keep the JAX signatures and layouts: x (B, N, D), per-sample adaLN
+vectors mod (B, L, 6, D) for the stack and (B, 6, D) for one block, flax
+Dense-layout weights (kernel (in, out), bias (out,)), stacked over the
+layer axis for the stack, and weights/biases cast to x's dtype as the JAX
+wrappers' ``w(a)`` does.
 
-* On a CUDA tensor it launches the hand-written kernels of
+* On a CUDA tensor they launch the hand-written kernels: the forward of
   ``csrc/dit_stack.cu`` (three per layer: modLN+qkv, attention+proj+gated
-  residual, modLN+MLP+gated residual) and counts one launch of the stack.
-  A shape the kernels do not take (the library's own limits), a failed
-  build or a failed launch raises; there is no fallback.
-* On a CPU tensor it runs ``fused_dit_stack_reference``, the plain
-  PyTorch twin that follows ``_block_math`` step by step.
+  residual, modLN+MLP+gated residual; one block is the stack with L = 1)
+  and the block backward of ``csrc/dit_block_bwd.cu``. Each wrapper counts
+  its launches under its own name. A shape the kernels do not take (the
+  libraries' own limits), a failed build or a failed launch raises; there
+  is no fallback.
+* On a CPU tensor they run the plain PyTorch twins, which follow
+  ``_block_math`` step by step; the twin of the backward is autograd over
+  the twin of the block.
 """
 
 from __future__ import annotations
@@ -27,12 +32,18 @@ from t2ms_tpu_torch.ops.attention import attn_heads_natural
 
 __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "dit_stack_reference_block", "stack_kernel_supported",
-           "STACK_KERNEL"]
+           "fused_dit_block", "fused_dit_block_reference",
+           "fused_dit_block_diffable", "block_kernel_supported",
+           "STACK_KERNEL", "BLOCK_KERNEL", "BLOCK_BWD_KERNEL"]
 
 STACK_KERNEL = "fused_dit_stack"
+BLOCK_KERNEL = "fused_dit_block"
+BLOCK_BWD_KERNEL = "_fused_block_diff_bwd"
 _ENTRY = {torch.bfloat16: "dit_stack_forward_bf16",
           torch.float32: "dit_stack_forward_f32"}
-_UNSUPPORTED_SHAPE = -1     # T2MS_UNSUPPORTED_SHAPE in dit_stack.cu
+_BWD_ENTRY = {torch.bfloat16: "dit_block_backward_bf16",
+              torch.float32: "dit_block_backward_f32"}
+_UNSUPPORTED_SHAPE = -1     # T2MS_UNSUPPORTED_SHAPE in dit_common.cuh
 
 
 # --------------------------------------------------------------- plain twin
@@ -88,29 +99,55 @@ def fused_dit_stack_reference(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
     return x
 
 
+def fused_dit_block_reference(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
+                              wfc2, bfc2, num_heads: int, eps: float = 1e-6):
+    """Plain PyTorch twin of one block with the JAX wrapper's casts: the
+    weights enter in their own dtype (f32 params) and are cast to x's dtype
+    inside, so autograd over it returns f32 weight grads, dx in x's dtype
+    and dmod in mod's dtype, the JAX block-VJP's contract."""
+    dt = x.dtype
+    ws = [w.to(dt) for w in (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
+                             bfc2)]
+    return dit_stack_reference_block(x, mod, *ws, num_heads, eps)
+
+
 # ------------------------------------------------------------ CUDA kernels
 
-def stack_kernel_supported(D: int, hidden: int, num_heads: int,
-                           dtype: torch.dtype) -> bool:
-    """Whether the CUDA kernel takes this geometry on the current device.
-    The limits are the kernel library's own (``dit_stack_check`` in
-    dit_stack.cu), so this builds and loads the library: it needs nvcc and
-    a card."""
+def _kernel_supported(library, check, D, hidden, num_heads, dtype):
+    """Ask a kernel library's own check (the limits live in the CUDA
+    sources only), which builds and loads it: needs nvcc and a card."""
     if dtype not in _ENTRY:
         return False
-    lib = _build.load("dit_stack")
-    err = lib.dit_stack_check(D, hidden, num_heads,
+    lib = _build.load(library)
+    err = getattr(lib, check)(D, hidden, num_heads,
                               int(dtype == torch.bfloat16))
     if err not in (0, _UNSUPPORTED_SHAPE):
-        raise RuntimeError(f"dit_stack_check failed: "
+        raise RuntimeError(f"{check} failed: "
                            f"{_build.cuda_error_string(lib, err)}")
     return err == 0
 
 
-def _check_shapes(x, mod, ws):
+def stack_kernel_supported(D: int, hidden: int, num_heads: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether the CUDA stack kernel takes this geometry on the current
+    device (``dit_stack_check`` in dit_stack.cu)."""
+    return _kernel_supported("dit_stack", "dit_stack_check", D, hidden,
+                             num_heads, dtype)
+
+
+def block_kernel_supported(D: int, hidden: int, num_heads: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether the CUDA block kernels, forward and backward, take this
+    geometry on the current device (``dit_block_check`` in
+    dit_block_bwd.cu, which checks the forward kernels too)."""
+    return _kernel_supported("dit_block_bwd", "dit_block_check", D, hidden,
+                             num_heads, dtype)
+
+
+def _check_shapes(x, mod, ws, kernel=STACK_KERNEL):
     """The kernel indexes every operand from x's (B, N, D), the depth L
     and the MLP width, so a mismatched operand would be read out of
-    bounds: refuse it here."""
+    bounds: refuse it here. mod and the weights carry the layer axis."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, D), got {tuple(x.shape)}")
     B, _, D = x.shape
@@ -122,17 +159,33 @@ def _check_shapes(x, mod, ws):
             ("bfc2", ws[7], (L, D))]
     for name, t, shape in want:
         if tuple(t.shape) != shape:
-            raise ValueError(f"fused_dit_stack: {name} must be {shape}, "
+            raise ValueError(f"{kernel}: {name} must be {shape}, "
                              f"got {tuple(t.shape)}")
 
 
-def _launch_stack(x, mod, ws, num_heads, eps):
+def _refuse_autograd(name, tensors, train_path):
+    """The CUDA forward writes its output through a raw pointer, so the
+    result carries no grad_fn: under grad mode, inputs that require grad
+    would train nothing and raise nothing. Refuse them instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} on CUDA has no backward; an input requires grad under "
+            f"grad mode, so train through {train_path} (or run this under "
+            f"torch.no_grad())")
+
+
+def _refused(name, x, hidden, num_heads):
+    B, N, D = x.shape
+    return ValueError(
+        f"{name} CUDA kernel does not take B={B} N={N} D={D} "
+        f"hidden={hidden} heads={num_heads} dtype={x.dtype}")
+
+
+def _launch_stack(x, mod, ws, num_heads, eps, name=STACK_KERNEL):
     B, N, D = x.shape
     L = ws[0].shape[0]
     hidden = ws[4].shape[-1]
-    refused = ValueError(
-        f"fused_dit_stack CUDA kernel does not take B={B} N={N} D={D} "
-        f"hidden={hidden} heads={num_heads} dtype={x.dtype}")
+    refused = _refused(name, x, hidden, num_heads)
     if x.dtype not in _ENTRY:
         raise refused
     lib = _build.load("dit_stack")
@@ -155,10 +208,53 @@ def _launch_stack(x, mod, ws, num_heads, eps):
     if err == _UNSUPPORTED_SHAPE:
         raise refused
     if err:
-        raise RuntimeError(f"fused_dit_stack CUDA launch failed: "
+        raise RuntimeError(f"{name} CUDA launch failed: "
                            f"{_build.cuda_error_string(lib, err)}")
-    _build.count_launch(STACK_KERNEL)
+    _build.count_launch(name)
     return out
+
+
+def _launch_block_bwd(x, mod, ws, dy, num_heads, eps):
+    """dx (x's dtype), dmod (f32) and the eight f32 weight and bias grads
+    of one block, from the hand-written backward (which recomputes the
+    forward from these inputs, as the JAX kernel does)."""
+    B, N, D = x.shape
+    hidden = ws[4].shape[-1]
+    dt = x.dtype
+    refused = _refused(BLOCK_BWD_KERNEL, x, hidden, num_heads)
+    if dt not in _BWD_ENTRY:
+        raise refused
+    lib = _build.load("dit_block_bwd")
+    dev = x.device
+    is_bf16 = int(dt == torch.bfloat16)
+    if lib.dit_block_check(D, hidden, num_heads, is_bf16) == \
+            _UNSUPPORTED_SHAPE:
+        raise refused
+    x = x.contiguous()
+    dy = dy.to(dtype=dt).contiguous()
+    mod = mod.to(device=dev, dtype=torch.float32).contiguous()
+    ws = [w.to(device=dev, dtype=dt).contiguous() for w in ws]
+    dx = torch.empty_like(x)
+    dmod = torch.empty((B, 6, D), device=dev, dtype=torch.float32)
+    dws = [torch.empty(w.shape, device=dev, dtype=torch.float32) for w in ws]
+    work = torch.empty(lib.dit_block_backward_workspace(
+        B, N, D, hidden, num_heads, is_bf16), device=dev, dtype=torch.uint8)
+    qscale = float(torch.tensor((D // num_heads) ** -0.5, dtype=dt))
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _BWD_ENTRY[dt])(
+            ptr(x), ptr(mod), *[ptr(w) for w in ws], ptr(dy), ptr(dx),
+            ptr(dmod), *[ptr(d) for d in dws], ptr(work), B, N, D, hidden,
+            num_heads, ctypes.c_float(eps), ctypes.c_float(qscale),
+            ctypes.c_void_p(stream))
+    if err == _UNSUPPORTED_SHAPE:
+        raise refused
+    if err:
+        raise RuntimeError(f"{BLOCK_BWD_KERNEL} CUDA launch failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+    _build.count_launch(BLOCK_BWD_KERNEL)
+    return dx, dmod, dws
 
 
 def fused_dit_stack(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
@@ -177,7 +273,74 @@ def fused_dit_stack(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
     ws = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
     _check_shapes(x, mod, ws)
     if x.is_cuda:
+        _refuse_autograd(STACK_KERNEL, (x, mod, *ws),
+                         "models.denoisers.dit_fast.fast_dit_train_forward")
         return _launch_stack(x, mod, ws, num_heads, eps)
     if x.device.type != "cpu":
         raise ValueError(f"fused_dit_stack: unsupported device {x.device}")
     return fused_dit_stack_reference(x, mod, *ws, num_heads, eps)
+
+
+def fused_dit_block(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
+                    bproj, wfc1, bfc1, wfc2, bfc2, num_heads: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """One adaLN-zero block: x (B, N, D), mod (B, 6, D), flax-layout
+    weights in any float dtype (cast to x's). CUDA tensor -> the stack's
+    kernels with L = 1, counted as ``fused_dit_block``; CPU tensor -> the
+    plain twin. Not differentiable on CUDA (it raises under grad mode when
+    an input requires grad): train through ``fused_dit_block_diffable``."""
+    ws = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
+    if mod.dim() != 3:
+        raise ValueError(f"fused_dit_block: mod must be (B, 6, D), got "
+                         f"{tuple(mod.shape)}")
+    stacked = tuple(w[None] for w in ws)
+    _check_shapes(x, mod[:, None], stacked, BLOCK_KERNEL)
+    if x.is_cuda:
+        _refuse_autograd(BLOCK_KERNEL, (x, mod, *ws),
+                         "fused_dit_block_diffable")
+        return _launch_stack(x, mod[:, None], stacked, num_heads, eps,
+                             BLOCK_KERNEL)
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_dit_block: unsupported device {x.device}")
+    return fused_dit_block_reference(x, mod, *ws, num_heads, eps)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """Forward: ``fused_dit_block``. Backward: the hand-written kernel on
+    CUDA, autograd over the plain twin on the CPU. Only the inputs are
+    saved; the backward recomputes the forward (the JAX kernel's
+    residuals are its inputs too)."""
+
+    @staticmethod
+    def forward(ctx, x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2,
+                bfc2, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
+                              wfc2, bfc2)
+        return fused_dit_block(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
+                               wfc2, bfc2, num_heads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mod, *ws = ctx.saved_tensors
+        if x.is_cuda:
+            dx, dmod, dws = _launch_block_bwd(x, mod, ws, dy, ctx.num_heads,
+                                              1e-6)
+            grads = [dx, dmod.to(mod.dtype),
+                     *(d.to(w.dtype) for d, w in zip(dws, ws))]
+        else:
+            with torch.enable_grad():
+                inp = [t.detach().requires_grad_() for t in (x, mod, *ws)]
+                out = fused_dit_block_reference(*inp, ctx.num_heads)
+                grads = torch.autograd.grad(out, inp, dy)
+        return (*grads, None)
+
+
+def fused_dit_block_diffable(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
+                             wfc2, bfc2, num_heads: int) -> torch.Tensor:
+    """Differentiable block with the JAX gradient contract: dx in x's
+    dtype, dmod in mod's own dtype, weight and bias grads in each weight's
+    dtype (f32 for f32 params). Pass the weights as views of the
+    parameters (``lin.weight.t()``) so the grads reach them."""
+    return _FusedBlock.apply(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
+                             wfc2, bfc2, num_heads)

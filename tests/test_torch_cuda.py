@@ -114,3 +114,107 @@ def test_sampler_refuses_a_dit_the_kernel_does_not_take(cuda, geometry):
     with pytest.raises(ValueError, match="does not take"):
         make_cfg_sampler(dit, vae, total_step=2)(x1, emb)
     assert _build.launch_counts[tblock.STACK_KERNEL] == before
+
+
+# ------------------------------------------------- the block kernels (#2, #3)
+
+def _block_args(dev, dt, B=3, N=130, D=128, hidden=256, seed=1):
+    """x and mod in ``dt``, f32 weights (the params), random mod."""
+    a = _stack_args(dev, dt, B=B, N=N, D=D, hidden=hidden, L=1, seed=seed)
+    return [a[0], a[1][:, 0]] + [w[0] for w in a[2:]]
+
+
+def _block_grads(args, dy, num_heads=4, twin=False):
+    ts = [a.detach().clone().requires_grad_() for a in args]
+    fn = (tblock.fused_dit_block_reference if twin
+          else tblock.fused_dit_block_diffable)
+    out = fn(*ts, num_heads)
+    return out, torch.autograd.grad(out, ts, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_block_kernels_match_twins_on_card(cuda, dt):
+    """Forward and backward kernels against the twin and autograd over it
+    at a ragged N and a batch that fills no tile. f32: 5e-4 * max|ref| per
+    output (summation order). bf16: 5e-2 * max|ref| against the bf16 twin
+    (which rounds every op of its backward to bf16), and the kernel's mean
+    error against the f32 truth at most 1.5x the bf16 twin's."""
+    args = _block_args(cuda, dt)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(3)).to(dt)
+    _build.reset_launch_counts()
+    out, got = _block_grads(args, dy)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tblock.BLOCK_KERNEL] == 1
+    assert _build.launch_counts[tblock.BLOCK_BWD_KERNEL] == 1
+    want_out, want = _block_grads(args, dy, twin=True)
+    assert [g.dtype for g in got] == [a.dtype for a in args]
+    tol = 5e-4 if dt == torch.float32 else 5e-2
+    for g, w in zip((out, *got), (want_out, *want)):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+    if dt == torch.bfloat16:
+        f32 = [a.float() for a in args]
+        _, truth = _block_grads(f32, dy.float(), twin=True)
+        for g, w, t in zip(got, want, truth):
+            ek = (g.float() - t).abs().mean().item()
+            et = (w.float() - t).abs().mean().item()
+            assert ek <= 1.5 * et + 1e-12
+
+
+@pytest.mark.cuda
+def test_block_kernels_refuse_shapes_they_do_not_take(cuda):
+    args = _block_args(cuda, torch.bfloat16, B=1, N=16, D=96, hidden=192)
+    assert not tblock.block_kernel_supported(96, 192, 4, torch.bfloat16)
+    assert tblock.block_kernel_supported(128, 256, 4, torch.bfloat16)
+    assert tblock.block_kernel_supported(128, 256, 4, torch.float32)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="does not take"):
+        tblock.fused_dit_block(*args, num_heads=4)
+    ok = _block_args(cuda, torch.bfloat16, B=1, N=16)
+    with pytest.raises(ValueError, match="does not take"):
+        tblock._launch_block_bwd(args[0], args[1], args[2:], args[0], 4, 1e-6)
+    assert not _build.launch_counts
+    with torch.no_grad():
+        tblock.fused_dit_block(*ok, num_heads=4)
+    assert _build.launch_counts == {tblock.BLOCK_KERNEL: 1}
+
+
+@pytest.mark.cuda
+def test_stack_refuses_autograd_on_card(cuda):
+    args = _stack_args(cuda, torch.float32, B=1, N=16, L=1)
+    args[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="fast_dit_train_forward"):
+        tblock.fused_dit_stack(*args, num_heads=4)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_both_kernels_per_layer(cuda):
+    """One train step on a tiny DiT: the block forward and backward each
+    launch depth times, the loss is finite and every parameter moves."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.training import (make_denoiser_train_step,
+                                         onecycle_adamw)
+    torch.manual_seed(0)
+    dit = DiT(latent_len=8, latent_dim=16, d_model=64, depth=2, num_heads=2,
+              compute_dtype=torch.bfloat16)
+    vae = LAVAE(1, 16, 1, 16, 16, 8)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    before = [p.detach().clone() for p in dit.parameters()]
+    step = make_denoiser_train_step(
+        dit, vae, onecycle_adamw(dit.parameters(), 10, 1e-3))
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(4, 32, device=cuda, generator=g)
+    emb = torch.randn(4, 64, device=cuda, generator=g)
+    _build.reset_launch_counts()
+    loss = step(x, emb, coin=torch.tensor(1.0, device=cuda), generator=g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dict(_build.launch_counts) == {tblock.BLOCK_KERNEL: 2,
+                                          tblock.BLOCK_BWD_KERNEL: 2}
+    assert all((p != b).any() for p, b in zip(dit.parameters(), before))

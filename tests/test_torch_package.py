@@ -17,6 +17,8 @@ from t2ms_tpu_torch.models.denoisers import DiT
 from t2ms_tpu_torch.models.vae import LAVAE
 from t2ms_tpu_torch.sampling import make_cfg_sampler
 from t2ms_tpu_torch.serving import ServingEngine, make_serving_sampler
+from t2ms_tpu_torch.training import (make_denoiser_train_step,
+                                     make_vae_train_step, onecycle_adamw)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "t2ms_tpu_torch")
@@ -28,7 +30,9 @@ MODULES = [
     "t2ms_tpu_torch.models.backbones.rectified_flow",
     "t2ms_tpu_torch.models.denoisers.dit",
     "t2ms_tpu_torch.models.denoisers.dit_fast",
-    "t2ms_tpu_torch.sampling.sampler", "t2ms_tpu_torch.serving.engine"]
+    "t2ms_tpu_torch.sampling.sampler", "t2ms_tpu_torch.serving.engine",
+    "t2ms_tpu_torch.training", "t2ms_tpu_torch.training.optim",
+    "t2ms_tpu_torch.training.trainer"]
 
 # an import of jax/flax, of the JAX package or of tools/ — never the port
 _FORBIDDEN = re.compile(
@@ -94,8 +98,17 @@ def _no_cuda():
     lambda: ServingEngine(DiT(6, 8, 32, 1, 2, device="cpu"),
                           LAVAE(1, 16, 1, 16, 8, 6, device="cpu"),
                           out_lengths=(24,), text_emb_dim=32),
+    lambda: make_denoiser_train_step(
+        DiT(6, 8, 32, 1, 2, device="cpu"),
+        LAVAE(1, 16, 1, 16, 8, 6, device="cpu"),
+        onecycle_adamw(DiT(6, 8, 32, 1, 2, device="cpu").parameters(), 4)),
+    lambda: make_vae_train_step(
+        LAVAE(1, 16, 1, 16, 8, 6, device="cpu"),
+        onecycle_adamw(LAVAE(1, 16, 1, 16, 8, 6, device="cpu").parameters(),
+                       4)),
 ], ids=["resolve_device", "DiT", "LAVAE", "make_cfg_sampler",
-        "make_serving_sampler", "ServingEngine"])
+        "make_serving_sampler", "ServingEngine", "make_denoiser_train_step",
+        "make_vae_train_step"])
 def test_entry_points_refuse_missing_cuda(make):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
