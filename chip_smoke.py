@@ -33,11 +33,28 @@ failing with a non-zero exit on any error:
    AdamW at 1e-4) for 2 warm-up and 10 timed steps: steps/s, peak memory,
    device time by part, launch counts per step checked, loss finite; and at
    B=128 the kernel path's loss and gradients against the eager bf16 and
-   f32 opt-out paths on the same injected draws.
+   f32 opt-out paths on the same injected draws;
+8. split-kernel phase: ``fused_dit_block_split`` at the scaled DiT's call
+   (2B=32, N=1024, d_model 512, 8 heads, hidden 2048, bf16, random adaLN
+   vectors) against its twin, with the mean error against the f32 twin,
+   again in f32 at a small batch, and against the stack kernel at the
+   reference geometry; CUDA-event times, the twin's time, the bound,
+   device time by kernel, and torch SDPA over the block's attention as a
+   yardstick;
+9. scaled offline path: the 56.7M-param DiT (scripts/bench_scaled.py:
+   d_model 512, depth 12, 8 heads, mlp x4, 1024 tokens) and the LA-VAE at
+   latent grid 64, seeded random weights, through the CFG sampler (B=16,
+   euler/20, cfg 7, length 96): series/s, peak memory, launches checked
+   (12 split launches per step, no stack launch), and the kernel path
+   against the eager bf16 and f32 opt-out paths for 4 steps;
+10. scaled server: a ``ServingEngine`` over the scaled models (buckets 48
+   and 96, tiers 1/4/8) answering mixed requests, and one seed served
+   alone against the same seed inside a full batch.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
-result.
+The line before the last is the kernel table as JSON (the ported kernels
+with their numbers under "kernels", the TPU kernels still to port under
+"to_port"); the last line is ``{"ok": true, "device": {...}}``. Without
+CUDA it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -61,6 +78,9 @@ H100_BYTES = 3.35e12          # HBM3 bytes/s
 B_SERIES, N_TOK, D_MODEL, HEADS, HIDDEN, DEPTH = 256, 480, 128, 4, 256, 4
 STEPS, CFG, OUT_LEN = 100, 7.0, 96
 B_TRAIN, TRAIN_STEPS, TRAIN_WARMUP = 1024, 10, 2       # bench.py:124-166
+# the scaled DiT (scripts/bench_scaled.py:38-77) over the 64x64 latent
+SC_B, SC_N, SC_D, SC_HEADS, SC_HIDDEN, SC_DEPTH = 16, 1024, 512, 8, 2048, 12
+SC_STEPS = 20
 
 
 def log(*a):
@@ -181,25 +201,31 @@ STACK_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_kernel")
 
 def device_ms_by_kernel(fn, names):
     """Device time (ms) of the kernels whose names contain one of ``names``
-    over one call of ``fn``, summed over launches, from torch.profiler,
-    and every kernel's under "(all device time)". Empty when the profiler
-    records no device time for them."""
+    over one call of ``fn`` (after one warm-up call), summed over
+    launches, from torch.profiler, and every kernel's under "(all device
+    time)". Empty when the profiler records no device time for them.
+    A short spin kernel (``torch.cuda._sleep``) opens the window and is
+    left out: the profiler dropped the first kernel of a window, and
+    without it the split call's first kernel went missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
     split, total = {}, 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
+        if (us <= 0 or getattr(ev, "device_type", None) != DeviceType.CUDA
+                or "spin_kernel" in ev.key):
+            continue
         for n in names:
-            if n in ev.key and us > 0:
+            if n in ev.key:
                 split[n] = split.get(n, 0.0) + us / 1e3
-        if getattr(ev, "device_type", None) == DeviceType.CUDA:
-            total += us / 1e3
+        total += us / 1e3
     if split and total > 0:
         split["(all device time)"] = total
     return split
@@ -210,17 +236,17 @@ def fmt_split(split):
             else "not measured (no device time recorded)")
 
 
-def sdpa_attention_ms(gen, B):
-    """Time of torch's SDPA on the attention part of the stack alone
-    (yardstick only; no single PyTorch call computes the whole stack)."""
+def sdpa_attention_ms(gen, B, heads=HEADS, N=N_TOK, dh=D_MODEL // HEADS,
+                      layers=DEPTH):
+    """Time of torch's SDPA on the attention part of ``layers`` blocks
+    alone (yardstick only; no single PyTorch call computes a block)."""
     import torch.nn.functional as F
-    f = lambda: torch.randn(B, HEADS, N_TOK, D_MODEL // HEADS,
-                            generator=gen, device="cuda",
+    f = lambda: torch.randn(B, heads, N, dh, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
     q, k, v = f(), f(), f()
 
     def run():
-        for _ in range(DEPTH):
+        for _ in range(layers):
             F.scaled_dot_product_attention(q, k, v)
     return cuda_ms(run)
 
@@ -582,6 +608,249 @@ def train_phase(dit, vae, gen):
     return launches
 
 
+# ----------------------------------------- the scaled DiT's split kernel
+
+# the CUDA kernels of one bf16 fused_dit_block_split call at 8 heads of
+# 64, by their names in the profile: gemm_kernel<T, 0, 0> is modLN+qkv,
+# <T, 0, 1> modLN+fc1+GELU, <T, 1, 2> the proj and fc2 products with their
+# gated residuals; split_attn_kernel the attention
+SPLIT_PARTS = ("gemm_kernel<__nv_bfloat16, 0, 0>",
+               "split_attn_kernel<__nv_bfloat16, 64>",
+               "gemm_kernel<__nv_bfloat16, 1, 2>",
+               "gemm_kernel<__nv_bfloat16, 0, 1>")
+
+
+def split_inputs(gen, B, N, D, hidden, dt):
+    """x and the weights in ``dt``, f32 adaLN vectors (random: adaLN-zero
+    would zero every gate); weights of standard deviation 1/sqrt(fan-in),
+    so the scores keep unit scale at every width."""
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    w = lambda i, o: f(i, o) / i ** 0.5
+    ws = [w(D, 3 * D), 0.1 * f(3 * D), w(D, D), 0.1 * f(D), w(D, hidden),
+          0.1 * f(hidden), w(hidden, D), 0.1 * f(D)]
+    return f(B, N, D).to(dt), 0.3 * f(B, 6, D), [t.to(dt) for t in ws]
+
+
+def split_phase(gen):
+    """Kernel #4 against its twin at the scaled DiT's call, and against
+    the stack kernel at the reference geometry."""
+    from t2ms_tpu_torch.ops.dit_block import (fused_dit_block_reference,
+                                              fused_dit_block_split,
+                                              fused_dit_stack)
+    out = {}
+    D, H, hid = SC_D, SC_HEADS, SC_HIDDEN
+    # tolerances as the stack's: bf16 3e-2 * max|ref| (rounding flips
+    # between two f32 summation orders), f32 2e-4 (summation order only)
+    for dt, B, tol in ((torch.bfloat16, 2 * SC_B, 3e-2),
+                       (torch.float32, 2, 2e-4)):
+        x, mod, ws = split_inputs(gen, B, SC_N, D, hid, dt)
+        run = lambda: fused_dit_block_split(x, mod, *ws, H)
+        twin = lambda: fused_dit_block_reference(x, mod, *ws, H)
+        with torch.no_grad():
+            got, want = run(), twin()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"split {dt} finite")
+            err, ref, corr = _err(got, want)
+            line = (f"split {dt} B={B} N={SC_N} D={D} H={H} hidden={hid}: "
+                    f"max_abs_err={err:.6g} max|ref|={ref:.6g} "
+                    f"rel={err / ref:.3e} (tol {tol:g}) corr={corr:.8f}")
+            if dt == torch.bfloat16:
+                truth = fused_dit_block_reference(
+                    x.float(), mod, *(w_.float() for w_ in ws), H)
+                ek = (got.float() - truth).abs().mean().item()
+                et = (want.float() - truth).abs().mean().item()
+                del truth
+                line += (f"; mean_abs_err vs f32 twin kernel {ek:.4e} twin "
+                         f"{et:.4e} ratio {ek / et:.4f} (tol 1.5)")
+                check(ek <= 1.5 * et, "bf16 split rounds worse than its twin")
+            log(line)
+            check(err <= tol * ref, f"split {dt} vs twin {err} > {tol}*{ref}")
+            check(corr >= 0.999, f"split {dt} vs twin corr {corr}")
+            del got, want
+            ms, plain = cuda_ms(run), cuda_ms(twin)
+        flops, nbytes = stack_work(B, SC_N, D, H, hid, 1, [x, mod, *ws])
+        peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES * 1e3
+        log(f"split {dt} B={B}: {ms:.4f} ms, twin {plain:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
+        out[dt] = dict(err=err, ms=ms, plain=plain, bound=max(t_ops, t_bytes),
+                       by="operations" if t_ops >= t_bytes else "bytes")
+        if dt == torch.bfloat16:
+            with torch.no_grad():
+                split = device_ms_by_kernel(run, SPLIT_PARTS)
+            log("split bf16 device time by kernel (torch.profiler, one call; "
+                "<T,0,0> modLN+qkv, <T,0,1> modLN+fc1+GELU, <T,1,2> proj and "
+                "fc2 with gated residuals): " + fmt_split(split))
+            out["sdpa_ms"] = sdpa_attention_ms(gen, B, H, SC_N, D // H, 1)
+            log(f"yardstick: SDPA over the split block's attention alone "
+                f"(B={B}, {H} heads, N={SC_N}, d={D // H}): "
+                f"{out['sdpa_ms']:.4f} ms")
+        del x, mod, ws
+        torch.cuda.empty_cache()
+
+    # the same block through the split and the stack kernels
+    x, mod, ws = split_inputs(gen, 2 * B_SERIES, N_TOK, D_MODEL, HIDDEN,
+                              torch.bfloat16)
+    with torch.no_grad():
+        a = fused_dit_block_split(x, mod, *ws, HEADS)
+        b = fused_dit_stack(x, mod[:, None], *(w_[None] for w_ in ws), HEADS)
+    err, ref, corr = _err(a, b)
+    log(f"split vs stack kernel, bf16 B={2 * B_SERIES} N={N_TOK} "
+        f"D={D_MODEL} H={HEADS}: max_abs_err={err:.6g} max|ref|={ref:.6g} "
+        f"rel={err / ref:.3e} (tol 3e-2) corr={corr:.8f}")
+    check(err <= 3e-2 * ref and corr >= 0.999, "split vs stack kernel")
+    return out
+
+
+def scaled_dit(dtype, impl="auto"):
+    from t2ms_tpu_torch.models.denoisers import DiT
+    return DiT(latent_len=64, latent_dim=64, d_model=SC_D, depth=SC_DEPTH,
+               num_heads=SC_HEADS, mlp_ratio=SC_HIDDEN / SC_D,
+               compute_dtype=dtype, attention_impl=impl)
+
+
+def build_scaled_models(seed: int):
+    from t2ms_tpu_torch.models.vae import LAVAE
+    torch.manual_seed(seed + 2)
+    dit = scaled_dit(torch.bfloat16)
+    vae = LAVAE(in_channels=1, latent_grid=64)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
+    return dit, vae.eval()
+
+
+def scaled_offline_phase(dit, vae, gen):
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import SPLIT_KERNEL, STACK_KERNEL
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    n_par = sum(p.numel() for p in dit.parameters())
+    x1 = torch.randn(SC_B, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(SC_B, SC_D, generator=gen, device="cuda")
+
+    # a few steps at full width: the kernel path against the eager opt-out
+    # paths on the same injected noise
+    few = 4
+    x_t0 = torch.randn(SC_B, 64, 64, generator=gen, device="cuda")
+    run = lambda m: make_cfg_sampler(m, vae, total_step=few, cfg_scale=CFG,
+                                     out_length=OUT_LEN)(x1, emb, x_t0=x_t0)
+    _build.reset_launch_counts()
+    k_out = run(dit)
+    check(dict(_build.launch_counts) == {SPLIT_KERNEL: few * SC_DEPTH},
+          f"scaled kernel path launches {dict(_build.launch_counts)}")
+    outs = []
+    for dt in (torch.bfloat16, torch.float32):
+        m = scaled_dit(dt, "einsum")
+        m.load_state_dict(dit.state_dict())
+        outs.append(run(m))
+        del m
+    check(dict(_build.launch_counts) == {SPLIT_KERNEL: few * SC_DEPTH},
+          "scaled eager paths launched a kernel")
+    p_out, t_out = outs
+    tol = 5e-2
+    for name in ("latent", "series"):
+        a, b, t = (getattr(o, name).float() for o in (k_out, p_out, t_out))
+        err = (a - b).abs().max().item()
+        ref = b.abs().max().item()
+        ek, ep = (a - t).abs().mean().item(), (b - t).abs().mean().item()
+        log(f"scaled offline {few} steps, kernel vs eager path, {name}: "
+            f"max_abs_err={err:.4g} max|ref|={ref:.4g} rel={err / ref:.3e} "
+            f"(tol {tol:g}); mean_abs_err vs f32 eager: kernel path "
+            f"{ek:.4e} eager bf16 path {ep:.4e} (kernel <= 1.5x eager)")
+        check(err <= tol * ref, f"scaled kernel vs eager path {name}")
+        check(ek <= 1.5 * ep, f"scaled kernel path rounds worse {name}")
+    del k_out, outs, p_out, t_out
+    torch.cuda.empty_cache()
+
+    sampler = make_cfg_sampler(dit, vae, total_step=SC_STEPS, cfg_scale=CFG,
+                               out_length=OUT_LEN)
+    gen_noise = torch.Generator(device="cuda")
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler(x1, emb, generator=gen_noise.manual_seed(8))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    series = out.series
+    check(tuple(series.shape) == (SC_B, OUT_LEN), "scaled series shape")
+    check(bool(torch.isfinite(series).all()), "scaled series finite")
+    check(launches.get(SPLIT_KERNEL, 0) == SC_STEPS * SC_DEPTH
+          and launches.get(STACK_KERNEL, 0) == 0,
+          f"scaled sample() launches {launches}, want "
+          f"{SC_STEPS * SC_DEPTH} split and no stack")
+    log(f"scaled offline: DiT {n_par} params (d {SC_D}, depth {SC_DEPTH}, "
+        f"{SC_HEADS} heads, {SC_N} tokens) B={SC_B} euler/{SC_STEPS} cfg "
+        f"{CFG} len {OUT_LEN}: {dt:.3f} s, {SC_B / dt:.3f} series/s, peak "
+        f"memory {peak_gb:.3f} GB, launches {launches}, series mean "
+        f"{series.mean().item():.4g} std {series.std().item():.4g}")
+    return launches
+
+
+def scaled_server_phase(dit, vae, seed):
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import SPLIT_KERNEL
+    from t2ms_tpu_torch.serving import ServingEngine
+    rng = np.random.default_rng(seed + 1)
+    embs = rng.standard_normal((16, SC_D)).astype(np.float32)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ServingEngine(dit, vae, total_step=SC_STEPS, out_lengths=(48, 96),
+                       batch_tiers=(1, 4, 8), max_wait_ms=50.0,
+                       text_emb_dim=SC_D) as eng:
+        mixed = [(embs[i], (48, 96)[i % 2], (3.0, 7.0, 5.0)[i % 3],
+                  3000 + i) for i in range(6)]
+        res = eng.generate(mixed)
+        for (e, L, c, s), r in zip(mixed, res):
+            check(r.series.shape == (L,) and np.isfinite(r.series).all(),
+                  f"scaled engine result for length {L}")
+            check(r.seed == s and r.cfg_scale == c, "scaled engine bookkeeping")
+        futs = [eng.submit(embs[6 + i], 96, CFG, 4000 + i) for i in range(8)]
+        full = [f.result(timeout=600) for f in futs]
+        solo = eng.submit(embs[6 + 5], 96, CFG, 4005).result(timeout=600)
+        stats = eng.stats()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    check(full[5].batch_size == 8 and solo.batch_size == 1,
+          f"scaled batch tiers {full[5].batch_size}, {solo.batch_size}")
+    err = float(np.abs(full[5].series - solo.series).max())
+    ref = float(np.abs(solo.series).max())
+    tol = 2e-2   # other batch sizes may pick other library GEMM algorithms
+    log(f"scaled server: {stats['requests']} requests in {stats['batches']} "
+        f"batches, {dt:.3f} s, p50 {stats['p50_latency_s']:.3f} s, padding "
+        f"{stats['padding_fraction']:.3f}; seed alone vs in a full batch: "
+        f"max_abs_err={err:.4g} max|ref|={ref:.4g} (tol {tol:g}); launches "
+        f"{launches}")
+    check(err <= tol * ref, "scaled seed alone vs in a full batch")
+    check(set(launches) == {SPLIT_KERNEL},
+          "scaled server path launched the split kernel only")
+
+
+# the TPU kernels still to port: (name, def site)
+TO_PORT = (
+    ("_mod_ln_call", "t2ms_tpu/ops/dit_block.py:580"),
+    ("_mod_ln_diff_bwd", "t2ms_tpu/ops/dit_block.py:624"),
+    ("_res_mod_ln_call", "t2ms_tpu/ops/dit_block.py:721"),
+    ("_res_mod_ln_diff_bwd", "t2ms_tpu/ops/dit_block.py:772"),
+    ("fused_heads_attention", "t2ms_tpu/ops/attention.py:373"),
+    ("fused_heads_attention_with_stats", "t2ms_tpu/ops/attention.py:454"),
+    ("fused_heads_attention_bwd", "t2ms_tpu/ops/attention.py:1275"),
+    ("fused_heads_attention_bwd_two_pass", "t2ms_tpu/ops/attention.py:816"),
+    ("fused_heads_attention_bwd_lean", "t2ms_tpu/ops/attention.py:984"),
+    ("fused_heads_attention_bwd_lean_two_pass",
+     "t2ms_tpu/ops/attention.py:1152"),
+    ("flash_attention", "t2ms_tpu/ops/attention.py:90"),
+    ("vmem_attention", "t2ms_tpu/ops/attention.py:147"),
+    ("packed_attention", "t2ms_tpu/ops/attention.py:196"),
+)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -592,7 +861,7 @@ def main(argv=None):
         return 1
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
-                                              STACK_KERNEL)
+                                              SPLIT_KERNEL, STACK_KERNEL)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -616,6 +885,10 @@ def main(argv=None):
     server_phase(dit, vae, args.seed)
     blk = block_phase(gen)[torch.bfloat16]
     t_launches = train_phase(dit, vae, gen)
+    spl = split_phase(gen)[torch.bfloat16]
+    sc_dit, sc_vae = build_scaled_models(args.seed)
+    sc_launches = scaled_offline_phase(sc_dit, sc_vae, gen)
+    scaled_server_phase(sc_dit, sc_vae, args.seed)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {
@@ -632,7 +905,11 @@ def main(argv=None):
               t_launches.get(BLOCK_KERNEL, 0), blk["fwd"]),
         entry(BLOCK_BWD_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_block_bwd.cu",
               "t2ms_tpu/ops/dit_block.py:348",
-              t_launches.get(BLOCK_BWD_KERNEL, 0), blk["bwd"])]}
+              t_launches.get(BLOCK_BWD_KERNEL, 0), blk["bwd"]),
+        entry(SPLIT_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_split.cu",
+              "t2ms_tpu/ops/dit_block.py:460",
+              sc_launches.get(SPLIT_KERNEL, 0), spl)],
+        "to_port": [{"name": n, "replaces": r} for n, r in TO_PORT]}
     print(smi, flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

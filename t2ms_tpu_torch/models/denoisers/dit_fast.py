@@ -9,6 +9,11 @@ and cast once per parameter version and cached on the module: eager torch
 would otherwise restack them on every one of the sampler's steps. That
 cache is built under ``no_grad``, so it serves inference only.
 
+``split_dit_forward`` (serving, wide geometries such as the scaled DiT's
+d_model 512) runs the same halves with one ``ops.dit_block.
+fused_dit_block_split`` per layer, indexing layer l of the same cached
+weights.
+
 ``fast_dit_train_forward`` (training) runs each block as
 ``ops.dit_block.fused_dit_block_diffable``, whose forward and backward are
 the hand-written block kernels on CUDA; its weights are views of the
@@ -24,10 +29,13 @@ import torch
 from t2ms_tpu_torch.models.denoisers.dit import DiT
 from t2ms_tpu_torch.ops.dit_block import (block_kernel_supported,
                                           fused_dit_block_diffable,
+                                          fused_dit_block_split,
                                           fused_dit_stack,
+                                          split_kernel_supported,
                                           stack_kernel_supported)
 
 __all__ = ["fast_dit_forward", "fast_forward_supported",
+           "split_dit_forward", "split_forward_supported",
            "fast_dit_train_forward", "train_forward_supported",
            "fused_path_eligible"]
 
@@ -35,15 +43,15 @@ _WEIGHTS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
             ("mlp", "fc2"))
 
 
-def fused_path_eligible(denoiser, x: torch.Tensor) -> bool:
-    """The opt-in gate of the fused forward: the denoiser is a DiT, its
+def fused_path_eligible(denoiser, device) -> bool:
+    """The opt-in gate of the fused forwards: the denoiser is a DiT, its
     attention_impl is 'auto' (any explicit impl is an opt-out, for oracle
-    runs and A/B benches), and the input lies on CUDA. Geometry is not
-    checked here: the kernel raises for a shape it does not take, and the
-    forward never falls back to the eager module."""
+    runs and A/B benches), and it runs on CUDA. Geometry is not checked
+    here: each path's kernels answer for their own shapes, and no forward
+    falls back to the eager module."""
     return (isinstance(denoiser, DiT)
             and getattr(denoiser, "attention_impl", "auto") == "auto"
-            and x.is_cuda)
+            and torch.device(device).type == "cuda")
 
 
 def fast_forward_supported(dit: DiT) -> bool:
@@ -51,6 +59,17 @@ def fast_forward_supported(dit: DiT) -> bool:
     the kernel library itself (``ops.dit_block.stack_kernel_supported``;
     needs nvcc and a card)."""
     return stack_kernel_supported(dit.d_model, int(dit.d_model
+                                                   * dit.mlp_ratio),
+                                  dit.num_heads, dit.compute_dtype)
+
+
+def split_forward_supported(dit: DiT) -> bool:
+    """Whether the CUDA split block kernel takes this DiT's geometry, asked
+    of the kernel library itself (``ops.dit_block.split_kernel_supported``;
+    needs nvcc and a card). The JAX gate's VMEM envelope
+    (``split_block_q``) is not ported: Hopper kernels pick their own
+    tiles."""
+    return split_kernel_supported(dit.d_model, int(dit.d_model
                                                    * dit.mlp_ratio),
                                   dit.num_heads, dit.compute_dtype)
 
@@ -104,6 +123,20 @@ def fast_dit_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
                         for blk in dit.layers], dim=1)        # (B, L, 6, D)
     h = fused_dit_stack(h, mods, *_stacked_weights(dit, h.dtype),
                         dit.num_heads)
+    return dit.finalize(h, x.dtype)
+
+
+def split_dit_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
+                      text_emb: Optional[torch.Tensor] = None,
+                      text_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """DiT forward with each block in ``fused_dit_block_split`` (weights
+    from the per-parameter-version cache, layer by layer)."""
+    h, c = dit.embed(x, t, text_emb, text_mask)
+    ws = _stacked_weights(dit, h.dtype)
+    for l, blk in enumerate(dit.layers):
+        h = fused_dit_block_split(h, blk.modulation(c, dit.compute_dtype),
+                                  *(w[l] for w in ws), dit.num_heads)
     return dit.finalize(h, x.dtype)
 
 

@@ -128,6 +128,11 @@ def _declare(lib: ctypes.CDLL) -> None:
             f = getattr(lib, fn)
             f.argtypes = [P] * 13 + [I] * 6 + [F, F, P]
             f.restype = I
+    for fn in ("dit_split_forward_bf16", "dit_split_forward_f32"):
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes = [P] * 15 + [I] * 5 + [F, F, P]
+            f.restype = I
     for fn in ("dit_block_backward_bf16", "dit_block_backward_f32"):
         if hasattr(lib, fn):
             f = getattr(lib, fn)
@@ -136,7 +141,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "dit_block_backward_workspace"):
         lib.dit_block_backward_workspace.argtypes = [I] * 6
         lib.dit_block_backward_workspace.restype = ctypes.c_longlong
-    for fn in ("dit_stack_check", "dit_block_check"):
+    for fn in ("dit_stack_check", "dit_block_check", "dit_split_check"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * 4
             getattr(lib, fn).restype = I

@@ -1,0 +1,589 @@
+// One adaLN-zero DiT block for wide geometries, hand-written for Hopper
+// (sm_90a), bf16 and f32.
+//
+// Replaces the TPU kernel t2ms_tpu/ops/dit_block.py:fused_dit_block_split
+// (_qkv_split_kernel, _attn_split_kernel, _mlp_split_kernel): the block of
+// _block_math cut at its residual boundaries, for geometries too wide for
+// the stack's kernels in dit_common.cuh (a lane-strided LayerNorm row of
+// at most 256 values; whole D-wide K/V tiles and whole hidden-wide rows in
+// shared memory). Its case is the scaled DiT: d_model 512, 8 heads of 64,
+// mlp hidden 2048, 1024 tokens. Five launches per block:
+//
+//   (1) gemm_kernel<LN, BIAS>     qkv = T(modLN(x; mod0, mod1) @ wqkv + bqkv)
+//   (2) split_attn_kernel         o   = softmax(q k^T) v, per head, merged
+//   (3) gemm_kernel<LOAD, RESID>  y1  = x + T(gate2) * T(o @ wproj + bproj)
+//   (4) gemm_kernel<LN, GELU>     h1  = gelu(T(modLN(y1; mod3, mod4) @ wfc1
+//                                       + bfc1))
+//   (5) gemm_kernel<LOAD, RESID>  y   = y1 + T(gate5) * T(h1 @ wfc2 + bfc2)
+//
+// Numerics are the stack's: LayerNorm in f32 (eps from the caller), every
+// product accumulated in f32 with the rounded bias added in f32 and then
+// cast, q scaled at input width, f32 scores, the exact row softmax in two
+// passes over K (row max first; then e = T(exp(T(s - m))), f32 row sums,
+// f32 PV), normalisation after PV, tanh-GELU, gated residuals in T.
+//
+// Bound on an H100 SXM at the scaled call (2B=32, N=1024, D=512, 8 heads,
+// hidden 2048, bf16): 274.9 GFLOP of matrix products (6.29 MFLOP per token
+// of qkv, proj, fc1 and fc2 plus 2.10 MFLOP per token of attention, times
+// 32,768 tokens), 0.278 ms at 989 TFLOP/s, against about 74 MB that must
+// move (x in and out, f32 mod, bf16 weights), 0.022 ms at 3.35 TB/s: the
+// call is bound by operations. The design therefore keeps every bf16
+// product on the tensor cores (WMMA bf16 16x16x16 with f32 accumulators
+// held in registers across the K loop; the f32 entry uses FMA loops so it
+// stays tight against its twin), and spends bytes where that keeps the
+// kernels simple:
+//
+// - LayerNorm over D values: the 64-row tile of x is staged in shared
+//   memory (64 x 512 bf16 is 65 KB); one warp per row takes the f32 mean,
+//   then the f32 variance in a second pass over the staged row, and writes
+//   the modulated row in place. No register row, so D is not capped at 256.
+// - GEMMs: one block per 64-row tile walks the output in 128-column steps;
+//   the weight (and, in (3) and (5), the A operand) streams through shared
+//   memory in 64-deep K chunks, double-buffered with cp.async, so the
+//   staged tile and two chunks fit together (about 100 KB in bf16).
+// - Attention: one block per (batch element, 64 q rows, head), streaming
+//   64-row K/V tiles of that head only, so a head's whole K/V (128 KB at
+//   N=1024) is never staged; the 1-D grid is not held to grid.y's 65535.
+// - The merged attention output and the MLP hidden activations go through
+//   device memory between launches: at the scaled call that is about
+//   0.67 GB of extra traffic per block (qkv 0.10 GB, o 0.03 GB, y1 0.03 GB
+//   written and read twice, h1 0.13 GB written and read), about 0.2 ms at
+//   3.35 TB/s and still below the operations bound. The trade-off buys
+//   64-row tiles everywhere (a 64-row h1 tile in bf16 is 256 KB, beyond the
+//   227 KB a block may use) and one GEMM kernel for all four products.
+//
+// Speed (wgmma, TMA, fusing the two softmax passes and keeping h1 on chip)
+// is later work; this kernel is the simple, right one.
+//
+// C interface for ctypes: dit_split_forward_{bf16,f32} launch the block on
+// the given stream and return cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE
+// (launching nothing) for a shape the kernels do not take; dit_split_check
+// answers that question alone. The limits live in check_split below.
+
+#include "dit_common.cuh"
+
+namespace {
+
+constexpr int GM = 64;    // rows per GEMM tile
+constexpr int GN = 128;   // output columns per GEMM step
+constexpr int GK = 64;    // K depth of a streamed chunk
+
+enum { PRO_LN, PRO_LOAD };               // A: modulated LN of x, or as is
+enum { EPI_BIAS, EPI_GELU, EPI_RESID };  // what the GEMM writes
+
+// ---------------------------------------------------------------------------
+// Asynchronous 16-byte copies, device -> shared (zero-filled when !valid)
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// dst[r * ldd + c] = src[r * ld + c] for r < valid, 0 for valid <= r < rows
+template <typename T>
+__device__ void cp_tile(T* dst, int ldd, const T* __restrict__ src, size_t ld,
+                        int rows, int valid, int cols) {
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = cols / V;
+  for (int idx = threadIdx.x; idx < rows * vpr; idx += NT) {
+    const int r = idx / vpr, c = (idx % vpr) * V;
+    const bool ok = r < valid;
+    cp16(dst + r * ldd + c, ok ? src + (size_t)r * ld + c : src, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A warp's 32 x 32 block of C += A @ B, f32 sums kept in registers across
+// calls. A: 32 rows, row-major (lda); B: K x 32, row-major (ldb).
+
+template <typename T> struct WarpAcc;
+
+template <> struct WarpAcc<__nv_bfloat16> {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+  }
+  __device__ void mma(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
+                      int ldb, int K) {
+    for (int k = 0; k < K; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], A + i * 16 * lda + k, lda);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], B + k * ldb + j * 16, ldb);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
+    }
+  }
+  __device__ void store(float* C, int ldc) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(C + i * 16 * ldc + j * 16, c[i][j], ldc,
+                                wmma::mem_row_major);
+  }
+};
+
+template <> struct WarpAcc<float> {
+  float c[32];  // lane l holds column l of the warp's 32 rows
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) c[i] = 0.0f;
+  }
+  __device__ void mma(const float* A, int lda, const float* B, int ldb,
+                      int K) {
+    const int lane = threadIdx.x % 32;
+    for (int k = 0; k < K; ++k) {
+      const float b = B[k * ldb + lane];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) c[i] = fmaf(A[i * lda + k], b, c[i]);
+    }
+  }
+  __device__ void store(float* C, int ldc) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) C[i * ldc + lane] = c[i];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Shared memory and shape limits
+
+// gemm_kernel: the A operand (the whole K-wide row tile when staged for the
+// LayerNorm, else two streamed chunks), then two weight chunks, which the
+// f32 output tile of a step reuses after its last product.
+template <typename T>
+__host__ __device__ size_t smem_gemm(bool staged, int K) {
+  const int P = pad<T>();
+  const size_t a = staged ? al128(GM * (K + P) * sizeof(T))
+                          : 2 * al128(GM * (GK + P) * sizeof(T));
+  const size_t w = 2 * al128(GK * (GN + P) * sizeof(T));
+  const size_t c = al128(GM * (GN + PADF) * 4);
+  return a + (w > c ? w : c);
+}
+
+// split_attn_kernel: Q, K, V tiles of one head, f32 scores, exp values,
+// the f32 output tile, row max and row sum.
+template <typename T>
+__host__ __device__ size_t smem_split_attn(int DH) {
+  const int P = pad<T>();
+  return al128(QT * (DH + P) * sizeof(T)) +
+         2 * al128(KT * (DH + P) * sizeof(T)) + al128(QT * (KT + PADF) * 4) +
+         al128(QT * (KT + P) * sizeof(T)) + al128(QT * (DH + PADF) * 4) +
+         2 * al128(QT * 4);
+}
+
+// 0 when the kernels take (D, hidden, H) on the current device,
+// T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
+// D and hidden are multiples of the 128-column GEMM step (so of the 64-deep
+// K chunk too); the head width is 32, 64 or 128 (the PV accumulators split
+// a head's columns over two warps in 16-wide fragments); each kernel's
+// shared memory fits what one block may opt in to on this device (the
+// staged LayerNorm tile grows with D).
+template <typename T>
+int check_split(int D, int hidden, int H) {
+  if (H < 1 || D < GN || hidden < GN || D % GN || hidden % GN || D % H)
+    return T2MS_UNSUPPORTED_SHAPE;
+  const int DH = D / H;
+  if (DH != 32 && DH != 64 && DH != 128) return T2MS_UNSUPPORTED_SHAPE;
+  const long long optin = smem_optin();
+  if (optin < 0) return (int)-optin;
+  size_t need = smem_gemm<T>(true, D);
+  if (smem_gemm<T>(false, 0) > need) need = smem_gemm<T>(false, 0);
+  if (smem_split_attn<T>(DH) > need) need = smem_split_attn<T>(DH);
+  return need <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
+}
+
+// ---------------------------------------------------------------------------
+// (1), (3), (4), (5): out = epilogue(A @ w + bias) for one 64-row tile
+
+template <typename T> struct GemmArgs {
+  const T* a;        // (rows, K): x for the LayerNorm prologue, else A
+  const float* mod;  // (B, 6, D) adaLN vectors, f32
+  const T* w;        // (K, cols), flax layout
+  const T* bias;     // (cols)
+  const T* res;      // (rows, cols) residual of EPI_RESID
+  T* out;            // (rows, cols)
+  int rows, N, K, cols;
+  int ish, isc, igate;  // rows of mod: LN shift and scale, residual gate
+  float eps;
+};
+
+// In place: As[i] = T(LN(As[i]) * (1 + mod[b, isc]) + mod[b, ish]) in f32
+// for the tile's valid rows, one warp per row, two passes over the staged
+// row (mean, then variance); rows past `valid` stay zero.
+template <typename T>
+__device__ void modln_tile(T* As, int lda, int valid, int D,
+                           const float* __restrict__ mod, int r0, int N,
+                           int ish, int isc, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < valid; i += NW) {
+    T* row = As + i * lda;
+    float s = 0.0f;
+    for (int c = lane; c < D; c += 32) s += to_f<T>(row[c]);
+    const float mu = warp_sum(s) / D;
+    float q = 0.0f;
+    for (int c = lane; c < D; c += 32) {
+      const float d = to_f<T>(row[c]) - mu;
+      q += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(q) / D + eps);
+    const int b = (r0 + i) / N;
+    const float* sh = mod + ((size_t)b * 6 + ish) * D;
+    const float* sc = mod + ((size_t)b * 6 + isc) * D;
+    for (int c = lane; c < D; c += 32)
+      row[c] = from_f<T>((to_f<T>(row[c]) - mu) * rs * (1.0f + sc[c]) + sh[c]);
+  }
+}
+
+// Issue the copies of K chunk kc into buffer kc & 1: the weight rows
+// [kc*GK, +GK) x columns [c0, +GN) and, unless A is staged, A's tile rows x
+// columns [kc*GK, +GK).
+template <typename T, bool STAGED>
+__device__ __forceinline__ void load_chunk(const GemmArgs<T>& g,
+                                           unsigned char* a_buf,
+                                           size_t a_bytes,
+                                           unsigned char* w_buf,
+                                           size_t w_bytes, int lda, int ldw,
+                                           int r0, int valid, int c0,
+                                           int kc) {
+  const int s = kc & 1;
+  cp_tile<T>(reinterpret_cast<T*>(w_buf + s * w_bytes), ldw,
+             g.w + (size_t)kc * GK * g.cols + c0, g.cols, GK, GK, GN);
+  if (!STAGED)
+    cp_tile<T>(reinterpret_cast<T*>(a_buf + s * a_bytes), lda,
+               g.a + (size_t)r0 * g.K + kc * GK, g.K, GM, valid, GK);
+  cp_commit();
+}
+
+template <typename T, int PRO, int EPI>
+__global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool staged = PRO == PRO_LN;
+  const int K = g.K;
+  const int lda = (staged ? K : GK) + pad<T>(), ldw = GN + pad<T>();
+  const int ldc = GN + PADF;
+  const size_t a_bytes = al128(GM * lda * sizeof(T));
+  const size_t w_bytes = al128(GK * ldw * sizeof(T));
+  T* As = reinterpret_cast<T*>(smem);
+  unsigned char* w_buf = smem + (staged ? 1 : 2) * a_bytes;
+  float* Cs = reinterpret_cast<float*>(w_buf);  // after a step's last product
+  const int r0 = blockIdx.x * GM;
+  const int valid = min(GM, g.rows - r0);
+  const int warp = threadIdx.x / 32;
+  const int wr = (warp % 2) * 32, wc = (warp / 2) * 32;  // 2 x 4 warps
+  const int nk = K / GK;
+
+  if (staged) {
+    load_rows<T>(As, lda, g.a + (size_t)r0 * K, K, GM, valid, K);
+    __syncthreads();
+    modln_tile<T>(As, lda, valid, K, g.mod, r0, g.N, g.ish, g.isc, g.eps);
+  }
+  for (int c0 = 0; c0 < g.cols; c0 += GN) {
+    WarpAcc<T> acc;
+    acc.zero();
+    load_chunk<T, staged>(g, smem, a_bytes, w_buf, w_bytes, lda, ldw, r0,
+                          valid, c0, 0);
+    for (int kc = 0; kc < nk; ++kc) {
+      // the next chunk's copies fly while this one is multiplied
+      if (kc + 1 < nk)
+        load_chunk<T, staged>(g, smem, a_bytes, w_buf, w_bytes, lda, ldw, r0,
+                              valid, c0, kc + 1);
+      else
+        cp_commit();
+      cp_wait1();
+      __syncthreads();
+      const T* Ab = staged ? As + kc * GK
+                           : reinterpret_cast<const T*>(
+                                 smem + (kc & 1) * a_bytes);
+      const T* Wb = reinterpret_cast<const T*>(w_buf + (kc & 1) * w_bytes);
+      acc.mma(Ab + wr * lda, lda, Wb + wc, ldw, GK);
+      __syncthreads();
+    }
+    acc.store(Cs + wr * ldc + wc, ldc);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < GM * GN; idx += NT) {
+      const int i = idx / GN, j = idx % GN;
+      if (i >= valid) continue;
+      const int r = r0 + i, c = c0 + j;
+      const size_t o = (size_t)r * g.cols + c;
+      const float v = Cs[i * ldc + j] + to_f<T>(g.bias[c]);
+      if (EPI == EPI_BIAS) {
+        g.out[o] = from_f<T>(v);
+      } else if (EPI == EPI_GELU) {
+        g.out[o] = from_f<T>(gelu_tanh(rnd<T>(v)));
+      } else {
+        const int b = r / g.N;
+        const float gate =
+            rnd<T>(g.mod[((size_t)b * 6 + g.igate) * g.cols + c]);
+        g.out[o] = from_f<T>(to_f<T>(g.res[o]) + rnd<T>(gate * rnd<T>(v)));
+      }
+    }
+    __syncthreads();  // Cs is the next step's weight buffer
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (2) attention for one (batch element, q tile, head): q scaled at input
+//     width, f32 scores, exact two-pass softmax over 64-row K tiles of the
+//     head, PV accumulated in f32, o = T(PV / rowsum) into the head's
+//     columns of the merged (B*N, D) output.
+
+// O[64 x DH] += E[64 x 64] @ V[64 x DH]; bf16 keeps O in registers (each
+// warp 16 rows x DH/2 columns), f32 accumulates in the shared tile O.
+template <typename T, int DH> struct PvAcc;
+
+template <int DH> struct PvAcc<__nv_bfloat16, DH> {
+  static constexpr int F = DH / 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[F];
+  __device__ void zero(float*, int) {
+#pragma unroll
+    for (int j = 0; j < F; ++j) wmma::fill_fragment(c[j], 0.0f);
+  }
+  __device__ void mma(const __nv_bfloat16* E, int lde,
+                      const __nv_bfloat16* V, int ldv, float*, int) {
+    const int w = threadIdx.x / 32, rb = (w % 4) * 16, cb = (w / 4) * (DH / 2);
+#pragma unroll
+    for (int k = 0; k < KT; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::load_matrix_sync(a, E + rb * lde + k, lde);
+#pragma unroll
+      for (int j = 0; j < F; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> b;
+        wmma::load_matrix_sync(b, V + k * ldv + cb + j * 16, ldv);
+        wmma::mma_sync(c[j], a, b, c[j]);
+      }
+    }
+  }
+  __device__ void store(float* O, int ldo) {
+    const int w = threadIdx.x / 32, rb = (w % 4) * 16, cb = (w / 4) * (DH / 2);
+#pragma unroll
+    for (int j = 0; j < F; ++j)
+      wmma::store_matrix_sync(O + rb * ldo + cb + j * 16, c[j], ldo,
+                              wmma::mem_row_major);
+  }
+};
+
+template <int DH> struct PvAcc<float, DH> {
+  __device__ void zero(float* O, int ldo) {
+    for (int idx = threadIdx.x; idx < QT * DH; idx += NT)
+      O[(idx / DH) * ldo + idx % DH] = 0.0f;
+  }
+  __device__ void mma(const float* E, int lde, const float* V, int ldv,
+                      float* O, int ldo) {
+    Mma<float, false>::run(E, lde, V, ldv, O, ldo, QT, DH, KT, true);
+  }
+  __device__ void store(float*, int) {}
+};
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT)
+split_attn_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D,
+                  int H, float qscale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int ld = DH + pad<T>(), lds = KT + PADF, lde = KT + pad<T>();
+  constexpr int ldo = DH + PADF;
+  unsigned char* p = smem;
+  T* Qs = reinterpret_cast<T*>(p);      p += al128(QT * ld * sizeof(T));
+  T* Ks = reinterpret_cast<T*>(p);      p += al128(KT * ld * sizeof(T));
+  T* Vs = reinterpret_cast<T*>(p);      p += al128(KT * ld * sizeof(T));
+  float* Ss = reinterpret_cast<float*>(p); p += al128(QT * lds * 4);
+  T* Es = reinterpret_cast<T*>(p);      p += al128(QT * lde * sizeof(T));
+  float* Os = reinterpret_cast<float*>(p); p += al128(QT * ldo * 4);
+  float* Ms = reinterpret_cast<float*>(p); p += al128(QT * 4);
+  float* Rs = reinterpret_cast<float*>(p);
+
+  // q tile fastest, so the blocks of one (b, head) share its K/V in L2
+  const int q_tiles = (N + QT - 1) / QT;
+  const int q0 = (blockIdx.x % q_tiles) * QT;
+  const int h = (blockIdx.x / q_tiles) % H, b = blockIdx.x / (q_tiles * H);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int W3 = 3 * D;
+  const T* base = qkv + (size_t)b * N * W3 + h * DH;   // head h's q columns
+
+  for (int idx = threadIdx.x; idx < QT * DH; idx += NT) {
+    const int i = idx / DH, c = idx % DH, n = q0 + i;
+    const float q = n < N ? to_f<T>(base[(size_t)n * W3 + c]) : 0.0f;
+    Qs[i * ld + c] = from_f<T>(q * qscale);
+  }
+  if (threadIdx.x < QT) {
+    Ms[threadIdx.x] = -INFINITY;
+    Rs[threadIdx.x] = 0.0f;
+  }
+  PvAcc<T, DH> acc;
+  acc.zero(Os, ldo);
+  __syncthreads();
+
+  // pass 1: the f32 row max of the scores
+  for (int k0 = 0; k0 < N; k0 += KT) {
+    load_rows<T>(Ks, ld, base + (size_t)k0 * W3 + D, W3, KT, N - k0, DH);
+    __syncthreads();
+    Mma<T, true>::run(Qs, ld, Ks, ld, Ss, lds, QT, KT, DH, false);
+    __syncthreads();
+    for (int i = warp; i < QT; i += NW) {
+      float m = -INFINITY;
+      for (int j = lane; j < KT; j += 32)
+        if (k0 + j < N) m = fmaxf(m, Ss[i * lds + j]);
+      m = warp_max(m);
+      if (lane == 0) Ms[i] = fmaxf(Ms[i], m);
+    }
+    __syncthreads();
+  }
+
+  // pass 2: e = T(exp(T(s - m))), r += f32(e), O += e @ v (f32)
+  for (int k0 = 0; k0 < N; k0 += KT) {
+    load_rows<T>(Ks, ld, base + (size_t)k0 * W3 + D, W3, KT, N - k0, DH);
+    load_rows<T>(Vs, ld, base + (size_t)k0 * W3 + 2 * D, W3, KT, N - k0, DH);
+    __syncthreads();
+    Mma<T, true>::run(Qs, ld, Ks, ld, Ss, lds, QT, KT, DH, false);
+    __syncthreads();
+    for (int i = warp; i < QT; i += NW) {
+      const float m = Ms[i];
+      float r = 0.0f;
+      for (int j = lane; j < KT; j += 32) {
+        float e = 0.0f;
+        if (k0 + j < N) e = rnd<T>(expf(rnd<T>(Ss[i * lds + j] - m)));
+        Es[i * lde + j] = from_f<T>(e);
+        r += e;
+      }
+      r = warp_sum(r);
+      if (lane == 0) Rs[i] += r;
+    }
+    __syncthreads();
+    acc.mma(Es, lde, Vs, ld, Os, ldo);
+    __syncthreads();
+  }
+
+  // normalise after PV, cast, into head h's columns of the merged output
+  acc.store(Os, ldo);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < QT * DH; idx += NT) {
+    const int i = idx / DH, c = idx % DH, n = q0 + i;
+    if (n < N)
+      o[((size_t)b * N + n) * D + h * DH + c] =
+          from_f<T>(Os[i * ldo + c] / Rs[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches
+
+template <typename T, int PRO, int EPI>
+cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
+  const size_t s = smem_gemm<T>(PRO == PRO_LN, g.K);
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel<T, PRO, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s);
+  if (e != cudaSuccess) return e;
+  gemm_kernel<T, PRO, EPI><<<(g.rows + GM - 1) / GM, NT, s, st>>>(g);
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_attn(const T* qkv, T* o, int B, int N, int D, int H,
+                        float qscale, cudaStream_t st) {
+  const size_t s = smem_split_attn<T>(DH);
+  const cudaError_t e = cudaFuncSetAttribute(
+      split_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s);
+  if (e != cudaSuccess) return e;
+  const int blocks = B * ((N + QT - 1) / QT) * H;
+  split_attn_kernel<T, DH><<<blocks, NT, s, st>>>(qkv, o, N, D, H, qscale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
+              const T* wproj, const T* bproj, const T* wfc1, const T* bfc1,
+              const T* wfc2, const T* bfc2, T* out, T* qkv, T* attn, T* y1,
+              T* h1, int B, int N, int D, int hidden, int H, float eps,
+              float qscale, cudaStream_t st) {
+  // rows of (B*N, .) and attention blocks are indexed as int
+  if (B < 1 || N < 1 || (long long)B * N > INT_MAX ||
+      (long long)B * ((N + QT - 1) / QT) * H > INT_MAX)
+    return T2MS_UNSUPPORTED_SHAPE;
+  const int ok = check_split<T>(D, hidden, H);
+  if (ok) return ok;
+  GemmArgs<T> g{};
+  g.mod = mod;
+  g.rows = B * N;
+  g.N = N;
+  g.eps = eps;
+  cudaError_t e;
+  // (1) modLN(x) @ wqkv
+  g.a = x; g.w = wqkv; g.bias = bqkv; g.out = qkv;
+  g.K = D; g.cols = 3 * D; g.ish = 0; g.isc = 1;
+  if ((e = launch_gemm<T, PRO_LN, EPI_BIAS>(g, st)) != cudaSuccess) return e;
+  // (2) attention
+  switch (D / H) {
+    case 32: e = launch_attn<T, 32>(qkv, attn, B, N, D, H, qscale, st); break;
+    case 64: e = launch_attn<T, 64>(qkv, attn, B, N, D, H, qscale, st); break;
+    default: e = launch_attn<T, 128>(qkv, attn, B, N, D, H, qscale, st);
+  }
+  if (e != cudaSuccess) return e;
+  // (3) x + gate * (o @ wproj)
+  g.a = attn; g.w = wproj; g.bias = bproj; g.res = x; g.out = y1;
+  g.K = D; g.cols = D; g.igate = 2;
+  if ((e = launch_gemm<T, PRO_LOAD, EPI_RESID>(g, st)) != cudaSuccess)
+    return e;
+  // (4) gelu(modLN(y1) @ wfc1)
+  g.a = y1; g.w = wfc1; g.bias = bfc1; g.res = nullptr; g.out = h1;
+  g.K = D; g.cols = hidden; g.ish = 3; g.isc = 4;
+  if ((e = launch_gemm<T, PRO_LN, EPI_GELU>(g, st)) != cudaSuccess) return e;
+  // (5) y1 + gate * (h1 @ wfc2)
+  g.a = h1; g.w = wfc2; g.bias = bfc2; g.res = y1; g.out = out;
+  g.K = hidden; g.cols = D; g.igate = 5;
+  if ((e = launch_gemm<T, PRO_LOAD, EPI_RESID>(g, st)) != cudaSuccess)
+    return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define T2MS_SPLIT_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const void* x, const void* mod, const void* wqkv,      \
+                      const void* bqkv, const void* wproj, const void* bproj, \
+                      const void* wfc1, const void* bfc1, const void* wfc2,  \
+                      const void* bfc2, void* out, void* qkv, void* attn,    \
+                      void* y1, void* h1, int B, int N, int D, int hidden,   \
+                      int H, float eps, float qscale, void* stream) {        \
+    return run_split<T>(                                                     \
+        (const T*)x, (const float*)mod, (const T*)wqkv, (const T*)bqkv,      \
+        (const T*)wproj, (const T*)bproj, (const T*)wfc1, (const T*)bfc1,    \
+        (const T*)wfc2, (const T*)bfc2, (T*)out, (T*)qkv, (T*)attn, (T*)y1,  \
+        (T*)h1, B, N, D, hidden, H, eps, qscale, (cudaStream_t)stream);      \
+  }
+
+T2MS_SPLIT_ENTRY(dit_split_forward_bf16, __nv_bfloat16)
+T2MS_SPLIT_ENTRY(dit_split_forward_f32, float)
+
+extern "C" int dit_split_check(int D, int hidden, int H, int is_bf16) {
+  return is_bf16 ? check_split<__nv_bfloat16>(D, hidden, H)
+                 : check_split<float>(D, hidden, H);
+}
+
+extern "C" const char* t2ms_cuda_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}

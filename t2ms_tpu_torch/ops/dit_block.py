@@ -1,6 +1,6 @@
 """The adaLN-zero blocks of the DiT (counterpart of
-t2ms_tpu/ops/dit_block.py ``fused_dit_stack``, ``fused_dit_block`` and
-``fused_dit_block_diffable``).
+t2ms_tpu/ops/dit_block.py ``fused_dit_stack``, ``fused_dit_block``,
+``fused_dit_block_diffable`` and ``fused_dit_block_split``).
 
 All keep the JAX signatures and layouts: x (B, N, D), per-sample adaLN
 vectors mod (B, L, 6, D) for the stack and (B, 6, D) for one block, flax
@@ -10,8 +10,10 @@ wrappers' ``w(a)`` does.
 
 * On a CUDA tensor they launch the hand-written kernels: the forward of
   ``csrc/dit_stack.cu`` (three per layer: modLN+qkv, attention+proj+gated
-  residual, modLN+MLP+gated residual; one block is the stack with L = 1)
-  and the block backward of ``csrc/dit_block_bwd.cu``. Each wrapper counts
+  residual, modLN+MLP+gated residual; one block is the stack with L = 1),
+  the block backward of ``csrc/dit_block_bwd.cu``, and the wide-geometry
+  block of ``csrc/dit_split.cu`` (modLN+qkv, attention, proj+gated
+  residual, modLN+fc1+GELU, fc2+gated residual). Each wrapper counts
   its launches under its own name. A shape the kernels do not take (the
   libraries' own limits), a failed build or a failed launch raises; there
   is no fallback.
@@ -34,15 +36,20 @@ __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "dit_stack_reference_block", "stack_kernel_supported",
            "fused_dit_block", "fused_dit_block_reference",
            "fused_dit_block_diffable", "block_kernel_supported",
-           "STACK_KERNEL", "BLOCK_KERNEL", "BLOCK_BWD_KERNEL"]
+           "fused_dit_block_split", "split_kernel_supported",
+           "STACK_KERNEL", "BLOCK_KERNEL", "BLOCK_BWD_KERNEL",
+           "SPLIT_KERNEL"]
 
 STACK_KERNEL = "fused_dit_stack"
 BLOCK_KERNEL = "fused_dit_block"
 BLOCK_BWD_KERNEL = "_fused_block_diff_bwd"
+SPLIT_KERNEL = "fused_dit_block_split"
 _ENTRY = {torch.bfloat16: "dit_stack_forward_bf16",
           torch.float32: "dit_stack_forward_f32"}
 _BWD_ENTRY = {torch.bfloat16: "dit_block_backward_bf16",
               torch.float32: "dit_block_backward_f32"}
+_SPLIT_ENTRY = {torch.bfloat16: "dit_split_forward_bf16",
+                torch.float32: "dit_split_forward_f32"}
 _UNSUPPORTED_SHAPE = -1     # T2MS_UNSUPPORTED_SHAPE in dit_common.cuh
 
 
@@ -144,6 +151,14 @@ def block_kernel_supported(D: int, hidden: int, num_heads: int,
                              num_heads, dtype)
 
 
+def split_kernel_supported(D: int, hidden: int, num_heads: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether the CUDA split block kernel takes this geometry on the
+    current device (``dit_split_check`` in dit_split.cu)."""
+    return _kernel_supported("dit_split", "dit_split_check", D, hidden,
+                             num_heads, dtype)
+
+
 def _check_shapes(x, mod, ws, kernel=STACK_KERNEL):
     """The kernel indexes every operand from x's (B, N, D), the depth L
     and the MLP width, so a mismatched operand would be read out of
@@ -181,6 +196,36 @@ def _refused(name, x, hidden, num_heads):
         f"hidden={hidden} heads={num_heads} dtype={x.dtype}")
 
 
+def _operands(x, mod, ws, num_heads):
+    """What every kernel entry takes: x contiguous, mod in f32, the weights
+    in x's dtype on x's device, and the softmax scale cast to x's dtype
+    (the JAX recipe scales q by it)."""
+    dev, dt = x.device, x.dtype
+    return (x.contiguous(),
+            mod.to(device=dev, dtype=torch.float32).contiguous(),
+            [w.to(device=dev, dtype=dt).contiguous() for w in ws],
+            float(torch.tensor((x.shape[-1] // num_heads) ** -0.5, dtype=dt)))
+
+
+def _launch(lib, entry, name, refused, dev, *args):
+    """Call the C entry ``entry`` of ``lib`` on dev's current stream, with
+    each tensor of ``args`` passed as its pointer and each float as a C
+    float. Raise ``refused`` for a shape the kernels do not take and
+    RuntimeError for a failed launch; count the launch under ``name``."""
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else ctypes.c_float(a) if isinstance(a, float) else a
+            for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
+    if err == _UNSUPPORTED_SHAPE:
+        raise refused
+    if err:
+        raise RuntimeError(f"{name} CUDA launch failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+    _build.count_launch(name)
+
+
 def _launch_stack(x, mod, ws, num_heads, eps, name=STACK_KERNEL):
     B, N, D = x.shape
     L = ws[0].shape[0]
@@ -189,28 +234,31 @@ def _launch_stack(x, mod, ws, num_heads, eps, name=STACK_KERNEL):
     if x.dtype not in _ENTRY:
         raise refused
     lib = _build.load("dit_stack")
-    dev = x.device
-    x = x.contiguous()
-    mod = mod.to(device=dev, dtype=torch.float32).contiguous()
-    ws = [w.to(device=dev, dtype=x.dtype).contiguous() for w in ws]
-    out = torch.empty_like(x)
-    tmp = torch.empty_like(x)
-    qkv = torch.empty((B, N, 3 * D), device=dev, dtype=x.dtype)
-    # the JAX recipe scales q by the softmax scale cast to x's dtype
-    qscale = float(torch.tensor((D // num_heads) ** -0.5, dtype=x.dtype))
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _ENTRY[x.dtype])(
-            ptr(x), ptr(mod), *[ptr(w) for w in ws], ptr(out), ptr(tmp),
-            ptr(qkv), B, N, D, hidden, L, num_heads, ctypes.c_float(eps),
-            ctypes.c_float(qscale), ctypes.c_void_p(stream))
-    if err == _UNSUPPORTED_SHAPE:
+    x, mod, ws, qscale = _operands(x, mod, ws, num_heads)
+    out, tmp = torch.empty_like(x), torch.empty_like(x)
+    qkv = torch.empty((B, N, 3 * D), device=x.device, dtype=x.dtype)
+    _launch(lib, _ENTRY[x.dtype], name, refused, x.device, x, mod, *ws, out,
+            tmp, qkv, B, N, D, hidden, L, num_heads, eps, qscale)
+    return out
+
+
+def _launch_split(x, mod, ws, num_heads, eps):
+    """One block through the five launches of ``csrc/dit_split.cu``; the
+    qkv, attention-output, residual and MLP-hidden intermediates are
+    allocated here and live for the call only."""
+    B, N, D = x.shape
+    hidden = ws[4].shape[-1]
+    refused = _refused(SPLIT_KERNEL, x, hidden, num_heads)
+    if x.dtype not in _SPLIT_ENTRY:
         raise refused
-    if err:
-        raise RuntimeError(f"{name} CUDA launch failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
-    _build.count_launch(name)
+    lib = _build.load("dit_split")
+    x, mod, ws, qscale = _operands(x, mod, ws, num_heads)
+    out, attn, y1 = (torch.empty_like(x) for _ in range(3))
+    qkv = torch.empty((B, N, 3 * D), device=x.device, dtype=x.dtype)
+    h1 = torch.empty((B, N, hidden), device=x.device, dtype=x.dtype)
+    _launch(lib, _SPLIT_ENTRY[x.dtype], SPLIT_KERNEL, refused, x.device, x,
+            mod, *ws, out, qkv, attn, y1, h1, B, N, D, hidden, num_heads,
+            eps, qscale)
     return out
 
 
@@ -230,30 +278,15 @@ def _launch_block_bwd(x, mod, ws, dy, num_heads, eps):
     if lib.dit_block_check(D, hidden, num_heads, is_bf16) == \
             _UNSUPPORTED_SHAPE:
         raise refused
-    x = x.contiguous()
+    x, mod, ws, qscale = _operands(x, mod, ws, num_heads)
     dy = dy.to(dtype=dt).contiguous()
-    mod = mod.to(device=dev, dtype=torch.float32).contiguous()
-    ws = [w.to(device=dev, dtype=dt).contiguous() for w in ws]
     dx = torch.empty_like(x)
     dmod = torch.empty((B, 6, D), device=dev, dtype=torch.float32)
     dws = [torch.empty(w.shape, device=dev, dtype=torch.float32) for w in ws]
     work = torch.empty(lib.dit_block_backward_workspace(
         B, N, D, hidden, num_heads, is_bf16), device=dev, dtype=torch.uint8)
-    qscale = float(torch.tensor((D // num_heads) ** -0.5, dtype=dt))
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _BWD_ENTRY[dt])(
-            ptr(x), ptr(mod), *[ptr(w) for w in ws], ptr(dy), ptr(dx),
-            ptr(dmod), *[ptr(d) for d in dws], ptr(work), B, N, D, hidden,
-            num_heads, ctypes.c_float(eps), ctypes.c_float(qscale),
-            ctypes.c_void_p(stream))
-    if err == _UNSUPPORTED_SHAPE:
-        raise refused
-    if err:
-        raise RuntimeError(f"{BLOCK_BWD_KERNEL} CUDA launch failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
-    _build.count_launch(BLOCK_BWD_KERNEL)
+    _launch(lib, _BWD_ENTRY[dt], BLOCK_BWD_KERNEL, refused, dev, x, mod, *ws,
+            dy, dx, dmod, *dws, work, B, N, D, hidden, num_heads, eps, qscale)
     return dx, dmod, dws
 
 
@@ -302,6 +335,34 @@ def fused_dit_block(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
                              BLOCK_KERNEL)
     if x.device.type != "cpu":
         raise ValueError(f"fused_dit_block: unsupported device {x.device}")
+    return fused_dit_block_reference(x, mod, *ws, num_heads, eps)
+
+
+def fused_dit_block_split(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv,
+                          wproj, bproj, wfc1, bfc1, wfc2, bfc2,
+                          num_heads: int, eps: float = 1e-6,
+                          block_q: int = 0) -> torch.Tensor:
+    """One adaLN-zero block for wide geometries (the scaled DiT's d_model
+    512): x (B, N, D), mod (B, 6, D), flax-layout weights in any float
+    dtype (cast to x's). CUDA tensor -> the five launches of
+    ``csrc/dit_split.cu``, counted once as ``fused_dit_block_split``; CPU
+    tensor -> the block's plain twin (``fused_dit_block_reference``: the
+    same math). ``block_q`` is the JAX signature's q row-block: the CUDA
+    kernels pick their own tiles and the twin needs none, so it is ignored.
+    Forward only: on CUDA it raises under grad mode when an input requires
+    grad."""
+    del block_q
+    ws = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
+    if mod.dim() != 3:
+        raise ValueError(f"{SPLIT_KERNEL}: mod must be (B, 6, D), got "
+                         f"{tuple(mod.shape)}")
+    _check_shapes(x, mod[:, None], tuple(w[None] for w in ws), SPLIT_KERNEL)
+    if x.is_cuda:
+        _refuse_autograd(SPLIT_KERNEL, (x, mod, *ws),
+                         "fused_dit_block_diffable")
+        return _launch_split(x, mod, ws, num_heads, eps)
+    if x.device.type != "cpu":
+        raise ValueError(f"{SPLIT_KERNEL}: unsupported device {x.device}")
     return fused_dit_block_reference(x, mod, *ws, num_heads, eps)
 
 

@@ -7,15 +7,17 @@ JAX package, cond and uncond run as ONE forward of batch 2B, the uncond
 half selected by a per-sample ``text_mask`` of zeros; the trajectory is
 optionally collected and decoded in one batched VAE decode afterwards.
 
-The DiT forward goes through the fused CUDA stack kernel whenever the
-inputs are on CUDA (``_serving_forward``); a geometry the kernel does not
-take raises there. Only an explicit ``attention_impl`` other than 'auto'
-opts out to the eager model (the plain path that oracle runs compare
-against). A Python loop stands in for the JAX package's ``lax.scan``.
+On CUDA the DiT forward goes through a fused kernel path, picked once per
+sampler build (``_serving_forward``): the stack kernel, else the split
+block kernel; a geometry neither takes raises there. Only an explicit
+``attention_impl`` other than 'auto' opts out to the eager model (the plain
+path that oracle runs compare against). A Python loop stands in for the
+JAX package's ``lax.scan``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -33,18 +35,35 @@ class SamplerOutput(NamedTuple):
     trajectory: Optional[torch.Tensor]   # (steps, B, ...) latents or None
 
 
-def _serving_forward(denoiser) -> Callable:
-    """Pick the forward per call: the fused-stack kernel path for a DiT on
-    CUDA (which raises for a geometry the kernel does not take), the eager
-    module on the CPU or under an explicit ``attention_impl`` opt-out."""
+def _serving_forward(denoiser, device) -> Callable:
+    """Pick the DiT forward once, for a sampler that runs on ``device``, in
+    the JAX package's order (t2ms_tpu/sampling/sampler.py
+    ``_serving_forward``): for a DiT on CUDA, the stack kernel when it takes
+    the geometry, else the split block kernel, else raise; the eager module
+    on the CPU or under an explicit ``attention_impl`` opt-out. Each check
+    asks a kernel library, so it is asked here and not per step.
+
+    The choice follows the port's own kernels' limits, not the TPU's VMEM
+    envelopes: a d=256 DiT at N=1024 goes to the split in JAX and may take
+    the stack here. Both compute the same block. Where neither kernel
+    takes the geometry, the JAX package runs its flax-path kernels, which
+    are not ported yet; the eager model is not run in their place."""
     from t2ms_tpu_torch.models.denoisers import dit_fast
-
-    def forward(x, t, e, m):
-        if dit_fast.fused_path_eligible(denoiser, x):
-            return dit_fast.fast_dit_forward(denoiser, x, t, e, m)
-        return denoiser(x, t, e, m)
-
-    return forward
+    if not dit_fast.fused_path_eligible(denoiser, device):
+        return denoiser
+    if dit_fast.fast_forward_supported(denoiser):
+        return functools.partial(dit_fast.fast_dit_forward, denoiser)
+    if dit_fast.split_forward_supported(denoiser):
+        return functools.partial(dit_fast.split_dit_forward, denoiser)
+    d = denoiser
+    raise ValueError(
+        f"the port does not take this DiT on CUDA: neither fused_dit_stack "
+        f"nor fused_dit_block_split takes d_model={d.d_model} "
+        f"heads={d.num_heads} hidden={int(d.d_model * d.mlp_ratio)} "
+        f"dtype={d.compute_dtype}. The JAX package serves it through its "
+        f"flax-path kernels (_mod_ln_call, _res_mod_ln_call, "
+        f"fused_heads_attention), which are not ported yet; the eager model "
+        f"is not run in their place (set attention_impl to opt out)")
 
 
 def _fused_cfg_forward(forward: Callable, x_t, t, text_emb, cfg_scale):
@@ -141,7 +160,7 @@ def make_cfg_sampler(
     dev = resolve_device(device)
     denoiser.to(dev)
     vae_model.to(dev)
-    forward = _serving_forward(denoiser)
+    forward = _serving_forward(denoiser, dev)
 
     @torch.no_grad()
     def sample(x_1, text_emb, x_t0=None, generator=None) -> SamplerOutput:

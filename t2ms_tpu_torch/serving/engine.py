@@ -83,7 +83,7 @@ def make_serving_sampler(
     dev = resolve_device(device)
     denoiser.to(dev)
     vae_model.to(dev)
-    forward = _serving_forward(denoiser)
+    forward = _serving_forward(denoiser, dev)
 
     @torch.no_grad()
     def sample(seeds, cfg_scale, text_emb, x_t0=None) -> torch.Tensor:

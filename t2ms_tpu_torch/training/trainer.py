@@ -49,7 +49,7 @@ def _training_forward(denoiser):
     from t2ms_tpu_torch.models.denoisers import dit_fast
 
     def forward(x, t, e, m):
-        if dit_fast.fused_path_eligible(denoiser, x):
+        if dit_fast.fused_path_eligible(denoiser, x.device):
             return dit_fast.fast_dit_train_forward(denoiser, x, t, e, m)
         return denoiser(x, t, e, m)
 

@@ -200,7 +200,8 @@ class _FakeCuda(torch.Tensor):
         return True
 
 
-@pytest.mark.parametrize("fn", ["fused_dit_stack", "fused_dit_block"])
+@pytest.mark.parametrize("fn", ["fused_dit_stack", "fused_dit_block",
+                                "fused_dit_block_split"])
 def test_cuda_forward_refuses_autograd(fn, monkeypatch):
     """The CUDA forwards write through a raw pointer (no grad_fn): under
     grad mode with an input that requires grad they raise, naming the
@@ -212,8 +213,9 @@ def test_cuda_forward_refuses_autograd(fn, monkeypatch):
     rest = [torch.from_numpy(v) for v in a[1:]]
     rest[2].requires_grad_()
     launched = []
-    monkeypatch.setattr(tblock, "_launch_stack",
-                        lambda *args, **kw: launched.append(1))
+    for launcher in ("_launch_stack", "_launch_split"):
+        monkeypatch.setattr(tblock, launcher,
+                            lambda *args, **kw: launched.append(1))
     call = getattr(tblock, fn)
     with pytest.raises(RuntimeError, match="no backward.*train through"):
         call(x, *rest, num_heads=4)

@@ -218,3 +218,140 @@ def test_train_step_launches_both_kernels_per_layer(cuda):
     assert dict(_build.launch_counts) == {tblock.BLOCK_KERNEL: 2,
                                           tblock.BLOCK_BWD_KERNEL: 2}
     assert all((p != b).any() for p, b in zip(dit.parameters(), before))
+
+
+# --------------------------------------------- the split block kernel (#4)
+
+def _split_args(dev, dt, B=3, N=130, D=512, hidden=2048, seed=2):
+    """x and mod in ``dt``, random mod, f32 weights of standard deviation
+    1/sqrt(fan-in), so the scores keep unit scale at every width."""
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    w = lambda i, o: f(i, o) / i ** 0.5
+    x, mod = f(B, N, D), 0.3 * f(B, 6, D)
+    ws = [w(D, 3 * D), 0.1 * f(3 * D), w(D, D), 0.1 * f(D), w(D, hidden),
+          0.1 * f(hidden), w(hidden, D), 0.1 * f(D)]
+    return [x.to(dev, dt), mod.to(dev, dt), *(t.to(dev) for t in ws)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 2e-4),
+                                    (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("D,hidden,heads", [(512, 2048, 8),   # head width 64
+                                            (512, 2048, 4),   # 128
+                                            (128, 256, 4)])   # 32
+def test_split_kernel_matches_twin_on_card(cuda, dt, tol, D, hidden, heads):
+    """At a ragged N=130 and a batch that fills no tile; the bf16 kernel's
+    mean error against the f32 twin at most 1.5x the bf16 twin's."""
+    args = _split_args(cuda, dt, D=D, hidden=hidden)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got = tblock.fused_dit_block_split(*args, num_heads=heads)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {tblock.SPLIT_KERNEL: 1}
+        want = tblock.fused_dit_block_reference(*args, heads)
+        assert got.dtype == dt and got.shape == want.shape
+        g, w = got.float(), want.float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+        if dt == torch.bfloat16:
+            truth = tblock.fused_dit_block_reference(
+                *(a.float() for a in args), heads)
+            ek = (g - truth).abs().mean().item()
+            et = (w - truth).abs().mean().item()
+            assert ek <= 1.5 * et
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 2e-4),
+                                    (torch.bfloat16, 3e-2)])
+def test_split_kernel_matches_stack_kernel_at_reference_geometry(cuda, dt,
+                                                                 tol):
+    """The two kernels compute the same block (d 128, 4 heads, hidden
+    256), through different tilings."""
+    args = _split_args(cuda, dt, D=128, hidden=256)
+    with torch.no_grad():
+        split = tblock.fused_dit_block_split(*args, num_heads=4).float()
+        stack = tblock.fused_dit_block(*args, num_heads=4).float()
+    assert (split - stack).abs().max().item() <= \
+        tol * stack.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_split_kernel_takes_a_batch_beyond_grid_y(cuda):
+    """More attention blocks (and row tiles) than grid.y's 65535."""
+    args = _split_args(cuda, torch.float32, B=70000, N=1, D=128, hidden=256)
+    with torch.no_grad():
+        got = tblock.fused_dit_block_split(*args, num_heads=4)
+        want = tblock.fused_dit_block_reference(*args, 4)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-4 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_split_kernel_shape_limits(cuda):
+    """The limits are the kernel library's own (dit_split_check)."""
+    ok = tblock.split_kernel_supported
+    assert ok(512, 2048, 8, torch.bfloat16)         # the scaled path
+    assert ok(512, 2048, 4, torch.bfloat16)         # head width 128
+    assert ok(512, 2048, 8, torch.float32)
+    assert ok(128, 256, 4, torch.bfloat16)          # the reference geometry
+    assert not ok(512, 2048, 8, torch.float16)      # no fp16 kernel
+    assert not ok(96, 192, 4, torch.bfloat16)       # D not a 128 multiple
+    assert not ok(512, 2048, 32, torch.bfloat16)    # head width 16
+    assert not ok(256, 1024, 1, torch.bfloat16)     # head width 256
+    assert not ok(1024, 4096, 8, torch.float32)     # staged LN tile, f32
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.models.denoisers.dit_fast import (
+        fast_forward_supported, split_forward_supported)
+    scaled = DiT(latent_len=64, latent_dim=64, d_model=512, depth=1,
+                 num_heads=8, mlp_ratio=4.0, compute_dtype=torch.bfloat16)
+    assert split_forward_supported(scaled)
+    assert not fast_forward_supported(scaled)
+
+
+@pytest.mark.cuda
+def test_split_kernel_refuses_what_it_does_not_take(cuda):
+    """A shape the kernel does not take raises and launches nothing; so
+    does an input that requires grad under grad mode."""
+    bad = _split_args(cuda, torch.bfloat16, B=1, N=16, D=96, hidden=192)
+    _build.reset_launch_counts()
+    with torch.no_grad(), pytest.raises(ValueError, match="does not take"):
+        tblock.fused_dit_block_split(*bad, num_heads=4)
+    args = _split_args(cuda, torch.float32, B=1, N=16, D=128, hidden=256)
+    args[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tblock.fused_dit_block_split(*args, num_heads=4)
+    assert not _build.launch_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["offline", "serving"])
+def test_sampler_runs_a_wide_dit_through_the_split_kernel(cuda, entry):
+    """A d_model 512 DiT (depth 1, 128 tokens): one split launch per
+    sampler step and no stack launch."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    from t2ms_tpu_torch.serving import make_serving_sampler
+    torch.manual_seed(0)
+    dit = DiT(latent_len=8, latent_dim=64, d_model=512, depth=1, num_heads=8,
+              mlp_ratio=4.0, compute_dtype=torch.bfloat16)
+    vae = LAVAE(in_channels=1, latent_grid=8)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    g = torch.Generator(cuda).manual_seed(0)
+    emb = torch.randn(2, 512, device=cuda, generator=g)
+    _build.reset_launch_counts()
+    if entry == "offline":
+        out = make_cfg_sampler(dit, vae, total_step=3)(
+            torch.randn(2, 96, device=cuda, generator=g), emb).series
+    else:
+        out = make_serving_sampler(dit, vae, total_step=3,
+                                   latent_shape=(64, 8))(
+            np.array([1, 2], np.uint32), np.array([7.0, 3.0]), emb)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, 96) and torch.isfinite(out).all()
+    assert dict(_build.launch_counts) == {tblock.SPLIT_KERNEL: 3}

@@ -236,10 +236,11 @@ def test_fused_gates():
     kernel's to refuse (its limits: ``tests/test_torch_cuda.py``)."""
     td = DiT(device="cpu")
     x = torch.zeros(1, 64, 30)
-    assert not fused_path_eligible(td, x)                    # CPU tensor
-    assert not fused_path_eligible(torch.nn.Identity(), x)   # not a DiT
+    assert not fused_path_eligible(td, x.device)             # CPU tensor
+    assert not fused_path_eligible(torch.nn.Identity(), x.device)  # no DiT
     assert not fused_path_eligible(
-        DiT(attention_impl="einsum", device="cpu"), x)       # opt-out
+        DiT(attention_impl="einsum", device="cpu"), x.device)  # opt-out
+    assert fused_path_eligible(td, "cuda")                   # the card
 
 
 # --------------------------------------------------------- rectified flow

@@ -60,6 +60,15 @@ def _py_sources():
     return files
 
 
+def test_import_check_names_every_module():
+    """A module added to the port joins the fresh-interpreter import check
+    (package __init__ files are imported as the modules' parents)."""
+    found = {os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".")
+             for p in _py_sources() if p.startswith(PKG)}
+    leaves = {m for m in found if not m.endswith(".__init__")}
+    assert leaves <= set(MODULES), sorted(leaves - set(MODULES))
+
+
 def test_sources_import_no_jax_nor_jax_package():
     assert len(_py_sources()) >= len(MODULES)
     for path in _py_sources():

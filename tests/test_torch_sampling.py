@@ -99,28 +99,33 @@ def test_cfg_sampler_draws_from_generator(stack):
     assert a.trajectory is None and tuple(a.series.shape) == (4, T)
 
 
-def _route_as_on_cuda(monkeypatch, dit):
-    """Let the fused gate pass as it does for a CUDA input (its DiT and
-    opt-out conditions kept), make the kernel path one that refuses, as the
-    kernel does for a shape it does not take, and count the calls of the
-    kernel path and of the eager module."""
-    calls = {"kernel": 0, "eager": 0}
+def _route_as_on_cuda(monkeypatch, dit, stack=False, split=False):
+    """Let the fused gate pass as it does on CUDA (its DiT and opt-out
+    conditions kept), let the stack and split kernels' checks answer
+    ``stack`` and ``split`` as their libraries would, and count each check
+    ("stack?", "split?"), the calls of each kernel path (which run the
+    eager forward here) and of the eager module."""
+    calls = {"stack?": 0, "split?": 0, "stack": 0, "split": 0, "eager": 0}
     monkeypatch.setattr(
         dit_fast, "fused_path_eligible",
-        lambda d, x: isinstance(d, DiT) and d.attention_impl == "auto")
-
-    def refuse(*a, **k):
-        calls["kernel"] += 1
-        raise ValueError("fused_dit_stack CUDA kernel does not take it")
-
-    monkeypatch.setattr(dit_fast, "fast_dit_forward", refuse)
+        lambda d, device: isinstance(d, DiT) and d.attention_impl == "auto")
     eager = dit.forward
 
-    def eager_counted(*a):
-        calls["eager"] += 1
-        return eager(*a)
+    def count(name, fn):
+        def run(*a):
+            calls[name] += 1
+            return fn(*a)
+        return run
 
-    monkeypatch.setattr(dit, "forward", eager_counted)
+    monkeypatch.setattr(dit_fast, "fast_forward_supported",
+                        count("stack?", lambda d: stack))
+    monkeypatch.setattr(dit_fast, "split_forward_supported",
+                        count("split?", lambda d: split))
+    monkeypatch.setattr(dit_fast, "fast_dit_forward",
+                        count("stack", lambda d, *a: eager(*a)))
+    monkeypatch.setattr(dit_fast, "split_dit_forward",
+                        count("split", lambda d, *a: eager(*a)))
+    monkeypatch.setattr(dit, "forward", count("eager", eager))
     return calls
 
 
@@ -132,25 +137,25 @@ def _route_as_on_cuda(monkeypatch, dit):
 ])
 def test_sampler_sends_every_cuda_dit_to_the_kernel(stack, monkeypatch,
                                                     entry, geometry):
-    """No geometry gate stands between a DiT on CUDA and the kernel: a
-    shape the kernel refuses raises out of the sampler instead of running
-    the eager model."""
+    """Every DiT on CUDA goes to a kernel: a geometry that neither the
+    stack nor the split kernel takes (their libraries refuse these, as
+    ``tests/test_torch_cuda.py`` checks on the card) raises out of the
+    sampler build instead of running the eager model."""
     s = stack
     kw = dict(latent_len=6, latent_dim=8, d_model=EMB, depth=1, num_heads=2,
               device="cpu")
     kw.update(geometry)
     td = DiT(**kw)
     calls = _route_as_on_cuda(monkeypatch, td)
-    emb = np.zeros((2, kw["d_model"]), np.float32)
     with pytest.raises(ValueError, match="does not take"):
         if entry == "offline":
             make_cfg_sampler(td, s["tv"], total_step=2, out_length=T,
-                             device="cpu")(np.array(s["x"])[:2], emb)
+                             device="cpu")
         else:
             make_serving_sampler(td, s["tv"], "flowmatching", 2, s["lat"], T,
-                                 device="cpu")(
-                np.array([1, 2], np.uint32), np.array([3.0, 3.0]), emb)
-    assert calls == {"kernel": 1, "eager": 0}
+                                 device="cpu")
+    assert calls == {"stack?": 1, "split?": 1, "stack": 0, "split": 0,
+                     "eager": 0}
 
 
 def test_sampler_explicit_opt_out_runs_the_eager_model(stack, monkeypatch):
@@ -169,8 +174,51 @@ def test_sampler_explicit_opt_out_runs_the_eager_model(stack, monkeypatch):
     plain.load_state_dict(s["td"].state_dict())
     calls = _route_as_on_cuda(monkeypatch, plain)
     got = run(plain)
-    assert calls == {"kernel": 0, "eager": 2}
+    assert calls == {"stack?": 0, "split?": 0, "stack": 0, "split": 0,
+                     "eager": 2}
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("entry", ["offline", "serving"])
+@pytest.mark.parametrize("takes_stack,takes_split,want", [
+    (True, True, "stack"),          # the stack first, as in JAX
+    (False, True, "split"),         # the scaled geometry
+    (False, False, None),           # neither: refuse, never eager
+])
+def test_sampler_route_stack_then_split_then_refuse(
+        stack, monkeypatch, entry, takes_stack, takes_split, want):
+    """The route is picked once per sampler build (each check asked at
+    most once, whatever the steps) and every step's forward goes to it."""
+    s, steps = stack, 3
+    td = DiT(6, 8, EMB, 1, 2, device="cpu")
+    td.load_state_dict(s["td"].state_dict())
+    calls = _route_as_on_cuda(monkeypatch, td, takes_stack, takes_split)
+    emb = np.zeros((2, EMB), np.float32)
+
+    def build():
+        if entry == "offline":
+            return make_cfg_sampler(td, s["tv"], total_step=steps,
+                                    out_length=T, device="cpu")
+        return make_serving_sampler(td, s["tv"], "flowmatching", steps,
+                                    s["lat"], T, device="cpu")
+
+    if want is None:
+        with pytest.raises(ValueError, match="does not take.*not ported.*"
+                                             "eager model is not run"):
+            build()
+        assert calls == {"stack?": 1, "split?": 1, "stack": 0, "split": 0,
+                         "eager": 0}
+        return
+    sample = build()
+    for _ in range(2):
+        if entry == "offline":
+            out = sample(np.array(s["x"])[:2], emb).series
+        else:
+            out = sample(np.array([1, 2], np.uint32), np.array([3.0, 3.0]),
+                         emb)
+        assert tuple(out.shape) == (2, T) and torch.isfinite(out).all()
+    assert calls == {"stack?": 1, "split?": int(want == "split"), "stack": 0,
+                     "split": 0, "eager": 0, want: 2 * steps}
 
 
 def test_solver_validation_and_ddpm_not_ported(stack):

@@ -285,9 +285,15 @@ def test_vae_train_step_matches_jax(stack):
 
 
 class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports CUDA (the fused gate keys on the device)."""
+
     @property
     def is_cuda(self):
         return True
+
+    @property
+    def device(self):
+        return torch.device("cuda")
 
 
 def test_training_forward_routes_only_cuda_input_to_the_kernels(monkeypatch):
