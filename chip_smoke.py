@@ -49,12 +49,34 @@ failing with a non-zero exit on any error:
    against the eager bf16 and f32 opt-out paths for 4 steps;
 10. scaled server: a ``ServingEngine`` over the scaled models (buckets 48
    and 96, tiers 1/4/8) answering mixed requests, and one seed served
-   alone against the same seed inside a full batch.
+   alone against the same seed inside a full batch;
+11. mod_ln phase: the LayerNorm + modulate kernels ``_mod_ln_call`` and
+   ``_mod_ln_diff_bwd`` at the scaled train step's call (B=64, N=1024,
+   d_model 512, bf16, random shift/scale) against the twin and autograd
+   over it, again in f32 at a small batch; CUDA-event times, the twin's
+   times and the bounds;
+12. fused-heads phase: ``fused_heads_attention`` and
+   ``fused_heads_attention_bwd`` at the same call (8 heads of 64, q/k/v
+   the column slices of one qkv tensor) against their twins, with the mean
+   error against the f32 twins, again in f32 at a small batch; times,
+   bounds, and torch SDPA forward and backward over the head-split views
+   as the library yardstick;
+13. scaled train phase: the scaled DiT's denoiser train step
+   (scripts/bench_scaled.py:80-118: B=64, latents encoded once outside the
+   step, flow matching over 100 steps, CFG drop 0.3, AdamW at 1e-4 with
+   weight decay 1e-4) through the flax path's kernels, 2 warm-up and 5
+   timed steps: steps/s, peak memory, device time by part, launches per
+   step checked (24 + 24 + 12 + 12, no stack, block or split launch), loss
+   finite and, step by step, within 1e-2 of the eager bf16 path's from the
+   same init and draws; and at B=8 the kernel path's loss and gradients
+   against the eager bf16 and f32 opt-out paths on the same injected
+   draws.
 
 The line before the last is the kernel table as JSON (the ported kernels
 with their numbers under "kernels", the TPU kernels still to port under
-"to_port"); the last line is ``{"ok": true, "device": {...}}``. Without
-CUDA it exits 1 and prints no result.
+"to_port"), the one before it the card's name and power limit; the last
+line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -81,6 +103,7 @@ B_TRAIN, TRAIN_STEPS, TRAIN_WARMUP = 1024, 10, 2       # bench.py:124-166
 # the scaled DiT (scripts/bench_scaled.py:38-77) over the 64x64 latent
 SC_B, SC_N, SC_D, SC_HEADS, SC_HIDDEN, SC_DEPTH = 16, 1024, 512, 8, 2048, 12
 SC_STEPS = 20
+SC_TRAIN_B, SC_TRAIN_STEPS = 64, 5     # scripts/bench_scaled.py:80-118
 
 
 def log(*a):
@@ -199,14 +222,13 @@ def kernel_phase(gen):
 STACK_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_kernel")
 
 
-def device_ms_by_kernel(fn, names):
-    """Device time (ms) of the kernels whose names contain one of ``names``
-    over one call of ``fn`` (after one warm-up call), summed over
-    launches, from torch.profiler, and every kernel's under "(all device
-    time)". Empty when the profiler records no device time for them.
-    A short spin kernel (``torch.cuda._sleep``) opens the window and is
-    left out: the profiler dropped the first kernel of a window, and
-    without it the split call's first kernel went missing."""
+def device_ms_all(fn):
+    """Device time (ms) of every kernel over one call of ``fn`` (after one
+    warm-up call), summed over launches by name, from torch.profiler;
+    empty when the profiler records no device time. A short spin kernel
+    (``torch.cuda._sleep``) opens the window and is left out: the profiler
+    dropped the first kernel of a window, and without it the split call's
+    first kernel went missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -216,18 +238,28 @@ def device_ms_by_kernel(fn, names):
         torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
-    split, total = {}, 0.0
+    times = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         if (us <= 0 or getattr(ev, "device_type", None) != DeviceType.CUDA
                 or "spin_kernel" in ev.key):
             continue
+        times[ev.key] = times.get(ev.key, 0.0) + us / 1e3
+    return times
+
+
+def device_ms_by_kernel(fn, names):
+    """Device time (ms) of the kernels whose names contain one of
+    ``names`` over one call of ``fn`` (``device_ms_all``), and every
+    kernel's under "(all device time)"; empty when none was recorded."""
+    times = device_ms_all(fn)
+    split = {}
+    for key, ms in times.items():
         for n in names:
-            if n in ev.key:
-                split[n] = split.get(n, 0.0) + us / 1e3
-        total += us / 1e3
-    if split and total > 0:
-        split["(all device time)"] = total
+            if n in key:
+                split[n] = split.get(n, 0.0) + ms
+    if split:
+        split["(all device time)"] = sum(times.values())
     return split
 
 
@@ -613,9 +645,9 @@ def train_phase(dit, vae, gen):
 # the CUDA kernels of one bf16 fused_dit_block_split call at 8 heads of
 # 64, by their names in the profile: gemm_kernel<T, 0, 0> is modLN+qkv,
 # <T, 0, 1> modLN+fc1+GELU, <T, 1, 2> the proj and fc2 products with their
-# gated residuals; split_attn_kernel the attention
+# gated residuals; heads_attn_kernel the attention
 SPLIT_PARTS = ("gemm_kernel<__nv_bfloat16, 0, 0>",
-               "split_attn_kernel<__nv_bfloat16, 64>",
+               "heads_attn_kernel<__nv_bfloat16, 64>",
                "gemm_kernel<__nv_bfloat16, 1, 2>",
                "gemm_kernel<__nv_bfloat16, 0, 1>")
 
@@ -832,15 +864,328 @@ def scaled_server_phase(dit, vae, seed):
           "scaled server path launched the split kernel only")
 
 
+# ---------------------------- the scaled train step's flax-path kernels
+
+# the CUDA kernels of the flax path, by their names in the profile
+MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
+                "dmod_reduce_kernel")
+HEADS_PARTS = ("heads_attn_kernel", "heads_bwd_stats_kernel",
+               "heads_bwd_dq_kernel", "heads_bwd_dkdv_kernel")
+# the library kernels around them, by name fragments: the dense products
+# (cuBLAS's nvjet / gemm kernels), elementwise passes, reductions
+OTHER_KINDS = (("library GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
+               ("elementwise", ("elementwise",)),
+               ("reductions", ("reduce",)))
+
+
+def _row(err, ms, plain, fl, nb, peak, library=None):
+    """A kernel table row's numbers: the bound is the larger of the
+    operations over ``peak`` and the bytes over the memory rate."""
+    t_ops, t_bytes = fl / peak * 1e3, nb / H100_BYTES * 1e3
+    return dict(err=err, ms=ms, plain=plain, bound=max(t_ops, t_bytes),
+                by="operations" if t_ops >= t_bytes else "bytes",
+                library=library)
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _check_err(what, g, w, tol, truth=None, truth_twin=None):
+    """max-abs error of g against w within tol * max|w|, correlation
+    >= 0.999; with an f32 truth, g's mean error against it at most 1.5x
+    the twin's (w's)."""
+    err, ref, corr = _err(g, w)
+    line = (f"{what}: max_abs_err={err:.6g} max|ref|={ref:.6g} "
+            f"rel={err / ref:.3e} (tol {tol:g}) corr={corr:.8f}")
+    if truth is not None:
+        ek = (g.float() - truth).abs().mean().item()
+        et = (truth_twin.float() - truth).abs().mean().item()
+        line += (f"; mean_abs_err vs f32 twin kernel {ek:.4e} twin {et:.4e} "
+                 f"ratio {ek / et:.4f} (tol 1.5)")
+        check(ek <= 1.5 * et, f"{what} rounds worse than its twin")
+    log(line)
+    check(bool(torch.isfinite(g.float()).all()), f"{what} finite")
+    check(err <= tol * ref, f"{what} kernel vs twin {err} > {tol}*{ref}")
+    check(corr >= 0.999, f"{what} corr {corr}")
+    return err
+
+
+def mod_ln_phase(gen):
+    """Kernels #5 and #6 at the scaled train step's call against the twin
+    and autograd over it. Tolerances: bf16 1e-2 * max|ref| (one rounding
+    flip after f32 sums in another order), f32 1e-4 (summation order)."""
+    from t2ms_tpu_torch.ops.dit_block import (_launch_mod_ln,
+                                              _launch_mod_ln_bwd,
+                                              mod_ln_reference)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    out = {}
+    for dt, B, tol in ((torch.bfloat16, SC_TRAIN_B, 1e-2),
+                       (torch.float32, 4, 1e-4)):
+        x, mod2 = f(B, SC_N, SC_D).to(dt), (0.3 * f(B, 2, SC_D)).to(dt)
+        dy = f(B, SC_N, SC_D).to(dt)
+        fwd = lambda: _launch_mod_ln(x, mod2, 1e-6)
+        bwd = lambda: _launch_mod_ln_bwd(x, mod2, dy, 1e-6)
+        got_y, (got_dx, got_dm) = fwd(), bwd()
+        ts = [x.detach().requires_grad_(), mod2.detach().requires_grad_()]
+        graph = mod_ln_reference(*ts)
+        want_dx, want_dm = torch.autograd.grad(graph, ts, dy,
+                                               retain_graph=True)
+        torch.cuda.synchronize()
+        what = f"mod_ln {dt} B={B} N={SC_N} D={SC_D}"
+        e_f = _check_err(f"{what} out", got_y, graph.detach(), tol)
+        e_b = max(_check_err(f"{what} dx", got_dx, want_dx, tol),
+                  _check_err(f"{what} dmod2", got_dm, want_dm, tol))
+        check(got_dm.dtype == dt and got_dx.dtype == dt, "mod_ln grad dtypes")
+        with torch.no_grad():
+            ms_f, plain_f = cuda_ms(fwd), cuda_ms(
+                lambda: mod_ln_reference(x, mod2))
+            ms_b = cuda_ms(bwd)
+        plain_b = cuda_ms(lambda: torch.autograd.grad(graph, ts, dy,
+                                                      retain_graph=True))
+        del graph, ts
+        # f32 operations per element: LN statistics and normalisation
+        # about 6, the modulate 3; the backward about twice that
+        n = x.numel()
+        out[dt] = {
+            "fwd": _row(e_f, ms_f, plain_f, 9 * n, _nbytes(x, mod2, got_y),
+                        H100_F32_FLOPS),
+            "bwd": _row(e_b, ms_b, plain_b, 18 * n,
+                        _nbytes(x, mod2, dy, got_dx, got_dm),
+                        H100_F32_FLOPS)}
+        for k in ("fwd", "bwd"):
+            r = out[dt][k]
+            log(f"mod_ln {dt} B={B} {k}: {r['ms']:.4f} ms, twin "
+                f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+                f"({r['by']})")
+        del x, mod2, dy, got_y, got_dx, got_dm, want_dx, want_dm
+        torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_heads_ms(q, k, v, g, heads):
+    """torch SDPA over the head-split views of q, k, v (the library
+    yardstick of #9 and #11; the port never calls it): (forward ms,
+    backward ms read as forward+backward minus forward)."""
+    import torch.nn.functional as F
+    B, N, HD = q.shape
+    split = lambda t: t.view(B, N, heads, HD // heads).transpose(1, 2)
+    qh, kh, vh = (split(t).detach().requires_grad_() for t in (q, k, v))
+    gh = split(g)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
+    def both():
+        o = F.scaled_dot_product_attention(qh, kh, vh)
+        torch.autograd.grad(o, (qh, kh, vh), gh)
+    return fwd, cuda_ms(both) - fwd
+
+
+def fused_heads_phase(gen):
+    """Kernels #9 and #11 at the scaled train step's call, q/k/v the
+    column slices of one qkv tensor, against their twins. Tolerances:
+    forward bf16 1e-2 * max|ref|, f32 2e-4; backward bf16 3e-2 (rounding
+    flips of e and ds_u feed sums over 1024 rows), f32 5e-4 (summation
+    order)."""
+    from t2ms_tpu_torch.ops.attention import (fused_heads_attention,
+                                              fused_heads_attention_bwd,
+                                              fused_heads_bwd_reference,
+                                              fused_heads_reference)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    H, D, N = SC_HEADS, SC_D, SC_N
+    out = {}
+    for dt, B, tol_f, tol_b in ((torch.bfloat16, SC_TRAIN_B, 1e-2, 3e-2),
+                                (torch.float32, 2, 2e-4, 5e-4)):
+        qkv = torch.cat([1.5 * f(B, N, D), 1.5 * f(B, N, D), f(B, N, D)],
+                        dim=-1).to(dt)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        g = f(B, N, D).to(dt)
+        fwd = lambda: fused_heads_attention(q, k, v, H)
+        bwd = lambda: fused_heads_attention_bwd(q, k, v, g, H)
+        with torch.no_grad():
+            got_o, got = fwd(), bwd()
+            want_o = fused_heads_reference(q, k, v, H)
+            want = fused_heads_bwd_reference(q, k, v, g, H)
+            torch.cuda.synchronize()
+            t_o = t_g = (None,) * 3
+            if dt == torch.bfloat16:
+                f32 = [t.float() for t in (q, k, v, g)]
+                t_o = fused_heads_reference(*f32[:3], H)
+                t_g = fused_heads_bwd_reference(*f32, H)
+                del f32
+            what = f"fused_heads {dt} B={B} N={N} HD={D} H={H}"
+            e_f = _check_err(f"{what} out", got_o, want_o, tol_f,
+                             t_o if dt == torch.bfloat16 else None, want_o)
+            e_b = max(_check_err(f"{what} {n}", a, b, tol_b, t, b)
+                      for n, a, b, t in zip(("dq", "dk", "dv"), got, want,
+                                            t_g))
+            del t_o, t_g, got, want
+            ms_f, ms_b = cuda_ms(fwd), cuda_ms(bwd)
+            plain_f = cuda_ms(lambda: fused_heads_reference(q, k, v, H))
+            plain_b = cuda_ms(lambda: fused_heads_bwd_reference(q, k, v, g,
+                                                                H))
+        lib_f, lib_b = (sdpa_heads_ms(q, k, v, g, H) if dt == torch.bfloat16
+                        else (None, None))
+        prod = 2 * B * H * N * N * (D // H)         # one N x N x d product
+        peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS
+        out[dt] = {
+            "fwd": _row(e_f, ms_f, plain_f, 2 * prod,
+                        _nbytes(q, k, v, got_o), peak, lib_f),
+            "bwd": _row(e_b, ms_b, plain_b, 5 * prod,
+                        _nbytes(q, k, v, g, q, k, v), peak, lib_b)}
+        for n in ("fwd", "bwd"):
+            r = out[dt][n]
+            lib = (f", SDPA {r['library']:.4f} ms" if r["library"] is not None
+                   else "")
+            log(f"fused_heads {dt} B={B} {n}: {r['ms']:.4f} ms, twin "
+                f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+                f"({r['by']}){lib}")
+        if dt == torch.bfloat16:
+            with torch.no_grad():
+                log("fused_heads bf16 device time by kernel (torch.profiler, "
+                    "forward then backward): " + fmt_split(device_ms_by_kernel(
+                        lambda: (fwd(), bwd()), HEADS_PARTS)))
+        del qkv, q, k, v, g, got_o, want_o
+        torch.cuda.empty_cache()
+    return out
+
+
+def scaled_train_phase(sc_dit, sc_vae, gen):
+    """The scaled DiT's train step (scripts/bench_scaled.py:80-118) on a
+    copy of the DiT, through the flax path's kernels."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import (FUSED_HEADS_BWD_KERNEL,
+                                              FUSED_HEADS_KERNEL)
+    from t2ms_tpu_torch.ops.dit_block import MOD_LN_BWD_KERNEL, MOD_LN_KERNEL
+    from t2ms_tpu_torch.training import (ScheduledAdamW, encode_with_vae,
+                                         make_denoiser_train_step)
+    model = copy.deepcopy(sc_dit)
+    # optax.adamw(1e-4): constant rate, weight decay 1e-4
+    opt = ScheduledAdamW(model.parameters(), lambda _: 1e-4)
+    step = make_denoiser_train_step(model, sc_vae, opt, total_step=STEPS,
+                                    precoded=True)
+    x = torch.randn(SC_TRAIN_B, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(SC_TRAIN_B, SC_D, generator=gen, device="cuda")
+    z = encode_with_vae(sc_vae, x)[0]      # once, outside the step
+    g = torch.Generator(device="cuda").manual_seed(12)
+    losses = [step(z, emb, generator=g) for _ in range(TRAIN_WARMUP)]
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step(z, emb, generator=g) for _ in range(SC_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lv = torch.stack(losses).tolist()
+    check(all(np.isfinite(lv)), f"scaled train losses finite {lv}")
+    want = {MOD_LN_KERNEL: 2 * SC_DEPTH, MOD_LN_BWD_KERNEL: 2 * SC_DEPTH,
+            FUSED_HEADS_KERNEL: SC_DEPTH, FUSED_HEADS_BWD_KERNEL: SC_DEPTH}
+    check(launches == {n: c * SC_TRAIN_STEPS for n, c in want.items()},
+          f"scaled train launches {launches} in {SC_TRAIN_STEPS} steps, want "
+          f"{want} per step and no stack, block or split launch")
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"scaled train: DiT {n_par} params (d {SC_D}, depth {SC_DEPTH}, "
+        f"{SC_HEADS} heads, {SC_N} tokens) B={SC_TRAIN_B} bf16, precoded, "
+        f"{SC_TRAIN_STEPS} steps in {dt:.3f} s: "
+        f"{SC_TRAIN_STEPS / dt:.4f} steps/s, peak memory {peak_gb:.3f} GB, "
+        f"launches {launches} ({want} per step), losses "
+        f"{[round(v, 5) for v in lv]}")
+    times = device_ms_all(lambda: step(z, emb, generator=g))
+    if times:
+        total = sum(times.values())
+        ours = {n: sum(ms for key, ms in times.items() if n in key)
+                for n in MOD_LN_PARTS + HEADS_PARTS}
+        rest = sorted(((ms, key) for key, ms in times.items()
+                       if not any(n in key for n in ours)), reverse=True)
+        kinds = {}
+        for ms, key in rest:
+            kind = next((k for k, toks in OTHER_KINDS if any(
+                t in key for t in toks)), "other")
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+        log(f"scaled train step device time (torch.profiler, one step): "
+            f"{total:.3f} ms; flax-path kernels "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
+            + f" (together {sum(ours.values()):.3f} ms, "
+            f"{100 * sum(ours.values()) / total:.1f}%); the rest by kind "
+            + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items())
+            + "; largest others "
+            + "; ".join(f"{key[:60]} {ms:.3f}" for ms, key in rest[:6]))
+    else:
+        log("scaled train step device time: not measured (no device time "
+            "recorded)")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the same steps on the eager bf16 path from the same init and draws:
+    # AdamW at a constant 1e-4 from a random init moves the loss by large
+    # steps, and the two paths must move together (tolerance 1e-2 of each
+    # loss: bf16 rounding differences compound over the steps)
+    eager = scaled_dit(torch.bfloat16, "einsum")
+    eager.load_state_dict(sc_dit.state_dict())
+    s_e = make_denoiser_train_step(
+        eager, sc_vae, ScheduledAdamW(eager.parameters(), lambda _: 1e-4),
+        total_step=STEPS, precoded=True)
+    g_e = torch.Generator(device="cuda").manual_seed(12)
+    le = [s_e(z, emb, generator=g_e).item() for _ in lv]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lv, le))
+    log(f"scaled train eager bf16 path, same init and draws: losses "
+        f"{[round(v, 5) for v in le]}; kernel path within {worst:.3e} of "
+        f"each (tol 1e-2)")
+    check(worst <= 1e-2, f"scaled train losses {lv} vs eager {le}")
+    del eager, s_e
+    torch.cuda.empty_cache()
+
+    # the kernel path against the eager opt-out paths on the same draws
+    Bs = 8
+    zs, es = z[:Bs], emb[:Bs]
+    draws = dict(u=torch.rand(Bs, generator=g, device="cuda"),
+                 x_0=torch.randn(Bs, 64, 64, generator=g, device="cuda"),
+                 coin=torch.tensor(0.9, device="cuda"))
+    res = {}
+    for name, dt_, impl in (("kernel", torch.bfloat16, "auto"),
+                            ("eager bf16", torch.bfloat16, "einsum"),
+                            ("eager f32", torch.float32, "einsum")):
+        m = scaled_dit(dt_, impl)
+        m.load_state_dict(sc_dit.state_dict())
+        s_ = make_denoiser_train_step(
+            m, sc_vae, torch.optim.SGD(m.parameters(), lr=0.0),
+            total_step=STEPS, precoded=True)
+        _build.reset_launch_counts()
+        loss = s_(zs, es, **draws).item()
+        got = dict(_build.launch_counts)
+        check((name == "kernel") == bool(got),
+              f"scaled train {name} path launches {got}")
+        res[name] = (loss, {n: p.grad.float() for n, p in
+                            m.named_parameters()})
+        del m, s_
+    (lk, gk), (lb, gb), (lt, gt) = (res[k] for k in ("kernel", "eager bf16",
+                                                     "eager f32"))
+    worst = 0.0
+    for n in gt:
+        ek = (gk[n] - gt[n]).abs().mean().item()
+        eb = (gb[n] - gt[n]).abs().mean().item()
+        worst = max(worst, ek / max(eb, 1e-30))
+        check(ek <= 1.5 * eb, f"scaled train grad {n}: kernel path {ek:.4e} "
+              f"vs eager bf16 {eb:.4e} from f32")
+    check(abs(lk - lt) <= max(1.5 * abs(lb - lt), 1e-3 * abs(lt)),
+          f"scaled train loss kernel {lk} eager bf16 {lb} f32 {lt}")
+    log(f"scaled train B={Bs} same draws: loss kernel {lk:.6f} eager bf16 "
+        f"{lb:.6f} eager f32 {lt:.6f}; every parameter's grad: kernel path's "
+        f"mean error vs f32 at most {worst:.4f}x the eager bf16 path's "
+        f"(tol 1.5)")
+    del res, gk, gb, gt
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the TPU kernels still to port: (name, def site)
 TO_PORT = (
-    ("_mod_ln_call", "t2ms_tpu/ops/dit_block.py:580"),
-    ("_mod_ln_diff_bwd", "t2ms_tpu/ops/dit_block.py:624"),
     ("_res_mod_ln_call", "t2ms_tpu/ops/dit_block.py:721"),
     ("_res_mod_ln_diff_bwd", "t2ms_tpu/ops/dit_block.py:772"),
-    ("fused_heads_attention", "t2ms_tpu/ops/attention.py:373"),
     ("fused_heads_attention_with_stats", "t2ms_tpu/ops/attention.py:454"),
-    ("fused_heads_attention_bwd", "t2ms_tpu/ops/attention.py:1275"),
     ("fused_heads_attention_bwd_two_pass", "t2ms_tpu/ops/attention.py:816"),
     ("fused_heads_attention_bwd_lean", "t2ms_tpu/ops/attention.py:984"),
     ("fused_heads_attention_bwd_lean_two_pass",
@@ -860,8 +1205,12 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import (FUSED_HEADS_BWD_KERNEL,
+                                              FUSED_HEADS_KERNEL)
     from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
-                                              SPLIT_KERNEL, STACK_KERNEL)
+                                              MOD_LN_BWD_KERNEL,
+                                              MOD_LN_KERNEL, SPLIT_KERNEL,
+                                              STACK_KERNEL)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -889,13 +1238,17 @@ def main(argv=None):
     sc_dit, sc_vae = build_scaled_models(args.seed)
     sc_launches = scaled_offline_phase(sc_dit, sc_vae, gen)
     scaled_server_phase(sc_dit, sc_vae, args.seed)
+    mln = mod_ln_phase(gen)[torch.bfloat16]
+    fh = fused_heads_phase(gen)[torch.bfloat16]
+    tr_launches = scaled_train_phase(sc_dit, sc_vae, gen)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
         "plain_ms": r["plain"], "bound_ms": r["bound"],
-        "bound_by": r["by"], "library_ms": None}
+        "bound_by": r["by"], "library_ms": r.get("library")}
+    csrc = "t2ms_tpu_torch/ops/csrc/"
     table = {"kernels": [
         entry(STACK_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_stack.cu",
               "t2ms_tpu/ops/dit_block.py:218",
@@ -908,7 +1261,19 @@ def main(argv=None):
               t_launches.get(BLOCK_BWD_KERNEL, 0), blk["bwd"]),
         entry(SPLIT_KERNEL, "t2ms_tpu_torch/ops/csrc/dit_split.cu",
               "t2ms_tpu/ops/dit_block.py:460",
-              sc_launches.get(SPLIT_KERNEL, 0), spl)],
+              sc_launches.get(SPLIT_KERNEL, 0), spl),
+        entry(MOD_LN_KERNEL, csrc + "mod_ln.cu",
+              "t2ms_tpu/ops/dit_block.py:580",
+              tr_launches.get(MOD_LN_KERNEL, 0), mln["fwd"]),
+        entry(MOD_LN_BWD_KERNEL, csrc + "mod_ln.cu",
+              "t2ms_tpu/ops/dit_block.py:624",
+              tr_launches.get(MOD_LN_BWD_KERNEL, 0), mln["bwd"]),
+        entry(FUSED_HEADS_KERNEL, csrc + "fused_heads.cu",
+              "t2ms_tpu/ops/attention.py:373",
+              tr_launches.get(FUSED_HEADS_KERNEL, 0), fh["fwd"]),
+        entry(FUSED_HEADS_BWD_KERNEL, csrc + "fused_heads.cu",
+              "t2ms_tpu/ops/attention.py:1275",
+              tr_launches.get(FUSED_HEADS_BWD_KERNEL, 0), fh["bwd"])],
         "to_port": [{"name": n, "replaces": r} for n, r in TO_PORT]}
     print(smi, flush=True)
     print(json.dumps(table), flush=True)

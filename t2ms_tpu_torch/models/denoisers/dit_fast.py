@@ -18,6 +18,14 @@ weights.
 ``ops.dit_block.fused_dit_block_diffable``, whose forward and backward are
 the hand-written block kernels on CUDA; its weights are views of the
 parameters, so the grads reach them.
+
+``flax_path_forward`` (training, geometries the block kernels do not take,
+such as the scaled DiT's d_model 512) is the counterpart of the TPU branch
+of the flax ``DiT.__call__`` with the residual + LayerNorm fusion off: per
+block, ``ops.dit_block.mod_ln_diffable`` before the attention and before
+the MLP, ``ops.attention.fused_heads_diffable`` on the qkv projection's
+column slices, and the Dense layers, GELU and gated residuals as the eager
+module computes them (XLA computes them outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -26,17 +34,21 @@ from typing import Optional
 
 import torch
 
-from t2ms_tpu_torch.models.denoisers.dit import DiT
+from t2ms_tpu_torch.models.denoisers.dit import DiT, dense
+from t2ms_tpu_torch.ops.attention import (fused_heads_diffable,
+                                          fused_heads_supported)
 from t2ms_tpu_torch.ops.dit_block import (block_kernel_supported,
                                           fused_dit_block_diffable,
                                           fused_dit_block_split,
-                                          fused_dit_stack,
+                                          fused_dit_stack, mod_ln_diffable,
+                                          mod_ln_supported,
                                           split_kernel_supported,
                                           stack_kernel_supported)
 
 __all__ = ["fast_dit_forward", "fast_forward_supported",
            "split_dit_forward", "split_forward_supported",
            "fast_dit_train_forward", "train_forward_supported",
+           "flax_path_forward", "flax_path_supported",
            "fused_path_eligible"]
 
 _WEIGHTS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
@@ -84,6 +96,18 @@ def train_forward_supported(dit: DiT) -> bool:
     return block_kernel_supported(dit.d_model, int(dit.d_model
                                                    * dit.mlp_ratio),
                                   dit.num_heads, dit.compute_dtype)
+
+
+def flax_path_supported(dit: DiT) -> bool:
+    """Whether the flax path's kernels take this DiT's geometry, asked of
+    both libraries (``ops.dit_block.mod_ln_supported`` and
+    ``ops.attention.fused_heads_supported``; needs nvcc and a card). An
+    explicit ``attention_impl`` opts out, as in the JAX gates."""
+    if getattr(dit, "attention_impl", "auto") != "auto":
+        return False
+    dt = dit.compute_dtype
+    return (mod_ln_supported(dit.d_model, dt)
+            and fused_heads_supported(dit.d_model, dit.num_heads, dt))
 
 
 def _stacked_weights(dit: DiT, dtype: torch.dtype):
@@ -153,4 +177,26 @@ def fast_dit_train_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
             h, blk.modulation(c, dit.compute_dtype), a.qkv.weight.t(),
             a.qkv.bias, a.proj.weight.t(), a.proj.bias, m.fc1.weight.t(),
             m.fc1.bias, m.fc2.weight.t(), m.fc2.bias, dit.num_heads)
+    return dit.finalize(h, x.dtype)
+
+
+def flax_path_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
+                      text_emb: Optional[torch.Tensor] = None,
+                      text_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Differentiable DiT forward through the flax path's kernels: each
+    block's two LayerNorm + modulates in ``mod_ln_diffable`` and its
+    attention in ``fused_heads_diffable``; on CPU tensors both run their
+    plain twins."""
+    h, c = dit.embed(x, t, text_emb, text_mask)
+    dt, D = dit.compute_dtype, dit.d_model
+    for blk in dit.layers:
+        m = blk.modulation(c, dt)                             # (B, 6, D)
+        a = blk.attn
+        qkv = dense(mod_ln_diffable(h, m[:, 0:2]), a.qkv.weight, a.qkv.bias,
+                    dt)
+        y = fused_heads_diffable(qkv[..., :D], qkv[..., D:2 * D],
+                                 qkv[..., 2 * D:], dit.num_heads).to(dt)
+        h = h + m[:, 2, None] * dense(y, a.proj.weight, a.proj.bias, dt)
+        h = h + m[:, 5, None] * blk.mlp(mod_ln_diffable(h, m[:, 3:5]), dt)
     return dit.finalize(h, x.dtype)

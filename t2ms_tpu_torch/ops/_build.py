@@ -7,6 +7,9 @@ repository root (listed in .gitignore). Libraries load with ctypes. The
 build runs at the first CUDA use of a kernel, never at import; ``build_all``
 starts one nvcc per source at once. A missing nvcc or a failed compile
 raises.
+
+``launch`` calls a C entry on the current stream and counts it; ``supported``
+asks a library's ``*_check`` entry whether its kernels take a shape.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ import subprocess
 import threading
 from typing import Dict, Iterable
 
+import torch
+
 __all__ = ["load", "build_all", "sources", "launch_counts", "count_launch",
-           "reset_launch_counts", "cuda_error_string"]
+           "reset_launch_counts", "cuda_error_string", "launch", "supported",
+           "refuse_autograd", "UNSUPPORTED_SHAPE"]
+
+UNSUPPORTED_SHAPE = -1     # T2MS_UNSUPPORTED_SHAPE in dit_common.cuh
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(
@@ -121,29 +129,34 @@ def load(name: str) -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     """Argument types of every C entry point: pointers and the stream are
-    c_void_p (a plain int would be cut to 32 bits)."""
+    c_void_p (a plain int would be cut to 32 bits), strides c_longlong."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in ("dit_stack_forward_bf16", "dit_stack_forward_f32"):
+    L = ctypes.c_longlong
+    sigs = {
+        "dit_stack_forward": [P] * 13 + [I] * 6 + [F, F, P],
+        "dit_split_forward": [P] * 15 + [I] * 5 + [F, F, P],
+        "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
+        "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
+        "mod_ln_backward": [P] * 6 + [I] * 3 + [F, P],
+        "fused_heads_forward": [P] * 4 + [I] * 4 + [L] * 6 + [F, P],
+        "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [F, F, P],
+    }
+    for base, argtypes in sigs.items():
+        for fn in (f"{base}_bf16", f"{base}_f32"):
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = I
+    for fn, n in (("dit_block_backward_workspace", 6),
+                  ("mod_ln_backward_workspace", 3),
+                  ("fused_heads_backward_workspace", 3)):
         if hasattr(lib, fn):
-            f = getattr(lib, fn)
-            f.argtypes = [P] * 13 + [I] * 6 + [F, F, P]
-            f.restype = I
-    for fn in ("dit_split_forward_bf16", "dit_split_forward_f32"):
+            getattr(lib, fn).argtypes = [I] * n
+            getattr(lib, fn).restype = ctypes.c_longlong
+    for fn, n in (("dit_stack_check", 4), ("dit_block_check", 4),
+                  ("dit_split_check", 4), ("mod_ln_check", 2),
+                  ("fused_heads_check", 3)):
         if hasattr(lib, fn):
-            f = getattr(lib, fn)
-            f.argtypes = [P] * 15 + [I] * 5 + [F, F, P]
-            f.restype = I
-    for fn in ("dit_block_backward_bf16", "dit_block_backward_f32"):
-        if hasattr(lib, fn):
-            f = getattr(lib, fn)
-            f.argtypes = [P] * 22 + [I] * 5 + [F, F, P]
-            f.restype = I
-    if hasattr(lib, "dit_block_backward_workspace"):
-        lib.dit_block_backward_workspace.argtypes = [I] * 6
-        lib.dit_block_backward_workspace.restype = ctypes.c_longlong
-    for fn in ("dit_stack_check", "dit_block_check", "dit_split_check"):
-        if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = [I] * 4
+            getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = I
     if hasattr(lib, "t2ms_cuda_error_string"):
         lib.t2ms_cuda_error_string.argtypes = [I]
@@ -152,3 +165,44 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def cuda_error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"{err} ({lib.t2ms_cuda_error_string(err).decode()})"
+
+
+def supported(library: str, check: str, *args: int) -> bool:
+    """Ask a kernel library's own check (the limits live in the CUDA
+    sources only), which builds and loads it: needs nvcc and a card."""
+    lib = load(library)
+    err = getattr(lib, check)(*args)
+    if err not in (0, UNSUPPORTED_SHAPE):
+        raise RuntimeError(f"{check} failed: {cuda_error_string(lib, err)}")
+    return err == 0
+
+
+def launch(lib: ctypes.CDLL, entry: str, name: str, refused: Exception,
+           dev: torch.device, *args) -> None:
+    """Call the C entry ``entry`` of ``lib`` on dev's current stream, with
+    each tensor of ``args`` passed as its pointer and each float as a C
+    float. Raise ``refused`` for a shape the kernels do not take and
+    RuntimeError for a failed launch; count the launch under ``name``."""
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else ctypes.c_float(a) if isinstance(a, float) else a
+            for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
+    if err == UNSUPPORTED_SHAPE:
+        raise refused
+    if err:
+        raise RuntimeError(f"{name} CUDA launch failed: "
+                           f"{cuda_error_string(lib, err)}")
+    count_launch(name)
+
+
+def refuse_autograd(name: str, tensors, train_path: str) -> None:
+    """A CUDA forward writes its output through a raw pointer, so the
+    result carries no grad_fn: under grad mode, inputs that require grad
+    would train nothing and raise nothing. Refuse them instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} on CUDA has no backward; an input requires grad under "
+            f"grad mode, so train through {train_path} (or run this under "
+            f"torch.no_grad())")

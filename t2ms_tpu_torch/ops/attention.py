@@ -1,11 +1,22 @@
-"""Plain attention oracles (counterparts of t2ms_tpu/ops/attention.py
+"""Attention: the plain oracles (counterparts of t2ms_tpu/ops/attention.py
 ``einsum_attention`` / ``_einsum_natural`` and the ``attn_heads_natural``
-recipe that every fused TPU kernel shares).
+recipe that every fused TPU kernel shares) and the port of the fused-heads
+kernels (``fused_heads_attention``, ``fused_heads_attention_bwd`` and
+``fused_heads_diffable``).
 
 ``attn_heads_natural`` keeps the kernels' order of precision steps:
 q scaled at input width, f32 scores, row max subtracted then cast to input
 width before exp, f32 row sum and f32 PV accumulation, normalization after
-PV. The CUDA kernel in ``csrc/dit_stack.cu`` follows the same steps."""
+PV. The CUDA kernels in ``csrc/dit_stack.cu``, ``csrc/attn_heads.cuh`` and
+``csrc/fused_heads.cu`` follow the same steps.
+
+The fused-heads wrappers take q, k and v on the natural (B, N, H*D)
+layout, as the column slices of one qkv projection: the kernels read each
+operand through its own batch and row strides, so the slices are not
+copied. On a CUDA tensor they launch ``csrc/fused_heads.cu`` (counted as
+``fused_heads_attention`` and ``fused_heads_attention_bwd``) or raise; on
+a CPU tensor they run the plain twins.
+"""
 
 from __future__ import annotations
 
@@ -13,7 +24,21 @@ from typing import Optional
 
 import torch
 
-__all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural"]
+from t2ms_tpu_torch.ops import _build
+
+__all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural",
+           "fused_heads_reference", "fused_heads_bwd_reference",
+           "fused_heads_attention", "fused_heads_attention_bwd",
+           "fused_heads_diffable", "fused_heads_supported",
+           "FUSED_HEADS_KERNEL", "FUSED_HEADS_BWD_KERNEL"]
+
+FUSED_HEADS_KERNEL = "fused_heads_attention"
+FUSED_HEADS_BWD_KERNEL = "fused_heads_attention_bwd"
+_FWD_ENTRY = {torch.bfloat16: "fused_heads_forward_bf16",
+              torch.float32: "fused_heads_forward_f32"}
+_BWD_ENTRY = {torch.bfloat16: "fused_heads_backward_bf16",
+              torch.float32: "fused_heads_backward_f32"}
+_INT_MAX = 2 ** 31 - 1
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,3 +84,205 @@ def attn_heads_natural(q_all, k_all, v_all, num_heads: int, scale: float):
         r = e.float().sum(dim=-1)                     # f32 row sum
         o = torch.matmul(e.float(), v.float())        # f32 PV
         yield h, sl, o / r[..., None]
+
+
+# -------------------------------------------------------- fused heads
+
+def _scale(q, num_heads, scale):
+    return (q.shape[-1] // num_heads) ** -0.5 if scale is None else scale
+
+
+def fused_heads_reference(q, k, v, num_heads: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``fused_heads_attention``: every head through
+    ``attn_heads_natural``, cast to q's dtype and merged (B, N, H*D)."""
+    dt = q.dtype
+    parts = [None] * num_heads
+    for h, _, o in attn_heads_natural(q, k, v, num_heads,
+                                      _scale(q, num_heads, scale)):
+        parts[h] = o.to(dt)
+    return torch.cat(parts, dim=-1)
+
+
+def fused_heads_bwd_reference(q, k, v, g, num_heads: int,
+                              scale: Optional[float] = None):
+    """Plain twin of ``fused_heads_attention_bwd``: the pipelined recipe
+    of the JAX kernel (``_bwd_pipelined_blocked_kernel``) per head, on
+    whole rows: p = e / r is never formed; gs = T(g / r), dv = e^T gs,
+    t = rowsum(dp * e) / r, ds_u = T(e * (dp - t)), dq = (ds_u k) * scale
+    / r, dk = ds_u^T T(q * scale / r). Returns (dq, dk, dv) in q's
+    dtype."""
+    dt = q.dtype
+    scale = _scale(q, num_heads, scale)
+    D = q.shape[-1] // num_heads
+    outs = ([], [], [])
+    for h in range(num_heads):
+        sl = slice(h * D, (h + 1) * D)
+        qh, kh, vh = (a[..., sl].float() for a in (q, k, v))
+        gh = g[..., sl].to(dt).float()
+        s = torch.matmul((q[..., sl] * torch.tensor(scale, dtype=dt)).float(),
+                         kh.transpose(-1, -2))
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        m = s.amax(dim=-1, keepdim=True)
+        ef = torch.exp((s - m).to(dt)).float()
+        inv_r = 1.0 / ef.sum(dim=-1, keepdim=True)
+        gs = (gh * inv_r).to(dt).float()
+        dv = torch.matmul(ef.transpose(-1, -2), gs)
+        t = (dp * ef).sum(dim=-1, keepdim=True) * inv_r
+        ds_u = (ef * (dp - t)).to(dt).float()
+        dq = torch.matmul(ds_u, kh) * (scale * inv_r)
+        qs = (qh * (scale * inv_r)).to(dt).float()
+        dk = torch.matmul(ds_u.transpose(-1, -2), qs)
+        for acc, d in zip(outs, (dq, dk, dv)):
+            acc.append(d.to(dt))
+    return tuple(torch.cat(o, dim=-1) for o in outs)
+
+
+def fused_heads_supported(HD: int, num_heads: int,
+                          dtype: torch.dtype) -> bool:
+    """Whether the CUDA fused-heads kernels, forward and backward, take
+    H*D = ``HD`` split into ``num_heads`` heads in ``dtype``
+    (``fused_heads_check`` in fused_heads.cu). The JAX VMEM envelopes
+    (``fused_heads_block_q``, ``_bwd_block_q``, ``_bwd_head_groups``) are
+    not ported."""
+    if dtype not in _FWD_ENTRY:
+        return False
+    return _build.supported("fused_heads", "fused_heads_check", HD,
+                            num_heads, int(dtype == torch.bfloat16))
+
+
+def _check_heads(name, *ts):
+    shape, dt, dev = ts[0].shape, ts[0].dtype, ts[0].device
+    if len(shape) != 3 or any(
+            t.shape != shape or t.dtype != dt or t.device != dev
+            for t in ts):
+        raise ValueError(
+            f"{name}: q, k, v (and g) must share one (B, N, H*D) shape, "
+            f"dtype and device, got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in ts]}")
+
+
+def _strided(t):
+    """t itself when the kernels can read it through its batch and row
+    strides (unit column stride, 16-byte aligned rows), else a contiguous
+    copy."""
+    e = t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s * e % 16 for s in t.stride()[:2])):
+        t = t.contiguous()
+    return t
+
+
+def _heads_operands(name, entries, ts, num_heads):
+    B, N, HD = ts[0].shape
+    refused = ValueError(f"{name} CUDA kernel does not take B={B} N={N} "
+                         f"H*D={HD} heads={num_heads} dtype={ts[0].dtype}")
+    if ts[0].dtype not in entries:
+        raise refused
+    ts = [_strided(t) for t in ts]
+    strides = [s for t in ts for s in t.stride()[:2]]
+    if max(strides) > _INT_MAX:
+        raise refused
+    return refused, _build.load("fused_heads"), ts, strides
+
+
+def _launch_fused_heads(q, k, v, num_heads, scale):
+    refused, lib, ts, strides = _heads_operands(
+        FUSED_HEADS_KERNEL, _FWD_ENTRY, (q, k, v), num_heads)
+    dt = q.dtype
+    o = torch.empty(q.shape, device=q.device, dtype=dt)
+    _build.launch(lib, _FWD_ENTRY[dt], FUSED_HEADS_KERNEL, refused,
+                  q.device, *ts, o, *q.shape, num_heads, *strides,
+                  float(torch.tensor(scale, dtype=dt)))
+    return o
+
+
+def _launch_fused_heads_bwd(q, k, v, g, num_heads, scale):
+    refused, lib, ts, strides = _heads_operands(
+        FUSED_HEADS_BWD_KERNEL, _BWD_ENTRY, (q, k, v, g.to(q.dtype)),
+        num_heads)
+    dt = q.dtype
+    B, N, HD = q.shape
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=dt)
+                  for _ in range(3))
+    work = torch.empty(lib.fused_heads_backward_workspace(B, N, num_heads),
+                       device=q.device, dtype=torch.uint8)
+    _build.launch(lib, _BWD_ENTRY[dt], FUSED_HEADS_BWD_KERNEL, refused,
+                  q.device, *ts, dq, dk, dv, work, B, N, HD, num_heads,
+                  *strides, float(scale), float(torch.tensor(scale, dtype=dt)))
+    return dq, dk, dv
+
+
+def fused_heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          num_heads: int, scale: Optional[float] = None,
+                          block_q: Optional[int] = None) -> torch.Tensor:
+    """Exact softmax attention on the natural (B, N, H*D) layout, head h
+    the columns [h*D, (h+1)*D): f32 scores, exp at input width,
+    normalisation after PV; returns the merged (B, N, H*D) output in q's
+    dtype. CUDA tensor -> ``csrc/fused_heads.cu``; CPU tensor -> the twin.
+    ``block_q`` is the JAX signature's q row-block: the kernel picks its
+    own tiles, so it is ignored. Forward only: on CUDA it raises under
+    grad mode when an input requires grad (train through
+    ``fused_heads_diffable``)."""
+    del block_q
+    _check_heads(FUSED_HEADS_KERNEL, q, k, v)
+    scale = _scale(q, num_heads, scale)
+    if q.is_cuda:
+        _build.refuse_autograd(FUSED_HEADS_KERNEL, (q, k, v),
+                               "fused_heads_diffable")
+        return _launch_fused_heads(q, k, v, num_heads, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"{FUSED_HEADS_KERNEL}: unsupported device "
+                         f"{q.device}")
+    return fused_heads_reference(q, k, v, num_heads, scale)
+
+
+def fused_heads_attention_bwd(q, k, v, g, num_heads: int,
+                              scale: Optional[float] = None,
+                              block_q: Optional[int] = None,
+                              head_groups: int = 1,
+                              pipelined: Optional[bool] = None):
+    """VJP of ``fused_heads_attention``: (dq, dk, dv) in q's dtype for the
+    upstream gradient g, all (B, N, H*D), recomputing the probabilities
+    from q and k with the JAX default's pipelined recipe. CUDA tensor ->
+    ``csrc/fused_heads.cu`` (a stats, a dq and a dk/dv kernel; no atomics,
+    so runs repeat bit for bit); CPU tensor -> the twin. ``block_q``,
+    ``head_groups`` and ``pipelined`` shape the TPU kernel's VMEM tiles
+    and are ignored."""
+    del block_q, head_groups, pipelined
+    _check_heads(FUSED_HEADS_BWD_KERNEL, q, k, v)
+    if g.shape != q.shape:
+        raise ValueError(f"{FUSED_HEADS_BWD_KERNEL}: g must be "
+                         f"{tuple(q.shape)}, got {tuple(g.shape)}")
+    scale = _scale(q, num_heads, scale)
+    if q.is_cuda:
+        return _launch_fused_heads_bwd(q, k, v, g, num_heads, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"{FUSED_HEADS_BWD_KERNEL}: unsupported device "
+                         f"{q.device}")
+    return fused_heads_bwd_reference(q, k, v, g, num_heads, scale)
+
+
+class _FusedHeads(torch.autograd.Function):
+    """Forward ``fused_heads_attention``, backward
+    ``fused_heads_attention_bwd``; the residuals are q, k and v, as in the
+    JAX custom VJP with its lean gate off."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v)
+        return fused_heads_attention(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*fused_heads_attention_bwd(q, k, v, g, ctx.num_heads), None)
+
+
+def fused_heads_diffable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """``fused_heads_attention`` with its hand-written backward: grads in
+    q's dtype for q, k and v (pass the qkv projection's column slices; the
+    kernels read them in place)."""
+    return _FusedHeads.apply(q, k, v, num_heads)

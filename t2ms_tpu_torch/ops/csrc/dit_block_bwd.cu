@@ -63,11 +63,6 @@
 
 namespace {
 
-// Rows per tile of the backward kernels: 64 in bf16; 32 in f32, whose
-// FMA-loop tiles hold twice the bytes in shared memory.
-template <typename T> __host__ __device__ constexpr int tb() {
-  return sizeof(T) == 2 ? 64 : 32;
-}
 constexpr int WG_ROWS = 8192;  // rows of one split of a weight-grad sum
 
 template <typename T> __host__ __device__ size_t mlp_bwd_big(int D, int hidden) {
@@ -690,19 +685,6 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int S,
   }
 }
 
-// dmod[b] = sum over the element's tiles of part[b, tile] (6 x D each)
-__global__ void dmod_reduce_kernel(const float* __restrict__ part, int B,
-                                   int tiles, int D, float* __restrict__ dmod) {
-  const size_t n = (size_t)B * 6 * D;
-  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * NT) {
-    const size_t b = e / (6 * D), jc = e % (6 * D);
-    float s = 0.0f;
-    for (int t = 0; t < tiles; ++t) s += part[(b * tiles + t) * 6 * D + jc];
-    dmod[e] = s;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Workspace: the intermediates above, carved in one order by both the size
 // query and the launch.
@@ -754,11 +736,6 @@ size_t carve(unsigned char* base, int B, int N, int D, int hidden, int H,
   w->pw = f(S * D * wmax);
   w->pb = f(S * wmax);
   return off;
-}
-
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 template <typename T>
@@ -835,10 +812,7 @@ int run_backward(const T* x, const float* mod, const T* wqkv, const T* bqkv,
   weight_grad<T>(w.o, D, w.dpo, D, rows, w.pw, w.pb, dwproj, dbproj, st);
   weight_grad<T>(w.z2, D, w.da1, hidden, rows, w.pw, w.pb, dwfc1, dbfc1, st);
   weight_grad<T>(w.h1, hidden, w.dh2, D, rows, w.pw, w.pb, dwfc2, dbfc2, st);
-  const size_t nm = (size_t)B * 6 * D;
-  const unsigned g_mod = (unsigned)((nm + NT - 1) / NT < 65535
-                                        ? (nm + NT - 1) / NT : 65535);
-  dmod_reduce_kernel<<<g_mod, NT, 0, st>>>(w.part, B, tiles, D, dmod);
+  launch_dmod_reduce(w.part, B, tiles, 6 * D, dmod, st);
   return cudaGetLastError();
 }
 

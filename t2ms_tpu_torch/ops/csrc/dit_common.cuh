@@ -1,8 +1,9 @@
-// Device code shared by the DiT block kernels (dit_stack.cu, the forward,
-// and dit_block_bwd.cu, the backward): tile sizes, shared-memory copies,
-// the block-level tensor-core product, the f32 LayerNorm + adaLN modulate
-// of a row tile, and the three forward kernels of one adaLN-zero block,
-// cut at its residual boundaries:
+// Device code shared by the port's kernels (dit_stack.cu, the forward,
+// dit_block_bwd.cu, the backward, and through attn_heads.cuh dit_split.cu and
+// fused_heads.cu; mod_ln.cu): tile sizes, shared-memory copies, the
+// block-level tensor-core product, the f32 LayerNorm + adaLN modulate of a
+// row tile, the ordered per-tile reduction of dmod, and the three forward
+// kernels of one adaLN-zero block, cut at its residual boundaries:
 //
 //   (a) modln_qkv_kernel   one block per 64-row tile of the (B*N) rows:
 //       f32 LayerNorm (eps 1e-6) -> *(1+scale)+shift in f32 -> cast ->
@@ -56,6 +57,13 @@ __host__ __device__ constexpr size_t al128(size_t n) {
   return (n + 127) / 128 * 128;
 }
 
+// Rows per tile of the backward kernels (dit_block_bwd.cu, fused_heads.cu):
+// 64 in bf16; 32 in f32, whose FMA-loop tiles hold twice the bytes in
+// shared memory.
+template <typename T> __host__ __device__ constexpr int tb() {
+  return sizeof(T) == 2 ? 64 : 32;
+}
+
 // Dynamic shared memory of each forward kernel; the carve-up inside the
 // kernels follows the same order.
 template <typename T> __host__ __device__ size_t smem_qkv(int D) {
@@ -78,6 +86,12 @@ __host__ __device__ size_t smem_mlp(int D, int hidden) {
   return al128(RT * (D + P) * sizeof(T)) +
          al128(RT * (hidden + P) * sizeof(T)) +
          al128(w_rows * (CW + P) * sizeof(T)) + al128(RT * (CW + PADF) * 4);
+}
+
+// Let fn use `bytes` of dynamic shared memory (above 48 KB it must ask).
+inline cudaError_t set_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // The device's opt-in shared memory per block, or a negative CUDA error.
@@ -489,6 +503,31 @@ mlp_kernel(const T* __restrict__ x, const float* __restrict__ mod,
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Per-element sums of per-tile partials, in a fixed order (no atomics, so
+// runs repeat bit for bit): dmod[b][j] = sum over t of part[b * tiles + t][j]
+// for j < W (W = 6*D adaLN rows in the block backward, 2*D in mod_ln).
+
+__global__ void dmod_reduce_kernel(const float* __restrict__ part, int B,
+                                   int tiles, int W,
+                                   float* __restrict__ dmod) {
+  const size_t n = (size_t)B * W;
+  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * NT) {
+    const size_t b = e / W, j = e % W;
+    float s = 0.0f;
+    for (int t = 0; t < tiles; ++t) s += part[(b * tiles + t) * W + j];
+    dmod[e] = s;
+  }
+}
+
+inline void launch_dmod_reduce(const float* part, int B, int tiles, int W,
+                               float* dmod, cudaStream_t st) {
+  const size_t blocks = ((size_t)B * W + NT - 1) / NT;
+  dmod_reduce_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), NT, 0,
+                       st>>>(part, B, tiles, W, dmod);
 }
 
 }  // namespace

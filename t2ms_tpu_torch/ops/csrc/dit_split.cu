@@ -10,7 +10,8 @@
 // mlp hidden 2048, 1024 tokens. Five launches per block:
 //
 //   (1) gemm_kernel<LN, BIAS>     qkv = T(modLN(x; mod0, mod1) @ wqkv + bqkv)
-//   (2) split_attn_kernel         o   = softmax(q k^T) v, per head, merged
+//   (2) heads_attn_kernel         o   = softmax(q k^T) v, per head, merged
+//                                 (attn_heads.cuh, shared with fused_heads.cu)
 //   (3) gemm_kernel<LOAD, RESID>  y1  = x + T(gate2) * T(o @ wproj + bproj)
 //   (4) gemm_kernel<LN, GELU>     h1  = gelu(T(modLN(y1; mod3, mod4) @ wfc1
 //                                       + bfc1))
@@ -60,7 +61,7 @@
 // (launching nothing) for a shape the kernels do not take; dit_split_check
 // answers that question alone. The limits live in check_split below.
 
-#include "dit_common.cuh"
+#include "attn_heads.cuh"
 
 namespace {
 
@@ -182,17 +183,6 @@ __host__ __device__ size_t smem_gemm(bool staged, int K) {
   return a + (w > c ? w : c);
 }
 
-// split_attn_kernel: Q, K, V tiles of one head, f32 scores, exp values,
-// the f32 output tile, row max and row sum.
-template <typename T>
-__host__ __device__ size_t smem_split_attn(int DH) {
-  const int P = pad<T>();
-  return al128(QT * (DH + P) * sizeof(T)) +
-         2 * al128(KT * (DH + P) * sizeof(T)) + al128(QT * (KT + PADF) * 4) +
-         al128(QT * (KT + P) * sizeof(T)) + al128(QT * (DH + PADF) * 4) +
-         2 * al128(QT * 4);
-}
-
 // 0 when the kernels take (D, hidden, H) on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
 // D and hidden are multiples of the 128-column GEMM step (so of the 64-deep
@@ -210,7 +200,7 @@ int check_split(int D, int hidden, int H) {
   if (optin < 0) return (int)-optin;
   size_t need = smem_gemm<T>(true, D);
   if (smem_gemm<T>(false, 0) > need) need = smem_gemm<T>(false, 0);
-  if (smem_split_attn<T>(DH) > need) need = smem_split_attn<T>(DH);
+  if (smem_heads_attn<T>(DH) > need) need = smem_heads_attn<T>(DH);
   return need <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
 }
 
@@ -344,150 +334,6 @@ __global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
 }
 
 // ---------------------------------------------------------------------------
-// (2) attention for one (batch element, q tile, head): q scaled at input
-//     width, f32 scores, exact two-pass softmax over 64-row K tiles of the
-//     head, PV accumulated in f32, o = T(PV / rowsum) into the head's
-//     columns of the merged (B*N, D) output.
-
-// O[64 x DH] += E[64 x 64] @ V[64 x DH]; bf16 keeps O in registers (each
-// warp 16 rows x DH/2 columns), f32 accumulates in the shared tile O.
-template <typename T, int DH> struct PvAcc;
-
-template <int DH> struct PvAcc<__nv_bfloat16, DH> {
-  static constexpr int F = DH / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[F];
-  __device__ void zero(float*, int) {
-#pragma unroll
-    for (int j = 0; j < F; ++j) wmma::fill_fragment(c[j], 0.0f);
-  }
-  __device__ void mma(const __nv_bfloat16* E, int lde,
-                      const __nv_bfloat16* V, int ldv, float*, int) {
-    const int w = threadIdx.x / 32, rb = (w % 4) * 16, cb = (w / 4) * (DH / 2);
-#pragma unroll
-    for (int k = 0; k < KT; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, E + rb * lde + k, lde);
-#pragma unroll
-      for (int j = 0; j < F; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b;
-        wmma::load_matrix_sync(b, V + k * ldv + cb + j * 16, ldv);
-        wmma::mma_sync(c[j], a, b, c[j]);
-      }
-    }
-  }
-  __device__ void store(float* O, int ldo) {
-    const int w = threadIdx.x / 32, rb = (w % 4) * 16, cb = (w / 4) * (DH / 2);
-#pragma unroll
-    for (int j = 0; j < F; ++j)
-      wmma::store_matrix_sync(O + rb * ldo + cb + j * 16, c[j], ldo,
-                              wmma::mem_row_major);
-  }
-};
-
-template <int DH> struct PvAcc<float, DH> {
-  __device__ void zero(float* O, int ldo) {
-    for (int idx = threadIdx.x; idx < QT * DH; idx += NT)
-      O[(idx / DH) * ldo + idx % DH] = 0.0f;
-  }
-  __device__ void mma(const float* E, int lde, const float* V, int ldv,
-                      float* O, int ldo) {
-    Mma<float, false>::run(E, lde, V, ldv, O, ldo, QT, DH, KT, true);
-  }
-  __device__ void store(float*, int) {}
-};
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-split_attn_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D,
-                  int H, float qscale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ld = DH + pad<T>(), lds = KT + PADF, lde = KT + pad<T>();
-  constexpr int ldo = DH + PADF;
-  unsigned char* p = smem;
-  T* Qs = reinterpret_cast<T*>(p);      p += al128(QT * ld * sizeof(T));
-  T* Ks = reinterpret_cast<T*>(p);      p += al128(KT * ld * sizeof(T));
-  T* Vs = reinterpret_cast<T*>(p);      p += al128(KT * ld * sizeof(T));
-  float* Ss = reinterpret_cast<float*>(p); p += al128(QT * lds * 4);
-  T* Es = reinterpret_cast<T*>(p);      p += al128(QT * lde * sizeof(T));
-  float* Os = reinterpret_cast<float*>(p); p += al128(QT * ldo * 4);
-  float* Ms = reinterpret_cast<float*>(p); p += al128(QT * 4);
-  float* Rs = reinterpret_cast<float*>(p);
-
-  // q tile fastest, so the blocks of one (b, head) share its K/V in L2
-  const int q_tiles = (N + QT - 1) / QT;
-  const int q0 = (blockIdx.x % q_tiles) * QT;
-  const int h = (blockIdx.x / q_tiles) % H, b = blockIdx.x / (q_tiles * H);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int W3 = 3 * D;
-  const T* base = qkv + (size_t)b * N * W3 + h * DH;   // head h's q columns
-
-  for (int idx = threadIdx.x; idx < QT * DH; idx += NT) {
-    const int i = idx / DH, c = idx % DH, n = q0 + i;
-    const float q = n < N ? to_f<T>(base[(size_t)n * W3 + c]) : 0.0f;
-    Qs[i * ld + c] = from_f<T>(q * qscale);
-  }
-  if (threadIdx.x < QT) {
-    Ms[threadIdx.x] = -INFINITY;
-    Rs[threadIdx.x] = 0.0f;
-  }
-  PvAcc<T, DH> acc;
-  acc.zero(Os, ldo);
-  __syncthreads();
-
-  // pass 1: the f32 row max of the scores
-  for (int k0 = 0; k0 < N; k0 += KT) {
-    load_rows<T>(Ks, ld, base + (size_t)k0 * W3 + D, W3, KT, N - k0, DH);
-    __syncthreads();
-    Mma<T, true>::run(Qs, ld, Ks, ld, Ss, lds, QT, KT, DH, false);
-    __syncthreads();
-    for (int i = warp; i < QT; i += NW) {
-      float m = -INFINITY;
-      for (int j = lane; j < KT; j += 32)
-        if (k0 + j < N) m = fmaxf(m, Ss[i * lds + j]);
-      m = warp_max(m);
-      if (lane == 0) Ms[i] = fmaxf(Ms[i], m);
-    }
-    __syncthreads();
-  }
-
-  // pass 2: e = T(exp(T(s - m))), r += f32(e), O += e @ v (f32)
-  for (int k0 = 0; k0 < N; k0 += KT) {
-    load_rows<T>(Ks, ld, base + (size_t)k0 * W3 + D, W3, KT, N - k0, DH);
-    load_rows<T>(Vs, ld, base + (size_t)k0 * W3 + 2 * D, W3, KT, N - k0, DH);
-    __syncthreads();
-    Mma<T, true>::run(Qs, ld, Ks, ld, Ss, lds, QT, KT, DH, false);
-    __syncthreads();
-    for (int i = warp; i < QT; i += NW) {
-      const float m = Ms[i];
-      float r = 0.0f;
-      for (int j = lane; j < KT; j += 32) {
-        float e = 0.0f;
-        if (k0 + j < N) e = rnd<T>(expf(rnd<T>(Ss[i * lds + j] - m)));
-        Es[i * lde + j] = from_f<T>(e);
-        r += e;
-      }
-      r = warp_sum(r);
-      if (lane == 0) Rs[i] += r;
-    }
-    __syncthreads();
-    acc.mma(Es, lde, Vs, ld, Os, ldo);
-    __syncthreads();
-  }
-
-  // normalise after PV, cast, into head h's columns of the merged output
-  acc.store(Os, ldo);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < QT * DH; idx += NT) {
-    const int i = idx / DH, c = idx % DH, n = q0 + i;
-    if (n < N)
-      o[((size_t)b * N + n) * D + h * DH + c] =
-          from_f<T>(Os[i * ldo + c] / Rs[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launches
 
 template <typename T, int PRO, int EPI>
@@ -498,19 +344,6 @@ cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
       (int)s);
   if (e != cudaSuccess) return e;
   gemm_kernel<T, PRO, EPI><<<(g.rows + GM - 1) / GM, NT, s, st>>>(g);
-  return cudaGetLastError();
-}
-
-template <typename T, int DH>
-cudaError_t launch_attn(const T* qkv, T* o, int B, int N, int D, int H,
-                        float qscale, cudaStream_t st) {
-  const size_t s = smem_split_attn<T>(DH);
-  const cudaError_t e = cudaFuncSetAttribute(
-      split_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s);
-  if (e != cudaSuccess) return e;
-  const int blocks = B * ((N + QT - 1) / QT) * H;
-  split_attn_kernel<T, DH><<<blocks, NT, s, st>>>(qkv, o, N, D, H, qscale);
   return cudaGetLastError();
 }
 
@@ -536,13 +369,12 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
   g.a = x; g.w = wqkv; g.bias = bqkv; g.out = qkv;
   g.K = D; g.cols = 3 * D; g.ish = 0; g.isc = 1;
   if ((e = launch_gemm<T, PRO_LN, EPI_BIAS>(g, st)) != cudaSuccess) return e;
-  // (2) attention
-  switch (D / H) {
-    case 32: e = launch_attn<T, 32>(qkv, attn, B, N, D, H, qscale, st); break;
-    case 64: e = launch_attn<T, 64>(qkv, attn, B, N, D, H, qscale, st); break;
-    default: e = launch_attn<T, 128>(qkv, attn, B, N, D, H, qscale, st);
-  }
-  if (e != cudaSuccess) return e;
+  // (2) attention on the q, k and v columns of qkv
+  const long long W3 = 3LL * D, sb = N * W3;
+  if ((e = launch_heads_attn<T>(qkv, qkv + D, qkv + 2 * D, sb, W3, sb, W3, sb,
+                                W3, attn, B, N, D, H, qscale, st)) !=
+      cudaSuccess)
+    return e;
   // (3) x + gate * (o @ wproj)
   g.a = attn; g.w = wproj; g.bias = bproj; g.res = x; g.out = y1;
   g.K = D; g.cols = D; g.igate = 2;

@@ -1,0 +1,450 @@
+// Multi-head attention on the natural (B, N, H*DH) layout, forward and
+// backward, hand-written for Hopper (sm_90a), bf16 and f32.
+//
+// Replaces the TPU kernels t2ms_tpu/ops/attention.py:fused_heads_attention
+// (_fused_heads_kernel) and fused_heads_attention_bwd (at the scaled train
+// step's geometry the head-grouped, pipelined _bwd_pipelined_blocked_kernel,
+// the JAX default there). q, k, v and g are read through their own batch and
+// row strides, so the column slices of one qkv projection are not copied.
+//
+//   forward   heads_attn_kernel (attn_heads.cuh, shared with the split
+//             block): per (element, 64 q rows, head), q scaled at input
+//             width, f32 scores, the exact softmax in two passes over 64-row
+//             K tiles (row max; then e = T(exp(T(s - m))), f32 row sums, f32
+//             PV), o = T(PV / r).
+//   backward  three launches, recomputing the probabilities from q and k
+//             with the pipelined recipe's rounding points:
+//     stats   per (element, q tile, head): the row max m in pass 1; in pass
+//             2, with dp = g v^T in f32, r = sum e and u = sum dp * e, so
+//             1/r and t = u / r (f32, to a workspace).
+//     dq      per (element, q tile, head) over the k tiles:
+//             ds_u = T(e * (dp - t)), dq = T((ds_u k) * (scale / r)).
+//     dkdv    per (element, k tile, head) over the q tiles:
+//             dv = T(sum e^T T(g / r)), dk = T(sum ds_u^T T(q * scale / r)).
+//             Two kernels instead of atomics, so every sum has one order and
+//             runs repeat bit for bit.
+//
+// Bound on an H100 SXM at the scaled train step's call (B=64, N=1024,
+// HD=512, 8 heads of 64, bf16): the forward's two products (QK^T, PV) are
+// 137.4 GFLOP, 0.139 ms at 989 TFLOP/s, against 268 MB of q, k, v and o,
+// 0.080 ms; the backward's five (QK^T, dP, dQ, dK, dV) 343.6 GFLOP, 0.347
+// ms, against 470 MB, 0.140 ms. Both are bound by operations, so every
+// product runs on the tensor cores (WMMA bf16 16x16x16 with f32 sums, the
+// dq, dk and dv sums held in registers across the loop; the f32 entries use
+// FMA loops so they stay tight against their twins). The exact softmax
+// costs QK^T twice in the forward and three times in the backward, and the
+// tiles go through shared memory: speed (wgmma, TMA, online softmax) is
+// later work; these kernels are the simple, right ones.
+//
+// C interface for ctypes: fused_heads_forward_{bf16,f32} and
+// fused_heads_backward_{bf16,f32} launch on the given stream and return
+// cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE (launching nothing) for a
+// shape the kernels do not take; fused_heads_backward_workspace gives the
+// bytes of the per-row statistics the caller allocates; fused_heads_check
+// answers the shape question.
+
+#include "attn_heads.cuh"
+
+namespace {
+
+// One operand of the backward: element b's row n of head h starts at
+// p + b * sb + n * sn + h * DH.
+template <typename T> struct Opd {
+  const T* p;
+  long long sb, sn;
+  __device__ const T* head(int b, int h, int DH) const {
+    return p + (size_t)b * sb + h * DH;
+  }
+};
+
+template <typename T> struct BwdArgs {
+  Opd<T> q, k, v, g;
+  T *dq, *dk, *dv;  // contiguous (B, N, HD)
+  float* st;        // (B*N, H, 3): m, 1/r, t
+  int B, N, HD, H;
+  float scale, qscale;
+};
+
+// Shared memory of the three backward kernels (carved in this order)
+template <typename T>
+__host__ __device__ size_t smem_bwd(int DH, int kernel) {
+  const int R = tb<T>(), P = pad<T>();
+  const size_t tile = al128(R * (DH + P) * sizeof(T));    // Q, G, K, V
+  const size_t sq = al128(R * (R + PADF) * 4);            // S, dP
+  const size_t e = al128(R * (R + P) * sizeof(T));        // E, dS
+  const size_t acc = al128(R * (DH + PADF) * 4);          // dQ, dK, dV
+  const size_t rows = 3 * al128(R * 4);                   // per-row stats
+  if (kernel == 0) return 4 * tile + 2 * sq + rows;             // stats
+  if (kernel == 1) return 4 * tile + 2 * sq + e + acc + rows;   // dq
+  return 4 * tile + 2 * sq + 2 * e + 2 * acc + rows;            // dkdv
+}
+
+// Block -> (element b, tile, head h), the tile fastest
+struct Place {
+  int b, t0, h;
+};
+__device__ Place place(int N, int H, int R) {
+  const int tiles = (N + R - 1) / R;
+  return Place{(int)(blockIdx.x / (tiles * H)), (int)(blockIdx.x % tiles) * R,
+               (int)(blockIdx.x / tiles) % H};
+}
+
+// The q side of a backward tile: Qs = T(q * qscale), Gs = g, rows past
+// `valid` zero.
+template <typename T, int DH>
+__device__ void load_q_side(const BwdArgs<T>& a, int b, int h, int q0,
+                            int valid, T* Qs, T* Gs, int ld) {
+  constexpr int R = tb<T>();
+  load_q_scaled<T, DH>(Qs, ld, a.q.head(b, h, DH), a.q.sn, q0, R, valid,
+                       a.qscale);
+  load_rows<T>(Gs, ld, a.g.head(b, h, DH) + (size_t)q0 * a.g.sn, a.g.sn, R,
+               valid, DH);
+}
+
+// S = Qs Ks^T and dP = Gs Vs^T (f32)
+template <typename T, int DH>
+__device__ void scores(const T* Qs, const T* Gs, const T* Ks, const T* Vs,
+                       int ld, float* Ss, float* dPs, int lds) {
+  constexpr int R = tb<T>();
+  Mma<T, true>::run(Qs, ld, Ks, ld, Ss, lds, R, R, DH, false);
+  Mma<T, true>::run(Gs, ld, Vs, ld, dPs, lds, R, R, DH, false);
+}
+
+// stats: m (pass 1), then r = sum e and u = sum dp * e (pass 2)
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT) heads_bwd_stats_kernel(BwdArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = tb<T>(), ld = DH + pad<T>(), lds = R + PADF;
+  unsigned char* p = smem;
+  T* Qs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Gs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Ks = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Vs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  float* Ss = reinterpret_cast<float*>(p);  p += al128(R * lds * 4);
+  float* dPs = reinterpret_cast<float*>(p); p += al128(R * lds * 4);
+  float* Ms = reinterpret_cast<float*>(p);  p += al128(R * 4);
+  float* Rs = reinterpret_cast<float*>(p);  p += al128(R * 4);
+  float* Us = reinterpret_cast<float*>(p);
+
+  const int N = a.N;
+  const Place pl = place(N, a.H, R);
+  const int vq = min(R, N - pl.t0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* kh = a.k.head(pl.b, pl.h, DH);
+  const T* vh = a.v.head(pl.b, pl.h, DH);
+  load_q_side<T, DH>(a, pl.b, pl.h, pl.t0, vq, Qs, Gs, ld);
+  for (int i = threadIdx.x; i < R; i += NT) {
+    Ms[i] = -INFINITY;
+    Rs[i] = Us[i] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < N; k0 += R) {
+    __syncthreads();
+    load_rows<T>(Ks, ld, kh + (size_t)k0 * a.k.sn, a.k.sn, R, N - k0, DH);
+    __syncthreads();
+    Mma<T, true>::run(Qs, ld, Ks, ld, Ss, lds, R, R, DH, false);
+    __syncthreads();
+    for (int i = warp; i < R; i += NW) {
+      float m = -INFINITY;
+      for (int j = lane; j < R; j += 32)
+        if (k0 + j < N) m = fmaxf(m, Ss[i * lds + j]);
+      m = warp_max(m);
+      if (lane == 0) Ms[i] = fmaxf(Ms[i], m);
+    }
+  }
+  for (int k0 = 0; k0 < N; k0 += R) {
+    __syncthreads();
+    load_rows<T>(Ks, ld, kh + (size_t)k0 * a.k.sn, a.k.sn, R, N - k0, DH);
+    load_rows<T>(Vs, ld, vh + (size_t)k0 * a.v.sn, a.v.sn, R, N - k0, DH);
+    __syncthreads();
+    scores<T, DH>(Qs, Gs, Ks, Vs, ld, Ss, dPs, lds);
+    __syncthreads();
+    for (int i = warp; i < R; i += NW) {
+      const float m = Ms[i];
+      float r = 0.0f, u = 0.0f;
+      for (int j = lane; j < R; j += 32) {
+        if (k0 + j < N) {
+          const float e = rnd<T>(expf(rnd<T>(Ss[i * lds + j] - m)));
+          r += e;
+          u += dPs[i * lds + j] * e;
+        }
+      }
+      r = warp_sum(r);
+      u = warp_sum(u);
+      if (lane == 0) {
+        Rs[i] += r;
+        Us[i] += u;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < vq; i += NT) {
+    float* s = a.st + (((size_t)pl.b * N + pl.t0 + i) * a.H + pl.h) * 3;
+    const float inv_r = 1.0f / Rs[i];
+    s[0] = Ms[i];
+    s[1] = inv_r;
+    s[2] = Us[i] * inv_r;
+  }
+}
+
+// The rows' m, 1/r and t from the stats workspace; rows past `valid` get
+// 0, so their e, ds, g / r and q * scale / r vanish.
+template <typename T>
+__device__ void load_stats(const BwdArgs<T>& a, int b, int h, int q0,
+                           int valid, float* Ms, float* Ir, float* Ts) {
+  for (int i = threadIdx.x; i < tb<T>(); i += NT) {
+    const float* s = a.st + (((size_t)b * a.N + q0 + i) * a.H + h) * 3;
+    const bool ok = i < valid;
+    Ms[i] = ok ? s[0] : 0.0f;
+    Ir[i] = ok ? s[1] : 0.0f;
+    Ts[i] = ok ? s[2] : 0.0f;
+  }
+}
+
+// e = T(exp(T(s - m))) and ds_u = e * (dp - t) for q row i < vq and k row
+// j < vk, zero outside
+template <typename T>
+__device__ __forceinline__ void e_ds(const float* Ss, const float* dPs,
+                                     int lds, const float* Ms,
+                                     const float* Ts, int i, int j, int vq,
+                                     int vk, float& e, float& ds) {
+  e = 0.0f;
+  ds = 0.0f;
+  if (i < vq && j < vk) {
+    e = rnd<T>(expf(rnd<T>(Ss[i * lds + j] - Ms[i])));
+    ds = e * (dPs[i * lds + j] - Ts[i]);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = tb<T>(), P = pad<T>();
+  constexpr int ld = DH + P, lds = R + PADF, ldp = R + P, ldf = DH + PADF;
+  unsigned char* p = smem;
+  T* Qs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Gs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Ks = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Vs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  float* Ss = reinterpret_cast<float*>(p);  p += al128(R * lds * 4);
+  float* dPs = reinterpret_cast<float*>(p); p += al128(R * lds * 4);
+  T* DSs = reinterpret_cast<T*>(p);  p += al128(R * ldp * sizeof(T));
+  float* dQ = reinterpret_cast<float*>(p);  p += al128(R * ldf * 4);
+  float* Ms = reinterpret_cast<float*>(p);  p += al128(R * 4);
+  float* Ir = reinterpret_cast<float*>(p);  p += al128(R * 4);
+  float* Ts = reinterpret_cast<float*>(p);
+
+  const int N = a.N;
+  const Place pl = place(N, a.H, R);
+  const int vq = min(R, N - pl.t0);
+  const T* kh = a.k.head(pl.b, pl.h, DH);
+  const T* vh = a.v.head(pl.b, pl.h, DH);
+  load_q_side<T, DH>(a, pl.b, pl.h, pl.t0, vq, Qs, Gs, ld);
+  load_stats<T>(a, pl.b, pl.h, pl.t0, vq, Ms, Ir, Ts);
+  PvAcc<T, DH, R> acc;
+  acc.zero(dQ, ldf);
+
+  for (int k0 = 0; k0 < N; k0 += R) {
+    const int vk = min(R, N - k0);
+    __syncthreads();
+    load_rows<T>(Ks, ld, kh + (size_t)k0 * a.k.sn, a.k.sn, R, vk, DH);
+    load_rows<T>(Vs, ld, vh + (size_t)k0 * a.v.sn, a.v.sn, R, vk, DH);
+    __syncthreads();
+    scores<T, DH>(Qs, Gs, Ks, Vs, ld, Ss, dPs, lds);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < R * R; idx += NT) {
+      const int i = idx / R, j = idx % R;
+      float e, ds;
+      e_ds<T>(Ss, dPs, lds, Ms, Ts, i, j, vq, vk, e, ds);
+      DSs[i * ldp + j] = from_f<T>(ds);
+    }
+    __syncthreads();
+    acc.mma(DSs, ldp, Ks, ld, dQ, ldf);  // dQ += ds_u k
+  }
+  __syncthreads();
+  acc.store(dQ, ldf);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < vq * DH; idx += NT) {
+    const int i = idx / DH, c = idx % DH;
+    a.dq[((size_t)pl.b * N + pl.t0 + i) * a.HD + pl.h * DH + c] =
+        from_f<T>(dQ[i * ldf + c] * (a.scale * Ir[i]));
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = tb<T>(), P = pad<T>();
+  constexpr int ld = DH + P, lds = R + PADF, ldp = R + P, ldf = DH + PADF;
+  unsigned char* p = smem;
+  T* Qs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Gs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Ks = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  T* Vs = reinterpret_cast<T*>(p);  p += al128(R * ld * sizeof(T));
+  float* Ss = reinterpret_cast<float*>(p);  p += al128(R * lds * 4);
+  float* dPs = reinterpret_cast<float*>(p); p += al128(R * lds * 4);
+  T* Es = reinterpret_cast<T*>(p);   p += al128(R * ldp * sizeof(T));
+  T* DSs = reinterpret_cast<T*>(p);  p += al128(R * ldp * sizeof(T));
+  float* dK = reinterpret_cast<float*>(p);  p += al128(R * ldf * 4);
+  float* dV = reinterpret_cast<float*>(p);  p += al128(R * ldf * 4);
+  float* Ms = reinterpret_cast<float*>(p);  p += al128(R * 4);
+  float* Ir = reinterpret_cast<float*>(p);  p += al128(R * 4);
+  float* Ts = reinterpret_cast<float*>(p);
+
+  const int N = a.N;
+  const Place pl = place(N, a.H, R);
+  const int vk = min(R, N - pl.t0);
+  const T* qh = a.q.head(pl.b, pl.h, DH);
+  load_rows<T>(Ks, ld, a.k.head(pl.b, pl.h, DH) + (size_t)pl.t0 * a.k.sn,
+               a.k.sn, R, vk, DH);
+  load_rows<T>(Vs, ld, a.v.head(pl.b, pl.h, DH) + (size_t)pl.t0 * a.v.sn,
+               a.v.sn, R, vk, DH);
+  PvAcc<T, DH, R, true> ak, av;  // dK += ds_u^T qs, dV += e^T gs
+  ak.zero(dK, ldf);
+  av.zero(dV, ldf);
+
+  for (int q0 = 0; q0 < N; q0 += R) {
+    const int vq = min(R, N - q0);
+    __syncthreads();
+    load_q_side<T, DH>(a, pl.b, pl.h, q0, vq, Qs, Gs, ld);
+    load_stats<T>(a, pl.b, pl.h, q0, vq, Ms, Ir, Ts);
+    __syncthreads();
+    scores<T, DH>(Qs, Gs, Ks, Vs, ld, Ss, dPs, lds);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < R * R; idx += NT) {
+      const int i = idx / R, j = idx % R;  // q row i, k row j
+      float e, ds;
+      e_ds<T>(Ss, dPs, lds, Ms, Ts, i, j, vq, vk, e, ds);
+      Es[i * ldp + j] = from_f<T>(e);
+      DSs[i * ldp + j] = from_f<T>(ds);
+    }
+    // the scores are done with Qs and Gs: gs = T(g / r) and
+    // qs = T(q * (scale / r)) in their place (q read again, unscaled)
+    for (int idx = threadIdx.x; idx < R * DH; idx += NT) {
+      const int i = idx / DH, c = idx % DH;
+      const float ir = Ir[i];
+      Gs[i * ld + c] = from_f<T>(to_f<T>(Gs[i * ld + c]) * ir);
+      const float qv =
+          i < vq ? to_f<T>(qh[(size_t)(q0 + i) * a.q.sn + c]) : 0.0f;
+      Qs[i * ld + c] = from_f<T>(qv * (a.scale * ir));
+    }
+    __syncthreads();
+    av.mma(Es, ldp, Gs, ld, dV, ldf);
+    ak.mma(DSs, ldp, Qs, ld, dK, ldf);
+  }
+  __syncthreads();
+  ak.store(dK, ldf);
+  av.store(dV, ldf);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < vk * DH; idx += NT) {
+    const int j = idx / DH, c = idx % DH;
+    const size_t o = ((size_t)pl.b * N + pl.t0 + j) * a.HD + pl.h * DH + c;
+    a.dk[o] = from_f<T>(dK[j * ldf + c]);
+    a.dv[o] = from_f<T>(dV[j * ldf + c]);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
+  const size_t s0 = smem_bwd<T>(DH, 0), s1 = smem_bwd<T>(DH, 1),
+               s2 = smem_bwd<T>(DH, 2);
+  cudaError_t e;
+  if ((e = set_smem((const void*)heads_bwd_stats_kernel<T, DH>, s0)) ||
+      (e = set_smem((const void*)heads_bwd_dq_kernel<T, DH>, s1)) ||
+      (e = set_smem((const void*)heads_bwd_dkdv_kernel<T, DH>, s2)))
+    return e;
+  const int blocks = a.B * ((a.N + tb<T>() - 1) / tb<T>()) * a.H;
+  heads_bwd_stats_kernel<T, DH><<<blocks, NT, s0, st>>>(a);
+  heads_bwd_dq_kernel<T, DH><<<blocks, NT, s1, st>>>(a);
+  heads_bwd_dkdv_kernel<T, DH><<<blocks, NT, s2, st>>>(a);
+  return cudaGetLastError();
+}
+
+// 0 when the kernels take H*DH = HD in H heads on the current device,
+// T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
+// The head width is 32, 64 or 128 (the bf16 register sums split a head's
+// columns over two warps in 16-wide fragments); every kernel's shared memory
+// fits what one block may opt in to on this device.
+template <typename T> int check_heads(int HD, int H) {
+  if (H < 1 || HD < 1 || HD % H) return T2MS_UNSUPPORTED_SHAPE;
+  const int DH = HD / H;
+  if (DH != 32 && DH != 64 && DH != 128) return T2MS_UNSUPPORTED_SHAPE;
+  const long long optin = smem_optin();
+  if (optin < 0) return (int)-optin;
+  size_t need = smem_heads_attn<T>(DH);
+  for (int k = 0; k < 3; ++k)
+    if (smem_bwd<T>(DH, k) > need) need = smem_bwd<T>(DH, k);
+  return need <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
+}
+
+// rows of (B*N, .) and the blocks of every grid are indexed as int (the
+// forward's tiles are QT rows, the backward's tb<T>() <= QT)
+template <typename T> int check_all(int B, int N, int HD, int H) {
+  if (B < 1 || N < 1 || (long long)B * N > INT_MAX ||
+      (long long)B * ((N + tb<T>() - 1) / tb<T>()) * H > INT_MAX)
+    return T2MS_UNSUPPORTED_SHAPE;
+  return check_heads<T>(HD, H);
+}
+
+template <typename T>
+int run_forward(const T* q, const T* k, const T* v, T* o, int B, int N,
+                int HD, int H, long long sqb, long long sqn, long long skb,
+                long long skn, long long svb, long long svn, float qscale,
+                cudaStream_t st) {
+  const int ok = check_all<T>(B, N, HD, H);
+  if (ok) return ok;
+  return launch_heads_attn<T>(q, k, v, sqb, sqn, skb, skn, svb, svn, o, B, N,
+                              HD, H, qscale, st);
+}
+
+template <typename T>
+int run_backward(const BwdArgs<T>& a, cudaStream_t st) {
+  const int ok = check_all<T>(a.B, a.N, a.HD, a.H);
+  if (ok) return ok;
+  switch (a.HD / a.H) {
+    case 32: return launch_bwd<T, 32>(a, st);
+    case 64: return launch_bwd<T, 64>(a, st);
+    default: return launch_bwd<T, 128>(a, st);
+  }
+}
+
+}  // namespace
+
+#define T2MS_HEADS_ENTRIES(SUFFIX, T)                                         \
+  extern "C" int fused_heads_forward_##SUFFIX(                                \
+      const void* q, const void* k, const void* v, void* o, int B, int N,     \
+      int HD, int H, long long sqb, long long sqn, long long skb,             \
+      long long skn, long long svb, long long svn, float qscale,              \
+      void* stream) {                                                         \
+    return run_forward<T>((const T*)q, (const T*)k, (const T*)v, (T*)o, B, N, \
+                          HD, H, sqb, sqn, skb, skn, svb, svn, qscale,        \
+                          (cudaStream_t)stream);                              \
+  }                                                                           \
+  extern "C" int fused_heads_backward_##SUFFIX(                               \
+      const void* q, const void* k, const void* v, const void* g, void* dq,   \
+      void* dk, void* dv, void* work, int B, int N, int HD, int H,            \
+      long long sqb, long long sqn, long long skb, long long skn,             \
+      long long svb, long long svn, long long sgb, long long sgn,             \
+      float scale, float qscale, void* stream) {                              \
+    const BwdArgs<T> a{{(const T*)q, sqb, sqn}, {(const T*)k, skb, skn},      \
+                       {(const T*)v, svb, svn}, {(const T*)g, sgb, sgn},      \
+                       (T*)dq, (T*)dk, (T*)dv, (float*)work, B, N, HD, H,     \
+                       scale, qscale};                                        \
+    return run_backward<T>(a, (cudaStream_t)stream);                          \
+  }
+
+T2MS_HEADS_ENTRIES(bf16, __nv_bfloat16)
+T2MS_HEADS_ENTRIES(f32, float)
+
+extern "C" long long fused_heads_backward_workspace(int B, int N, int H) {
+  return (long long)B * N * H * 3 * 4;
+}
+
+extern "C" int fused_heads_check(int HD, int H, int is_bf16) {
+  return is_bf16 ? check_heads<__nv_bfloat16>(HD, H)
+                 : check_heads<float>(HD, H);
+}
+
+extern "C" const char* t2ms_cuda_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}

@@ -1,6 +1,7 @@
-"""The adaLN-zero blocks of the DiT (counterpart of
-t2ms_tpu/ops/dit_block.py ``fused_dit_stack``, ``fused_dit_block``,
-``fused_dit_block_diffable`` and ``fused_dit_block_split``).
+"""The adaLN-zero blocks of the DiT and the flax path's LayerNorm +
+modulate (counterpart of t2ms_tpu/ops/dit_block.py ``fused_dit_stack``,
+``fused_dit_block``, ``fused_dit_block_diffable``,
+``fused_dit_block_split`` and ``mod_ln_diffable``).
 
 All keep the JAX signatures and layouts: x (B, N, D), per-sample adaLN
 vectors mod (B, L, 6, D) for the stack and (B, 6, D) for one block, flax
@@ -13,44 +14,49 @@ wrappers' ``w(a)`` does.
   residual, modLN+MLP+gated residual; one block is the stack with L = 1),
   the block backward of ``csrc/dit_block_bwd.cu``, and the wide-geometry
   block of ``csrc/dit_split.cu`` (modLN+qkv, attention, proj+gated
-  residual, modLN+fc1+GELU, fc2+gated residual). Each wrapper counts
+  residual, modLN+fc1+GELU, fc2+gated residual), and the LayerNorm +
+  modulate forward and backward of ``csrc/mod_ln.cu``. Each wrapper counts
   its launches under its own name. A shape the kernels do not take (the
   libraries' own limits), a failed build or a failed launch raises; there
   is no fallback.
 * On a CPU tensor they run the plain PyTorch twins, which follow
-  ``_block_math`` step by step; the twin of the backward is autograd over
-  the twin of the block.
+  ``_block_math`` step by step; the twin of a backward is autograd over
+  the twin of its forward.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from t2ms_tpu_torch.ops import _build
-from t2ms_tpu_torch.ops.attention import attn_heads_natural
+from t2ms_tpu_torch.ops.attention import fused_heads_reference
 
 __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "dit_stack_reference_block", "stack_kernel_supported",
            "fused_dit_block", "fused_dit_block_reference",
            "fused_dit_block_diffable", "block_kernel_supported",
            "fused_dit_block_split", "split_kernel_supported",
+           "mod_ln_diffable", "mod_ln_reference", "mod_ln_supported",
            "STACK_KERNEL", "BLOCK_KERNEL", "BLOCK_BWD_KERNEL",
-           "SPLIT_KERNEL"]
+           "SPLIT_KERNEL", "MOD_LN_KERNEL", "MOD_LN_BWD_KERNEL"]
 
 STACK_KERNEL = "fused_dit_stack"
 BLOCK_KERNEL = "fused_dit_block"
 BLOCK_BWD_KERNEL = "_fused_block_diff_bwd"
 SPLIT_KERNEL = "fused_dit_block_split"
+MOD_LN_KERNEL = "_mod_ln_call"
+MOD_LN_BWD_KERNEL = "_mod_ln_diff_bwd"
 _ENTRY = {torch.bfloat16: "dit_stack_forward_bf16",
           torch.float32: "dit_stack_forward_f32"}
 _BWD_ENTRY = {torch.bfloat16: "dit_block_backward_bf16",
               torch.float32: "dit_block_backward_f32"}
 _SPLIT_ENTRY = {torch.bfloat16: "dit_split_forward_bf16",
                 torch.float32: "dit_split_forward_f32"}
-_UNSUPPORTED_SHAPE = -1     # T2MS_UNSUPPORTED_SHAPE in dit_common.cuh
+_MOD_LN_ENTRY = {torch.bfloat16: "mod_ln_forward_bf16",
+                 torch.float32: "mod_ln_forward_f32"}
+_MOD_LN_BWD_ENTRY = {torch.bfloat16: "mod_ln_backward_bf16",
+                     torch.float32: "mod_ln_backward_f32"}
 
 
 # --------------------------------------------------------------- plain twin
@@ -82,12 +88,8 @@ def dit_stack_reference_block(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
     D = x.shape[-1]
     m = lambda i: mod[:, i][:, None, :]                       # (B, 1, D)
     qkv = _dense(_mod_ln(x, m(0), m(1), eps), wqkv, bqkv)
-    scale = (D // num_heads) ** -0.5
-    parts = [None] * num_heads
-    for h, _, o in attn_heads_natural(qkv[..., :D], qkv[..., D:2 * D],
-                                      qkv[..., 2 * D:], num_heads, scale):
-        parts[h] = o.to(dt)
-    attn = torch.cat(parts, dim=-1)
+    attn = fused_heads_reference(qkv[..., :D], qkv[..., D:2 * D],
+                                 qkv[..., 2 * D:], num_heads)
     x = x + m(2).to(dt) * _dense(attn, wproj, bproj)
     h1 = F.gelu(_dense(_mod_ln(x, m(3), m(4), eps), wfc1, bfc1),
                 approximate="tanh")
@@ -121,17 +123,12 @@ def fused_dit_block_reference(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
 # ------------------------------------------------------------ CUDA kernels
 
 def _kernel_supported(library, check, D, hidden, num_heads, dtype):
-    """Ask a kernel library's own check (the limits live in the CUDA
-    sources only), which builds and loads it: needs nvcc and a card."""
+    """Ask a block library's own check (``_build.supported``), which
+    builds and loads it: needs nvcc and a card."""
     if dtype not in _ENTRY:
         return False
-    lib = _build.load(library)
-    err = getattr(lib, check)(D, hidden, num_heads,
-                              int(dtype == torch.bfloat16))
-    if err not in (0, _UNSUPPORTED_SHAPE):
-        raise RuntimeError(f"{check} failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
-    return err == 0
+    return _build.supported(library, check, D, hidden, num_heads,
+                            int(dtype == torch.bfloat16))
 
 
 def stack_kernel_supported(D: int, hidden: int, num_heads: int,
@@ -178,17 +175,6 @@ def _check_shapes(x, mod, ws, kernel=STACK_KERNEL):
                              f"got {tuple(t.shape)}")
 
 
-def _refuse_autograd(name, tensors, train_path):
-    """The CUDA forward writes its output through a raw pointer, so the
-    result carries no grad_fn: under grad mode, inputs that require grad
-    would train nothing and raise nothing. Refuse them instead."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} on CUDA has no backward; an input requires grad under "
-            f"grad mode, so train through {train_path} (or run this under "
-            f"torch.no_grad())")
-
-
 def _refused(name, x, hidden, num_heads):
     B, N, D = x.shape
     return ValueError(
@@ -207,25 +193,6 @@ def _operands(x, mod, ws, num_heads):
             float(torch.tensor((x.shape[-1] // num_heads) ** -0.5, dtype=dt)))
 
 
-def _launch(lib, entry, name, refused, dev, *args):
-    """Call the C entry ``entry`` of ``lib`` on dev's current stream, with
-    each tensor of ``args`` passed as its pointer and each float as a C
-    float. Raise ``refused`` for a shape the kernels do not take and
-    RuntimeError for a failed launch; count the launch under ``name``."""
-    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else ctypes.c_float(a) if isinstance(a, float) else a
-            for a in args]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
-    if err == _UNSUPPORTED_SHAPE:
-        raise refused
-    if err:
-        raise RuntimeError(f"{name} CUDA launch failed: "
-                           f"{_build.cuda_error_string(lib, err)}")
-    _build.count_launch(name)
-
-
 def _launch_stack(x, mod, ws, num_heads, eps, name=STACK_KERNEL):
     B, N, D = x.shape
     L = ws[0].shape[0]
@@ -237,8 +204,9 @@ def _launch_stack(x, mod, ws, num_heads, eps, name=STACK_KERNEL):
     x, mod, ws, qscale = _operands(x, mod, ws, num_heads)
     out, tmp = torch.empty_like(x), torch.empty_like(x)
     qkv = torch.empty((B, N, 3 * D), device=x.device, dtype=x.dtype)
-    _launch(lib, _ENTRY[x.dtype], name, refused, x.device, x, mod, *ws, out,
-            tmp, qkv, B, N, D, hidden, L, num_heads, eps, qscale)
+    _build.launch(lib, _ENTRY[x.dtype], name, refused, x.device, x, mod,
+                  *ws, out, tmp, qkv, B, N, D, hidden, L, num_heads, eps,
+                  qscale)
     return out
 
 
@@ -256,9 +224,9 @@ def _launch_split(x, mod, ws, num_heads, eps):
     out, attn, y1 = (torch.empty_like(x) for _ in range(3))
     qkv = torch.empty((B, N, 3 * D), device=x.device, dtype=x.dtype)
     h1 = torch.empty((B, N, hidden), device=x.device, dtype=x.dtype)
-    _launch(lib, _SPLIT_ENTRY[x.dtype], SPLIT_KERNEL, refused, x.device, x,
-            mod, *ws, out, qkv, attn, y1, h1, B, N, D, hidden, num_heads,
-            eps, qscale)
+    _build.launch(lib, _SPLIT_ENTRY[x.dtype], SPLIT_KERNEL, refused,
+                  x.device, x, mod, *ws, out, qkv, attn, y1, h1, B, N, D,
+                  hidden, num_heads, eps, qscale)
     return out
 
 
@@ -276,7 +244,7 @@ def _launch_block_bwd(x, mod, ws, dy, num_heads, eps):
     dev = x.device
     is_bf16 = int(dt == torch.bfloat16)
     if lib.dit_block_check(D, hidden, num_heads, is_bf16) == \
-            _UNSUPPORTED_SHAPE:
+            _build.UNSUPPORTED_SHAPE:
         raise refused
     x, mod, ws, qscale = _operands(x, mod, ws, num_heads)
     dy = dy.to(dtype=dt).contiguous()
@@ -285,8 +253,9 @@ def _launch_block_bwd(x, mod, ws, dy, num_heads, eps):
     dws = [torch.empty(w.shape, device=dev, dtype=torch.float32) for w in ws]
     work = torch.empty(lib.dit_block_backward_workspace(
         B, N, D, hidden, num_heads, is_bf16), device=dev, dtype=torch.uint8)
-    _launch(lib, _BWD_ENTRY[dt], BLOCK_BWD_KERNEL, refused, dev, x, mod, *ws,
-            dy, dx, dmod, *dws, work, B, N, D, hidden, num_heads, eps, qscale)
+    _build.launch(lib, _BWD_ENTRY[dt], BLOCK_BWD_KERNEL, refused, dev, x,
+                  mod, *ws, dy, dx, dmod, *dws, work, B, N, D, hidden,
+                  num_heads, eps, qscale)
     return dx, dmod, dws
 
 
@@ -306,7 +275,7 @@ def fused_dit_stack(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
     ws = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
     _check_shapes(x, mod, ws)
     if x.is_cuda:
-        _refuse_autograd(STACK_KERNEL, (x, mod, *ws),
+        _build.refuse_autograd(STACK_KERNEL, (x, mod, *ws),
                          "models.denoisers.dit_fast.fast_dit_train_forward")
         return _launch_stack(x, mod, ws, num_heads, eps)
     if x.device.type != "cpu":
@@ -329,7 +298,7 @@ def fused_dit_block(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
     stacked = tuple(w[None] for w in ws)
     _check_shapes(x, mod[:, None], stacked, BLOCK_KERNEL)
     if x.is_cuda:
-        _refuse_autograd(BLOCK_KERNEL, (x, mod, *ws),
+        _build.refuse_autograd(BLOCK_KERNEL, (x, mod, *ws),
                          "fused_dit_block_diffable")
         return _launch_stack(x, mod[:, None], stacked, num_heads, eps,
                              BLOCK_KERNEL)
@@ -358,7 +327,7 @@ def fused_dit_block_split(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv,
                          f"{tuple(mod.shape)}")
     _check_shapes(x, mod[:, None], tuple(w[None] for w in ws), SPLIT_KERNEL)
     if x.is_cuda:
-        _refuse_autograd(SPLIT_KERNEL, (x, mod, *ws),
+        _build.refuse_autograd(SPLIT_KERNEL, (x, mod, *ws),
                          "fused_dit_block_diffable")
         return _launch_split(x, mod, ws, num_heads, eps)
     if x.device.type != "cpu":
@@ -405,3 +374,110 @@ def fused_dit_block_diffable(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
     parameters (``lin.weight.t()``) so the grads reach them."""
     return _FusedBlock.apply(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
                              wfc2, bfc2, num_heads)
+
+
+# ------------------------------------------------ LayerNorm + modulate
+
+def mod_ln_reference(x: torch.Tensor, mod2: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Plain twin of ``_mod_ln_call``: x (B, N, D), mod2 (B, 2, D) =
+    [shift, scale]; f32 LayerNorm, modulate in f32, one rounding to x's
+    dtype (the shared ``_mod_ln``)."""
+    return _mod_ln(x, mod2[:, 0, None], mod2[:, 1, None], eps)
+
+
+def mod_ln_supported(D: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA LayerNorm + modulate kernels, forward and
+    backward, take rows of D values in ``dtype`` (``mod_ln_check`` in
+    mod_ln.cu). The JAX VMEM envelope (``mod_ln_block_q``) is not
+    ported."""
+    if dtype not in _MOD_LN_ENTRY:
+        return False
+    return _build.supported("mod_ln", "mod_ln_check", D,
+                            int(dtype == torch.bfloat16))
+
+
+def _check_mod2(x, mod2):
+    if x.dim() != 3 or tuple(mod2.shape) != (x.shape[0], 2, x.shape[2]):
+        raise ValueError(f"{MOD_LN_KERNEL}: x must be (B, N, D) and mod2 "
+                         f"(B, 2, D), got {tuple(x.shape)} and "
+                         f"{tuple(mod2.shape)}")
+
+
+def _mod_ln_operands(name, x, mod2):
+    B, N, D = x.shape
+    refused = ValueError(f"{name} CUDA kernel does not take B={B} N={N} "
+                         f"D={D} dtype={x.dtype}")
+    if x.dtype not in _MOD_LN_ENTRY:
+        raise refused
+    return (refused, _build.load("mod_ln"), x.contiguous(),
+            mod2.to(device=x.device, dtype=torch.float32).contiguous())
+
+
+def _launch_mod_ln(x, mod2, eps):
+    refused, lib, x, m = _mod_ln_operands(MOD_LN_KERNEL, x, mod2)
+    out = torch.empty_like(x)
+    _build.launch(lib, _MOD_LN_ENTRY[x.dtype], MOD_LN_KERNEL, refused,
+                  x.device, x, m, out, *x.shape, float(eps))
+    return out
+
+
+def _launch_mod_ln_bwd(x, mod2, dy, eps):
+    """dx in x's dtype and dmod2 in mod2's: the kernel sums dshift and
+    dscale in f32 and they are rounded once here."""
+    refused, lib, x, m = _mod_ln_operands(MOD_LN_BWD_KERNEL, x, mod2)
+    dy = dy.to(dtype=x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    dmod = torch.empty(m.shape, device=x.device, dtype=torch.float32)
+    work = torch.empty(lib.mod_ln_backward_workspace(*x.shape),
+                       device=x.device, dtype=torch.uint8)
+    _build.launch(lib, _MOD_LN_BWD_ENTRY[x.dtype], MOD_LN_BWD_KERNEL,
+                  refused, x.device, x, m, dy, dx, dmod, work, *x.shape,
+                  float(eps))
+    return dx, dmod.to(mod2.dtype)
+
+
+def _mod_ln_call(x, mod2, eps):
+    """The forward: the kernel on a CUDA tensor, the twin on a CPU one."""
+    _check_mod2(x, mod2)
+    if x.is_cuda:
+        return _launch_mod_ln(x, mod2, eps)
+    if x.device.type != "cpu":
+        raise ValueError(f"{MOD_LN_KERNEL}: unsupported device {x.device}")
+    return mod_ln_reference(x, mod2, eps)
+
+
+class _ModLn(torch.autograd.Function):
+    """Forward ``_mod_ln_call``; backward the hand-written kernel on CUDA,
+    autograd over the twin on the CPU. The residuals are the inputs, as in
+    the JAX kernel."""
+
+    @staticmethod
+    def forward(ctx, x, mod2, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, mod2)
+        return _mod_ln_call(x, mod2, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mod2 = ctx.saved_tensors
+        if x.is_cuda:
+            dx, dmod = _launch_mod_ln_bwd(x, mod2, dy, ctx.eps)
+        else:
+            with torch.enable_grad():
+                inp = [t.detach().requires_grad_() for t in (x, mod2)]
+                dx, dmod = torch.autograd.grad(
+                    mod_ln_reference(*inp, ctx.eps), inp, dy)
+        return dx, dmod, None
+
+
+def mod_ln_diffable(x: torch.Tensor, mod2: torch.Tensor, eps: float = 1e-6,
+                    block_q: int = 0) -> torch.Tensor:
+    """Differentiable LayerNorm (no scale or bias) + adaLN modulate with
+    the JAX contract: x (B, N, D), mod2 (B, 2, D) = [shift, scale] ->
+    (B, N, D) in x's dtype; dx in x's dtype, dmod2 in mod2's. CUDA tensor
+    -> ``csrc/mod_ln.cu`` both ways; CPU tensor -> the twin. ``block_q``
+    is the JAX signature's q row-block: the kernels pick their own tiles,
+    so it is ignored."""
+    del block_q
+    return _ModLn.apply(x, mod2, eps)

@@ -46,8 +46,10 @@ def _serving_forward(denoiser, device) -> Callable:
     The choice follows the port's own kernels' limits, not the TPU's VMEM
     envelopes: a d=256 DiT at N=1024 goes to the split in JAX and may take
     the stack here. Both compute the same block. Where neither kernel
-    takes the geometry, the JAX package runs its flax-path kernels, which
-    are not ported yet; the eager model is not run in their place."""
+    takes the geometry, the JAX package runs its flax-path kernels; the
+    port's samplers take that path once its last serving kernel,
+    ``_res_mod_ln_call``, is ported, and the eager model is not run in its
+    place."""
     from t2ms_tpu_torch.models.denoisers import dit_fast
     if not dit_fast.fused_path_eligible(denoiser, device):
         return denoiser
@@ -61,9 +63,9 @@ def _serving_forward(denoiser, device) -> Callable:
         f"nor fused_dit_block_split takes d_model={d.d_model} "
         f"heads={d.num_heads} hidden={int(d.d_model * d.mlp_ratio)} "
         f"dtype={d.compute_dtype}. The JAX package serves it through its "
-        f"flax-path kernels (_mod_ln_call, _res_mod_ln_call, "
-        f"fused_heads_attention), which are not ported yet; the eager model "
-        f"is not run in their place (set attention_impl to opt out)")
+        f"flax-path kernels, of which _res_mod_ln_call is not ported yet; "
+        f"the eager model is not run in their place (set attention_impl to "
+        f"opt out)")
 
 
 def _fused_cfg_forward(forward: Callable, x_t, t, text_emb, cfg_scale):

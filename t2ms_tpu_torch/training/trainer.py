@@ -12,9 +12,11 @@ sync inside a step (``nan_guard`` reads one flag on the host). After a
 step each parameter's ``.grad`` holds the step's averaged gradient.
 
 On CUDA a DiT trains through ``dit_fast.fast_dit_train_forward`` (the
-hand-written block forward and backward kernels), which raises for a
-geometry the kernels do not take; only an explicit ``attention_impl``
-opts out to the eager module, which is also the path on the CPU.
+hand-written block forward and backward kernels) when they take its
+geometry, else through ``dit_fast.flax_path_forward`` (the LayerNorm +
+modulate and fused-heads attention kernels, forward and backward), else the
+step raises; only an explicit ``attention_impl`` opts out to the eager
+module, which is also the path on the CPU.
 
 torch cannot reproduce the JAX package's threefry draws, so every random
 draw can be passed in: ``u`` (the uniform behind t, per row), ``x_0`` (the
@@ -43,15 +45,30 @@ def encode_with_vae(vae_model, x):
 
 
 def _training_forward(denoiser):
-    """Pick the forward per call: the fused block kernels for a DiT on CUDA
-    (they raise for a geometry they do not take), the eager module on the
-    CPU or under an explicit ``attention_impl`` opt-out."""
+    """The forward of each call, in the JAX package's order
+    (t2ms_tpu/training/trainer.py ``_training_forward``): for a DiT on
+    CUDA, the block kernels when they take its geometry, else the flax
+    path's kernels, else raise (the eager model is not run in their
+    place); the eager module on the CPU or under an explicit
+    ``attention_impl`` opt-out. Each check asks a kernel library."""
     from t2ms_tpu_torch.models.denoisers import dit_fast
 
     def forward(x, t, e, m):
-        if dit_fast.fused_path_eligible(denoiser, x.device):
+        if not dit_fast.fused_path_eligible(denoiser, x.device):
+            return denoiser(x, t, e, m)
+        if dit_fast.train_forward_supported(denoiser):
             return dit_fast.fast_dit_train_forward(denoiser, x, t, e, m)
-        return denoiser(x, t, e, m)
+        if dit_fast.flax_path_supported(denoiser):
+            return dit_fast.flax_path_forward(denoiser, x, t, e, m)
+        d = denoiser
+        raise ValueError(
+            f"the port does not train this DiT on CUDA: neither the block "
+            f"kernels (fused_dit_block, _fused_block_diff_bwd) nor the flax "
+            f"path's (_mod_ln_call, fused_heads_attention and their "
+            f"backwards) take d_model={d.d_model} heads={d.num_heads} "
+            f"hidden={int(d.d_model * d.mlp_ratio)} dtype={d.compute_dtype}; "
+            f"the eager model is not run in their place (set "
+            f"attention_impl to opt out)")
 
     return forward
 

@@ -5,17 +5,19 @@ such a machine run it without the conftest:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
-The kernel is held to its plain PyTorch twin on the same inputs with random
-adaLN vectors (the adaLN-zero init would zero every gate), at a ragged
-token count and a batch that fills no tile. Tolerances: f32 2e-4 *
+Each kernel is held to its plain PyTorch twin on the same inputs with
+random adaLN vectors (the adaLN-zero init would zero every gate), at a
+ragged token count and a batch that fills no tile. Tolerances: f32 2e-4 *
 max|ref| (summation order only); bf16 3e-2 * max|ref| (one bf16 ulp is
-2^-8 relative, and rounding flips compound through the layers)."""
+2^-8 relative, and rounding flips compound through the layers); the
+single-op kernels of the flax path state their own."""
 
 import numpy as np
 import pytest
 import torch
 
 from t2ms_tpu_torch.ops import _build
+from t2ms_tpu_torch.ops import attention as tattn
 from t2ms_tpu_torch.ops import dit_block as tblock
 
 
@@ -355,3 +357,181 @@ def test_sampler_runs_a_wide_dit_through_the_split_kernel(cuda, entry):
     torch.cuda.synchronize()
     assert tuple(out.shape) == (2, 96) and torch.isfinite(out).all()
     assert dict(_build.launch_counts) == {tblock.SPLIT_KERNEL: 3}
+
+
+# ------------------------------ the flax path's kernels (#5, #6, #9, #11)
+
+def _mod_ln_args(dev, dt, B=3, N=130, D=512, seed=3):
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    return (f(B, N, D).to(dev, dt), (0.3 * f(B, 2, D)).to(dev, dt),
+            f(B, N, D).to(dev, dt))
+
+
+def _mod_ln_grads(x, mod2, dy, twin):
+    ts = [a.detach().clone().requires_grad_() for a in (x, mod2)]
+    fn = tblock.mod_ln_reference if twin else tblock.mod_ln_diffable
+    out = fn(*ts)
+    return (out, *torch.autograd.grad(out, ts, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4),
+                                    (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("D", [512, 96])
+def test_mod_ln_kernels_match_twins_on_card(cuda, dt, tol, D):
+    """#5 and #6 against the twin and autograd over it at a ragged N=130
+    and B=3: out, dx and dmod2 within tol * max|ref| (f32: summation
+    order; bf16: one rounding flip after f32 sums in another order), in
+    x's and mod2's dtypes; one launch each."""
+    x, mod2, dy = _mod_ln_args(cuda, dt, D=D)
+    _build.reset_launch_counts()
+    got = _mod_ln_grads(x, mod2, dy, twin=False)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.MOD_LN_KERNEL: 1,
+                                          tblock.MOD_LN_BWD_KERNEL: 1}
+    want = _mod_ln_grads(x, mod2, dy, twin=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dt and g.shape == w.shape
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_mod_ln_backward_repeats_bit_for_bit(cuda):
+    x, mod2, dy = _mod_ln_args(cuda, torch.bfloat16, B=8, N=1024)
+    a = tblock._launch_mod_ln_bwd(x, mod2, dy, 1e-6)
+    b = tblock._launch_mod_ln_bwd(x, mod2, dy, 1e-6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _heads_args(dev, dt, B=3, N=130, HD=512, seed=4):
+    """q, k, v as strided column slices of one qkv tensor, and g."""
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    qkv = torch.cat([1.5 * f(B, N, HD), 1.5 * f(B, N, HD), f(B, N, HD)],
+                    dim=-1).to(dev, dt)
+    return (qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:],
+            f(B, N, HD).to(dev, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol_f,tol_b", [(torch.float32, 2e-4, 5e-4),
+                                            (torch.bfloat16, 1e-2, 3e-2)])
+@pytest.mark.parametrize("heads", [16, 8, 4])         # head widths 32, 64, 128
+def test_fused_heads_kernels_match_twins_on_card(cuda, dt, tol_f, tol_b,
+                                                 heads):
+    """#9 and #11 on the column slices of one qkv tensor (read in place)
+    at a ragged N=130 and B=3, against the twins: forward within tol_f *
+    max|ref|, dq, dk, dv within tol_b * max|ref| (f32: summation order;
+    bf16: rounding flips of e and ds_u, which feed sums of 130 terms)."""
+    q, k, v, g = _heads_args(cuda, dt)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        o = tattn.fused_heads_attention(q, k, v, heads)
+        grads = tattn.fused_heads_attention_bwd(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tattn.FUSED_HEADS_KERNEL: 1,
+                                          tattn.FUSED_HEADS_BWD_KERNEL: 1}
+    want_o = tattn.fused_heads_reference(q, k, v, heads)
+    want = tattn.fused_heads_bwd_reference(q, k, v, g, heads)
+    for got, w, tol in [(o, want_o, tol_f)] + [
+            (a, b, tol_b) for a, b in zip(grads, want)]:
+        assert got.dtype == dt and got.shape == w.shape
+        got, w = got.float(), w.float()
+        assert torch.isfinite(got).all()
+        assert (got - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_heads_backward_repeats_bit_for_bit(cuda):
+    q, k, v, g = _heads_args(cuda, torch.bfloat16, B=4, N=1024)
+    a = tattn.fused_heads_attention_bwd(q, k, v, g, 8)
+    b = tattn.fused_heads_attention_bwd(q, k, v, g, 8)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_flax_path_kernels_refuse_what_they_do_not_take(cuda):
+    """The limits are the libraries' own (mod_ln_check, fused_heads_check):
+    a shape they do not take raises and launches nothing; the forward
+    refuses an input that requires grad under grad mode."""
+    assert tblock.mod_ln_supported(512, torch.bfloat16)
+    assert tblock.mod_ln_supported(512, torch.float32)
+    assert not tblock.mod_ln_supported(2048, torch.bfloat16)   # 64 a lane
+    assert not tblock.mod_ln_supported(512, torch.float16)
+    ok = tattn.fused_heads_supported
+    assert ok(512, 8, torch.bfloat16) and ok(512, 4, torch.float32)
+    assert not ok(512, 32, torch.bfloat16)                     # width 16
+    assert not ok(512, 2, torch.bfloat16)                      # width 256
+    assert not ok(512, 8, torch.float16)
+    _build.reset_launch_counts()
+    x, mod2, _ = _mod_ln_args(cuda, torch.bfloat16, B=1, N=8, D=2048)
+    with pytest.raises(ValueError, match="does not take"):
+        tblock.mod_ln_diffable(x, mod2)
+    q, k, v, g = _heads_args(cuda, torch.bfloat16, B=1, N=8, HD=512)
+    with torch.no_grad(), pytest.raises(ValueError, match="does not take"):
+        tattn.fused_heads_attention(q, k, v, 32)
+    with pytest.raises(ValueError, match="does not take"):
+        tattn.fused_heads_attention_bwd(q, k, v, g, 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tattn.fused_heads_attention(q.detach().requires_grad_(), k, v, 8)
+    assert not _build.launch_counts
+
+
+@pytest.mark.cuda
+def test_train_step_takes_the_flax_path_for_a_wide_dit(cuda):
+    """One train step of a d_model 512 DiT (depth 1, 16 tokens), which the
+    block kernels do not take: two LayerNorm + modulate launches each way
+    and one fused-heads launch each way, nothing else; the loss is finite
+    and every parameter moves."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.models.denoisers.dit_fast import (
+        flax_path_supported, train_forward_supported)
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    torch.manual_seed(0)
+    dit = DiT(latent_len=8, latent_dim=8, d_model=512, depth=1, num_heads=8,
+              mlp_ratio=4.0, compute_dtype=torch.bfloat16)
+    assert not train_forward_supported(dit) and flax_path_supported(dit)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    before = [p.detach().clone() for p in dit.parameters()]
+    step = make_denoiser_train_step(
+        dit, LAVAE(1, 16, 1, 16, 8, 8),
+        ScheduledAdamW(dit.parameters(), lambda _: 1e-4), precoded=True)
+    g = torch.Generator(cuda).manual_seed(0)
+    _build.reset_launch_counts()
+    loss = step(torch.randn(4, 8, 8, device=cuda, generator=g),
+                torch.randn(4, 512, device=cuda, generator=g),
+                coin=torch.tensor(1.0, device=cuda), generator=g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dict(_build.launch_counts) == {
+        tblock.MOD_LN_KERNEL: 2, tblock.MOD_LN_BWD_KERNEL: 2,
+        tattn.FUSED_HEADS_KERNEL: 1, tattn.FUSED_HEADS_BWD_KERNEL: 1}
+    assert all((p != b).any() for p, b in zip(dit.parameters(), before))
+
+
+@pytest.mark.cuda
+def test_train_step_refuses_a_dit_no_route_takes(cuda):
+    """Head width 16: neither the block kernels (D 512 > 256) nor the
+    fused-heads kernels take it; the step raises instead of running the
+    eager model."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    dit = DiT(latent_len=8, latent_dim=8, d_model=512, depth=1,
+              num_heads=32, mlp_ratio=4.0, compute_dtype=torch.bfloat16)
+    step = make_denoiser_train_step(
+        dit, LAVAE(1, 16, 1, 16, 8, 8),
+        ScheduledAdamW(dit.parameters(), lambda _: 1e-4), precoded=True)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="does not train"):
+        step(torch.zeros(2, 8, 8, device=cuda),
+             torch.zeros(2, 512, device=cuda))
+    assert not _build.launch_counts

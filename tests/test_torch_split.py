@@ -3,7 +3,8 @@ CPU: the ``fused_dit_block_split`` twin against the JAX split kernels in
 interpret mode, ``split_dit_forward`` against the JAX split forward and
 flax ``apply``, the weight bridge at the scaled width, the LA-VAE at
 ``latent_grid=64`` and the serving sampler at the scaled latent shape
-(64, 64); and the kernel launchers rehearsed against a fake library. The
+(64, 64); and the kernel launchers (those of the flax path's kernels
+too) rehearsed against a fake library. The
 samplers' route (stack first, split second, else refuse) is tested with
 the other routing cases in ``test_torch_sampling.py``, the split's
 autograd refusal with the other forwards' in ``test_torch_block.py``;
@@ -117,7 +118,13 @@ class _FakeLib:
     ENTRIES = ("dit_stack_forward_bf16", "dit_stack_forward_f32",
                "dit_split_forward_bf16", "dit_split_forward_f32",
                "dit_block_backward_bf16", "dit_block_backward_f32",
-               "dit_block_check", "dit_block_backward_workspace")
+               "dit_block_check", "dit_block_backward_workspace",
+               "mod_ln_forward_bf16", "mod_ln_forward_f32",
+               "mod_ln_backward_bf16", "mod_ln_backward_f32",
+               "mod_ln_backward_workspace",
+               "fused_heads_forward_bf16", "fused_heads_forward_f32",
+               "fused_heads_backward_bf16", "fused_heads_backward_f32",
+               "fused_heads_backward_workspace")
 
     def __init__(self):
         self.calls = []
@@ -129,11 +136,31 @@ class _FakeLib:
         def call(*args):
             assert len(args) == len(call.argtypes), name
             for a, t in zip(args, call.argtypes):
-                assert (type(a) is int if t is ctypes.c_int
+                assert (type(a) is int
+                        if t in (ctypes.c_int, ctypes.c_longlong)
                         else isinstance(a, t)), (name, a, t)
             self.calls.append((name, args))
             return 16 if name.endswith("workspace") else 0
         return call
+
+
+def _rehearse(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    _build.reset_launch_counts()
+    return lib
+
+
+def _one_launch(lib, entry, dt):
+    suffix = "bf16" if dt == torch.bfloat16 else "f32"
+    launches = [c for c in lib.calls if c[0] == f"{entry}_{suffix}"]
+    assert len(launches) == 1
+    assert sum(_build.launch_counts.values()) == 1
+    return launches[0][1]
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -147,12 +174,7 @@ def test_launchers_pass_each_entry_its_declared_arguments(
     every argument has the kind and count the C entry declares, the
     softmax scale is cast to x's dtype, the stream rides last, and the
     launch is counted once."""
-    lib = _FakeLib()
-    monkeypatch.setattr(_build, "load", lambda name: lib)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    lib = _rehearse(monkeypatch)
     a = [torch.from_numpy(v) for v in _block_inputs(2, 8, 32, 64)]
     x, mod, ws = a[0].to(dt), a[1], a[2:]
     if launcher == "_launch_stack":
@@ -161,15 +183,61 @@ def test_launchers_pass_each_entry_its_declared_arguments(
         args = (x, mod, ws, 4, 1e-6)
     else:
         args = (x, mod, ws, x, 4, 1e-6)
-    _build.reset_launch_counts()
     getattr(tblock, launcher)(*args)
-    suffix = "bf16" if dt == torch.bfloat16 else "f32"
-    launches = [c for c in lib.calls if c[0] == f"{entry}_{suffix}"]
-    assert len(launches) == 1
-    *_, eps, qscale, stream = launches[0][1]
+    *_, eps, qscale, stream = _one_launch(lib, entry, dt)
     assert stream.value == 7 and eps.value == pytest.approx(1e-6)
     assert qscale.value == float(torch.tensor(8 ** -0.5, dtype=dt))
-    assert sum(_build.launch_counts.values()) == 1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("launcher,entry", [
+    ("_launch_mod_ln", "mod_ln_forward"),
+    ("_launch_mod_ln_bwd", "mod_ln_backward")])
+def test_mod_ln_launchers_pass_their_declared_arguments(
+        monkeypatch, launcher, entry, dt):
+    """The LayerNorm + modulate launchers against the fake library: mod2
+    goes over in f32, the shape as (B, N, D), eps and the stream last; the
+    backward's dmod2 comes back in mod2's dtype."""
+    lib = _rehearse(monkeypatch)
+    x = torch.randn(2, 8, 32).to(dt)
+    mod2 = torch.randn(2, 2, 32).to(dt)
+    args = (x, mod2, 1e-6) if launcher == "_launch_mod_ln" else (
+        x, mod2, x, 1e-6)
+    out = getattr(tblock, launcher)(*args)
+    call = _one_launch(lib, entry, dt)
+    *_, B, N, D, eps, stream = call
+    assert (B, N, D) == (2, 8, 32) and stream.value == 7
+    assert eps.value == pytest.approx(1e-6)
+    if launcher == "_launch_mod_ln_bwd":
+        assert out[0].dtype == dt and out[1].dtype == dt
+        assert tuple(out[1].shape) == (2, 2, 32)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("launcher,entry", [
+    ("_launch_fused_heads", "fused_heads_forward"),
+    ("_launch_fused_heads_bwd", "fused_heads_backward")])
+def test_fused_heads_launchers_read_the_qkv_slices_in_place(
+        monkeypatch, launcher, entry, dt):
+    """The fused-heads launchers against the fake library: q, k and v go
+    over as the pointers of the qkv projection's column slices (no copy)
+    with the projection's batch and row strides; the scale follows the
+    JAX recipe (q scaled by the scale rounded to the dtype)."""
+    from t2ms_tpu_torch.ops import attention as tattn
+    lib = _rehearse(monkeypatch)
+    qkv = torch.randn(2, 8, 3 * 64).to(dt)
+    q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
+    extra = (qkv[..., :64].contiguous(),) if "bwd" in launcher else ()
+    getattr(tattn, launcher)(q, k, v, *extra, 2, 32 ** -0.5)
+    call = _one_launch(lib, entry, dt)
+    ptrs = [c.value for c in call[:3]]
+    assert ptrs == [t.data_ptr() for t in (q, k, v)]
+    n_ptrs = 8 if extra else 4        # + g, dq, dk, dv, workspace
+    assert tuple(call[n_ptrs:n_ptrs + 4]) == (2, 8, 64, 2)
+    assert list(call[n_ptrs + 4:n_ptrs + 10]) == [8 * 192, 192] * 3
+    *_, qscale, stream = call
+    assert stream.value == 7
+    assert qscale.value == float(torch.tensor(32 ** -0.5, dtype=dt))
 
 
 def _dit_pair(**kw):

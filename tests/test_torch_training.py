@@ -4,7 +4,7 @@ state bridge, the denoiser train step against JAX
 ``make_denoiser_train_step`` (the flax path: on the CPU both packages run
 the eager DiT) with the JAX draws injected, its accumulation, precoded,
 nan_guard and refusal contracts, the LA-VAE step, and the routing of the
-train forward.
+train forward (block kernels, else the flax path, else a refusal).
 
 Tolerances: schedules rtol 2e-6 and atol 2e-7 * the peak lr (optax
 evaluates in f32, where the cosine's cancellation near its floor loses
@@ -296,16 +296,36 @@ class _FakeCuda(torch.Tensor):
         return torch.device("cuda")
 
 
-def test_training_forward_routes_only_cuda_input_to_the_kernels(monkeypatch):
+@pytest.mark.parametrize("takes_block,takes_flax,want", [
+    (True, True, "block"),          # the block kernels first, as in JAX
+    (False, True, "flax"),          # the scaled geometry
+    (False, False, None),           # neither: refuse, never eager
+])
+def test_training_forward_routes_only_cuda_input_to_the_kernels(
+        monkeypatch, takes_block, takes_flax, want):
+    """On CUDA input: the block kernels when they take the geometry, else
+    the flax path's kernels, else a refusal naming the geometry; the CPU
+    and an explicit attention_impl take the eager module."""
     calls = []
     monkeypatch.setattr(dit_fast, "fast_dit_train_forward",
-                        lambda *a: calls.append("fused") or "fused")
+                        lambda *a: calls.append("block") or "block")
+    monkeypatch.setattr(dit_fast, "flax_path_forward",
+                        lambda *a: calls.append("flax") or "flax")
+    monkeypatch.setattr(dit_fast, "train_forward_supported",
+                        lambda d: takes_block)
+    monkeypatch.setattr(dit_fast, "flax_path_supported",
+                        lambda d: takes_flax)
     td = DiT(6, 8, EMB, 1, 2, device="cpu")
     fwd = ttrainer._training_forward(td)
     x, t = torch.zeros(2, 8, 6), torch.zeros(2)
-    assert fwd(x.as_subclass(_FakeCuda), t, None, None) == "fused"
+    if want is None:
+        with pytest.raises(ValueError, match="does not train.*d_model=32 "
+                                             "heads=2.*eager model is not"):
+            fwd(x.as_subclass(_FakeCuda), t, None, None)
+    else:
+        assert fwd(x.as_subclass(_FakeCuda), t, None, None) == want
     assert fwd(x, t, None, None).shape == x.shape       # CPU: eager module
     opt_out = ttrainer._training_forward(
         DiT(6, 8, EMB, 1, 2, attention_impl="einsum", device="cpu"))
     assert opt_out(x.as_subclass(_FakeCuda), t, None, None).shape == x.shape
-    assert calls == ["fused"]
+    assert calls == ([want] if want else [])
