@@ -33,7 +33,7 @@ failing with a non-zero exit on any error:
    AdamW at 1e-4) for 2 warm-up and 10 timed steps: steps/s, peak memory,
    device time by part, launch counts per step checked, loss finite; and at
    B=128 the kernel path's loss and gradients against the eager bf16 and
-   f32 opt-out paths on the same injected draws;
+   f32 opt-out paths on the same injected draws (three draws);
 8. split-kernel phase: ``fused_dit_block_split`` at the scaled DiT's call
    (2B=32, N=1024, d_model 512, 8 heads, hidden 2048, bf16, random adaLN
    vectors) against its twin, with the mean error against the f32 twin,
@@ -64,13 +64,44 @@ failing with a non-zero exit on any error:
 13. scaled train phase: the scaled DiT's denoiser train step
    (scripts/bench_scaled.py:80-118: B=64, latents encoded once outside the
    step, flow matching over 100 steps, CFG drop 0.3, AdamW at 1e-4 with
-   weight decay 1e-4) through the flax path's kernels, 2 warm-up and 5
-   timed steps: steps/s, peak memory, device time by part, launches per
-   step checked (24 + 24 + 12 + 12, no stack, block or split launch), loss
-   finite and, step by step, within 1e-2 of the eager bf16 path's from the
-   same init and draws; and at B=8 the kernel path's loss and gradients
-   against the eager bf16 and f32 opt-out paths on the same injected
-   draws.
+   weight decay 1e-4) through the flax path's kernels with the residual
+   fusion, 2 warm-up and 5 timed steps: steps/s, peak memory, device time
+   by part, launches per step checked (forward #5 x1, #7 x23, #9 x12;
+   backward #6 x1, #8 x23, #11 x12; no #12, stack, block or split launch),
+   loss finite and, step by step, within 1e-2 of the eager bf16 path's
+   from the same init and draws; and at B=8 the kernel path's loss and
+   gradients against the eager bf16 and f32 opt-out paths on the same
+   injected draws (three draws);
+14. res_mod_ln phase: the gated residual + LayerNorm + modulate kernels
+   ``_res_mod_ln_call`` and ``_res_mod_ln_diff_bwd`` at the scaled call
+   (B=64, N=1024, d 512) and the long-series call (B=8, N=4096, d 128) in
+   bf16, random x, h and gm3, against the twin and autograd over it, again
+   in f32 at a small batch; CUDA-event times, the twin's times and the
+   bounds;
+15. two-pass phase: ``fused_heads_attention_bwd_two_pass`` at the
+   long-series train step's call (B=8, N=4096, 4 heads of 32, q/k/v the
+   column slices of one qkv tensor) against its twin, with the mean error
+   against the f32 twin, again in f32 at B=1; times, the bound, device
+   time by kernel and torch SDPA's backward as the yardstick; and
+   ``fused_heads_attention_bwd``'s recompute recipe against its twin where
+   JAX takes the ungrouped single pass (B=64, N=480, 4 heads of 32);
+16. long-series offline path: the long-series DiT
+   (scripts/bench_long_series.py: d_model 128, 4 heads of 32, depth 4,
+   mlp x2 over the 256 x 64 latent, 4096 tokens) and the LA-VAE at latent
+   grid 256, seeded random weights with adaLN moved off its init, through
+   the CFG sampler (B=16, euler/50, cfg 7, length 2048) on the flax path:
+   series/s, peak memory, launches per ``sample()`` checked (#5 x50, #7
+   x350, #9 x200, no stack or split launch), device time of one CFG
+   forward by part, and at B=2 the kernel path against the eager bf16 and
+   f32 opt-out paths for 4 steps;
+17. long-series train phase: the long-series train step (B=8, length
+   2048, LA-VAE encode inside the step, flow matching over 100 steps, CFG
+   drop 0.3, AdamW at 1e-4), 2 warm-up and 5 timed steps: steps/s, peak
+   memory, device time by part, launches per step checked (#5 x1, #7 x7,
+   #9 x4, #6 x1, #8 x7, #12 x4; no #11, stack, block or split launch),
+   loss finite; and at B=2 the kernel path's loss and gradients against
+   the eager bf16 and f32 opt-out paths on the same injected draws (three
+   draws).
 
 The line before the last is the kernel table as JSON (the ported kernels
 with their numbers under "kernels", the TPU kernels still to port under
@@ -84,6 +115,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +136,11 @@ B_TRAIN, TRAIN_STEPS, TRAIN_WARMUP = 1024, 10, 2       # bench.py:124-166
 SC_B, SC_N, SC_D, SC_HEADS, SC_HIDDEN, SC_DEPTH = 16, 1024, 512, 8, 2048, 12
 SC_STEPS = 20
 SC_TRAIN_B, SC_TRAIN_STEPS = 64, 5     # scripts/bench_scaled.py:80-118
+# the long-series DiT (scripts/bench_long_series.py): the flagship's widths
+# over the 256x64 latent of an LA-VAE with latent grid 256, 4096 tokens
+LS_LATENT, LS_N, LS_DEPTH = 256, 4096, 4
+LS_B, LS_STEPS, LS_LEN = 16, 50, 2048          # :31-65
+LS_TRAIN_B, LS_TRAIN_STEPS = 8, 5              # :68-117
 
 
 def log(*a):
@@ -222,13 +259,15 @@ def kernel_phase(gen):
 STACK_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_kernel")
 
 
-def device_ms_all(fn):
+def device_ms_all(fn, reps: int = 3):
     """Device time (ms) of every kernel over one call of ``fn`` (after one
     warm-up call), summed over launches by name, from torch.profiler;
-    empty when the profiler records no device time. A short spin kernel
-    (``torch.cuda._sleep``) opens the window and is left out: the profiler
-    dropped the first kernel of a window, and without it the split call's
-    first kernel went missing."""
+    empty when the profiler records no device time. The window holds
+    ``reps`` calls, opened by a short spin kernel (``torch.cuda._sleep``,
+    left out), and each name's time is its mean per launch times its
+    launches per call (its count over ``reps``, rounded): the profiler
+    drops a window's first kernel now and then, so one launch may be
+    missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -236,16 +275,25 @@ def device_ms_all(fn):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    times = {}
+    totals = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         if (us <= 0 or getattr(ev, "device_type", None) != DeviceType.CUDA
                 or "spin_kernel" in ev.key):
             continue
-        times[ev.key] = times.get(ev.key, 0.0) + us / 1e3
-    return times
+        t, n = totals.get(ev.key, (0.0, 0))
+        totals[ev.key] = (t + us / 1e3, n + ev.count)
+    return {key: t / n * max(round(n / reps), 1)
+            for key, (t, n) in totals.items()}
+
+
+def _named(key, name):
+    """Whether a profiler kernel key names ``name`` as a whole identifier
+    (mod_ln_fwd_kernel does not name res_mod_ln_fwd_kernel)."""
+    return re.search(r"(?<![A-Za-z0-9_])" + re.escape(name), key) is not None
 
 
 def device_ms_by_kernel(fn, names):
@@ -256,7 +304,7 @@ def device_ms_by_kernel(fn, names):
     split = {}
     for key, ms in times.items():
         for n in names:
-            if n in key:
+            if _named(key, n):
                 split[n] = split.get(n, 0.0) + ms
     if split:
         split["(all device time)"] = sum(times.values())
@@ -604,39 +652,16 @@ def train_phase(dit, vae, gen):
 
     # the kernel path against the eager opt-out paths on the same draws
     Bs = 128
-    xs, es = x[:Bs], emb[:Bs]
-    draws = dict(u=torch.rand(Bs, generator=g, device="cuda"),
-                 x_0=torch.randn(Bs, 64, 30, generator=g, device="cuda"),
-                 coin=torch.tensor(0.9, device="cuda"))
-    res = {}
-    for name, dt_, impl in (("kernel", torch.bfloat16, "auto"),
-                            ("eager bf16", torch.bfloat16, "einsum"),
-                            ("eager f32", torch.float32, "einsum")):
-        m = DiT(latent_len=30, latent_dim=64, d_model=D_MODEL, depth=DEPTH,
-                num_heads=HEADS, mlp_ratio=HIDDEN / D_MODEL,
-                compute_dtype=dt_, attention_impl=impl)
-        m.load_state_dict(dit.state_dict())
-        s_ = make_denoiser_train_step(
-            m, vae, torch.optim.SGD(m.parameters(), lr=0.0),
-            total_step=STEPS)
-        loss = s_(xs, es, **draws).item()
-        res[name] = (loss, {n: p.grad.float() for n, p in
-                            m.named_parameters()})
-    (lk, gk), (lb, gb), (lt, gt) = (res[k] for k in ("kernel", "eager bf16",
-                                                     "eager f32"))
-    worst = 0.0
-    for n in gt:
-        ek = (gk[n] - gt[n]).abs().mean().item()
-        eb = (gb[n] - gt[n]).abs().mean().item()
-        worst = max(worst, ek / max(eb, 1e-30))
-        check(ek <= 1.5 * eb, f"train grad {n}: kernel path {ek:.4e} vs "
-              f"eager bf16 {eb:.4e} from f32")
-    # a scalar can land near the f32 value by chance: a floor of 1e-3
-    check(abs(lk - lt) <= max(1.5 * abs(lb - lt), 1e-3 * abs(lt)),
-          f"train loss kernel {lk} eager bf16 {lb} f32 {lt}")
-    log(f"train B={Bs} same draws: loss kernel {lk:.6f} eager bf16 {lb:.6f} "
-        f"eager f32 {lt:.6f}; every parameter's grad: kernel path's mean "
-        f"error vs f32 at most {worst:.4f}x the eager bf16 path's (tol 1.5)")
+    make = lambda dt_, impl: DiT(
+        latent_len=30, latent_dim=64, d_model=D_MODEL, depth=DEPTH,
+        num_heads=HEADS, mlp_ratio=HIDDEN / D_MODEL, compute_dtype=dt_,
+        attention_impl=impl)
+    train_paths_vs_eager("train", make, dit, vae, x[:Bs], emb[:Bs],
+                         lambda: dict(
+                             u=torch.rand(Bs, generator=g, device="cuda"),
+                             x_0=torch.randn(Bs, 64, 30, generator=g,
+                                             device="cuda"),
+                             coin=torch.tensor(0.9, device="cuda")))
     return launches
 
 
@@ -868,6 +893,7 @@ def scaled_server_phase(dit, vae, seed):
 
 # the CUDA kernels of the flax path, by their names in the profile
 MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
+                "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_kernel",
                 "dmod_reduce_kernel")
 HEADS_PARTS = ("heads_attn_kernel", "heads_bwd_stats_kernel",
                "heads_bwd_dq_kernel", "heads_bwd_dkdv_kernel")
@@ -981,6 +1007,14 @@ def sdpa_heads_ms(q, k, v, g, heads):
     return fwd, cuda_ms(both) - fwd
 
 
+def _qkv_slices(f, B, N, HD, dt):
+    """q, k, v as the column slices of one qkv tensor, and g."""
+    qkv = torch.cat([1.5 * f(B, N, HD), 1.5 * f(B, N, HD), f(B, N, HD)],
+                    dim=-1).to(dt)
+    return (qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:],
+            f(B, N, HD).to(dt))
+
+
 def fused_heads_phase(gen):
     """Kernels #9 and #11 at the scaled train step's call, q/k/v the
     column slices of one qkv tensor, against their twins. Tolerances:
@@ -996,12 +1030,10 @@ def fused_heads_phase(gen):
     out = {}
     for dt, B, tol_f, tol_b in ((torch.bfloat16, SC_TRAIN_B, 1e-2, 3e-2),
                                 (torch.float32, 2, 2e-4, 5e-4)):
-        qkv = torch.cat([1.5 * f(B, N, D), 1.5 * f(B, N, D), f(B, N, D)],
-                        dim=-1).to(dt)
-        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-        g = f(B, N, D).to(dt)
+        q, k, v, g = _qkv_slices(f, B, N, D, dt)
+        # the scaled geometry's backward: JAX's head-grouped pipelined one
         fwd = lambda: fused_heads_attention(q, k, v, H)
-        bwd = lambda: fused_heads_attention_bwd(q, k, v, g, H)
+        bwd = lambda: fused_heads_attention_bwd(q, k, v, g, H, pipelined=True)
         with torch.no_grad():
             got_o, got = fwd(), bwd()
             want_o = fused_heads_reference(q, k, v, H)
@@ -1045,7 +1077,7 @@ def fused_heads_phase(gen):
                 log("fused_heads bf16 device time by kernel (torch.profiler, "
                     "forward then backward): " + fmt_split(device_ms_by_kernel(
                         lambda: (fwd(), bwd()), HEADS_PARTS)))
-        del qkv, q, k, v, g, got_o, want_o
+        del q, k, v, g, got_o, want_o
         torch.cuda.empty_cache()
     return out
 
@@ -1056,7 +1088,10 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (FUSED_HEADS_BWD_KERNEL,
                                               FUSED_HEADS_KERNEL)
-    from t2ms_tpu_torch.ops.dit_block import MOD_LN_BWD_KERNEL, MOD_LN_KERNEL
+    from t2ms_tpu_torch.ops.dit_block import (MOD_LN_BWD_KERNEL,
+                                              MOD_LN_KERNEL,
+                                              RES_MOD_LN_BWD_KERNEL,
+                                              RES_MOD_LN_KERNEL)
     from t2ms_tpu_torch.training import (ScheduledAdamW, encode_with_vae,
                                          make_denoiser_train_step)
     model = copy.deepcopy(sc_dit)
@@ -1081,11 +1116,13 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lv = torch.stack(losses).tolist()
     check(all(np.isfinite(lv)), f"scaled train losses finite {lv}")
-    want = {MOD_LN_KERNEL: 2 * SC_DEPTH, MOD_LN_BWD_KERNEL: 2 * SC_DEPTH,
-            FUSED_HEADS_KERNEL: SC_DEPTH, FUSED_HEADS_BWD_KERNEL: SC_DEPTH}
+    want = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: 2 * SC_DEPTH - 1,
+            FUSED_HEADS_KERNEL: SC_DEPTH, MOD_LN_BWD_KERNEL: 1,
+            RES_MOD_LN_BWD_KERNEL: 2 * SC_DEPTH - 1,
+            FUSED_HEADS_BWD_KERNEL: SC_DEPTH}
     check(launches == {n: c * SC_TRAIN_STEPS for n, c in want.items()},
           f"scaled train launches {launches} in {SC_TRAIN_STEPS} steps, want "
-          f"{want} per step and no stack, block or split launch")
+          f"{want} per step and no two-pass, stack, block or split launch")
     n_par = sum(p.numel() for p in model.parameters())
     log(f"scaled train: DiT {n_par} params (d {SC_D}, depth {SC_DEPTH}, "
         f"{SC_HEADS} heads, {SC_N} tokens) B={SC_TRAIN_B} bf16, precoded, "
@@ -1093,29 +1130,7 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
         f"{SC_TRAIN_STEPS / dt:.4f} steps/s, peak memory {peak_gb:.3f} GB, "
         f"launches {launches} ({want} per step), losses "
         f"{[round(v, 5) for v in lv]}")
-    times = device_ms_all(lambda: step(z, emb, generator=g))
-    if times:
-        total = sum(times.values())
-        ours = {n: sum(ms for key, ms in times.items() if n in key)
-                for n in MOD_LN_PARTS + HEADS_PARTS}
-        rest = sorted(((ms, key) for key, ms in times.items()
-                       if not any(n in key for n in ours)), reverse=True)
-        kinds = {}
-        for ms, key in rest:
-            kind = next((k for k, toks in OTHER_KINDS if any(
-                t in key for t in toks)), "other")
-            kinds[kind] = kinds.get(kind, 0.0) + ms
-        log(f"scaled train step device time (torch.profiler, one step): "
-            f"{total:.3f} ms; flax-path kernels "
-            + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
-            + f" (together {sum(ours.values()):.3f} ms, "
-            f"{100 * sum(ours.values()) / total:.1f}%); the rest by kind "
-            + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items())
-            + "; largest others "
-            + "; ".join(f"{key[:60]} {ms:.3f}" for ms, key in rest[:6]))
-    else:
-        log("scaled train step device time: not measured (no device time "
-            "recorded)")
+    log_device_time("scaled train step", lambda: step(z, emb, generator=g))
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -1140,53 +1155,393 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
 
     # the kernel path against the eager opt-out paths on the same draws
     Bs = 8
-    zs, es = z[:Bs], emb[:Bs]
-    draws = dict(u=torch.rand(Bs, generator=g, device="cuda"),
-                 x_0=torch.randn(Bs, 64, 64, generator=g, device="cuda"),
-                 coin=torch.tensor(0.9, device="cuda"))
-    res = {}
-    for name, dt_, impl in (("kernel", torch.bfloat16, "auto"),
-                            ("eager bf16", torch.bfloat16, "einsum"),
-                            ("eager f32", torch.float32, "einsum")):
-        m = scaled_dit(dt_, impl)
-        m.load_state_dict(sc_dit.state_dict())
-        s_ = make_denoiser_train_step(
-            m, sc_vae, torch.optim.SGD(m.parameters(), lr=0.0),
-            total_step=STEPS, precoded=True)
-        _build.reset_launch_counts()
-        loss = s_(zs, es, **draws).item()
-        got = dict(_build.launch_counts)
-        check((name == "kernel") == bool(got),
-              f"scaled train {name} path launches {got}")
-        res[name] = (loss, {n: p.grad.float() for n, p in
-                            m.named_parameters()})
-        del m, s_
-    (lk, gk), (lb, gb), (lt, gt) = (res[k] for k in ("kernel", "eager bf16",
-                                                     "eager f32"))
+    train_paths_vs_eager("scaled train", scaled_dit, sc_dit, sc_vae,
+                         z[:Bs], emb[:Bs], lambda: dict(
+                             u=torch.rand(Bs, generator=g, device="cuda"),
+                             x_0=torch.randn(Bs, 64, 64, generator=g,
+                                             device="cuda"),
+                             coin=torch.tensor(0.9, device="cuda")),
+                         precoded=True)
+    return launches
+
+
+def log_device_time(what, fn, parts=MOD_LN_PARTS + HEADS_PARTS):
+    """One call of ``fn`` under torch.profiler: the total device time, the
+    port's kernels named in ``parts``, and the rest by kind."""
+    times = device_ms_all(fn)
+    if not times:
+        log(f"{what} device time: not measured (no device time recorded)")
+        return
+    total = sum(times.values())
+    ours = {n: sum(ms for key, ms in times.items() if _named(key, n))
+            for n in parts}
+    rest = sorted(((ms, key) for key, ms in times.items()
+                   if not any(_named(key, n) for n in parts)), reverse=True)
+    kinds = {}
+    for ms, key in rest:
+        kind = next((k for k, toks in OTHER_KINDS if any(
+            t in key for t in toks)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    log(f"{what} device time (torch.profiler, one call): {total:.3f} ms; "
+        "the port's kernels "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
+        + f" (together {sum(ours.values()):.3f} ms, "
+        f"{100 * sum(ours.values()) / total:.1f}%); the rest by kind "
+        + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items())
+        + "; largest others "
+        + "; ".join(f"{key[:60]} {ms:.3f}" for ms, key in rest[:6]))
+
+
+def train_paths_vs_eager(what, make_dit, dit, vae, x, emb, make_draws,
+                         precoded=False, n_draws=3):
+    """One train step's loss and every parameter's gradient through the
+    kernel path, the eager bf16 and the eager f32 opt-out paths on the same
+    injected draws (SGD at lr 0, so the step leaves the weights), for
+    ``n_draws`` calls of ``make_draws``: each loss, and each parameter's
+    mean error against f32 summed over the draws, no further from f32 than
+    1.5x the eager bf16 path's. One draw's error on a tensor of a few
+    values (the patchify conv's 4 biases) is one sum of rounding noise, so
+    the errors are summed over draws before they are compared."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.training import make_denoiser_train_step
+    errs = {}                       # parameter -> [kernel, eager bf16]
+    for _ in range(n_draws):
+        draws, res = make_draws(), {}
+        for name, dt_, impl in (("kernel", torch.bfloat16, "auto"),
+                                ("eager bf16", torch.bfloat16, "einsum"),
+                                ("eager f32", torch.float32, "einsum")):
+            m = make_dit(dt_, impl)
+            m.load_state_dict(dit.state_dict())
+            s_ = make_denoiser_train_step(
+                m, vae, torch.optim.SGD(m.parameters(), lr=0.0),
+                total_step=STEPS, precoded=precoded)
+            _build.reset_launch_counts()
+            loss = s_(x, emb, **draws).item()
+            got = dict(_build.launch_counts)
+            check((name == "kernel") == bool(got),
+                  f"{what} {name} path launches {got}")
+            res[name] = (loss, {n: p.grad.float() for n, p in
+                                m.named_parameters()})
+            del m, s_
+            torch.cuda.empty_cache()
+        (lk, gk), (lb, gb), (lt, gt) = (
+            res[k] for k in ("kernel", "eager bf16", "eager f32"))
+        for n in gt:
+            e = errs.setdefault(n, [0.0, 0.0])
+            e[0] += (gk[n] - gt[n]).abs().mean().item()
+            e[1] += (gb[n] - gt[n]).abs().mean().item()
+        # a scalar can land near the f32 value by chance: a floor of 1e-3
+        check(abs(lk - lt) <= max(1.5 * abs(lb - lt), 1e-3 * abs(lt)),
+              f"{what} loss kernel {lk} eager bf16 {lb} f32 {lt}")
+        log(f"{what} B={x.shape[0]} same draws: loss kernel {lk:.6f} eager "
+            f"bf16 {lb:.6f} eager f32 {lt:.6f}")
+        del res, gk, gb, gt
     worst = 0.0
-    for n in gt:
-        ek = (gk[n] - gt[n]).abs().mean().item()
-        eb = (gb[n] - gt[n]).abs().mean().item()
+    for n, (ek, eb) in errs.items():
         worst = max(worst, ek / max(eb, 1e-30))
-        check(ek <= 1.5 * eb, f"scaled train grad {n}: kernel path {ek:.4e} "
-              f"vs eager bf16 {eb:.4e} from f32")
-    check(abs(lk - lt) <= max(1.5 * abs(lb - lt), 1e-3 * abs(lt)),
-          f"scaled train loss kernel {lk} eager bf16 {lb} f32 {lt}")
-    log(f"scaled train B={Bs} same draws: loss kernel {lk:.6f} eager bf16 "
-        f"{lb:.6f} eager f32 {lt:.6f}; every parameter's grad: kernel path's "
-        f"mean error vs f32 at most {worst:.4f}x the eager bf16 path's "
-        f"(tol 1.5)")
-    del res, gk, gb, gt
+        check(ek <= 1.5 * eb, f"{what} grad {n}: kernel path {ek:.4e} "
+              f"vs eager bf16 {eb:.4e} from f32 over {n_draws} draws")
+    log(f"{what}: every parameter's grad, mean error vs f32 summed over "
+        f"{n_draws} draws: the kernel path's at most {worst:.4f}x the eager "
+        f"bf16 path's (tol 1.5)")
     torch.cuda.empty_cache()
+
+
+# ------------------------------ the long-series path's kernels (#7, #8, #12)
+
+def res_mod_ln_phase(gen):
+    """Kernels #7 and #8 at the scaled train step's call and at the
+    long-series call in bf16, against the twin and autograd over it; again
+    in f32 at a small batch. Tolerances: bf16 1e-2 * max|ref| (one rounding
+    flip after f32 sums in another order), f32 1e-4 (summation order)."""
+    from t2ms_tpu_torch.ops.dit_block import (_launch_res_mod_ln,
+                                              _launch_res_mod_ln_bwd,
+                                              res_mod_ln_reference)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    out = {}
+    for call, dt, B, N, D, tol in (
+            ("scaled", torch.bfloat16, SC_TRAIN_B, SC_N, SC_D, 1e-2),
+            ("long", torch.bfloat16, LS_TRAIN_B, LS_N, D_MODEL, 1e-2),
+            ("f32", torch.float32, 4, SC_N, SC_D, 1e-4)):
+        x, h, do, dy = (f(B, N, D).to(dt) for _ in range(4))
+        gm3 = (0.3 * f(B, 3, D)).to(dt)
+        fwd = lambda: _launch_res_mod_ln(x, h, gm3, 1e-6)
+        bwd = lambda: _launch_res_mod_ln_bwd(x, h, gm3, do, dy, 1e-6)
+        got_f, got_b = fwd(), bwd()
+        ts = [t.detach().requires_grad_() for t in (x, h, gm3)]
+        graph = res_mod_ln_reference(*ts)
+        want_b = torch.autograd.grad(graph, ts, (do, dy), retain_graph=True)
+        torch.cuda.synchronize()
+        what = f"res_mod_ln {dt} B={B} N={N} D={D}"
+        e_f = max(_check_err(f"{what} {n}", a, b.detach(), tol)
+                  for n, a, b in zip(("out", "y"), got_f, graph))
+        e_b = max(_check_err(f"{what} {n}", a, b, tol)
+                  for n, a, b in zip(("dx", "dh", "dgm3"), got_b, want_b))
+        check(all(t.dtype == dt for t in got_f + got_b),
+              "res_mod_ln output dtypes")
+        with torch.no_grad():
+            ms_f = cuda_ms(fwd)
+            plain_f = cuda_ms(lambda: res_mod_ln_reference(x, h, gm3))
+            ms_b = cuda_ms(bwd)
+        plain_b = cuda_ms(lambda: torch.autograd.grad(
+            graph, ts, (do, dy), retain_graph=True))
+        del graph, ts
+        # f32 operations per element: the gated residual 2, the LayerNorm
+        # statistics and normalisation about 6, the modulate 3; the
+        # backward about twice that. Bytes: x, h in, out, y out (4 B*N*D
+        # values); backward x, h, do, dy in, dx, dh out (6 B*N*D)
+        n = x.numel()
+        out[call] = {
+            "fwd": _row(e_f, ms_f, plain_f, 11 * n,
+                        _nbytes(x, h, gm3, *got_f), H100_F32_FLOPS),
+            "bwd": _row(e_b, ms_b, plain_b, 24 * n,
+                        _nbytes(x, h, gm3, do, dy, *got_b), H100_F32_FLOPS)}
+        for k in ("fwd", "bwd"):
+            r = out[call][k]
+            log(f"res_mod_ln {dt} B={B} N={N} D={D} {k}: {r['ms']:.4f} ms, "
+                f"twin {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+                f"({r['by']})")
+        del x, h, do, dy, gm3, got_f, got_b, want_b
+        torch.cuda.empty_cache()
+    return out
+
+
+def two_pass_phase(gen):
+    """Kernel #12 at the long-series train step's call against its twin,
+    and #11's recompute recipe at a geometry where JAX takes the ungrouped
+    single pass. Tolerances: bf16 3e-2 * max|ref| (rounding flips of p and
+    ds feed sums over 4096 rows), f32 5e-4 (summation order)."""
+    from t2ms_tpu_torch.ops.attention import (
+        fused_heads_attention_bwd, fused_heads_attention_bwd_two_pass,
+        fused_heads_bwd_route, fused_heads_bwd_two_pass_reference)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    H, D, N = HEADS, D_MODEL, LS_N
+    check(fused_heads_bwd_route(N, D, H) == "two_pass",
+          "the long-series backward is JAX's two-pass branch")
+    out = {}
+    for dt, B, tol in ((torch.bfloat16, LS_TRAIN_B, 3e-2),
+                       (torch.float32, 1, 5e-4)):
+        q, k, v, g = _qkv_slices(f, B, N, D, dt)
+        run = lambda: fused_heads_attention_bwd_two_pass(q, k, v, g, H)
+        twin = lambda: fused_heads_bwd_two_pass_reference(q, k, v, g, H)
+        with torch.no_grad():
+            got, want = run(), twin()
+            torch.cuda.synchronize()
+            truth = (None,) * 3
+            if dt == torch.bfloat16:
+                truth = fused_heads_bwd_two_pass_reference(
+                    *(t.float() for t in (q, k, v, g)), H)
+            what = f"two_pass {dt} B={B} N={N} HD={D} H={H}"
+            err = max(_check_err(f"{what} {n}", a, b, tol, t, b)
+                      for n, a, b, t in zip(("dq", "dk", "dv"), got, want,
+                                            truth))
+            del got, want, truth
+            ms, plain = cuda_ms(run), cuda_ms(twin)
+        lib = (sdpa_heads_ms(q, k, v, g, H)[1] if dt == torch.bfloat16
+               else None)
+        prod = 2 * B * H * N * N * (D // H)         # one N x N x d product
+        peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS
+        out[dt] = _row(err, ms, plain, 5 * prod, _nbytes(q, k, v, g, q, k, v),
+                       peak, lib)
+        r = out[dt]
+        log(f"two_pass {dt} B={B}: {r['ms']:.4f} ms, twin {r['plain']:.4f} "
+            f"ms, bound {r['bound']:.4f} ms ({r['by']})"
+            + (f", SDPA backward {lib:.4f} ms" if lib is not None else ""))
+        if dt == torch.bfloat16:
+            with torch.no_grad():
+                log("two_pass bf16 device time by kernel (torch.profiler, "
+                    "one call): " + fmt_split(device_ms_by_kernel(
+                        run, HEADS_PARTS[1:])))
+        del q, k, v, g
+        torch.cuda.empty_cache()
+
+    # #11 with the recompute recipe, where JAX runs its ungrouped kernels
+    check(fused_heads_bwd_route(N_TOK, D, H) == "single",
+          "the flagship geometry's backward is JAX's single pass")
+    B = 64
+    q, k, v, g = _qkv_slices(f, B, N_TOK, D, torch.bfloat16)
+    with torch.no_grad():
+        got = fused_heads_attention_bwd(q, k, v, g, H, pipelined=False)
+        want = fused_heads_bwd_two_pass_reference(q, k, v, g, H)
+        truth = fused_heads_bwd_two_pass_reference(
+            *(t.float() for t in (q, k, v, g)), H)
+        torch.cuda.synchronize()
+        for n, a, b, t in zip(("dq", "dk", "dv"), got, want, truth):
+            _check_err(f"fused_heads_attention_bwd recompute bf16 B={B} "
+                       f"N={N_TOK} HD={D} H={H} {n}", a, b, 3e-2, t, b)
+    return out
+
+
+def long_dit(dtype, impl="auto"):
+    from t2ms_tpu_torch.models.denoisers import DiT
+    return DiT(latent_len=LS_LATENT, latent_dim=64, d_model=D_MODEL,
+               depth=LS_DEPTH, num_heads=HEADS, mlp_ratio=HIDDEN / D_MODEL,
+               compute_dtype=dtype, attention_impl=impl)
+
+
+def build_long_models(seed: int):
+    from t2ms_tpu_torch.models.vae import LAVAE
+    torch.manual_seed(seed + 4)
+    dit = long_dit(torch.bfloat16)
+    vae = LAVAE(in_channels=1, latent_grid=LS_LATENT)
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
+    return dit, vae.eval()
+
+
+def long_offline_phase(dit, vae, gen):
+    from t2ms_tpu_torch.models.denoisers import dit_fast
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import FUSED_HEADS_KERNEL
+    from t2ms_tpu_torch.ops.dit_block import MOD_LN_KERNEL, RES_MOD_LN_KERNEL
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    n_par = sum(p.numel() for p in dit.parameters())
+    x1 = torch.randn(LS_B, LS_LEN, generator=gen, device="cuda")
+    emb = torch.randn(LS_B, D_MODEL, generator=gen, device="cuda")
+    per_fwd = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: 2 * LS_DEPTH - 1,
+               FUSED_HEADS_KERNEL: LS_DEPTH}
+
+    # a few steps at B=2 (the eager paths hold (2B, 4, N, N) scores): the
+    # kernel path against the eager opt-out paths on the same noise
+    few, Bs = 4, 2
+    x_t0 = torch.randn(Bs, 64, LS_LATENT, generator=gen, device="cuda")
+    run = lambda m: make_cfg_sampler(m, vae, total_step=few, cfg_scale=CFG,
+                                     out_length=LS_LEN)(
+        x1[:Bs], emb[:Bs], x_t0=x_t0)
+    _build.reset_launch_counts()
+    k_out = run(dit)
+    want = {n: c * few for n, c in per_fwd.items()}
+    check(dict(_build.launch_counts) == want,
+          f"long kernel path launches {dict(_build.launch_counts)}, want "
+          f"{want}")
+    outs = []
+    for dt in (torch.bfloat16, torch.float32):
+        m = long_dit(dt, "einsum")
+        m.load_state_dict(dit.state_dict())
+        outs.append(run(m))
+        del m
+        torch.cuda.empty_cache()
+    check(dict(_build.launch_counts) == want,
+          "long eager paths launched a kernel")
+    p_out, t_out = outs
+    tol = 5e-2
+    for name in ("latent", "series"):
+        a, b, t = (getattr(o, name).float() for o in (k_out, p_out, t_out))
+        err = (a - b).abs().max().item()
+        ref = b.abs().max().item()
+        ek, ep = (a - t).abs().mean().item(), (b - t).abs().mean().item()
+        log(f"long offline B={Bs} {few} steps, kernel vs eager path, {name}: "
+            f"max_abs_err={err:.4g} max|ref|={ref:.4g} rel={err / ref:.3e} "
+            f"(tol {tol:g}); mean_abs_err vs f32 eager: kernel path "
+            f"{ek:.4e} eager bf16 path {ep:.4e} (kernel <= 1.5x eager)")
+        check(err <= tol * ref, f"long kernel vs eager path {name}")
+        check(ek <= 1.5 * ep, f"long kernel path rounds worse {name}")
+    del k_out, outs, p_out, t_out
+    torch.cuda.empty_cache()
+
+    sampler = make_cfg_sampler(dit, vae, total_step=LS_STEPS, cfg_scale=CFG,
+                               out_length=LS_LEN)
+    gen_noise = torch.Generator(device="cuda")
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler(x1, emb, generator=gen_noise.manual_seed(10))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    series = out.series
+    check(tuple(series.shape) == (LS_B, LS_LEN), "long series shape")
+    check(bool(torch.isfinite(series).all()), "long series finite")
+    want = {n: c * LS_STEPS for n, c in per_fwd.items()}
+    check(launches == want, f"long sample() launches {launches}, want "
+          f"{want} and no stack or split launch")
+    log(f"long offline: DiT {n_par} params (d {D_MODEL}, depth {LS_DEPTH}, "
+        f"{HEADS} heads, {LS_N} tokens) B={LS_B} euler/{LS_STEPS} cfg {CFG} "
+        f"len {LS_LEN}: {dt:.3f} s, {LS_B / dt:.4f} series/s, peak memory "
+        f"{peak_gb:.3f} GB, launches {launches}, series mean "
+        f"{series.mean().item():.4g} std {series.std().item():.4g}")
+    x2 = torch.randn(2 * LS_B, 64, LS_LATENT, generator=gen, device="cuda")
+    t2 = torch.full((2 * LS_B,), 0.5, device="cuda")
+    e2, m2 = torch.cat([emb, emb]), torch.ones(2 * LS_B, device="cuda")
+    with torch.no_grad():
+        log_device_time("long offline CFG forward (2B=32)",
+                        lambda: dit_fast.flax_path_forward(dit, x2, t2, e2,
+                                                           m2))
+    return launches
+
+
+def long_train_phase(dit, vae, gen):
+    """The long-series train step (scripts/bench_long_series.py:68-117) on
+    a copy of the DiT, through the flax path's kernels and the two-pass
+    attention backward."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import (FUSED_HEADS_KERNEL,
+                                              FUSED_HEADS_TWO_PASS_KERNEL)
+    from t2ms_tpu_torch.ops.dit_block import (MOD_LN_BWD_KERNEL,
+                                              MOD_LN_KERNEL,
+                                              RES_MOD_LN_BWD_KERNEL,
+                                              RES_MOD_LN_KERNEL)
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    model = copy.deepcopy(dit)
+    # optax.adamw(1e-4): constant rate, weight decay 1e-4
+    opt = ScheduledAdamW(model.parameters(), lambda _: 1e-4)
+    step = make_denoiser_train_step(model, vae, opt, total_step=STEPS)
+    x = torch.randn(LS_TRAIN_B, LS_LEN, generator=gen, device="cuda")
+    emb = torch.randn(LS_TRAIN_B, D_MODEL, generator=gen, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    losses = [step(x, emb, generator=g) for _ in range(TRAIN_WARMUP)]
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step(x, emb, generator=g) for _ in range(LS_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lv = torch.stack(losses).tolist()
+    check(all(np.isfinite(lv)), f"long train losses finite {lv}")
+    edges = 2 * LS_DEPTH - 1
+    want = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: edges,
+            FUSED_HEADS_KERNEL: LS_DEPTH, MOD_LN_BWD_KERNEL: 1,
+            RES_MOD_LN_BWD_KERNEL: edges,
+            FUSED_HEADS_TWO_PASS_KERNEL: LS_DEPTH}
+    check(launches == {n: c * LS_TRAIN_STEPS for n, c in want.items()},
+          f"long train launches {launches} in {LS_TRAIN_STEPS} steps, want "
+          f"{want} per step and no single-pass, stack, block or split "
+          f"launch")
+    log(f"long train: DiT (d {D_MODEL}, depth {LS_DEPTH}, {HEADS} heads, "
+        f"{LS_N} tokens) B={LS_TRAIN_B} len {LS_LEN} bf16, VAE encode in "
+        f"the step, {LS_TRAIN_STEPS} steps in {dt:.3f} s: "
+        f"{LS_TRAIN_STEPS / dt:.4f} steps/s, peak memory {peak_gb:.3f} GB, "
+        f"launches {launches} ({want} per step), losses "
+        f"{[round(v, 5) for v in lv]}")
+    log_device_time("long train step", lambda: step(x, emb, generator=g))
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the kernel path against the eager opt-out paths on the same draws,
+    # at B=2: the eager paths hold (B, 4, N, N) scores per layer
+    Bs = 2
+    train_paths_vs_eager("long train", long_dit, dit, vae, x[:Bs], emb[:Bs],
+                         lambda: dict(
+                             u=torch.rand(Bs, generator=g, device="cuda"),
+                             x_0=torch.randn(Bs, 64, LS_LATENT, generator=g,
+                                             device="cuda"),
+                             coin=torch.tensor(0.9, device="cuda")))
     return launches
 
 
 # the TPU kernels still to port: (name, def site)
 TO_PORT = (
-    ("_res_mod_ln_call", "t2ms_tpu/ops/dit_block.py:721"),
-    ("_res_mod_ln_diff_bwd", "t2ms_tpu/ops/dit_block.py:772"),
     ("fused_heads_attention_with_stats", "t2ms_tpu/ops/attention.py:454"),
-    ("fused_heads_attention_bwd_two_pass", "t2ms_tpu/ops/attention.py:816"),
     ("fused_heads_attention_bwd_lean", "t2ms_tpu/ops/attention.py:984"),
     ("fused_heads_attention_bwd_lean_two_pass",
      "t2ms_tpu/ops/attention.py:1152"),
@@ -1206,10 +1561,13 @@ def main(argv=None):
         return 1
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (FUSED_HEADS_BWD_KERNEL,
-                                              FUSED_HEADS_KERNEL)
+                                              FUSED_HEADS_KERNEL,
+                                              FUSED_HEADS_TWO_PASS_KERNEL)
     from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
                                               MOD_LN_BWD_KERNEL,
-                                              MOD_LN_KERNEL, SPLIT_KERNEL,
+                                              MOD_LN_KERNEL,
+                                              RES_MOD_LN_BWD_KERNEL,
+                                              RES_MOD_LN_KERNEL, SPLIT_KERNEL,
                                               STACK_KERNEL)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1241,6 +1599,13 @@ def main(argv=None):
     mln = mod_ln_phase(gen)[torch.bfloat16]
     fh = fused_heads_phase(gen)[torch.bfloat16]
     tr_launches = scaled_train_phase(sc_dit, sc_vae, gen)
+    del sc_dit, sc_vae
+    torch.cuda.empty_cache()
+    rln = res_mod_ln_phase(gen)["scaled"]
+    tp = two_pass_phase(gen)[torch.bfloat16]
+    ls_dit, ls_vae = build_long_models(args.seed)
+    long_offline_phase(ls_dit, ls_vae, gen)
+    ls_launches = long_train_phase(ls_dit, ls_vae, gen)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {
@@ -1273,7 +1638,16 @@ def main(argv=None):
               tr_launches.get(FUSED_HEADS_KERNEL, 0), fh["fwd"]),
         entry(FUSED_HEADS_BWD_KERNEL, csrc + "fused_heads.cu",
               "t2ms_tpu/ops/attention.py:1275",
-              tr_launches.get(FUSED_HEADS_BWD_KERNEL, 0), fh["bwd"])],
+              tr_launches.get(FUSED_HEADS_BWD_KERNEL, 0), fh["bwd"]),
+        entry(RES_MOD_LN_KERNEL, csrc + "mod_ln.cu",
+              "t2ms_tpu/ops/dit_block.py:721",
+              tr_launches.get(RES_MOD_LN_KERNEL, 0), rln["fwd"]),
+        entry(RES_MOD_LN_BWD_KERNEL, csrc + "mod_ln.cu",
+              "t2ms_tpu/ops/dit_block.py:772",
+              tr_launches.get(RES_MOD_LN_BWD_KERNEL, 0), rln["bwd"]),
+        entry(FUSED_HEADS_TWO_PASS_KERNEL, csrc + "fused_heads.cu",
+              "t2ms_tpu/ops/attention.py:816",
+              ls_launches.get(FUSED_HEADS_TWO_PASS_KERNEL, 0), tp)],
         "to_port": [{"name": n, "replaces": r} for n, r in TO_PORT]}
     print(smi, flush=True)
     print(json.dumps(table), flush=True)

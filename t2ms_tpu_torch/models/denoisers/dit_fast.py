@@ -19,13 +19,21 @@ weights.
 the hand-written block kernels on CUDA; its weights are views of the
 parameters, so the grads reach them.
 
-``flax_path_forward`` (training, geometries the block kernels do not take,
-such as the scaled DiT's d_model 512) is the counterpart of the TPU branch
-of the flax ``DiT.__call__`` with the residual + LayerNorm fusion off: per
-block, ``ops.dit_block.mod_ln_diffable`` before the attention and before
-the MLP, ``ops.attention.fused_heads_diffable`` on the qkv projection's
-column slices, and the Dense layers, GELU and gated residuals as the eager
-module computes them (XLA computes them outside any Pallas kernel).
+``flax_path_forward`` (serving and training, geometries the block kernels
+do not take, such as the scaled DiT's d_model 512 or the long-series DiT's
+4096 tokens) is the counterpart of the TPU branch of the flax
+``DiT.__call__`` with its default residual + LayerNorm fusion: block 0's
+leading LayerNorm + modulate in ``ops.dit_block.mod_ln_diffable``, every
+later block boundary (a gated residual and the next LayerNorm + modulate)
+in ``ops.dit_block.res_mod_ln_diffable``, the attention in
+``ops.attention.fused_heads_diffable`` on the qkv projection's column
+slices, and the Dense layers, GELU and the last gated residual as the
+eager module computes them (XLA computes them outside any Pallas kernel).
+
+The stack, split and block routes take the JAX package's token range,
+128 <= N <= 1024 with N % 8 == 0 for N patch tokens (its gates
+``fast_forward_supported``, ``split_block_q`` and ``block_vjp_supported``
+state it); inside it each kernel library answers for its own shapes.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from t2ms_tpu_torch.ops.dit_block import (block_kernel_supported,
                                           fused_dit_block_split,
                                           fused_dit_stack, mod_ln_diffable,
                                           mod_ln_supported,
+                                          res_mod_ln_diffable,
+                                          res_mod_ln_supported,
                                           split_kernel_supported,
                                           stack_kernel_supported)
 
@@ -66,21 +76,34 @@ def fused_path_eligible(denoiser, device) -> bool:
             and torch.device(device).type == "cuda")
 
 
+def _in_token_range(dit: DiT) -> bool:
+    """128 <= N <= 1024 and N % 8 == 0 for the DiT's N patch tokens: the
+    range of the JAX package's stack, split and block-VJP gates
+    (t2ms_tpu/models/denoisers/dit_fast.py:56, t2ms_tpu/ops/dit_block.py
+    :319, :437). The DiTs outside it take the flax path, as in JAX."""
+    n = dit.num_patches
+    return 128 <= n <= 1024 and n % 8 == 0
+
+
 def fast_forward_supported(dit: DiT) -> bool:
-    """Whether the CUDA stack kernel takes this DiT's geometry, asked of
-    the kernel library itself (``ops.dit_block.stack_kernel_supported``;
-    needs nvcc and a card)."""
+    """Whether the CUDA stack kernel takes this DiT's geometry: the JAX
+    token range, then the kernel library itself
+    (``ops.dit_block.stack_kernel_supported``; needs nvcc and a card)."""
+    if not _in_token_range(dit):
+        return False
     return stack_kernel_supported(dit.d_model, int(dit.d_model
                                                    * dit.mlp_ratio),
                                   dit.num_heads, dit.compute_dtype)
 
 
 def split_forward_supported(dit: DiT) -> bool:
-    """Whether the CUDA split block kernel takes this DiT's geometry, asked
-    of the kernel library itself (``ops.dit_block.split_kernel_supported``;
-    needs nvcc and a card). The JAX gate's VMEM envelope
-    (``split_block_q``) is not ported: Hopper kernels pick their own
-    tiles."""
+    """Whether the CUDA split block kernel takes this DiT's geometry: the
+    JAX token range, then the kernel library itself
+    (``ops.dit_block.split_kernel_supported``; needs nvcc and a card). The
+    JAX gate's VMEM envelope (``split_block_q``) is not ported: Hopper
+    kernels pick their own tiles."""
+    if not _in_token_range(dit):
+        return False
     return split_kernel_supported(dit.d_model, int(dit.d_model
                                                    * dit.mlp_ratio),
                                   dit.num_heads, dit.compute_dtype)
@@ -88,10 +111,11 @@ def split_forward_supported(dit: DiT) -> bool:
 
 def train_forward_supported(dit: DiT) -> bool:
     """Whether the CUDA block kernels (forward and backward) take this
-    DiT's geometry, asked of the backward's library
+    DiT's geometry: the JAX token range, then the backward's library
     (``ops.dit_block.block_kernel_supported``; needs nvcc and a card). An
     explicit ``attention_impl`` opts out, as in the JAX gate."""
-    if getattr(dit, "attention_impl", "auto") != "auto":
+    if (getattr(dit, "attention_impl", "auto") != "auto"
+            or not _in_token_range(dit)):
         return False
     return block_kernel_supported(dit.d_model, int(dit.d_model
                                                    * dit.mlp_ratio),
@@ -100,13 +124,15 @@ def train_forward_supported(dit: DiT) -> bool:
 
 def flax_path_supported(dit: DiT) -> bool:
     """Whether the flax path's kernels take this DiT's geometry, asked of
-    both libraries (``ops.dit_block.mod_ln_supported`` and
+    both libraries (``ops.dit_block.mod_ln_supported``,
+    ``ops.dit_block.res_mod_ln_supported`` and
     ``ops.attention.fused_heads_supported``; needs nvcc and a card). An
     explicit ``attention_impl`` opts out, as in the JAX gates."""
     if getattr(dit, "attention_impl", "auto") != "auto":
         return False
     dt = dit.compute_dtype
     return (mod_ln_supported(dit.d_model, dt)
+            and res_mod_ln_supported(dit.d_model, dt)
             and fused_heads_supported(dit.d_model, dit.num_heads, dt))
 
 
@@ -184,19 +210,30 @@ def flax_path_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
                       text_emb: Optional[torch.Tensor] = None,
                       text_mask: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Differentiable DiT forward through the flax path's kernels: each
-    block's two LayerNorm + modulates in ``mod_ln_diffable`` and its
-    attention in ``fused_heads_diffable``; on CPU tensors both run their
-    plain twins."""
+    """Differentiable DiT forward through the flax path's kernels, as
+    ``DiT.__call__`` with the residual fusion on (t2ms_tpu/models/denoisers
+    /dit.py:232-263, :323-340): block 0's leading LayerNorm + modulate in
+    ``mod_ln_diffable``; each gated residual deferred into the next
+    LayerNorm + modulate, ``res_mod_ln_diffable`` (2 * depth - 1
+    boundaries); the attention in ``fused_heads_diffable``; the last
+    gated residual eager before the final LayerNorm. On CPU tensors the
+    kernels run their plain twins."""
     h, c = dit.embed(x, t, text_emb, text_mask)
     dt, D = dit.compute_dtype, dit.d_model
+    pending = None                     # the previous block's (mlp, gate)
     for blk in dit.layers:
-        m = blk.modulation(c, dt)                             # (B, 6, D)
+        m = blk.modulation(c, dt)      # (B, 6, D): sh_a sc_a g_a sh_m sc_m g_m
         a = blk.attn
-        qkv = dense(mod_ln_diffable(h, m[:, 0:2]), a.qkv.weight, a.qkv.bias,
-                    dt)
+        if pending is None:
+            z = mod_ln_diffable(h, m[:, 0:2])
+        else:
+            z, h = res_mod_ln_diffable(
+                h, pending[0], torch.stack([pending[1], m[:, 0], m[:, 1]], 1))
+        qkv = dense(z, a.qkv.weight, a.qkv.bias, dt)
         y = fused_heads_diffable(qkv[..., :D], qkv[..., D:2 * D],
                                  qkv[..., 2 * D:], dit.num_heads).to(dt)
-        h = h + m[:, 2, None] * dense(y, a.proj.weight, a.proj.bias, dt)
-        h = h + m[:, 5, None] * blk.mlp(mod_ln_diffable(h, m[:, 3:5]), dt)
+        z, h = res_mod_ln_diffable(h, dense(y, a.proj.weight, a.proj.bias,
+                                            dt), m[:, 2:5])
+        pending = (blk.mlp(z, dt), m[:, 5])
+    h = h + pending[1][:, None] * pending[0]
     return dit.finalize(h, x.dtype)

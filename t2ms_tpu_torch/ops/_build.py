@@ -138,8 +138,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
         "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
         "mod_ln_backward": [P] * 6 + [I] * 3 + [F, P],
+        "res_mod_ln_forward": [P] * 5 + [I] * 3 + [F, P],
+        "res_mod_ln_backward": [P] * 9 + [I] * 3 + [F, P],
         "fused_heads_forward": [P] * 4 + [I] * 4 + [L] * 6 + [F, P],
-        "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [F, F, P],
+        "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [I, F, F, P],
     }
     for base, argtypes in sigs.items():
         for fn in (f"{base}_bf16", f"{base}_f32"):
@@ -148,13 +150,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                 getattr(lib, fn).restype = I
     for fn, n in (("dit_block_backward_workspace", 6),
                   ("mod_ln_backward_workspace", 3),
+                  ("res_mod_ln_backward_workspace", 3),
                   ("fused_heads_backward_workspace", 3)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = ctypes.c_longlong
     for fn, n in (("dit_stack_check", 4), ("dit_block_check", 4),
                   ("dit_split_check", 4), ("mod_ln_check", 2),
-                  ("fused_heads_check", 3)):
+                  ("res_mod_ln_check", 2), ("fused_heads_check", 3)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = I

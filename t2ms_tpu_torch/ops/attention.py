@@ -1,8 +1,8 @@
 """Attention: the plain oracles (counterparts of t2ms_tpu/ops/attention.py
 ``einsum_attention`` / ``_einsum_natural`` and the ``attn_heads_natural``
 recipe that every fused TPU kernel shares) and the port of the fused-heads
-kernels (``fused_heads_attention``, ``fused_heads_attention_bwd`` and
-``fused_heads_diffable``).
+kernels (``fused_heads_attention``, ``fused_heads_attention_bwd``,
+``fused_heads_attention_bwd_two_pass`` and ``fused_heads_diffable``).
 
 ``attn_heads_natural`` keeps the kernels' order of precision steps:
 q scaled at input width, f32 scores, row max subtracted then cast to input
@@ -14,8 +14,17 @@ The fused-heads wrappers take q, k and v on the natural (B, N, H*D)
 layout, as the column slices of one qkv projection: the kernels read each
 operand through its own batch and row strides, so the slices are not
 copied. On a CUDA tensor they launch ``csrc/fused_heads.cu`` (counted as
-``fused_heads_attention`` and ``fused_heads_attention_bwd``) or raise; on
-a CPU tensor they run the plain twins.
+``fused_heads_attention``, ``fused_heads_attention_bwd`` and
+``fused_heads_attention_bwd_two_pass``) or raise; on a CPU tensor they run
+the plain twins.
+
+The backward has two recipes with other rounding points: the pipelined
+one (the JAX default where it walks head groups) and the recompute one (its
+ungrouped single-pass kernels and its two-pass kernel). ``_FusedHeads``
+picks the one JAX's ``_fused_heads_bwd`` runs on a TPU, from copies of the
+three integer predicates it consults (``_bwd_block_q``,
+``_bwd_head_groups``, ``_bwd_two_pass_blocks``): they decide the recipe and
+the kernel here, not tiles.
 """
 
 from __future__ import annotations
@@ -28,12 +37,15 @@ from t2ms_tpu_torch.ops import _build
 
 __all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural",
            "fused_heads_reference", "fused_heads_bwd_reference",
-           "fused_heads_attention", "fused_heads_attention_bwd",
+           "fused_heads_bwd_two_pass_reference", "fused_heads_attention",
+           "fused_heads_attention_bwd", "fused_heads_attention_bwd_two_pass",
            "fused_heads_diffable", "fused_heads_supported",
-           "FUSED_HEADS_KERNEL", "FUSED_HEADS_BWD_KERNEL"]
+           "fused_heads_bwd_route", "FUSED_HEADS_KERNEL",
+           "FUSED_HEADS_BWD_KERNEL", "FUSED_HEADS_TWO_PASS_KERNEL"]
 
 FUSED_HEADS_KERNEL = "fused_heads_attention"
 FUSED_HEADS_BWD_KERNEL = "fused_heads_attention_bwd"
+FUSED_HEADS_TWO_PASS_KERNEL = "fused_heads_attention_bwd_two_pass"
 _FWD_ENTRY = {torch.bfloat16: "fused_heads_forward_bf16",
               torch.float32: "fused_heads_forward_f32"}
 _BWD_ENTRY = {torch.bfloat16: "fused_heads_backward_bf16",
@@ -106,12 +118,13 @@ def fused_heads_reference(q, k, v, num_heads: int,
 
 def fused_heads_bwd_reference(q, k, v, g, num_heads: int,
                               scale: Optional[float] = None):
-    """Plain twin of ``fused_heads_attention_bwd``: the pipelined recipe
-    of the JAX kernel (``_bwd_pipelined_blocked_kernel``) per head, on
-    whole rows: p = e / r is never formed; gs = T(g / r), dv = e^T gs,
-    t = rowsum(dp * e) / r, ds_u = T(e * (dp - t)), dq = (ds_u k) * scale
-    / r, dk = ds_u^T T(q * scale / r). Returns (dq, dk, dv) in q's
-    dtype."""
+    """Plain twin of ``fused_heads_attention_bwd`` with the pipelined
+    recipe: that of the JAX kernel (``_bwd_pipelined_blocked_kernel``)
+    per head, on whole rows: p = e / r is never formed; gs = T(g / r),
+    dv = e^T gs, t = rowsum(dp * e) / r, ds_u = T(e * (dp - t)),
+    dq = (ds_u k) * scale / r, dk = ds_u^T T(q * scale / r). Returns
+    (dq, dk, dv) in q's dtype. The recompute recipe's twin is
+    ``fused_heads_bwd_two_pass_reference``."""
     dt = q.dtype
     scale = _scale(q, num_heads, scale)
     D = q.shape[-1] // num_heads
@@ -138,13 +151,126 @@ def fused_heads_bwd_reference(q, k, v, g, num_heads: int,
     return tuple(torch.cat(o, dim=-1) for o in outs)
 
 
+def fused_heads_bwd_two_pass_reference(q, k, v, g, num_heads: int,
+                                       scale: Optional[float] = None):
+    """Plain twin of ``fused_heads_attention_bwd_two_pass`` and of
+    ``fused_heads_attention_bwd`` with ``pipelined=False``: the recompute
+    recipe of the JAX kernels (``_bwd_pass1_kernel``/``_bwd_pass2_kernel``,
+    the same as the ungrouped single-pass ``_fused_heads_bwd_kernel``) per
+    head, on whole rows: s = T(q * scale) k^T in f32, e = exp(T(s - m)),
+    r = sum f32(e), p = f32(e) / r, delta = rowsum(dp * p),
+    ds = T(p * (dp - delta)), dq = (ds k) * scale, dk = (ds^T q) * scale
+    with q unscaled, dv = T(p)^T g. Returns (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    scale = _scale(q, num_heads, scale)
+    D = q.shape[-1] // num_heads
+    outs = ([], [], [])
+    for h in range(num_heads):
+        sl = slice(h * D, (h + 1) * D)
+        qh, kh, vh = (a[..., sl].float() for a in (q, k, v))
+        gh = g[..., sl].to(dt).float()
+        s = torch.matmul((q[..., sl] * torch.tensor(scale, dtype=dt)).float(),
+                         kh.transpose(-1, -2))
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp((s - m).to(dt)).float()
+        p = e / e.sum(dim=-1, keepdim=True)
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        delta = (dp * p).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - delta)).to(dt).float()
+        dq = torch.matmul(ds, kh) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
+        for acc, d in zip(outs, (dq, dk, dv)):
+            acc.append(d.to(dt))
+    return tuple(torch.cat(o, dim=-1) for o in outs)
+
+
+# The integer predicates of JAX's _fused_heads_bwd (t2ms_tpu/ops/attention.py
+# :785, :1202, :1251), copied as they are: on a TPU they size VMEM tiles; in
+# the port they only say which branch, and so which recipe and which kernel,
+# the JAX default takes at a geometry (``fused_heads_bwd_route``).
+
+def _bwd_two_pass_blocks(n: int, hd: int, bpe: int = 2):
+    if n % 8 != 0 or n < 256:
+        return None
+    budget = 11 * 2 ** 20
+    per_elem = 14 + 2 * bpe
+    full_row = 2 * 2 * n * hd * bpe
+    stats = 2 * n * 128 * 4
+    p1 = None
+    for bq in (256, 128, 64, 32):
+        if n % bq == 0 and full_row + per_elem * bq * n < budget:
+            p1 = bq
+            break
+    if p1 is None:
+        return None
+    for bk in (512, 256, 128):
+        cq = 512 if n % 512 == 0 else 256
+        if n % bk == 0 and n % cq == 0 \
+                and full_row + stats + per_elem * cq * bk < budget:
+            return (p1, bk, cq)
+    return None
+
+
+def _bwd_head_groups(n: int, hd: int, num_heads: int, bpe: int = 2):
+    if n % 8 != 0 or n < 128:
+        return None
+    d = hd // num_heads
+    proven = {(1024, 512, 8): (2, 512)}
+    got = proven.get((n, hd, num_heads))
+    if got:
+        return got
+    budget = 11 * 2 ** 20
+    for g in (2, 4, 8, 16):
+        ghd = hd // g
+        if num_heads % g or ghd % 128 or ghd < d:
+            continue
+        refs = 14 * n * ghd * bpe
+        if refs >= budget:
+            continue
+        for bq in (512, 384, 256, 128, 64, 32):
+            if n % bq == 0 and bq * n * 16 + refs < budget:
+                return (g, bq)
+    return None
+
+
+def _bwd_block_q(n: int, hd: int, bpe: int = 2) -> int:
+    if n % 8 != 0 or n < 128:
+        return 0
+    budget = 11 * 2 ** 20
+    refs = 14 * n * hd * bpe
+    if n * n * 18 + refs < budget:
+        return n
+    for bq in (512, 384, 256, 128):
+        if n % bq == 0 and bq * n * 16 + refs < budget:
+            return bq
+    return 0
+
+
+def fused_heads_bwd_route(n: int, hd: int, num_heads: int,
+                          bpe: int = 2) -> str:
+    """The branch JAX's ``_fused_heads_bwd`` takes on a TPU for N = ``n``
+    rows of H*D = ``hd`` in ``num_heads`` heads of ``bpe``-byte values:
+    "single" (the ungrouped single pass: #11 with the recompute recipe),
+    "grouped" (head groups: #11 pipelined), "two_pass" (#12), or "eager"
+    (its eager einsum VJP, where no Pallas backward fits; the port has no
+    eager fallback on CUDA and runs #12 there)."""
+    if _bwd_block_q(n, hd, bpe):
+        return "single"
+    if _bwd_head_groups(n, hd, num_heads, bpe):
+        return "grouped"
+    if _bwd_two_pass_blocks(n, hd, bpe):
+        return "two_pass"
+    return "eager"
+
+
 def fused_heads_supported(HD: int, num_heads: int,
                           dtype: torch.dtype) -> bool:
     """Whether the CUDA fused-heads kernels, forward and backward, take
     H*D = ``HD`` split into ``num_heads`` heads in ``dtype``
-    (``fused_heads_check`` in fused_heads.cu). The JAX VMEM envelopes
-    (``fused_heads_block_q``, ``_bwd_block_q``, ``_bwd_head_groups``) are
-    not ported."""
+    (``fused_heads_check`` in fused_heads.cu). The JAX VMEM envelope
+    ``fused_heads_block_q`` is not ported; the backward's predicates pick
+    a recipe only (``fused_heads_bwd_route``)."""
     if dtype not in _FWD_ENTRY:
         return False
     return _build.supported("fused_heads", "fused_heads_check", HD,
@@ -197,19 +323,21 @@ def _launch_fused_heads(q, k, v, num_heads, scale):
     return o
 
 
-def _launch_fused_heads_bwd(q, k, v, g, num_heads, scale):
+def _launch_fused_heads_bwd(q, k, v, g, num_heads, scale, pipelined=True,
+                            name=FUSED_HEADS_BWD_KERNEL):
+    """The three backward launches with the pipelined or the recompute
+    recipe, counted once under ``name``."""
     refused, lib, ts, strides = _heads_operands(
-        FUSED_HEADS_BWD_KERNEL, _BWD_ENTRY, (q, k, v, g.to(q.dtype)),
-        num_heads)
+        name, _BWD_ENTRY, (q, k, v, g.to(q.dtype)), num_heads)
     dt = q.dtype
     B, N, HD = q.shape
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=dt)
                   for _ in range(3))
     work = torch.empty(lib.fused_heads_backward_workspace(B, N, num_heads),
                        device=q.device, dtype=torch.uint8)
-    _build.launch(lib, _BWD_ENTRY[dt], FUSED_HEADS_BWD_KERNEL, refused,
-                  q.device, *ts, dq, dk, dv, work, B, N, HD, num_heads,
-                  *strides, float(scale), float(torch.tensor(scale, dtype=dt)))
+    _build.launch(lib, _BWD_ENTRY[dt], name, refused, q.device, *ts, dq, dk,
+                  dv, work, B, N, HD, num_heads, *strides, int(pipelined),
+                  float(scale), float(torch.tensor(scale, dtype=dt)))
     return dq, dk, dv
 
 
@@ -237,6 +365,15 @@ def fused_heads_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return fused_heads_reference(q, k, v, num_heads, scale)
 
 
+def _check_bwd(name, q, k, v, g):
+    _check_heads(name, q, k, v)
+    if g.shape != q.shape:
+        raise ValueError(f"{name}: g must be {tuple(q.shape)}, got "
+                         f"{tuple(g.shape)}")
+    if not q.is_cuda and q.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
 def fused_heads_attention_bwd(q, k, v, g, num_heads: int,
                               scale: Optional[float] = None,
                               block_q: Optional[int] = None,
@@ -244,29 +381,55 @@ def fused_heads_attention_bwd(q, k, v, g, num_heads: int,
                               pipelined: Optional[bool] = None):
     """VJP of ``fused_heads_attention``: (dq, dk, dv) in q's dtype for the
     upstream gradient g, all (B, N, H*D), recomputing the probabilities
-    from q and k with the JAX default's pipelined recipe. CUDA tensor ->
-    ``csrc/fused_heads.cu`` (a stats, a dq and a dk/dv kernel; no atomics,
-    so runs repeat bit for bit); CPU tensor -> the twin. ``block_q``,
-    ``head_groups`` and ``pipelined`` shape the TPU kernel's VMEM tiles
-    and are ignored."""
-    del block_q, head_groups, pipelined
-    _check_heads(FUSED_HEADS_BWD_KERNEL, q, k, v)
-    if g.shape != q.shape:
-        raise ValueError(f"{FUSED_HEADS_BWD_KERNEL}: g must be "
-                         f"{tuple(q.shape)}, got {tuple(g.shape)}")
+    from q and k. ``pipelined`` picks the recipe as in JAX: None means
+    pipelined where ``head_groups`` > 1 (the JAX default), else the
+    recompute recipe. CUDA tensor -> ``csrc/fused_heads.cu`` (a stats, a
+    dq and a dk/dv kernel; no atomics, so runs repeat bit for bit); CPU
+    tensor -> the twin. ``block_q`` and ``head_groups`` shape the TPU
+    kernel's VMEM tiles and are otherwise ignored."""
+    del block_q
+    _check_bwd(FUSED_HEADS_BWD_KERNEL, q, k, v, g)
+    HD = q.shape[-1]
+    if head_groups > 1 and (HD % head_groups or num_heads % head_groups
+                            or (HD // head_groups) % (HD // num_heads)):
+        raise ValueError(f"head_groups {head_groups} incompatible with "
+                         f"HD={HD}, num_heads={num_heads}")
+    if pipelined is None:
+        pipelined = head_groups > 1
     scale = _scale(q, num_heads, scale)
     if q.is_cuda:
-        return _launch_fused_heads_bwd(q, k, v, g, num_heads, scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"{FUSED_HEADS_BWD_KERNEL}: unsupported device "
-                         f"{q.device}")
-    return fused_heads_bwd_reference(q, k, v, g, num_heads, scale)
+        return _launch_fused_heads_bwd(q, k, v, g, num_heads, scale,
+                                       pipelined)
+    twin = (fused_heads_bwd_reference if pipelined
+            else fused_heads_bwd_two_pass_reference)
+    return twin(q, k, v, g, num_heads, scale)
+
+
+def fused_heads_attention_bwd_two_pass(q, k, v, g, num_heads: int,
+                                       scale: Optional[float] = None,
+                                       blocks=None):
+    """The long-series VJP of ``fused_heads_attention`` (JAX's two-pass
+    kernel): (dq, dk, dv) in q's dtype with the recompute recipe. CUDA
+    tensor -> ``csrc/fused_heads.cu`` (the stats kernel, then the
+    recompute dq and dk/dv kernels); CPU tensor -> the twin. ``blocks`` is
+    the JAX signature's (block_q, block_k, chunk_q) of VMEM tiles: the
+    kernels pick their own, so it is ignored."""
+    del blocks
+    _check_bwd(FUSED_HEADS_TWO_PASS_KERNEL, q, k, v, g)
+    scale = _scale(q, num_heads, scale)
+    if q.is_cuda:
+        return _launch_fused_heads_bwd(q, k, v, g, num_heads, scale, False,
+                                       FUSED_HEADS_TWO_PASS_KERNEL)
+    return fused_heads_bwd_two_pass_reference(q, k, v, g, num_heads, scale)
 
 
 class _FusedHeads(torch.autograd.Function):
-    """Forward ``fused_heads_attention``, backward
-    ``fused_heads_attention_bwd``; the residuals are q, k and v, as in the
-    JAX custom VJP with its lean gate off."""
+    """Forward ``fused_heads_attention``; backward what JAX's
+    ``_fused_heads_bwd`` runs on a TPU at this geometry
+    (``fused_heads_bwd_route``): ``fused_heads_attention_bwd`` with the
+    recompute recipe (ungrouped single pass) or the pipelined one (head
+    groups), else ``fused_heads_attention_bwd_two_pass``. The residuals
+    are q, k and v, as in the JAX custom VJP with its lean gate off."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads):
@@ -277,7 +440,18 @@ class _FusedHeads(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return (*fused_heads_attention_bwd(q, k, v, g, ctx.num_heads), None)
+        H = ctx.num_heads
+        _, N, HD = q.shape
+        route = fused_heads_bwd_route(N, HD, H, q.element_size())
+        if route == "single":
+            grads = fused_heads_attention_bwd(q, k, v, g, H)
+        elif route == "grouped":
+            groups, bq = _bwd_head_groups(N, HD, H, q.element_size())
+            grads = fused_heads_attention_bwd(q, k, v, g, H, block_q=bq,
+                                              head_groups=groups)
+        else:
+            grads = fused_heads_attention_bwd_two_pass(q, k, v, g, H)
+        return (*grads, None)
 
 
 def fused_heads_diffable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

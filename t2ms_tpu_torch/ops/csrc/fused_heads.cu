@@ -2,27 +2,38 @@
 // backward, hand-written for Hopper (sm_90a), bf16 and f32.
 //
 // Replaces the TPU kernels t2ms_tpu/ops/attention.py:fused_heads_attention
-// (_fused_heads_kernel) and fused_heads_attention_bwd (at the scaled train
-// step's geometry the head-grouped, pipelined _bwd_pipelined_blocked_kernel,
-// the JAX default there). q, k, v and g are read through their own batch and
-// row strides, so the column slices of one qkv projection are not copied.
+// (_fused_heads_kernel), fused_heads_attention_bwd (the head-grouped
+// _bwd_pipelined_blocked_kernel, the JAX default at the scaled train step's
+// geometry, and the ungrouped recompute kernels _fused_heads_bwd_kernel and
+// _fused_heads_bwd_blocked_kernel) and fused_heads_attention_bwd_two_pass
+// (_bwd_pass1_kernel, _bwd_pass2_kernel: the recompute recipe split for the
+// TPU's VMEM at N=4096, the JAX default on the long-series train path). q,
+// k, v and g are read through their own batch and row strides, so the column
+// slices of one qkv projection are not copied.
 //
 //   forward   heads_attn_kernel (attn_heads.cuh, shared with the split
 //             block): per (element, 64 q rows, head), q scaled at input
 //             width, f32 scores, the exact softmax in two passes over 64-row
 //             K tiles (row max; then e = T(exp(T(s - m))), f32 row sums, f32
 //             PV), o = T(PV / r).
-//   backward  three launches, recomputing the probabilities from q and k
-//             with the pipelined recipe's rounding points:
+//   backward  three launches, recomputing the probabilities from q and k,
+//             with one of the two recipes' rounding points:
 //     stats   per (element, q tile, head): the row max m in pass 1; in pass
 //             2, with dp = g v^T in f32, r = sum e and u = sum dp * e, so
-//             1/r and t = u / r (f32, to a workspace).
+//             1/r and t = u / r (f32, to a workspace); t is the recompute
+//             recipe's delta = rowsum(dp * p) too.
 //     dq      per (element, q tile, head) over the k tiles:
-//             ds_u = T(e * (dp - t)), dq = T((ds_u k) * (scale / r)).
+//             pipelined  ds_u = T(e * (dp - t)), dq = T((ds_u k) * (scale/r));
+//             recompute  p = e / r, ds = T(p * (dp - t)), dq = T((ds k) * scale).
 //     dkdv    per (element, k tile, head) over the q tiles:
-//             dv = T(sum e^T T(g / r)), dk = T(sum ds_u^T T(q * scale / r)).
+//             pipelined  dv = T(sum e^T T(g / r)),
+//                        dk = T(sum ds_u^T T(q * scale / r));
+//             recompute  dv = T(sum T(p)^T g), dk = T((sum ds^T q) * scale),
+//                        q unscaled.
 //             Two kernels instead of atomics, so every sum has one order and
-//             runs repeat bit for bit.
+//             runs repeat bit for bit. The TPU's single-pass and two-pass
+//             kernels differ in how they tile VMEM, not in what they
+//             compute, so the recompute recipe serves both.
 //
 // Bound on an H100 SXM at the scaled train step's call (B=64, N=1024,
 // HD=512, 8 heads of 64, bf16): the forward's two products (QK^T, PV) are
@@ -34,10 +45,13 @@
 // FMA loops so they stay tight against their twins). The exact softmax
 // costs QK^T twice in the forward and three times in the backward, and the
 // tiles go through shared memory: speed (wgmma, TMA, online softmax) is
-// later work; these kernels are the simple, right ones.
+// later work; these kernels are the simple, right ones. At the long-series
+// train step's call (B=8, N=4096, 4 heads of 32) the backward's five
+// products are 171.8 GFLOP, 0.174 ms, against 59 MB.
 //
 // C interface for ctypes: fused_heads_forward_{bf16,f32} and
-// fused_heads_backward_{bf16,f32} launch on the given stream and return
+// fused_heads_backward_{bf16,f32} (its `pipelined` flag picks the recipe)
+// launch on the given stream and return
 // cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE (launching nothing) for a
 // shape the kernels do not take; fused_heads_backward_workspace gives the
 // bytes of the per-row statistics the caller allocates; fused_heads_check
@@ -201,22 +215,25 @@ __device__ void load_stats(const BwdArgs<T>& a, int b, int h, int q0,
   }
 }
 
-// e = T(exp(T(s - m))) and ds_u = e * (dp - t) for q row i < vq and k row
-// j < vk, zero outside
-template <typename T>
+// For q row i < vq and k row j < vk (zero outside): e = T(exp(T(s - m)))
+// and ds_u = e * (dp - t) (pipelined), or p = e / r and ds = p * (dp - t)
+// (recompute, returned in e's place).
+template <typename T, bool PIPE>
 __device__ __forceinline__ void e_ds(const float* Ss, const float* dPs,
                                      int lds, const float* Ms,
-                                     const float* Ts, int i, int j, int vq,
-                                     int vk, float& e, float& ds) {
+                                     const float* Ir, const float* Ts, int i,
+                                     int j, int vq, int vk, float& e,
+                                     float& ds) {
   e = 0.0f;
   ds = 0.0f;
   if (i < vq && j < vk) {
     e = rnd<T>(expf(rnd<T>(Ss[i * lds + j] - Ms[i])));
+    if (!PIPE) e *= Ir[i];
     ds = e * (dPs[i * lds + j] - Ts[i]);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PIPE>
 __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = tb<T>(), P = pad<T>();
@@ -255,11 +272,11 @@ __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
     for (int idx = threadIdx.x; idx < R * R; idx += NT) {
       const int i = idx / R, j = idx % R;
       float e, ds;
-      e_ds<T>(Ss, dPs, lds, Ms, Ts, i, j, vq, vk, e, ds);
+      e_ds<T, PIPE>(Ss, dPs, lds, Ms, Ir, Ts, i, j, vq, vk, e, ds);
       DSs[i * ldp + j] = from_f<T>(ds);
     }
     __syncthreads();
-    acc.mma(DSs, ldp, Ks, ld, dQ, ldf);  // dQ += ds_u k
+    acc.mma(DSs, ldp, Ks, ld, dQ, ldf);  // dQ += ds k
   }
   __syncthreads();
   acc.store(dQ, ldf);
@@ -267,11 +284,11 @@ __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
   for (int idx = threadIdx.x; idx < vq * DH; idx += NT) {
     const int i = idx / DH, c = idx % DH;
     a.dq[((size_t)pl.b * N + pl.t0 + i) * a.HD + pl.h * DH + c] =
-        from_f<T>(dQ[i * ldf + c] * (a.scale * Ir[i]));
+        from_f<T>(dQ[i * ldf + c] * (PIPE ? a.scale * Ir[i] : a.scale));
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PIPE>
 __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = tb<T>(), P = pad<T>();
@@ -299,7 +316,7 @@ __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
                a.k.sn, R, vk, DH);
   load_rows<T>(Vs, ld, a.v.head(pl.b, pl.h, DH) + (size_t)pl.t0 * a.v.sn,
                a.v.sn, R, vk, DH);
-  PvAcc<T, DH, R, true> ak, av;  // dK += ds_u^T qs, dV += e^T gs
+  PvAcc<T, DH, R, true> ak, av;  // dK += ds^T Qs, dV += e^T Gs
   ak.zero(dK, ldf);
   av.zero(dV, ldf);
 
@@ -314,19 +331,23 @@ __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
     for (int idx = threadIdx.x; idx < R * R; idx += NT) {
       const int i = idx / R, j = idx % R;  // q row i, k row j
       float e, ds;
-      e_ds<T>(Ss, dPs, lds, Ms, Ts, i, j, vq, vk, e, ds);
+      e_ds<T, PIPE>(Ss, dPs, lds, Ms, Ir, Ts, i, j, vq, vk, e, ds);
       Es[i * ldp + j] = from_f<T>(e);
       DSs[i * ldp + j] = from_f<T>(ds);
     }
-    // the scores are done with Qs and Gs: gs = T(g / r) and
-    // qs = T(q * (scale / r)) in their place (q read again, unscaled)
+    // the scores are done with Qs (and Gs): q read again, unscaled, in its
+    // place; pipelined: qs = T(q * (scale / r)) and gs = T(g / r)
     for (int idx = threadIdx.x; idx < R * DH; idx += NT) {
       const int i = idx / DH, c = idx % DH;
-      const float ir = Ir[i];
-      Gs[i * ld + c] = from_f<T>(to_f<T>(Gs[i * ld + c]) * ir);
       const float qv =
           i < vq ? to_f<T>(qh[(size_t)(q0 + i) * a.q.sn + c]) : 0.0f;
-      Qs[i * ld + c] = from_f<T>(qv * (a.scale * ir));
+      if (PIPE) {
+        const float ir = Ir[i];
+        Gs[i * ld + c] = from_f<T>(to_f<T>(Gs[i * ld + c]) * ir);
+        Qs[i * ld + c] = from_f<T>(qv * (a.scale * ir));
+      } else {
+        Qs[i * ld + c] = from_f<T>(qv);
+      }
     }
     __syncthreads();
     av.mma(Es, ldp, Gs, ld, dV, ldf);
@@ -339,25 +360,32 @@ __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
   for (int idx = threadIdx.x; idx < vk * DH; idx += NT) {
     const int j = idx / DH, c = idx % DH;
     const size_t o = ((size_t)pl.b * N + pl.t0 + j) * a.HD + pl.h * DH + c;
-    a.dk[o] = from_f<T>(dK[j * ldf + c]);
+    a.dk[o] = from_f<T>(PIPE ? dK[j * ldf + c] : dK[j * ldf + c] * a.scale);
     a.dv[o] = from_f<T>(dV[j * ldf + c]);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PIPE>
 cudaError_t launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
   const size_t s0 = smem_bwd<T>(DH, 0), s1 = smem_bwd<T>(DH, 1),
                s2 = smem_bwd<T>(DH, 2);
   cudaError_t e;
   if ((e = set_smem((const void*)heads_bwd_stats_kernel<T, DH>, s0)) ||
-      (e = set_smem((const void*)heads_bwd_dq_kernel<T, DH>, s1)) ||
-      (e = set_smem((const void*)heads_bwd_dkdv_kernel<T, DH>, s2)))
+      (e = set_smem((const void*)heads_bwd_dq_kernel<T, DH, PIPE>, s1)) ||
+      (e = set_smem((const void*)heads_bwd_dkdv_kernel<T, DH, PIPE>, s2)))
     return e;
   const int blocks = a.B * ((a.N + tb<T>() - 1) / tb<T>()) * a.H;
   heads_bwd_stats_kernel<T, DH><<<blocks, NT, s0, st>>>(a);
-  heads_bwd_dq_kernel<T, DH><<<blocks, NT, s1, st>>>(a);
-  heads_bwd_dkdv_kernel<T, DH><<<blocks, NT, s2, st>>>(a);
+  heads_bwd_dq_kernel<T, DH, PIPE><<<blocks, NT, s1, st>>>(a);
+  heads_bwd_dkdv_kernel<T, DH, PIPE><<<blocks, NT, s2, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_recipe(const BwdArgs<T>& a, bool pipelined,
+                          cudaStream_t st) {
+  return pipelined ? launch_bwd<T, DH, true>(a, st)
+                   : launch_bwd<T, DH, false>(a, st);
 }
 
 // 0 when the kernels take H*DH = HD in H heads on the current device,
@@ -398,13 +426,13 @@ int run_forward(const T* q, const T* k, const T* v, T* o, int B, int N,
 }
 
 template <typename T>
-int run_backward(const BwdArgs<T>& a, cudaStream_t st) {
+int run_backward(const BwdArgs<T>& a, bool pipelined, cudaStream_t st) {
   const int ok = check_all<T>(a.B, a.N, a.HD, a.H);
   if (ok) return ok;
   switch (a.HD / a.H) {
-    case 32: return launch_bwd<T, 32>(a, st);
-    case 64: return launch_bwd<T, 64>(a, st);
-    default: return launch_bwd<T, 128>(a, st);
+    case 32: return launch_recipe<T, 32>(a, pipelined, st);
+    case 64: return launch_recipe<T, 64>(a, pipelined, st);
+    default: return launch_recipe<T, 128>(a, pipelined, st);
   }
 }
 
@@ -425,12 +453,12 @@ int run_backward(const BwdArgs<T>& a, cudaStream_t st) {
       void* dk, void* dv, void* work, int B, int N, int HD, int H,            \
       long long sqb, long long sqn, long long skb, long long skn,             \
       long long svb, long long svn, long long sgb, long long sgn,             \
-      float scale, float qscale, void* stream) {                              \
+      int pipelined, float scale, float qscale, void* stream) {               \
     const BwdArgs<T> a{{(const T*)q, sqb, sqn}, {(const T*)k, skb, skn},      \
                        {(const T*)v, svb, svn}, {(const T*)g, sgb, sgn},      \
                        (T*)dq, (T*)dk, (T*)dv, (float*)work, B, N, HD, H,     \
                        scale, qscale};                                        \
-    return run_backward<T>(a, (cudaStream_t)stream);                          \
+    return run_backward<T>(a, pipelined != 0, (cudaStream_t)stream);          \
   }
 
 T2MS_HEADS_ENTRIES(bf16, __nv_bfloat16)

@@ -1,38 +1,54 @@
-// LayerNorm + adaLN modulate, forward and backward, hand-written for Hopper
-// (sm_90a), bf16 and f32.
+// LayerNorm + adaLN modulate, and the gated residual fused in front of it,
+// forward and backward, hand-written for Hopper (sm_90a), bf16 and f32.
 //
 // Replaces the TPU kernels t2ms_tpu/ops/dit_block.py:_mod_ln_call
-// (_mod_ln_fwd_kernel) and _mod_ln_diff_bwd (_mod_ln_bwd_kernel), which the
-// flax-path DiT block runs around its attention and its MLP:
+// (_mod_ln_fwd_kernel), _mod_ln_diff_bwd (_mod_ln_bwd_kernel),
+// _res_mod_ln_call (_res_mod_ln_fwd_kernel) and _res_mod_ln_diff_bwd
+// (_res_mod_ln_bwd_kernel), which the flax-path DiT block runs at its
+// boundaries (the first block's leading LN+modulate, then every gated
+// residual fused into the next LN+modulate):
 //
-//   forward   out = T(LN(x) * (1 + scale) + shift), LN without scale or
-//             bias in f32 (mean, then the variance of the centred row,
+//   mod_ln forward   out = T(LN(x) * (1 + scale) + shift), LN without scale
+//             or bias in f32 (mean, then the variance of the centred row,
 //             eps from the caller), the modulate in f32, one rounding.
-//   backward  with xh = LN(x), rs = 1 / sqrt(var + eps) and
+//   mod_ln backward  with xh = LN(x), rs = 1 / sqrt(var + eps) and
 //             g = f32(dy) * (1 + scale):
 //             dx = T(rs * (g - mean(g) - xh * mean(g * xh))),
 //             dshift = sum over rows of dy, dscale = sum over rows of dy * xh
 //             (per batch element, in f32; the wrapper rounds them once to
 //             mod2's dtype).
+//   res forward      y = T(x + T(T(gate) * h)) (the gated residual in the
+//             compute dtype, as the eager block), then out = the mod_ln
+//             forward of y; emits (out, y).
+//   res backward     from the cotangents do (of out) and dy (of y): the
+//             mod_ln backward of y gives T(dln), the stream's total
+//             cotangent is dt = T(T(dln) + dy), and dx = dt,
+//             dh = T(dt * T(gate)), dgate = sum over rows of dt * h,
+//             dshift = sum of do, dscale = sum of do * LN(y) (f32 sums,
+//             rounded once by the wrapper). The JAX kernel takes this VJP
+//             with jax.vjp inside its body; here it is written out.
 //
-// mod2 is (B, 2, D) = [shift, scale] in f32 (the wrapper converts it).
+// mod2 is (B, 2, D) = [shift, scale] and gm3 (B, 3, D) = [gate, shift,
+// scale], both in f32 (the wrappers convert them).
 //
-// Bound on an H100 SXM at the scaled train step's call (B=64, N=1024,
-// D=512, bf16): the forward moves 134 MB (x in, out), 0.040 ms at
-// 3.35 TB/s, the backward 201 MB (x, dy in, dx out), 0.060 ms; a few f32
-// operations per element are far below either. Both are bound by bytes, so
-// each reads x (and dy) once and writes once, and keeps everything else in
+// Bound on an H100 SXM: every kernel here moves a few (B, N, D) tensors and
+// does a few f32 operations per element, so bytes bound it. At the scaled
+// train step's call (B=64, N=1024, D=512, bf16) the mod_ln forward moves
+// 134 MB (x in, out), 0.040 ms at 3.35 TB/s, its backward 201 MB (x, dy in,
+// dx out), 0.060 ms; the res forward 268 MB (x, h in, out, y), 0.080 ms,
+// its backward 403 MB (x, h, do, dy in, dx, dh out), 0.120 ms. So each
+// reads its inputs once and writes once, and keeps everything else in
 // registers: one warp per row, each lane holding its D/32 values; the
-// backward's per-column sums stay in each warp's registers over its rows of
+// backwards' per-column sums stay in each warp's registers over its rows of
 // a 64-row tile of one element, then go through shared memory to one f32
 // partial per (element, tile), summed over the tiles in a fixed order by
 // dmod_reduce_kernel (dit_common.cuh). No atomics: runs repeat bit for bit.
 //
-// C interface for ctypes: mod_ln_forward_{bf16,f32} and
-// mod_ln_backward_{bf16,f32} launch on the given stream and return
-// cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE (launching nothing) for a
-// shape the kernels do not take; mod_ln_backward_workspace gives the bytes of
-// the partials the caller allocates; mod_ln_check answers the shape question.
+// C interface for ctypes: {mod_ln,res_mod_ln}_{forward,backward}_{bf16,f32}
+// launch on the given stream and return cudaGetLastError(), or
+// T2MS_UNSUPPORTED_SHAPE (launching nothing) for a shape the kernels do not
+// take; *_backward_workspace gives the bytes of the partials the caller
+// allocates; mod_ln_check and res_mod_ln_check answer the shape question.
 
 #include "dit_common.cuh"
 
@@ -60,6 +76,23 @@ __device__ __forceinline__ float row_stats(const float (&v)[V], int D,
   return mu;
 }
 
+// The host side's arguments of every launch; the kernels take them as
+// __restrict__ parameters, so their loads may move ahead of their stores.
+template <typename T> struct Args {
+  const T* x;
+  const T* h;       // the residual branch (res kernels)
+  const float* mod; // mod2 (B, 2, D) or gm3 (B, 3, D)
+  const T* dout;    // the cotangent of the modulated output (backwards)
+  const T* dy;      // the cotangent of the stream y (res backward)
+  T* out;           // the forward's output, or dx
+  T* out2;          // y (res forward), or dh (res backward)
+  float* part;      // the backwards' per-tile partials
+  int B, N, D;
+  float eps;
+};
+
+// ------------------------------------------------------------- mod_ln
+
 template <typename T, int V>
 __global__ void __launch_bounds__(NT)
 mod_ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
@@ -83,6 +116,18 @@ mod_ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
   for (int u = 0; u < V; ++u) {
     const int c = lane + 32 * u;
     if (c < D) o[c] = from_f<T>((v[u] - mu) * rs * (1.0f + sc[c]) + sh[c]);
+  }
+}
+
+// The block's warp partials Ps (NW x W x D) summed over the warps into
+// part[blockIdx.x] (W x D), in a fixed order.
+__device__ void flush_partials(const float* Ps, int W, int D,
+                               float* __restrict__ part) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < W * D; j += NT) {
+    float s = 0.0f;
+    for (int w = 0; w < NW; ++w) s += Ps[w * W * D + j];
+    part[(size_t)blockIdx.x * W * D + j] = s;
   }
 }
 
@@ -147,83 +192,218 @@ mod_ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
       Ps[(warp * 2 + 1) * D + c] = psc[u];
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < 2 * D; j += NT) {
-    float s = 0.0f;
-    for (int w = 0; w < NW; ++w) s += Ps[w * 2 * D + j];
-    part[(size_t)blockIdx.x * 2 * D + j] = s;
+  flush_partials(Ps, 2, D, part);
+}
+
+// --------------------------------------------- gated residual + mod_ln
+
+// y = T(x + T(T(gate) * h)) of a row, lane-strided into v (h kept in hv)
+template <typename T, int V>
+__device__ __forceinline__ void res_row(const T* __restrict__ xr,
+                                        const T* __restrict__ hr, int D,
+                                        const float (&gt)[V], float (&v)[V],
+                                        float (&hv)[V]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = lane + 32 * u;
+    hv[u] = c < D ? to_f<T>(hr[c]) : 0.0f;
+    v[u] = c < D ? rnd<T>(to_f<T>(xr[c]) + rnd<T>(gt[u] * hv[u])) : 0.0f;
   }
 }
 
-size_t smem_mod_ln_bwd(int D) { return (size_t)NW * 2 * D * 4; }
+template <typename T, int V>
+__global__ void __launch_bounds__(NT)
+res_mod_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
+                      const float* __restrict__ gm3, T* __restrict__ out,
+                      T* __restrict__ y, int rows, int N, int D, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = blockIdx.x * NW + warp;
+  if (r >= rows) return;
+  const float* gate = gm3 + (size_t)(r / N) * 3 * D;
+  const float* sh = gate + D;
+  const float* sc = gate + 2 * D;
+  float gt[V], v[V], hv[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = lane + 32 * u;
+    gt[u] = c < D ? rnd<T>(gate[c]) : 0.0f;
+  }
+  res_row<T, V>(x + (size_t)r * D, h + (size_t)r * D, D, gt, v, hv);
+  T* yo = y + (size_t)r * D;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = lane + 32 * u;
+    if (c < D) yo[c] = from_f<T>(v[u]);
+  }
+  float rs;
+  const float mu = row_stats<V>(v, D, eps, rs);
+  T* o = out + (size_t)r * D;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = lane + 32 * u;
+    if (c < D) o[c] = from_f<T>((v[u] - mu) * rs * (1.0f + sc[c]) + sh[c]);
+  }
+}
 
-// 0 when the kernels take rows of D values on the current device,
-// T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
-// A lane holds at most 32 values of a row, so D <= 1024; the backward's
-// warp partials fit what one block may opt in to.
-int check_mod_ln(int D) {
+// One block per 64-row tile of one element: dx and dh of its rows and the
+// tile's f32 partials part[blockIdx.x] = [sum dt * h, sum do, sum do * xh]
+// (3 x D), the forward recomputed from x and h.
+template <typename T, int V>
+__global__ void __launch_bounds__(NT)
+res_mod_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
+                      const float* __restrict__ gm3,
+                      const T* __restrict__ dout, const T* __restrict__ dy,
+                      T* __restrict__ dx, T* __restrict__ dh,
+                      float* __restrict__ part, int N, int D, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ps = reinterpret_cast<float*>(smem);  // NW x 3 x D warp partials
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (N + MLN_ROWS - 1) / MLN_ROWS;
+  const int b = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * MLN_ROWS;
+  const int valid = min(MLN_ROWS, N - n0);
+  const float* gate = gm3 + (size_t)b * 3 * D;
+  const float* sc = gate + 2 * D;
+  float gt[V], scp[V], pg[V], psh[V], psc[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = lane + 32 * u;
+    gt[u] = c < D ? rnd<T>(gate[c]) : 0.0f;
+    scp[u] = c < D ? 1.0f + sc[c] : 0.0f;
+    pg[u] = psh[u] = psc[u] = 0.0f;
+  }
+  for (int i = warp; i < valid; i += NW) {
+    const size_t r = (size_t)b * N + n0 + i;
+    float v[V], hv[V], d[V];
+    res_row<T, V>(x + r * D, h + r * D, D, gt, v, hv);
+    const T* dr = dout + r * D;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int c = lane + 32 * u;
+      d[u] = c < D ? to_f<T>(dr[c]) : 0.0f;
+    }
+    float rs;
+    const float mu = row_stats<V>(v, D, eps, rs);
+    float sg = 0.0f, sgx = 0.0f;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int c = lane + 32 * u;
+      v[u] = c < D ? (v[u] - mu) * rs : 0.0f;  // xh
+      psh[u] += d[u];
+      psc[u] += d[u] * v[u];
+      d[u] *= scp[u];                          // g
+      sg += d[u];
+      sgx += d[u] * v[u];
+    }
+    const float mg = warp_sum(sg) / D, mgx = warp_sum(sgx) / D;
+    const T* yr = dy + r * D;
+    T* dxo = dx + r * D;
+    T* dho = dh + r * D;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D) {
+        const float dt = rnd<T>(rnd<T>(rs * (d[u] - mg - v[u] * mgx)) +
+                                to_f<T>(yr[c]));
+        dxo[c] = from_f<T>(dt);
+        dho[c] = from_f<T>(dt * gt[u]);
+        pg[u] += dt * hv[u];
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int c = lane + 32 * u;
+    if (c < D) {
+      Ps[(warp * 3) * D + c] = pg[u];
+      Ps[(warp * 3 + 1) * D + c] = psh[u];
+      Ps[(warp * 3 + 2) * D + c] = psc[u];
+    }
+  }
+  flush_partials(Ps, 3, D, part);
+}
+
+// ------------------------------------------------------------ launches
+
+// shared memory of a backward with W per-column sums: NW x W x D floats
+size_t smem_bwd(int W, int D) { return (size_t)NW * W * D * 4; }
+
+// 0 when the kernels take rows of D values with W sums in their backward on
+// the current device, T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA
+// error of the query. A lane holds at most 32 values of a row, so
+// D <= 1024; the backward's warp partials fit what one block may opt in to.
+int check_rows(int D, int W) {
   if (D < 1 || D > MLN_MAXD) return T2MS_UNSUPPORTED_SHAPE;
   const long long optin = smem_optin();
   if (optin < 0) return (int)-optin;
-  return smem_mod_ln_bwd(D) <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
+  return smem_bwd(W, D) <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
 }
 
-template <typename T> struct Args {
-  const T* x;
-  const float* mod2;
-  const T* dy;
-  T* out;         // the forward's output, or dx
-  float* part;    // the backward's per-tile partials
-  int B, N, D;
-  float eps;
-};
-
-template <typename T, int V> struct Forward {
+// the forwards: one warp per row of (B*N, D)
+template <typename T, int V, bool RES> struct Forward {
   static cudaError_t run(const Args<T>& a, cudaStream_t st) {
     const int rows = a.B * a.N;
     const unsigned blocks = (unsigned)(((long long)rows + NW - 1) / NW);
-    mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(
-        a.x, a.mod2, a.out, rows, a.N, a.D, a.eps);
+    if constexpr (RES)
+      res_mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(
+          a.x, a.h, a.mod, a.out, a.out2, rows, a.N, a.D, a.eps);
+    else
+      mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(a.x, a.mod, a.out, rows,
+                                                     a.N, a.D, a.eps);
     return cudaGetLastError();
   }
 };
 
-template <typename T, int V> struct Backward {
+// the backwards: one block per 64-row tile of one element
+template <typename T, int V, bool RES> struct Backward {
   static cudaError_t run(const Args<T>& a, cudaStream_t st) {
-    const size_t s = smem_mod_ln_bwd(a.D);
-    const cudaError_t e = set_smem((const void*)mod_ln_bwd_kernel<T, V>, s);
-    if (e != cudaSuccess) return e;
-    const int tiles = (a.N + MLN_ROWS - 1) / MLN_ROWS;
-    mod_ln_bwd_kernel<T, V><<<a.B * tiles, NT, s, st>>>(
-        a.x, a.mod2, a.dy, a.out, a.part, a.N, a.D, a.eps);
+    const size_t s = smem_bwd(RES ? 3 : 2, a.D);
+    const int blocks = a.B * ((a.N + MLN_ROWS - 1) / MLN_ROWS);
+    cudaError_t e;
+    if constexpr (RES) {
+      if ((e = set_smem((const void*)res_mod_ln_bwd_kernel<T, V>, s)))
+        return e;
+      res_mod_ln_bwd_kernel<T, V><<<blocks, NT, s, st>>>(
+          a.x, a.h, a.mod, a.dout, a.dy, a.out, a.out2, a.part, a.N, a.D,
+          a.eps);
+    } else {
+      if ((e = set_smem((const void*)mod_ln_bwd_kernel<T, V>, s))) return e;
+      mod_ln_bwd_kernel<T, V><<<blocks, NT, s, st>>>(
+          a.x, a.mod, a.dout, a.out, a.part, a.N, a.D, a.eps);
+    }
     return cudaGetLastError();
   }
 };
 
-// L<T, V>::run with V the values a lane holds for a row of D (the next power
-// of two of D / 32), after the shape checks.
-template <template <typename, int> class L, typename T>
+// L<T, V, RES>::run with V the values a lane holds for a row of D (the next
+// power of two of D / 32), after the shape checks.
+template <template <typename, int, bool> class L, typename T, bool RES>
 int by_lanes(const Args<T>& a, cudaStream_t st) {
   // rows of (B*N, D) and the backward's B * tiles blocks are indexed as int
   if (a.B < 1 || a.N < 1 || (long long)a.B * a.N > INT_MAX)
     return T2MS_UNSUPPORTED_SHAPE;
-  const int ok = check_mod_ln(a.D);
+  const int ok = check_rows(a.D, RES ? 3 : 2);
   if (ok) return ok;
-  if (a.D <= 32) return L<T, 1>::run(a, st);
-  if (a.D <= 64) return L<T, 2>::run(a, st);
-  if (a.D <= 128) return L<T, 4>::run(a, st);
-  if (a.D <= 256) return L<T, 8>::run(a, st);
-  if (a.D <= 512) return L<T, 16>::run(a, st);
-  return L<T, 32>::run(a, st);
+  if (a.D <= 32) return L<T, 1, RES>::run(a, st);
+  if (a.D <= 64) return L<T, 2, RES>::run(a, st);
+  if (a.D <= 128) return L<T, 4, RES>::run(a, st);
+  if (a.D <= 256) return L<T, 8, RES>::run(a, st);
+  if (a.D <= 512) return L<T, 16, RES>::run(a, st);
+  return L<T, 32, RES>::run(a, st);
 }
 
-template <typename T>
-int run_backward(const Args<T>& a, float* dmod2, cudaStream_t st) {
-  const int e = by_lanes<Backward, T>(a, st);
+// the backward, then the ordered sum of its W x D partials over the tiles
+template <typename T, bool RES>
+int run_backward(const Args<T>& a, float* dmod, cudaStream_t st) {
+  const int e = by_lanes<Backward, T, RES>(a, st);
   if (e) return e;
-  launch_dmod_reduce(a.part, a.B, (a.N + MLN_ROWS - 1) / MLN_ROWS, 2 * a.D,
-                     dmod2, st);
+  launch_dmod_reduce(a.part, a.B, (a.N + MLN_ROWS - 1) / MLN_ROWS,
+                     (RES ? 3 : 2) * a.D, dmod, st);
   return cudaGetLastError();
+}
+
+long long workspace(int B, int N, int D, int W) {
+  return (long long)B * ((N + MLN_ROWS - 1) / MLN_ROWS) * W * D * 4;
 }
 
 }  // namespace
@@ -232,28 +412,53 @@ int run_backward(const Args<T>& a, float* dmod2, cudaStream_t st) {
   extern "C" int mod_ln_forward_##SUFFIX(const void* x, const void* mod2,     \
                                          void* out, int B, int N, int D,      \
                                          float eps, void* stream) {           \
-    const Args<T> a{(const T*)x, (const float*)mod2, nullptr, (T*)out,       \
-                    nullptr, B, N, D, eps};                                   \
-    return by_lanes<Forward, T>(a, (cudaStream_t)stream);                     \
+    const Args<T> a{(const T*)x, nullptr, (const float*)mod2, nullptr,       \
+                    nullptr, (T*)out, nullptr, nullptr, B, N, D, eps};        \
+    return by_lanes<Forward, T, false>(a, (cudaStream_t)stream);              \
   }                                                                           \
   extern "C" int mod_ln_backward_##SUFFIX(                                    \
       const void* x, const void* mod2, const void* dy, void* dx, void* dmod2, \
       void* work, int B, int N, int D, float eps, void* stream) {             \
-    const Args<T> a{(const T*)x, (const float*)mod2, (const T*)dy, (T*)dx,   \
+    const Args<T> a{(const T*)x, nullptr, (const float*)mod2, (const T*)dy,  \
+                    nullptr, (T*)dx, nullptr, (float*)work, B, N, D, eps};    \
+    return run_backward<T, false>(a, (float*)dmod2, (cudaStream_t)stream);    \
+  }                                                                           \
+  extern "C" int res_mod_ln_forward_##SUFFIX(                                 \
+      const void* x, const void* h, const void* gm3, void* out, void* y,      \
+      int B, int N, int D, float eps, void* stream) {                         \
+    const Args<T> a{(const T*)x, (const T*)h, (const float*)gm3, nullptr,    \
+                    nullptr, (T*)out, (T*)y, nullptr, B, N, D, eps};          \
+    return by_lanes<Forward, T, true>(a, (cudaStream_t)stream);               \
+  }                                                                           \
+  extern "C" int res_mod_ln_backward_##SUFFIX(                                \
+      const void* x, const void* h, const void* gm3, const void* dout,        \
+      const void* dy, void* dx, void* dh, void* dgm3, void* work, int B,      \
+      int N, int D, float eps, void* stream) {                                \
+    const Args<T> a{(const T*)x, (const T*)h, (const float*)gm3,             \
+                    (const T*)dout, (const T*)dy, (T*)dx, (T*)dh,            \
                     (float*)work, B, N, D, eps};                              \
-    return run_backward<T>(a, (float*)dmod2, (cudaStream_t)stream);           \
+    return run_backward<T, true>(a, (float*)dgm3, (cudaStream_t)stream);      \
   }
 
 T2MS_MOD_LN_ENTRIES(bf16, __nv_bfloat16)
 T2MS_MOD_LN_ENTRIES(f32, float)
 
 extern "C" long long mod_ln_backward_workspace(int B, int N, int D) {
-  return (long long)B * ((N + MLN_ROWS - 1) / MLN_ROWS) * 2 * D * 4;
+  return workspace(B, N, D, 2);
+}
+
+extern "C" long long res_mod_ln_backward_workspace(int B, int N, int D) {
+  return workspace(B, N, D, 3);
 }
 
 extern "C" int mod_ln_check(int D, int is_bf16) {
   (void)is_bf16;  // the limits are the same for both types
-  return check_mod_ln(D);
+  return check_rows(D, 2);
+}
+
+extern "C" int res_mod_ln_check(int D, int is_bf16) {
+  (void)is_bf16;
+  return check_rows(D, 3);
 }
 
 extern "C" const char* t2ms_cuda_error_string(int e) {

@@ -1,7 +1,8 @@
-"""The adaLN-zero blocks of the DiT and the flax path's LayerNorm +
-modulate (counterpart of t2ms_tpu/ops/dit_block.py ``fused_dit_stack``,
+"""The adaLN-zero blocks of the DiT and the flax path's block boundaries
+(counterpart of t2ms_tpu/ops/dit_block.py ``fused_dit_stack``,
 ``fused_dit_block``, ``fused_dit_block_diffable``,
-``fused_dit_block_split`` and ``mod_ln_diffable``).
+``fused_dit_block_split``, ``mod_ln_diffable`` and
+``res_mod_ln_diffable``).
 
 All keep the JAX signatures and layouts: x (B, N, D), per-sample adaLN
 vectors mod (B, L, 6, D) for the stack and (B, 6, D) for one block, flax
@@ -15,7 +16,8 @@ wrappers' ``w(a)`` does.
   the block backward of ``csrc/dit_block_bwd.cu``, and the wide-geometry
   block of ``csrc/dit_split.cu`` (modLN+qkv, attention, proj+gated
   residual, modLN+fc1+GELU, fc2+gated residual), and the LayerNorm +
-  modulate forward and backward of ``csrc/mod_ln.cu``. Each wrapper counts
+  modulate forward and backward of ``csrc/mod_ln.cu``, with and without
+  the gated residual fused in front. Each wrapper counts
   its launches under its own name. A shape the kernels do not take (the
   libraries' own limits), a failed build or a failed launch raises; there
   is no fallback.
@@ -38,8 +40,10 @@ __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "fused_dit_block_diffable", "block_kernel_supported",
            "fused_dit_block_split", "split_kernel_supported",
            "mod_ln_diffable", "mod_ln_reference", "mod_ln_supported",
-           "STACK_KERNEL", "BLOCK_KERNEL", "BLOCK_BWD_KERNEL",
-           "SPLIT_KERNEL", "MOD_LN_KERNEL", "MOD_LN_BWD_KERNEL"]
+           "res_mod_ln_diffable", "res_mod_ln_reference",
+           "res_mod_ln_supported", "STACK_KERNEL", "BLOCK_KERNEL",
+           "BLOCK_BWD_KERNEL", "SPLIT_KERNEL", "MOD_LN_KERNEL",
+           "MOD_LN_BWD_KERNEL", "RES_MOD_LN_KERNEL", "RES_MOD_LN_BWD_KERNEL"]
 
 STACK_KERNEL = "fused_dit_stack"
 BLOCK_KERNEL = "fused_dit_block"
@@ -47,6 +51,8 @@ BLOCK_BWD_KERNEL = "_fused_block_diff_bwd"
 SPLIT_KERNEL = "fused_dit_block_split"
 MOD_LN_KERNEL = "_mod_ln_call"
 MOD_LN_BWD_KERNEL = "_mod_ln_diff_bwd"
+RES_MOD_LN_KERNEL = "_res_mod_ln_call"
+RES_MOD_LN_BWD_KERNEL = "_res_mod_ln_diff_bwd"
 _ENTRY = {torch.bfloat16: "dit_stack_forward_bf16",
           torch.float32: "dit_stack_forward_f32"}
 _BWD_ENTRY = {torch.bfloat16: "dit_block_backward_bf16",
@@ -57,6 +63,10 @@ _MOD_LN_ENTRY = {torch.bfloat16: "mod_ln_forward_bf16",
                  torch.float32: "mod_ln_forward_f32"}
 _MOD_LN_BWD_ENTRY = {torch.bfloat16: "mod_ln_backward_bf16",
                      torch.float32: "mod_ln_backward_f32"}
+_RES_ENTRY = {torch.bfloat16: "res_mod_ln_forward_bf16",
+              torch.float32: "res_mod_ln_forward_f32"}
+_RES_BWD_ENTRY = {torch.bfloat16: "res_mod_ln_backward_bf16",
+                  torch.float32: "res_mod_ln_backward_f32"}
 
 
 # --------------------------------------------------------------- plain twin
@@ -404,14 +414,16 @@ def _check_mod2(x, mod2):
                          f"{tuple(mod2.shape)}")
 
 
-def _mod_ln_operands(name, x, mod2):
+def _mod_ln_operands(name, x, mod):
+    """What the LayerNorm entries take: x contiguous and the per-sample
+    vectors (mod2 or gm3) in f32."""
     B, N, D = x.shape
     refused = ValueError(f"{name} CUDA kernel does not take B={B} N={N} "
                          f"D={D} dtype={x.dtype}")
     if x.dtype not in _MOD_LN_ENTRY:
         raise refused
     return (refused, _build.load("mod_ln"), x.contiguous(),
-            mod2.to(device=x.device, dtype=torch.float32).contiguous())
+            mod.to(device=x.device, dtype=torch.float32).contiguous())
 
 
 def _launch_mod_ln(x, mod2, eps):
@@ -481,3 +493,107 @@ def mod_ln_diffable(x: torch.Tensor, mod2: torch.Tensor, eps: float = 1e-6,
     so it is ignored."""
     del block_q
     return _ModLn.apply(x, mod2, eps)
+
+
+# ------------------------------- gated residual + LayerNorm + modulate
+
+def res_mod_ln_reference(x: torch.Tensor, h: torch.Tensor, gm3: torch.Tensor,
+                         eps: float = 1e-6):
+    """Plain twin of ``_res_mod_ln_call``: y = x + gate * h in x's dtype
+    (the gate cast to it first, as the eager block's gated residual), then
+    ``mod_ln_reference`` of y with gm3 = [gate, shift, scale] (B, 3, D).
+    Returns (modulated, y)."""
+    y = x + gm3[:, 0, None].to(x.dtype) * h
+    return _mod_ln(y, gm3[:, 1, None], gm3[:, 2, None], eps), y
+
+
+def res_mod_ln_supported(D: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA gated-residual + LayerNorm + modulate kernels,
+    forward and backward, take rows of D values in ``dtype``
+    (``res_mod_ln_check`` in mod_ln.cu). The JAX VMEM envelope
+    (``res_mod_ln_block_q``) is not ported."""
+    if dtype not in _RES_ENTRY:
+        return False
+    return _build.supported("mod_ln", "res_mod_ln_check", D,
+                            int(dtype == torch.bfloat16))
+
+
+def _check_gm3(x, h, gm3):
+    if (x.dim() != 3 or h.shape != x.shape
+            or tuple(gm3.shape) != (x.shape[0], 3, x.shape[2])):
+        raise ValueError(f"{RES_MOD_LN_KERNEL}: x and h must be (B, N, D) "
+                         f"and gm3 (B, 3, D), got {tuple(x.shape)}, "
+                         f"{tuple(h.shape)} and {tuple(gm3.shape)}")
+
+
+def _launch_res_mod_ln(x, h, gm3, eps):
+    refused, lib, x, m = _mod_ln_operands(RES_MOD_LN_KERNEL, x, gm3)
+    h = h.to(dtype=x.dtype).contiguous()
+    out, y = torch.empty_like(x), torch.empty_like(x)
+    _build.launch(lib, _RES_ENTRY[x.dtype], RES_MOD_LN_KERNEL, refused,
+                  x.device, x, h, m, out, y, *x.shape, float(eps))
+    return out, y
+
+
+def _launch_res_mod_ln_bwd(x, h, gm3, do, dy, eps):
+    """dx in x's dtype, dh in h's and dgm3 in gm3's: the kernel sums
+    dgate, dshift and dscale in f32 and they are rounded once here."""
+    refused, lib, xc, m = _mod_ln_operands(RES_MOD_LN_BWD_KERNEL, x, gm3)
+    dt = xc.dtype
+    hc, do, dy = (t.to(dtype=dt).contiguous() for t in (h, do, dy))
+    dx, dh = torch.empty_like(xc), torch.empty_like(xc)
+    dgm = torch.empty(m.shape, device=x.device, dtype=torch.float32)
+    work = torch.empty(lib.res_mod_ln_backward_workspace(*x.shape),
+                       device=x.device, dtype=torch.uint8)
+    _build.launch(lib, _RES_BWD_ENTRY[dt], RES_MOD_LN_BWD_KERNEL, refused,
+                  x.device, xc, hc, m, do, dy, dx, dh, dgm, work, *x.shape,
+                  float(eps))
+    return dx, dh.to(h.dtype), dgm.to(gm3.dtype)
+
+
+def _res_mod_ln_call(x, h, gm3, eps):
+    """The forward: the kernel on a CUDA tensor, the twin on a CPU one."""
+    _check_gm3(x, h, gm3)
+    if x.is_cuda:
+        return _launch_res_mod_ln(x, h, gm3, eps)
+    if x.device.type != "cpu":
+        raise ValueError(f"{RES_MOD_LN_KERNEL}: unsupported device "
+                         f"{x.device}")
+    return res_mod_ln_reference(x, h, gm3, eps)
+
+
+class _ResModLn(torch.autograd.Function):
+    """Forward ``_res_mod_ln_call``; backward the hand-written kernel on
+    CUDA, autograd over the twin on the CPU, with both outputs'
+    cotangents. The residuals are the inputs, as in the JAX kernel."""
+
+    @staticmethod
+    def forward(ctx, x, h, gm3, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, h, gm3)
+        return _res_mod_ln_call(x, h, gm3, eps)
+
+    @staticmethod
+    def backward(ctx, do, dy):
+        x, h, gm3 = ctx.saved_tensors
+        if x.is_cuda:
+            dx, dh, dgm = _launch_res_mod_ln_bwd(x, h, gm3, do, dy, ctx.eps)
+        else:
+            with torch.enable_grad():
+                inp = [t.detach().requires_grad_() for t in (x, h, gm3)]
+                dx, dh, dgm = torch.autograd.grad(
+                    res_mod_ln_reference(*inp, ctx.eps), inp, (do, dy))
+        return dx, dh, dgm, None
+
+
+def res_mod_ln_diffable(x: torch.Tensor, h: torch.Tensor, gm3: torch.Tensor,
+                        eps: float = 1e-6, block_q: int = 0):
+    """Differentiable adaLN-zero block boundary with the JAX contract: the
+    gated residual y = x + gate * h, then LayerNorm (no scale or bias) +
+    modulate; x, h (B, N, D), gm3 (B, 3, D) = [gate, shift, scale] ->
+    (modulated, y), both in x's dtype; dx in x's dtype, dh in h's, dgm3 in
+    gm3's. CUDA tensor -> ``csrc/mod_ln.cu`` both ways; CPU tensor -> the
+    twin. ``block_q`` is the JAX signature's q row-block: the kernels pick
+    their own tiles, so it is ignored."""
+    del block_q
+    return _ResModLn.apply(x, h, gm3, eps)

@@ -9,7 +9,8 @@ optionally collected and decoded in one batched VAE decode afterwards.
 
 On CUDA the DiT forward goes through a fused kernel path, picked once per
 sampler build (``_serving_forward``): the stack kernel, else the split
-block kernel; a geometry neither takes raises there. Only an explicit
+block kernel, else the flax path's kernels; a geometry none takes raises
+there. Only an explicit
 ``attention_impl`` other than 'auto' opts out to the eager model (the plain
 path that oracle runs compare against). A Python loop stands in for the
 JAX package's ``lax.scan``.
@@ -39,17 +40,19 @@ def _serving_forward(denoiser, device) -> Callable:
     """Pick the DiT forward once, for a sampler that runs on ``device``, in
     the JAX package's order (t2ms_tpu/sampling/sampler.py
     ``_serving_forward``): for a DiT on CUDA, the stack kernel when it takes
-    the geometry, else the split block kernel, else raise; the eager module
-    on the CPU or under an explicit ``attention_impl`` opt-out. Each check
-    asks a kernel library, so it is asked here and not per step.
+    the geometry, else the split block kernel, else the flax path's kernels
+    (``dit_fast.flax_path_forward`` under ``no_grad``), else raise; the
+    eager module on the CPU or under an explicit ``attention_impl``
+    opt-out. Each check asks a kernel library, so it is asked here and not
+    per step.
 
-    The choice follows the port's own kernels' limits, not the TPU's VMEM
-    envelopes: a d=256 DiT at N=1024 goes to the split in JAX and may take
-    the stack here. Both compute the same block. Where neither kernel
-    takes the geometry, the JAX package runs its flax-path kernels; the
-    port's samplers take that path once its last serving kernel,
-    ``_res_mod_ln_call``, is ported, and the eager model is not run in its
-    place."""
+    The stack and split routes take the JAX package's token range
+    (128 <= N <= 1024, N % 8 == 0) and, inside it, the port's own kernels'
+    limits, not the TPU's VMEM envelopes: a d=256 DiT at N=1024 goes to
+    the split in JAX and may take the stack here. Both compute the same
+    block. The long-series DiT (4096 tokens) takes the flax path, as in
+    JAX. A geometry no route takes raises: the eager model is not run in
+    the kernels' place."""
     from t2ms_tpu_torch.models.denoisers import dit_fast
     if not dit_fast.fused_path_eligible(denoiser, device):
         return denoiser
@@ -57,15 +60,18 @@ def _serving_forward(denoiser, device) -> Callable:
         return functools.partial(dit_fast.fast_dit_forward, denoiser)
     if dit_fast.split_forward_supported(denoiser):
         return functools.partial(dit_fast.split_dit_forward, denoiser)
+    if dit_fast.flax_path_supported(denoiser):
+        return torch.no_grad()(functools.partial(dit_fast.flax_path_forward,
+                                                 denoiser))
     d = denoiser
     raise ValueError(
         f"the port does not take this DiT on CUDA: neither fused_dit_stack "
-        f"nor fused_dit_block_split takes d_model={d.d_model} "
-        f"heads={d.num_heads} hidden={int(d.d_model * d.mlp_ratio)} "
-        f"dtype={d.compute_dtype}. The JAX package serves it through its "
-        f"flax-path kernels, of which _res_mod_ln_call is not ported yet; "
-        f"the eager model is not run in their place (set attention_impl to "
-        f"opt out)")
+        f"nor fused_dit_block_split nor the flax path's kernels "
+        f"(_mod_ln_call, _res_mod_ln_call, fused_heads_attention) take "
+        f"d_model={d.d_model} heads={d.num_heads} "
+        f"hidden={int(d.d_model * d.mlp_ratio)} tokens={d.num_patches} "
+        f"dtype={d.compute_dtype}; the eager model is not run in their "
+        f"place (set attention_impl to opt out)")
 
 
 def _fused_cfg_forward(forward: Callable, x_t, t, text_emb, cfg_scale):

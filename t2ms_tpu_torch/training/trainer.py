@@ -13,10 +13,12 @@ step each parameter's ``.grad`` holds the step's averaged gradient.
 
 On CUDA a DiT trains through ``dit_fast.fast_dit_train_forward`` (the
 hand-written block forward and backward kernels) when they take its
-geometry, else through ``dit_fast.flax_path_forward`` (the LayerNorm +
-modulate and fused-heads attention kernels, forward and backward), else the
-step raises; only an explicit ``attention_impl`` opts out to the eager
-module, which is also the path on the CPU.
+geometry (inside the JAX token range 128..1024), else through
+``dit_fast.flax_path_forward`` (the LayerNorm + modulate, gated residual +
+LayerNorm + modulate and fused-heads attention kernels, forward and
+backward, the attention backward single-pass or two-pass as JAX picks it),
+else the step raises; only an explicit ``attention_impl`` opts out to the
+eager module, which is also the path on the CPU.
 
 torch cannot reproduce the JAX package's threefry draws, so every random
 draw can be passed in: ``u`` (the uniform behind t, per row), ``x_0`` (the
@@ -64,11 +66,13 @@ def _training_forward(denoiser):
         raise ValueError(
             f"the port does not train this DiT on CUDA: neither the block "
             f"kernels (fused_dit_block, _fused_block_diff_bwd) nor the flax "
-            f"path's (_mod_ln_call, fused_heads_attention and their "
-            f"backwards) take d_model={d.d_model} heads={d.num_heads} "
-            f"hidden={int(d.d_model * d.mlp_ratio)} dtype={d.compute_dtype}; "
-            f"the eager model is not run in their place (set "
-            f"attention_impl to opt out)")
+            f"path's (#5/#6 _mod_ln_call, #7/#8 _res_mod_ln_call, #9 "
+            f"fused_heads_attention, #11/#12 its single-pass and two-pass "
+            f"backwards) take d_model={d.d_model} "
+            f"heads={d.num_heads} hidden={int(d.d_model * d.mlp_ratio)} "
+            f"tokens={d.num_patches} dtype={d.compute_dtype}; the eager "
+            f"model is not run in their place (set attention_impl to opt "
+            f"out)")
 
     return forward
 

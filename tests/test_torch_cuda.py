@@ -194,16 +194,17 @@ def test_stack_refuses_autograd_on_card(cuda):
 
 @pytest.mark.cuda
 def test_train_step_launches_both_kernels_per_layer(cuda):
-    """One train step on a tiny DiT: the block forward and backward each
-    launch depth times, the loss is finite and every parameter moves."""
+    """One train step on a small DiT (256 tokens, inside the JAX token
+    range of the block route): the block forward and backward each launch
+    depth times, the loss is finite and every parameter moves."""
     from t2ms_tpu_torch.models.denoisers import DiT
     from t2ms_tpu_torch.models.vae import LAVAE
     from t2ms_tpu_torch.training import (make_denoiser_train_step,
                                          onecycle_adamw)
     torch.manual_seed(0)
-    dit = DiT(latent_len=8, latent_dim=16, d_model=64, depth=2, num_heads=2,
+    dit = DiT(latent_len=16, latent_dim=64, d_model=64, depth=2, num_heads=2,
               compute_dtype=torch.bfloat16)
-    vae = LAVAE(1, 16, 1, 16, 16, 8)
+    vae = LAVAE(1, 16, 1, 16, 64, 16)
     with torch.no_grad():
         for p in dit.parameters():
             p.add_(0.02 * torch.randn_like(p))
@@ -430,7 +431,8 @@ def test_fused_heads_kernels_match_twins_on_card(cuda, dt, tol_f, tol_b,
     _build.reset_launch_counts()
     with torch.no_grad():
         o = tattn.fused_heads_attention(q, k, v, heads)
-        grads = tattn.fused_heads_attention_bwd(q, k, v, g, heads)
+        grads = tattn.fused_heads_attention_bwd(q, k, v, g, heads,
+                                                pipelined=True)
     torch.cuda.synchronize()
     assert dict(_build.launch_counts) == {tattn.FUSED_HEADS_KERNEL: 1,
                                           tattn.FUSED_HEADS_BWD_KERNEL: 1}
@@ -447,8 +449,8 @@ def test_fused_heads_kernels_match_twins_on_card(cuda, dt, tol_f, tol_b,
 @pytest.mark.cuda
 def test_fused_heads_backward_repeats_bit_for_bit(cuda):
     q, k, v, g = _heads_args(cuda, torch.bfloat16, B=4, N=1024)
-    a = tattn.fused_heads_attention_bwd(q, k, v, g, 8)
-    b = tattn.fused_heads_attention_bwd(q, k, v, g, 8)
+    a = tattn.fused_heads_attention_bwd(q, k, v, g, 8, pipelined=True)
+    b = tattn.fused_heads_attention_bwd(q, k, v, g, 8, pipelined=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -483,9 +485,11 @@ def test_flax_path_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.cuda
 def test_train_step_takes_the_flax_path_for_a_wide_dit(cuda):
     """One train step of a d_model 512 DiT (depth 1, 16 tokens), which the
-    block kernels do not take: two LayerNorm + modulate launches each way
-    and one fused-heads launch each way, nothing else; the loss is finite
-    and every parameter moves."""
+    block kernels do not take: the flax path with the residual fusion, one
+    LayerNorm + modulate, one gated residual + LayerNorm + modulate and one
+    fused-heads launch each way, the attention backward two-pass (JAX's
+    eager fallback at 16 tokens), nothing else; the loss is finite and
+    every parameter moves."""
     from t2ms_tpu_torch.models.denoisers import DiT
     from t2ms_tpu_torch.models.denoisers.dit_fast import (
         flax_path_supported, train_forward_supported)
@@ -511,8 +515,9 @@ def test_train_step_takes_the_flax_path_for_a_wide_dit(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert dict(_build.launch_counts) == {
-        tblock.MOD_LN_KERNEL: 2, tblock.MOD_LN_BWD_KERNEL: 2,
-        tattn.FUSED_HEADS_KERNEL: 1, tattn.FUSED_HEADS_BWD_KERNEL: 1}
+        tblock.MOD_LN_KERNEL: 1, tblock.MOD_LN_BWD_KERNEL: 1,
+        tblock.RES_MOD_LN_KERNEL: 1, tblock.RES_MOD_LN_BWD_KERNEL: 1,
+        tattn.FUSED_HEADS_KERNEL: 1, tattn.FUSED_HEADS_TWO_PASS_KERNEL: 1}
     assert all((p != b).any() for p, b in zip(dit.parameters(), before))
 
 
@@ -535,3 +540,185 @@ def test_train_step_refuses_a_dit_no_route_takes(cuda):
         step(torch.zeros(2, 8, 8, device=cuda),
              torch.zeros(2, 512, device=cuda))
     assert not _build.launch_counts
+
+
+# --------------- the long-series path's kernels (#7, #8, #12, #11 recompute)
+
+def _res_args(dev, dt, B=3, N=130, D=512, seed=5):
+    """x, h, gm3 = [gate, shift, scale] and the cotangents do, dy."""
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    return (f(B, N, D).to(dev, dt), f(B, N, D).to(dev, dt),
+            (0.3 * f(B, 3, D)).to(dev, dt), f(B, N, D).to(dev, dt),
+            f(B, N, D).to(dev, dt))
+
+
+def _res_grads(x, h, gm3, do, dy, twin):
+    ts = [a.detach().clone().requires_grad_() for a in (x, h, gm3)]
+    fn = tblock.res_mod_ln_reference if twin else tblock.res_mod_ln_diffable
+    out, y = fn(*ts)
+    return (out, y, *torch.autograd.grad((out, y), ts, (do, dy)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4),
+                                    (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("D", [512, 128, 96])
+def test_res_mod_ln_kernels_match_twins_on_card(cuda, dt, tol, D):
+    """#7 and #8 against the twin and autograd over it at a ragged N=130
+    and B=3: out, y, dx, dh and dgm3 within tol * max|ref| (f32: summation
+    order; bf16: one rounding flip after f32 sums in another order), in
+    the inputs' dtypes; one launch each."""
+    args = _res_args(cuda, dt, D=D)
+    _build.reset_launch_counts()
+    got = _res_grads(*args, twin=False)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.RES_MOD_LN_KERNEL: 1,
+                                          tblock.RES_MOD_LN_BWD_KERNEL: 1}
+    want = _res_grads(*args, twin=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dt and g.shape == w.shape
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_res_mod_ln_backward_repeats_bit_for_bit(cuda):
+    x, h, gm3, do, dy = _res_args(cuda, torch.bfloat16, B=4, N=4096, D=128)
+    a = tblock._launch_res_mod_ln_bwd(x, h, gm3, do, dy, 1e-6)
+    b = tblock._launch_res_mod_ln_bwd(x, h, gm3, do, dy, 1e-6)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 5e-4),
+                                    (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("HD,heads", [(128, 4), (512, 8), (512, 4)])
+@pytest.mark.parametrize("two_pass", [True, False])
+def test_recompute_backward_matches_twin_on_card(cuda, dt, tol, HD, heads,
+                                                 two_pass):
+    """#12 (``fused_heads_attention_bwd_two_pass``) and #11 with the
+    recompute recipe (``pipelined=False``) on the column slices of one qkv
+    tensor at a ragged N=130 and B=3, against the recompute twin: dq, dk,
+    dv within tol * max|ref| (f32: summation order; bf16: rounding flips
+    of p and ds, which feed sums of 130 terms); one launch under each
+    kernel's own name."""
+    q, k, v, g = _heads_args(cuda, dt, HD=HD)
+    _build.reset_launch_counts()
+    if two_pass:
+        got = tattn.fused_heads_attention_bwd_two_pass(q, k, v, g, heads)
+        name = tattn.FUSED_HEADS_TWO_PASS_KERNEL
+    else:
+        got = tattn.fused_heads_attention_bwd(q, k, v, g, heads,
+                                              pipelined=False)
+        name = tattn.FUSED_HEADS_BWD_KERNEL
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {name: 1}
+    want = tattn.fused_heads_bwd_two_pass_reference(q, k, v, g, heads)
+    for a, w in zip(got, want):
+        assert a.dtype == dt and a.shape == w.shape
+        a, w = a.float(), w.float()
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_two_pass_backward_repeats_bit_for_bit(cuda):
+    q, k, v, g = _heads_args(cuda, torch.bfloat16, B=2, N=4096, HD=128)
+    a = tattn.fused_heads_attention_bwd_two_pass(q, k, v, g, 4)
+    b = tattn.fused_heads_attention_bwd_two_pass(q, k, v, g, 4)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _long_dit(latent_len=128, depth=1):
+    """A d_model 128 DiT of 4 heads over a (latent_len, 64) latent:
+    (latent_len / 2) * 32 tokens, beyond the JAX token range of the stack,
+    split and block routes."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    torch.manual_seed(0)
+    dit = DiT(latent_len=latent_len, latent_dim=64, d_model=128,
+              depth=depth, num_heads=4, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    return dit
+
+
+@pytest.mark.cuda
+def test_routes_take_the_jax_token_range_on_card(cuda):
+    """The libraries take d_model 128 with 4 heads, but the stack, split
+    and block routes refuse 4096 tokens (JAX: 128 <= N <= 1024), so the
+    long-series DiT takes the flax path; the flagship DiT keeps the stack
+    and block kernels."""
+    from t2ms_tpu_torch.models.denoisers import DiT, dit_fast
+    assert tblock.res_mod_ln_supported(512, torch.bfloat16)
+    assert tblock.res_mod_ln_supported(128, torch.float32)
+    assert not tblock.res_mod_ln_supported(2048, torch.bfloat16)
+    assert not tblock.res_mod_ln_supported(128, torch.float16)
+    long = _long_dit(latent_len=256)
+    assert long.num_patches == 4096
+    assert not dit_fast.fast_forward_supported(long)
+    assert not dit_fast.split_forward_supported(long)
+    assert not dit_fast.train_forward_supported(long)
+    assert dit_fast.flax_path_supported(long)
+    flagship = DiT(compute_dtype=torch.bfloat16)
+    assert dit_fast.fast_forward_supported(flagship)
+    assert dit_fast.train_forward_supported(flagship)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["offline", "serving"])
+def test_sampler_runs_a_long_dit_through_the_flax_path(cuda, entry):
+    """A 2048-token DiT (depth 1): per sampler step one LayerNorm +
+    modulate, one gated residual + LayerNorm + modulate and one fused-heads
+    launch, and no stack or split launch."""
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    from t2ms_tpu_torch.serving import make_serving_sampler
+    dit = _long_dit()
+    vae = LAVAE(in_channels=1, latent_grid=128)
+    g = torch.Generator(cuda).manual_seed(0)
+    emb = torch.randn(2, 128, device=cuda, generator=g)
+    _build.reset_launch_counts()
+    if entry == "offline":
+        out = make_cfg_sampler(dit, vae, total_step=3)(
+            torch.randn(2, 96, device=cuda, generator=g), emb).series
+    else:
+        out = make_serving_sampler(dit, vae, total_step=3,
+                                   latent_shape=(64, 128))(
+            np.array([1, 2], np.uint32), np.array([7.0, 3.0]), emb)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, 96) and torch.isfinite(out).all()
+    assert dict(_build.launch_counts) == {
+        tblock.MOD_LN_KERNEL: 3, tblock.RES_MOD_LN_KERNEL: 3,
+        tattn.FUSED_HEADS_KERNEL: 3}
+
+
+@pytest.mark.cuda
+def test_train_step_takes_the_two_pass_backward_for_a_long_dit(cuda):
+    """One train step of a 2048-token DiT (depth 2): per step #5 once, #7
+    three times, #9 twice forward; #6 once, #8 three times and #12 twice
+    backward (JAX's two-pass branch at N=2048, H*D=128); nothing else; the
+    loss is finite and every parameter moves."""
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    assert tattn.fused_heads_bwd_route(2048, 128, 4) == "two_pass"
+    dit = _long_dit(depth=2)
+    before = [p.detach().clone() for p in dit.parameters()]
+    step = make_denoiser_train_step(
+        dit, LAVAE(in_channels=1, latent_grid=128),
+        ScheduledAdamW(dit.parameters(), lambda _: 1e-4))
+    g = torch.Generator(cuda).manual_seed(0)
+    _build.reset_launch_counts()
+    loss = step(torch.randn(2, 256, device=cuda, generator=g),
+                torch.randn(2, 128, device=cuda, generator=g),
+                coin=torch.tensor(1.0, device=cuda), generator=g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dict(_build.launch_counts) == {
+        tblock.MOD_LN_KERNEL: 1, tblock.MOD_LN_BWD_KERNEL: 1,
+        tblock.RES_MOD_LN_KERNEL: 3, tblock.RES_MOD_LN_BWD_KERNEL: 3,
+        tattn.FUSED_HEADS_KERNEL: 2, tattn.FUSED_HEADS_TWO_PASS_KERNEL: 2}
+    assert all((p != b).any() for p, b in zip(dit.parameters(), before))

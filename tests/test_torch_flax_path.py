@@ -6,8 +6,9 @@ kernel in interpret mode; the ``fused_heads_attention_bwd`` twin (#11)
 against the JAX pipelined, head-grouped backward in interpret mode and
 against the eager einsum VJP; ``flax_path_forward``'s loss and gradients
 against ``jax.grad`` of flax ``DiT.apply`` with the LayerNorm kernel on and
-the residual fusion off; and one train step through the flax path at
-d_model 512 against JAX ``make_denoiser_train_step`` on the same draws. The
+the residual fusion off and on (the port runs the fusion; both give the
+same numbers); and one train step through the flax path at d_model 512
+against JAX ``make_denoiser_train_step`` on the same draws. The
 kernel-vs-twin checks need a card and live in ``test_torch_cuda.py``.
 
 Tolerances: f32 rtol 1e-5 / atol 1e-5 * max|ref| for one op (summation
@@ -166,7 +167,8 @@ def test_fused_heads_bwd_twin_matches_jax_pipelined_kernel(dt):
         jq, jk, jv, jnp.asarray(g, jnp.dtype(dt)), H, pipelined=True,
         head_groups=2, block_q=N // 2, interpret=True)
     got = tattn.fused_heads_attention_bwd(
-        q, k, v, torch.from_numpy(g).to(q.dtype), H)
+        q, k, v, torch.from_numpy(g).to(q.dtype), H, head_groups=2,
+        block_q=N // 2)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == q.dtype and a.shape == q.shape, name
         _close(a.float(), b, dt, rtol32=1e-4, err_msg=name)
@@ -212,14 +214,16 @@ def _perturbed(params, seed, scale=0.02):
         for p, k in zip(leaves, keys)])
 
 
-def test_flax_path_forward_loss_and_grads_match_jax(monkeypatch):
-    """``flax_path_forward`` (the twins on the CPU) against ``jax.grad``
-    of flax ``DiT.apply`` with the JAX LayerNorm kernel forced on
-    (interpret mode) and the residual fusion off, the configuration the
-    port's flax path follows; every gradient maps through
+@pytest.mark.parametrize("res_ln", ["0", "1"])
+def test_flax_path_forward_loss_and_grads_match_jax(monkeypatch, res_ln):
+    """``flax_path_forward`` (the twins on the CPU, the residual fusion
+    always on) against ``jax.grad`` of flax ``DiT.apply`` with the JAX
+    LayerNorm kernel forced on (interpret mode) and the residual fusion
+    off or on (its kernels in interpret mode): both configurations give
+    the same numbers; every gradient maps through
     ``dit_params_from_jax``."""
     monkeypatch.setenv("T2MS_FUSED_MOD_LN", "1")
-    monkeypatch.setenv("T2MS_FUSED_RES_LN", "0")
+    monkeypatch.setenv("T2MS_FUSED_RES_LN", res_ln)
     kw = dict(latent_len=8, latent_dim=32, d_model=64, depth=2, num_heads=4,
               mlp_ratio=2.0)
     jd = JDiT(**kw)
@@ -251,9 +255,10 @@ def test_scaled_train_step_through_the_flax_path_matches_jax(monkeypatch):
     """One train step of a d_model 512, 8-head DiT (depth 1, a 16-token
     latent for CPU time), precoded latents, optax.adamw(1e-4) against
     ScheduledAdamW at a constant 1e-4: the port's step routed as on CUDA
-    for a geometry the block kernels do not take (the flax path, its twins
-    on the CPU), the JAX step with the LayerNorm kernel on and the
-    residual fusion off, on the JAX step's own draws."""
+    for a geometry the block kernels do not take (the flax path with the
+    residual fusion, its twins on the CPU), the JAX step with the
+    LayerNorm kernel on and the residual fusion off (the same numbers), on
+    the JAX step's own draws."""
     monkeypatch.setenv("T2MS_FUSED_MOD_LN", "1")
     monkeypatch.setenv("T2MS_FUSED_RES_LN", "0")
     kw = dict(latent_len=8, latent_dim=8, d_model=512, depth=1, num_heads=8,

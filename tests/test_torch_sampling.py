@@ -99,13 +99,16 @@ def test_cfg_sampler_draws_from_generator(stack):
     assert a.trajectory is None and tuple(a.series.shape) == (4, T)
 
 
-def _route_as_on_cuda(monkeypatch, dit, stack=False, split=False):
+def _route_as_on_cuda(monkeypatch, dit, stack=False, split=False,
+                      flax=False):
     """Let the fused gate pass as it does on CUDA (its DiT and opt-out
-    conditions kept), let the stack and split kernels' checks answer
-    ``stack`` and ``split`` as their libraries would, and count each check
-    ("stack?", "split?"), the calls of each kernel path (which run the
-    eager forward here) and of the eager module."""
-    calls = {"stack?": 0, "split?": 0, "stack": 0, "split": 0, "eager": 0}
+    conditions kept), let the stack, split and flax-path kernels' checks
+    answer ``stack``, ``split`` and ``flax`` as their libraries would, and
+    count each check ("stack?", "split?", "flax?"), the calls of each
+    kernel path (which run the eager forward here) and of the eager
+    module."""
+    calls = {"stack?": 0, "split?": 0, "flax?": 0, "stack": 0, "split": 0,
+             "flax": 0, "eager": 0}
     monkeypatch.setattr(
         dit_fast, "fused_path_eligible",
         lambda d, device: isinstance(d, DiT) and d.attention_impl == "auto")
@@ -121,10 +124,14 @@ def _route_as_on_cuda(monkeypatch, dit, stack=False, split=False):
                         count("stack?", lambda d: stack))
     monkeypatch.setattr(dit_fast, "split_forward_supported",
                         count("split?", lambda d: split))
+    monkeypatch.setattr(dit_fast, "flax_path_supported",
+                        count("flax?", lambda d: flax))
     monkeypatch.setattr(dit_fast, "fast_dit_forward",
                         count("stack", lambda d, *a: eager(*a)))
     monkeypatch.setattr(dit_fast, "split_dit_forward",
                         count("split", lambda d, *a: eager(*a)))
+    monkeypatch.setattr(dit_fast, "flax_path_forward",
+                        count("flax", lambda d, *a: eager(*a)))
     monkeypatch.setattr(dit, "forward", count("eager", eager))
     return calls
 
@@ -137,10 +144,10 @@ def _route_as_on_cuda(monkeypatch, dit, stack=False, split=False):
 ])
 def test_sampler_sends_every_cuda_dit_to_the_kernel(stack, monkeypatch,
                                                     entry, geometry):
-    """Every DiT on CUDA goes to a kernel: a geometry that neither the
-    stack nor the split kernel takes (their libraries refuse these, as
-    ``tests/test_torch_cuda.py`` checks on the card) raises out of the
-    sampler build instead of running the eager model."""
+    """Every DiT on CUDA goes to a kernel: a geometry that none of the
+    stack, the split and the flax-path kernels takes (their libraries
+    refuse these, as ``tests/test_torch_cuda.py`` checks on the card)
+    raises out of the sampler build instead of running the eager model."""
     s = stack
     kw = dict(latent_len=6, latent_dim=8, d_model=EMB, depth=1, num_heads=2,
               device="cpu")
@@ -154,8 +161,8 @@ def test_sampler_sends_every_cuda_dit_to_the_kernel(stack, monkeypatch,
         else:
             make_serving_sampler(td, s["tv"], "flowmatching", 2, s["lat"], T,
                                  device="cpu")
-    assert calls == {"stack?": 1, "split?": 1, "stack": 0, "split": 0,
-                     "eager": 0}
+    assert calls == {"stack?": 1, "split?": 1, "flax?": 1, "stack": 0,
+                     "split": 0, "flax": 0, "eager": 0}
 
 
 def test_sampler_explicit_opt_out_runs_the_eager_model(stack, monkeypatch):
@@ -174,8 +181,8 @@ def test_sampler_explicit_opt_out_runs_the_eager_model(stack, monkeypatch):
     plain.load_state_dict(s["td"].state_dict())
     calls = _route_as_on_cuda(monkeypatch, plain)
     got = run(plain)
-    assert calls == {"stack?": 0, "split?": 0, "stack": 0, "split": 0,
-                     "eager": 2}
+    assert calls == {"stack?": 0, "split?": 0, "flax?": 0, "stack": 0,
+                     "split": 0, "flax": 0, "eager": 2}
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -183,16 +190,19 @@ def test_sampler_explicit_opt_out_runs_the_eager_model(stack, monkeypatch):
 @pytest.mark.parametrize("takes_stack,takes_split,want", [
     (True, True, "stack"),          # the stack first, as in JAX
     (False, True, "split"),         # the scaled geometry
-    (False, False, None),           # neither: refuse, never eager
+    (False, False, "flax"),         # the long-series geometry: flax path
+    (False, False, None),           # none: refuse, never eager
 ])
 def test_sampler_route_stack_then_split_then_refuse(
         stack, monkeypatch, entry, takes_stack, takes_split, want):
     """The route is picked once per sampler build (each check asked at
-    most once, whatever the steps) and every step's forward goes to it."""
+    most once, whatever the steps) and every step's forward goes to it:
+    the stack, else the split, else the flax path, else a refusal."""
     s, steps = stack, 3
     td = DiT(6, 8, EMB, 1, 2, device="cpu")
     td.load_state_dict(s["td"].state_dict())
-    calls = _route_as_on_cuda(monkeypatch, td, takes_stack, takes_split)
+    calls = _route_as_on_cuda(monkeypatch, td, takes_stack, takes_split,
+                              want == "flax")
     emb = np.zeros((2, EMB), np.float32)
 
     def build():
@@ -203,11 +213,11 @@ def test_sampler_route_stack_then_split_then_refuse(
                                     s["lat"], T, device="cpu")
 
     if want is None:
-        with pytest.raises(ValueError, match="does not take.*not ported.*"
+        with pytest.raises(ValueError, match="does not take.*flax path.*"
                                              "eager model is not run"):
             build()
-        assert calls == {"stack?": 1, "split?": 1, "stack": 0, "split": 0,
-                         "eager": 0}
+        assert calls == {"stack?": 1, "split?": 1, "flax?": 1, "stack": 0,
+                         "split": 0, "flax": 0, "eager": 0}
         return
     sample = build()
     for _ in range(2):
@@ -217,8 +227,9 @@ def test_sampler_route_stack_then_split_then_refuse(
             out = sample(np.array([1, 2], np.uint32), np.array([3.0, 3.0]),
                          emb)
         assert tuple(out.shape) == (2, T) and torch.isfinite(out).all()
-    assert calls == {"stack?": 1, "split?": int(want == "split"), "stack": 0,
-                     "split": 0, "eager": 0, want: 2 * steps}
+    assert calls == {"stack?": 1, "split?": int(want != "stack"),
+                     "flax?": int(want == "flax"), "stack": 0, "split": 0,
+                     "flax": 0, "eager": 0, want: 2 * steps}
 
 
 def test_solver_validation_and_ddpm_not_ported(stack):

@@ -122,6 +122,9 @@ class _FakeLib:
                "mod_ln_forward_bf16", "mod_ln_forward_f32",
                "mod_ln_backward_bf16", "mod_ln_backward_f32",
                "mod_ln_backward_workspace",
+               "res_mod_ln_forward_bf16", "res_mod_ln_forward_f32",
+               "res_mod_ln_backward_bf16", "res_mod_ln_backward_f32",
+               "res_mod_ln_backward_workspace",
                "fused_heads_forward_bf16", "fused_heads_forward_f32",
                "fused_heads_backward_bf16", "fused_heads_backward_f32",
                "fused_heads_backward_workspace")
