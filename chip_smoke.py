@@ -101,7 +101,42 @@ failing with a non-zero exit on any error:
    #9 x4, #6 x1, #8 x7, #12 x4; no #11, stack, block or split launch),
    loss finite; and at B=2 the kernel path's loss and gradients against
    the eager bf16 and f32 opt-out paths on the same injected draws (three
-   draws).
+   draws);
+18. head-split phase: ``flash_attention`` (#15), ``vmem_attention``
+   (#16) and ``packed_attention`` (#17) (``csrc/split_heads.cu``) on the
+   head-split views of one qkv tensor, against their twins with the mean
+   error against the f32 twins, at scripts/kernel_smoke.py's flash_4096
+   (B=2, 4 heads, N=4096, d 32), packed_480 and vmem_480 (B=8, N=480) and
+   at the calls of the 8192-token sampler (#15, 2B=8, N=8192) and of the
+   packed flagship sampler (#17, 2B=512, N=480), in bf16, and in f32 at
+   a small batch; times, the twins' times, the bounds and torch SDPA as
+   the library yardstick; then #16's direct call, its only path, counted;
+19. 8192-token offline path: the long-series widths over the 512 x 64
+   latent (8192 tokens, LA-VAE latent grid 512), seeded random weights,
+   through the CFG sampler (B=4, euler/20, cfg 7, length 4096; cut from
+   scripts/bench_long_series.py's B=16, euler/50 to fit the run's time)
+   on the flax path, whose attention is #15 (JAX's route on a TPU: fused
+   heads refuse 8192 tokens): series/s, peak memory, launches per
+   ``sample()`` checked (#5 x20, #7 x140, #15 x80, no fused-heads, stack
+   or split launch), device time of one CFG forward by part, and at B=1
+   the kernel path against the eager bf16 and f32 opt-out paths for 4
+   steps;
+20. 8192-token train phase: the train step (B=8, length 4096, LA-VAE
+   encode inside the step, AdamW at 1e-4), #15 forward and the einsum
+   recompute backward, 2 warm-up and 5 timed steps: steps/s, peak memory,
+   device time by part, launches per step checked (#5 x1, #7 x7, #15 x4,
+   #6 x1, #8 x7; no #9, #11, #12, stack, block or split launch), loss
+   finite; and at B=1 the kernel path's loss and gradients against the
+   eager bf16 and f32 opt-out paths on the same injected draws (three
+   draws);
+21. packed flagship offline path: the flagship sampler with
+   ``attention_impl='packed'`` (scripts/bench_attention_impls.py: B=256,
+   cfg 7, length 96; euler/20, cut from euler/100): series/s, #17 x80 per
+   ``sample()`` checked and no stack launch, and the kernel path against
+   the eager einsum bf16 and f32 paths for 4 steps;
+22. explicit-impl phase: the flagship DiT with ``attention_impl`` 'flash',
+   'packed' and 'fused', one train step each (B=64), each launching the
+   kernel its impl names and nothing else.
 
 The line before the last is the kernel table as JSON (the ported kernels
 with their numbers under "kernels", the TPU kernels still to port under
@@ -141,6 +176,15 @@ SC_TRAIN_B, SC_TRAIN_STEPS = 64, 5     # scripts/bench_scaled.py:80-118
 LS_LATENT, LS_N, LS_DEPTH = 256, 4096, 4
 LS_B, LS_STEPS, LS_LEN = 16, 50, 2048          # :31-65
 LS_TRAIN_B, LS_TRAIN_STEPS = 8, 5              # :68-117
+# the 8192-token DiT: the same widths over the 512x64 latent of an LA-VAE
+# with latent grid 512 (cli/infer.py --latent_grid 512,
+# scripts/bench_long_series.py --latent_len 512), series of length 4096;
+# the sampler cut from the bench's B=16, euler/50 to fit the run's time
+XL_LATENT, XL_N, XL_LEN = 512, 8192, 4096
+XL_B, XL_STEPS, XL_TRAIN_B = 4, 20, 8
+# the flagship sampler with attention_impl='packed'
+# (scripts/bench_attention_impls.py:39-52), cut from euler/100
+PK_B, PK_STEPS = 256, 20
 
 
 def log(*a):
@@ -790,37 +834,9 @@ def scaled_offline_phase(dit, vae, gen):
 
     # a few steps at full width: the kernel path against the eager opt-out
     # paths on the same injected noise
-    few = 4
     x_t0 = torch.randn(SC_B, 64, 64, generator=gen, device="cuda")
-    run = lambda m: make_cfg_sampler(m, vae, total_step=few, cfg_scale=CFG,
-                                     out_length=OUT_LEN)(x1, emb, x_t0=x_t0)
-    _build.reset_launch_counts()
-    k_out = run(dit)
-    check(dict(_build.launch_counts) == {SPLIT_KERNEL: few * SC_DEPTH},
-          f"scaled kernel path launches {dict(_build.launch_counts)}")
-    outs = []
-    for dt in (torch.bfloat16, torch.float32):
-        m = scaled_dit(dt, "einsum")
-        m.load_state_dict(dit.state_dict())
-        outs.append(run(m))
-        del m
-    check(dict(_build.launch_counts) == {SPLIT_KERNEL: few * SC_DEPTH},
-          "scaled eager paths launched a kernel")
-    p_out, t_out = outs
-    tol = 5e-2
-    for name in ("latent", "series"):
-        a, b, t = (getattr(o, name).float() for o in (k_out, p_out, t_out))
-        err = (a - b).abs().max().item()
-        ref = b.abs().max().item()
-        ek, ep = (a - t).abs().mean().item(), (b - t).abs().mean().item()
-        log(f"scaled offline {few} steps, kernel vs eager path, {name}: "
-            f"max_abs_err={err:.4g} max|ref|={ref:.4g} rel={err / ref:.3e} "
-            f"(tol {tol:g}); mean_abs_err vs f32 eager: kernel path "
-            f"{ek:.4e} eager bf16 path {ep:.4e} (kernel <= 1.5x eager)")
-        check(err <= tol * ref, f"scaled kernel vs eager path {name}")
-        check(ek <= 1.5 * ep, f"scaled kernel path rounds worse {name}")
-    del k_out, outs, p_out, t_out
-    torch.cuda.empty_cache()
+    sampler_vs_eager("scaled offline", dit, scaled_dit, vae, x1, emb, x_t0,
+                     OUT_LEN, {SPLIT_KERNEL: 4 * SC_DEPTH})
 
     sampler = make_cfg_sampler(dit, vae, total_step=SC_STEPS, cfg_scale=CFG,
                                out_length=OUT_LEN)
@@ -1247,6 +1263,47 @@ def train_paths_vs_eager(what, make_dit, dit, vae, x, emb, make_draws,
     torch.cuda.empty_cache()
 
 
+def sampler_vs_eager(what, dit, make_dit, vae, x1, emb, x_t0, out_len,
+                     want, few=4):
+    """``few`` sampler steps of ``dit`` against the eager bf16 and f32
+    ``attention_impl='einsum'`` paths on the same noise: the launches
+    ``want`` (kernel name -> count) and none on the eager paths, the
+    kernel path within 5e-2 * max|ref| of the eager bf16 path and no
+    further from the f32 path than 1.5x it."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    run = lambda m: make_cfg_sampler(m, vae, total_step=few, cfg_scale=CFG,
+                                     out_length=out_len)(x1, emb, x_t0=x_t0)
+    _build.reset_launch_counts()
+    outs = [run(dit)]
+    check(dict(_build.launch_counts) == want,
+          f"{what} kernel path launches {dict(_build.launch_counts)}, want "
+          f"{want}")
+    for dt in (torch.bfloat16, torch.float32):
+        m = make_dit(dt, "einsum")
+        m.load_state_dict(dit.state_dict())
+        outs.append(run(m))
+        del m
+        torch.cuda.empty_cache()
+    check(dict(_build.launch_counts) == want,
+          f"{what} eager paths launched a kernel")
+    tol = 5e-2
+    for name in ("latent", "series"):
+        a, b, t = (getattr(o, name).float() for o in outs)
+        err = (a - b).abs().max().item()
+        ref = b.abs().max().item()
+        ek, ep = (a - t).abs().mean().item(), (b - t).abs().mean().item()
+        log(f"{what} B={x1.shape[0]} {few} steps, kernel vs eager path, "
+            f"{name}: max_abs_err={err:.4g} max|ref|={ref:.4g} "
+            f"rel={err / ref:.3e} (tol {tol:g}); mean_abs_err vs f32 eager: "
+            f"kernel path {ek:.4e} eager bf16 path {ep:.4e} (kernel <= 1.5x "
+            f"eager)")
+        check(err <= tol * ref, f"{what} kernel vs eager path {name}")
+        check(ek <= 1.5 * ep, f"{what} kernel path rounds worse {name}")
+    del outs
+    torch.cuda.empty_cache()
+
+
 # ------------------------------ the long-series path's kernels (#7, #8, #12)
 
 def res_mod_ln_phase(gen):
@@ -1405,41 +1462,9 @@ def long_offline_phase(dit, vae, gen):
 
     # a few steps at B=2 (the eager paths hold (2B, 4, N, N) scores): the
     # kernel path against the eager opt-out paths on the same noise
-    few, Bs = 4, 2
-    x_t0 = torch.randn(Bs, 64, LS_LATENT, generator=gen, device="cuda")
-    run = lambda m: make_cfg_sampler(m, vae, total_step=few, cfg_scale=CFG,
-                                     out_length=LS_LEN)(
-        x1[:Bs], emb[:Bs], x_t0=x_t0)
-    _build.reset_launch_counts()
-    k_out = run(dit)
-    want = {n: c * few for n, c in per_fwd.items()}
-    check(dict(_build.launch_counts) == want,
-          f"long kernel path launches {dict(_build.launch_counts)}, want "
-          f"{want}")
-    outs = []
-    for dt in (torch.bfloat16, torch.float32):
-        m = long_dit(dt, "einsum")
-        m.load_state_dict(dit.state_dict())
-        outs.append(run(m))
-        del m
-        torch.cuda.empty_cache()
-    check(dict(_build.launch_counts) == want,
-          "long eager paths launched a kernel")
-    p_out, t_out = outs
-    tol = 5e-2
-    for name in ("latent", "series"):
-        a, b, t = (getattr(o, name).float() for o in (k_out, p_out, t_out))
-        err = (a - b).abs().max().item()
-        ref = b.abs().max().item()
-        ek, ep = (a - t).abs().mean().item(), (b - t).abs().mean().item()
-        log(f"long offline B={Bs} {few} steps, kernel vs eager path, {name}: "
-            f"max_abs_err={err:.4g} max|ref|={ref:.4g} rel={err / ref:.3e} "
-            f"(tol {tol:g}); mean_abs_err vs f32 eager: kernel path "
-            f"{ek:.4e} eager bf16 path {ep:.4e} (kernel <= 1.5x eager)")
-        check(err <= tol * ref, f"long kernel vs eager path {name}")
-        check(ek <= 1.5 * ep, f"long kernel path rounds worse {name}")
-    del k_out, outs, p_out, t_out
-    torch.cuda.empty_cache()
+    x_t0 = torch.randn(2, 64, LS_LATENT, generator=gen, device="cuda")
+    sampler_vs_eager("long offline", dit, long_dit, vae, x1[:2], emb[:2],
+                     x_t0, LS_LEN, {n: c * 4 for n, c in per_fwd.items()})
 
     sampler = make_cfg_sampler(dit, vae, total_step=LS_STEPS, cfg_scale=CFG,
                                out_length=LS_LEN)
@@ -1539,15 +1564,308 @@ def long_train_phase(dit, vae, gen):
     return launches
 
 
+# ----------------- the head-split kernels (#15, #16, #17) and their paths
+
+HEAD_SPLIT_PARTS = ("split_heads_kernel",)
+
+
+def _split_views(f, B, N, dt, heads=HEADS, dh=D_MODEL // HEADS):
+    """q, k, v as the head-split (B, H, N, d) views of one qkv tensor, as
+    the DiT hands them to the kernels."""
+    qkv = f(B, N, 3 * heads * dh).to(dt)
+    return qkv.view(B, N, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def split_heads_phase(gen):
+    """Kernels #15, #16 and #17 against their twins at the smoke
+    geometries (scripts/kernel_smoke.py flash_4096, packed_480, vmem_480)
+    and at the calls of the 8192-token DiT's sampler (#15) and of the
+    packed flagship sampler (#17), in bf16, and in f32 at a small batch.
+    Tolerances: bf16 1e-2 * max|ref| (one output ulp; the exact kernels
+    also round p to bf16 after f32 sums in another order), f32 2e-4
+    (summation order). The bound is the larger of 4*B*H*N^2*d operations
+    over the peak and the bytes of q, k, v and o over the memory rate; the
+    library yardstick is torch SDPA forward over the same views."""
+    import torch.nn.functional as F
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import (
+        VMEM_KERNEL, flash_attention, flash_reference, packed_attention,
+        packed_reference, vmem_attention, vmem_reference)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    dh = D_MODEL // HEADS
+    calls = (("flash_4096", flash_attention, flash_reference, 2, 4096, 1),
+             ("flash_8192_serve", flash_attention, flash_reference,
+              2 * XL_B, XL_N, 0),
+             ("packed_480", packed_attention, packed_reference, 8, N_TOK, 2),
+             ("packed_480_serve", packed_attention, packed_reference,
+              2 * PK_B, N_TOK, 0),
+             ("vmem_480", vmem_attention, vmem_reference, 8, N_TOK, 2))
+    out = {}
+    for key, fn, twin, B, N, b32 in calls:
+        runs = [(torch.bfloat16, B, 1e-2)] + (
+            [(torch.float32, b32, 2e-4)] if b32 else [])
+        for dt, b, tol in runs:
+            q, k, v = _split_views(f, b, N, dt)
+            what = f"{key} {fn.__name__} {dt} B={b} H={HEADS} N={N} d={dh}"
+            with torch.no_grad():
+                got, want = fn(q, k, v), twin(q, k, v)
+                truth = (twin(*(t.float() for t in (q, k, v)))
+                         if dt == torch.bfloat16 else None)
+                torch.cuda.synchronize()
+                err = _check_err(what, got, want, tol, truth, want)
+                check(got.dtype == dt and got.shape == q.shape,
+                      f"{what} output")
+                del got, want, truth
+                torch.cuda.empty_cache()
+                ms = cuda_ms(lambda: fn(q, k, v))
+                plain = cuda_ms(lambda: twin(q, k, v))
+                lib = (cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v)) if dt == torch.bfloat16 else None)
+            peak = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_F32_FLOPS
+            r = _row(err, ms, plain, 4 * b * HEADS * N * N * dh,
+                     _nbytes(q, k, v, q), peak, lib)
+            out[(key, dt)] = r
+            log(f"{what}: {r['ms']:.4f} ms, twin {r['plain']:.4f} ms, bound "
+                f"{r['bound']:.4f} ms ({r['by']})"
+                + (f", SDPA {lib:.4f} ms" if lib is not None else ""))
+            del q, k, v
+            torch.cuda.empty_cache()
+    # path (c): vmem_attention has no attention() impl, in JAX and here;
+    # its path is the direct call, counted alone
+    q, k, v = _split_views(f, 8, N_TOK, torch.bfloat16)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        vmem_attention(q, k, v)
+    torch.cuda.synchronize()
+    out["vmem_launches"] = dict(_build.launch_counts)
+    check(out["vmem_launches"] == {VMEM_KERNEL: 1},
+          f"vmem direct call launches {out['vmem_launches']}")
+    return out
+
+
+def xl_dit(dtype, impl="auto"):
+    from t2ms_tpu_torch.models.denoisers import DiT
+    return DiT(latent_len=XL_LATENT, latent_dim=64, d_model=D_MODEL,
+               depth=LS_DEPTH, num_heads=HEADS, mlp_ratio=HIDDEN / D_MODEL,
+               compute_dtype=dtype, attention_impl=impl)
+
+
+def build_xl_models(seed: int):
+    from t2ms_tpu_torch.models.vae import LAVAE
+    torch.manual_seed(seed + 6)
+    dit = xl_dit(torch.bfloat16)
+    vae = LAVAE(in_channels=1, latent_grid=XL_LATENT)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
+    return dit, vae.eval()
+
+
+def xl_offline_phase(dit, vae, gen):
+    """The 8192-token DiT's CFG sampler on the flax path, its attention
+    #15 (JAX's route on a TPU: fused heads refuse 8192 tokens)."""
+    from t2ms_tpu_torch.models.denoisers import dit_fast
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import FLASH_KERNEL
+    from t2ms_tpu_torch.ops.dit_block import MOD_LN_KERNEL, RES_MOD_LN_KERNEL
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    check(dit_fast.flax_attention_route(dit) == "flash",
+          "the 8192-token DiT's attention route is flash")
+    x1 = torch.randn(XL_B, XL_LEN, generator=gen, device="cuda")
+    emb = torch.randn(XL_B, D_MODEL, generator=gen, device="cuda")
+    per_fwd = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: 2 * LS_DEPTH - 1,
+               FLASH_KERNEL: LS_DEPTH}
+    # B=1: the eager paths hold (2B, 4, N, N) scores
+    x_t0 = torch.randn(1, 64, XL_LATENT, generator=gen, device="cuda")
+    sampler_vs_eager("xl offline", dit, xl_dit, vae, x1[:1], emb[:1], x_t0,
+                     XL_LEN, {n: c * 4 for n, c in per_fwd.items()})
+
+    sampler = make_cfg_sampler(dit, vae, total_step=XL_STEPS, cfg_scale=CFG,
+                               out_length=XL_LEN)
+    gen_noise = torch.Generator(device="cuda")
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler(x1, emb, generator=gen_noise.manual_seed(11))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    series = out.series
+    check(tuple(series.shape) == (XL_B, XL_LEN), "xl series shape")
+    check(bool(torch.isfinite(series).all()), "xl series finite")
+    want = {n: c * XL_STEPS for n, c in per_fwd.items()}
+    check(launches == want, f"xl sample() launches {launches}, want {want} "
+          f"and no fused-heads, stack or split launch")
+    log(f"xl offline: DiT (d {D_MODEL}, depth {LS_DEPTH}, {HEADS} heads, "
+        f"{XL_N} tokens) B={XL_B} euler/{XL_STEPS} cfg {CFG} len {XL_LEN}: "
+        f"{dt:.3f} s, {XL_B / dt:.4f} series/s, peak memory {peak_gb:.3f} "
+        f"GB, launches {launches}, series mean {series.mean().item():.4g} "
+        f"std {series.std().item():.4g}")
+    x2 = torch.randn(2 * XL_B, 64, XL_LATENT, generator=gen, device="cuda")
+    t2 = torch.full((2 * XL_B,), 0.5, device="cuda")
+    e2, m2 = torch.cat([emb, emb]), torch.ones(2 * XL_B, device="cuda")
+    with torch.no_grad():
+        log_device_time(f"xl offline CFG forward (2B={2 * XL_B})",
+                        lambda: dit_fast.flax_path_forward(dit, x2, t2, e2,
+                                                           m2),
+                        MOD_LN_PARTS + HEAD_SPLIT_PARTS)
+    return launches
+
+
+def xl_train_phase(dit, vae, gen):
+    """The 8192-token DiT's train step (scripts/bench_long_series.py
+    :68-117 at latent 512) on a copy of the DiT: #15 forward, its
+    backward the einsum recompute."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import FLASH_KERNEL
+    from t2ms_tpu_torch.ops.dit_block import (MOD_LN_BWD_KERNEL,
+                                              MOD_LN_KERNEL,
+                                              RES_MOD_LN_BWD_KERNEL,
+                                              RES_MOD_LN_KERNEL)
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    model = copy.deepcopy(dit)
+    # optax.adamw(1e-4): constant rate, weight decay 1e-4
+    opt = ScheduledAdamW(model.parameters(), lambda _: 1e-4)
+    step = make_denoiser_train_step(model, vae, opt, total_step=STEPS)
+    x = torch.randn(XL_TRAIN_B, XL_LEN, generator=gen, device="cuda")
+    emb = torch.randn(XL_TRAIN_B, D_MODEL, generator=gen, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    losses = [step(x, emb, generator=g) for _ in range(TRAIN_WARMUP)]
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step(x, emb, generator=g) for _ in range(LS_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lv = torch.stack(losses).tolist()
+    check(all(np.isfinite(lv)), f"xl train losses finite {lv}")
+    edges = 2 * LS_DEPTH - 1
+    want = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: edges,
+            FLASH_KERNEL: LS_DEPTH, MOD_LN_BWD_KERNEL: 1,
+            RES_MOD_LN_BWD_KERNEL: edges}
+    check(launches == {n: c * LS_TRAIN_STEPS for n, c in want.items()},
+          f"xl train launches {launches} in {LS_TRAIN_STEPS} steps, want "
+          f"{want} per step and no fused-heads (#9, #11, #12), stack, block "
+          f"or split launch")
+    log(f"xl train: DiT (d {D_MODEL}, depth {LS_DEPTH}, {HEADS} heads, "
+        f"{XL_N} tokens) B={XL_TRAIN_B} len {XL_LEN} bf16, VAE encode in "
+        f"the step, {LS_TRAIN_STEPS} steps in {dt:.3f} s: "
+        f"{LS_TRAIN_STEPS / dt:.4f} steps/s, peak memory {peak_gb:.3f} GB, "
+        f"launches {launches} ({want} per step), losses "
+        f"{[round(v, 5) for v in lv]}")
+    log_device_time("xl train step", lambda: step(x, emb, generator=g),
+                    MOD_LN_PARTS + HEAD_SPLIT_PARTS)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the kernel path against the eager opt-out paths on the same draws,
+    # at B=1: the eager paths hold (B, 4, N, N) scores per layer
+    train_paths_vs_eager("xl train", xl_dit, dit, vae, x[:1], emb[:1],
+                         lambda: dict(
+                             u=torch.rand(1, generator=g, device="cuda"),
+                             x_0=torch.randn(1, 64, XL_LATENT, generator=g,
+                                             device="cuda"),
+                             coin=torch.tensor(0.9, device="cuda")))
+    return launches
+
+
+def flagship_dit(dtype, impl="auto"):
+    from t2ms_tpu_torch.models.denoisers import DiT
+    return DiT(latent_len=30, latent_dim=64, d_model=D_MODEL, depth=DEPTH,
+               num_heads=HEADS, mlp_ratio=HIDDEN / D_MODEL,
+               compute_dtype=dtype, attention_impl=impl)
+
+
+def packed_offline_phase(dit, vae, gen):
+    """The flagship sampler with ``attention_impl='packed'``
+    (scripts/bench_attention_impls.py:39-52: B=256, cfg 7, length 96,
+    bf16): the eager DiT, its attention #17 at 2B=512, 4 heads, N=480."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import PACKED_KERNEL
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    model = flagship_dit(torch.bfloat16, "packed")
+    model.load_state_dict(dit.state_dict())
+    x1 = torch.randn(PK_B, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(PK_B, D_MODEL, generator=gen, device="cuda")
+    x_t0 = torch.randn(PK_B, 64, 30, generator=gen, device="cuda")
+    sampler_vs_eager("packed offline", model, flagship_dit, vae, x1, emb,
+                     x_t0, OUT_LEN, {PACKED_KERNEL: 4 * DEPTH})
+    sampler = make_cfg_sampler(model, vae, total_step=PK_STEPS,
+                               cfg_scale=CFG, out_length=OUT_LEN)
+    gen_noise = torch.Generator(device="cuda")
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler(x1, emb, generator=gen_noise.manual_seed(13))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    series = out.series
+    check(tuple(series.shape) == (PK_B, OUT_LEN), "packed series shape")
+    check(bool(torch.isfinite(series).all()), "packed series finite")
+    want = {PACKED_KERNEL: PK_STEPS * DEPTH}
+    check(launches == want, f"packed sample() launches {launches}, want "
+          f"{want} and no stack launch")
+    log(f"packed offline: flagship DiT, attention_impl='packed', B={PK_B} "
+        f"euler/{PK_STEPS} cfg {CFG} len {OUT_LEN}: {dt:.3f} s, "
+        f"{PK_B / dt:.2f} series/s, launches {launches}, series mean "
+        f"{series.mean().item():.4g} std {series.std().item():.4g}")
+    return launches
+
+
+def explicit_impl_phase(dit, vae, gen):
+    """The eager DiT under each explicit ``attention_impl`` (C2) at the
+    flagship geometry: one train step each (B=64), launching the kernel
+    its impl names and nothing else."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import (FLASH_KERNEL,
+                                              FUSED_HEADS_BWD_KERNEL,
+                                              FUSED_HEADS_KERNEL,
+                                              PACKED_KERNEL)
+    from t2ms_tpu_torch.training import make_denoiser_train_step
+    B = 64
+    x = torch.randn(B, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(B, D_MODEL, generator=gen, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for impl, want in (("flash", {FLASH_KERNEL: DEPTH}),
+                       ("packed", {PACKED_KERNEL: DEPTH}),
+                       ("fused", {FUSED_HEADS_KERNEL: DEPTH,
+                                  FUSED_HEADS_BWD_KERNEL: DEPTH})):
+        model = flagship_dit(torch.bfloat16, impl)
+        model.load_state_dict(dit.state_dict())
+        step = make_denoiser_train_step(
+            model, vae, torch.optim.SGD(model.parameters(), lr=1e-3),
+            total_step=STEPS)
+        _build.reset_launch_counts()
+        loss = step(x, emb, generator=g).item()
+        torch.cuda.synchronize()
+        got = dict(_build.launch_counts)
+        check(np.isfinite(loss), f"explicit impl {impl} loss {loss}")
+        check(got == want, f"explicit impl {impl} launches {got}, want "
+              f"{want}")
+        log(f"explicit impl {impl}: one train step at B={B}, loss "
+            f"{loss:.6f}, launches {got}")
+        del model, step
+        torch.cuda.empty_cache()
+
+
 # the TPU kernels still to port: (name, def site)
 TO_PORT = (
     ("fused_heads_attention_with_stats", "t2ms_tpu/ops/attention.py:454"),
     ("fused_heads_attention_bwd_lean", "t2ms_tpu/ops/attention.py:984"),
     ("fused_heads_attention_bwd_lean_two_pass",
      "t2ms_tpu/ops/attention.py:1152"),
-    ("flash_attention", "t2ms_tpu/ops/attention.py:90"),
-    ("vmem_attention", "t2ms_tpu/ops/attention.py:147"),
-    ("packed_attention", "t2ms_tpu/ops/attention.py:196"),
 )
 
 
@@ -1560,9 +1878,11 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     from t2ms_tpu_torch.ops import _build
-    from t2ms_tpu_torch.ops.attention import (FUSED_HEADS_BWD_KERNEL,
+    from t2ms_tpu_torch.ops.attention import (FLASH_KERNEL,
+                                              FUSED_HEADS_BWD_KERNEL,
                                               FUSED_HEADS_KERNEL,
-                                              FUSED_HEADS_TWO_PASS_KERNEL)
+                                              FUSED_HEADS_TWO_PASS_KERNEL,
+                                              PACKED_KERNEL, VMEM_KERNEL)
     from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
                                               MOD_LN_BWD_KERNEL,
                                               MOD_LN_KERNEL,
@@ -1606,6 +1926,16 @@ def main(argv=None):
     ls_dit, ls_vae = build_long_models(args.seed)
     long_offline_phase(ls_dit, ls_vae, gen)
     ls_launches = long_train_phase(ls_dit, ls_vae, gen)
+    del ls_dit, ls_vae
+    torch.cuda.empty_cache()
+    sh = split_heads_phase(gen)
+    xl_dit_, xl_vae = build_xl_models(args.seed)
+    xl_launches = xl_offline_phase(xl_dit_, xl_vae, gen)
+    xl_train_phase(xl_dit_, xl_vae, gen)
+    del xl_dit_, xl_vae
+    torch.cuda.empty_cache()
+    pk_launches = packed_offline_phase(dit, vae, gen)
+    explicit_impl_phase(dit, vae, gen)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {
@@ -1647,7 +1977,19 @@ def main(argv=None):
               tr_launches.get(RES_MOD_LN_BWD_KERNEL, 0), rln["bwd"]),
         entry(FUSED_HEADS_TWO_PASS_KERNEL, csrc + "fused_heads.cu",
               "t2ms_tpu/ops/attention.py:816",
-              ls_launches.get(FUSED_HEADS_TWO_PASS_KERNEL, 0), tp)],
+              ls_launches.get(FUSED_HEADS_TWO_PASS_KERNEL, 0), tp),
+        entry(FLASH_KERNEL, csrc + "split_heads.cu",
+              "t2ms_tpu/ops/attention.py:90",
+              xl_launches.get(FLASH_KERNEL, 0),
+              sh[("flash_8192_serve", torch.bfloat16)]),
+        entry(VMEM_KERNEL, csrc + "split_heads.cu",
+              "t2ms_tpu/ops/attention.py:147",
+              sh["vmem_launches"].get(VMEM_KERNEL, 0),
+              sh[("vmem_480", torch.bfloat16)]),
+        entry(PACKED_KERNEL, csrc + "split_heads.cu",
+              "t2ms_tpu/ops/attention.py:196",
+              pk_launches.get(PACKED_KERNEL, 0),
+              sh[("packed_480_serve", torch.bfloat16)])],
         "to_port": [{"name": n, "replaces": r} for n, r in TO_PORT]}
     print(smi, flush=True)
     print(json.dumps(table), flush=True)

@@ -26,9 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from t2ms_tpu_torch import resolve_device
-from t2ms_tpu_torch.ops.attention import einsum_natural
+from t2ms_tpu_torch.ops.attention import (attention, attention_route,
+                                          fused_heads_diffable)
 
-__all__ = ["DiT", "sinusoidal_positions", "time_embedding"]
+__all__ = ["DiT", "sinusoidal_positions", "time_embedding", "qkv_attention"]
 
 
 def sinusoidal_positions(num_positions: int, d_model: int) -> torch.Tensor:
@@ -72,6 +73,22 @@ def _ln(x, eps):
     return (xf - mu) * torch.rsqrt(var + eps)
 
 
+def qkv_attention(qkv: torch.Tensor, num_heads: int,
+                  impl: str) -> torch.Tensor:
+    """The attention of a (B, N, 3*H*D) qkv projection, whose features are
+    [q | k | v] x [head-major], as (B, N, H*D): 'fused' runs
+    ``fused_heads_diffable`` on its column slices; any other impl runs
+    ``attention`` on the head-split (B, H, N, D) views."""
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    if impl == "fused":
+        return fused_heads_diffable(qkv[..., :D], qkv[..., D:2 * D],
+                                    qkv[..., 2 * D:], num_heads)
+    q, k, v = qkv.reshape(B, N, 3, num_heads, D // num_heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    return attention(q, k, v, impl=impl).transpose(1, 2).reshape(B, N, D)
+
+
 class _Attention(nn.Module):
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -79,11 +96,18 @@ class _Attention(nn.Module):
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.proj = nn.Linear(d_model, d_model)
 
-    def forward(self, x, dtype):
-        D = x.shape[-1]
+    def forward(self, x, dtype, impl: str = "einsum"):
+        """JAX's ``_Attention`` dispatch (t2ms_tpu/models/denoisers/dit.py
+        :87-109), "on a TPU" read as "on a CUDA tensor": 'auto' is JAX's
+        route on a CUDA tensor (``attention_route``: fused heads, flash or
+        einsum) and einsum on the CPU; 'fused', 'einsum', 'flash' and
+        'packed' run as ``qkv_attention`` runs them."""
+        B, N, D = x.shape
         qkv = dense(x, self.qkv.weight, self.qkv.bias, dtype)
-        y = einsum_natural(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
-                           self.num_heads)
+        if impl == "auto":
+            impl = (attention_route(N, D, qkv.element_size()) if qkv.is_cuda
+                    else "einsum")
+        y = qkv_attention(qkv, self.num_heads, impl)
         return dense(y.to(dtype), self.proj.weight, self.proj.bias, dtype)
 
 
@@ -116,10 +140,10 @@ class DiTBlock(nn.Module):
         mod = dense(F.silu(c), lin.weight, lin.bias, dtype)
         return mod.reshape(c.shape[0], 6, -1)
 
-    def forward(self, x, c, dtype):
+    def forward(self, x, c, dtype, impl: str = "einsum"):
         m = self.modulation(c, dtype)[:, :, None, :]          # (B, 6, 1, D)
         z = (_ln(x, 1e-6).to(dtype) * (1.0 + m[:, 1]) + m[:, 0])
-        x = x + m[:, 2] * self.attn(z, dtype)
+        x = x + m[:, 2] * self.attn(z, dtype, impl)
         z = (_ln(x, 1e-6).to(dtype) * (1.0 + m[:, 4]) + m[:, 3])
         return x + m[:, 5] * self.mlp(z, dtype)
 
@@ -141,8 +165,11 @@ class DiT(nn.Module):
     with x (B, latent_dim, latent_len), t (B,), text_emb (B, d_model) or
     None, text_mask (B,) of {0, 1} (0 = the uncond half of the CFG pair).
     Returns x's shape and dtype. Parameters are created on ``device``
-    (None = CUDA). ``attention_impl='auto'`` lets the sampler route the
-    forward through the fused CUDA stack; any other value opts out."""
+    (None = CUDA). ``attention_impl='auto'`` lets the samplers and the
+    train step route the forward through the fused CUDA kernels; any other
+    value opts out of them. The eager forward dispatches the attention on
+    ``attention_impl`` as JAX's ``_Attention`` does ('auto', 'fused',
+    'einsum', 'flash', 'packed'); its LayerNorms stay eager."""
 
     def __init__(self, latent_len: int = 30, latent_dim: int = 64,
                  d_model: int = 128, depth: int = 4, num_heads: int = 4,
@@ -216,5 +243,5 @@ class DiT(nn.Module):
     def forward(self, x, t, text_emb=None, text_mask=None):
         h, c = self.embed(x, t, text_emb, text_mask)
         for blk in self.layers:
-            h = blk(h, c, self.compute_dtype)
+            h = blk(h, c, self.compute_dtype, self.attention_impl)
         return self.finalize(h, x.dtype)

@@ -20,15 +20,19 @@ the hand-written block kernels on CUDA; its weights are views of the
 parameters, so the grads reach them.
 
 ``flax_path_forward`` (serving and training, geometries the block kernels
-do not take, such as the scaled DiT's d_model 512 or the long-series DiT's
-4096 tokens) is the counterpart of the TPU branch of the flax
+do not take, such as the scaled DiT's d_model 512 or the long-series DiTs'
+4096 and 8192 tokens) is the counterpart of the TPU branch of the flax
 ``DiT.__call__`` with its default residual + LayerNorm fusion: block 0's
 leading LayerNorm + modulate in ``ops.dit_block.mod_ln_diffable``, every
 later block boundary (a gated residual and the next LayerNorm + modulate)
-in ``ops.dit_block.res_mod_ln_diffable``, the attention in
-``ops.attention.fused_heads_diffable`` on the qkv projection's column
-slices, and the Dense layers, GELU and the last gated residual as the
-eager module computes them (XLA computes them outside any Pallas kernel).
+in ``ops.dit_block.res_mod_ln_diffable``, the attention as JAX's
+``_Attention`` picks it on a TPU (``ops.attention.attention_route``):
+``fused_heads_diffable`` on the qkv projection's column slices where
+JAX's ``fused_heads_block_q`` admits the geometry, else ``attention`` on
+the head-split views with 'flash' (#15, for N >= 1024 with a block that
+divides N, such as 8192 tokens) or 'einsum'; and the Dense layers, GELU
+and the last gated residual as the eager module computes them (XLA
+computes them outside any Pallas kernel).
 
 The stack, split and block routes take the JAX package's token range,
 128 <= N <= 1024 with N % 8 == 0 for N patch tokens (its gates
@@ -42,9 +46,10 @@ from typing import Optional
 
 import torch
 
-from t2ms_tpu_torch.models.denoisers.dit import DiT, dense
-from t2ms_tpu_torch.ops.attention import (fused_heads_diffable,
-                                          fused_heads_supported)
+from t2ms_tpu_torch.models.denoisers.dit import DiT, dense, qkv_attention
+from t2ms_tpu_torch.ops.attention import (SPLIT_HEAD_WIDTHS, attention_route,
+                                          fused_heads_supported,
+                                          split_heads_supported)
 from t2ms_tpu_torch.ops.dit_block import (block_kernel_supported,
                                           fused_dit_block_diffable,
                                           fused_dit_block_split,
@@ -59,6 +64,7 @@ __all__ = ["fast_dit_forward", "fast_forward_supported",
            "split_dit_forward", "split_forward_supported",
            "fast_dit_train_forward", "train_forward_supported",
            "flax_path_forward", "flax_path_supported",
+           "flax_attention_route", "flax_path_kernels",
            "fused_path_eligible"]
 
 _WEIGHTS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
@@ -122,18 +128,50 @@ def train_forward_supported(dit: DiT) -> bool:
                                   dit.num_heads, dit.compute_dtype)
 
 
+def flax_attention_route(dit: DiT) -> str:
+    """The flax path's attention for this DiT: "fused", "flash" or
+    "einsum", as JAX's ``_Attention`` picks it on a TPU
+    (``ops.attention.attention_route`` at the DiT's tokens, width and
+    compute dtype)."""
+    return attention_route(dit.num_patches, dit.d_model,
+                           torch.finfo(dit.compute_dtype).bits // 8)
+
+
 def flax_path_supported(dit: DiT) -> bool:
     """Whether the flax path's kernels take this DiT's geometry, asked of
-    both libraries (``ops.dit_block.mod_ln_supported``,
-    ``ops.dit_block.res_mod_ln_supported`` and
-    ``ops.attention.fused_heads_supported``; needs nvcc and a card). An
+    the LayerNorm library (``ops.dit_block.mod_ln_supported``,
+    ``ops.dit_block.res_mod_ln_supported``) and of the attention library
+    that the route picks (``ops.attention.fused_heads_supported`` or
+    ``split_heads_supported``; none for einsum); needs nvcc and a card. An
     explicit ``attention_impl`` opts out, as in the JAX gates."""
     if getattr(dit, "attention_impl", "auto") != "auto":
         return False
-    dt = dit.compute_dtype
-    return (mod_ln_supported(dit.d_model, dt)
-            and res_mod_ln_supported(dit.d_model, dt)
-            and fused_heads_supported(dit.d_model, dit.num_heads, dt))
+    dt, route = dit.compute_dtype, flax_attention_route(dit)
+    if not (mod_ln_supported(dit.d_model, dt)
+            and res_mod_ln_supported(dit.d_model, dt)):
+        return False
+    if route == "fused":
+        return fused_heads_supported(dit.d_model, dit.num_heads, dt)
+    if route == "flash":
+        return split_heads_supported(dit.d_model // dit.num_heads, dt)
+    return True
+
+
+def flax_path_kernels(dit: DiT, train: bool = False) -> str:
+    """The kernels the flax path would run for this DiT, with their
+    limits, for the routes' refusal messages."""
+    widths = ", ".join(map(str, SPLIT_HEAD_WIDTHS))
+    attn = {
+        "fused": ("#9 fused_heads_attention" + (
+            " with #11/#12 its single-pass and two-pass backwards"
+            if train else "") + ", head widths 32, 64 or 128"),
+        "flash": ("#15 flash_attention" + (
+            " with the einsum-recompute backward" if train else "")
+            + f", head widths {widths}"),
+        "einsum": "einsum attention (no kernel)"}[flax_attention_route(dit)]
+    ln = ("#5/#6 _mod_ln_call, #7/#8 _res_mod_ln_call" if train
+          else "#5 _mod_ln_call, #7 _res_mod_ln_call")
+    return f"{ln} (d_model <= 1024), {attn}; bf16 or f32"
 
 
 def _stacked_weights(dit: DiT, dtype: torch.dtype):
@@ -215,11 +253,15 @@ def flax_path_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
     /dit.py:232-263, :323-340): block 0's leading LayerNorm + modulate in
     ``mod_ln_diffable``; each gated residual deferred into the next
     LayerNorm + modulate, ``res_mod_ln_diffable`` (2 * depth - 1
-    boundaries); the attention in ``fused_heads_diffable``; the last
-    gated residual eager before the final LayerNorm. On CPU tensors the
-    kernels run their plain twins."""
+    boundaries); the attention as JAX's ``_Attention`` picks it on a TPU
+    (``flax_attention_route``, run by ``dit.qkv_attention``:
+    ``fused_heads_diffable``, or ``attention`` with 'flash' or 'einsum' on
+    the head-split views); the last gated residual eager before the final
+    LayerNorm. On CPU tensors the kernels run their plain twins, on the
+    same route."""
     h, c = dit.embed(x, t, text_emb, text_mask)
-    dt, D = dit.compute_dtype, dit.d_model
+    dt = dit.compute_dtype
+    route = flax_attention_route(dit)
     pending = None                     # the previous block's (mlp, gate)
     for blk in dit.layers:
         m = blk.modulation(c, dt)      # (B, 6, D): sh_a sc_a g_a sh_m sc_m g_m
@@ -229,9 +271,8 @@ def flax_path_forward(dit: DiT, x: torch.Tensor, t: torch.Tensor,
         else:
             z, h = res_mod_ln_diffable(
                 h, pending[0], torch.stack([pending[1], m[:, 0], m[:, 1]], 1))
-        qkv = dense(z, a.qkv.weight, a.qkv.bias, dt)
-        y = fused_heads_diffable(qkv[..., :D], qkv[..., D:2 * D],
-                                 qkv[..., 2 * D:], dit.num_heads).to(dt)
+        y = qkv_attention(dense(z, a.qkv.weight, a.qkv.bias, dt),
+                          dit.num_heads, route).to(dt)
         z, h = res_mod_ln_diffable(h, dense(y, a.proj.weight, a.proj.bias,
                                             dt), m[:, 2:5])
         pending = (blk.mlp(z, dt), m[:, 5])

@@ -142,6 +142,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "res_mod_ln_backward": [P] * 9 + [I] * 3 + [F, P],
         "fused_heads_forward": [P] * 4 + [I] * 4 + [L] * 6 + [F, P],
         "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [I, F, F, P],
+        "split_heads_forward": [P] * 4 + [I] * 4 + [L] * 12 + [I, F, P],
     }
     for base, argtypes in sigs.items():
         for fn in (f"{base}_bf16", f"{base}_f32"):
@@ -157,7 +158,8 @@ def _declare(lib: ctypes.CDLL) -> None:
             getattr(lib, fn).restype = ctypes.c_longlong
     for fn, n in (("dit_stack_check", 4), ("dit_block_check", 4),
                   ("dit_split_check", 4), ("mod_ln_check", 2),
-                  ("res_mod_ln_check", 2), ("fused_heads_check", 3)):
+                  ("res_mod_ln_check", 2), ("fused_heads_check", 3),
+                  ("split_heads_check", 2)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = I

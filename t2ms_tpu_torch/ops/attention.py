@@ -24,11 +24,25 @@ ungrouped single-pass kernels and its two-pass kernel). ``_FusedHeads``
 picks the one JAX's ``_fused_heads_bwd`` runs on a TPU, from copies of the
 three integer predicates it consults (``_bwd_block_q``,
 ``_bwd_head_groups``, ``_bwd_two_pass_blocks``): they decide the recipe and
-the kernel here, not tiles.
+the kernel here, not tiles. ``T2MS_ATTN_PIPE_BWD`` forces the recipe as it
+does in JAX (``_pipe_bwd_enabled``).
+
+The head-split kernels take (B, H, N, D) operands, read through their own
+batch, head and row strides (so the head-split views of one qkv projection
+are not copied): ``flash_attention`` (online softmax, all f32 inside),
+``vmem_attention`` and ``packed_attention`` (the exact softmax, p
+normalised and cast to v's dtype before PV). On a CUDA tensor they launch
+``csrc/split_heads.cu`` or raise; on a CPU tensor they run the plain twins
+``flash_reference``, ``vmem_reference`` and ``packed_reference``.
+``attention`` is JAX's dispatcher on that layout; its 'flash' and 'packed'
+impls train through an einsum-recompute backward. ``attention_route``
+copies the choice JAX's ``_Attention`` makes on a TPU from the predicates
+``fused_heads_block_q`` and ``_auto_block``: again a route, never a tile.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -41,7 +55,12 @@ __all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural",
            "fused_heads_attention_bwd", "fused_heads_attention_bwd_two_pass",
            "fused_heads_diffable", "fused_heads_supported",
            "fused_heads_bwd_route", "FUSED_HEADS_KERNEL",
-           "FUSED_HEADS_BWD_KERNEL", "FUSED_HEADS_TWO_PASS_KERNEL"]
+           "FUSED_HEADS_BWD_KERNEL", "FUSED_HEADS_TWO_PASS_KERNEL",
+           "fused_heads_block_q", "attention_route", "attention",
+           "flash_attention", "vmem_attention", "packed_attention",
+           "flash_reference", "vmem_reference", "packed_reference",
+           "split_heads_supported", "FLASH_KERNEL", "VMEM_KERNEL",
+           "PACKED_KERNEL", "SPLIT_HEAD_WIDTHS"]
 
 FUSED_HEADS_KERNEL = "fused_heads_attention"
 FUSED_HEADS_BWD_KERNEL = "fused_heads_attention_bwd"
@@ -247,6 +266,24 @@ def _bwd_block_q(n: int, hd: int, bpe: int = 2) -> int:
     return 0
 
 
+# JAX's default for the pipelined backward (t2ms_tpu/ops/attention.py:1362)
+_PIPE_BWD_DEFAULT_ON = True
+
+
+def _pipe_bwd_enabled(grouped: bool = True) -> bool:
+    """JAX's gate of the pipelined recipe (``_pipe_bwd_enabled``,
+    t2ms_tpu/ops/attention.py:1365): T2MS_ATTN_PIPE_BWD=0 gives the
+    recompute recipe everywhere, =1 the pipelined one everywhere; unset,
+    the pipelined recipe for the head-grouped branch only. The two recipes
+    round at other points, so the switch changes results."""
+    flag = os.environ.get("T2MS_ATTN_PIPE_BWD", "")
+    if flag == "0":
+        return False
+    if flag == "1":
+        return True
+    return grouped and _PIPE_BWD_DEFAULT_ON
+
+
 def fused_heads_bwd_route(n: int, hd: int, num_heads: int,
                           bpe: int = 2) -> str:
     """The branch JAX's ``_fused_heads_bwd`` takes on a TPU for N = ``n``
@@ -381,9 +418,10 @@ def fused_heads_attention_bwd(q, k, v, g, num_heads: int,
                               pipelined: Optional[bool] = None):
     """VJP of ``fused_heads_attention``: (dq, dk, dv) in q's dtype for the
     upstream gradient g, all (B, N, H*D), recomputing the probabilities
-    from q and k. ``pipelined`` picks the recipe as in JAX: None means
-    pipelined where ``head_groups`` > 1 (the JAX default), else the
-    recompute recipe. CUDA tensor -> ``csrc/fused_heads.cu`` (a stats, a
+    from q and k. ``pipelined`` picks the recipe as in JAX: None reads
+    ``_pipe_bwd_enabled`` (``T2MS_ATTN_PIPE_BWD``; unset means pipelined
+    where ``head_groups`` > 1, the JAX default, else the recompute
+    recipe). CUDA tensor -> ``csrc/fused_heads.cu`` (a stats, a
     dq and a dk/dv kernel; no atomics, so runs repeat bit for bit); CPU
     tensor -> the twin. ``block_q`` and ``head_groups`` shape the TPU
     kernel's VMEM tiles and are otherwise ignored."""
@@ -395,7 +433,7 @@ def fused_heads_attention_bwd(q, k, v, g, num_heads: int,
         raise ValueError(f"head_groups {head_groups} incompatible with "
                          f"HD={HD}, num_heads={num_heads}")
     if pipelined is None:
-        pipelined = head_groups > 1
+        pipelined = _pipe_bwd_enabled(grouped=head_groups > 1)
     scale = _scale(q, num_heads, scale)
     if q.is_cuda:
         return _launch_fused_heads_bwd(q, k, v, g, num_heads, scale,
@@ -460,3 +498,278 @@ def fused_heads_diffable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's dtype for q, k and v (pass the qkv projection's column slices; the
     kernels read them in place)."""
     return _FusedHeads.apply(q, k, v, num_heads)
+
+
+# ------------------------------------------------- the head-split kernels
+
+FLASH_KERNEL = "flash_attention"
+VMEM_KERNEL = "vmem_attention"
+PACKED_KERNEL = "packed_attention"
+SPLIT_HEAD_WIDTHS = (16, 32, 64, 128)     # split_heads_check in split_heads.cu
+_SPLIT_ENTRY = {torch.bfloat16: "split_heads_forward_bf16",
+                torch.float32: "split_heads_forward_f32"}
+
+
+def _auto_block(n: int, cap: int = 256) -> int:
+    """Largest divisor of n that is <= cap and a multiple of 8 (JAX's
+    ``_auto_block``, t2ms_tpu/ops/attention.py:81, copied as it is): the
+    TPU kernel's block; here it only says whether ``flash_attention``
+    reaches its kernel and whether ``attention`` picks it."""
+    best = 0
+    for b in range(8, cap + 1, 8):
+        if n % b == 0:
+            best = b
+    return best
+
+
+def fused_heads_block_q(n: int, hd: int, bpe: int = 2,
+                        budget: int = 10 * 2 ** 20) -> int:
+    """JAX's VMEM envelope of the fused-heads forward
+    (t2ms_tpu/ops/attention.py:352, copied as it is): 0 where its
+    ``_Attention`` does not take fused heads on a TPU. A route predicate
+    here (``attention_route``), never a tile."""
+    if n % 8 != 0 or n < 128:
+        return 0
+
+    def fits(bq):
+        return (bq * n * 4 + bq * n * bpe + 2 * n * hd * bpe
+                + 3 * bq * hd * bpe) < budget
+
+    if n <= 1024 and fits(n):
+        return n
+    for bq in (1024, 512, 384, 256, 128):
+        if n % bq == 0 and fits(bq):
+            return bq
+    return 0
+
+
+def attention_route(n: int, hd: int, bpe: int = 2,
+                    flash_threshold: int = 1024) -> str:
+    """The attention JAX's ``_Attention`` runs on a TPU for N = ``n``
+    tokens of H*D = ``hd`` in ``bpe``-byte values with
+    ``attention_impl='auto'`` (t2ms_tpu/models/denoisers/dit.py:88-109):
+    "fused" (``fused_heads_diffable``) where ``fused_heads_block_q`` is
+    non-zero, else what ``attention`` picks on a TPU: "flash" for N >=
+    ``flash_threshold`` with a non-zero ``_auto_block(n)``, else
+    "einsum"."""
+    if fused_heads_block_q(n, hd, bpe):
+        return "fused"
+    if n >= flash_threshold and _auto_block(n):
+        return "flash"
+    return "einsum"
+
+
+def _split_scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def flash_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``flash_attention`` (JAX ``_flash_kernel``): q cast to
+    f32 and scaled, f32 scores, the exp, the row max and the row sum in
+    f32, PV in f32 from f32 v, normalised once at the end and cast to q's
+    dtype. Whole rows at once: the kernel's online rescaling over key
+    blocks is the same function up to f32 rounding."""
+    s = torch.matmul(q.float() * _split_scale(q, scale),
+                     k.float().transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True)
+    return o.to(q.dtype)
+
+
+def vmem_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``vmem_attention`` (JAX ``_vmem_attn_kernel``): q cast
+    to f32 and scaled, f32 scores, the row max subtracted, the exp and the
+    row sum in f32, p normalised, then cast to v's dtype before PV, PV
+    accumulated in f32 and cast to q's dtype."""
+    s = torch.matmul(q.float() * _split_scale(q, scale),
+                     k.float().transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+def packed_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``packed_attention`` (JAX ``_packed_kernel``): the same
+    precision steps as ``vmem_reference``; the TPU kernel only packs
+    several (b, h) rows into one program."""
+    return vmem_reference(q, k, v, scale)
+
+
+def _packed_pack(bh: int, n: int, d: int, bpe: int, pack: int) -> int:
+    """JAX's ``pack`` halving and refusal (t2ms_tpu/ops/attention.py
+    :208-217), copied as they are: raises where even pack = 1 would
+    exceed the TPU program's VMEM budget, so the port refuses the same
+    geometries. The returned pack is not used as a tile."""
+    vmem = lambda p: p * (n * n * (8 + bpe) + n * d * (8 + 8 * bpe))
+    while pack > 1 and (bh % pack or vmem(pack) >= 11 * 2 ** 20):
+        pack //= 2
+    if vmem(pack) >= 11 * 2 ** 20:
+        raise ValueError(
+            f"packed attention exceeds VMEM at N={n}, D={d} even at "
+            f"pack=1; use flash or einsum for this geometry")
+    return pack
+
+
+def split_heads_supported(head_width: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA head-split kernels (``flash_attention``,
+    ``vmem_attention``, ``packed_attention``) take this head width in
+    ``dtype`` (``split_heads_check`` in split_heads.cu: head widths 16,
+    32, 64 and 128, bf16 or f32; needs nvcc and a card)."""
+    if dtype not in _SPLIT_ENTRY:
+        return False
+    return _build.supported("split_heads", "split_heads_check", head_width,
+                            int(dtype == torch.bfloat16))
+
+
+def _check_split(name, q, k, v):
+    if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype
+                           or t.device != q.device for t in (k, v)):
+        raise ValueError(
+            f"{name}: q, k, v must share one (B, H, N, D) shape, dtype and "
+            f"device, got "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in (q, k, v)]}")
+    if not q.is_cuda and q.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
+def _strided4(t):
+    """t itself when the kernels can read it through its batch, head and
+    row strides (unit column stride, 16-byte aligned rows), else a
+    contiguous copy."""
+    e = t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s * e % 16 for s in t.stride()[:3])):
+        t = t.contiguous()
+    return t
+
+
+def _launch_split_heads(name, exact, q, k, v, scale):
+    """One launch of ``csrc/split_heads.cu``, counted under ``name``: the
+    online-softmax kernel (#15) or, with ``exact``, the exact-softmax one
+    (#16, #17). The output is a (B, H, N, D) view of a (B, N, H, D)
+    tensor, so merging the heads back into (B, N, H*D) copies nothing."""
+    B, H, N, D = q.shape
+    refused = ValueError(
+        f"{name} CUDA kernel does not take B={B} H={H} N={N} head width "
+        f"{D} dtype={q.dtype}: it takes head widths "
+        f"{', '.join(map(str, SPLIT_HEAD_WIDTHS))} in bf16 or f32")
+    if q.dtype not in _SPLIT_ENTRY:
+        raise refused
+    _build.refuse_autograd(name, (q, k, v), "attention(..., impl)")
+    q, k, v = (_strided4(t) for t in (q, k, v))
+    o = torch.empty((B, N, H, D), device=q.device,
+                    dtype=q.dtype).permute(0, 2, 1, 3)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    _build.launch(_build.load("split_heads"), _SPLIT_ENTRY[q.dtype], name,
+                  refused, q.device, q, k, v, o, B, H, N, D, *strides,
+                  int(exact), float(scale))
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Online-softmax attention on the head-split (B, H, N, D) layout, all
+    f32 inside, the output in q's dtype (JAX ``flash_attention``). Where
+    no block of JAX's (``block_q``, ``block_k``, by default
+    ``_auto_block(N)``) divides N, JAX computes ``einsum_attention``
+    instead, and so does this wrapper; elsewhere a CUDA tensor runs
+    ``csrc/split_heads.cu`` (its own tiles; the blocks are not used as
+    tiles) and a CPU tensor the twin ``flash_reference``. Forward only:
+    train through ``attention(..., 'flash')``."""
+    _check_split(FLASH_KERNEL, q, k, v)
+    scale = _split_scale(q, scale)
+    N = q.shape[2]
+    if block_q is None:
+        block_q = _auto_block(N)
+    if block_k is None:
+        block_k = _auto_block(N)
+    if not block_q or not block_k or N % block_k or N % block_q:
+        return einsum_attention(q, k, v, scale)
+    if q.is_cuda:
+        return _launch_split_heads(FLASH_KERNEL, False, q, k, v, scale)
+    return flash_reference(q, k, v, scale)
+
+
+def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Exact-softmax attention on the head-split (B, H, N, D) layout
+    (JAX ``vmem_attention``): f32 softmax, p cast to v's dtype before PV.
+    CUDA tensor -> ``csrc/split_heads.cu`` (two passes over K, so any N;
+    head widths 16, 32, 64, 128, else it raises); CPU tensor -> the twin
+    ``vmem_reference``. No ``attention`` impl reaches it, as in JAX."""
+    _check_split(VMEM_KERNEL, q, k, v)
+    scale = _split_scale(q, scale)
+    if q.is_cuda:
+        return _launch_split_heads(VMEM_KERNEL, True, q, k, v, scale)
+    return vmem_reference(q, k, v, scale)
+
+
+def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: Optional[float] = None,
+                     pack: int = 4) -> torch.Tensor:
+    """Exact-softmax attention on the head-split (B, H, N, D) layout
+    (JAX ``packed_attention``): the same function as ``vmem_attention``.
+    It raises where JAX raises (even pack = 1 would not fit the TPU
+    program's VMEM); ``pack`` is kept for the signature and is not a tile.
+    CUDA tensor -> ``csrc/split_heads.cu``; CPU tensor -> the twin
+    ``packed_reference``. Forward only: train through
+    ``attention(..., 'packed')``."""
+    _check_split(PACKED_KERNEL, q, k, v)
+    scale = _split_scale(q, scale)
+    B, H, N, D = q.shape
+    _packed_pack(B * H, N, D, q.element_size(), pack)
+    if q.is_cuda:
+        return _launch_split_heads(PACKED_KERNEL, True, q, k, v, scale)
+    return packed_reference(q, k, v, scale)
+
+
+class _EinsumVJP(torch.autograd.Function):
+    """A head-split kernel's forward with JAX's einsum-recompute backward
+    (``_flash_bwd``, t2ms_tpu/ops/attention.py:1483): autograd over
+    ``einsum_attention`` on the saved q, k and v. The forward saves no
+    (N, N) tensor; the backward builds them for one layer at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel):
+        ctx.save_for_backward(q, k, v)
+        return kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = einsum_attention(*ts)
+        return (*torch.autograd.grad(o, ts, g.to(o.dtype)), None)
+
+
+def _flash_diffable(q, k, v):
+    """``flash_attention`` with the einsum-recompute backward."""
+    return _EinsumVJP.apply(q, k, v, flash_attention)
+
+
+def _packed_diffable(q, k, v):
+    """``packed_attention`` with the einsum-recompute backward."""
+    return _EinsumVJP.apply(q, k, v, packed_attention)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              impl: str = "auto", flash_threshold: int = 1024
+              ) -> torch.Tensor:
+    """JAX's dispatcher on the head-split (B, H, N, D) layout
+    (t2ms_tpu/ops/attention.py:1493): 'einsum', 'flash', 'packed', or
+    'auto' (and any other value), which is 'flash' on a CUDA tensor with
+    N >= ``flash_threshold`` and a non-zero ``_auto_block(N)`` (JAX: on a
+    TPU), else 'einsum'. Differentiable in every mode."""
+    if impl == "einsum":
+        return einsum_attention(q, k, v)
+    if impl == "flash":
+        return _flash_diffable(q, k, v)
+    if impl == "packed":
+        return _packed_diffable(q, k, v)
+    n = q.shape[2]
+    if q.is_cuda and n >= flash_threshold and _auto_block(n):
+        return _flash_diffable(q, k, v)
+    return einsum_attention(q, k, v)

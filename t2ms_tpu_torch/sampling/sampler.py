@@ -51,7 +51,9 @@ def _serving_forward(denoiser, device) -> Callable:
     limits, not the TPU's VMEM envelopes: a d=256 DiT at N=1024 goes to
     the split in JAX and may take the stack here. Both compute the same
     block. The long-series DiT (4096 tokens) takes the flax path, as in
-    JAX. A geometry no route takes raises: the eager model is not run in
+    JAX; its attention is JAX's on a TPU too (fused heads, or flash at
+    8192 tokens). A geometry no route takes raises, naming the kernels the
+    flax path would run and their limits: the eager model is not run in
     the kernels' place."""
     from t2ms_tpu_torch.models.denoisers import dit_fast
     if not dit_fast.fused_path_eligible(denoiser, device):
@@ -66,8 +68,8 @@ def _serving_forward(denoiser, device) -> Callable:
     d = denoiser
     raise ValueError(
         f"the port does not take this DiT on CUDA: neither fused_dit_stack "
-        f"nor fused_dit_block_split nor the flax path's kernels "
-        f"(_mod_ln_call, _res_mod_ln_call, fused_heads_attention) take "
+        f"nor fused_dit_block_split (128 <= tokens <= 1024) nor the flax "
+        f"path's kernels ({dit_fast.flax_path_kernels(d)}) take "
         f"d_model={d.d_model} heads={d.num_heads} "
         f"hidden={int(d.d_model * d.mlp_ratio)} tokens={d.num_patches} "
         f"dtype={d.compute_dtype}; the eager model is not run in their "

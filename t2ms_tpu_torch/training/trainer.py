@@ -14,9 +14,10 @@ step each parameter's ``.grad`` holds the step's averaged gradient.
 On CUDA a DiT trains through ``dit_fast.fast_dit_train_forward`` (the
 hand-written block forward and backward kernels) when they take its
 geometry (inside the JAX token range 128..1024), else through
-``dit_fast.flax_path_forward`` (the LayerNorm + modulate, gated residual +
-LayerNorm + modulate and fused-heads attention kernels, forward and
-backward, the attention backward single-pass or two-pass as JAX picks it),
+``dit_fast.flax_path_forward`` (the LayerNorm + modulate and gated residual
++ LayerNorm + modulate kernels, forward and backward, and the attention as
+JAX picks it on a TPU: the fused-heads kernels with their single-pass or
+two-pass backward, or the flash kernel with its einsum-recompute backward),
 else the step raises; only an explicit ``attention_impl`` opts out to the
 eager module, which is also the path on the CPU.
 
@@ -65,10 +66,10 @@ def _training_forward(denoiser):
         d = denoiser
         raise ValueError(
             f"the port does not train this DiT on CUDA: neither the block "
-            f"kernels (fused_dit_block, _fused_block_diff_bwd) nor the flax "
-            f"path's (#5/#6 _mod_ln_call, #7/#8 _res_mod_ln_call, #9 "
-            f"fused_heads_attention, #11/#12 its single-pass and two-pass "
-            f"backwards) take d_model={d.d_model} "
+            f"kernels (fused_dit_block, _fused_block_diff_bwd; 128 <= tokens "
+            f"<= 1024) nor the flax path's "
+            f"({dit_fast.flax_path_kernels(d, train=True)}) take "
+            f"d_model={d.d_model} "
             f"heads={d.num_heads} hidden={int(d.d_model * d.mlp_ratio)} "
             f"tokens={d.num_patches} dtype={d.compute_dtype}; the eager "
             f"model is not run in their place (set attention_impl to opt "

@@ -486,9 +486,10 @@ def test_flax_path_kernels_refuse_what_they_do_not_take(cuda):
 def test_train_step_takes_the_flax_path_for_a_wide_dit(cuda):
     """One train step of a d_model 512 DiT (depth 1, 16 tokens), which the
     block kernels do not take: the flax path with the residual fusion, one
-    LayerNorm + modulate, one gated residual + LayerNorm + modulate and one
-    fused-heads launch each way, the attention backward two-pass (JAX's
-    eager fallback at 16 tokens), nothing else; the loss is finite and
+    LayerNorm + modulate and one gated residual + LayerNorm + modulate
+    launch each way, and the attention as JAX's ``_Attention`` runs it on a
+    TPU at 16 tokens (``fused_heads_block_q`` is 0 below 128 tokens, so
+    einsum attention, no kernel); nothing else; the loss is finite and
     every parameter moves."""
     from t2ms_tpu_torch.models.denoisers import DiT
     from t2ms_tpu_torch.models.denoisers.dit_fast import (
@@ -514,30 +515,33 @@ def test_train_step_takes_the_flax_path_for_a_wide_dit(cuda):
                 coin=torch.tensor(1.0, device=cuda), generator=g)
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
+    assert tattn.attention_route(16, 512) == "einsum"
     assert dict(_build.launch_counts) == {
         tblock.MOD_LN_KERNEL: 1, tblock.MOD_LN_BWD_KERNEL: 1,
-        tblock.RES_MOD_LN_KERNEL: 1, tblock.RES_MOD_LN_BWD_KERNEL: 1,
-        tattn.FUSED_HEADS_KERNEL: 1, tattn.FUSED_HEADS_TWO_PASS_KERNEL: 1}
+        tblock.RES_MOD_LN_KERNEL: 1, tblock.RES_MOD_LN_BWD_KERNEL: 1}
     assert all((p != b).any() for p, b in zip(dit.parameters(), before))
 
 
 @pytest.mark.cuda
 def test_train_step_refuses_a_dit_no_route_takes(cuda):
-    """Head width 16: neither the block kernels (D 512 > 256) nor the
-    fused-heads kernels take it; the step raises instead of running the
-    eager model."""
+    """Head width 16 at 480 tokens: neither the block kernels (D 512 >
+    256) nor the fused-heads kernels, which JAX's route picks there, take
+    it; the step raises, naming the kernels' limits, instead of running
+    the eager model."""
     from t2ms_tpu_torch.models.denoisers import DiT
     from t2ms_tpu_torch.models.vae import LAVAE
     from t2ms_tpu_torch.training import (ScheduledAdamW,
                                          make_denoiser_train_step)
-    dit = DiT(latent_len=8, latent_dim=8, d_model=512, depth=1,
+    dit = DiT(latent_len=30, latent_dim=64, d_model=512, depth=1,
               num_heads=32, mlp_ratio=4.0, compute_dtype=torch.bfloat16)
+    assert tattn.attention_route(480, 512) == "fused"
     step = make_denoiser_train_step(
-        dit, LAVAE(1, 16, 1, 16, 8, 8),
+        dit, LAVAE(1, 16, 1, 16, 8, 30),
         ScheduledAdamW(dit.parameters(), lambda _: 1e-4), precoded=True)
     _build.reset_launch_counts()
-    with pytest.raises(ValueError, match="does not train"):
-        step(torch.zeros(2, 8, 8, device=cuda),
+    with pytest.raises(ValueError, match="does not train.*head widths 32, "
+                                         "64 or 128"):
+        step(torch.zeros(2, 64, 30, device=cuda),
              torch.zeros(2, 512, device=cuda))
     assert not _build.launch_counts
 
@@ -722,3 +726,173 @@ def test_train_step_takes_the_two_pass_backward_for_a_long_dit(cuda):
         tblock.RES_MOD_LN_KERNEL: 3, tblock.RES_MOD_LN_BWD_KERNEL: 3,
         tattn.FUSED_HEADS_KERNEL: 2, tattn.FUSED_HEADS_TWO_PASS_KERNEL: 2}
     assert all((p != b).any() for p, b in zip(dit.parameters(), before))
+
+
+# --------------- the head-split kernels (#15, #16, #17) and their routes
+
+def _head_split_args(dev, dt, B=3, H=4, N=200, D=32, seed=6):
+    """q, k, v as the head-split (B, H, N, D) views of one qkv tensor."""
+    r = np.random.default_rng(seed)
+    qkv = torch.from_numpy(r.standard_normal((B, N, 3 * H * D)).astype(
+        np.float32)).to(dev, dt)
+    return qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+_SPLIT = [("flash_attention", "flash_reference", "FLASH_KERNEL"),
+          ("vmem_attention", "vmem_reference", "VMEM_KERNEL"),
+          ("packed_attention", "packed_reference", "PACKED_KERNEL")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 2e-4),
+                                    (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("fn,twin,name", _SPLIT)
+def test_split_heads_kernels_match_twins_on_card(cuda, dt, tol, D, fn, twin,
+                                                 name):
+    """Each head-split kernel against its twin on the strided head-split
+    views of one qkv tensor, at a token count that fills no tile (200;
+    the flash blocks divide it, 200 = 8 * 25), one launch each."""
+    q, k, v = _head_split_args(cuda, dt, D=D)
+    before = _build.launch_counts[getattr(tattn, name)]
+    with torch.no_grad():
+        got = getattr(tattn, fn)(q, k, v)
+        torch.cuda.synchronize()
+        want = getattr(tattn, twin)(q, k, v)
+    assert _build.launch_counts[getattr(tattn, name)] == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_long_rows_matches_twin_on_card(cuda):
+    """8192 tokens in bf16 (the 8192-token DiT's attention, B=1): the
+    online rescaling over 128 key tiles against the whole-row twin."""
+    q, k, v = _head_split_args(cuda, torch.bfloat16, B=1, N=8192)
+    with torch.no_grad():
+        got = tattn.flash_attention(q, k, v).float()
+        want = tattn.flash_reference(q, k, v).float()
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_split_heads_kernels_refuse_what_they_do_not_take(cuda):
+    """Head widths 16, 32, 64, 128 in bf16 or f32 (split_heads_check); a
+    shape they refuse raises and launches nothing; packed_attention also
+    raises where JAX's does; flash_attention falls back to
+    einsum_attention where no block divides N, as JAX's does; a forward
+    refuses an input that requires grad under grad mode."""
+    ok = tattn.split_heads_supported
+    assert ok(32, torch.bfloat16) and ok(128, torch.float32)
+    assert not ok(8, torch.bfloat16) and not ok(256, torch.bfloat16)
+    assert not ok(48, torch.bfloat16) and not ok(32, torch.float16)
+    _build.reset_launch_counts()
+    for D in (8, 256):
+        q, k, v = _head_split_args(cuda, torch.bfloat16, B=1, N=64, D=D)
+        for fn, _, _ in _SPLIT:
+            with torch.no_grad(), pytest.raises(ValueError,
+                                                match="does not take"):
+                getattr(tattn, fn)(q, k, v)
+    q, k, v = _head_split_args(cuda, torch.bfloat16, B=1, N=1040)
+    with pytest.raises(ValueError, match="exceeds VMEM"):
+        tattn.packed_attention(q, k, v)
+    q, k, v = _head_split_args(cuda, torch.bfloat16, B=1, N=100)   # no block
+    with torch.no_grad():
+        got = tattn.flash_attention(q, k, v)
+    assert torch.equal(got, tattn.einsum_attention(q, k, v))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tattn.vmem_attention(q.detach().requires_grad_(), k, v)
+    assert not _build.launch_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,name", [("flash", "FLASH_KERNEL"),
+                                       ("packed", "PACKED_KERNEL")])
+def test_attention_impls_train_through_the_kernels(cuda, impl, name):
+    """``attention(..., impl)``: the kernel forward (one launch) and the
+    einsum-recompute backward, whose gradients are autograd's over
+    ``einsum_attention`` in f32."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in _head_split_args(cuda, torch.float32, B=2, N=256))
+    g = torch.randn(q.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(1))
+    _build.reset_launch_counts()
+    got = torch.autograd.grad(tattn.attention(q, k, v, impl), (q, k, v), g)
+    assert dict(_build.launch_counts) == {getattr(tattn, name): 1}
+    want = torch.autograd.grad(tattn.einsum_attention(q, k, v), (q, k, v), g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def _flash_dit(depth=1):
+    """A d_model 128 DiT of 4 heads over the (66, 64) latent: 1056 tokens,
+    where JAX's fused-heads envelope is 0 and the flash blocks divide N."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    torch.manual_seed(0)
+    dit = DiT(latent_len=66, latent_dim=64, d_model=128, depth=depth,
+              num_heads=4, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    return dit
+
+
+@pytest.mark.cuda
+def test_sampler_and_train_step_take_the_flash_route(cuda):
+    """At 1056 tokens the flax path runs #15 (JAX's route on a TPU): per
+    sampler step #5, #7 and #15 once each (depth 1) and no stack, split or
+    fused-heads launch; a train step launches #5, #7 and #15 forward and
+    #6 and #8 backward (the attention backward is the einsum recompute),
+    with a finite loss."""
+    from t2ms_tpu_torch.models.denoisers import dit_fast
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    dit = _flash_dit()
+    assert dit_fast.flax_attention_route(dit) == "flash"
+    assert dit_fast.flax_path_supported(dit)
+    vae = LAVAE(in_channels=1, latent_grid=66)
+    g = torch.Generator(cuda).manual_seed(0)
+    emb = torch.randn(2, 128, device=cuda, generator=g)
+    _build.reset_launch_counts()
+    out = make_cfg_sampler(dit, vae, total_step=3)(
+        torch.randn(2, 96, device=cuda, generator=g), emb).series
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert dict(_build.launch_counts) == {
+        tblock.MOD_LN_KERNEL: 3, tblock.RES_MOD_LN_KERNEL: 3,
+        tattn.FLASH_KERNEL: 3}
+    step = make_denoiser_train_step(
+        dit, vae, ScheduledAdamW(dit.parameters(), lambda _: 1e-4))
+    _build.reset_launch_counts()
+    loss = step(torch.randn(2, 132, device=cuda, generator=g), emb,
+                coin=torch.tensor(1.0, device=cuda), generator=g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dict(_build.launch_counts) == {
+        tblock.MOD_LN_KERNEL: 1, tblock.MOD_LN_BWD_KERNEL: 1,
+        tblock.RES_MOD_LN_KERNEL: 1, tblock.RES_MOD_LN_BWD_KERNEL: 1,
+        tattn.FLASH_KERNEL: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,name", [("flash", "FLASH_KERNEL"),
+                                       ("packed", "PACKED_KERNEL"),
+                                       ("fused", "FUSED_HEADS_KERNEL")])
+def test_eager_dit_dispatches_attention_impl_on_card(cuda, impl, name):
+    """The eager DiT with an explicit ``attention_impl`` launches the kernel
+    its impl names, once a layer, and nothing else (its LayerNorms stay
+    eager, as JAX's explicit impls opt out of the LayerNorm kernels)."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    torch.manual_seed(0)
+    dit = DiT(depth=2, compute_dtype=torch.bfloat16, attention_impl=impl)
+    x = torch.randn(2, 64, 30, device=cuda)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        out = dit(x, torch.rand(2, device=cuda), None, None)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert dict(_build.launch_counts) == {getattr(tattn, name): 2}

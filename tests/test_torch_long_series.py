@@ -35,6 +35,7 @@ from t2ms_tpu.ops import dit_block as jblock
 from t2ms_tpu.sampling import make_cfg_sampler as j_make_cfg_sampler
 from t2ms_tpu_torch.convert import dit_params_from_jax, lavae_params_from_jax
 from t2ms_tpu_torch.models.denoisers import DiT, dit_fast
+from t2ms_tpu_torch.models.denoisers import dit as tdit
 from t2ms_tpu_torch.models.vae import LAVAE
 from t2ms_tpu_torch.ops import _build
 from t2ms_tpu_torch.ops import attention as tattn
@@ -295,12 +296,17 @@ def _dit(latent_len, latent_dim, **kw):
     ((66, 64), 1056, False),          # above 1024
     ((30, 16), 120, False),           # below 128
     ((22, 24), 132, False),           # N % 8 == 4
+    ((512, 64), 8192, False),         # the 8192-token DiT
 ])
 def test_token_range_gates_against_a_fake_library(monkeypatch, latent,
                                                   tokens, inside):
     """With a library that takes every shape, the stack, split and block
     routes answer the JAX token range (128 <= N <= 1024, N % 8 == 0) and
-    ask the library only inside it; the flax path takes every N."""
+    ask the library only inside it; the flax path takes every N, its
+    attention on JAX's route on a TPU (fused heads where JAX's
+    ``fused_heads_block_q`` admits the geometry, else flash for N >= 1024
+    with a non-zero ``_auto_block``, else einsum), and it asks the
+    LayerNorm library and only the attention library of that route."""
     asked = []
     monkeypatch.setattr(_build, "supported",
                         lambda lib, check, *a: asked.append(check) or True)
@@ -310,10 +316,52 @@ def test_token_range_gates_against_a_fake_library(monkeypatch, latent,
                  dit_fast.split_forward_supported,
                  dit_fast.train_forward_supported):
         assert gate(dit) is inside
+    bpe = dit.pos.element_size()
+    want = ("fused" if jattn.fused_heads_block_q(tokens, dit.d_model, bpe)
+            else "flash" if tokens >= 1024 and jattn._auto_block(tokens)
+            else "einsum")
+    assert dit_fast.flax_attention_route(dit) == want
+    assert want == {120: "einsum", 132: "einsum", 1056: "flash",
+                    8192: "flash"}.get(tokens, "fused")
     assert dit_fast.flax_path_supported(dit)
     kernel_checks = ["dit_stack_check", "dit_split_check", "dit_block_check"]
     assert asked == (kernel_checks if inside else []) + [
-        "mod_ln_check", "res_mod_ln_check", "fused_heads_check"]
+        "mod_ln_check", "res_mod_ln_check"] + {
+        "fused": ["fused_heads_check"], "flash": ["split_heads_check"],
+        "einsum": []}[want]
+
+
+_PIPE_GEOMETRIES = {"grouped": (1024, 512, 8), "ungrouped": (480, 128, 4)}
+
+
+@pytest.mark.parametrize("flag", [None, "0", "1"])
+@pytest.mark.parametrize("geometry", ["grouped", "ungrouped"])
+def test_pipe_switch_picks_the_recipe_as_jax(monkeypatch, flag, geometry):
+    """``T2MS_ATTN_PIPE_BWD`` unset, 0 or 1: the recipe
+    ``_FusedHeads.backward`` runs (pipelined or recompute, told apart by
+    the twin it calls on the CPU) equals JAX's ``_pipe_bwd_enabled`` for
+    the branch the route takes, head-grouped (N 1024, H*D 512, 8 heads) or
+    ungrouped (N 480, H*D 128, 4 heads)."""
+    if flag is None:
+        monkeypatch.delenv("T2MS_ATTN_PIPE_BWD", raising=False)
+    else:
+        monkeypatch.setenv("T2MS_ATTN_PIPE_BWD", flag)
+    n, hd, heads = _PIPE_GEOMETRIES[geometry]
+    route = tattn.fused_heads_bwd_route(n, hd, heads, 4)
+    assert route == ("grouped" if geometry == "grouped" else "single")
+    recipes = []
+    zeros = lambda q, *a, **kw: (torch.zeros_like(q),) * 3
+    monkeypatch.setattr(tattn, "fused_heads_bwd_reference",
+                        lambda *a, **kw: recipes.append(True) or zeros(*a))
+    monkeypatch.setattr(tattn, "fused_heads_bwd_two_pass_reference",
+                        lambda *a, **kw: recipes.append(False) or zeros(*a))
+    monkeypatch.setattr(tattn, "fused_heads_attention",
+                        lambda q, k, v, h: torch.zeros_like(q))
+    q, k, v = (torch.zeros(1, n, hd, requires_grad=True) for _ in range(3))
+    tattn.fused_heads_diffable(q, k, v, heads).sum().backward()
+    assert recipes == [jattn._pipe_bwd_enabled(grouped=route == "grouped")]
+    assert recipes == [{None: geometry == "grouped", "0": False,
+                        "1": True}[flag]]
 
 
 # ------------------------------------------------ the flax-path DiT
@@ -365,25 +413,56 @@ def test_flax_path_forward_matches_jax_at_a_long_series_shape(monkeypatch):
 def test_flax_path_forward_runs_the_boundaries_in_order(monkeypatch):
     """Per forward: one ``mod_ln_diffable`` (block 0's leading boundary),
     2 * depth - 1 ``res_mod_ln_diffable`` and depth
-    ``fused_heads_diffable``; the result equals the eager module's."""
+    ``fused_heads_diffable`` (128 tokens: JAX's fused-heads route); the
+    result equals the eager module's."""
     calls = []
     for mod, name in ((dit_fast, "mod_ln_diffable"),
                       (dit_fast, "res_mod_ln_diffable"),
-                      (dit_fast, "fused_heads_diffable")):
+                      (tdit, "fused_heads_diffable")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw:
                             calls.append(_n) or _fn(*a, **kw))
     torch.manual_seed(0)
-    dit = _dit(8, 16, d_model=32, depth=3, num_heads=2)
+    dit = _dit(16, 32, d_model=32, depth=3, num_heads=2)
+    assert dit.num_patches == 128
     with torch.no_grad():
         for p in dit.parameters():
             p.add_(0.05 * torch.randn_like(p))
-        x, t, e = torch.randn(2, 16, 8), torch.rand(2), torch.randn(2, 32)
+        x, t, e = torch.randn(2, 32, 16), torch.rand(2), torch.randn(2, 32)
         got = dit_fast.flax_path_forward(dit, x, t, e, torch.ones(2))
         want = dit(x, t, e, torch.ones(2))
     assert calls.count("mod_ln_diffable") == 1 and calls[0] == "mod_ln_diffable"
     assert calls.count("res_mod_ln_diffable") == 5
     assert calls.count("fused_heads_diffable") == 3
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("latent,route", [((8, 16), "einsum"),
+                                          ((66, 64), "flash")])
+def test_flax_path_forward_takes_the_split_heads_routes(monkeypatch, latent,
+                                                        route):
+    """Where JAX's ``fused_heads_block_q`` refuses (32 tokens, below 128;
+    1056 tokens, above 1024 with no 128-multiple block),
+    ``flax_path_forward`` runs ``attention`` on the head-split views with
+    the route's impl (einsum below 1024 tokens, else flash), once a layer,
+    and no fused heads; the result equals the eager module's."""
+    calls = []
+    attn = tdit.attention
+    monkeypatch.setattr(tdit, "attention", lambda *a, impl: (
+        calls.append(impl) or attn(*a, impl=impl)))
+    monkeypatch.setattr(tdit, "fused_heads_diffable",
+                        lambda *a: calls.append("fused"))
+    torch.manual_seed(0)
+    dit = _dit(*latent, d_model=32, depth=2, num_heads=2)
+    assert dit_fast.flax_attention_route(dit) == route
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+        x = torch.randn(2, latent[1], latent[0])
+        t, e = torch.rand(2), torch.randn(2, 32)
+        got = dit_fast.flax_path_forward(dit, x, t, e, torch.ones(2))
+        assert calls == [route] * 2
+        want = dit(x, t, e, torch.ones(2))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 

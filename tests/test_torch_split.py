@@ -127,7 +127,8 @@ class _FakeLib:
                "res_mod_ln_backward_workspace",
                "fused_heads_forward_bf16", "fused_heads_forward_f32",
                "fused_heads_backward_bf16", "fused_heads_backward_f32",
-               "fused_heads_backward_workspace")
+               "fused_heads_backward_workspace",
+               "split_heads_forward_bf16", "split_heads_forward_f32")
 
     def __init__(self):
         self.calls = []
