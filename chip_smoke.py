@@ -13,7 +13,9 @@ failing with a non-zero exit on any error:
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
-   tolerances and CUDA-event timings (median of 7 after warm-up);
+   tolerances and CUDA-event timings (median of 7 after warm-up); and its
+   ``batch_block=2``, ``attn_impl='folded'`` and combined variants, each
+   one launch bit-equal to the plain call;
 4. offline path: the flagship CFG sampler (B=256 series, euler/100, cfg 7,
    length 96, bf16 DiT, seeded random weights with adaLN perturbed) with
    the kernel launch count checked against the steps, series/s, and the
@@ -102,7 +104,24 @@ failing with a non-zero exit on any error:
    loss finite; and at B=2 the kernel path's loss and gradients against
    the eager bf16 and f32 opt-out paths on the same injected draws (three
    draws);
-18. head-split phase: ``flash_attention`` (#15), ``vmem_attention``
+18. lean kernel phase: ``fused_heads_attention_with_stats`` (#10),
+   ``fused_heads_attention_bwd_lean`` (#13) and
+   ``fused_heads_attention_bwd_lean_two_pass`` (#14)
+   (``csrc/fused_heads.cu``) against their twins at scripts/
+   kernel_smoke.py's stats_fwd_1024_hd512 and lean_bwd_g4_bq512 (B=2,
+   N=1024, 8 heads of 64) and lean_two_pass_4096 (B=2, N=4096, 4 heads of
+   32), bf16 and f32, #10's o bit-equal to #9's; then at the paths' calls
+   (#10 and #13 at B=64, N=1024; #14 at B=8, N=4096): times, the twins'
+   times, the bounds and torch SDPA as the yardstick;
+19. lean scaled train phase: the scaled train step with
+   ``T2MS_ATTN_LEAN_BWD=1`` (2 warm-up, 5 timed steps): steps/s, peak
+   memory, device time by part, launches per step checked (#5 x1, #7 x23,
+   #10 x12, #6 x1, #8 x23, #13 x12; no #9, #11 or #12), the losses within
+   1e-2 of the same steps with the switch unset from the same init and
+   draws, and at B=8 the gradients against the eager paths;
+20. lean long train phase: the same for the long-series step (#5 x1, #7
+   x7, #10 x4, #6 x1, #8 x7, #14 x4 per step; the eager check at B=2);
+21. head-split phase: ``flash_attention`` (#15), ``vmem_attention``
    (#16) and ``packed_attention`` (#17) (``csrc/split_heads.cu``) on the
    head-split views of one qkv tensor, against their twins with the mean
    error against the f32 twins, at scripts/kernel_smoke.py's flash_4096
@@ -111,7 +130,7 @@ failing with a non-zero exit on any error:
    packed flagship sampler (#17, 2B=512, N=480), in bf16, and in f32 at
    a small batch; times, the twins' times, the bounds and torch SDPA as
    the library yardstick; then #16's direct call, its only path, counted;
-19. 8192-token offline path: the long-series widths over the 512 x 64
+22. 8192-token offline path: the long-series widths over the 512 x 64
    latent (8192 tokens, LA-VAE latent grid 512), seeded random weights,
    through the CFG sampler (B=4, euler/20, cfg 7, length 4096; cut from
    scripts/bench_long_series.py's B=16, euler/50 to fit the run's time)
@@ -121,7 +140,7 @@ failing with a non-zero exit on any error:
    or split launch), device time of one CFG forward by part, and at B=1
    the kernel path against the eager bf16 and f32 opt-out paths for 4
    steps;
-20. 8192-token train phase: the train step (B=8, length 4096, LA-VAE
+23. 8192-token train phase: the train step (B=8, length 4096, LA-VAE
    encode inside the step, AdamW at 1e-4), #15 forward and the einsum
    recompute backward, 2 warm-up and 5 timed steps: steps/s, peak memory,
    device time by part, launches per step checked (#5 x1, #7 x7, #15 x4,
@@ -129,18 +148,18 @@ failing with a non-zero exit on any error:
    finite; and at B=1 the kernel path's loss and gradients against the
    eager bf16 and f32 opt-out paths on the same injected draws (three
    draws);
-21. packed flagship offline path: the flagship sampler with
+24. packed flagship offline path: the flagship sampler with
    ``attention_impl='packed'`` (scripts/bench_attention_impls.py: B=256,
    cfg 7, length 96; euler/20, cut from euler/100): series/s, #17 x80 per
    ``sample()`` checked and no stack launch, and the kernel path against
    the eager einsum bf16 and f32 paths for 4 steps;
-22. explicit-impl phase: the flagship DiT with ``attention_impl`` 'flash',
+25. explicit-impl phase: the flagship DiT with ``attention_impl`` 'flash',
    'packed' and 'fused', one train step each (B=64), each launching the
    kernel its impl names and nothing else.
 
-The line before the last is the kernel table as JSON (the ported kernels
-with their numbers under "kernels", the TPU kernels still to port under
-"to_port"), the one before it the card's name and power limit; the last
+The line before the last is the kernel table as JSON (all 17 TPU kernels'
+counterparts with their numbers under "kernels"; "to_port" is empty), the
+one before it the card's name and power limit; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and
 prints no result.
 """
@@ -150,6 +169,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -264,6 +284,7 @@ def kernel_phase(gen):
         check(err <= tol * ref, f"{dt} kernel vs twin {err} > {tol}*{ref}")
         check(corr.item() >= 0.999, f"{dt} kernel vs twin corr {corr}")
         if dt == torch.bfloat16:
+            stack_variants(fused_dit_stack, got, x, mod, ws)
             # both bf16 results against the f32 twin on the same values:
             # the kernel may not round worse than its twin
             truth = fused_dit_stack_reference(
@@ -297,6 +318,25 @@ def kernel_phase(gen):
                 f"(B={B}, {HEADS} heads, N={N_TOK}, d={D_MODEL // HEADS}, "
                 f"x{DEPTH} layers): {out['sdpa_ms']:.4f} ms")
     return out
+
+
+def stack_variants(fused_dit_stack, plain, x, mod, ws):
+    """JAX's opt-in variants of the stack (B3) on the same inputs: each
+    one launch counted as the stack, bit for bit the plain call's output."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    for kw in (dict(batch_block=2), dict(attn_impl="folded"),
+               dict(batch_block=2, attn_impl="folded")):
+        _build.reset_launch_counts()
+        got = fused_dit_stack(x, mod, *ws, HEADS, **kw)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        check(launches == {STACK_KERNEL: 1},
+              f"stack variant {kw} launches {launches}")
+        check(torch.equal(got, plain), f"stack variant {kw} differs from "
+              f"the plain call")
+        log(f"stack variant {kw} B={x.shape[0]}: bit-equal to the plain "
+            f"call, launches {launches}")
 
 
 # the three CUDA kernels one fused_dit_stack call launches per layer
@@ -1564,6 +1604,251 @@ def long_train_phase(dit, vae, gen):
     return launches
 
 
+# ---------------------- the lse family (#10, #13, #14) and its train paths
+
+def _lean_case(f, B, N, HD, H, dt, two_pass):
+    """#10, then #13 or #14 from its o and lse, on the column slices of one
+    qkv tensor, against the twins on the same inputs: o bit for bit #9's,
+    lse absolute, the gradients as the other attention backwards; in bf16
+    also the mean error against the f32 twins. Returns (forward error,
+    backward error, tensors)."""
+    from t2ms_tpu_torch.ops.attention import (
+        fused_heads_attention, fused_heads_attention_bwd_lean,
+        fused_heads_attention_bwd_lean_two_pass,
+        fused_heads_attention_with_stats, fused_heads_bwd_lean_reference,
+        fused_heads_stats_reference)
+    bwd = (fused_heads_attention_bwd_lean_two_pass if two_pass
+           else fused_heads_attention_bwd_lean)
+    bf16 = dt == torch.bfloat16
+    tol_f, tol_lse, tol_b = (1e-2, 1e-2, 3e-2) if bf16 else (2e-4, 1e-4, 5e-4)
+    q, k, v, g = _qkv_slices(f, B, N, HD, dt)
+    what = (f"{'lean_two_pass' if two_pass else 'lean'} {dt} B={B} N={N} "
+            f"HD={HD} H={H}")
+    with torch.no_grad():
+        o, lse = fused_heads_attention_with_stats(q, k, v, H)
+        plain = fused_heads_attention(q, k, v, H)
+        grads = bwd(q, k, v, g, o, lse, H)
+        want_o, want_lse = fused_heads_stats_reference(q, k, v, H)
+        want = fused_heads_bwd_lean_reference(q, k, v, g, o, lse, H)
+        torch.cuda.synchronize()
+        check(torch.equal(o, plain), f"{what}: #10's o is not #9's")
+        t_o = t_g = (None,) * 3
+        if bf16:
+            f32 = [t.float() for t in (q, k, v, g)]
+            t_o, t_lse = fused_heads_stats_reference(*f32[:3], H)
+            t_g = fused_heads_bwd_lean_reference(*f32, t_o, t_lse, H)
+            del f32, t_lse
+        e_lse = (lse - want_lse).abs().max().item()
+        log(f"{what} o bit-equal to #9's; lse max_abs_err={e_lse:.6g} "
+            f"(tol {tol_lse:g} absolute)")
+        check(bool(torch.isfinite(lse).all()), f"{what} lse finite")
+        check(e_lse <= tol_lse, f"{what} lse {e_lse} > {tol_lse}")
+        e_f = _check_err(f"{what} out", o, want_o, tol_f,
+                         t_o if bf16 else None, want_o)
+        e_b = max(_check_err(f"{what} {n}", a, b, tol_b, t, b)
+                  for n, a, b, t in zip(("dq", "dk", "dv"), grads, want,
+                                        t_g))
+    del t_o, t_g, grads, want, want_o, want_lse, plain
+    return e_f, e_b, (q, k, v, g, o, lse)
+
+
+def lean_kernel_phase(gen):
+    """Kernels #10, #13 and #14 against their twins at JAX's smoke
+    geometries (scripts/kernel_smoke.py:220-265: stats_fwd_1024_hd512 and
+    lean_bwd_g4_bq512 at B=2, N=1024, H*D=512, 8 heads; lean_two_pass_4096
+    at B=2, N=4096, H*D=128, 4 heads) in bf16 and f32, then at their
+    paths' calls (#10 and #13 at the scaled train step's B=64, N=1024; #14
+    at the long-series step's B=8, N=4096) in bf16: checked again, timed,
+    with the twins' times, the bounds and torch SDPA as the yardstick.
+    Tolerances: o bf16 1e-2 * max|ref|, f32 2e-4; lse absolute, bf16 1e-2
+    (a rounding flip of one e moves lse by at most 2^-8 / r, r >= 1), f32
+    1e-4; gradients bf16 3e-2 * max|ref|, f32 5e-4; corr >= 0.999; bf16
+    mean error against the f32 twins at most 1.5x the bf16 twins'."""
+    from t2ms_tpu_torch.ops.attention import (
+        fused_heads_attention_bwd_lean,
+        fused_heads_attention_bwd_lean_two_pass,
+        fused_heads_attention_with_stats, fused_heads_bwd_lean_reference,
+        fused_heads_lean_route, fused_heads_stats_reference)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    check(fused_heads_lean_route(SC_N, SC_D, SC_HEADS) == "lean",
+          "the scaled geometry's lean route is JAX's single pass (#13)")
+    check(fused_heads_lean_route(LS_N, D_MODEL, HEADS) == "lean_two_pass",
+          "the long-series geometry's lean route is JAX's two-pass (#14)")
+    # the smoke geometries
+    for dt, b_long in ((torch.bfloat16, 2), (torch.float32, 1)):
+        _lean_case(f, 2, SC_N, SC_D, SC_HEADS, dt, False)
+        _lean_case(f, b_long, LS_N, D_MODEL, HEADS, dt, True)
+        torch.cuda.empty_cache()
+    # the paths' calls, bf16
+    out = {}
+    for key, B, N, HD, H, two_pass in (
+            ("scaled", SC_TRAIN_B, SC_N, SC_D, SC_HEADS, False),
+            ("long", LS_TRAIN_B, LS_N, D_MODEL, HEADS, True)):
+        e_f, e_b, (q, k, v, g, o, lse) = _lean_case(
+            f, B, N, HD, H, torch.bfloat16, two_pass)
+        bwd = (fused_heads_attention_bwd_lean_two_pass if two_pass
+               else fused_heads_attention_bwd_lean)
+        with torch.no_grad():
+            ms_f = cuda_ms(lambda: fused_heads_attention_with_stats(q, k, v,
+                                                                    H))
+            ms_b = cuda_ms(lambda: bwd(q, k, v, g, o, lse, H))
+            plain_f = cuda_ms(lambda: fused_heads_stats_reference(q, k, v,
+                                                                  H))
+            plain_b = cuda_ms(lambda: fused_heads_bwd_lean_reference(
+                q, k, v, g, o, lse, H))
+        lib_f, lib_b = sdpa_heads_ms(q, k, v, g, H)
+        prod = 2 * B * H * N * N * (HD // H)        # one N x N x d product
+        out[key] = {
+            "fwd": _row(e_f, ms_f, plain_f, 2 * prod,
+                        _nbytes(q, k, v, o, lse), H100_BF16_FLOPS, lib_f),
+            "bwd": _row(e_b, ms_b, plain_b, 5 * prod,
+                        _nbytes(q, k, v, g, o, lse, q, k, v),
+                        H100_BF16_FLOPS, lib_b)}
+        for n, r in out[key].items():
+            log(f"lean {key} B={B} N={N} HD={HD} H={H} {n}: {r['ms']:.4f} "
+                f"ms, twin {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+                f"({r['by']}), SDPA {r['library']:.4f} ms")
+        with torch.no_grad():
+            log(f"lean {key} bf16 device time by kernel (torch.profiler, "
+                "forward then backward): " + fmt_split(device_ms_by_kernel(
+                    lambda: (fused_heads_attention_with_stats(q, k, v, H),
+                             bwd(q, k, v, g, o, lse, H)), HEADS_PARTS)))
+        del q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lean_switch(value):
+    """Set T2MS_ATTN_LEAN_BWD to ``value`` (None: unset); returns the
+    previous value for ``_lean_switch`` to restore."""
+    old = os.environ.get("T2MS_ATTN_LEAN_BWD")
+    if value is None:
+        os.environ.pop("T2MS_ATTN_LEAN_BWD", None)
+    else:
+        os.environ["T2MS_ATTN_LEAN_BWD"] = value
+    return old
+
+
+def lean_train_phase(what, make_dit, dit, vae, gen, B, x_len, emb_dim,
+                     n_steps, precoded, bwd_kernel, n_check, make_draws,
+                     seed):
+    """A flax-path train step with ``T2MS_ATTN_LEAN_BWD=1`` on a copy of
+    ``dit`` (AdamW at a constant 1e-4): 2 warm-up and ``n_steps`` timed
+    steps with the launches per step checked (#5 x1, #7 x(2L-1), #10 xL,
+    #6 x1, #8 x(2L-1), ``bwd_kernel`` xL; nothing else); steps/s, peak
+    memory, device time by part; the losses within 1e-2 of the same steps
+    with the switch unset from the same init and draws; and at B =
+    ``n_check``, on ``make_draws``, the lean kernel path's loss and
+    gradients against the eager bf16 and f32 paths."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import FUSED_HEADS_STATS_KERNEL
+    from t2ms_tpu_torch.ops.dit_block import (MOD_LN_BWD_KERNEL,
+                                              MOD_LN_KERNEL,
+                                              RES_MOD_LN_BWD_KERNEL,
+                                              RES_MOD_LN_KERNEL)
+    from t2ms_tpu_torch.training import (ScheduledAdamW, encode_with_vae,
+                                         make_denoiser_train_step)
+    x = torch.randn(B, x_len, generator=gen, device="cuda")
+    emb = torch.randn(B, emb_dim, generator=gen, device="cuda")
+    if precoded:
+        x = encode_with_vae(vae, x)[0]     # once, outside the step
+    depth = len(dit.layers)
+
+    def run(lean, timed):
+        """2 + n_steps steps from dit's init on fixed draws; with
+        ``timed``, the main path's launches, wall time and peak memory."""
+        old = _lean_switch("1" if lean else None)
+        try:
+            model = copy.deepcopy(dit)
+            step = make_denoiser_train_step(
+                model, vae, ScheduledAdamW(model.parameters(),
+                                           lambda _: 1e-4),
+                total_step=STEPS, precoded=precoded)
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            losses = [step(x, emb, generator=g) for _ in range(TRAIN_WARMUP)]
+            # the main path: counts set to 0 just before it, read just after
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses += [step(x, emb, generator=g) for _ in range(n_steps)]
+            torch.cuda.synchronize()
+            res = (torch.stack(losses).tolist(), time.perf_counter() - t0,
+                   dict(_build.launch_counts),
+                   torch.cuda.max_memory_allocated() / 1e9)
+            if timed:
+                log_device_time(f"{what} step",
+                                lambda: step(x, emb, generator=g))
+            del model, step
+            torch.cuda.empty_cache()
+            return res
+        finally:
+            _lean_switch(old)
+
+    lv, dt, launches, peak_gb = run(True, True)
+    check(all(np.isfinite(lv)), f"{what} losses finite {lv}")
+    edges = 2 * depth - 1
+    want = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: edges,
+            FUSED_HEADS_STATS_KERNEL: depth, MOD_LN_BWD_KERNEL: 1,
+            RES_MOD_LN_BWD_KERNEL: edges, bwd_kernel: depth}
+    check(launches == {n: c * n_steps for n, c in want.items()},
+          f"{what} launches {launches} in {n_steps} steps, want {want} per "
+          f"step and no #9, #11, #12, stack, block or split launch")
+    log(f"{what}: B={B} bf16, T2MS_ATTN_LEAN_BWD=1, {n_steps} steps in "
+        f"{dt:.3f} s: {n_steps / dt:.4f} steps/s, peak memory "
+        f"{peak_gb:.3f} GB, launches {launches} ({want} per step), losses "
+        f"{[round(v, 5) for v in lv]}")
+    # the same steps with the switch unset (the default route's kernels),
+    # from the same init and draws: the recipes round elsewhere, and the
+    # two runs must move together (1e-2 of each loss)
+    lu, dt_u, launches_u, _ = run(False, False)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lv, lu))
+    log(f"{what}, switch unset, same init and draws: {n_steps / dt_u:.4f} "
+        f"steps/s, launches {launches_u}, losses "
+        f"{[round(v, 5) for v in lu]}; the lean path within {worst:.3e} of "
+        f"each (tol 1e-2)")
+    check(FUSED_HEADS_STATS_KERNEL not in launches_u,
+          f"{what}: the unset switch still ran #10")
+    check(worst <= 1e-2, f"{what} losses {lv} vs switch unset {lu}")
+    old = _lean_switch("1")
+    try:
+        train_paths_vs_eager(what, make_dit, dit, vae, x[:n_check],
+                             emb[:n_check], make_draws, precoded=precoded)
+    finally:
+        _lean_switch(old)
+    return launches
+
+
+def lean_scaled_train_phase(sc_dit, sc_vae, gen):
+    """The scaled train step (as ``scaled_train_phase``) with the lean
+    switch on: #10 forward and #13 backward per layer."""
+    from t2ms_tpu_torch.ops.attention import FUSED_HEADS_LEAN_KERNEL
+    g = torch.Generator(device="cuda").manual_seed(14)
+    Bs = 8
+    return lean_train_phase(
+        "lean scaled train", scaled_dit, sc_dit, sc_vae, gen, SC_TRAIN_B,
+        OUT_LEN, SC_D, SC_TRAIN_STEPS, True, FUSED_HEADS_LEAN_KERNEL, Bs,
+        lambda: dict(u=torch.rand(Bs, generator=g, device="cuda"),
+                     x_0=torch.randn(Bs, 64, 64, generator=g, device="cuda"),
+                     coin=torch.tensor(0.9, device="cuda")), seed=12)
+
+
+def lean_long_train_phase(ls_dit, ls_vae, gen):
+    """The long-series train step (as ``long_train_phase``, the VAE encode
+    in the step) with the lean switch on: #10 forward and #14 backward per
+    layer."""
+    from t2ms_tpu_torch.ops.attention import FUSED_HEADS_LEAN_TWO_PASS_KERNEL
+    g = torch.Generator(device="cuda").manual_seed(15)
+    Bs = 2
+    return lean_train_phase(
+        "lean long train", long_dit, ls_dit, ls_vae, gen, LS_TRAIN_B, LS_LEN,
+        D_MODEL, LS_TRAIN_STEPS, False, FUSED_HEADS_LEAN_TWO_PASS_KERNEL, Bs,
+        lambda: dict(u=torch.rand(Bs, generator=g, device="cuda"),
+                     x_0=torch.randn(Bs, 64, LS_LATENT, generator=g,
+                                     device="cuda"),
+                     coin=torch.tensor(0.9, device="cuda")), seed=13)
+
+
 # ----------------- the head-split kernels (#15, #16, #17) and their paths
 
 HEAD_SPLIT_PARTS = ("split_heads_kernel",)
@@ -1860,15 +2145,6 @@ def explicit_impl_phase(dit, vae, gen):
         torch.cuda.empty_cache()
 
 
-# the TPU kernels still to port: (name, def site)
-TO_PORT = (
-    ("fused_heads_attention_with_stats", "t2ms_tpu/ops/attention.py:454"),
-    ("fused_heads_attention_bwd_lean", "t2ms_tpu/ops/attention.py:984"),
-    ("fused_heads_attention_bwd_lean_two_pass",
-     "t2ms_tpu/ops/attention.py:1152"),
-)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1878,11 +2154,11 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     from t2ms_tpu_torch.ops import _build
-    from t2ms_tpu_torch.ops.attention import (FLASH_KERNEL,
-                                              FUSED_HEADS_BWD_KERNEL,
-                                              FUSED_HEADS_KERNEL,
-                                              FUSED_HEADS_TWO_PASS_KERNEL,
-                                              PACKED_KERNEL, VMEM_KERNEL)
+    from t2ms_tpu_torch.ops.attention import (
+        FLASH_KERNEL, FUSED_HEADS_BWD_KERNEL, FUSED_HEADS_KERNEL,
+        FUSED_HEADS_LEAN_KERNEL, FUSED_HEADS_LEAN_TWO_PASS_KERNEL,
+        FUSED_HEADS_STATS_KERNEL, FUSED_HEADS_TWO_PASS_KERNEL, PACKED_KERNEL,
+        VMEM_KERNEL)
     from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
                                               MOD_LN_BWD_KERNEL,
                                               MOD_LN_KERNEL,
@@ -1919,14 +2195,15 @@ def main(argv=None):
     mln = mod_ln_phase(gen)[torch.bfloat16]
     fh = fused_heads_phase(gen)[torch.bfloat16]
     tr_launches = scaled_train_phase(sc_dit, sc_vae, gen)
-    del sc_dit, sc_vae
-    torch.cuda.empty_cache()
     rln = res_mod_ln_phase(gen)["scaled"]
     tp = two_pass_phase(gen)[torch.bfloat16]
     ls_dit, ls_vae = build_long_models(args.seed)
     long_offline_phase(ls_dit, ls_vae, gen)
     ls_launches = long_train_phase(ls_dit, ls_vae, gen)
-    del ls_dit, ls_vae
+    ln = lean_kernel_phase(gen)
+    lsc_launches = lean_scaled_train_phase(sc_dit, sc_vae, gen)
+    lls_launches = lean_long_train_phase(ls_dit, ls_vae, gen)
+    del sc_dit, sc_vae, ls_dit, ls_vae
     torch.cuda.empty_cache()
     sh = split_heads_phase(gen)
     xl_dit_, xl_vae = build_xl_models(args.seed)
@@ -1978,6 +2255,18 @@ def main(argv=None):
         entry(FUSED_HEADS_TWO_PASS_KERNEL, csrc + "fused_heads.cu",
               "t2ms_tpu/ops/attention.py:816",
               ls_launches.get(FUSED_HEADS_TWO_PASS_KERNEL, 0), tp),
+        entry(FUSED_HEADS_STATS_KERNEL, csrc + "fused_heads.cu",
+              "t2ms_tpu/ops/attention.py:454",
+              lsc_launches.get(FUSED_HEADS_STATS_KERNEL, 0),
+              ln["scaled"]["fwd"]),
+        entry(FUSED_HEADS_LEAN_KERNEL, csrc + "fused_heads.cu",
+              "t2ms_tpu/ops/attention.py:984",
+              lsc_launches.get(FUSED_HEADS_LEAN_KERNEL, 0),
+              ln["scaled"]["bwd"]),
+        entry(FUSED_HEADS_LEAN_TWO_PASS_KERNEL, csrc + "fused_heads.cu",
+              "t2ms_tpu/ops/attention.py:1152",
+              lls_launches.get(FUSED_HEADS_LEAN_TWO_PASS_KERNEL, 0),
+              ln["long"]["bwd"]),
         entry(FLASH_KERNEL, csrc + "split_heads.cu",
               "t2ms_tpu/ops/attention.py:90",
               xl_launches.get(FLASH_KERNEL, 0),
@@ -1990,7 +2279,7 @@ def main(argv=None):
               "t2ms_tpu/ops/attention.py:196",
               pk_launches.get(PACKED_KERNEL, 0),
               sh[("packed_480_serve", torch.bfloat16)])],
-        "to_port": [{"name": n, "replaces": r} for n, r in TO_PORT]}
+        "to_port": []}   # every TPU kernel has its Hopper counterpart
     print(smi, flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,7 +47,9 @@ from typing import Optional
 import torch
 
 from t2ms_tpu_torch.models.denoisers.dit import DiT, dense, qkv_attention
-from t2ms_tpu_torch.ops.attention import (SPLIT_HEAD_WIDTHS, attention_route,
+from t2ms_tpu_torch.ops.attention import (SPLIT_HEAD_WIDTHS, _lean_bwd_enabled,
+                                          attention_route,
+                                          fused_heads_lean_route,
                                           fused_heads_supported,
                                           split_heads_supported)
 from t2ms_tpu_torch.ops.dit_block import (block_kernel_supported,
@@ -159,12 +161,23 @@ def flax_path_supported(dit: DiT) -> bool:
 
 def flax_path_kernels(dit: DiT, train: bool = False) -> str:
     """The kernels the flax path would run for this DiT, with their
-    limits, for the routes' refusal messages."""
+    limits, for the routes' refusal messages; for training, the lean
+    route's kernels (#10 with #13 or #14) where ``T2MS_ATTN_LEAN_BWD=1``
+    and ``fused_heads_lean_route`` admits the geometry."""
     widths = ", ".join(map(str, SPLIT_HEAD_WIDTHS))
-    attn = {
-        "fused": ("#9 fused_heads_attention" + (
+    lean = train and _lean_bwd_enabled() and fused_heads_lean_route(
+        dit.num_patches, dit.d_model, dit.num_heads,
+        torch.finfo(dit.compute_dtype).bits // 8)
+    if lean:
+        fused = ("#10 fused_heads_attention_with_stats with "
+                 + ("#13 fused_heads_attention_bwd_lean" if lean == "lean"
+                    else "#14 fused_heads_attention_bwd_lean_two_pass"))
+    else:
+        fused = "#9 fused_heads_attention" + (
             " with #11/#12 its single-pass and two-pass backwards"
-            if train else "") + ", head widths 32, 64 or 128"),
+            if train else "")
+    attn = {
+        "fused": fused + ", head widths 32, 64 or 128",
         "flash": ("#15 flash_attention" + (
             " with the einsum-recompute backward" if train else "")
             + f", head widths {widths}"),

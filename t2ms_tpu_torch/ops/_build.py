@@ -141,7 +141,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "res_mod_ln_forward": [P] * 5 + [I] * 3 + [F, P],
         "res_mod_ln_backward": [P] * 9 + [I] * 3 + [F, P],
         "fused_heads_forward": [P] * 4 + [I] * 4 + [L] * 6 + [F, P],
+        "fused_heads_forward_stats": [P] * 5 + [I] * 4 + [L] * 6 + [F, P],
         "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [I, F, F, P],
+        "fused_heads_backward_lean": [P] * 9 + [I] * 4 + [L] * 8 + [F, F, P],
         "split_heads_forward": [P] * 4 + [I] * 4 + [L] * 12 + [I, F, P],
     }
     for base, argtypes in sigs.items():

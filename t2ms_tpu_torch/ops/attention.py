@@ -2,7 +2,10 @@
 ``einsum_attention`` / ``_einsum_natural`` and the ``attn_heads_natural``
 recipe that every fused TPU kernel shares) and the port of the fused-heads
 kernels (``fused_heads_attention``, ``fused_heads_attention_bwd``,
-``fused_heads_attention_bwd_two_pass`` and ``fused_heads_diffable``).
+``fused_heads_attention_bwd_two_pass``, the lse family
+``fused_heads_attention_with_stats``, ``fused_heads_attention_bwd_lean``
+and ``fused_heads_attention_bwd_lean_two_pass``, and
+``fused_heads_diffable``).
 
 ``attn_heads_natural`` keeps the kernels' order of precision steps:
 q scaled at input width, f32 scores, row max subtracted then cast to input
@@ -13,10 +16,8 @@ PV. The CUDA kernels in ``csrc/dit_stack.cu``, ``csrc/attn_heads.cuh`` and
 The fused-heads wrappers take q, k and v on the natural (B, N, H*D)
 layout, as the column slices of one qkv projection: the kernels read each
 operand through its own batch and row strides, so the slices are not
-copied. On a CUDA tensor they launch ``csrc/fused_heads.cu`` (counted as
-``fused_heads_attention``, ``fused_heads_attention_bwd`` and
-``fused_heads_attention_bwd_two_pass``) or raise; on a CPU tensor they run
-the plain twins.
+copied. On a CUDA tensor they launch ``csrc/fused_heads.cu`` (counted
+under their JAX names) or raise; on a CPU tensor they run the plain twins.
 
 The backward has two recipes with other rounding points: the pipelined
 one (the JAX default where it walks head groups) and the recompute one (its
@@ -25,7 +26,11 @@ picks the one JAX's ``_fused_heads_bwd`` runs on a TPU, from copies of the
 three integer predicates it consults (``_bwd_block_q``,
 ``_bwd_head_groups``, ``_bwd_two_pass_blocks``): they decide the recipe and
 the kernel here, not tiles. ``T2MS_ATTN_PIPE_BWD`` forces the recipe as it
-does in JAX (``_pipe_bwd_enabled``).
+does in JAX (``_pipe_bwd_enabled``). ``T2MS_ATTN_LEAN_BWD=1`` (off by
+default, as in JAX: ``_lean_bwd_enabled``) turns on the lean route where
+JAX's predicates admit it (``fused_heads_lean_route``): the forward saves
+its output and the rows' log-sum-exp, and the backward rebuilds p from
+them with no stats pass (the third recipe).
 
 The head-split kernels take (B, H, N, D) operands, read through their own
 batch, head and row strides (so the head-split views of one qkv projection
@@ -53,9 +58,15 @@ __all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural",
            "fused_heads_reference", "fused_heads_bwd_reference",
            "fused_heads_bwd_two_pass_reference", "fused_heads_attention",
            "fused_heads_attention_bwd", "fused_heads_attention_bwd_two_pass",
+           "fused_heads_stats_reference", "fused_heads_bwd_lean_reference",
+           "fused_heads_attention_with_stats",
+           "fused_heads_attention_bwd_lean",
+           "fused_heads_attention_bwd_lean_two_pass",
            "fused_heads_diffable", "fused_heads_supported",
-           "fused_heads_bwd_route", "FUSED_HEADS_KERNEL",
-           "FUSED_HEADS_BWD_KERNEL", "FUSED_HEADS_TWO_PASS_KERNEL",
+           "fused_heads_bwd_route", "fused_heads_lean_route",
+           "FUSED_HEADS_KERNEL", "FUSED_HEADS_BWD_KERNEL",
+           "FUSED_HEADS_TWO_PASS_KERNEL", "FUSED_HEADS_STATS_KERNEL",
+           "FUSED_HEADS_LEAN_KERNEL", "FUSED_HEADS_LEAN_TWO_PASS_KERNEL",
            "fused_heads_block_q", "attention_route", "attention",
            "flash_attention", "vmem_attention", "packed_attention",
            "flash_reference", "vmem_reference", "packed_reference",
@@ -65,10 +76,17 @@ __all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural",
 FUSED_HEADS_KERNEL = "fused_heads_attention"
 FUSED_HEADS_BWD_KERNEL = "fused_heads_attention_bwd"
 FUSED_HEADS_TWO_PASS_KERNEL = "fused_heads_attention_bwd_two_pass"
+FUSED_HEADS_STATS_KERNEL = "fused_heads_attention_with_stats"
+FUSED_HEADS_LEAN_KERNEL = "fused_heads_attention_bwd_lean"
+FUSED_HEADS_LEAN_TWO_PASS_KERNEL = "fused_heads_attention_bwd_lean_two_pass"
 _FWD_ENTRY = {torch.bfloat16: "fused_heads_forward_bf16",
               torch.float32: "fused_heads_forward_f32"}
+_STATS_ENTRY = {torch.bfloat16: "fused_heads_forward_stats_bf16",
+                torch.float32: "fused_heads_forward_stats_f32"}
 _BWD_ENTRY = {torch.bfloat16: "fused_heads_backward_bf16",
               torch.float32: "fused_heads_backward_f32"}
+_LEAN_ENTRY = {torch.bfloat16: "fused_heads_backward_lean_bf16",
+               torch.float32: "fused_heads_backward_lean_f32"}
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -96,9 +114,11 @@ def einsum_natural(q, k, v, num_heads: int,
     return y.transpose(1, 2).reshape(B, N, HD)
 
 
-def attn_heads_natural(q_all, k_all, v_all, num_heads: int, scale: float):
+def attn_heads_natural(q_all, k_all, v_all, num_heads: int, scale: float,
+                       with_stats: bool = False):
     """Per-head attention on natural (B, N, H*D) tensors. Yields
-    (head, lane_slice, out_f32) with out (B, N, D)."""
+    (head, lane_slice, out_f32) with out (B, N, D); with ``with_stats``
+    also the rows' log-sum-exp lse = m + log(r) (B, N) in f32."""
     dt = q_all.dtype
     D = q_all.shape[-1] // num_heads
     for h in range(num_heads):
@@ -114,7 +134,10 @@ def attn_heads_natural(q_all, k_all, v_all, num_heads: int, scale: float):
         e = torch.exp((s - m).to(dt))                 # exp at input width
         r = e.float().sum(dim=-1)                     # f32 row sum
         o = torch.matmul(e.float(), v.float())        # f32 PV
-        yield h, sl, o / r[..., None]
+        if with_stats:
+            yield h, sl, o / r[..., None], m[..., 0] + torch.log(r)
+        else:
+            yield h, sl, o / r[..., None]
 
 
 # -------------------------------------------------------- fused heads
@@ -202,6 +225,64 @@ def fused_heads_bwd_two_pass_reference(q, k, v, g, num_heads: int,
         for acc, d in zip(outs, (dq, dk, dv)):
             acc.append(d.to(dt))
     return tuple(torch.cat(o, dim=-1) for o in outs)
+
+
+def fused_heads_stats_reference(q, k, v, num_heads: int,
+                                scale: Optional[float] = None):
+    """Plain twin of ``fused_heads_attention_with_stats``: the output of
+    ``fused_heads_reference`` and the rows' log-sum-exp lse = m + log(r)
+    per head, (B, N, H) in f32."""
+    dt = q.dtype
+    parts, lses = [None] * num_heads, [None] * num_heads
+    for h, _, o, lse in attn_heads_natural(q, k, v, num_heads,
+                                           _scale(q, num_heads, scale),
+                                           with_stats=True):
+        parts[h], lses[h] = o.to(dt), lse
+    return torch.cat(parts, dim=-1), torch.stack(lses, dim=-1)
+
+
+def _lean_stats(g, o, lse, num_heads: int):
+    """The lean backward's row terms (JAX's ``_lean_stats``,
+    t2ms_tpu/ops/attention.py:971, without its [lse | delta] concatenation,
+    a layout for TPU lanes): lse as contiguous f32 and delta_h =
+    rowsum(f32(g_h) * f32(o_h)), each (B, N, H)."""
+    B, N, HD = g.shape
+    D = HD // num_heads
+    delta = (g.float() * o.float()).reshape(B, N, num_heads, D).sum(dim=-1)
+    return lse.float().contiguous(), delta.contiguous()
+
+
+def fused_heads_bwd_lean_reference(q, k, v, g, o, lse, num_heads: int,
+                                   scale: Optional[float] = None):
+    """Plain twin of ``fused_heads_attention_bwd_lean`` and
+    ``fused_heads_attention_bwd_lean_two_pass``: the lean recipe of the JAX
+    kernels (``_bwd_lean_kernel``, ``_bwd_lean_p1_kernel``/
+    ``_bwd_lean_p2_kernel``) per head, on whole rows, from the forward's
+    output o and log-sum-exp lse: s = T(q * scale) k^T in f32,
+    p = T(exp(T(s - lse))), delta = rowsum(f32(g) f32(o)), dv = p^T g,
+    dp = g v^T, ds = T(p * (dp - delta)), dq = (ds k) * scale,
+    dk = (ds^T q) * scale with q unscaled. Returns (dq, dk, dv) in q's
+    dtype."""
+    dt = q.dtype
+    scale = _scale(q, num_heads, scale)
+    D = q.shape[-1] // num_heads
+    lse, delta = _lean_stats(g, o, lse, num_heads)
+    outs = ([], [], [])
+    for h in range(num_heads):
+        sl = slice(h * D, (h + 1) * D)
+        qh, kh, vh = (a[..., sl].float() for a in (q, k, v))
+        gh = g[..., sl].to(dt).float()
+        s = torch.matmul((q[..., sl] * torch.tensor(scale, dtype=dt)).float(),
+                         kh.transpose(-1, -2))
+        p = torch.exp((s - lse[..., h, None]).to(dt)).float()
+        dv = torch.matmul(p.transpose(-1, -2), gh)
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        ds = (p * (dp - delta[..., h, None])).to(dt).float()
+        dq = torch.matmul(ds, kh) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        for acc, d in zip(outs, (dq, dk, dv)):
+            acc.append(d.to(dt))
+    return tuple(torch.cat(o_, dim=-1) for o_ in outs)
 
 
 # The integer predicates of JAX's _fused_heads_bwd (t2ms_tpu/ops/attention.py
@@ -301,6 +382,91 @@ def fused_heads_bwd_route(n: int, hd: int, num_heads: int,
     return "eager"
 
 
+# The lean route's predicates (t2ms_tpu/ops/attention.py:928, :1124), copied
+# as they are, proven table included: on a TPU they size the lean kernels'
+# VMEM tiles; in the port they only say whether the forward saves lse and
+# which lean kernel the backward runs (``fused_heads_lean_route``).
+
+def _bwd_lean_groups(n: int, hd: int, num_heads: int, bpe: int = 2):
+    if n % 8 != 0 or n < 128:
+        return None
+    d = hd // num_heads
+    proven = {(1024, 512, 8): (4, 512)}
+    got = proven.get((n, hd, num_heads))
+    if got:
+        return got
+    budget = 11 * 2 ** 20
+    stats = 2 * n * 128 * 4
+    for g in (1, 2, 4, 8, 16):
+        if num_heads % g:
+            continue
+        ghd = hd // g
+        if ghd % 128 or ghd < d:
+            continue
+        refs = 14 * n * ghd * bpe
+        if refs + stats >= budget:
+            continue
+        cands = ([n] if n <= 1024 else []) + [512, 384, 256, 128, 64, 32]
+        for bq in cands:
+            if n % bq == 0 and refs + stats + bq * n * 16 < budget:
+                return (g, bq)
+    return None
+
+
+def _bwd_lean_two_pass_blocks(n: int, hd: int, bpe: int = 2):
+    if n % 8 != 0 or n < 256:
+        return None
+    budget = 11 * 2 ** 20
+    per_elem = 12 + 2 * bpe
+    full_row = 2 * 2 * n * hd * bpe
+    stats = 2 * n * 128 * 4
+    p1 = None
+    for bq in (256, 128, 64, 32):
+        if n % bq == 0 and full_row + 2 * bq * 128 * 4 \
+                + per_elem * bq * n < budget:
+            p1 = bq
+            break
+    if p1 is None:
+        return None
+    for bk in (512, 256, 128):
+        cq = 512 if n % 512 == 0 else 256
+        if n % bk == 0 and n % cq == 0 \
+                and full_row + stats + per_elem * cq * bk < budget:
+            return (p1, bk, cq)
+    return None
+
+
+# JAX's default for the lean backward (t2ms_tpu/ops/attention.py:1348)
+_LEAN_BWD_DEFAULT_ON = False
+
+
+def _lean_bwd_enabled() -> bool:
+    """JAX's gate of the lean backward (``_lean_bwd_enabled``,
+    t2ms_tpu/ops/attention.py:1378): T2MS_ATTN_LEAN_BWD=0 turns it off, =1
+    on; any other value, or none, leaves the default (off)."""
+    flag = os.environ.get("T2MS_ATTN_LEAN_BWD", "")
+    if flag == "0":
+        return False
+    return flag == "1" or _LEAN_BWD_DEFAULT_ON
+
+
+def fused_heads_lean_route(n: int, hd: int, num_heads: int,
+                           bpe: int = 2) -> Optional[str]:
+    """The lean kernel JAX's custom VJP runs on a TPU, with the lean switch
+    on, for N = ``n`` rows of H*D = ``hd`` in ``num_heads`` heads of
+    ``bpe``-byte values: None where its forward does not save lse (the
+    stats forward's envelope ``fused_heads_block_q`` is 0, or neither lean
+    backward admits the geometry), else "lean" (#13) where
+    ``_bwd_lean_groups`` admits it, else "lean_two_pass" (#14)."""
+    if not fused_heads_block_q(n, hd, bpe):
+        return None
+    if _bwd_lean_groups(n, hd, num_heads, bpe):
+        return "lean"
+    if _bwd_lean_two_pass_blocks(n, hd, bpe):
+        return "lean_two_pass"
+    return None
+
+
 def fused_heads_supported(HD: int, num_heads: int,
                           dtype: torch.dtype) -> bool:
     """Whether the CUDA fused-heads kernels, forward and backward, take
@@ -358,6 +524,35 @@ def _launch_fused_heads(q, k, v, num_heads, scale):
                   q.device, *ts, o, *q.shape, num_heads, *strides,
                   float(torch.tensor(scale, dtype=dt)))
     return o
+
+
+def _launch_fused_heads_stats(q, k, v, num_heads, scale):
+    refused, lib, ts, strides = _heads_operands(
+        FUSED_HEADS_STATS_KERNEL, _STATS_ENTRY, (q, k, v), num_heads)
+    dt = q.dtype
+    B, N, _ = q.shape
+    o = torch.empty(q.shape, device=q.device, dtype=dt)
+    lse = torch.empty((B, N, num_heads), device=q.device,
+                      dtype=torch.float32)
+    _build.launch(lib, _STATS_ENTRY[dt], FUSED_HEADS_STATS_KERNEL, refused,
+                  q.device, *ts, o, lse, *q.shape, num_heads, *strides,
+                  float(torch.tensor(scale, dtype=dt)))
+    return o, lse
+
+
+def _launch_fused_heads_bwd_lean(q, k, v, g, o, lse, num_heads, scale, name):
+    """The lean recipe's two launches (dq, then dk/dv; no stats launch),
+    counted once under ``name``; delta is computed here in plain torch."""
+    refused, lib, ts, strides = _heads_operands(
+        name, _LEAN_ENTRY, (q, k, v, g.to(q.dtype)), num_heads)
+    lse, delta = _lean_stats(g, o, lse, num_heads)
+    dt = q.dtype
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=dt)
+                  for _ in range(3))
+    _build.launch(lib, _LEAN_ENTRY[dt], name, refused, q.device, *ts, lse,
+                  delta, dq, dk, dv, *q.shape, num_heads, *strides,
+                  float(scale), float(torch.tensor(scale, dtype=dt)))
+    return dq, dk, dv
 
 
 def _launch_fused_heads_bwd(q, k, v, g, num_heads, scale, pipelined=True,
@@ -461,24 +656,139 @@ def fused_heads_attention_bwd_two_pass(q, k, v, g, num_heads: int,
     return fused_heads_bwd_two_pass_reference(q, k, v, g, num_heads, scale)
 
 
+def fused_heads_attention_with_stats(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, num_heads: int,
+                                     scale: Optional[float] = None,
+                                     block_q: Optional[int] = None):
+    """``fused_heads_attention`` that also returns each row's log-sum-exp
+    per head, (B, N, H) in f32: the residual of the lean backward. The
+    output is the same, bit for bit. CUDA tensor -> ``csrc/fused_heads.cu``
+    (the forward kernel with its lse output); CPU tensor -> the twin
+    ``fused_heads_stats_reference``. ``block_q`` must divide N, as in JAX,
+    and is otherwise ignored (the kernel picks its own tiles). Forward
+    only: on CUDA it raises under grad mode when an input requires grad."""
+    _check_heads(FUSED_HEADS_STATS_KERNEL, q, k, v)
+    N = q.shape[1]
+    if block_q is not None and N % block_q:
+        raise ValueError(f"block_q {block_q} must divide N {N}")
+    scale = _scale(q, num_heads, scale)
+    if q.is_cuda:
+        _build.refuse_autograd(FUSED_HEADS_STATS_KERNEL, (q, k, v),
+                               "fused_heads_diffable")
+        return _launch_fused_heads_stats(q, k, v, num_heads, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"{FUSED_HEADS_STATS_KERNEL}: unsupported device "
+                         f"{q.device}")
+    return fused_heads_stats_reference(q, k, v, num_heads, scale)
+
+
+def _check_lean(name, q, k, v, g, o, lse, num_heads):
+    _check_bwd(name, q, k, v, g)
+    B, N, _ = q.shape
+    if o.shape != q.shape or tuple(lse.shape) != (B, N, num_heads) \
+            or o.device != q.device or lse.device != q.device:
+        raise ValueError(
+            f"{name}: o must be {tuple(q.shape)} and lse "
+            f"{(B, N, num_heads)} on {q.device}, got o "
+            f"{tuple(o.shape)} on {o.device}, lse {tuple(lse.shape)} on "
+            f"{lse.device}")
+
+
+def fused_heads_attention_bwd_lean(q, k, v, g, o, lse, num_heads: int,
+                                   scale: Optional[float] = None,
+                                   groups: Optional[int] = None,
+                                   block_q: Optional[int] = None):
+    """The lean VJP of ``fused_heads_attention`` (JAX's single-pass lean
+    kernel): (dq, dk, dv) in q's dtype from the forward's output ``o`` and
+    log-sum-exp ``lse`` (``fused_heads_attention_with_stats``), with no
+    pass to recompute the softmax statistics. CUDA tensor ->
+    ``csrc/fused_heads.cu`` (the dq and dk/dv kernels with the lean recipe;
+    delta in plain torch); CPU tensor -> the twin
+    ``fused_heads_bwd_lean_reference``. ``groups`` and ``block_q`` are the
+    JAX signature's head groups and q block of VMEM tiles: refused where
+    JAX refuses them (one without the other, groups not dividing the
+    heads or H*D, a block not dividing N), otherwise ignored."""
+    _check_lean(FUSED_HEADS_LEAN_KERNEL, q, k, v, g, o, lse, num_heads)
+    B, N, HD = q.shape
+    if (groups is None) != (block_q is None):
+        raise ValueError("pass both groups and block_q, or neither")
+    if groups is not None:
+        if num_heads % groups or HD % groups:
+            raise ValueError(f"groups {groups} incompatible with HD={HD}, "
+                             f"num_heads={num_heads}")
+        if N % block_q:
+            raise ValueError(f"block_q {block_q} must divide N={N}")
+    scale = _scale(q, num_heads, scale)
+    if q.is_cuda:
+        return _launch_fused_heads_bwd_lean(q, k, v, g, o, lse, num_heads,
+                                            scale, FUSED_HEADS_LEAN_KERNEL)
+    return fused_heads_bwd_lean_reference(q, k, v, g, o, lse, num_heads,
+                                          scale)
+
+
+def fused_heads_attention_bwd_lean_two_pass(q, k, v, g, o, lse,
+                                            num_heads: int,
+                                            scale: Optional[float] = None,
+                                            blocks=None):
+    """The long-series lean VJP (JAX's lean two-pass kernels): the same
+    function as ``fused_heads_attention_bwd_lean``, (dq, dk, dv) in q's
+    dtype. CUDA tensor -> ``csrc/fused_heads.cu`` (the same two lean
+    launches, counted under this name); CPU tensor -> the twin. ``blocks``
+    is the JAX signature's (block_q, block_k, chunk_q) of VMEM tiles:
+    refused where one does not divide N, as in JAX, otherwise ignored."""
+    _check_lean(FUSED_HEADS_LEAN_TWO_PASS_KERNEL, q, k, v, g, o, lse,
+                num_heads)
+    N = q.shape[1]
+    if blocks is not None and any(N % b for b in blocks):
+        raise ValueError(f"blocks {tuple(blocks)} must divide N={N}")
+    scale = _scale(q, num_heads, scale)
+    if q.is_cuda:
+        return _launch_fused_heads_bwd_lean(
+            q, k, v, g, o, lse, num_heads, scale,
+            FUSED_HEADS_LEAN_TWO_PASS_KERNEL)
+    return fused_heads_bwd_lean_reference(q, k, v, g, o, lse, num_heads,
+                                          scale)
+
+
 class _FusedHeads(torch.autograd.Function):
-    """Forward ``fused_heads_attention``; backward what JAX's
-    ``_fused_heads_bwd`` runs on a TPU at this geometry
-    (``fused_heads_bwd_route``): ``fused_heads_attention_bwd`` with the
-    recompute recipe (ungrouped single pass) or the pipelined one (head
-    groups), else ``fused_heads_attention_bwd_two_pass``. The residuals
-    are q, k and v, as in the JAX custom VJP with its lean gate off."""
+    """JAX's custom VJP of ``fused_heads_diffable`` with its lean gate
+    (``_fused_heads_fwd``/``_fused_heads_bwd``, t2ms_tpu/ops/attention.py
+    :1397-1451), "on a TPU" read as "on any tensor". With
+    ``T2MS_ATTN_LEAN_BWD=1`` (read at each forward) and a geometry that
+    ``fused_heads_lean_route`` admits, the forward is
+    ``fused_heads_attention_with_stats`` and saves q, k, v, o and lse; the
+    backward, decided by what the forward saved, is
+    ``fused_heads_attention_bwd_lean`` (#13) where ``_bwd_lean_groups``
+    admits the geometry, else ``fused_heads_attention_bwd_lean_two_pass``
+    (#14). Otherwise the forward is ``fused_heads_attention`` and saves q,
+    k and v, and the backward is what ``fused_heads_bwd_route`` names:
+    ``fused_heads_attention_bwd`` with the recompute recipe (ungrouped
+    single pass) or the pipelined one (head groups), else
+    ``fused_heads_attention_bwd_two_pass``."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads):
         ctx.num_heads = num_heads
+        _, N, HD = q.shape
+        ctx.lean = (fused_heads_lean_route(N, HD, num_heads,
+                                           q.element_size())
+                    if _lean_bwd_enabled() else None)
+        if ctx.lean:
+            o, lse = fused_heads_attention_with_stats(q, k, v, num_heads)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
         ctx.save_for_backward(q, k, v)
         return fused_heads_attention(q, k, v, num_heads)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
         H = ctx.num_heads
+        if ctx.lean:
+            q, k, v, o, lse = ctx.saved_tensors
+            bwd = (fused_heads_attention_bwd_lean if ctx.lean == "lean"
+                   else fused_heads_attention_bwd_lean_two_pass)
+            return (*bwd(q, k, v, g, o, lse, H), None)
+        q, k, v = ctx.saved_tensors
         _, N, HD = q.shape
         route = fused_heads_bwd_route(N, HD, H, q.element_size())
         if route == "single":
@@ -494,8 +804,9 @@ class _FusedHeads(torch.autograd.Function):
 
 def fused_heads_diffable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int) -> torch.Tensor:
-    """``fused_heads_attention`` with its hand-written backward: grads in
-    q's dtype for q, k and v (pass the qkv projection's column slices; the
+    """``fused_heads_attention`` with its hand-written backward, routed as
+    JAX's custom VJP with its lean gate (``_FusedHeads``): grads in q's
+    dtype for q, k and v (pass the qkv projection's column slices; the
     kernels read them in place)."""
     return _FusedHeads.apply(q, k, v, num_heads)
 

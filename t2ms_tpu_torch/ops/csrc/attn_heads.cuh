@@ -1,5 +1,6 @@
 // Per-head attention device code shared by dit_split.cu (the split block's
-// attention) and fused_heads.cu (fused_heads_attention and its backward).
+// attention) and fused_heads.cu (fused_heads_attention, its stats variant
+// fused_heads_attention_with_stats, and their backwards).
 //
 // Operands are on the natural (B, N, H*DH) layout, head h the columns
 // [h*DH, (h+1)*DH). Each of q, k, v (and, in the backward, g) is read
@@ -95,7 +96,9 @@ __host__ __device__ size_t smem_heads_attn(int DH) {
 // Attention for one (batch element, q tile, head): q scaled at input width,
 // f32 scores, the exact row softmax in two passes over 64-row K tiles of the
 // head (row max first; then e = T(exp(T(s - m))), f32 row sums, f32 PV),
-// o = T(PV / rowsum) into head h's columns of the merged (B*N, HD) output.
+// o = T(PV / rowsum) into head h's columns of the merged (B*N, HD) output;
+// with a non-null lse, also each row's log-sum-exp m + log(rowsum) (f32,
+// (B*N, H)), which leaves o as it is.
 // The grid is 1-D with the q tile fastest, so the blocks of one (b, head)
 // share its K/V in L2, and the batch is not held to grid.y's 65535.
 template <typename T, int DH>
@@ -103,7 +106,8 @@ __global__ void __launch_bounds__(NT)
 heads_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, long long sqb, long long sqn,
                   long long skb, long long skn, long long svb, long long svn,
-                  T* __restrict__ o, int N, int HD, int H, float qscale) {
+                  T* __restrict__ o, int N, int HD, int H, float qscale,
+                  float* __restrict__ lse) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = DH + pad<T>(), lds = KT + PADF, lde = KT + pad<T>();
   constexpr int ldo = DH + PADF;
@@ -183,6 +187,9 @@ heads_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[((size_t)b * N + n) * HD + h * DH + c] =
           from_f<T>(Os[i * ldo + c] / Rs[i]);
   }
+  if (lse != nullptr)
+    for (int i = threadIdx.x; i < QT && q0 + i < N; i += NT)
+      lse[((size_t)b * N + q0 + i) * H + h] = Ms[i] + logf(Rs[i]);
 }
 
 template <typename T, int DH>
@@ -190,35 +197,37 @@ cudaError_t launch_heads_attn_dh(const T* q, const T* k, const T* v,
                                  long long sqb, long long sqn, long long skb,
                                  long long skn, long long svb, long long svn,
                                  T* o, int B, int N, int HD, int H,
-                                 float qscale, cudaStream_t st) {
+                                 float qscale, cudaStream_t st, float* lse) {
   const size_t s = smem_heads_attn<T>(DH);
   const cudaError_t e = set_smem((const void*)heads_attn_kernel<T, DH>, s);
   if (e != cudaSuccess) return e;
   const int blocks = B * ((N + QT - 1) / QT) * H;
   heads_attn_kernel<T, DH><<<blocks, NT, s, st>>>(q, k, v, sqb, sqn, skb, skn,
                                                   svb, svn, o, N, HD, H,
-                                                  qscale);
+                                                  qscale, lse);
   return cudaGetLastError();
 }
 
 // The attention of every (element, q tile, head); the caller has checked
-// the head width (32, 64 or 128) and that B * q tiles * H fits an int.
+// the head width (32, 64 or 128) and that B * q tiles * H fits an int. lse,
+// when given, receives the rows' log-sum-exp (fused_heads_forward_stats).
 template <typename T>
 cudaError_t launch_heads_attn(const T* q, const T* k, const T* v,
                               long long sqb, long long sqn, long long skb,
                               long long skn, long long svb, long long svn,
                               T* o, int B, int N, int HD, int H, float qscale,
-                              cudaStream_t st) {
+                              cudaStream_t st, float* lse = nullptr) {
   switch (HD / H) {
     case 32:
       return launch_heads_attn_dh<T, 32>(q, k, v, sqb, sqn, skb, skn, svb,
-                                         svn, o, B, N, HD, H, qscale, st);
+                                         svn, o, B, N, HD, H, qscale, st, lse);
     case 64:
       return launch_heads_attn_dh<T, 64>(q, k, v, sqb, sqn, skb, skn, svb,
-                                         svn, o, B, N, HD, H, qscale, st);
+                                         svn, o, B, N, HD, H, qscale, st, lse);
     default:
       return launch_heads_attn_dh<T, 128>(q, k, v, sqb, sqn, skb, skn, svb,
-                                          svn, o, B, N, HD, H, qscale, st);
+                                          svn, o, B, N, HD, H, qscale, st,
+                                          lse);
   }
 }
 

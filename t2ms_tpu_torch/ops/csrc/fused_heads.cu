@@ -2,22 +2,27 @@
 // backward, hand-written for Hopper (sm_90a), bf16 and f32.
 //
 // Replaces the TPU kernels t2ms_tpu/ops/attention.py:fused_heads_attention
-// (_fused_heads_kernel), fused_heads_attention_bwd (the head-grouped
+// (_fused_heads_kernel), fused_heads_attention_with_stats
+// (_fused_heads_stats_kernel), fused_heads_attention_bwd (the head-grouped
 // _bwd_pipelined_blocked_kernel, the JAX default at the scaled train step's
 // geometry, and the ungrouped recompute kernels _fused_heads_bwd_kernel and
-// _fused_heads_bwd_blocked_kernel) and fused_heads_attention_bwd_two_pass
+// _fused_heads_bwd_blocked_kernel), fused_heads_attention_bwd_two_pass
 // (_bwd_pass1_kernel, _bwd_pass2_kernel: the recompute recipe split for the
-// TPU's VMEM at N=4096, the JAX default on the long-series train path). q,
-// k, v and g are read through their own batch and row strides, so the column
-// slices of one qkv projection are not copied.
+// TPU's VMEM at N=4096, the JAX default on the long-series train path), and
+// the opt-in lean backwards fused_heads_attention_bwd_lean (_bwd_lean_kernel)
+// and fused_heads_attention_bwd_lean_two_pass (_bwd_lean_p1_kernel,
+// _bwd_lean_p2_kernel). q, k, v and g are read through their own batch and
+// row strides, so the column slices of one qkv projection are not copied.
 //
 //   forward   heads_attn_kernel (attn_heads.cuh, shared with the split
 //             block): per (element, 64 q rows, head), q scaled at input
 //             width, f32 scores, the exact softmax in two passes over 64-row
 //             K tiles (row max; then e = T(exp(T(s - m))), f32 row sums, f32
-//             PV), o = T(PV / r).
+//             PV), o = T(PV / r); the stats forward also writes each row's
+//             lse = m + log(r) (f32, (B, N, H)), and o stays bit-equal.
 //   backward  three launches, recomputing the probabilities from q and k,
-//             with one of the two recipes' rounding points:
+//             with one of the two recipes' rounding points, or two with the
+//             lean recipe:
 //     stats   per (element, q tile, head): the row max m in pass 1; in pass
 //             2, with dp = g v^T in f32, r = sum e and u = sum dp * e, so
 //             1/r and t = u / r (f32, to a workspace); t is the recompute
@@ -30,10 +35,15 @@
 //                        dk = T(sum ds_u^T T(q * scale / r));
 //             recompute  dv = T(sum T(p)^T g), dk = T((sum ds^T q) * scale),
 //                        q unscaled.
+//     lean    no stats launch: m and t are the caller's lse and
+//             delta = rowsum(f32(g) f32(o)) (f32, (B, N, H)), and
+//             p = T(exp(T(s - lse))), ds = T(p * (dp - delta)); dq, dk and
+//             dv as in the recompute recipe.
 //             Two kernels instead of atomics, so every sum has one order and
 //             runs repeat bit for bit. The TPU's single-pass and two-pass
 //             kernels differ in how they tile VMEM, not in what they
-//             compute, so the recompute recipe serves both.
+//             compute, so the recompute recipe serves #11's ungrouped kernels
+//             and #12, and the lean recipe serves both lean kernels.
 //
 // Bound on an H100 SXM at the scaled train step's call (B=64, N=1024,
 // HD=512, 8 heads of 64, bf16): the forward's two products (QK^T, PV) are
@@ -47,11 +57,13 @@
 // tiles go through shared memory: speed (wgmma, TMA, online softmax) is
 // later work; these kernels are the simple, right ones. At the long-series
 // train step's call (B=8, N=4096, 4 heads of 32) the backward's five
-// products are 171.8 GFLOP, 0.174 ms, against 59 MB.
+// products are 171.8 GFLOP, 0.174 ms, against 59 MB. The lean recipe does
+// the same five products without the stats launch's two.
 //
-// C interface for ctypes: fused_heads_forward_{bf16,f32} and
-// fused_heads_backward_{bf16,f32} (its `pipelined` flag picks the recipe)
-// launch on the given stream and return
+// C interface for ctypes: fused_heads_forward_{bf16,f32},
+// fused_heads_forward_stats_{bf16,f32} (with the lse output),
+// fused_heads_backward_{bf16,f32} (its `pipelined` flag picks the recipe) and
+// fused_heads_backward_lean_{bf16,f32} launch on the given stream and return
 // cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE (launching nothing) for a
 // shape the kernels do not take; fused_heads_backward_workspace gives the
 // bytes of the per-row statistics the caller allocates; fused_heads_check
@@ -77,7 +89,13 @@ template <typename T> struct BwdArgs {
   float* st;        // (B*N, H, 3): m, 1/r, t
   int B, N, HD, H;
   float scale, qscale;
+  const float *lse, *delta;  // the lean recipe's (B*N, H) inputs
 };
+
+// The backward's recipes: the rounding points of dq, dk and dv, and where
+// the rows' statistics come from (the stats kernel, or the caller's lse and
+// delta)
+enum Recipe { PIPE = 0, RECOMP = 1, LEAN = 2 };
 
 // Shared memory of the three backward kernels (carved in this order)
 template <typename T>
@@ -201,24 +219,32 @@ __global__ void __launch_bounds__(NT) heads_bwd_stats_kernel(BwdArgs<T> a) {
   }
 }
 
-// The rows' m, 1/r and t from the stats workspace; rows past `valid` get
-// 0, so their e, ds, g / r and q * scale / r vanish.
-template <typename T>
+// The rows' m, 1/r and t from the stats workspace, or (lean) lse in m's
+// place and delta in t's; rows past `valid` get 0, so their e, ds, g / r and
+// q * scale / r vanish.
+template <typename T, int REC>
 __device__ void load_stats(const BwdArgs<T>& a, int b, int h, int q0,
                            int valid, float* Ms, float* Ir, float* Ts) {
   for (int i = threadIdx.x; i < tb<T>(); i += NT) {
-    const float* s = a.st + (((size_t)b * a.N + q0 + i) * a.H + h) * 3;
+    const size_t r = ((size_t)b * a.N + q0 + i) * a.H + h;
     const bool ok = i < valid;
-    Ms[i] = ok ? s[0] : 0.0f;
-    Ir[i] = ok ? s[1] : 0.0f;
-    Ts[i] = ok ? s[2] : 0.0f;
+    if (REC == LEAN) {
+      Ms[i] = ok ? a.lse[r] : 0.0f;
+      Ir[i] = 0.0f;
+      Ts[i] = ok ? a.delta[r] : 0.0f;
+    } else {
+      Ms[i] = ok ? a.st[r * 3] : 0.0f;
+      Ir[i] = ok ? a.st[r * 3 + 1] : 0.0f;
+      Ts[i] = ok ? a.st[r * 3 + 2] : 0.0f;
+    }
   }
 }
 
 // For q row i < vq and k row j < vk (zero outside): e = T(exp(T(s - m)))
 // and ds_u = e * (dp - t) (pipelined), or p = e / r and ds = p * (dp - t)
-// (recompute, returned in e's place).
-template <typename T, bool PIPE>
+// (recompute, returned in e's place), or (lean, m = lse and t = delta)
+// p = e and ds = p * (dp - delta).
+template <typename T, int REC>
 __device__ __forceinline__ void e_ds(const float* Ss, const float* dPs,
                                      int lds, const float* Ms,
                                      const float* Ir, const float* Ts, int i,
@@ -228,12 +254,12 @@ __device__ __forceinline__ void e_ds(const float* Ss, const float* dPs,
   ds = 0.0f;
   if (i < vq && j < vk) {
     e = rnd<T>(expf(rnd<T>(Ss[i * lds + j] - Ms[i])));
-    if (!PIPE) e *= Ir[i];
+    if (REC == RECOMP) e *= Ir[i];
     ds = e * (dPs[i * lds + j] - Ts[i]);
   }
 }
 
-template <typename T, int DH, bool PIPE>
+template <typename T, int DH, int REC>
 __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = tb<T>(), P = pad<T>();
@@ -257,7 +283,7 @@ __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
   const T* kh = a.k.head(pl.b, pl.h, DH);
   const T* vh = a.v.head(pl.b, pl.h, DH);
   load_q_side<T, DH>(a, pl.b, pl.h, pl.t0, vq, Qs, Gs, ld);
-  load_stats<T>(a, pl.b, pl.h, pl.t0, vq, Ms, Ir, Ts);
+  load_stats<T, REC>(a, pl.b, pl.h, pl.t0, vq, Ms, Ir, Ts);
   PvAcc<T, DH, R> acc;
   acc.zero(dQ, ldf);
 
@@ -272,7 +298,7 @@ __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
     for (int idx = threadIdx.x; idx < R * R; idx += NT) {
       const int i = idx / R, j = idx % R;
       float e, ds;
-      e_ds<T, PIPE>(Ss, dPs, lds, Ms, Ir, Ts, i, j, vq, vk, e, ds);
+      e_ds<T, REC>(Ss, dPs, lds, Ms, Ir, Ts, i, j, vq, vk, e, ds);
       DSs[i * ldp + j] = from_f<T>(ds);
     }
     __syncthreads();
@@ -284,11 +310,11 @@ __global__ void __launch_bounds__(NT) heads_bwd_dq_kernel(BwdArgs<T> a) {
   for (int idx = threadIdx.x; idx < vq * DH; idx += NT) {
     const int i = idx / DH, c = idx % DH;
     a.dq[((size_t)pl.b * N + pl.t0 + i) * a.HD + pl.h * DH + c] =
-        from_f<T>(dQ[i * ldf + c] * (PIPE ? a.scale * Ir[i] : a.scale));
+        from_f<T>(dQ[i * ldf + c] * (REC == PIPE ? a.scale * Ir[i] : a.scale));
   }
 }
 
-template <typename T, int DH, bool PIPE>
+template <typename T, int DH, int REC>
 __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = tb<T>(), P = pad<T>();
@@ -324,14 +350,14 @@ __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
     const int vq = min(R, N - q0);
     __syncthreads();
     load_q_side<T, DH>(a, pl.b, pl.h, q0, vq, Qs, Gs, ld);
-    load_stats<T>(a, pl.b, pl.h, q0, vq, Ms, Ir, Ts);
+    load_stats<T, REC>(a, pl.b, pl.h, q0, vq, Ms, Ir, Ts);
     __syncthreads();
     scores<T, DH>(Qs, Gs, Ks, Vs, ld, Ss, dPs, lds);
     __syncthreads();
     for (int idx = threadIdx.x; idx < R * R; idx += NT) {
       const int i = idx / R, j = idx % R;  // q row i, k row j
       float e, ds;
-      e_ds<T, PIPE>(Ss, dPs, lds, Ms, Ir, Ts, i, j, vq, vk, e, ds);
+      e_ds<T, REC>(Ss, dPs, lds, Ms, Ir, Ts, i, j, vq, vk, e, ds);
       Es[i * ldp + j] = from_f<T>(e);
       DSs[i * ldp + j] = from_f<T>(ds);
     }
@@ -341,7 +367,7 @@ __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
       const int i = idx / DH, c = idx % DH;
       const float qv =
           i < vq ? to_f<T>(qh[(size_t)(q0 + i) * a.q.sn + c]) : 0.0f;
-      if (PIPE) {
+      if (REC == PIPE) {
         const float ir = Ir[i];
         Gs[i * ld + c] = from_f<T>(to_f<T>(Gs[i * ld + c]) * ir);
         Qs[i * ld + c] = from_f<T>(qv * (a.scale * ir));
@@ -360,32 +386,38 @@ __global__ void __launch_bounds__(NT) heads_bwd_dkdv_kernel(BwdArgs<T> a) {
   for (int idx = threadIdx.x; idx < vk * DH; idx += NT) {
     const int j = idx / DH, c = idx % DH;
     const size_t o = ((size_t)pl.b * N + pl.t0 + j) * a.HD + pl.h * DH + c;
-    a.dk[o] = from_f<T>(PIPE ? dK[j * ldf + c] : dK[j * ldf + c] * a.scale);
+    a.dk[o] =
+        from_f<T>(REC == PIPE ? dK[j * ldf + c] : dK[j * ldf + c] * a.scale);
     a.dv[o] = from_f<T>(dV[j * ldf + c]);
   }
 }
 
-template <typename T, int DH, bool PIPE>
+// The stats kernel (not for the lean recipe), then dq, then dk/dv
+template <typename T, int DH, int REC>
 cudaError_t launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
   const size_t s0 = smem_bwd<T>(DH, 0), s1 = smem_bwd<T>(DH, 1),
                s2 = smem_bwd<T>(DH, 2);
   cudaError_t e;
-  if ((e = set_smem((const void*)heads_bwd_stats_kernel<T, DH>, s0)) ||
-      (e = set_smem((const void*)heads_bwd_dq_kernel<T, DH, PIPE>, s1)) ||
-      (e = set_smem((const void*)heads_bwd_dkdv_kernel<T, DH, PIPE>, s2)))
+  if (REC != LEAN &&
+      (e = set_smem((const void*)heads_bwd_stats_kernel<T, DH>, s0)))
+    return e;
+  if ((e = set_smem((const void*)heads_bwd_dq_kernel<T, DH, REC>, s1)) ||
+      (e = set_smem((const void*)heads_bwd_dkdv_kernel<T, DH, REC>, s2)))
     return e;
   const int blocks = a.B * ((a.N + tb<T>() - 1) / tb<T>()) * a.H;
-  heads_bwd_stats_kernel<T, DH><<<blocks, NT, s0, st>>>(a);
-  heads_bwd_dq_kernel<T, DH, PIPE><<<blocks, NT, s1, st>>>(a);
-  heads_bwd_dkdv_kernel<T, DH, PIPE><<<blocks, NT, s2, st>>>(a);
+  if (REC != LEAN) heads_bwd_stats_kernel<T, DH><<<blocks, NT, s0, st>>>(a);
+  heads_bwd_dq_kernel<T, DH, REC><<<blocks, NT, s1, st>>>(a);
+  heads_bwd_dkdv_kernel<T, DH, REC><<<blocks, NT, s2, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
-cudaError_t launch_recipe(const BwdArgs<T>& a, bool pipelined,
-                          cudaStream_t st) {
-  return pipelined ? launch_bwd<T, DH, true>(a, st)
-                   : launch_bwd<T, DH, false>(a, st);
+cudaError_t launch_recipe(const BwdArgs<T>& a, Recipe rec, cudaStream_t st) {
+  switch (rec) {
+    case PIPE: return launch_bwd<T, DH, PIPE>(a, st);
+    case RECOMP: return launch_bwd<T, DH, RECOMP>(a, st);
+    default: return launch_bwd<T, DH, LEAN>(a, st);
+  }
 }
 
 // 0 when the kernels take H*DH = HD in H heads on the current device,
@@ -415,24 +447,24 @@ template <typename T> int check_all(int B, int N, int HD, int H) {
 }
 
 template <typename T>
-int run_forward(const T* q, const T* k, const T* v, T* o, int B, int N,
-                int HD, int H, long long sqb, long long sqn, long long skb,
-                long long skn, long long svb, long long svn, float qscale,
-                cudaStream_t st) {
+int run_forward(const T* q, const T* k, const T* v, T* o, float* lse, int B,
+                int N, int HD, int H, long long sqb, long long sqn,
+                long long skb, long long skn, long long svb, long long svn,
+                float qscale, cudaStream_t st) {
   const int ok = check_all<T>(B, N, HD, H);
   if (ok) return ok;
   return launch_heads_attn<T>(q, k, v, sqb, sqn, skb, skn, svb, svn, o, B, N,
-                              HD, H, qscale, st);
+                              HD, H, qscale, st, lse);
 }
 
 template <typename T>
-int run_backward(const BwdArgs<T>& a, bool pipelined, cudaStream_t st) {
+int run_backward(const BwdArgs<T>& a, Recipe rec, cudaStream_t st) {
   const int ok = check_all<T>(a.B, a.N, a.HD, a.H);
   if (ok) return ok;
   switch (a.HD / a.H) {
-    case 32: return launch_recipe<T, 32>(a, pipelined, st);
-    case 64: return launch_recipe<T, 64>(a, pipelined, st);
-    default: return launch_recipe<T, 128>(a, pipelined, st);
+    case 32: return launch_recipe<T, 32>(a, rec, st);
+    case 64: return launch_recipe<T, 64>(a, rec, st);
+    default: return launch_recipe<T, 128>(a, rec, st);
   }
 }
 
@@ -444,9 +476,18 @@ int run_backward(const BwdArgs<T>& a, bool pipelined, cudaStream_t st) {
       int HD, int H, long long sqb, long long sqn, long long skb,             \
       long long skn, long long svb, long long svn, float qscale,              \
       void* stream) {                                                         \
-    return run_forward<T>((const T*)q, (const T*)k, (const T*)v, (T*)o, B, N, \
-                          HD, H, sqb, sqn, skb, skn, svb, svn, qscale,        \
-                          (cudaStream_t)stream);                              \
+    return run_forward<T>((const T*)q, (const T*)k, (const T*)v, (T*)o,       \
+                          nullptr, B, N, HD, H, sqb, sqn, skb, skn, svb, svn, \
+                          qscale, (cudaStream_t)stream);                      \
+  }                                                                           \
+  extern "C" int fused_heads_forward_stats_##SUFFIX(                          \
+      const void* q, const void* k, const void* v, void* o, void* lse, int B, \
+      int N, int HD, int H, long long sqb, long long sqn, long long skb,      \
+      long long skn, long long svb, long long svn, float qscale,              \
+      void* stream) {                                                         \
+    return run_forward<T>((const T*)q, (const T*)k, (const T*)v, (T*)o,       \
+                          (float*)lse, B, N, HD, H, sqb, sqn, skb, skn, svb,  \
+                          svn, qscale, (cudaStream_t)stream);                 \
   }                                                                           \
   extern "C" int fused_heads_backward_##SUFFIX(                               \
       const void* q, const void* k, const void* v, const void* g, void* dq,   \
@@ -458,7 +499,21 @@ int run_backward(const BwdArgs<T>& a, bool pipelined, cudaStream_t st) {
                        {(const T*)v, svb, svn}, {(const T*)g, sgb, sgn},      \
                        (T*)dq, (T*)dk, (T*)dv, (float*)work, B, N, HD, H,     \
                        scale, qscale};                                        \
-    return run_backward<T>(a, pipelined != 0, (cudaStream_t)stream);          \
+    return run_backward<T>(a, pipelined ? PIPE : RECOMP,                      \
+                           (cudaStream_t)stream);                             \
+  }                                                                           \
+  extern "C" int fused_heads_backward_lean_##SUFFIX(                          \
+      const void* q, const void* k, const void* v, const void* g,             \
+      const void* lse, const void* delta, void* dq, void* dk, void* dv,       \
+      int B, int N, int HD, int H, long long sqb, long long sqn,              \
+      long long skb, long long skn, long long svb, long long svn,             \
+      long long sgb, long long sgn, float scale, float qscale,                \
+      void* stream) {                                                         \
+    const BwdArgs<T> a{{(const T*)q, sqb, sqn}, {(const T*)k, skb, skn},      \
+                       {(const T*)v, svb, svn}, {(const T*)g, sgb, sgn},      \
+                       (T*)dq, (T*)dk, (T*)dv, nullptr, B, N, HD, H, scale,   \
+                       qscale, (const float*)lse, (const float*)delta};       \
+    return run_backward<T>(a, LEAN, (cudaStream_t)stream);                    \
   }
 
 T2MS_HEADS_ENTRIES(bf16, __nv_bfloat16)

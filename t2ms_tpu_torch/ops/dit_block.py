@@ -275,13 +275,20 @@ def fused_dit_stack(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,
                     batch_block: int = 1) -> torch.Tensor:
     """Whole transformer stack: x (B, N, D), mod (B, L, 6, D), weights
     stacked over L in flax layout. CUDA tensor -> hand-written kernel;
-    CPU tensor -> the plain twin. ``attn_impl='folded'`` and
-    ``batch_block > 1`` are TPU-only variants not ported yet."""
-    if attn_impl != "loop":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is not ported; only 'loop'")
-    if batch_block != 1:
-        raise NotImplementedError("batch_block > 1 is not ported")
+    CPU tensor -> the plain twin.
+
+    JAX's two opt-in variants are taken and compute the same function as
+    the default: ``batch_block`` G > 1 gives each TPU program a (G, N, D)
+    slab so the dense layers run on G*N rows (``_stack_kernel_g``), and
+    ``attn_impl='folded'`` computes all heads' scores and PV as two
+    block-diagonal MXU products (``attn_heads_folded``); any other
+    ``attn_impl`` is the per-head loop, as in JAX. The CUDA kernel already
+    runs every dense layer over all B*N rows in 64-row tiles across the
+    grid and holds no (N, N) matrix, so both run its usual launches,
+    counted as ``fused_dit_stack``. As in JAX, G must divide B."""
+    if x.shape[0] % batch_block:
+        raise ValueError(f"batch_block {batch_block} must divide batch "
+                         f"{x.shape[0]}")
     ws = (wqkv, bqkv, wproj, bproj, wfc1, bfc1, wfc2, bfc2)
     _check_shapes(x, mod, ws)
     if x.is_cuda:

@@ -896,3 +896,116 @@ def test_eager_dit_dispatches_attention_impl_on_card(cuda, impl, name):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert dict(_build.launch_counts) == {getattr(tattn, name): 2}
+
+
+# ------------------------------------------------ the lse family (#10, #13, #14)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol_f,tol_lse", [(torch.float32, 2e-4, 1e-4),
+                                              (torch.bfloat16, 1e-2, 1e-2)])
+@pytest.mark.parametrize("heads", [16, 8, 4])         # head widths 32, 64, 128
+def test_stats_forward_matches_forward_and_twin_on_card(cuda, dt, tol_f,
+                                                        tol_lse, heads):
+    """#10 on the column slices of one qkv tensor at a ragged N=130: o bit
+    for bit #9's, o within tol_f * max|ref| of the twin and lse within
+    tol_lse absolute (f32: summation order; bf16: rounding flips of e, each
+    2^-8 / r of lse)."""
+    q, k, v, _ = _heads_args(cuda, dt)
+    _build.reset_launch_counts()
+    o, lse = tattn.fused_heads_attention_with_stats(q, k, v, heads)
+    plain = tattn.fused_heads_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tattn.FUSED_HEADS_STATS_KERNEL: 1,
+                                          tattn.FUSED_HEADS_KERNEL: 1}
+    assert torch.equal(o, plain)
+    want_o, want_lse = tattn.fused_heads_stats_reference(q, k, v, heads)
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    assert torch.isfinite(lse).all()
+    assert (lse - want_lse).abs().max().item() <= tol_lse
+    err = (o.float() - want_o.float()).abs().max().item()
+    assert err <= tol_f * want_o.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 5e-4),
+                                    (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("HD,heads", [(128, 4), (512, 8), (512, 4)])
+@pytest.mark.parametrize("two_pass", [True, False])
+def test_lean_backwards_match_twin_on_card(cuda, dt, tol, HD, heads,
+                                           two_pass):
+    """#13 and #14 on the column slices of one qkv tensor at a ragged N=130
+    and B=3, from #10's o and lse, against the lean twin on the same o and
+    lse: dq, dk, dv within tol * max|ref| (f32: summation order; bf16:
+    rounding flips of p and ds, which feed sums of 130 terms); one launch
+    under each kernel's own name."""
+    q, k, v, g = _heads_args(cuda, dt, HD=HD)
+    o, lse = tattn.fused_heads_attention_with_stats(q, k, v, heads)
+    _build.reset_launch_counts()
+    fn, name = ((tattn.fused_heads_attention_bwd_lean_two_pass,
+                 tattn.FUSED_HEADS_LEAN_TWO_PASS_KERNEL) if two_pass else
+                (tattn.fused_heads_attention_bwd_lean,
+                 tattn.FUSED_HEADS_LEAN_KERNEL))
+    got = fn(q, k, v, g, o, lse, heads)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {name: 1}
+    want = tattn.fused_heads_bwd_lean_reference(q, k, v, g, o, lse, heads)
+    for a, w in zip(got, want):
+        assert a.dtype == dt and a.shape == w.shape
+        a, w = a.float(), w.float()
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_lean_backward_repeats_bit_for_bit(cuda):
+    q, k, v, g = _heads_args(cuda, torch.bfloat16, B=2, N=4096, HD=128)
+    o, lse = tattn.fused_heads_attention_with_stats(q, k, v, 4)
+    a = tattn.fused_heads_attention_bwd_lean_two_pass(q, k, v, g, o, lse, 4)
+    b = tattn.fused_heads_attention_bwd_lean_two_pass(q, k, v, g, o, lse, 4)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,HD,heads,name", [
+    (2, 1024, 512, 8, "FUSED_HEADS_LEAN_KERNEL"),            # scaled
+    (1, 4096, 128, 4, "FUSED_HEADS_LEAN_TWO_PASS_KERNEL")])  # long series
+def test_diffable_takes_the_lean_kernels_on_card(cuda, monkeypatch, B, N, HD,
+                                                 heads, name):
+    """``fused_heads_diffable`` with ``T2MS_ATTN_LEAN_BWD=1`` launches #10
+    forward and the lean kernel JAX's predicates pick backward, and its
+    grads agree with those of the switch off (the recompute and pipelined
+    recipes round elsewhere: 3e-2 * max|ref|)."""
+    q, k, v, _ = _heads_args(cuda, torch.bfloat16, B=B, N=N, HD=HD)
+    w = torch.randn(q.shape, device=cuda)
+
+    def grads():
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = tattn.fused_heads_diffable(*ts, heads)
+        (o.float() * w).sum().backward()
+        return [t.grad.float() for t in ts]
+
+    monkeypatch.setenv("T2MS_ATTN_LEAN_BWD", "1")
+    _build.reset_launch_counts()
+    lean = grads()
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tattn.FUSED_HEADS_STATS_KERNEL: 1,
+                                          getattr(tattn, name): 1}
+    monkeypatch.delenv("T2MS_ATTN_LEAN_BWD")
+    for a, b in zip(lean, grads()):
+        assert (a - b).abs().max().item() <= 3e-2 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(batch_block=3),
+                                dict(attn_impl="folded"),
+                                dict(batch_block=3, attn_impl="folded")])
+def test_stack_variants_equal_the_plain_call_on_card(cuda, kw):
+    """``fused_dit_stack``'s ``batch_block`` and ``folded`` variants run the
+    plain call's launch: bit for bit its output, counted as the stack."""
+    args = _stack_args(cuda, torch.bfloat16)
+    plain = tblock.fused_dit_stack(*args, num_heads=4)
+    _build.reset_launch_counts()
+    got = tblock.fused_dit_stack(*args, num_heads=4, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.STACK_KERNEL: 1}
+    assert torch.equal(got, plain)

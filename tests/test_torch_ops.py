@@ -154,14 +154,36 @@ def test_stack_twin_block_matches_jax_block_reference():
                                atol=2e-5)
 
 
-def test_stack_tpu_variants_not_ported():
+@pytest.mark.parametrize("kw", [dict(batch_block=2),
+                                dict(attn_impl="folded"),
+                                dict(batch_block=2, attn_impl="folded")])
+def test_stack_variants_match_jax_kernel(kw):
+    """JAX's opt-in variants (``_stack_kernel_g`` with G = 2, the folded
+    attention, and both) in interpret mode against the port's call with
+    the same arguments: the same function as the plain stack, so the same
+    f32 bound as the plain twin's test."""
+    x, mod, ws = _stack_inputs(seed=3)
+    want = np.asarray(jblock.fused_dit_stack(
+        jnp.asarray(x), jnp.asarray(mod), *map(jnp.asarray, ws),
+        num_heads=4, interpret=True, **kw))
+    got = tblock.fused_dit_stack(
+        torch.from_numpy(x), torch.from_numpy(mod),
+        *map(torch.from_numpy, ws), num_heads=4, **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    plain = _torch_stack(x, mod, ws, torch.float32)
+    np.testing.assert_array_equal(got, plain)
+
+
+def test_stack_batch_block_must_divide_the_batch():
     x, mod, ws = _stack_inputs(L=1)
-    args = [torch.from_numpy(x), torch.from_numpy(mod),
-            *map(torch.from_numpy, ws)]
-    with pytest.raises(NotImplementedError):
-        tblock.fused_dit_stack(*args, num_heads=4, attn_impl="folded")
-    with pytest.raises(NotImplementedError):
-        tblock.fused_dit_stack(*args, num_heads=4, batch_block=2)
+    assert x.shape[0] % 3
+    with pytest.raises(ValueError, match="batch_block 3 must divide"):
+        jblock.fused_dit_stack(*map(jnp.asarray, (x, mod, *ws)),
+                               num_heads=4, batch_block=3, interpret=True)
+    with pytest.raises(ValueError, match="batch_block 3 must divide"):
+        tblock.fused_dit_stack(torch.from_numpy(x), torch.from_numpy(mod),
+                               *map(torch.from_numpy, ws), num_heads=4,
+                               batch_block=3)
 
 
 @pytest.mark.parametrize("bad", ["mod", "wfc2", "x"])

@@ -126,7 +126,11 @@ class _FakeLib:
                "res_mod_ln_backward_bf16", "res_mod_ln_backward_f32",
                "res_mod_ln_backward_workspace",
                "fused_heads_forward_bf16", "fused_heads_forward_f32",
+               "fused_heads_forward_stats_bf16",
+               "fused_heads_forward_stats_f32",
                "fused_heads_backward_bf16", "fused_heads_backward_f32",
+               "fused_heads_backward_lean_bf16",
+               "fused_heads_backward_lean_f32",
                "fused_heads_backward_workspace",
                "split_heads_forward_bf16", "split_heads_forward_f32")
 
