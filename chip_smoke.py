@@ -9,7 +9,11 @@ failing with a non-zero exit on any error:
 
 1. prints the card, its power limit, torch / CUDA versions and the TF32
    flags (both set off, so f32 products and convs are full f32);
-2. builds every kernel (one nvcc per source, started together);
+2. builds every kernel (one nvcc per source, started together) and logs
+   ptxas's registers, stack, spills and shared memory of the bf16
+   attention backward's kernels (``heads_bwd_q_kernel``,
+   ``heads_bwd_kv_kernel``, csrc/fused_heads.cu, at each head width and
+   recipe);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -60,9 +64,10 @@ failing with a non-zero exit on any error:
 12. fused-heads phase: ``fused_heads_attention`` and
    ``fused_heads_attention_bwd`` at the same call (8 heads of 64, q/k/v
    the column slices of one qkv tensor) against their twins, with the mean
-   error against the f32 twins, again in f32 at a small batch; times,
-   bounds, and torch SDPA forward and backward over the head-split views
-   as the library yardstick;
+   error against the f32 twins, again in f32 at a small batch; times with
+   the achieved TFLOP/s and share of the bound, bounds, and torch SDPA
+   forward and backward over the head-split views as the library
+   yardstick;
 13. scaled train phase: the scaled DiT's denoiser train step
    (scripts/bench_scaled.py:80-118: B=64, latents encoded once outside the
    step, flow matching over 100 steps, CFG drop 0.3, AdamW at 1e-4 with
@@ -83,7 +88,8 @@ failing with a non-zero exit on any error:
 15. two-pass phase: ``fused_heads_attention_bwd_two_pass`` at the
    long-series train step's call (B=8, N=4096, 4 heads of 32, q/k/v the
    column slices of one qkv tensor) against its twin, with the mean error
-   against the f32 twin, again in f32 at B=1; times, the bound, device
+   against the f32 twin, again in f32 at B=1; times with the achieved
+   TFLOP/s and share of the bound, the bound, device
    time by kernel and torch SDPA's backward as the yardstick; and
    ``fused_heads_attention_bwd``'s recompute recipe against its twin where
    JAX takes the ungrouped single pass (B=64, N=480, 4 heads of 32);
@@ -111,8 +117,9 @@ failing with a non-zero exit on any error:
    kernel_smoke.py's stats_fwd_1024_hd512 and lean_bwd_g4_bq512 (B=2,
    N=1024, 8 heads of 64) and lean_two_pass_4096 (B=2, N=4096, 4 heads of
    32), bf16 and f32, #10's o bit-equal to #9's; then at the paths' calls
-   (#10 and #13 at B=64, N=1024; #14 at B=8, N=4096): times, the twins'
-   times, the bounds and torch SDPA as the yardstick;
+   (#10 and #13 at B=64, N=1024; #14 at B=8, N=4096): times with the
+   achieved TFLOP/s and share of the bound, the twins' times, the bounds
+   and torch SDPA as the yardstick;
 19. lean scaled train phase: the scaled train step with
    ``T2MS_ATTN_LEAN_BWD=1`` (2 warm-up, 5 timed steps): steps/s, peak
    memory, device time by part, launches per step checked (#5 x1, #7 x23,
@@ -951,8 +958,8 @@ def scaled_server_phase(dit, vae, seed):
 MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
                 "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_kernel",
                 "dmod_reduce_kernel")
-HEADS_PARTS = ("heads_attn_kernel", "heads_bwd_stats_kernel",
-               "heads_bwd_dq_kernel", "heads_bwd_dkdv_kernel")
+HEADS_PARTS = ("heads_attn_kernel", "heads_bwd_q_kernel",
+               "heads_bwd_kv_kernel")
 # the library kernels around them, by name fragments: the dense products
 # (cuBLAS's nvjet / gemm kernels), elementwise passes, reductions
 OTHER_KINDS = (("library GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -966,7 +973,47 @@ def _row(err, ms, plain, fl, nb, peak, library=None):
     t_ops, t_bytes = fl / peak * 1e3, nb / H100_BYTES * 1e3
     return dict(err=err, ms=ms, plain=plain, bound=max(t_ops, t_bytes),
                 by="operations" if t_ops >= t_bytes else "bytes",
-                library=library)
+                library=library, flops=fl)
+
+
+def _rate(r):
+    """A row's achieved rate (the operations its bound counts over its
+    time) and the share of its bound it reaches."""
+    return (f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
+            f"{r['bound'] / r['ms']:.2%} of its bound")
+
+
+def log_backward_resources():
+    """ptxas's registers, stack, spills and static shared memory of the
+    bf16 attention backward's kernels (``heads_bwd_q_kernel``,
+    ``heads_bwd_kv_kernel``; the -Xptxas=-v lines of this run's build of
+    csrc/fused_heads.cu), with their dynamic shared memory from
+    ``fused_heads_backward_smem``."""
+    from t2ms_tpu_torch.ops import _build
+    text = _build.build_logs.get("fused_heads")
+    if not text:
+        log("bwd kernel resources: not measured (fused_heads.cu was not "
+            "built in this process)")
+        return
+    lib = _build.load("fused_heads")
+    recipes = ("pipelined", "recompute", "lean")
+    fields = (("registers", r"Used (\d+) registers"),
+              ("stack B", r"(\d+) bytes stack frame"),
+              ("spill stores B", r"(\d+) bytes spill stores"),
+              ("spill loads B", r"(\d+) bytes spill loads"),
+              ("static smem B", r"(\d+) bytes smem"))
+    for chunk in text.split("Compiling entry function")[1:]:
+        name = re.search(r"(heads_bwd_(?:q|kv)_kernel)ILi(\d+)ELi(\d+)E",
+                         chunk)
+        if name is None:
+            continue
+        kern, dh, rec = name.group(1), int(name.group(2)), int(name.group(3))
+        got = [(what, re.search(pat, chunk)) for what, pat in fields]
+        smem = lib.fused_heads_backward_smem(dh, rec,
+                                             int(kern == "heads_bwd_kv_kernel"))
+        log(f"bwd kernel resources {kern} d={dh} {recipes[rec]}: "
+            + ", ".join(f"{what} {m[1] if m else 0}" for what, m in got)
+            + f", dynamic smem B {smem}")
 
 
 def _nbytes(*ts):
@@ -1125,8 +1172,8 @@ def fused_heads_phase(gen):
             r = out[dt][n]
             lib = (f", SDPA {r['library']:.4f} ms" if r["library"] is not None
                    else "")
-            log(f"fused_heads {dt} B={B} {n}: {r['ms']:.4f} ms, twin "
-                f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+            log(f"fused_heads {dt} B={B} {n}: {r['ms']:.4f} ms ({_rate(r)}),"
+                f" twin {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
                 f"({r['by']}){lib}")
         if dt == torch.bfloat16:
             with torch.no_grad():
@@ -1441,8 +1488,8 @@ def two_pass_phase(gen):
         out[dt] = _row(err, ms, plain, 5 * prod, _nbytes(q, k, v, g, q, k, v),
                        peak, lib)
         r = out[dt]
-        log(f"two_pass {dt} B={B}: {r['ms']:.4f} ms, twin {r['plain']:.4f} "
-            f"ms, bound {r['bound']:.4f} ms ({r['by']})"
+        log(f"two_pass {dt} B={B}: {r['ms']:.4f} ms ({_rate(r)}), twin "
+            f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms ({r['by']})"
             + (f", SDPA backward {lib:.4f} ms" if lib is not None else ""))
         if dt == torch.bfloat16:
             with torch.no_grad():
@@ -1706,8 +1753,9 @@ def lean_kernel_phase(gen):
                         H100_BF16_FLOPS, lib_b)}
         for n, r in out[key].items():
             log(f"lean {key} B={B} N={N} HD={HD} H={H} {n}: {r['ms']:.4f} "
-                f"ms, twin {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
-                f"({r['by']}), SDPA {r['library']:.4f} ms")
+                f"ms ({_rate(r)}), twin {r['plain']:.4f} ms, bound "
+                f"{r['bound']:.4f} ms ({r['by']}), SDPA {r['library']:.4f} "
+                f"ms")
         with torch.no_grad():
             log(f"lean {key} bf16 device time by kernel (torch.profiler, "
                 "forward then backward): " + fmt_split(device_ms_by_kernel(
@@ -2180,6 +2228,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"build: {secs} ({time.perf_counter() - t0:.2f} s wall)")
+    log_backward_resources()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

@@ -25,9 +25,9 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["load", "build_all", "sources", "launch_counts", "count_launch",
-           "reset_launch_counts", "cuda_error_string", "launch", "supported",
-           "refuse_autograd", "UNSUPPORTED_SHAPE"]
+__all__ = ["load", "build_all", "build_logs", "sources", "launch_counts",
+           "count_launch", "reset_launch_counts", "cuda_error_string",
+           "launch", "supported", "refuse_autograd", "UNSUPPORTED_SHAPE"]
 
 UNSUPPORTED_SHAPE = -1     # T2MS_UNSUPPORTED_SHAPE in dit_common.cuh
 
@@ -36,9 +36,13 @@ _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "build", "t2ms_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas=-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# library name -> nvcc's output of its build in this process (ptxas's
+# registers, shared memory and spills of every kernel, from -Xptxas=-v)
+build_logs: Dict[str, str] = {}
 _lock = threading.Lock()
 _counts_lock = threading.Lock()
 
@@ -105,6 +109,7 @@ def build_all(names: Iterable[str] = None) -> Dict[str, float]:
     for name, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
         secs[name] = time.perf_counter() - t0
+        build_logs[name] = log.decode(errors="replace")
         if p.returncode:
             failed.append(f"{name}: nvcc exit {p.returncode}\n"
                           f"{log.decode(errors='replace')}")
@@ -154,7 +159,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn, n in (("dit_block_backward_workspace", 6),
                   ("mod_ln_backward_workspace", 3),
                   ("res_mod_ln_backward_workspace", 3),
-                  ("fused_heads_backward_workspace", 3)):
+                  ("fused_heads_backward_workspace", 5),
+                  ("fused_heads_backward_smem", 3)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = ctypes.c_longlong

@@ -557,16 +557,20 @@ def _launch_fused_heads_bwd_lean(q, k, v, g, o, lse, num_heads, scale, name):
 
 def _launch_fused_heads_bwd(q, k, v, g, num_heads, scale, pipelined=True,
                             name=FUSED_HEADS_BWD_KERNEL):
-    """The three backward launches with the pipelined or the recompute
-    recipe, counted once under ``name``."""
+    """The backward's two launches (the q-tile kernel with the rows'
+    statistics and dq, then the k-tile kernel with dk and dv; f32: a stats,
+    a dq and a dk/dv kernel) with the pipelined or the recompute recipe,
+    counted once under ``name``. The workspace holds the statistics and,
+    pipelined, T(q * scale / r) and T(g / r)."""
     refused, lib, ts, strides = _heads_operands(
         name, _BWD_ENTRY, (q, k, v, g.to(q.dtype)), num_heads)
     dt = q.dtype
     B, N, HD = q.shape
     dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=dt)
                   for _ in range(3))
-    work = torch.empty(lib.fused_heads_backward_workspace(B, N, num_heads),
-                       device=q.device, dtype=torch.uint8)
+    work = torch.empty(lib.fused_heads_backward_workspace(
+        B, N, HD, num_heads, int(pipelined)), device=q.device,
+        dtype=torch.uint8)
     _build.launch(lib, _BWD_ENTRY[dt], name, refused, q.device, *ts, dq, dk,
                   dv, work, B, N, HD, num_heads, *strides, int(pipelined),
                   float(scale), float(torch.tensor(scale, dtype=dt)))
@@ -616,9 +620,10 @@ def fused_heads_attention_bwd(q, k, v, g, num_heads: int,
     from q and k. ``pipelined`` picks the recipe as in JAX: None reads
     ``_pipe_bwd_enabled`` (``T2MS_ATTN_PIPE_BWD``; unset means pipelined
     where ``head_groups`` > 1, the JAX default, else the recompute
-    recipe). CUDA tensor -> ``csrc/fused_heads.cu`` (a stats, a
-    dq and a dk/dv kernel; no atomics, so runs repeat bit for bit); CPU
-    tensor -> the twin. ``block_q`` and ``head_groups`` shape the TPU
+    recipe). CUDA tensor -> ``csrc/fused_heads.cu`` (bf16: a q-tile
+    kernel with the rows' statistics and dq, then a k-tile kernel with dk
+    and dv; no atomics, so runs repeat bit for bit); CPU tensor -> the
+    twin. ``block_q`` and ``head_groups`` shape the TPU
     kernel's VMEM tiles and are otherwise ignored."""
     del block_q
     _check_bwd(FUSED_HEADS_BWD_KERNEL, q, k, v, g)
@@ -643,8 +648,8 @@ def fused_heads_attention_bwd_two_pass(q, k, v, g, num_heads: int,
                                        blocks=None):
     """The long-series VJP of ``fused_heads_attention`` (JAX's two-pass
     kernel): (dq, dk, dv) in q's dtype with the recompute recipe. CUDA
-    tensor -> ``csrc/fused_heads.cu`` (the stats kernel, then the
-    recompute dq and dk/dv kernels); CPU tensor -> the twin. ``blocks`` is
+    tensor -> ``csrc/fused_heads.cu`` (the q-tile and k-tile kernels with
+    the recompute recipe); CPU tensor -> the twin. ``blocks`` is
     the JAX signature's (block_q, block_k, chunk_q) of VMEM tiles: the
     kernels pick their own, so it is ignored."""
     del blocks

@@ -20,45 +20,63 @@
 //             K tiles (row max; then e = T(exp(T(s - m))), f32 row sums, f32
 //             PV), o = T(PV / r); the stats forward also writes each row's
 //             lse = m + log(r) (f32, (B, N, H)), and o stays bit-equal.
-//   backward  three launches, recomputing the probabilities from q and k,
-//             with one of the two recipes' rounding points, or two with the
-//             lean recipe:
-//     stats   per (element, q tile, head): the row max m in pass 1; in pass
-//             2, with dp = g v^T in f32, r = sum e and u = sum dp * e, so
-//             1/r and t = u / r (f32, to a workspace); t is the recompute
-//             recipe's delta = rowsum(dp * p) too.
-//     dq      per (element, q tile, head) over the k tiles:
-//             pipelined  ds_u = T(e * (dp - t)), dq = T((ds_u k) * (scale/r));
+//   backward  recomputes the probabilities from q and k with one of three
+//             recipes' rounding points:
+//     rows    m, the row max of s = T(q * scale) k^T (f32); e =
+//             T(exp(T(s - m))); r = sum e and u = sum dp * e with dp = g v^T
+//             (f32), so 1/r and t = u / r; t is the recompute recipe's
+//             delta = rowsum(dp * p) too.
+//     dq      pipelined  ds_u = T(e * (dp - t)), dq = T((ds_u k) * (scale/r));
 //             recompute  p = e / r, ds = T(p * (dp - t)), dq = T((ds k) * scale).
-//     dkdv    per (element, k tile, head) over the q tiles:
-//             pipelined  dv = T(sum e^T T(g / r)),
+//     dk, dv  pipelined  dv = T(sum e^T T(g / r)),
 //                        dk = T(sum ds_u^T T(q * scale / r));
 //             recompute  dv = T(sum T(p)^T g), dk = T((sum ds^T q) * scale),
 //                        q unscaled.
-//     lean    no stats launch: m and t are the caller's lse and
-//             delta = rowsum(f32(g) f32(o)) (f32, (B, N, H)), and
-//             p = T(exp(T(s - lse))), ds = T(p * (dp - delta)); dq, dk and
-//             dv as in the recompute recipe.
-//             Two kernels instead of atomics, so every sum has one order and
-//             runs repeat bit for bit. The TPU's single-pass and two-pass
-//             kernels differ in how they tile VMEM, not in what they
-//             compute, so the recompute recipe serves #11's ungrouped kernels
-//             and #12, and the lean recipe serves both lean kernels.
+//     lean    m and t are the caller's lse and delta = rowsum(f32(g) f32(o))
+//             (f32, (B, N, H)), p = T(exp(T(s - lse))),
+//             ds = T(p * (dp - delta)); dq, dk and dv as in the recompute
+//             recipe.
+//             The TPU's single-pass and two-pass kernels differ in how they
+//             tile VMEM, not in what they compute, so the recompute recipe
+//             serves #11's ungrouped kernels and #12, and the lean recipe
+//             serves both lean kernels.
 //
-// Bound on an H100 SXM at the scaled train step's call (B=64, N=1024,
-// HD=512, 8 heads of 64, bf16): the forward's two products (QK^T, PV) are
-// 137.4 GFLOP, 0.139 ms at 989 TFLOP/s, against 268 MB of q, k, v and o,
-// 0.080 ms; the backward's five (QK^T, dP, dQ, dK, dV) 343.6 GFLOP, 0.347
-// ms, against 470 MB, 0.140 ms. Both are bound by operations, so every
-// product runs on the tensor cores (WMMA bf16 16x16x16 with f32 sums, the
-// dq, dk and dv sums held in registers across the loop; the f32 entries use
-// FMA loops so they stay tight against their twins). The exact softmax
-// costs QK^T twice in the forward and three times in the backward, and the
-// tiles go through shared memory: speed (wgmma, TMA, online softmax) is
-// later work; these kernels are the simple, right ones. At the long-series
-// train step's call (B=8, N=4096, 4 heads of 32) the backward's five
-// products are 171.8 GFLOP, 0.174 ms, against 59 MB. The lean recipe does
-// the same five products without the stats launch's two.
+// bf16 backward (heads_bwd.cuh): two kernels, dq in the q-tile kernel and
+// dk/dv in the k-tile kernel, so every sum has one order and runs repeat
+// bit for bit (no atomics). The q-tile kernel folds in the rows' statistics
+// (pass 1: m; pass 2: r, u, and for the pipelined recipe T(q * scale / r)
+// and T(g / r) written once to a (B, N, HD) workspace; pass 3: dq), so q and
+// g are loaded once per q tile; the row max stays a pass of its own, since
+// e needs the row's final m (an online rescaling would round elsewhere).
+// N x N x d products: pipelined and recompute 10 (q kernel: QK^T three
+// times, dP twice, dS K; kv kernel: QK^T, dP, dS^T Q, e^T G), lean 7 (no
+// statistics passes). The f32 entries keep the FMA-loop kernels below
+// (a stats, a dq and a dk/dv kernel), which the CPU-twin checks hold
+// tight; no timed path runs them.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) counts the five
+// products the gradient needs (QK^T, dP, dQ, dK, dV). At the scaled train
+// step's call (B=64, N=1024, HD=512, 8 heads of 64, bf16): 343.6 GFLOP,
+// 0.347 ms, against 470 MB, 0.140 ms; at the long-series train step's call
+// (B=8, N=4096, 4 heads of 32): 171.8 GFLOP, 0.174 ms, against 59 MB. Both
+// are bound by operations. The forward's two products at the scaled call
+// are 137.4 GFLOP, 0.139 ms.
+//
+// What the bf16 backward's design does about what held the earlier WMMA
+// kernels to about 2% of that bound:
+// - scores through shared memory: S and dP stay in mma.sync accumulators,
+//   e and ds are formed there and packed as the next product's A operand;
+//   no f32 score tile, no per-element index division;
+// - copies that waited: every streamed tile comes in through cp.async into
+//   a two-stage ring, and q, k, v stay column slices read in place (16-byte
+//   rows, checked by the launcher);
+// - per-q-row work in every k block: T(q * scale / r) and T(g / r) are
+//   formed once in the q kernel; the kv kernel streams them and scales the
+//   unscaled q to T(q * qscale) on its ldmatrix fragments (one bf16x2
+//   multiply a register, the same single rounding);
+// - products: the statistics fold into the q kernel (one launch and one q/g
+//   load fewer); the count stays 10 (7 lean), since an exact row max needs
+//   its own pass.
 //
 // C interface for ctypes: fused_heads_forward_{bf16,f32},
 // fused_heads_forward_stats_{bf16,f32} (with the lse output),
@@ -66,38 +84,17 @@
 // fused_heads_backward_lean_{bf16,f32} launch on the given stream and return
 // cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE (launching nothing) for a
 // shape the kernels do not take; fused_heads_backward_workspace gives the
-// bytes of the per-row statistics the caller allocates; fused_heads_check
-// answers the shape question.
+// bytes of the per-row statistics (and, pipelined, of the two bf16 tiles)
+// the caller allocates; fused_heads_backward_smem gives the bf16 backward
+// kernels' shared memory; fused_heads_check answers the shape question.
 
-#include "attn_heads.cuh"
+#include "heads_bwd.cuh"
 
 namespace {
 
-// One operand of the backward: element b's row n of head h starts at
-// p + b * sb + n * sn + h * DH.
-template <typename T> struct Opd {
-  const T* p;
-  long long sb, sn;
-  __device__ const T* head(int b, int h, int DH) const {
-    return p + (size_t)b * sb + h * DH;
-  }
-};
+// ------------------------------------------------ the f32 backward kernels
 
-template <typename T> struct BwdArgs {
-  Opd<T> q, k, v, g;
-  T *dq, *dk, *dv;  // contiguous (B, N, HD)
-  float* st;        // (B*N, H, 3): m, 1/r, t
-  int B, N, HD, H;
-  float scale, qscale;
-  const float *lse, *delta;  // the lean recipe's (B*N, H) inputs
-};
-
-// The backward's recipes: the rounding points of dq, dk and dv, and where
-// the rows' statistics come from (the stats kernel, or the caller's lse and
-// delta)
-enum Recipe { PIPE = 0, RECOMP = 1, LEAN = 2 };
-
-// Shared memory of the three backward kernels (carved in this order)
+// Shared memory of the three f32 backward kernels (carved in this order)
 template <typename T>
 __host__ __device__ size_t smem_bwd(int DH, int kernel) {
   const int R = tb<T>(), P = pad<T>();
@@ -109,16 +106,6 @@ __host__ __device__ size_t smem_bwd(int DH, int kernel) {
   if (kernel == 0) return 4 * tile + 2 * sq + rows;             // stats
   if (kernel == 1) return 4 * tile + 2 * sq + e + acc + rows;   // dq
   return 4 * tile + 2 * sq + 2 * e + 2 * acc + rows;            // dkdv
-}
-
-// Block -> (element b, tile, head h), the tile fastest
-struct Place {
-  int b, t0, h;
-};
-__device__ Place place(int N, int H, int R) {
-  const int tiles = (N + R - 1) / R;
-  return Place{(int)(blockIdx.x / (tiles * H)), (int)(blockIdx.x % tiles) * R,
-               (int)(blockIdx.x / tiles) % H};
 }
 
 // The q side of a backward tile: Qs = T(q * qscale), Gs = g, rows past
@@ -413,18 +400,33 @@ cudaError_t launch_bwd(const BwdArgs<T>& a, cudaStream_t st) {
 
 template <typename T, int DH>
 cudaError_t launch_recipe(const BwdArgs<T>& a, Recipe rec, cudaStream_t st) {
-  switch (rec) {
-    case PIPE: return launch_bwd<T, DH, PIPE>(a, st);
-    case RECOMP: return launch_bwd<T, DH, RECOMP>(a, st);
-    default: return launch_bwd<T, DH, LEAN>(a, st);
+  if constexpr (sizeof(T) == 2) {
+    switch (rec) {
+      case PIPE: return launch_bwd_mma<DH, PIPE>(a, st);
+      case RECOMP: return launch_bwd_mma<DH, RECOMP>(a, st);
+      default: return launch_bwd_mma<DH, LEAN>(a, st);
+    }
+  } else {
+    switch (rec) {
+      case PIPE: return launch_bwd<T, DH, PIPE>(a, st);
+      case RECOMP: return launch_bwd<T, DH, RECOMP>(a, st);
+      default: return launch_bwd<T, DH, LEAN>(a, st);
+    }
   }
+}
+
+// bytes of the per-row statistics, rounded up so that the pipelined bf16
+// workspace tiles after them start 256-byte aligned
+long long stats_bytes(int B, int N, int H) {
+  return ((long long)B * N * H * 3 * 4 + 255) / 256 * 256;
 }
 
 // 0 when the kernels take H*DH = HD in H heads on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
-// The head width is 32, 64 or 128 (the bf16 register sums split a head's
-// columns over two warps in 16-wide fragments); every kernel's shared memory
-// fits what one block may opt in to on this device.
+// The head width is 32, 64 or 128 (the forward's bf16 register sums split a
+// head's columns over two warps in 16-wide fragments, the bf16 backward's
+// over 16-wide ldmatrix tiles); every kernel's shared memory fits what one
+// block may opt in to on this device.
 template <typename T> int check_heads(int HD, int H) {
   if (H < 1 || HD < 1 || HD % H) return T2MS_UNSUPPORTED_SHAPE;
   const int DH = HD / H;
@@ -432,8 +434,13 @@ template <typename T> int check_heads(int HD, int H) {
   const long long optin = smem_optin();
   if (optin < 0) return (int)-optin;
   size_t need = smem_heads_attn<T>(DH);
-  for (int k = 0; k < 3; ++k)
-    if (smem_bwd<T>(DH, k) > need) need = smem_bwd<T>(DH, k);
+  if constexpr (sizeof(T) == 2) {
+    if (smem_bwd_q(DH) > need) need = smem_bwd_q(DH);
+    if (smem_bwd_kv(DH, PIPE) > need) need = smem_bwd_kv(DH, PIPE);
+  } else {
+    for (int k = 0; k < 3; ++k)
+      if (smem_bwd<T>(DH, k) > need) need = smem_bwd<T>(DH, k);
+  }
   return need <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
 }
 
@@ -458,9 +465,14 @@ int run_forward(const T* q, const T* k, const T* v, T* o, float* lse, int B,
 }
 
 template <typename T>
-int run_backward(const BwdArgs<T>& a, Recipe rec, cudaStream_t st) {
+int run_backward(BwdArgs<T> a, Recipe rec, cudaStream_t st) {
   const int ok = check_all<T>(a.B, a.N, a.HD, a.H);
   if (ok) return ok;
+  if (sizeof(T) == 2 && rec == PIPE) {  // the workspace's bf16 tiles
+    a.qsc = reinterpret_cast<T*>(reinterpret_cast<char*>(a.st) +
+                                 stats_bytes(a.B, a.N, a.H));
+    a.gsc = a.qsc + (size_t)a.B * a.N * a.HD;
+  }
   switch (a.HD / a.H) {
     case 32: return launch_recipe<T, 32>(a, rec, st);
     case 64: return launch_recipe<T, 64>(a, rec, st);
@@ -519,8 +531,20 @@ int run_backward(const BwdArgs<T>& a, Recipe rec, cudaStream_t st) {
 T2MS_HEADS_ENTRIES(bf16, __nv_bfloat16)
 T2MS_HEADS_ENTRIES(f32, float)
 
-extern "C" long long fused_heads_backward_workspace(int B, int N, int H) {
-  return (long long)B * N * H * 3 * 4;
+// the statistics (B*N, H, 3) f32 and, for the pipelined recipe, the bf16
+// T(q * scale / r) and T(g / r), each (B, N, HD) (which the f32 kernels
+// leave unused); the lean recipe asks for none
+extern "C" long long fused_heads_backward_workspace(int B, int N, int HD,
+                                                    int H, int pipelined) {
+  return stats_bytes(B, N, H) + (pipelined ? 2LL * B * N * HD * 2 : 0);
+}
+
+// dynamic shared memory of the bf16 backward's q-tile (kernel 0) and k-tile
+// (kernel 1) kernels at head width DH with recipe rec (0 pipelined, 1
+// recompute, 2 lean)
+extern "C" long long fused_heads_backward_smem(int DH, int rec, int kernel) {
+  return kernel == 0 ? (long long)smem_bwd_q(DH)
+                     : (long long)smem_bwd_kv(DH, rec);
 }
 
 extern "C" int fused_heads_check(int HD, int H, int is_bf16) {

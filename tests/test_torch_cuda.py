@@ -965,6 +965,72 @@ def test_lean_backward_repeats_bit_for_bit(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _recipe_grads(recipe, q, k, v, g, heads, twin):
+    """(dq, dk, dv) of one backward recipe, the kernels' or (``twin``) the
+    plain twin's; the lean recipe from #10's o and lse."""
+    if recipe == "lean":
+        o, lse = tattn.fused_heads_attention_with_stats(q, k, v, heads)
+        fn = (tattn.fused_heads_bwd_lean_reference if twin
+              else tattn.fused_heads_attention_bwd_lean)
+        return fn(q, k, v, g, o, lse, heads)
+    pipelined = recipe == "pipelined"
+    if twin:
+        fn = (tattn.fused_heads_bwd_reference if pipelined
+              else tattn.fused_heads_bwd_two_pass_reference)
+        return fn(q, k, v, g, heads)
+    return tattn.fused_heads_attention_bwd(q, k, v, g, heads,
+                                           pipelined=pipelined)
+
+
+def _assert_grads_close(got, want, dt, tol, scale_of_all=False):
+    """Each gradient within tol * max|ref|; with ``scale_of_all``, within
+    tol * the largest max|ref| of the three."""
+    top = max(w.float().abs().max().item() for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dt and a.shape == w.shape
+        a, w = a.float(), w.float()
+        assert torch.isfinite(a).all()
+        ref = top if scale_of_all else w.abs().max().item()
+        assert (a - w).abs().max().item() <= tol * ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 5e-4),
+                                    (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("heads", [16, 8, 4])         # head widths 32, 64, 128
+@pytest.mark.parametrize("N", [1, 64, 130, 1000])
+@pytest.mark.parametrize("recipe", ["pipelined", "recompute", "lean"])
+def test_backward_recipes_match_twins_across_tiles_on_card(cuda, dt, tol,
+                                                           heads, N, recipe):
+    """Each backward recipe (#11 pipelined, #11/#12 recompute, #13/#14
+    lean) on the column slices of one qkv tensor at B=2 against its twin,
+    at one row (every tile ragged), one whole 64-row tile, a ragged third
+    tile and 16 tiles of which the last is ragged: dq, dk, dv within tol *
+    max|ref| (f32: summation order; bf16: rounding flips of e, p and ds).
+    At N=1 the one key gets p = 1, so dq and dk are the residue of
+    dp - delta, zero in exact arithmetic, and each gradient is held to tol
+    times the largest reference (dv = g there)."""
+    q, k, v, g = _heads_args(cuda, dt, B=2, N=N)
+    with torch.no_grad():
+        got = _recipe_grads(recipe, q, k, v, g, heads, twin=False)
+        torch.cuda.synchronize()
+        want = _recipe_grads(recipe, q, k, v, g, heads, twin=True)
+    _assert_grads_close(got, want, dt, tol, scale_of_all=N == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["pipelined", "recompute", "lean"])
+def test_backward_recipes_match_twins_over_many_waves_on_card(cuda, recipe):
+    """B=4, N=2048, 8 heads of 64 in bf16: 1024 blocks a kernel, more than
+    the card holds at once, against the twin within 3e-2 * max|ref|."""
+    q, k, v, g = _heads_args(cuda, torch.bfloat16, B=4, N=2048)
+    with torch.no_grad():
+        got = _recipe_grads(recipe, q, k, v, g, 8, twin=False)
+        torch.cuda.synchronize()
+        want = _recipe_grads(recipe, q, k, v, g, 8, twin=True)
+    _assert_grads_close(got, want, torch.bfloat16, 3e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,HD,heads,name", [
     (2, 1024, 512, 8, "FUSED_HEADS_LEAN_KERNEL"),            # scaled

@@ -600,3 +600,26 @@ def test_backward_launchers_pass_the_recipe(monkeypatch, fn, pipelined, name,
     *_, flag, scale, qscale, stream = call
     assert flag == pipelined and stream.value == 7
     assert scale.value == pytest.approx(32 ** -0.5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,pipelined", [
+    ("fused_heads_attention_bwd_two_pass", 0),
+    ("fused_heads_attention_bwd", 0),
+    ("fused_heads_attention_bwd", 1)])
+def test_backward_launchers_size_the_workspace_by_recipe(monkeypatch, fn,
+                                                         pipelined, dt):
+    """#11 and #12 ask ``fused_heads_backward_workspace`` once, for (B, N,
+    H*D, H, pipelined): the rows' statistics, and with the pipelined
+    recipe also the (B, N, H*D) bf16 T(q * scale / r) and T(g / r) the
+    q-tile kernel writes once for the k-tile kernel."""
+    lib = _rehearse(monkeypatch)
+    qkv = torch.randn(2, 8, 3 * 64).to(dt)
+    q, k, v = qkv[..., :64], qkv[..., 64:128], qkv[..., 128:]
+    kw = {} if fn.endswith("two_pass") else dict(pipelined=bool(pipelined))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    getattr(tattn, fn)(q, k, v, q.contiguous(), 2, **kw)
+    asked = [c[1] for c in lib.calls
+             if c[0] == "fused_heads_backward_workspace"]
+    assert asked == [(2, 8, 64, 2, pipelined)]
+    _one_launch(lib, "fused_heads_backward", dt)
