@@ -11,9 +11,10 @@ failing with a non-zero exit on any error:
    flags (both set off, so f32 products and convs are full f32);
 2. builds every kernel (one nvcc per source, started together) and logs
    ptxas's registers, stack, spills and shared memory of the bf16
-   attention backward's kernels (``heads_bwd_q_kernel``,
-   ``heads_bwd_kv_kernel``, csrc/fused_heads.cu, at each head width and
-   recipe);
+   attention forward's kernel (``heads_fwd_kernel``, csrc/attn_heads.cuh,
+   at each head width) and of the backward's (``heads_bwd_q_kernel``,
+   ``heads_bwd_kv_kernel``, csrc/heads_bwd.cuh, at each head width and
+   recipe), as built into csrc/fused_heads.cu;
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -45,8 +46,8 @@ failing with a non-zero exit on any error:
    vectors) against its twin, with the mean error against the f32 twin,
    again in f32 at a small batch, and against the stack kernel at the
    reference geometry; CUDA-event times, the twin's time, the bound,
-   device time by kernel, and torch SDPA over the block's attention as a
-   yardstick;
+   device time by kernel and split into attention and GEMMs, and torch
+   SDPA over the block's attention as a yardstick;
 9. scaled offline path: the 56.7M-param DiT (scripts/bench_scaled.py:
    d_model 512, depth 12, 8 heads, mlp x4, 1024 tokens) and the LA-VAE at
    latent grid 64, seeded random weights, through the CFG sampler (B=16,
@@ -72,8 +73,10 @@ failing with a non-zero exit on any error:
    (scripts/bench_scaled.py:80-118: B=64, latents encoded once outside the
    step, flow matching over 100 steps, CFG drop 0.3, AdamW at 1e-4 with
    weight decay 1e-4) through the flax path's kernels with the residual
-   fusion, 2 warm-up and 5 timed steps: steps/s, peak memory, device time
-   by part, launches per step checked (forward #5 x1, #7 x23, #9 x12;
+   fusion, 2 warm-up and 5 timed steps: steps/s (the median of that window
+   and four more of 5 steps, ``step_rate``), peak memory, device time
+   by part and the host time to enqueue one step (as for every profiled
+   call after it), launches per step checked (forward #5 x1, #7 x23, #9 x12;
    backward #6 x1, #8 x23, #11 x12; no #12, stack, block or split launch),
    loss finite and, step by step, within 1e-2 of the eager bf16 path's
    from the same init and draws; and at B=8 the kernel path's loss and
@@ -104,8 +107,8 @@ failing with a non-zero exit on any error:
    f32 opt-out paths for 4 steps;
 17. long-series train phase: the long-series train step (B=8, length
    2048, LA-VAE encode inside the step, flow matching over 100 steps, CFG
-   drop 0.3, AdamW at 1e-4), 2 warm-up and 5 timed steps: steps/s, peak
-   memory, device time by part, launches per step checked (#5 x1, #7 x7,
+   drop 0.3, AdamW at 1e-4), 2 warm-up and 5 timed steps: steps/s (median
+   of five windows, as in 13), peak memory, device time by part, launches per step checked (#5 x1, #7 x7,
    #9 x4, #6 x1, #8 x7, #12 x4; no #11, stack, block or split launch),
    loss finite; and at B=2 the kernel path's loss and gradients against
    the eager bf16 and f32 opt-out paths on the same injected draws (three
@@ -121,8 +124,8 @@ failing with a non-zero exit on any error:
    achieved TFLOP/s and share of the bound, the twins' times, the bounds
    and torch SDPA as the yardstick;
 19. lean scaled train phase: the scaled train step with
-   ``T2MS_ATTN_LEAN_BWD=1`` (2 warm-up, 5 timed steps): steps/s, peak
-   memory, device time by part, launches per step checked (#5 x1, #7 x23,
+   ``T2MS_ATTN_LEAN_BWD=1`` (2 warm-up, 5 timed steps): steps/s (median
+   of five windows, as in 13, with the switch on and unset), peak memory, device time by part, launches per step checked (#5 x1, #7 x23,
    #10 x12, #6 x1, #8 x23, #13 x12; no #9, #11 or #12), the losses within
    1e-2 of the same steps with the switch unset from the same init and
    draws, and at B=8 the gradients against the eager paths;
@@ -238,6 +241,31 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+RATE_WINDOWS = 5   # host-clock windows a train step's rate is the median of
+
+
+def step_rate(step, n_steps, first_dt):
+    """steps/s of a train step: the median over the main path's timed
+    window (``n_steps`` steps in ``first_dt`` s) and RATE_WINDOWS - 1 more
+    windows of ``n_steps`` calls of ``step``, each ending in a synchronise
+    (a one-chip machine shares its host's cores, so one short window can
+    read a host stall); returns (median, every window's rate)."""
+    rates = [n_steps / first_dt]
+    for _ in range(RATE_WINDOWS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        rates.append(n_steps / (time.perf_counter() - t0))
+    return statistics.median(rates), rates
+
+
+def fmt_rate(rate, rates, n_steps):
+    return (f"{rate:.4f} steps/s (median of {len(rates)} windows of "
+            f"{n_steps} steps: {', '.join(f'{r:.4f}' for r in rates)})")
 
 
 def stack_work(B, N, D, H, hidden, L, tensors):
@@ -761,9 +789,9 @@ def train_phase(dit, vae, gen):
 # the CUDA kernels of one bf16 fused_dit_block_split call at 8 heads of
 # 64, by their names in the profile: gemm_kernel<T, 0, 0> is modLN+qkv,
 # <T, 0, 1> modLN+fc1+GELU, <T, 1, 2> the proj and fc2 products with their
-# gated residuals; heads_attn_kernel the attention
-SPLIT_PARTS = ("gemm_kernel<__nv_bfloat16, 0, 0>",
-               "heads_attn_kernel<__nv_bfloat16, 64>",
+# gated residuals; heads_fwd_kernel the attention
+SPLIT_ATTN = "heads_fwd_kernel<64>"
+SPLIT_PARTS = ("gemm_kernel<__nv_bfloat16, 0, 0>", SPLIT_ATTN,
                "gemm_kernel<__nv_bfloat16, 1, 2>",
                "gemm_kernel<__nv_bfloat16, 0, 1>")
 
@@ -831,6 +859,13 @@ def split_phase(gen):
             log("split bf16 device time by kernel (torch.profiler, one call; "
                 "<T,0,0> modLN+qkv, <T,0,1> modLN+fc1+GELU, <T,1,2> proj and "
                 "fc2 with gated residuals): " + fmt_split(split))
+            if split:
+                attn = split.get(SPLIT_ATTN, 0.0)
+                gemm = sum(v_ for k_, v_ in split.items()
+                           if k_.startswith("gemm_kernel"))
+                log(f"split bf16 device time: attention {attn:.4f} ms "
+                    f"({attn / (attn + gemm):.1%}), GEMMs {gemm:.4f} ms "
+                    f"({gemm / (attn + gemm):.1%})")
             out["sdpa_ms"] = sdpa_attention_ms(gen, B, H, SC_N, D // H, 1)
             log(f"yardstick: SDPA over the split block's attention alone "
                 f"(B={B}, {H} heads, N={SC_N}, d={D // H}): "
@@ -958,7 +993,7 @@ def scaled_server_phase(dit, vae, seed):
 MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
                 "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_kernel",
                 "dmod_reduce_kernel")
-HEADS_PARTS = ("heads_attn_kernel", "heads_bwd_q_kernel",
+HEADS_PARTS = ("heads_fwd_kernel", "heads_bwd_q_kernel",
                "heads_bwd_kv_kernel")
 # the library kernels around them, by name fragments: the dense products
 # (cuBLAS's nvjet / gemm kernels), elementwise passes, reductions
@@ -983,17 +1018,18 @@ def _rate(r):
             f"{r['bound'] / r['ms']:.2%} of its bound")
 
 
-def log_backward_resources():
+def log_attention_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    bf16 attention backward's kernels (``heads_bwd_q_kernel``,
-    ``heads_bwd_kv_kernel``; the -Xptxas=-v lines of this run's build of
-    csrc/fused_heads.cu), with their dynamic shared memory from
+    bf16 attention kernels (the forward's ``heads_fwd_kernel``, the
+    backward's ``heads_bwd_q_kernel`` and ``heads_bwd_kv_kernel``; the
+    -Xptxas=-v lines of this run's build of csrc/fused_heads.cu), with
+    their dynamic shared memory from ``fused_heads_forward_smem`` and
     ``fused_heads_backward_smem``."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("fused_heads")
     if not text:
-        log("bwd kernel resources: not measured (fused_heads.cu was not "
-            "built in this process)")
+        log("attention kernel resources: not measured (fused_heads.cu was "
+            "not built in this process)")
         return
     lib = _build.load("fused_heads")
     recipes = ("pipelined", "recompute", "lean")
@@ -1003,16 +1039,23 @@ def log_backward_resources():
               ("spill loads B", r"(\d+) bytes spill loads"),
               ("static smem B", r"(\d+) bytes smem"))
     for chunk in text.split("Compiling entry function")[1:]:
-        name = re.search(r"(heads_bwd_(?:q|kv)_kernel)ILi(\d+)ELi(\d+)E",
-                         chunk)
-        if name is None:
+        fwd = re.search(r"heads_fwd_kernelILi(\d+)E", chunk)
+        bwd = re.search(r"(heads_bwd_(?:q|kv)_kernel)ILi(\d+)ELi(\d+)E",
+                        chunk)
+        if fwd is not None:
+            dh = int(fwd.group(1))
+            what = f"fwd kernel resources heads_fwd_kernel d={dh}"
+            smem = lib.fused_heads_forward_smem(dh)
+        elif bwd is not None:
+            kern, dh, rec = bwd.group(1), int(bwd.group(2)), int(bwd.group(3))
+            what = f"bwd kernel resources {kern} d={dh} {recipes[rec]}"
+            smem = lib.fused_heads_backward_smem(
+                dh, rec, int(kern == "heads_bwd_kv_kernel"))
+        else:
             continue
-        kern, dh, rec = name.group(1), int(name.group(2)), int(name.group(3))
-        got = [(what, re.search(pat, chunk)) for what, pat in fields]
-        smem = lib.fused_heads_backward_smem(dh, rec,
-                                             int(kern == "heads_bwd_kv_kernel"))
-        log(f"bwd kernel resources {kern} d={dh} {recipes[rec]}: "
-            + ", ".join(f"{what} {m[1] if m else 0}" for what, m in got)
+        got = [(name, re.search(pat, chunk)) for name, pat in fields]
+        log(f"{what}: "
+            + ", ".join(f"{name} {m[1] if m else 0}" for name, m in got)
             + f", dynamic smem B {smem}")
 
 
@@ -1226,11 +1269,14 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
     check(launches == {n: c * SC_TRAIN_STEPS for n, c in want.items()},
           f"scaled train launches {launches} in {SC_TRAIN_STEPS} steps, want "
           f"{want} per step and no two-pass, stack, block or split launch")
+    rate, rates = step_rate(lambda: step(z, emb, generator=g),
+                            SC_TRAIN_STEPS, dt)
     n_par = sum(p.numel() for p in model.parameters())
     log(f"scaled train: DiT {n_par} params (d {SC_D}, depth {SC_DEPTH}, "
         f"{SC_HEADS} heads, {SC_N} tokens) B={SC_TRAIN_B} bf16, precoded, "
         f"{SC_TRAIN_STEPS} steps in {dt:.3f} s: "
-        f"{SC_TRAIN_STEPS / dt:.4f} steps/s, peak memory {peak_gb:.3f} GB, "
+        f"{fmt_rate(rate, rates, SC_TRAIN_STEPS)}, peak memory "
+        f"{peak_gb:.3f} GB, "
         f"launches {launches} ({want} per step), losses "
         f"{[round(v, 5) for v in lv]}")
     log_device_time("scaled train step", lambda: step(z, emb, generator=g))
@@ -1268,9 +1314,24 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
     return launches
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Host time (ms) to enqueue one call of ``fn`` on an idle device,
+    median of ``reps``: where it exceeds the call's device time, the host
+    bounds the call's rate."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def log_device_time(what, fn, parts=MOD_LN_PARTS + HEADS_PARTS):
     """One call of ``fn`` under torch.profiler: the total device time, the
-    port's kernels named in ``parts``, and the rest by kind."""
+    port's kernels named in ``parts``, and the rest by kind; then the host
+    time to enqueue one call (``host_ms``) against that device time."""
     times = device_ms_all(fn)
     if not times:
         log(f"{what} device time: not measured (no device time recorded)")
@@ -1293,6 +1354,9 @@ def log_device_time(what, fn, parts=MOD_LN_PARTS + HEADS_PARTS):
         + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items())
         + "; largest others "
         + "; ".join(f"{key[:60]} {ms:.3f}" for ms, key in rest[:6]))
+    host = host_ms(fn)
+    log(f"{what} host time to enqueue one call on an idle device: "
+        f"{host:.3f} ms (median of 3), {host / total:.3f}x its device time")
 
 
 def train_paths_vs_eager(what, make_dit, dit, vae, x, emb, make_draws,
@@ -1629,10 +1693,13 @@ def long_train_phase(dit, vae, gen):
           f"long train launches {launches} in {LS_TRAIN_STEPS} steps, want "
           f"{want} per step and no single-pass, stack, block or split "
           f"launch")
+    rate, rates = step_rate(lambda: step(x, emb, generator=g),
+                            LS_TRAIN_STEPS, dt)
     log(f"long train: DiT (d {D_MODEL}, depth {LS_DEPTH}, {HEADS} heads, "
         f"{LS_N} tokens) B={LS_TRAIN_B} len {LS_LEN} bf16, VAE encode in "
         f"the step, {LS_TRAIN_STEPS} steps in {dt:.3f} s: "
-        f"{LS_TRAIN_STEPS / dt:.4f} steps/s, peak memory {peak_gb:.3f} GB, "
+        f"{fmt_rate(rate, rates, LS_TRAIN_STEPS)}, peak memory "
+        f"{peak_gb:.3f} GB, "
         f"launches {launches} ({want} per step), losses "
         f"{[round(v, 5) for v in lv]}")
     log_device_time("long train step", lambda: step(x, emb, generator=g))
@@ -1803,8 +1870,9 @@ def lean_train_phase(what, make_dit, dit, vae, gen, B, x_len, emb_dim,
     depth = len(dit.layers)
 
     def run(lean, timed):
-        """2 + n_steps steps from dit's init on fixed draws; with
-        ``timed``, the main path's launches, wall time and peak memory."""
+        """2 + n_steps steps from dit's init on fixed draws: their losses,
+        the main path's launches, steps/s (``step_rate``) and peak
+        memory; with ``timed``, the device time of one more step."""
         old = _lean_switch("1" if lean else None)
         try:
             model = copy.deepcopy(dit)
@@ -1821,9 +1889,11 @@ def lean_train_phase(what, make_dit, dit, vae, gen, B, x_len, emb_dim,
             t0 = time.perf_counter()
             losses += [step(x, emb, generator=g) for _ in range(n_steps)]
             torch.cuda.synchronize()
-            res = (torch.stack(losses).tolist(), time.perf_counter() - t0,
-                   dict(_build.launch_counts),
+            dt = time.perf_counter() - t0
+            res = (torch.stack(losses).tolist(), dict(_build.launch_counts),
                    torch.cuda.max_memory_allocated() / 1e9)
+            res += (step_rate(lambda: step(x, emb, generator=g), n_steps,
+                              dt),)
             if timed:
                 log_device_time(f"{what} step",
                                 lambda: step(x, emb, generator=g))
@@ -1833,7 +1903,7 @@ def lean_train_phase(what, make_dit, dit, vae, gen, B, x_len, emb_dim,
         finally:
             _lean_switch(old)
 
-    lv, dt, launches, peak_gb = run(True, True)
+    lv, launches, peak_gb, (rate, rates) = run(True, True)
     check(all(np.isfinite(lv)), f"{what} losses finite {lv}")
     edges = 2 * depth - 1
     want = {MOD_LN_KERNEL: 1, RES_MOD_LN_KERNEL: edges,
@@ -1842,17 +1912,17 @@ def lean_train_phase(what, make_dit, dit, vae, gen, B, x_len, emb_dim,
     check(launches == {n: c * n_steps for n, c in want.items()},
           f"{what} launches {launches} in {n_steps} steps, want {want} per "
           f"step and no #9, #11, #12, stack, block or split launch")
-    log(f"{what}: B={B} bf16, T2MS_ATTN_LEAN_BWD=1, {n_steps} steps in "
-        f"{dt:.3f} s: {n_steps / dt:.4f} steps/s, peak memory "
+    log(f"{what}: B={B} bf16, T2MS_ATTN_LEAN_BWD=1: "
+        f"{fmt_rate(rate, rates, n_steps)}, peak memory "
         f"{peak_gb:.3f} GB, launches {launches} ({want} per step), losses "
         f"{[round(v, 5) for v in lv]}")
     # the same steps with the switch unset (the default route's kernels),
     # from the same init and draws: the recipes round elsewhere, and the
     # two runs must move together (1e-2 of each loss)
-    lu, dt_u, launches_u, _ = run(False, False)
+    lu, launches_u, _, (rate_u, rates_u) = run(False, False)
     worst = max(abs(a - b) / abs(b) for a, b in zip(lv, lu))
-    log(f"{what}, switch unset, same init and draws: {n_steps / dt_u:.4f} "
-        f"steps/s, launches {launches_u}, losses "
+    log(f"{what}, switch unset, same init and draws: "
+        f"{fmt_rate(rate_u, rates_u, n_steps)}, launches {launches_u}, losses "
         f"{[round(v, 5) for v in lu]}; the lean path within {worst:.3e} of "
         f"each (tol 1e-2)")
     check(FUSED_HEADS_STATS_KERNEL not in launches_u,
@@ -2228,7 +2298,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"build: {secs} ({time.perf_counter() - t0:.2f} s wall)")
-    log_backward_resources()
+    log_attention_resources()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

@@ -160,6 +160,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                   ("mod_ln_backward_workspace", 3),
                   ("res_mod_ln_backward_workspace", 3),
                   ("fused_heads_backward_workspace", 5),
+                  ("fused_heads_forward_smem", 1),
                   ("fused_heads_backward_smem", 3)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n

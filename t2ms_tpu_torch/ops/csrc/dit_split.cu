@@ -10,8 +10,9 @@
 // mlp hidden 2048, 1024 tokens. Five launches per block:
 //
 //   (1) gemm_kernel<LN, BIAS>     qkv = T(modLN(x; mod0, mod1) @ wqkv + bqkv)
-//   (2) heads_attn_kernel         o   = softmax(q k^T) v, per head, merged
-//                                 (attn_heads.cuh, shared with fused_heads.cu)
+//   (2) heads_fwd_kernel          o   = softmax(q k^T) v, per head, merged
+//                                 (attn_heads.cuh, shared with fused_heads.cu;
+//                                 heads_attn_kernel in f32)
 //   (3) gemm_kernel<LOAD, RESID>  y1  = x + T(gate2) * T(o @ wproj + bproj)
 //   (4) gemm_kernel<LN, GELU>     h1  = gelu(T(modLN(y1; mod3, mod4) @ wfc1
 //                                       + bfc1))
@@ -45,6 +46,8 @@
 // - Attention: one block per (batch element, 64 q rows, head), streaming
 //   64-row K/V tiles of that head only, so a head's whole K/V (128 KB at
 //   N=1024) is never staged; the 1-D grid is not held to grid.y's 65535.
+//   In bf16 the scores and exponentials stay in tensor-core registers and
+//   K/V come in through a cp.async ring (attn_heads.cuh says how).
 // - The merged attention output and the MLP hidden activations go through
 //   device memory between launches: at the scaled call that is about
 //   0.67 GB of extra traffic per block (qkv 0.10 GB, o 0.03 GB, y1 0.03 GB
@@ -53,8 +56,7 @@
 //   64-row tiles everywhere (a 64-row h1 tile in bf16 is 256 KB, beyond the
 //   227 KB a block may use) and one GEMM kernel for all four products.
 //
-// Speed (wgmma, TMA, fusing the two softmax passes and keeping h1 on chip)
-// is later work; this kernel is the simple, right one.
+// Speed for the GEMMs (wgmma, TMA, keeping h1 on chip) is later work.
 //
 // C interface for ctypes: dit_split_forward_{bf16,f32} launch the block on
 // the given stream and return cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE
@@ -73,22 +75,8 @@ enum { PRO_LN, PRO_LOAD };               // A: modulated LN of x, or as is
 enum { EPI_BIAS, EPI_GELU, EPI_RESID };  // what the GEMM writes
 
 // ---------------------------------------------------------------------------
-// Asynchronous 16-byte copies, device -> shared (zero-filled when !valid)
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// dst[r * ldd + c] = src[r * ld + c] for r < valid, 0 for valid <= r < rows
+// dst[r * ldd + c] = src[r * ld + c] for r < valid, 0 for valid <= r < rows,
+// through the asynchronous copies of attn_heads.cuh
 template <typename T>
 __device__ void cp_tile(T* dst, int ldd, const T* __restrict__ src, size_t ld,
                         int rows, int valid, int cols) {
@@ -186,8 +174,8 @@ __host__ __device__ size_t smem_gemm(bool staged, int K) {
 // 0 when the kernels take (D, hidden, H) on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
 // D and hidden are multiples of the 128-column GEMM step (so of the 64-deep
-// K chunk too); the head width is 32, 64 or 128 (the PV accumulators split
-// a head's columns over two warps in 16-wide fragments); each kernel's
+// K chunk too); the head width is 32, 64 or 128 (the attention holds a
+// warp's rows of a head as 16-wide tensor-core tiles); each kernel's
 // shared memory fits what one block may opt in to on this device (the
 // staged LayerNorm tile grows with D).
 template <typename T>
@@ -301,7 +289,7 @@ __global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
                               valid, c0, kc + 1);
       else
         cp_commit();
-      cp_wait1();
+      cp_wait<1>();
       __syncthreads();
       const T* Ab = staged ? As + kc * GK
                            : reinterpret_cast<const T*>(

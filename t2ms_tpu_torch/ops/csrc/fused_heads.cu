@@ -14,11 +14,12 @@
 // _bwd_lean_p2_kernel). q, k, v and g are read through their own batch and
 // row strides, so the column slices of one qkv projection are not copied.
 //
-//   forward   heads_attn_kernel (attn_heads.cuh, shared with the split
-//             block): per (element, 64 q rows, head), q scaled at input
-//             width, f32 scores, the exact softmax in two passes over 64-row
-//             K tiles (row max; then e = T(exp(T(s - m))), f32 row sums, f32
-//             PV), o = T(PV / r); the stats forward also writes each row's
+//   forward   heads_fwd_kernel in bf16, heads_attn_kernel in f32
+//             (attn_heads.cuh, shared with the split block): per (element,
+//             64 q rows, head), q scaled at input width, f32 scores, the
+//             exact softmax in two passes over 64-row K tiles (row max;
+//             then e = T(exp(T(s - m))), f32 row sums, f32 PV),
+//             o = T(PV / r); the stats forward also writes each row's
 //             lse = m + log(r) (f32, (B, N, H)), and o stays bit-equal.
 //   backward  recomputes the probabilities from q and k with one of three
 //             recipes' rounding points:
@@ -60,7 +61,14 @@
 // 0.347 ms, against 470 MB, 0.140 ms; at the long-series train step's call
 // (B=8, N=4096, 4 heads of 32): 171.8 GFLOP, 0.174 ms, against 59 MB. Both
 // are bound by operations. The forward's two products at the scaled call
-// are 137.4 GFLOP, 0.139 ms.
+// are 137.4 GFLOP, 0.139 ms, against 268 MB, 0.080 ms: operations again.
+//
+// The bf16 forward and backward run on the same register-resident
+// mma.sync tiles fed by cp.async (attn_heads.cuh holds the primitives and
+// the forward's note). The forward keeps S in accumulators, takes the row
+// max over the lanes that hold a row, and packs e where it is formed as
+// the A operand of O = e V; it shares the row-max pass and the formation
+// of e and r with the backward's q-tile kernel, so both compute one e.
 //
 // What the bf16 backward's design does about what held the earlier WMMA
 // kernels to about 2% of that bound:
@@ -85,8 +93,9 @@
 // cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE (launching nothing) for a
 // shape the kernels do not take; fused_heads_backward_workspace gives the
 // bytes of the per-row statistics (and, pipelined, of the two bf16 tiles)
-// the caller allocates; fused_heads_backward_smem gives the bf16 backward
-// kernels' shared memory; fused_heads_check answers the shape question.
+// the caller allocates; fused_heads_forward_smem and
+// fused_heads_backward_smem give the bf16 kernels' shared memory;
+// fused_heads_check answers the shape question.
 
 #include "heads_bwd.cuh"
 
@@ -423,10 +432,10 @@ long long stats_bytes(int B, int N, int H) {
 
 // 0 when the kernels take H*DH = HD in H heads on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
-// The head width is 32, 64 or 128 (the forward's bf16 register sums split a
-// head's columns over two warps in 16-wide fragments, the bf16 backward's
-// over 16-wide ldmatrix tiles); every kernel's shared memory fits what one
-// block may opt in to on this device.
+// The head width is 32, 64 or 128 (the bf16 kernels hold a warp's rows of
+// a head in registers as 16-wide ldmatrix tiles, the f32 forward splits a
+// head's columns over two warps); every kernel's shared memory fits what
+// one block may opt in to on this device.
 template <typename T> int check_heads(int HD, int H) {
   if (H < 1 || HD < 1 || HD % H) return T2MS_UNSUPPORTED_SHAPE;
   const int DH = HD / H;
@@ -537,6 +546,12 @@ T2MS_HEADS_ENTRIES(f32, float)
 extern "C" long long fused_heads_backward_workspace(int B, int N, int HD,
                                                     int H, int pipelined) {
   return stats_bytes(B, N, H) + (pipelined ? 2LL * B * N * HD * 2 : 0);
+}
+
+// dynamic shared memory of the bf16 forward's heads_fwd_kernel at head
+// width DH
+extern "C" long long fused_heads_forward_smem(int DH) {
+  return (long long)smem_fwd(DH);
 }
 
 // dynamic shared memory of the bf16 backward's q-tile (kernel 0) and k-tile

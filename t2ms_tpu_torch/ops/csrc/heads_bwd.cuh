@@ -56,22 +56,6 @@ template <typename T> struct BwdArgs {
 // caller's lse and delta)
 enum Recipe { PIPE = 0, RECOMP = 1, LEAN = 2 };
 
-// Block -> (element b, tile, head h), the tile fastest, so the blocks of
-// one (element, head) run together and share its operands in L2
-struct Place {
-  int b, t0, h;
-};
-__device__ Place place(int N, int H, int R) {
-  const int tiles = (N + R - 1) / R;
-  return Place{(int)(blockIdx.x / (tiles * H)), (int)(blockIdx.x % tiles) * R,
-               (int)(blockIdx.x / tiles) % H};
-}
-
-using bf16 = __nv_bfloat16;
-
-constexpr int HB_NT = 128;  // threads per block: 4 warps of 16 rows
-constexpr int HB_R = 64;    // rows of a block's own tile, k rows a q step
-
 // q rows per step of the kv kernel: 32 at head width 128 keeps its S^T,
 // dP^T, dK and dV sums within the register file
 __host__ __device__ constexpr int hb_bq(int DH) { return DH == 128 ? 32 : 64; }
@@ -83,254 +67,25 @@ __host__ __device__ constexpr int hb_min_blocks(int DH) {
   return DH == 32 ? 3 : 1;
 }
 
-// bytes of a padded bf16 tile (rows of DH + 8 values)
-__host__ __device__ constexpr size_t hb_tile(int rows, int DH) {
-  return (size_t)rows * (DH + 8) * 2;
-}
-
 // Shared memory of the two kernels (carved in this order): the q kernel's
 // q and g tiles, two stages of K and V tiles and the rows' 1/r; the kv
 // kernel's K and V tiles and two stages of q-side tiles (q, g and,
 // pipelined, the workspace's two) with the rows' statistics.
 __host__ __device__ constexpr size_t smem_bwd_q(int DH) {
-  return 6 * hb_tile(HB_R, DH) + HB_R * 4;
+  return 6 * tc_tile(TC_R, DH) + TC_R * 4;
 }
 __host__ __device__ constexpr size_t smem_bwd_kv(int DH, int rec) {
-  return 2 * hb_tile(HB_R, DH) +
-         2 * ((rec == PIPE ? 4 : 2) * hb_tile(hb_bq(DH), DH) +
+  return 2 * tc_tile(TC_R, DH) +
+         2 * ((rec == PIPE ? 4 : 2) * tc_tile(hb_bq(DH), DH) +
               3 * hb_bq(DH) * 4);
-}
-
-// ------------------------------------------------ PTX: copies and products
-
-__device__ __forceinline__ uint32_t sm_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 (or 4) bytes from device to shared memory, asynchronously; zeros when
-// !ok (src is then not read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sm_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   sm_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(sm_addr(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(sm_addr(p)));
-}
-
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 sums. Thread
-// (group gr = lane / 4, tq = lane % 4) holds c[gr][2tq, 2tq+1] in c[0..1]
-// and c[gr+8][2tq, 2tq+1] in c[2..3].
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// T(x * s) for two bf16 values, one rounding of the exact product, as
-// from_f(to_f(x) * s) with s a bf16 value
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x, uint32_t s) {
-  const __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&x),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&s));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A fragment: rows r0..r0+15, columns c0..c0+15 of a row-major tile
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* t, int ld,
-                                     int r0, int c0) {
-  const int l = threadIdx.x & 31;
-  ldsm4(a, t + (r0 + (l & 15)) * ld + c0 + (l >> 4) * 8);
-}
-// B fragments {b0, b1} of the n8 tiles n0 and n0 + 8 over k0..k0+15, with
-// B(k, n) = t[n][k] (the tile's rows are the product's columns)
-__device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* t, int ld,
-                                     int n0, int k0) {
-  const int l = threadIdx.x & 31;
-  ldsm4(b, t + (n0 + (l & 7) + ((l >> 4) << 3)) * ld + k0 + ((l >> 3) & 1) * 8);
-}
-// the same with B(k, n) = t[k][n] (the tile read k-major, transposed)
-__device__ __forceinline__ void ld_bt(uint32_t (&b)[4], const bf16* t, int ld,
-                                      int k0, int n0) {
-  const int l = threadIdx.x & 31;
-  ldsm4t(b, t + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8);
-}
-
-// rows [0, ROWS) of a head slice (row stride sn) into a padded tile,
-// asynchronously; rows from `valid` on are zeros
-template <int ROWS, int DH>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
-                                        long long sn, int valid) {
-  constexpr int CH = DH / 8, LD = DH + 8;
-  static_assert(ROWS * CH % HB_NT == 0, "whole copies per thread");
-#pragma unroll
-  for (int u = 0; u < ROWS * CH / HB_NT; ++u) {
-    const int idx = u * HB_NT + threadIdx.x, r = idx / CH, c = idx % CH * 8;
-    const bool ok = r < valid;
-    cp16(dst + r * LD + c, src + (size_t)(ok ? r : 0) * sn + c, ok);
-  }
-}
-
-// The A fragments of a warp's 16 rows of a fixed [rows][DH] tile, each
-// optionally scaled by a bf16 pair: held in registers up to head width 64,
-// read again at each use at 128 (which keeps the sums in registers).
-template <int DH, bool SCALED> struct RowFrags {
-  static constexpr bool REGS = DH <= 64;
-  uint32_t f[REGS ? DH / 16 : 1][4];
-  const bf16* t;
-  int r0;
-  uint32_t s2;
-  __device__ __forceinline__ void load(uint32_t (&a)[4], int kk) const {
-    ld_a(a, t, DH + 8, r0, kk * 16);
-    if (SCALED) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = mul_bf16x2(a[i], s2);
-    }
-  }
-  __device__ __forceinline__ void init(const bf16* tile, int row0,
-                                       uint32_t scale2) {
-    t = tile;
-    r0 = row0;
-    s2 = scale2;
-    if constexpr (REGS) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) load(f[kk], kk);
-    }
-  }
-  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk) const {
-    if constexpr (REGS) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
-    } else {
-      load(a, kk);
-    }
-  }
-};
-
-// acc[16 x 8 NT] += A[16 x DH] B, B(c, n) = t[n][c] for the NT * 8 rows of
-// tile t, its B fragments scaled by the bf16 pair s2 when SB
-template <int DH, int NT, bool SA, bool SB>
-__device__ __forceinline__ void rows_by_tile(float (&acc)[NT][4],
-                                             const RowFrags<DH, SA>& A,
-                                             const bf16* t, uint32_t s2) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    A.get(a, kk);
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t b[4];
-      ld_b(b, t, DH + 8, 16 * p, 16 * kk);
-      if (SB) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) b[i] = mul_bf16x2(b[i], s2);
-      }
-      mma16816(acc[2 * p], a, b[0], b[1]);
-      mma16816(acc[2 * p + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x DH] += P[16 x 16 KK] t[16 KK x DH], P given as KK A fragments
-template <int DH, int KK>
-__device__ __forceinline__ void frags_by_tile(float (&acc)[DH / 8][4],
-                                              const uint32_t (&P)[KK][4],
-                                              const bf16* t) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-#pragma unroll
-    for (int p = 0; p < DH / 16; ++p) {
-      uint32_t b[4];
-      ld_bt(b, t, DH + 8, 16 * kk, 16 * p);
-      mma16816(acc[2 * p], P[kk], b[0], b[1]);
-      mma16816(acc[2 * p + 1], P[kk], b[2], b[3]);
-    }
-  }
-}
-
-// T(acc * (row's factor)) for a warp's 16 rows into rows [0, 16) of the
-// padded tile O, then rows n0 + r < N out to dst (row stride HD), 16 bytes
-// a lane
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
-                                           float f0, float f1, bf16* O,
-                                           bf16* dst, int HD, int rows) {
-  constexpr int LD = DH + 8, CH = DH / 8;
-  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int c = 8 * nt + 2 * tq;
-    *reinterpret_cast<uint32_t*>(O + gr * LD + c) =
-        pack_bf16(acc[nt][0] * f0, acc[nt][1] * f0);
-    *reinterpret_cast<uint32_t*>(O + (gr + 8) * LD + c) =
-        pack_bf16(acc[nt][2] * f1, acc[nt][3] * f1);
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * CH; idx += 32) {
-    const int r = idx / CH, c = idx % CH * 8;
-    if (r < rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)r * HD + c) =
-          *reinterpret_cast<const uint4*>(O + r * LD + c);
-  }
-}
-
-__device__ __forceinline__ uint32_t bf16_pair(float s) {
-  return pack_bf16(s, s);
-}
-
-// T(a) and T(b) into ra and rb, and their bf16 pair: one paired conversion
-// and two integer operations (the same round to nearest even as rnd<bf16>)
-__device__ __forceinline__ uint32_t round2(float a, float b, float& ra,
-                                           float& rb) {
-  const uint32_t u = pack_bf16(a, b);
-  ra = __uint_as_float(u << 16);
-  rb = __uint_as_float(u & 0xffff0000u);
-  return u;
-}
-
-// e = T(exp(T(s - m))) for two scores (e0, e1), and their bf16 pair
-__device__ __forceinline__ uint32_t exp_rounded2(float s0, float s1, float m0,
-                                                 float m1, float& e0,
-                                                 float& e1) {
-  float x0, x1;
-  round2(s0 - m0, s1 - m1, x0, x1);
-  return round2(expf(x0), expf(x1), e0, e1);
 }
 
 // ------------------------------------------------------- the q-tile kernel
 
 template <int DH, int REC>
-__global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
+__global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
     heads_bwd_q_kernel(BwdArgs<bf16> a) {
-  constexpr int LD = DH + 8, TILE = HB_R * LD, CH = DH / 8;
+  constexpr int LD = DH + 8, TILE = TC_R * LD, CH = DH / 8;
   constexpr int NP = REC == LEAN ? 1 : 3;  // passes over the k tiles
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qr = reinterpret_cast<bf16*>(smem);  // q, unscaled
@@ -339,26 +94,26 @@ __global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
   float* Irs = reinterpret_cast<float*>(KV + 4 * TILE);  // rows' 1/r
 
   const int N = a.N, H = a.H;
-  const Place pl = place(N, H, HB_R);
+  const Place pl = place(N, H, TC_R);
   const int q0 = pl.t0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tq = lane & 3, w0 = warp * 16;
-  const int nk = (N + HB_R - 1) / HB_R, total = NP * nk;
+  const int nk = (N + TC_R - 1) / TC_R, total = NP * nk;
   const bf16* kh = a.k.head(pl.b, pl.h, DH);
   const bf16* vh = a.v.head(pl.b, pl.h, DH);
 
   // the ring: iteration `it` is pass it / nk (pass 3 only for the lean
   // recipe) over k tile it % nk; the first pass needs no V
   auto fetch = [&](int it) {
-    const int k0 = it % nk * HB_R;
+    const int k0 = it % nk * TC_R;
     bf16* Ks = KV + (it & 1) * 2 * TILE;
-    cp_tile<HB_R, DH>(Ks, kh + (size_t)k0 * a.k.sn, a.k.sn, N - k0);
+    cp_tile<TC_R, DH>(Ks, kh + (size_t)k0 * a.k.sn, a.k.sn, N - k0);
     if (NP == 1 || it >= nk)
-      cp_tile<HB_R, DH>(Ks + TILE, vh + (size_t)k0 * a.v.sn, a.v.sn, N - k0);
+      cp_tile<TC_R, DH>(Ks + TILE, vh + (size_t)k0 * a.v.sn, a.v.sn, N - k0);
   };
-  cp_tile<HB_R, DH>(Qr, a.q.head(pl.b, pl.h, DH) + (size_t)q0 * a.q.sn,
+  cp_tile<TC_R, DH>(Qr, a.q.head(pl.b, pl.h, DH) + (size_t)q0 * a.q.sn,
                     a.q.sn, N - q0);
-  cp_tile<HB_R, DH>(Gt, a.g.head(pl.b, pl.h, DH) + (size_t)q0 * a.g.sn,
+  cp_tile<TC_R, DH>(Gt, a.g.head(pl.b, pl.h, DH) + (size_t)q0 * a.g.sn,
                     a.g.sn, N - q0);
   fetch(0);
   cp_commit();
@@ -393,56 +148,31 @@ __global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
       qf.init(Qr, w0, bf16_pair(a.qscale));
       gf.init(Gt, w0, 0u);
     }
-    const int pass = NP == 1 ? 2 : it / nk, k0 = it % nk * HB_R;
+    const int pass = NP == 1 ? 2 : it / nk, k0 = it % nk * TC_R;
     const bf16* Ks = KV + (it & 1) * 2 * TILE;
     const bf16* Vs = Ks + TILE;
-    const bool ragged = k0 + HB_R > N;
-    float s[8][4] = {};
-    rows_by_tile<DH, 8, true, false>(s, qf, Ks, 0u);
-    if (ragged) {  // columns past N: e = exp(-inf) = 0
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * nt + 2 * tq + (e & 1) >= N) s[nt][e] = -INFINITY;
-      }
-    }
+    float s[8][4];
+    score_tile<DH>(s, qf, Ks, k0, N);
     if (pass == 0) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[nt][e]);
-      }
+      row_max(s, m);
       if (it == nk - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
-          m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
-        }
+        m[0] = quad_max(m[0]);
+        m[1] = quad_max(m[1]);
       }
     } else {
       float dp[8][4] = {};
       rows_by_tile<DH, 8, false, false>(dp, gf, Vs, 0u);
       if (pass == 1) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float e0, e1;
-            exp_rounded2(s[nt][2 * h], s[nt][2 * h + 1], m[h], m[h], e0, e1);
-            rs[h] += e0;
-            rs[h] += e1;
-            us[h] += dp[nt][2 * h] * e0;
-            us[h] += dp[nt][2 * h + 1] * e1;
-          }
-        }
+        uint32_t E[4][4];  // e's fragments, unused: pass 3 forms ds
+        exp_rows(s, m, rs, E, [&](int nt, int h, float e0, float e1) {
+          us[h] += dp[nt][2 * h] * e0;
+          us[h] += dp[nt][2 * h + 1] * e1;
+        });
         if (it == 2 * nk - 1) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-            rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-            us[r] += __shfl_xor_sync(0xffffffffu, us[r], 1);
-            us[r] += __shfl_xor_sync(0xffffffffu, us[r], 2);
+            rs[r] = quad_sum(rs[r]);
+            us[r] = quad_sum(us[r]);
             ir[r] = 1.0f / rs[r];
             tt[r] = us[r] * ir[r];
             const int i = w0 + gr + 8 * r, n = q0 + i;
@@ -459,7 +189,7 @@ __global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
           if (REC == PIPE) {
             // T(q * (scale / r)) and T(g / r), once per q row
             __syncthreads();
-            for (int idx = threadIdx.x; idx < HB_R * CH; idx += HB_NT) {
+            for (int idx = threadIdx.x; idx < TC_R * CH; idx += TC_NT) {
               const int i = idx / CH, c = idx % CH * 8, n = q0 + i;
               if (n >= N) continue;
               const float fi = Irs[i], fq = a.scale * fi;
@@ -520,17 +250,17 @@ __global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
 // ------------------------------------------------------- the k-tile kernel
 
 template <int DH, int REC>
-__global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
+__global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
     heads_bwd_kv_kernel(BwdArgs<bf16> a) {
   constexpr int LD = DH + 8, BQ = hb_bq(DH), NQ = REC == PIPE ? 4 : 2;
   constexpr int QTILE = BQ * LD, STAGE = NQ * QTILE + 3 * BQ * 2;  // bf16s
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Kt = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = Kt + HB_R * LD;
-  bf16* Ring = Vt + HB_R * LD;  // stages of [q | g | q' | g' | stats]
+  bf16* Vt = Kt + TC_R * LD;
+  bf16* Ring = Vt + TC_R * LD;  // stages of [q | g | q' | g' | stats]
 
   const int N = a.N, H = a.H;
-  const Place pl = place(N, H, HB_R);
+  const Place pl = place(N, H, TC_R);
   const int k0 = pl.t0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tq = lane & 3, w0 = warp * 16;
@@ -554,7 +284,7 @@ __global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
     }
     float* St = reinterpret_cast<float*>(Sq + NQ * QTILE);
     constexpr int KN = REC == LEAN ? 2 : 3;
-    for (int idx = threadIdx.x; idx < KN * BQ; idx += HB_NT) {
+    for (int idx = threadIdx.x; idx < KN * BQ; idx += TC_NT) {
       const int k = REC == LEAN ? idx / BQ * 2 : idx / BQ, i = idx % BQ;
       const int n = q0 + i;
       const bool ok = n < N;
@@ -564,9 +294,9 @@ __global__ void __launch_bounds__(HB_NT, hb_min_blocks(DH))
       cp4(St + k * BQ + i, src, ok);
     }
   };
-  cp_tile<HB_R, DH>(Kt, a.k.head(pl.b, pl.h, DH) + (size_t)k0 * a.k.sn,
+  cp_tile<TC_R, DH>(Kt, a.k.head(pl.b, pl.h, DH) + (size_t)k0 * a.k.sn,
                     a.k.sn, N - k0);
-  cp_tile<HB_R, DH>(Vt, a.v.head(pl.b, pl.h, DH) + (size_t)k0 * a.v.sn,
+  cp_tile<TC_R, DH>(Vt, a.v.head(pl.b, pl.h, DH) + (size_t)k0 * a.v.sn,
                     a.v.sn, N - k0);
   fetch(0);
   cp_commit();
@@ -658,9 +388,9 @@ cudaError_t launch_bwd_mma(const BwdArgs<bf16>& a, cudaStream_t st) {
   if ((e = set_smem((const void*)heads_bwd_q_kernel<DH, REC>, s1)) ||
       (e = set_smem((const void*)heads_bwd_kv_kernel<DH, REC>, s2)))
     return e;
-  const int blocks = a.B * ((a.N + HB_R - 1) / HB_R) * a.H;
-  heads_bwd_q_kernel<DH, REC><<<blocks, HB_NT, s1, st>>>(a);
-  heads_bwd_kv_kernel<DH, REC><<<blocks, HB_NT, s2, st>>>(a);
+  const int blocks = a.B * ((a.N + TC_R - 1) / TC_R) * a.H;
+  heads_bwd_q_kernel<DH, REC><<<blocks, TC_NT, s1, st>>>(a);
+  heads_bwd_kv_kernel<DH, REC><<<blocks, TC_NT, s2, st>>>(a);
   return cudaGetLastError();
 }
 

@@ -144,7 +144,8 @@ def _qkv_slices(B, N, HD, dt, seed=0):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("N,HD,H", [(96, 128, 4), (40, 128, 2)])
+@pytest.mark.parametrize("N,HD,H", [(96, 128, 4), (40, 128, 2),
+                                    (130, 256, 2)])  # head width 128, 3 tiles
 def test_fused_heads_twin_matches_jax_kernel(dt, N, HD, H):
     (q, k, v), (jq, jk, jv) = _qkv_slices(2, N, HD, dt)
     want = jattn.fused_heads_attention(jq, jk, jv, H, interpret=True)

@@ -86,23 +86,28 @@ def _jax_stats(jq, jk, jv, H):
 
 # ------------------------------------------------------------ the twins
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_stats_twin_matches_jax_kernel(dt):
+@pytest.mark.parametrize("dt,N,HD,H", [
+    pytest.param("float32", 128, 128, 4, id="float32"),
+    pytest.param("bfloat16", 128, 128, 4, id="bfloat16"),
+    ("float32", 130, 256, 2), ("bfloat16", 130, 256, 2)])
+def test_stats_twin_matches_jax_kernel(dt, N, HD, H):
     """#10's twin against ``fused_heads_attention_with_stats`` in interpret
-    mode at (2, 128, 128), 4 heads: o as #9's, lse absolute; no launch on
-    the CPU, and o equal to ``fused_heads_attention``'s bit for bit."""
-    (q, k, v, _), (jq, jk, jv, _) = _inputs(2, 128, 128, dt)
-    jo, jl = jattn.fused_heads_attention_with_stats(jq, jk, jv, 4,
+    mode at (2, 128, 128), 4 heads of 32, and at (2, 130, 256), 2 heads of
+    128 over three K tiles with a ragged end: o as #9's, lse absolute; no
+    launch on the CPU, and o equal to ``fused_heads_attention``'s bit for
+    bit."""
+    (q, k, v, _), (jq, jk, jv, _) = _inputs(2, N, HD, dt)
+    jo, jl = jattn.fused_heads_attention_with_stats(jq, jk, jv, H,
                                                     interpret=True)
     _build.reset_launch_counts()
-    o, lse = tattn.fused_heads_attention_with_stats(q, k, v, 4)
+    o, lse = tattn.fused_heads_attention_with_stats(q, k, v, H)
     assert not _build.launch_counts
     assert o.dtype == q.dtype and lse.dtype == torch.float32
-    assert tuple(lse.shape) == (2, 128, 4)
+    assert tuple(lse.shape) == (2, N, H)
     _close(o, jo, dt, err_msg="o")
     np.testing.assert_allclose(_np(lse), _np(jl), rtol=0,
                                atol=1e-5 if dt == "float32" else 1e-2)
-    assert torch.equal(o, tattn.fused_heads_attention(q, k, v, 4))
+    assert torch.equal(o, tattn.fused_heads_attention(q, k, v, H))
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
