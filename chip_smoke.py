@@ -192,6 +192,10 @@ import torch
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores
 H100_BYTES = 3.35e12          # HBM3 bytes/s
+# the exponent unit (MUFU.EX2): 16 a clock an SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0) on 132
+# SMs at the 1.98 GHz boost clock (H100 SXM data sheet)
+H100_EX2_RATE = 16 * 132 * 1.98e9
 
 # main-path geometry: the reference-scale T2S DiT over the 64x30 latent
 B_SERIES, N_TOK, D_MODEL, HEADS, HIDDEN, DEPTH = 256, 480, 128, 4, 256, 4
@@ -1018,30 +1022,43 @@ def _rate(r):
             f"{r['bound'] / r['ms']:.2%} of its bound")
 
 
+RESOURCE_FIELDS = (("registers", r"Used (\d+) registers"),
+                   ("stack B", r"(\d+) bytes stack frame"),
+                   ("spill stores B", r"(\d+) bytes spill stores"),
+                   ("spill loads B", r"(\d+) bytes spill loads"),
+                   ("static smem B", r"(\d+) bytes smem"))
+
+
+def _log_resources(what, chunk, smem):
+    got = [(name, re.search(pat, chunk)) for name, pat in RESOURCE_FIELDS]
+    log(f"{what}: "
+        + ", ".join(f"{name} {m[1] if m else 0}" for name, m in got)
+        + f", dynamic smem B {smem}")
+
+
 def log_attention_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    bf16 attention kernels (the forward's ``heads_fwd_kernel``, the
-    backward's ``heads_bwd_q_kernel`` and ``heads_bwd_kv_kernel``; the
-    -Xptxas=-v lines of this run's build of csrc/fused_heads.cu), with
-    their dynamic shared memory from ``fused_heads_forward_smem`` and
-    ``fused_heads_backward_smem``."""
+    bf16 attention kernels (the -Xptxas=-v lines of this run's builds):
+    the fused-heads forward's ``heads_fwd_kernel`` and the backward's
+    ``heads_bwd_q_kernel`` and ``heads_bwd_kv_kernel`` (csrc/fused_heads.cu),
+    with their dynamic shared memory from ``fused_heads_forward_smem`` and
+    ``fused_heads_backward_smem``; and the head-split kernels of
+    csrc/split_heads.cu at each head width: ``split_heads_online_kernel``
+    (#15), ``split_heads_resident_kernel`` and ``split_heads_exact_kernel``
+    (#16, #17: the resident and the streaming route), with
+    ``split_heads_smem`` (the resident route's at 480 tokens)."""
     from t2ms_tpu_torch.ops import _build
+    for name in ("fused_heads", "split_heads"):
+        if not _build.build_logs.get(name):
+            log(f"attention kernel resources: not measured ({name}.cu was "
+                "not built in this process)")
     text = _build.build_logs.get("fused_heads")
-    if not text:
-        log("attention kernel resources: not measured (fused_heads.cu was "
-            "not built in this process)")
-        return
-    lib = _build.load("fused_heads")
     recipes = ("pipelined", "recompute", "lean")
-    fields = (("registers", r"Used (\d+) registers"),
-              ("stack B", r"(\d+) bytes stack frame"),
-              ("spill stores B", r"(\d+) bytes spill stores"),
-              ("spill loads B", r"(\d+) bytes spill loads"),
-              ("static smem B", r"(\d+) bytes smem"))
-    for chunk in text.split("Compiling entry function")[1:]:
+    for chunk in (text or "").split("Compiling entry function")[1:]:
         fwd = re.search(r"heads_fwd_kernelILi(\d+)E", chunk)
         bwd = re.search(r"(heads_bwd_(?:q|kv)_kernel)ILi(\d+)ELi(\d+)E",
                         chunk)
+        lib = _build.load("fused_heads")
         if fwd is not None:
             dh = int(fwd.group(1))
             what = f"fwd kernel resources heads_fwd_kernel d={dh}"
@@ -1053,10 +1070,20 @@ def log_attention_resources():
                 dh, rec, int(kern == "heads_bwd_kv_kernel"))
         else:
             continue
-        got = [(name, re.search(pat, chunk)) for name, pat in fields]
-        log(f"{what}: "
-            + ", ".join(f"{name} {m[1] if m else 0}" for name, m in got)
-            + f", dynamic smem B {smem}")
+        _log_resources(what, chunk, smem)
+    text = _build.build_logs.get("split_heads")
+    for chunk in (text or "").split("Compiling entry function")[1:]:
+        m = re.search(r"(split_heads_(online|resident|exact)_kernel)ILi(\d+)E",
+                      chunk)
+        if m is None:
+            continue
+        lib = _build.load("split_heads")
+        kern, variant, dh = m.group(1), m.group(2), int(m.group(3))
+        smem = lib.split_heads_smem(N_TOK, dh, int(variant != "online"),
+                                    int(variant == "resident"))
+        _log_resources(f"head-split kernel resources {kern} d={dh} "
+                       f"({'online' if variant == 'online' else 'exact'})",
+                       chunk, smem)
 
 
 def _nbytes(*ts):
@@ -1969,7 +1996,9 @@ def lean_long_train_phase(ls_dit, ls_vae, gen):
 
 # ----------------- the head-split kernels (#15, #16, #17) and their paths
 
-HEAD_SPLIT_PARTS = ("split_heads_kernel",)
+HEAD_SPLIT_PARTS = ("split_heads_online_kernel",
+                    "split_heads_resident_kernel",
+                    "split_heads_exact_kernel", "split_heads_f32_kernel")
 
 
 def _split_views(f, B, N, dt, heads=HEADS, dh=D_MODEL // HEADS):
@@ -1988,7 +2017,11 @@ def split_heads_phase(gen):
     also round p to bf16 after f32 sums in another order), f32 2e-4
     (summation order). The bound is the larger of 4*B*H*N^2*d operations
     over the peak and the bytes of q, k, v and o over the memory rate; the
-    library yardstick is torch SDPA forward over the same views."""
+    library yardstick is torch SDPA forward over the same views. Each bf16
+    row also logs its device time by torch.profiler beside the CUDA-event
+    time (which holds the wrapper's host path before the launch) and the
+    exponent unit's floor: one exponential a score for the online softmax,
+    two for the exact one, at H100_EX2_RATE."""
     import torch.nn.functional as F
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (
@@ -2021,6 +2054,9 @@ def split_heads_phase(gen):
                 del got, want, truth
                 torch.cuda.empty_cache()
                 ms = cuda_ms(lambda: fn(q, k, v))
+                split = (device_ms_by_kernel(lambda: fn(q, k, v),
+                                             HEAD_SPLIT_PARTS)
+                         if dt == torch.bfloat16 else {})
                 plain = cuda_ms(lambda: twin(q, k, v))
                 lib = (cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v)) if dt == torch.bfloat16 else None)
@@ -2028,8 +2064,19 @@ def split_heads_phase(gen):
             r = _row(err, ms, plain, 4 * b * HEADS * N * N * dh,
                      _nbytes(q, k, v, q), peak, lib)
             out[(key, dt)] = r
-            log(f"{what}: {r['ms']:.4f} ms, twin {r['plain']:.4f} ms, bound "
-                f"{r['bound']:.4f} ms ({r['by']})"
+            # the exact softmax takes two exponentials of each score
+            exps = (1 if fn is flash_attention else 2) * b * HEADS * N * N
+            dev = ""
+            if dt == torch.bfloat16:
+                r["device_ms"] = split.get("(all device time)")
+                dev = (", device " + (f"{r['device_ms']:.4f} ms "
+                                      "(torch.profiler)" if split
+                                      else "not measured"))
+            log(f"{what}: {r['ms']:.4f} ms (CUDA events){dev}, twin "
+                f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
+                f"({r['by']}), exponent-unit floor "
+                f"{exps / H100_EX2_RATE * 1e3:.4f} ms ({exps:.3g} ex2 at "
+                f"{H100_EX2_RATE:.3g}/s)"
                 + (f", SDPA {lib:.4f} ms" if lib is not None else ""))
             del q, k, v
             torch.cuda.empty_cache()

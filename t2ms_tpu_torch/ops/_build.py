@@ -149,7 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "fused_heads_forward_stats": [P] * 5 + [I] * 4 + [L] * 6 + [F, P],
         "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [I, F, F, P],
         "fused_heads_backward_lean": [P] * 9 + [I] * 4 + [L] * 8 + [F, F, P],
-        "split_heads_forward": [P] * 4 + [I] * 4 + [L] * 12 + [I, F, P],
+        "split_heads_forward": [P] * 4 + [I] * 4 + [L] * 12 + [I, I, F, P],
     }
     for base, argtypes in sigs.items():
         for fn in (f"{base}_bf16", f"{base}_f32"):
@@ -161,7 +161,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                   ("res_mod_ln_backward_workspace", 3),
                   ("fused_heads_backward_workspace", 5),
                   ("fused_heads_forward_smem", 1),
-                  ("fused_heads_backward_smem", 3)):
+                  ("fused_heads_backward_smem", 3),
+                  ("split_heads_smem", 4)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = ctypes.c_longlong

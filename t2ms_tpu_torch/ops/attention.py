@@ -70,8 +70,8 @@ __all__ = ["einsum_attention", "einsum_natural", "attn_heads_natural",
            "fused_heads_block_q", "attention_route", "attention",
            "flash_attention", "vmem_attention", "packed_attention",
            "flash_reference", "vmem_reference", "packed_reference",
-           "split_heads_supported", "FLASH_KERNEL", "VMEM_KERNEL",
-           "PACKED_KERNEL", "SPLIT_HEAD_WIDTHS"]
+           "split_heads_supported", "split_heads_route", "FLASH_KERNEL",
+           "VMEM_KERNEL", "PACKED_KERNEL", "SPLIT_HEAD_WIDTHS"]
 
 FUSED_HEADS_KERNEL = "fused_heads_attention"
 FUSED_HEADS_BWD_KERNEL = "fused_heads_attention_bwd"
@@ -824,6 +824,9 @@ PACKED_KERNEL = "packed_attention"
 SPLIT_HEAD_WIDTHS = (16, 32, 64, 128)     # split_heads_check in split_heads.cu
 _SPLIT_ENTRY = {torch.bfloat16: "split_heads_forward_bf16",
                 torch.float32: "split_heads_forward_f32"}
+# Shared memory (bytes) a resident block may take so that two share an
+# H100 SM: 228 KB an SM, 1 KB of it reserved for each block.
+SPLIT_RESIDENT_SMEM = (228 * 1024) // 2 - 1024
 
 
 def _auto_block(n: int, cap: int = 256) -> int:
@@ -938,6 +941,22 @@ def split_heads_supported(head_width: int, dtype: torch.dtype) -> bool:
                             int(dtype == torch.bfloat16))
 
 
+def split_heads_route(n: int, d: int, dtype: torch.dtype,
+                      exact: bool) -> str:
+    """The route of ``csrc/split_heads.cu`` for N = ``n`` tokens at head
+    width ``d``: "resident" where the exact softmax (#16, #17) runs in bf16
+    and the head's whole K and V (N rounded up to the 64-key tile, rows
+    padded by 16 bytes: 2 * N * (d + 8) bf16 values) fit
+    ``SPLIT_RESIDENT_SMEM``, so each block loads them once; else "stream",
+    the cp.async ring over 64-key tiles (always for the online softmax,
+    #15, and for f32)."""
+    rows = -(-n // 64) * 64
+    if exact and dtype == torch.bfloat16 and (
+            2 * rows * (d + 8) * 2 <= SPLIT_RESIDENT_SMEM):
+        return "resident"
+    return "stream"
+
+
 def _check_split(name, q, k, v):
     if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype
                            or t.device != q.device for t in (k, v)):
@@ -963,8 +982,9 @@ def _strided4(t):
 def _launch_split_heads(name, exact, q, k, v, scale):
     """One launch of ``csrc/split_heads.cu``, counted under ``name``: the
     online-softmax kernel (#15) or, with ``exact``, the exact-softmax one
-    (#16, #17). The output is a (B, H, N, D) view of a (B, N, H, D)
-    tensor, so merging the heads back into (B, N, H*D) copies nothing."""
+    (#16, #17), on the route ``split_heads_route`` picks. The output is a
+    (B, H, N, D) view of a (B, N, H, D) tensor, so merging the heads back
+    into (B, N, H*D) copies nothing."""
     B, H, N, D = q.shape
     refused = ValueError(
         f"{name} CUDA kernel does not take B={B} H={H} N={N} head width "
@@ -977,9 +997,10 @@ def _launch_split_heads(name, exact, q, k, v, scale):
     o = torch.empty((B, N, H, D), device=q.device,
                     dtype=q.dtype).permute(0, 2, 1, 3)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    resident = split_heads_route(N, D, q.dtype, exact) == "resident"
     _build.launch(_build.load("split_heads"), _SPLIT_ENTRY[q.dtype], name,
                   refused, q.device, q, k, v, o, B, H, N, D, *strides,
-                  int(exact), float(scale))
+                  int(exact), int(resident), float(scale))
     return o
 
 

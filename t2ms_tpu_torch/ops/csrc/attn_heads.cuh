@@ -2,6 +2,7 @@
 // attention) and fused_heads.cu (fused_heads_attention, its stats variant
 // fused_heads_attention_with_stats, and their backwards in heads_bwd.cuh):
 // the forward kernels and the tensor-core primitives both directions use.
+// split_heads.cu (the head-split kernels) uses the primitives too.
 //
 // Operands are on the natural (B, N, H*DH) layout, head h the columns
 // [h*DH, (h+1)*DH). Each of q, k, v (and, in the backward, g) is read
@@ -302,17 +303,24 @@ __device__ __forceinline__ void ld_bt(uint32_t (&b)[4], const bf16* t, int ld,
 }
 
 // rows [0, ROWS) of a head slice (row stride sn) into a padded tile,
-// asynchronously; rows from `valid` on are zeros
-template <int ROWS, int DH>
+// asynchronously, by a block of NTH threads; rows from `valid` on are zeros
+template <int ROWS, int DH, int NTH = TC_NT>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
                                         long long sn, int valid) {
   constexpr int CH = DH / 8, LD = DH + 8;
-  static_assert(ROWS * CH % TC_NT == 0, "whole copies per thread");
+  if constexpr (ROWS * CH % NTH == 0) {
 #pragma unroll
-  for (int u = 0; u < ROWS * CH / TC_NT; ++u) {
-    const int idx = u * TC_NT + threadIdx.x, r = idx / CH, c = idx % CH * 8;
-    const bool ok = r < valid;
-    cp16(dst + r * LD + c, src + (size_t)(ok ? r : 0) * sn + c, ok);
+    for (int u = 0; u < ROWS * CH / NTH; ++u) {
+      const int idx = u * NTH + threadIdx.x, r = idx / CH, c = idx % CH * 8;
+      const bool ok = r < valid;
+      cp16(dst + r * LD + c, src + (size_t)(ok ? r : 0) * sn + c, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * CH; idx += NTH) {
+      const int r = idx / CH, c = idx % CH * 8;
+      const bool ok = r < valid;
+      cp16(dst + r * LD + c, src + (size_t)(ok ? r : 0) * sn + c, ok);
+    }
   }
 }
 

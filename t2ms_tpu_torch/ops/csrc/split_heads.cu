@@ -7,49 +7,78 @@
 // the last two the same exact softmax with p normalised and cast to v's
 // dtype before PV. The TPU kernels hold one (b, h) row's whole K and V (and,
 // for the exact ones, the whole (N, N) score matrix) in VMEM; a Hopper block
-// has 227 KB of shared memory, so here every block owns 64 q rows of one
-// (b, h) and streams K/V through shared memory in 64-row tiles:
+// has 227 KB of shared memory, so the scores stay in registers, 16 q rows a
+// warp, and K and V come through shared memory:
 //
-//   online (#15)  one pass over the K/V tiles: s = (q k^T) * scale in f32,
-//                 the running row max m, the correction exp(m_old - m_new),
-//                 p = exp(s - m_new) and the row sum all in f32, the f32
-//                 accumulator rescaled and p v added; o = T(acc / sum).
-//   exact (#16, #17)  two passes: the f32 row max and sum (carried online,
-//                 the same as max-then-sum up to f32 rounding), then p =
-//                 exp(s - m) / sum, cast to T, PV accumulated in f32, o =
-//                 T(PV).
+//   online (#15)  one pass over the K/V tiles: s = q k^T in f32, the
+//                 running row max m, the correction 2^(c m_old - c m_new),
+//                 p = 2^(c s - c m) and the row sum all in f32 (c = scale *
+//                 log2(e)), the f32 accumulator rescaled and p v added with
+//                 p as two bf16 products (p = hi + lo, which keeps p's
+//                 rounding below the output's); o = T(acc / sum).
+//   exact (#16, #17)  two passes: the f32 row max and sum (each thread
+//                 carries its own max and sum over its columns; the four
+//                 threads of a row combine them once), then p = 2^(c s -
+//                 c m) * (1 / sum) in f32, cast to T, PV accumulated in f32,
+//                 o = T(PV).
 //
-// Each warp owns 16 q rows and keeps its scores and its output accumulator in
-// registers in the layout of mma.sync.m16n8k16 (bf16 operands, f32 sums):
-// q k^T from the q fragments (held for the whole loop) and k rows, p v with p
-// straight from the score registers and v stored transposed in shared memory.
-// The exact kernels' PV takes p rounded to bf16, as the TPU kernels do; the
-// online kernel's p is f32 there, so it enters PV as two bf16 products (p =
-// hi + lo), which keeps p's rounding below the output's. f32 operands run the
-// same loops with FMA products on the CUDA cores (p through shared memory),
-// so the f32 kernels compute in full f32.
+// The rounding points are the JAX kernels' (f32 s, m and sum; exact: T(p)
+// before PV; online: f32 throughout, T() at the end). Two things move f32
+// values by a few ulp and nothing else: the exponential is ex2.approx.ftz
+// (one MUFU.EX2, relative error about 2^-22, results below 2^-126 flushed to
+// 0) of s * c - m * c formed by one FFMA, where the JAX kernels take
+// exp(s * scale - m); and the exact kernels multiply by one reciprocal of
+// the row sum where JAX divides every score.
+//
+// bf16 keeps the scores in registers in the mma.m16n8k16 accumulator layout
+// (the row max over the quad of lanes that holds a row, p packed from the
+// score registers into the A fragments of PV), with q's fragments read from
+// device memory straight into registers. Only the 64-key tile that crosses
+// N masks its keys to -inf; rows past N load as zero. Three kernels:
+//
+//   split_heads_online_kernel (#15)  8 warps (two warpgroups) own 128 q
+//            rows of one (b, h); K and V stream through a cp.async ring of
+//            three 64-key stages in wgmma's core-matrix layout, one
+//            __syncthreads a tile. q K^T and p V run on wgmma, K read
+//            K-major and V transposed through shared-memory descriptors.
+//            Each tile starts the next tile's q K^T before its own softmax,
+//            so the tensor cores and the exponent unit work at once.
+//   split_heads_resident_kernel (#16, #17 where 2 * N * (DH + 8) * 2 bytes
+//            fit two blocks an SM: attention.py split_heads_route) the
+//            block copies its head's whole K and V into shared memory once
+//            and its 8 warps loop over the head's 16-row q tiles, the two
+//            passes reading K (ldmatrix, ld_b) and V (ldmatrix.trans,
+//            ld_bt) from shared memory into mma.sync. One block covers a
+//            whole head where the grid holds two blocks an SM anyway
+//            (packed_480: 2048 heads); with fewer heads (vmem_480: 32) a
+//            head's q tiles split over up to ceil(tiles / 8) blocks.
+//   split_heads_exact_kernel (#16, #17 where they do not fit) 8 warps own
+//            128 q rows and stream K, then K and V, through a cp.async ring
+//            of padded 64-row tiles into ldmatrix and mma.sync.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the 8192-token
+// DiT's serving call (2B=8, H=4, N=8192, DH=32) the two N x N x DH products
+// are 274.9 GFLOP, 0.278 ms, against 8.4 MB of q, k, v and o; at the packed
+// sampler's call (2B=512, H=4, N=480, DH=32) 60.4 GFLOP, 0.061 ms, against
+// 252 MB, 0.075 ms. At head width 32 a score carries 128 tensor-core flops,
+// so the exponent unit is a floor of its own: 16 ex2 a clock an SM, about
+// 4.2e12 a second on 132 SMs, 0.51 ms for #15's 2.1e9 exponentials and 0.23
+// ms for #17's two of each of its 0.47e9 scores. The per-score scalar work
+// (the max, one FFMA, the sum, the bf16 packing) runs beside it, and #15's
+// p V is two products (hi and lo).
+//
+// f32 runs split_heads_f32_kernel, the first version's FMA loops (4 warps,
+// 64 q rows, plain tile loads, p through shared memory), which the CPU-twin
+// checks hold tight; no timed path runs it.
 //
 // q, k, v and o are read and written through their own batch, head and row
 // strides (16-byte aligned rows, unit column stride: the wrapper checks), so
 // the head-split views of one qkv projection are not copied and the output
-// can be a view of the merged (B, N, H*DH) layout. Rows past N load as zero;
-// their keys are masked to -inf before the max.
-//
-// Bound on an H100 SXM at the 8192-token DiT's serving call (2B=8, H=4,
-// N=8192, DH=32, bf16): the two N x N x DH products are 274.9 GFLOP, 0.278 ms
-// at 989 TFLOP/s, against 8.4 MB of q, k, v and o: bound by operations, and
-// the exp of every score (2.1e9 of them) runs on the CUDA cores beside the
-// tensor cores. This first kernel stages its tiles with plain loads (no
-// cp.async or TMA pipeline, no wgmma): see PERF.md for its times.
+// can be a view of the merged (B, N, H*DH) layout.
 
-#include "dit_common.cuh"
+#include "attn_heads.cuh"
 
 namespace {
-
-constexpr int SQ = 64;               // q rows per block, 16 per warp
-constexpr int SK = 64;               // keys per tile
-constexpr int SWARPS = SQ / 16;
-constexpr int STHREADS = SWARPS * 32;
 
 struct Strides {
   long long b, h, n;
@@ -60,223 +89,761 @@ struct SplitShape {
   float scale;
 };
 
+// ------------------------------------------------------- bf16: both routes
+
+constexpr int SW = 8;         // warps of a bf16 block, 16 q rows each
+constexpr int SNT = SW * 32;  // its threads
+constexpr int SR = SW * 16;   // q rows of a streaming block
+constexpr int KR = TC_R;      // keys a tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the ring's stages: three, but two for the exact kernel at head widths 64
+// and 128 (padded tiles)
+__host__ __device__ constexpr int split_stages(int DH, bool exact) {
+  return exact && DH > 32 ? 2 : 3;
+}
+// blocks per SM the register budget is cut for: two of 8 warps (128
+// registers), one at head width 128
+__host__ __device__ constexpr int split_min_blocks(int DH) {
+  return DH == 128 ? 1 : 2;
+}
+// a stage of [K | V]: padded rows for ldmatrix (exact), core matrices for
+// wgmma (online)
+__host__ __device__ constexpr size_t smem_stream(int DH, bool exact) {
+  return (size_t)split_stages(DH, exact) * 2 *
+         (exact ? tc_tile(KR, DH) : (size_t)KR * DH * 2);
+}
+// the resident route's K and V of a whole head, N rounded up to a tile
+__host__ __device__ inline size_t smem_resident(int N, int DH) {
+  return 2 * tc_tile((N + KR - 1) / KR * KR, DH);
+}
+
+// 2^x on the exponent unit (MUFU.EX2); 2^-inf = +0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A fragments of q's 16 rows r0.. of a head slice (row stride sn),
+// read from device memory straight into registers; rows at or past N zero
+template <int DH>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[DH / 16][4],
+                                       const bf16* __restrict__ qh,
+                                       long long sn, int r0, int N) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  const bool ok0 = r0 + gr < N, ok1 = r0 + gr + 8 < N;
+  const bf16* p0 = qh + (size_t)(r0 + gr) * sn + 2 * tq;
+  const bf16* p1 = p0 + 8 * sn;
+  auto ld = [](const bf16* p, bool ok) {
+    return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+  };
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    qa[kk][0] = ld(p0 + 16 * kk, ok0);
+    qa[kk][1] = ld(p1 + 16 * kk, ok1);
+    qa[kk][2] = ld(p0 + 16 * kk + 8, ok0);
+    qa[kk][3] = ld(p1 + 16 * kk + 8, ok1);
+  }
+}
+
+// s = q K^T (f32 sums) for the 64 keys of tile Ks. s[nt][e] is row gr + 8
+// (e / 2), key 8 nt + 2 tq + e % 2 of the tile.
+template <int DH>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4],
+                                        const uint32_t (&qa)[DH / 16][4],
+                                        const bf16* Ks) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t b[4];
+      ld_b(b, Ks, DH + 8, 16 * p, 16 * kk);
+      mma16816(s[2 * p], qa[kk], b[0], b[1]);
+      mma16816(s[2 * p + 1], qa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// in the tile at k0 that crosses N, the keys at or past N to -inf
+__device__ __forceinline__ void mask_tile(float (&s)[8][4], int k0, int N) {
+  if (k0 + KR > N) {
+    const int tq = threadIdx.x & 3;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * nt + 2 * tq + (e & 1) >= N) s[nt][e] = -INFINITY;
+    }
+  }
+}
+
+// the largest of the thread's 16 scores of row h
+__device__ __forceinline__ float tile_max(const float (&s)[8][4], int h) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+  return mx;
+}
+
+// exact, pass 1: this thread's running c * max (mc) and sum of 2^(c s - mc)
+// over its own columns of each of its two rows; -inf until it has seen a
+// key (with N < 4 a thread may see none)
+__device__ __forceinline__ void thread_stats(const float (&s)[8][4], float c,
+                                             float (&mc)[2], float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(mc[h], tile_max(s, h) * c);
+    const float sub = mn == -INFINITY ? 0.0f : mn;
+    float sum = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      sum += ex2(fmaf(s[nt][2 * h], c, -sub)) +
+             ex2(fmaf(s[nt][2 * h + 1], c, -sub));
+    l[h] = l[h] * ex2(mc[h] - sub) + sum;
+    mc[h] = mn;
+  }
+}
+
+// exact, after pass 1: the row's c * max over the quad of lanes that holds
+// it into mc, and 1 / (the row sum) into l
+__device__ __forceinline__ void row_totals(float (&mc)[2], float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m = quad_max(mc[h]);  // finite: key 0 is in every row
+    l[h] = 1.0f / quad_sum(l[h] * ex2(mc[h] - m));
+    mc[h] = m;
+  }
+}
+
+// exact, pass 2: acc += T(2^(c s - mc) * rinv) V for the 64 rows of tile Vs
+template <int DH>
+__device__ __forceinline__ void exact_pv(float (&acc)[DH / 8][4],
+                                         const float (&s)[8][4], float c,
+                                         const float (&mc)[2],
+                                         const float (&rinv)[2],
+                                         const bf16* Vs) {
+  uint32_t P[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      P[nt / 2][(nt & 1) * 2 + h] =
+          pack_bf16(ex2(fmaf(s[nt][2 * h], c, -mc[h])) * rinv[h],
+                    ex2(fmaf(s[nt][2 * h + 1], c, -mc[h])) * rinv[h]);
+  }
+  frags_by_tile<DH, 4>(acc, P, Vs);
+}
+
+// online: one tile's softmax before its PV. mc (c * the running max) and
+// the row sums l are the quad's; l is rescaled by corr = 2^(mc_old -
+// mc_new) (the caller rescales the accumulator by it), then p = 2^(c s -
+// mc) is added to l and split into the A fragments hi + lo of PV, 16 keys
+// each.
+__device__ __forceinline__ void online_probs(const float (&s)[8][4], float c,
+                                             float (&mc)[2], float (&l)[2],
+                                             float (&corr)[2],
+                                             uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(mc[h], quad_max(tile_max(s, h)) * c);
+    corr[h] = ex2(mc[h] - mn);  // 0 at the first tile
+    mc[h] = mn;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float e0 = ex2(fmaf(s[nt][2 * h], c, -mc[h]));
+      const float e1 = ex2(fmaf(s[nt][2 * h + 1], c, -mc[h]));
+      l[h] += e0 + e1;
+      float r0, r1;
+      const int i = (nt & 1) * 2 + h;
+      hi[nt / 2][i] = round2(e0, e1, r0, r1);
+      lo[nt / 2][i] = pack_bf16(e0 - r0, e1 - r1);
+    }
+  }
+}
+
+// ------------------------------------------- wgmma (the online kernel's)
+
+// K and V tiles of the online kernel hold core matrices of 8 keys x 8
+// columns (8 rows of 16 bytes, 128 contiguous bytes), a row's column chunks
+// 128 bytes apart and key groups DH * 16 bytes apart: wgmma's layout without
+// swizzle, read K-major for q K^T and MN-major (transposed) for p V.
+template <int DH> struct CoreCopy {
+  static constexpr int CH = DH / 8, U = (KR * CH + SNT - 1) / SNT;
+  int r[U];                 // this thread's rows of a tile (KR: none)
+  uint32_t so[U];           // their chunks' byte offsets in the tile
+  long long gk[U], gv[U];   // and their elements' offsets in K and V
+  __device__ __forceinline__ void init(long long skn, long long svn) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = u * SNT + threadIdx.x, c = idx % CH;
+      r[u] = idx < KR * CH ? idx / CH : KR;
+      so[u] = (r[u] >> 3) * (16 * DH) + c * 128 + (r[u] & 7) * 16;
+      gk[u] = r[u] * skn + c * 8;
+      gv[u] = r[u] * svn + c * 8;
+    }
+  }
+  // the K and V tiles whose row 0 is at kt and vt, rows from `valid` on
+  // zero, into Ks and Vs, asynchronously
+  __device__ __forceinline__ void copy(bf16* Ks, bf16* Vs, const bf16* kt,
+                                       const bf16* vt, int valid) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r[u] < KR) {
+        const bool ok = r[u] < valid;
+        cp16(reinterpret_cast<char*>(Ks) + so[u], ok ? kt + gk[u] : kt, ok);
+        cp16(reinterpret_cast<char*>(Vs) + so[u], ok ? vt + gv[u] : vt, ok);
+      }
+    }
+  }
+};
+
+// a shared-memory matrix descriptor, no swizzle: leading and stride byte
+// offsets as wgmma reads them for the operand's major-ness
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((sm_addr(p) & 0x3FFFF) >> 4) |
+         (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32;
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the generic proxy's shared-memory writes (cp.async) made visible to
+// wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving uses of an accumulator across a wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+  }
+}
+
+// d[64 x N] (+)= a[64 x 16] b[16 x N] for a warpgroup, a from registers
+// (each warp's 16 rows in the mma16816 A layout), b through a descriptor,
+// read transposed when TB; d in the mma16816 C layout per n8 tile. scale_d
+// 0 overwrites d.
+template <int N> struct WgMma;
+template <> struct WgMma<16> {
+  template <int TB>
+  static __device__ __forceinline__ void run(float (&d)[2][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+template <> struct WgMma<32> {
+  template <int TB>
+  static __device__ __forceinline__ void run(float (&d)[4][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+template <> struct WgMma<64> {
+  template <int TB>
+  static __device__ __forceinline__ void run(float (&d)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+template <> struct WgMma<128> {
+  template <int TB>
+  static __device__ __forceinline__ void run(float (&d)[16][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+// T(acc), or with DIV T(acc / l), for the warp's 16 rows r0.. below N, in
+// pairs of 4 bytes through o's row stride
+template <int DH, bool DIV>
+__device__ __forceinline__ void store_o(const float (&acc)[DH / 8][4],
+                                        const float (&l)[2], bf16* oh,
+                                        long long sn, int r0, int N) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gr + 8 * h;
+    if (row >= N) continue;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      float x = acc[nt][2 * h], y = acc[nt][2 * h + 1];
+      if (DIV) {
+        x /= l[h];
+        y /= l[h];
+      }
+      *reinterpret_cast<uint32_t*>(oh + (size_t)row * sn + 8 * nt + 2 * tq) =
+          pack_bf16(x, y);
+    }
+  }
+}
+
+// Streaming route of the exact softmax (#16, #17 where K and V do not fit):
+// one block per (b, h, 128 q rows), the q tile fastest, so the blocks of
+// one (b, h) share its K/V in L2; the ring runs twice, K alone for the row
+// statistics, then K and V.
+template <int DH>
+__global__ void __launch_bounds__(SNT, split_min_blocks(DH))
+    split_heads_exact_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             bf16* __restrict__ o, const SplitShape s) {
+  constexpr int TILE = KR * (DH + 8), S = split_stages(DH, true);
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* KV = reinterpret_cast<bf16*>(smem);  // S stages of [K | V]
+
+  const int N = s.N, q_tiles = (N + SR - 1) / SR;
+  const int bh = blockIdx.x / q_tiles, b = bh / s.H, h = bh % s.H;
+  const int r0 = blockIdx.x % q_tiles * SR + (threadIdx.x >> 5) * 16;
+  const bf16* kh = k + b * s.k.b + h * s.k.h;
+  const bf16* vh = v + b * s.v.b + h * s.v.h;
+  const int nk = (N + KR - 1) / KR, total = 2 * nk;
+
+  // iteration `it` is pass it / nk over k tile it % nk, in stage it % S;
+  // the first pass needs no V. Every call commits a group (empty past the
+  // last tile), so the wait below counts S - 2 younger groups.
+  auto fetch = [&](int it) {
+    if (it < total) {
+      const int k0 = it % nk * KR;
+      bf16* Ks = KV + it % S * 2 * TILE;
+      cp_tile<KR, DH, SNT>(Ks, kh + (size_t)k0 * s.k.n, s.k.n, N - k0);
+      if (it >= nk)
+        cp_tile<KR, DH, SNT>(Ks + TILE, vh + (size_t)k0 * s.v.n, s.v.n,
+                             N - k0);
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) fetch(st);
+  uint32_t qa[DH / 16][4];
+  load_q<DH>(qa, q + b * s.q.b + h * s.q.h, s.q.n, r0, N);
+
+  const float c = s.scale * LOG2E;
+  float mc[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  for (int it = 0; it < total; ++it) {
+    cp_wait<S - 2>();
+    __syncthreads();    // tile `it` in; every warp done with tile it - 1
+    fetch(it + S - 1);  // into the stage tile it - 1 used
+    const bf16* Ks = KV + it % S * 2 * TILE;
+    float sc[8][4];
+    qk_tile<DH>(sc, qa, Ks);
+    mask_tile(sc, it % nk * KR, N);
+    if (it < nk) {
+      thread_stats(sc, c, mc, l);
+      if (it == nk - 1) row_totals(mc, l);
+    } else {
+      exact_pv<DH>(acc, sc, c, mc, l, Ks + TILE);
+    }
+  }
+  store_o<DH, false>(acc, l, o + b * s.o.b + h * s.o.h, s.o.n, r0, N);
+}
+
+// The online softmax (#15): one block per (b, h, 128 q rows), the q tile
+// fastest, two warpgroups of 64 rows. q K^T and p V run on wgmma (q and p
+// from registers, K and V through descriptors). Each tile's step starts
+// q K^T of the next tile first, so that product runs on the tensor cores
+// while this tile's softmax runs on the ALUs and the exponent unit; then p
+// V, waited for before the next step. K and V stream through a ring of S
+// stages of core-matrix tiles: a step reads tile it (V) and it + 1 (K) and
+// refills tile it - 1's stage, S - 2 tiles ahead.
+template <int DH>
+__global__ void __launch_bounds__(SNT, split_min_blocks(DH))
+    split_heads_online_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              bf16* __restrict__ o, const SplitShape s) {
+  constexpr int TILE = KR * DH, S = split_stages(DH, false);
+  static_assert(S >= 3, "the ring holds tiles it and it + 1 and a refill");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* KV = reinterpret_cast<bf16*>(smem);  // S stages of [K | V]
+
+  const int N = s.N, q_tiles = (N + SR - 1) / SR;
+  const int bh = blockIdx.x / q_tiles, b = bh / s.H, h = bh % s.H;
+  const int r0 = blockIdx.x % q_tiles * SR + (threadIdx.x >> 5) * 16;
+  const bf16* kh = k + b * s.k.b + h * s.k.h;
+  const bf16* vh = v + b * s.v.b + h * s.v.h;
+  const int nk = (N + KR - 1) / KR;
+
+  CoreCopy<DH> cp;
+  cp.init(s.k.n, s.v.n);
+  // every call commits a group (empty past the last tile), so the waits
+  // count a fixed number of younger groups
+  auto fetch = [&](int it) {
+    if (it < nk) {
+      bf16* Ks = KV + it % S * 2 * TILE;
+      cp.copy(Ks, Ks + TILE, kh + (size_t)it * KR * s.k.n,
+              vh + (size_t)it * KR * s.v.n, N - it * KR);
+    }
+    cp_commit();
+  };
+  auto stage = [&](int it) { return KV + it % S * 2 * TILE; };
+  // s = q K^T over tile `it`'s keys, started, not waited for
+  uint32_t qa[DH / 16][4];
+  auto start_qk = [&](float (&sc)[8][4], int it) {
+    const bf16* Ks = stage(it);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      WgMma<64>::run<0>(sc, qa[kk], wg_desc(Ks + kk * 128, 128, 16 * DH),
+                        kk);
+    wg_commit();
+  };
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) fetch(st);
+  load_q<DH>(qa, q + b * s.q.b + h * s.q.h, s.q.n, r0, N);
+  const float c = s.scale * LOG2E;
+  float mc[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+
+  // one tile: sc holds tile it's scores, sn receives tile it + 1's (past
+  // the last tile, from a stale stage, and dropped). No branch surrounds a
+  // wgmma and both waits drain every group: then ptxas keeps q K^T in
+  // flight across the softmax (partial waits made it serialise them all).
+  auto step = [&](float (&sc)[8][4], float (&sn)[8][4], int it) {
+    cp_wait<S - 3>();
+    fence_async_shared();
+    __syncthreads();    // tile it + 1 in; every warp done with tile it - 1
+    fetch(it + S - 1);  // into tile it - 1's stage
+    start_qk(sn, it + 1);
+    mask_tile(sc, it * KR, N);
+    float corr[2];
+    uint32_t hi[4][4], lo[4][4];
+    online_probs(sc, c, mc, l, corr, hi, lo);
+    wg_wait<0>();  // q K^T of tile it + 1 done
+    fence_regs(sn);
+    fence_regs(acc);
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      acc[nt][0] *= corr[0];
+      acc[nt][1] *= corr[0];
+      acc[nt][2] *= corr[1];
+      acc[nt][3] *= corr[1];
+    }
+    const bf16* Vs = stage(it) + TILE;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t vd = wg_desc(Vs + kk * 16 * DH, 16 * DH, 128);
+      WgMma<DH>::template run<1>(acc, hi[kk], vd, 1);
+      WgMma<DH>::template run<1>(acc, lo[kk], vd, 1);
+    }
+    wg_commit();
+    wg_wait<0>();  // p V of tile it done
+    fence_regs(acc);
+  };
+
+  float s0[8][4], s1[8][4];
+  cp_wait<S - 2>();
+  fence_async_shared();
+  __syncthreads();  // tile 0 in
+  start_qk(s0, 0);
+  wg_wait<0>();
+  fence_regs(s0);
+  int it = 0;
+  for (; it + 1 < nk; it += 2) {
+    step(s0, s1, it);
+    step(s1, s0, it + 1);
+  }
+  if (it < nk) step(s0, s1, it);
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  store_o<DH, true>(acc, l, o + b * s.o.b + h * s.o.h, s.o.n, r0, N);
+}
+
+// Resident route (exact softmax): block -> (b, h, a run of `tpb` 16-row q
+// tiles), the run fastest. The head's K and V come into shared memory once
+// (K first, so pass 1 starts while V lands); warp w takes the run's tiles
+// w, w + 8, ..., prefetching the next tile's q into registers before the
+// current tile's pass 2.
+template <int DH>
+__global__ void __launch_bounds__(SNT, split_min_blocks(DH))
+    split_heads_resident_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                bf16* __restrict__ o, const SplitShape s,
+                                int tpb) {
+  constexpr int LD = DH + 8, TILE = KR * LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = s.N, nk = (N + KR - 1) / KR, q16 = (N + 15) / 16;
+  const int runs = (q16 + tpb - 1) / tpb;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + nk * TILE;
+
+  const int bh = blockIdx.x / runs, b = bh / s.H, h = bh % s.H;
+  const int t_end = min(q16, (blockIdx.x % runs + 1) * tpb);
+  const bf16* kh = k + b * s.k.b + h * s.k.h;
+  const bf16* vh = v + b * s.v.b + h * s.v.h;
+  const bf16* qh = q + b * s.q.b + h * s.q.h;
+  bf16* oh = o + b * s.o.b + h * s.o.h;
+
+  for (int kt = 0; kt < nk; ++kt)
+    cp_tile<KR, DH, SNT>(Ks + kt * TILE, kh + (size_t)kt * KR * s.k.n, s.k.n,
+                         N - kt * KR);
+  cp_commit();
+  for (int kt = 0; kt < nk; ++kt)
+    cp_tile<KR, DH, SNT>(Vs + kt * TILE, vh + (size_t)kt * KR * s.v.n, s.v.n,
+                         N - kt * KR);
+  cp_commit();
+
+  const float c = s.scale * LOG2E;
+  int t = blockIdx.x % runs * tpb + (threadIdx.x >> 5);
+  uint32_t qa[DH / 16][4];
+  load_q<DH>(qa, qh, s.q.n, t * 16, N);
+  cp_wait<1>();
+  __syncthreads();  // K in
+  for (int i = 0;; ++i, t += SW) {
+    const bool mine = t < t_end;
+    float mc[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    if (mine) {
+      for (int kt = 0; kt < nk; ++kt) {
+        float sc[8][4];
+        qk_tile<DH>(sc, qa, Ks + kt * TILE);
+        mask_tile(sc, kt * KR, N);
+        thread_stats(sc, c, mc, l);
+      }
+      row_totals(mc, l);
+    }
+    if (i == 0) {  // every warp, once: V in
+      cp_wait<0>();
+      __syncthreads();
+    }
+    if (!mine) break;
+    uint32_t qn[DH / 16][4];
+    load_q<DH>(qn, qh, s.q.n, (t + SW) * 16, N);
+    float acc[DH / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt)
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt) {
+      float sc[8][4];
+      qk_tile<DH>(sc, qa, Ks + kt * TILE);
+      mask_tile(sc, kt * KR, N);
+      exact_pv<DH>(acc, sc, c, mc, l, Vs + kt * TILE);
+    }
+    store_o<DH, false>(acc, l, oh, s.o.n, t * 16, N);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qa[kk][e] = qn[kk][e];
+    }
+  }
+}
+
+// ------------------------------------------------ f32: the FMA-loop kernel
+
+constexpr int SQ = 64;  // q rows per block, 16 per warp
+constexpr int SK = 64;  // keys per tile
+constexpr int FWARPS = SQ / 16;
+constexpr int FTHREADS = FWARPS * 32;
+constexpr int LDF = SK + PADF;
+
 // Shared memory: the q tile and a k tile (row-major, rows padded by 16
-// bytes), the v tile transposed (DH x SK), and in f32 each warp's p rows.
-template <typename T> __host__ __device__ constexpr int ldq(int DH) {
-  return DH + pad<T>();
-}
-template <typename T> __host__ __device__ constexpr int ldv() {
-  return SK + pad<T>();
-}
-constexpr int LDP = SK + PADF;
-template <typename T> __host__ __device__ size_t smem_split(int DH) {
-  return (size_t)((SQ + SK) * ldq<T>(DH) + DH * ldv<T>()) * sizeof(T) +
-         (sizeof(T) == 4 ? (size_t)SWARPS * 16 * LDP * 4 : 0);
+// bytes), the v tile transposed (DH x SK), and each warp's p rows.
+__host__ __device__ constexpr int ldq_f32(int DH) { return DH + PADF; }
+__host__ __device__ inline size_t smem_f32(int DH) {
+  return (size_t)((SQ + SK) * ldq_f32(DH) + DH * LDF) * 4 +
+         (size_t)FWARPS * 16 * LDF * 4;
 }
 
 // dst[r * ld + c] = src[r * sn + c] for r < valid, 0 below, rows of DH
-template <typename T, int DH>
-__device__ void load_tile(T* dst, int ld, const T* __restrict__ src,
-                          long long sn, int valid) {
-  constexpr int V = 16 / sizeof(T), VPR = DH / V;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += STHREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * sn + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+template <int DH>
+__device__ void load_tile_f32(float* dst, int ld, const float* __restrict__ src,
+                              long long sn, int valid) {
+  constexpr int VPR = DH / 4;
+  for (int idx = threadIdx.x; idx < 64 * VPR; idx += FTHREADS) {
+    const int r = idx / VPR, c = (idx % VPR) * 4;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < valid) val = *reinterpret_cast<const float4*>(src + r * sn + c);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
   }
 }
 
 // dst[c * ld + r] = src[r * sn + c]: the tile stored transposed
-template <typename T, int DH>
-__device__ void load_tile_t(T* dst, int ld, const T* __restrict__ src,
-                            long long sn, int valid) {
-  constexpr int V = 16 / sizeof(T), VPR = DH / V;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += STHREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * sn + c);
-    const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-    if constexpr (sizeof(T) == 2) {
-      unsigned short* d = reinterpret_cast<unsigned short*>(dst);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        d[(c + i) * ld + r] = (unsigned short)(w[i / 2] >> (16 * (i % 2)));
-    } else {
-      uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[(c + i) * ld + r] = w[i];
-    }
+template <int DH>
+__device__ void load_tile_t_f32(float* dst, int ld,
+                                const float* __restrict__ src, long long sn,
+                                int valid) {
+  constexpr int VPR = DH / 4;
+  for (int idx = threadIdx.x; idx < 64 * VPR; idx += FTHREADS) {
+    const int r = idx / VPR, c = (idx % VPR) * 4;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < valid) val = *reinterpret_cast<const float4*>(src + r * sn + c);
+    dst[c * ld + r] = val.x;
+    dst[(c + 1) * ld + r] = val.y;
+    dst[(c + 2) * ld + r] = val.z;
+    dst[(c + 3) * ld + r] = val.w;
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// x and y rounded to bf16 (hi) and what rounding left over, rounded (lo)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x - f.x, y - f.y);
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // The scores of this warp's 16 rows against the 64 keys in Ks, scaled in
-// f32, keys at or past N masked to -inf. In the mma layout: sc[j][e] is row
-// g + 8 * (e / 2), key j * 8 + 2 * t + e % 2, for g = lane / 4, t = lane % 4.
-template <typename T, int DH>
-__device__ __forceinline__ void tile_scores(
-    float (&sc)[SK / 8][4], const uint32_t (&qa)[DH / 16][4], const T* Qs,
-    const T* Ks, int r0, int k0, int N, float scale) {
-  constexpr int LD = ldq<T>(DH);
+// f32, keys at or past N masked to -inf, in the mma layout of the bf16
+// kernels: sc[j][e] is row g + 8 * (e / 2), key j * 8 + 2 * t + e % 2.
+template <int DH>
+__device__ __forceinline__ void tile_scores_f32(float (&sc)[SK / 8][4],
+                                                const float* Qs,
+                                                const float* Ks, int r0,
+                                                int k0, int N, float scale) {
+  constexpr int LD = ldq_f32(DH);
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int j = 0; j < SK / 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-    if constexpr (sizeof(T) == 2) {
-      const T* kr = Ks + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        mma_bf16(sc[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* qr = Qs + (r0 + g + 8 * (e / 2)) * LD;
-        const float* kr = Ks + (j * 8 + 2 * t + e % 2) * LD;
-        float s = 0.0f;
+    for (int e = 0; e < 4; ++e) {
+      const float* qr = Qs + (r0 + g + 8 * (e / 2)) * LD;
+      const float* kr = Ks + (j * 8 + 2 * t + e % 2) * LD;
+      float s = 0.0f;
 #pragma unroll 8
-        for (int c = 0; c < DH; ++c) s = fmaf(qr[c], kr[c], s);
-        sc[j][e] = s;
-      }
+      for (int c = 0; c < DH; ++c) s = fmaf(qr[c], kr[c], s);
+      sc[j][e] = k0 + j * 8 + 2 * t + e % 2 < N ? s * scale : -INFINITY;
     }
+  }
+}
+
+// acc (this warp's 16 rows x DH, acc[n][e] row g + 8 * (e/2), column n * 8
+// + 2 * t + e % 2) += p @ v, p through this warp's rows of Ps, v transposed
+// in Vt; FMA sums added once per tile
+template <int DH>
+__device__ __forceinline__ void tile_pv_f32(float (&acc)[DH / 8][4],
+                                            const float (&p)[SK / 8][4],
+                                            const float* Vt, float* Ps) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float* Pw = Ps + (threadIdx.x / 32) * 16 * LDF;
+#pragma unroll
+  for (int j = 0; j < SK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      sc[j][e] = k0 + j * 8 + 2 * t + e % 2 < N ? sc[j][e] * scale
-                                                 : -INFINITY;
-  }
-}
-
-// acc (this warp's 16 rows x DH, mma layout: acc[n][e] is row g + 8 * (e/2),
-// column n * 8 + 2 * t + e % 2) += p @ v, p (16 x 64) in the score layout,
-// v transposed in Vt. bf16: p rounded to bf16 (SPLIT: as hi + lo); f32: p
-// through this warp's rows of Ps, FMA sums added once per tile.
-template <typename T, int DH, bool SPLIT>
-__device__ __forceinline__ void tile_pv(float (&acc)[DH / 8][4],
-                                        const float (&p)[SK / 8][4],
-                                        const T* Vt, float* Ps) {
-  constexpr int LV = ldv<T>();
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  if constexpr (sizeof(T) == 2) {
+      Pw[(g + 8 * (e / 2)) * LDF + j * 8 + 2 * t + e % 2] = p[j][e];
+  __syncwarp();
 #pragma unroll
-    for (int kk = 0; kk < SK / 16; ++kk) {
-      uint32_t a[4], lo[4];
-      if constexpr (SPLIT) {
-        split_bf16(p[2 * kk][0], p[2 * kk][1], a[0], lo[0]);
-        split_bf16(p[2 * kk][2], p[2 * kk][3], a[1], lo[1]);
-        split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], a[2], lo[2]);
-        split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], a[3], lo[3]);
-      } else {
-        a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-        a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-        a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-        a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      }
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        const T* vr = Vt + (n * 8 + g) * LV + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(vr), b1 = ld32(vr + 8);
-        mma_bf16(acc[n], a, b0, b1);
-        if constexpr (SPLIT) mma_bf16(acc[n], lo, b0, b1);
-      }
-    }
-  } else {
-    float* Pw = Ps + (threadIdx.x / 32) * 16 * LDP;
-#pragma unroll
-    for (int j = 0; j < SK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        Pw[(g + 8 * (e / 2)) * LDP + j * 8 + 2 * t + e % 2] = p[j][e];
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* pr = Pw + (g + 8 * (e / 2)) * LDP;
-        const float* vr =
-            reinterpret_cast<const float*>(Vt) + (n * 8 + 2 * t + e % 2) * LV;
-        float s = 0.0f;
+    for (int e = 0; e < 4; ++e) {
+      const float* pr = Pw + (g + 8 * (e / 2)) * LDF;
+      const float* vr = Vt + (n * 8 + 2 * t + e % 2) * LDF;
+      float s = 0.0f;
 #pragma unroll 8
-        for (int c = 0; c < SK; ++c) s = fmaf(pr[c], vr[c], s);
-        acc[n][e] += s;
-      }
-    __syncwarp();
-  }
+      for (int c = 0; c < SK; ++c) s = fmaf(pr[c], vr[c], s);
+      acc[n][e] += s;
+    }
+  __syncwarp();
 }
 
-// One block per (b, h, 64 q rows), the q tile fastest, so the blocks of one
-// (b, h) share its K/V in L2. EXACT: the exact softmax (#16, #17); else the
-// online one (#15).
-template <typename T, int DH, bool EXACT>
-__global__ void __launch_bounds__(STHREADS)
-split_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o,
-                   const SplitShape s) {
+// One block per (b, h, 64 q rows), the q tile fastest. EXACT: the exact
+// softmax (#16, #17); else the online one (#15).
+template <int DH, bool EXACT>
+__global__ void __launch_bounds__(FTHREADS)
+split_heads_f32_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       const SplitShape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = ldq<T>(DH);
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + SQ * LD;
-  T* Vt = Ks + SK * LD;
-  float* Ps = reinterpret_cast<float*>(Vt + DH * ldv<T>());
+  constexpr int LD = ldq_f32(DH);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + SQ * LD;
+  float* Vt = Ks + SK * LD;
+  float* Ps = Vt + DH * LDF;
 
   const int N = s.N, q_tiles = (N + SQ - 1) / SQ;
   const int q0 = (blockIdx.x % q_tiles) * SQ;
   const int bh = blockIdx.x / q_tiles, b = bh / s.H, h = bh % s.H;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int r0 = (threadIdx.x / 32) * 16;
-  const T* qh = q + b * s.q.b + h * s.q.h;
-  const T* kh = k + b * s.k.b + h * s.k.h;
-  const T* vh = v + b * s.v.b + h * s.v.h;
+  const float* qh = q + b * s.q.b + h * s.q.h;
+  const float* kh = k + b * s.k.b + h * s.k.h;
+  const float* vh = v + b * s.v.b + h * s.v.h;
 
-  load_tile<T, DH>(Qs, LD, qh + q0 * s.q.n, s.q.n, N - q0);
-  __syncthreads();
-  uint32_t qa[DH / 16][4];
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const T* qr = Qs + (r0 + g) * LD + kk * 16 + 2 * t;
-      qa[kk][0] = ld32(qr);
-      qa[kk][1] = ld32(qr + 8 * LD);
-      qa[kk][2] = ld32(qr + 8);
-      qa[kk][3] = ld32(qr + 8 * LD + 8);
-    }
-  }
+  load_tile_f32<DH>(Qs, LD, qh + q0 * s.q.n, s.q.n, N - q0);
 
   // this thread's rows g (index 0) and g + 8 (index 1): the f32 row max
   // (the same across the row's four threads) and this thread's part of the
@@ -293,9 +860,9 @@ split_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // pass 1: the row max and the row sum of exp(s - max)
     for (int k0 = 0; k0 < N; k0 += SK) {
       __syncthreads();
-      load_tile<T, DH>(Ks, LD, kh + k0 * s.k.n, s.k.n, N - k0);
+      load_tile_f32<DH>(Ks, LD, kh + k0 * s.k.n, s.k.n, N - k0);
       __syncthreads();
-      tile_scores<T, DH>(sc, qa, Qs, Ks, r0, k0, N, s.scale);
+      tile_scores_f32<DH>(sc, Qs, Ks, r0, k0, N, s.scale);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = -INFINITY;
@@ -317,10 +884,10 @@ split_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < N; k0 += SK) {
     __syncthreads();
-    load_tile<T, DH>(Ks, LD, kh + k0 * s.k.n, s.k.n, N - k0);
-    load_tile_t<T, DH>(Vt, ldv<T>(), vh + k0 * s.v.n, s.v.n, N - k0);
+    load_tile_f32<DH>(Ks, LD, kh + k0 * s.k.n, s.k.n, N - k0);
+    load_tile_t_f32<DH>(Vt, LDF, vh + k0 * s.v.n, s.v.n, N - k0);
     __syncthreads();
-    tile_scores<T, DH>(sc, qa, Qs, Ks, r0, k0, N, s.scale);
+    tile_scores_f32<DH>(sc, Qs, Ks, r0, k0, N, s.scale);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if constexpr (EXACT) {
@@ -352,14 +919,14 @@ split_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    tile_pv<T, DH, !EXACT>(acc, sc, Vt, Ps);
+    tile_pv_f32<DH>(acc, sc, Vt, Ps);
   }
 
   if constexpr (!EXACT) {
     l[0] = quad_sum(l[0]);
     l[1] = quad_sum(l[1]);
   }
-  T* oh = o + b * s.o.b + h * s.o.h;
+  float* oh = o + b * s.o.b + h * s.o.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + g + 8 * r;
@@ -371,87 +938,160 @@ split_heads_kernel(const T* __restrict__ q, const T* __restrict__ k,
         x /= l[r];
         y /= l[r];
       }
-      T* dst = oh + row * s.o.n + n * 8 + 2 * t;
-      if constexpr (sizeof(T) == 2) {
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x, y);
-      } else {
-        dst[0] = x;
-        dst[1] = y;
-      }
+      float* dst = oh + row * s.o.n + n * 8 + 2 * t;
+      dst[0] = x;
+      dst[1] = y;
     }
   }
 }
 
-template <typename T, int DH, bool EXACT>
-cudaError_t launch_split_dh(const T* q, const T* k, const T* v, T* o,
-                            int blocks, const SplitShape& s,
-                            cudaStream_t st) {
-  const size_t bytes = smem_split<T>(DH);
-  const cudaError_t e =
-      set_smem((const void*)split_heads_kernel<T, DH, EXACT>, bytes);
-  if (e != cudaSuccess) return e;
-  split_heads_kernel<T, DH, EXACT><<<blocks, STHREADS, bytes, st>>>(q, k, v,
-                                                                     o, s);
+// --------------------------------------------------------------- launches
+
+// SMs of the current device, or a negative CUDA error
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                        int BH, const SplitShape& s, bool exact,
+                        bool resident, cudaStream_t st) {
+  cudaError_t e;
+  if (resident) {
+    // a whole head a block while the grid holds two blocks an SM anyway;
+    // else a head's tiles split over up to one block per 8 tiles
+    const int sms = sm_count();
+    if (sms < 0) return (cudaError_t)-sms;
+    const int q16 = (s.N + 15) / 16, want = 2 * sms;
+    int runs = 1;
+    if (BH < want) {
+      const int most = (q16 + SW - 1) / SW, fill = (want + BH - 1) / BH;
+      runs = most < fill ? most : fill;
+    }
+    const int tpb = (q16 + runs - 1) / runs;
+    runs = (q16 + tpb - 1) / tpb;
+    const size_t bytes = smem_resident(s.N, DH);
+    e = set_smem((const void*)split_heads_resident_kernel<DH>, bytes);
+    if (e != cudaSuccess) return e;
+    split_heads_resident_kernel<DH><<<BH * runs, SNT, bytes, st>>>(q, k, v, o,
+                                                                    s, tpb);
+    return cudaGetLastError();
+  }
+  const size_t bytes = smem_stream(DH, exact);
+  const int blocks = BH * ((s.N + SR - 1) / SR);
+  if (exact) {
+    e = set_smem((const void*)split_heads_exact_kernel<DH>, bytes);
+    if (e != cudaSuccess) return e;
+    split_heads_exact_kernel<DH><<<blocks, SNT, bytes, st>>>(q, k, v, o, s);
+  } else {
+    e = set_smem((const void*)split_heads_online_kernel<DH>, bytes);
+    if (e != cudaSuccess) return e;
+    split_heads_online_kernel<DH><<<blocks, SNT, bytes, st>>>(q, k, v, o, s);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, bool EXACT>
-cudaError_t launch_split(const T* q, const T* k, const T* v, T* o, int DH,
-                         int blocks, const SplitShape& s, cudaStream_t st) {
-  switch (DH) {
-    case 16: return launch_split_dh<T, 16, EXACT>(q, k, v, o, blocks, s, st);
-    case 32: return launch_split_dh<T, 32, EXACT>(q, k, v, o, blocks, s, st);
-    case 64: return launch_split_dh<T, 64, EXACT>(q, k, v, o, blocks, s, st);
-    default: return launch_split_dh<T, 128, EXACT>(q, k, v, o, blocks, s, st);
-  }
+template <int DH>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* o, int BH, const SplitShape& s, bool exact,
+                       cudaStream_t st) {
+  const int blocks = BH * ((s.N + SQ - 1) / SQ);
+  const size_t bytes = smem_f32(DH);
+  auto kern = exact ? split_heads_f32_kernel<DH, true>
+                    : split_heads_f32_kernel<DH, false>;
+  const cudaError_t e = set_smem((const void*)kern, bytes);
+  if (e != cudaSuccess) return e;
+  kern<<<blocks, FTHREADS, bytes, st>>>(q, k, v, o, s);
+  return cudaGetLastError();
+}
+
+bool width_ok(int DH) {
+  return DH == 16 || DH == 32 || DH == 64 || DH == 128;
 }
 
 // 0 when the kernels take head width DH on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
 // DH is 16, 32, 64 or 128 (whole 16-wide products over the head, 8-wide
-// output tiles, 16-byte rows) and the block's shared memory fits what one
-// block may opt in to on this device.
-template <typename T> int check_split(int DH) {
-  if (DH != 16 && DH != 32 && DH != 64 && DH != 128)
-    return T2MS_UNSUPPORTED_SHAPE;
+// output tiles, 16-byte rows) and the streaming block's shared memory fits
+// what one block may opt in to on this device.
+int check_split(int DH, bool bf) {
+  if (!width_ok(DH)) return T2MS_UNSUPPORTED_SHAPE;
   const long long optin = smem_optin();
   if (optin < 0) return (int)-optin;
-  return smem_split<T>(DH) <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
+  return (bf ? smem_stream(DH, false) : smem_f32(DH)) <= (size_t)optin
+             ? 0
+             : T2MS_UNSUPPORTED_SHAPE;
 }
 
 template <typename T>
-int run_split(const T* q, const T* k, const T* v, T* o, int B, int H, int N,
-              int DH, const SplitShape& s, bool exact, cudaStream_t st) {
-  if (B < 1 || H < 1 || N < 1 ||
-      (long long)B * H * ((N + SQ - 1) / SQ) > INT_MAX)
+int run_split(const T* q, const T* k, const T* v, T* o, int B, int H, int DH,
+              const SplitShape& s, bool exact, bool resident,
+              cudaStream_t st) {
+  constexpr bool BF = sizeof(T) == 2;
+  const int N = s.N;
+  if (B < 1 || H < 1 || N < 1 || !width_ok(DH) ||
+      (resident && (!BF || !exact)) ||
+      (long long)B * H * ((N + 15) / 16) > INT_MAX)
     return T2MS_UNSUPPORTED_SHAPE;
-  const int ok = check_split<T>(DH);
-  if (ok) return ok;
-  const int blocks = B * H * ((N + SQ - 1) / SQ);
-  return exact ? launch_split<T, true>(q, k, v, o, DH, blocks, s, st)
-               : launch_split<T, false>(q, k, v, o, DH, blocks, s, st);
+  const long long optin = smem_optin();
+  if (optin < 0) return (int)-optin;
+  const size_t need = !BF       ? smem_f32(DH)
+                      : resident ? smem_resident(N, DH)
+                                 : smem_stream(DH, exact);
+  if (need > (size_t)optin) return T2MS_UNSUPPORTED_SHAPE;
+  const int BH = B * H;
+  if constexpr (BF) {
+    switch (DH) {
+      case 16: return launch_bf16<16>(q, k, v, o, BH, s, exact, resident, st);
+      case 32: return launch_bf16<32>(q, k, v, o, BH, s, exact, resident, st);
+      case 64: return launch_bf16<64>(q, k, v, o, BH, s, exact, resident, st);
+      default: return launch_bf16<128>(q, k, v, o, BH, s, exact, resident, st);
+    }
+  } else {
+    switch (DH) {
+      case 16: return launch_f32<16>(q, k, v, o, BH, s, exact, st);
+      case 32: return launch_f32<32>(q, k, v, o, BH, s, exact, st);
+      case 64: return launch_f32<64>(q, k, v, o, BH, s, exact, st);
+      default: return launch_f32<128>(q, k, v, o, BH, s, exact, st);
+    }
+  }
 }
 
 }  // namespace
 
+// resident: the exact kernel's resident route (bf16 only; the caller picks
+// it where the head's K and V fit, attention.py split_heads_route)
 #define T2MS_SPLIT_ENTRY(SUFFIX, T)                                           \
   extern "C" int split_heads_forward_##SUFFIX(                                \
       const void* q, const void* k, const void* v, void* o, int B, int H,     \
       int N, int DH, long long sqb, long long sqh, long long sqn,             \
       long long skb, long long skh, long long skn, long long svb,             \
       long long svh, long long svn, long long sob, long long soh,             \
-      long long son, int exact, float scale, void* stream) {                  \
+      long long son, int exact, int resident, float scale, void* stream) {    \
     const SplitShape s{{sqb, sqh, sqn}, {skb, skh, skn}, {svb, svh, svn},     \
                        {sob, soh, son}, H, N, scale};                         \
     return run_split<T>((const T*)q, (const T*)k, (const T*)v, (T*)o, B, H,  \
-                        N, DH, s, exact != 0, (cudaStream_t)stream);         \
+                        DH, s, exact != 0, resident != 0,                    \
+                        (cudaStream_t)stream);                               \
   }
 
 T2MS_SPLIT_ENTRY(bf16, __nv_bfloat16)
 T2MS_SPLIT_ENTRY(f32, float)
 
 extern "C" int split_heads_check(int DH, int is_bf16) {
-  return is_bf16 ? check_split<__nv_bfloat16>(DH) : check_split<float>(DH);
+  return check_split(DH, is_bf16 != 0);
+}
+
+// dynamic shared memory of a bf16 launch: the resident route's at N, else
+// the streaming one's (for the resource log)
+extern "C" long long split_heads_smem(int N, int DH, int exact,
+                                      int resident) {
+  return resident ? (long long)smem_resident(N, DH)
+                  : (long long)smem_stream(DH, exact != 0);
 }
 
 extern "C" const char* t2ms_cuda_error_string(int e) {

@@ -208,6 +208,25 @@ def test_route_at_the_configured_token_counts(n, bpe, want):
     assert tattn.attention_route(n, 128, bpe) == want
 
 
+@pytest.mark.parametrize("n,d,want", [
+    (1, 16, "resident"), (1152, 16, "resident"), (1153, 16, "stream"),
+    (1, 32, "resident"), (480, 32, "resident"), (704, 32, "resident"),
+    (705, 32, "stream"), (1000, 32, "stream"), (8192, 32, "stream"),
+    (200, 64, "resident"), (384, 64, "resident"), (385, 64, "stream"),
+    (480, 64, "stream"), (130, 128, "resident"), (192, 128, "resident"),
+    (193, 128, "stream"), (480, 128, "stream")])
+def test_split_heads_route_keeps_k_and_v_resident_where_they_fit(n, d,
+                                                                 want):
+    """The head-split kernels' route (csrc/split_heads.cu): the exact
+    softmax (#16, #17) in bf16 holds the head's whole K and V in shared
+    memory where 2 * ceil(N / 64) * 64 * (d + 8) bf16 values fit half an
+    H100 SM's 228 KB less 1 KB (two blocks an SM), else streams them; the
+    online softmax (#15) and f32 always stream."""
+    assert tattn.split_heads_route(n, d, torch.bfloat16, True) == want
+    assert tattn.split_heads_route(n, d, torch.bfloat16, False) == "stream"
+    assert tattn.split_heads_route(n, d, torch.float32, True) == "stream"
+
+
 # ------------------------------------------------------- the eager DiT (C2)
 
 def _perturbed(params, seed, scale=0.02):
@@ -300,7 +319,8 @@ def test_split_heads_launchers_pass_their_declared_arguments(
     """#15, #16 and #17 on the head-split views of one qkv tensor that
     report CUDA, against the fake library: one entry with the shape, the
     strides of q, k, v and o (read in place: the batch stride of the qkv
-    row block, the head stride D), the mode flag, the f32 scale and the
+    row block, the head stride D), the mode flag, the route flag (resident
+    for the exact softmax in bf16 at 16 tokens), the f32 scale and the
     stream, counted under the kernel's own name; the output is a view of
     the merged (B, N, H*D) layout."""
     lib = _rehearse(monkeypatch)
@@ -311,10 +331,11 @@ def test_split_heads_launchers_pass_their_declared_arguments(
     o = getattr(tattn, fn)(q, k, v)
     call = _one_launch(lib, "split_heads_forward", dt)
     assert dict(_build.launch_counts) == {name: 1}
-    _, _, _, _, b, h, n, d, *strides, flag, scale, stream = call
+    _, _, _, _, b, h, n, d, *strides, flag, resident, scale, stream = call
     assert (b, h, n, d) == (B, H, N, D)
     assert strides[:9] == [N * 3 * H * D, D, 3 * H * D] * 3
     assert strides[9:] == list(o.stride()[:3]) == [N * H * D, D, H * D]
     assert flag == exact and stream.value == 7
+    assert resident == (exact and dt == torch.bfloat16)   # split_heads_route
     assert scale.value == pytest.approx(D ** -0.5)
     assert o.transpose(1, 2).is_contiguous()

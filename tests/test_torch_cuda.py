@@ -761,27 +761,76 @@ _SPLIT = [("flash_attention", "flash_reference", "FLASH_KERNEL"),
           ("packed_attention", "packed_reference", "PACKED_KERNEL")]
 
 
+def _split_call(fn, q, k, v):
+    """One head-split kernel call; flash_attention with blocks of N, so
+    that it launches its kernel at every N (its own blocks would send
+    N=17 to einsum_attention, as JAX's do)."""
+    if fn == "flash_attention":
+        n = q.shape[2]
+        return tattn.flash_attention(q, k, v, block_q=n, block_k=n)
+    return getattr(tattn, fn)(q, k, v)
+
+
+def _split_matches_twin(fn, twin, name, q, k, v, tol):
+    before = _build.launch_counts[getattr(tattn, name)]
+    B, H, N, D = q.shape
+    if fn == "packed_attention":
+        try:
+            tattn._packed_pack(B * H, N, D, q.element_size(), 4)
+        except ValueError:          # JAX refuses this geometry: so does it
+            with pytest.raises(ValueError, match="exceeds VMEM"):
+                _split_call(fn, q, k, v)
+            assert _build.launch_counts[getattr(tattn, name)] == before
+            return
+    with torch.no_grad():
+        got = _split_call(fn, q, k, v)
+        torch.cuda.synchronize()
+        want = getattr(tattn, twin)(q, k, v)
+    assert _build.launch_counts[getattr(tattn, name)] == before + 1
+    assert got.dtype == q.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 2e-4),
                                     (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("N", [1, 17, 130, 200, 480, 1000])
 @pytest.mark.parametrize("fn,twin,name", _SPLIT)
-def test_split_heads_kernels_match_twins_on_card(cuda, dt, tol, D, fn, twin,
-                                                 name):
+def test_split_heads_kernels_match_twins_on_card(cuda, dt, tol, D, N, fn,
+                                                 twin, name):
     """Each head-split kernel against its twin on the strided head-split
-    views of one qkv tensor, at a token count that fills no tile (200;
-    the flash blocks divide it, 200 = 8 * 25), one launch each."""
-    q, k, v = _head_split_args(cuda, dt, D=D)
-    before = _build.launch_counts[getattr(tattn, name)]
+    views of one qkv tensor, one launch each: one partial tile (1, 17),
+    tile edges (130, 200), and both sides of the exact kernels' switch
+    from the resident route to the streaming one (split_heads_route: 480
+    resident at head width 32, streamed at 64 and 128; 1000 streamed from
+    32 on)."""
+    q, k, v = _head_split_args(cuda, dt, N=N, D=D)
+    _split_matches_twin(fn, twin, name, q, k, v, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,twin,name", _SPLIT)
+def test_split_heads_kernels_split_a_few_heads_on_card(cuda, fn, twin, name):
+    """Four heads of 480 tokens (B=1) in bf16: too few heads to fill the
+    card, so the resident route splits each head's q tiles over several
+    blocks; against the twin."""
+    q, k, v = _head_split_args(cuda, torch.bfloat16, B=1, H=4, N=480)
+    _split_matches_twin(fn, twin, name, q, k, v, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [480, 1000])
+@pytest.mark.parametrize("fn,twin,name", _SPLIT)
+def test_split_heads_kernels_repeat_bit_for_bit(cuda, N, fn, twin, name):
+    """Two calls on the same inputs give the same bits (no atomics, fixed
+    sums), on both routes."""
+    q, k, v = _head_split_args(cuda, torch.bfloat16, N=N)
     with torch.no_grad():
-        got = getattr(tattn, fn)(q, k, v)
-        torch.cuda.synchronize()
-        want = getattr(tattn, twin)(q, k, v)
-    assert _build.launch_counts[getattr(tattn, name)] == before + 1
-    assert got.dtype == dt and got.shape == want.shape
-    got, want = got.float(), want.float()
-    assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+        a, b = _split_call(fn, q, k, v), _split_call(fn, q, k, v)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
