@@ -14,17 +14,25 @@ failing with a non-zero exit on any error:
    attention forward's kernel (``heads_fwd_kernel``, csrc/attn_heads.cuh,
    at each head width) and of the backward's (``heads_bwd_q_kernel``,
    ``heads_bwd_kv_kernel``, csrc/heads_bwd.cuh, at each head width and
-   recipe), as built into csrc/fused_heads.cu;
+   recipe), as built into csrc/fused_heads.cu, and of the stack's
+   tensor-core kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel``,
+   ``heads_fwd_kernel`` at each head width, ``proj_mlp_tc_kernel``), as
+   built into csrc/dit_stack.cu;
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
-   tolerances and CUDA-event timings (median of 7 after warm-up); and its
+   tolerances and CUDA-event timings (median of 7 after warm-up); the bf16
+   call's device time by part, checked to run on the tensor-core kernels
+   and on none of the first ones (``attn_proj_kernel`` and its two
+   neighbours), with torch SDPA over its attention and cuBLAS
+   (``torch.matmul``) over its four dense products as yardsticks; and its
    ``batch_block=2``, ``attn_impl='folded'`` and combined variants, each
    one launch bit-equal to the plain call;
 4. offline path: the flagship CFG sampler (B=256 series, euler/100, cfg 7,
    length 96, bf16 DiT, seeded random weights with adaLN perturbed) with
-   the kernel launch count checked against the steps, series/s, and the
-   kernel path against the eager opt-out path for a few steps;
+   the kernel launch count checked against the steps, series/s, the
+   kernel path against the eager opt-out path for a few steps, and one
+   CFG step's device time by part beside the host time to enqueue it;
 5. server: a ``ServingEngine`` (buckets 24 and 96, tiers 1/16/64) answering
    mixed requests, and one seed served alone against the same seed inside
    a full batch;
@@ -33,8 +41,10 @@ failing with a non-zero exit on any error:
    N=480, bf16, random adaLN vectors) against the plain twin and autograd
    over it, every one of the 10 gradients with its error, correlation and
    mean error against an f32 truth; again in f32 at a small batch; CUDA-event
-   times, the twin's times, the bounds, device time by part, and torch SDPA
-   forward+backward over the block's attention as a yardstick;
+   times, the twin's times, the bounds, device time by part (the forward
+   and the backward's recompute checked to run on the tensor-core
+   kernels), and torch SDPA forward+backward over the block's attention as
+   a yardstick;
 7. train phase: the flagship denoiser train step (B=1024 series of length
    96, LA-VAE encode inside the step, flow matching over 100 steps, one-cycle
    AdamW at 1e-4) for 2 warm-up and 10 timed steps: steps/s, peak memory,
@@ -348,15 +358,63 @@ def kernel_phase(gen):
                        bound=max(t_ops, t_bytes),
                        by="operations" if t_ops >= t_bytes else "bytes")
         if dt == torch.bfloat16:
-            split = device_ms_by_kernel(
-                lambda: fused_dit_stack(x, mod, *ws, HEADS), STACK_PARTS)
+            split = device_split_on_route(
+                "kernel bf16", lambda: fused_dit_stack(x, mod, *ws, HEADS),
+                STACK_PARTS)
             log("kernel bf16 device time by part (torch.profiler, one call): "
                 + fmt_split(split))
             out["sdpa_ms"] = sdpa_attention_ms(gen, B)
             log(f"yardstick: SDPA over the stack's attention alone "
                 f"(B={B}, {HEADS} heads, N={N_TOK}, d={D_MODEL // HEADS}, "
                 f"x{DEPTH} layers): {out['sdpa_ms']:.4f} ms")
+            dense = dense_matmul_ms(gen, B * N_TOK)
+            log(f"yardstick: cuBLAS (torch.matmul) over the stack's four "
+                f"dense products alone (rows={B * N_TOK}: qkv, proj, fc1, "
+                f"fc2, x{DEPTH} layers): {dense:.4f} ms")
     return out
+
+
+# the first kernels of dit_common.cuh, which the bf16 main path must not run
+FIRST_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_kernel")
+
+
+def device_split_on_route(what, fn, parts, absent=FIRST_PARTS):
+    """``device_ms_by_kernel`` of one call of ``fn``, checked to show every
+    one of ``parts`` and none of ``absent`` (the route's kernels, not the
+    first ones); not measured when the profiler records no device time."""
+    times = device_ms_all(fn)
+    if not times:
+        log(f"{what}: route not measured (no device time recorded)")
+        return {}
+    seen = [n for n in parts if any(_named(k, n) for k in times)]
+    off = sorted(k for k in times for n in absent if _named(k, n))
+    check(len(seen) == len(parts) and not off,
+          f"{what} ran {sorted(times)}: want every one of {parts} and none "
+          f"of {absent}")
+    split = {n: sum(ms for k, ms in times.items() if _named(k, n))
+             for n in parts}
+    split["(all device time)"] = sum(times.values())
+    return split
+
+
+def dense_matmul_ms(gen, rows, layers=DEPTH):
+    """Time of torch.matmul (cuBLAS) on the stack's four dense products
+    alone, (rows x D) @ wqkv, @ wproj, @ wfc1 and (rows x hidden) @ wfc2 in
+    bf16, over ``layers`` layers (yardstick only: no biases, LayerNorm,
+    GELU or residuals)."""
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+    a, h = f(rows, D_MODEL), f(rows, HIDDEN)
+    ws = [f(D_MODEL, 3 * D_MODEL), f(D_MODEL, D_MODEL), f(D_MODEL, HIDDEN),
+          f(HIDDEN, D_MODEL)]
+
+    def run():
+        for _ in range(layers):
+            torch.matmul(a, ws[0])
+            torch.matmul(a, ws[1])
+            torch.matmul(a, ws[2])
+            torch.matmul(h, ws[3])
+    return cuda_ms(run)
 
 
 def stack_variants(fused_dit_stack, plain, x, mod, ws):
@@ -378,8 +436,10 @@ def stack_variants(fused_dit_stack, plain, x, mod, ws):
             f"call, launches {launches}")
 
 
-# the three CUDA kernels one fused_dit_stack call launches per layer
-STACK_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_kernel")
+# the three CUDA kernels one bf16 fused_dit_stack call launches per layer at
+# the main path's head width (csrc/dit_layer.cuh)
+STACK_PARTS = ("modln_qkv_tc_kernel", "heads_fwd_kernel",
+               "proj_mlp_tc_kernel")
 
 
 def device_ms_all(fn, reps: int = 3):
@@ -534,6 +594,18 @@ def offline_phase(dit, vae, gen):
         f"{OUT_LEN}: {dt:.3f} s, {B_SERIES / dt:.2f} series/s, launches "
         f"{launches}, series mean {series.mean().item():.4g} std "
         f"{series.std().item():.4g}")
+    # one sampler step (the 2B CFG forward and the Euler update): whether
+    # the stack, the glue around it or the host bounds the flagship
+    from t2ms_tpu_torch.sampling.sampler import (_flow_step,
+                                                 _fused_cfg_forward,
+                                                 _serving_forward)
+    fwd = _serving_forward(dit, torch.device("cuda"))
+    t_half = torch.full((B_SERIES,), 0.5, device="cuda")
+    vel = lambda x_t, _t: _fused_cfg_forward(fwd, x_t, t_half, emb, CFG)
+    with torch.no_grad():
+        log_device_time(f"offline flagship CFG step (2B={2 * B_SERIES})",
+                        lambda: _flow_step("euler", vel, x_t0, STEPS // 2,
+                                           STEPS), STACK_PARTS)
     return launches
 
 
@@ -581,10 +653,10 @@ def server_phase(dit, vae, seed):
 
 # the CUDA kernels of one fused_dit_block call and of one backward call
 BLOCK_PARTS = STACK_PARTS
-BWD_PARTS = ("modln_qkv_kernel", "attn_proj_kernel", "mlp_bwd_kernel",
-             "attn_out_bwd_kernel", "attn_dq_kernel", "attn_dkdv_kernel",
-             "qkv_bwd_kernel", "wgrad_kernel", "sum_splits_kernel",
-             "dmod_reduce_kernel")
+BWD_PARTS = STACK_PARTS + (
+    "mlp_bwd_kernel", "attn_out_bwd_kernel", "attn_dq_kernel",
+    "attn_dkdv_kernel", "qkv_bwd_kernel", "wgrad_kernel", "sum_splits_kernel",
+    "dmod_reduce_kernel")
 GRAD_NAMES = ("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj", "dwfc1",
               "dbfc1", "dwfc2", "dbfc2")
 
@@ -701,11 +773,11 @@ def block_phase(gen):
         if dt == torch.bfloat16:
             with torch.no_grad():
                 log("block bf16 forward device time by part (torch.profiler, "
-                    "one call): " + fmt_split(device_ms_by_kernel(
-                        fwd, BLOCK_PARTS)))
+                    "one call): " + fmt_split(device_split_on_route(
+                        "block bf16 forward", fwd, BLOCK_PARTS)))
                 log("block bf16 backward device time by part (torch.profiler,"
-                    " one call): " + fmt_split(device_ms_by_kernel(
-                        bwd, BWD_PARTS)))
+                    " one call): " + fmt_split(device_split_on_route(
+                        "block bf16 backward", bwd, BWD_PARTS)))
             out["sdpa_ms"] = sdpa_fwd_bwd_ms(gen, B)
             log(f"yardstick: SDPA forward+backward over the block's attention "
                 f"alone (B={B}, {HEADS} heads, N={N_TOK}, "
@@ -1034,6 +1106,41 @@ def _log_resources(what, chunk, smem):
     log(f"{what}: "
         + ", ".join(f"{name} {m[1] if m else 0}" for name, m in got)
         + f", dynamic smem B {smem}")
+
+
+def log_stack_resources():
+    """ptxas's registers, stack, spills and static shared memory of the
+    stack's tensor-core kernels as built into csrc/dit_stack.cu
+    (``modln_qkv_tc_kernel``, ``heads_fwd_kernel`` at each head width,
+    ``proj_mlp_tc_kernel`` with and without the MLP half), with their
+    dynamic shared memory at the main path's widths (``dit_stack_smem``)."""
+    from t2ms_tpu_torch.ops import _build
+    text = _build.build_logs.get("dit_stack")
+    if not text:
+        log("stack kernel resources: not measured (dit_stack.cu was not "
+            "built in this process)")
+        return
+    lib = _build.load("dit_stack")
+    for chunk in text.split("Compiling entry function")[1:]:
+        m = re.search(r"(modln_qkv_tc_kernel|"
+                      r"proj_mlp_tc_kernelILi\d+ELb([01])E|"
+                      r"heads_fwd_kernelILi(\d+)E)", chunk)
+        if m is None:
+            continue
+        if m.group(3):
+            dh = int(m.group(3))
+            what, smem = (f"heads_fwd_kernel d={dh}",
+                          lib.dit_stack_smem(1, D_MODEL, HIDDEN,
+                                             max(D_MODEL // dh, 1)))
+        elif m.group(2):
+            mlp = m.group(2) == "1"
+            what = f"proj_mlp_tc_kernel<{'true' if mlp else 'false'}>"
+            smem = lib.dit_stack_smem(2 if mlp else 3, D_MODEL, HIDDEN, HEADS)
+        else:
+            what = "modln_qkv_tc_kernel"
+            smem = lib.dit_stack_smem(0, D_MODEL, HIDDEN, HEADS)
+        _log_resources(f"stack kernel resources {what} (D={D_MODEL}, "
+                       f"hidden={HIDDEN})", chunk, smem)
 
 
 def log_attention_resources():
@@ -2346,6 +2453,7 @@ def main(argv=None):
     secs = _build.build_all()
     log(f"build: {secs} ({time.perf_counter() - t0:.2f} s wall)")
     log_attention_resources()
+    log_stack_resources()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

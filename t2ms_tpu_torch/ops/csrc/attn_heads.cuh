@@ -1,8 +1,11 @@
 // Per-head attention device code shared by dit_split.cu (the split block's
-// attention) and fused_heads.cu (fused_heads_attention, its stats variant
+// attention), dit_layer.cuh (the attention stage of the stack and block
+// kernels, and of the block backward's recompute) and fused_heads.cu
+// (fused_heads_attention, its stats variant
 // fused_heads_attention_with_stats, and their backwards in heads_bwd.cuh):
 // the forward kernels and the tensor-core primitives both directions use.
-// split_heads.cu (the head-split kernels) uses the primitives too.
+// split_heads.cu (the head-split kernels) and dit_layer.cuh's row GEMMs use
+// the primitives too.
 //
 // Operands are on the natural (B, N, H*DH) layout, head h the columns
 // [h*DH, (h+1)*DH). Each of q, k, v (and, in the backward, g) is read
@@ -14,10 +17,12 @@
 // The forward computes, per (element, head, q row): qs = T(q * qscale),
 // s = qs k^T in f32, m = the row max, e = T(exp(T(s - m))), r = sum f32(e),
 // o = T((e v in f32) / r) and, with an lse pointer, lse = m + log(r) in f32
-// (o untouched); T() rounds to the input type. The row max is a pass of its
-// own, since e needs the row's final m (an online rescaling would round
-// elsewhere), so the kernel runs three N x N x DH products where the
-// function needs two.
+// (o untouched); T() rounds to the input type. The bf16 kernel can also
+// write m and r themselves (f32, (B*N, H)), which the DiT block backward
+// rebuilds p from (dit_layer.cuh); every other caller passes null. The row
+// max is a pass of its own, since e needs the row's final m (an online
+// rescaling would round elsewhere), so the kernel runs three N x N x DH
+// products where the function needs two.
 //
 // bf16: heads_fwd_kernel, one block per (element, 64 q rows, head), 4 warps
 // of 16 q rows, on mma.sync m16n8k16 tiles (bf16 in, f32 sums). Bound on an
@@ -36,7 +41,7 @@
 //   while the current one is multiplied, and one __syncthreads a tile
 //   guards the ring.
 // - registers are cut so that four blocks (16 warps) share an SM at head
-//   width 64, five at 32 and two at 128, with no spills.
+//   width 64, five at 32 and 16 and two at 128, with no spills.
 // - q comes in once, is scaled to T(q * qscale) on its ldmatrix fragments
 //   with one bf16x2 multiply (the single rounding of load_q_scaled) and is
 //   held in registers up to head width 64.
@@ -541,7 +546,8 @@ __global__ void __launch_bounds__(TC_NT, fwd_min_blocks(DH))
                      const bf16* __restrict__ v, long long sqb, long long sqn,
                      long long skb, long long skn, long long svb,
                      long long svn, bf16* __restrict__ o, int N, int HD,
-                     int H, float qscale, float* __restrict__ lse) {
+                     int H, float qscale, float* __restrict__ lse,
+                     float* __restrict__ m_out, float* __restrict__ r_out) {
   constexpr int LD = DH + 8, TILE = TC_R * LD, S = fwd_stages(DH);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qr = reinterpret_cast<bf16*>(smem);  // q, unscaled
@@ -622,6 +628,16 @@ __global__ void __launch_bounds__(TC_NT, fwd_min_blocks(DH))
       if (n < N) lse[((size_t)pl.b * N + n) * H + pl.h] = m[i] + logf(r[i]);
     }
   }
+  if (m_out != nullptr && tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = q0 + w0 + gr + 8 * i;
+      if (n < N) {
+        m_out[((size_t)pl.b * N + n) * H + pl.h] = m[i];
+        r_out[((size_t)pl.b * N + n) * H + pl.h] = r[i];
+      }
+    }
+  }
 }
 
 // --------------------------------------------------------------- launches
@@ -643,7 +659,8 @@ cudaError_t launch_heads_attn_dh(const T* q, const T* k, const T* v,
     if (e != cudaSuccess) return e;
     const int blocks = B * ((N + TC_R - 1) / TC_R) * H;
     heads_fwd_kernel<DH><<<blocks, TC_NT, s, st>>>(
-        q, k, v, sqb, sqn, skb, skn, svb, svn, o, N, HD, H, qscale, lse);
+        q, k, v, sqb, sqn, skb, skn, svb, svn, o, N, HD, H, qscale, lse,
+        nullptr, nullptr);
   } else {
     const cudaError_t e = set_smem((const void*)heads_attn_kernel<T, DH>, s);
     if (e != cudaSuccess) return e;

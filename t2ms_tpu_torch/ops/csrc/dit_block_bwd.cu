@@ -10,10 +10,13 @@
 // blocks, so the VJP is derived by hand and cut at the residual boundaries,
 // as the forward is:
 //
-//   recompute  the forward's modln_qkv and attn_proj kernels (dit_common.cuh)
-//              run again from the saved inputs, writing what the backward
-//              reads: z1 = modLN(x), qkv, the attention output o, the
-//              per-(row, head) row max m and row sum r, proj, x1.
+//   recompute  the forward's kernels run again from the saved inputs,
+//              writing what the backward reads: z1 = modLN(x), qkv, the
+//              attention output o, the per-(row, head) row max m and row
+//              sum r, proj, x1. In bf16 on the stack's route (dit_layer.cuh:
+//              modln_qkv_tc_kernel, heads_fwd_kernel, the first half of
+//              proj_mlp_tc_kernel), else dit_common.cuh's modln_qkv and
+//              attn_proj kernels.
 //   mlp_bwd    per 64-row tile of one element: recompute z2, a1 = fc1,
 //              h1 = GELU(a1), h2 = fc2; dgate_m = sum dy*h2; dh2 = gate_m*dy;
 //              dh1 = dh2 @ w2^T; da1 = dh1 * GELU'(a1); dz2 = da1 @ w1^T; the
@@ -46,11 +49,14 @@
 // the backward's own products ~0.50 TFLOP (dense: 2 products per forward
 // product; attention: QK^T again, dP, dQ, dK, dV), ~0.75 TFLOP or 0.76 ms
 // at 989 TFLOP/s, against ~0.5 GB that must move (x, dy, dx) or 0.15 ms:
-// bound by operations. Every product runs on the tensor cores (WMMA bf16
-// 16x16x16, f32 accumulation; the f32 entry uses FMA loops so it can be
-// held tightly to its twin); the intermediates above go through device
-// memory (about 2.5 GB of workspace at the main path), which is far below
-// the compute bound. Speed (wgmma, TMA, fewer round trips) is later work.
+// bound by operations. Every product runs on the tensor cores (the
+// recompute on dit_layer.cuh's mma.sync tiles; the backward's own kernels on
+// WMMA bf16 16x16x16, f32 accumulation; the f32 entry uses FMA loops so it
+// can be held tightly to its twin); the intermediates above go through
+// device memory (about 2.5 GB of workspace at the main path), which is far
+// below the compute bound. The backward's own kernels are still the first
+// versions; their redesign (register tiles, fewer round trips) is later
+// work.
 //
 // C interface for ctypes: dit_block_backward_{bf16,f32} launch everything
 // on the given stream and return cudaGetLastError(), or
@@ -59,7 +65,7 @@
 // caller allocates; dit_block_check answers the shape question for the
 // forward and backward kernels together.
 
-#include "dit_common.cuh"
+#include "dit_layer.cuh"
 
 namespace {
 
@@ -786,12 +792,24 @@ int run_backward(const T* x, const float* mod, const T* wqkv, const T* bqkv,
   const dim3 g_rows((rows + RT - 1) / RT), g_attn(B * ((N + QT - 1) / QT));
   const dim3 g_tiles(B * tiles);
 
-  // recompute the forward's intermediates
-  modln_qkv_kernel<T><<<g_rows, NT, s_qkv, st>>>(x, mod, wqkv, bqkv, w.qkv,
-                                                 w.z1, rows, N, D, 1, 0, eps);
-  attn_proj_kernel<T><<<g_attn, NT, s_attn, st>>>(
-      w.qkv, x, mod, wproj, bproj, w.x1, N, D, H, 1, 0, qscale, w.o, w.mst,
-      w.rst, w.proj);
+  // recompute the forward's intermediates, on the forward's own route
+  bool tc = false;
+  if constexpr (sizeof(T) == 2) {
+    tc = tc_route(B, N, D, hidden, H);
+    if (tc && (e = run_layer_tc(x, mod, wqkv, bqkv, wproj, bproj, nullptr,
+                                nullptr, nullptr, nullptr, w.qkv, w.o,
+                                nullptr, B, N, D, hidden, H, 1, 0, eps,
+                                qscale, st, w.z1, w.mst, w.rst, w.proj,
+                                w.x1)) != cudaSuccess)
+      return e;
+  }
+  if (!tc) {
+    modln_qkv_kernel<T><<<g_rows, NT, s_qkv, st>>>(
+        x, mod, wqkv, bqkv, w.qkv, w.z1, rows, N, D, 1, 0, eps);
+    attn_proj_kernel<T><<<g_attn, NT, s_attn, st>>>(
+        w.qkv, x, mod, wproj, bproj, w.x1, N, D, H, 1, 0, qscale, w.o, w.mst,
+        w.rst, w.proj);
+  }
   // activation grads, back to front
   mlp_bwd_kernel<T><<<g_tiles, NT, s_mlpb, st>>>(
       w.x1, mod, wfc1, bfc1, wfc2, bfc2, dy, w.dx1, w.z2, w.h1, w.dh2, w.da1,

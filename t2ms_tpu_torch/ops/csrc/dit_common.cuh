@@ -1,9 +1,13 @@
 // Device code shared by the port's kernels (dit_stack.cu, the forward,
-// dit_block_bwd.cu, the backward, and through attn_heads.cuh dit_split.cu and
-// fused_heads.cu; mod_ln.cu): tile sizes, shared-memory copies, the
-// block-level tensor-core product, the f32 LayerNorm + adaLN modulate of a
-// row tile, the ordered per-tile reduction of dmod, and the three forward
-// kernels of one adaLN-zero block, cut at its residual boundaries:
+// dit_block_bwd.cu, the backward, and through attn_heads.cuh dit_split.cu,
+// fused_heads.cu and dit_layer.cuh; mod_ln.cu): tile sizes, shared-memory
+// copies, the block-level WMMA product, the f32 LayerNorm + adaLN modulate
+// of a row tile, the ordered per-tile reduction of dmod, and the first
+// three forward kernels of one adaLN-zero block, cut at its residual
+// boundaries. They run the f32 stack and block (FMA loops, which keep them
+// tight against the twin) and the bf16 ones at a head width without a
+// heads_fwd_kernel instance (WMMA); the bf16 main path runs dit_layer.cuh's
+// tensor-core kernels, which keep these kernels' rounding points:
 //
 //   (a) modln_qkv_kernel   one block per 64-row tile of the (B*N) rows:
 //       f32 LayerNorm (eps 1e-6) -> *(1+scale)+shift in f32 -> cast ->

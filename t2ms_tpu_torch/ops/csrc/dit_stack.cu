@@ -7,32 +7,39 @@
 // weights and a full (N, N) f32 score matrix per head in one program's
 // VMEM. A Hopper block has at most 227 KB of shared memory (one head's f32
 // scores at N=480 alone are 900 KB), so the stack is re-tiled: three
-// kernels per layer (dit_common.cuh: modLN+qkv, attention+proj+gated
-// residual, modLN+MLP+gated residual), cut at the block's residual
-// boundaries, with ping-pong activation buffers so no launch reads what it
-// writes. With L = 1 the same launches are one block, fused_dit_block.
+// kernels per layer, cut at the block's residual boundaries. With L = 1
+// the same launches are one block, fused_dit_block.
 //
 // Bound on an H100 SXM at the main-path call (2B=512, N=480, D=128, 4
 // heads, hidden 256, L=4, bf16): about 0.50 TFLOP of matrix products
 // (attention 60 GFLOP + dense 64 GFLOP per layer) against about 0.13 GB
 // that must move (x in and out, mod, weights). At 989 TFLOP/s and
 // 3.35 TB/s that is 0.50 ms of tensor-core work against 0.04 ms of
-// memory traffic: the call is bound by operations. The design therefore
-// keeps every product on the tensor cores (WMMA bf16 16x16x16 with f32
-// accumulation; the f32 path uses plain FMA loops so it stays exact
-// against its twin), never writes scores to device memory (QK^T is
-// recomputed in the second pass instead), and accepts three HBM
-// round-trips of the activation per layer, which stay far below the
-// compute bound. Speed (wgmma, TMA, padding against bank conflicts) is
-// later work; this kernel is the simple, right one.
+// memory traffic: the call is bound by operations.
+//
+// bf16, at head widths 16, 32, 64 and 128: dit_layer.cuh's tensor-core
+// kernels (modLN + qkv, the register-tile attention of attn_heads.cuh,
+// out-projection + gated residual + modLN + MLP + gated residual; it says
+// what the design does about the bound). The output buffer serves every
+// layer in place (a block of the last kernel reads its rows of x before it
+// writes them), tmp holds the attention output.
+// f32, and bf16 at any other head width: dit_common.cuh's first kernels
+// (modLN + qkv, attention + out-projection + gated residual, modLN + MLP +
+// gated residual: WMMA in bf16, FMA loops in f32, which keep the f32 entry
+// tight against its twin; no timed path runs them), with tmp and out as
+// ping-pong activation buffers.
 //
 // C interface for ctypes: dit_stack_forward_{bf16,f32} launch the whole
 // stack on the given stream and return cudaGetLastError(), or
 // T2MS_UNSUPPORTED_SHAPE (launching nothing) for a shape the kernels do not
 // take; dit_stack_check answers that question alone. The shape limits live
-// only in dit_common.cuh (check_shape), next to the tiling they follow.
+// only in dit_common.cuh (check_shape), next to the tiling they follow;
+// dit_stack_tc_route says which kernels a bf16 geometry runs on,
+// dit_stack_smem gives each tensor-core kernel's dynamic shared memory, and
+// dit_stack_attention_bf16 runs the attention stage alone (for checks of
+// its row max and row sum).
 
-#include "dit_common.cuh"
+#include "dit_layer.cuh"
 
 namespace {
 
@@ -47,6 +54,23 @@ int run_stack(const T* x, const float* mod, const T* wqkv, const T* bqkv,
     return T2MS_UNSUPPORTED_SHAPE;
   const int ok = check_shape<T>(D, hidden, H);
   if (ok) return ok;
+  if constexpr (sizeof(T) == 2) {
+    if (tc_route(B, N, D, hidden, H)) {
+      const size_t D3 = (size_t)D * 3 * D, DD = (size_t)D * D;
+      const size_t DF = (size_t)D * hidden;
+      const T* cur = x;
+      for (int l = 0; l < L; ++l) {
+        const cudaError_t e = run_layer_tc(
+            cur, mod, wqkv + l * D3, bqkv + (size_t)l * 3 * D, wproj + l * DD,
+            bproj + (size_t)l * D, wfc1 + l * DF, bfc1 + (size_t)l * hidden,
+            wfc2 + l * DF, bfc2 + (size_t)l * D, qkv, tmp, out, B, N, D,
+            hidden, H, L, l, eps, qscale, st);
+        if (e != cudaSuccess) return e;
+        cur = out;
+      }
+      return cudaSuccess;
+    }
+  }
   const size_t s_qkv = smem_qkv<T>(D), s_attn = smem_attn<T>(D, H);
   const size_t s_mlp = smem_mlp<T>(D, hidden);
   cudaError_t e;
@@ -101,6 +125,32 @@ T2MS_STACK_ENTRY(dit_stack_forward_f32, float)
 extern "C" int dit_stack_check(int D, int hidden, int H, int is_bf16) {
   return is_bf16 ? check_shape<__nv_bfloat16>(D, hidden, H)
                  : check_shape<float>(D, hidden, H);
+}
+
+extern "C" int dit_stack_tc_route(int B, int N, int D, int hidden, int H) {
+  return check_shape<__nv_bfloat16>(D, hidden, H) == 0 &&
+         tc_route(B, N, D, hidden, H);
+}
+
+// dynamic shared memory of the tensor-core route's kernels: part 0 the
+// modLN + qkv kernel, 1 the attention, 2 the out-projection + MLP kernel,
+// 3 its first half alone (the block backward's recompute)
+extern "C" long long dit_stack_smem(int part, int D, int hidden, int H) {
+  return part == 0 ? (long long)smem_qkv_tc(D)
+         : part == 1 ? (long long)smem_fwd(D / H)
+                     : (long long)smem_mlp_tc(D, hidden, part == 2);
+}
+
+// The tensor-core route's attention stage alone on a bf16 qkv (B*N, 3D):
+// o (B*N, D), and each row's max m and sum r (f32, (B*N, H)) of every head.
+extern "C" int dit_stack_attention_bf16(const void* qkv, void* o, void* m,
+                                        void* r, int B, int N, int D, int H,
+                                        float qscale, void* stream) {
+  if (B < 1 || N < 1 || H < 1 || D % H || D % 64 || !tc_head_width(D / H) ||
+      (long long)B * ((N + TC_R - 1) / TC_R) * H > INT_MAX)
+    return T2MS_UNSUPPORTED_SHAPE;
+  return launch_layer_attn((const bf16*)qkv, (bf16*)o, B, N, D, H, qscale,
+                           (float*)m, (float*)r, (cudaStream_t)stream);
 }
 
 extern "C" const char* t2ms_cuda_error_string(int e) {

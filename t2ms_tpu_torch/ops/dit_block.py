@@ -11,8 +11,11 @@ layer axis for the stack, and weights/biases cast to x's dtype as the JAX
 wrappers' ``w(a)`` does.
 
 * On a CUDA tensor they launch the hand-written kernels: the forward of
-  ``csrc/dit_stack.cu`` (three per layer: modLN+qkv, attention+proj+gated
-  residual, modLN+MLP+gated residual; one block is the stack with L = 1),
+  ``csrc/dit_stack.cu`` (three per layer; in bf16 at head widths 16, 32,
+  64 and 128 those of ``csrc/dit_layer.cuh``: modLN+qkv, the register-tile
+  attention, proj+gated residual+modLN+MLP+gated residual; otherwise
+  modLN+qkv, attention+proj+gated residual, modLN+MLP+gated residual; one
+  block is the stack with L = 1),
   the block backward of ``csrc/dit_block_bwd.cu``, and the wide-geometry
   block of ``csrc/dit_split.cu`` (modLN+qkv, attention, proj+gated
   residual, modLN+fc1+GELU, fc2+gated residual), and the LayerNorm +

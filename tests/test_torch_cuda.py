@@ -118,6 +118,110 @@ def test_sampler_refuses_a_dit_the_kernel_does_not_take(cuda, geometry):
     assert _build.launch_counts[tblock.STACK_KERNEL] == before
 
 
+# ----------------------- the stack's tensor-core route (csrc/dit_layer.cuh)
+
+def _tc_route(B, N, D, hidden, heads):
+    """Whether the bf16 stack runs this geometry on csrc/dit_layer.cuh's
+    tensor-core kernels (dit_stack_tc_route) rather than the first ones."""
+    return bool(_build.load("dit_stack").dit_stack_tc_route(B, N, D, hidden,
+                                                            heads))
+
+
+def _close_to_twin(got, want, tol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 17, 130, 480, 1000])
+@pytest.mark.parametrize("heads", [8, 4, 2, 1])   # head widths 16 to 128
+def test_bf16_stack_matches_twin_across_head_widths(cuda, heads, N):
+    """The tensor-core route at every head width it takes, at token counts
+    below, across and beyond the 64-row tiles; bf16 3e-2 * max|ref|."""
+    args = _stack_args(cuda, torch.bfloat16, B=2, N=N, seed=N + heads)
+    assert _tc_route(2, N, 128, 256, heads)
+    got = tblock.fused_dit_stack(*args, num_heads=heads)
+    want = tblock.fused_dit_stack_reference(*args, num_heads=heads)
+    _close_to_twin(got, want, 3e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_stack_at_another_head_width_takes_the_first_kernels(cuda):
+    """Head width 48 (D 192, 4 heads): no heads_fwd_kernel instance, so the
+    bf16 stack runs dit_common.cuh's attn_proj_kernel route."""
+    assert tblock.stack_kernel_supported(192, 384, 4, torch.bfloat16)
+    assert not _tc_route(2, 130, 192, 384, 4)
+    args = _stack_args(cuda, torch.bfloat16, B=2, N=130, D=192, hidden=384)
+    got = tblock.fused_dit_stack(*args, num_heads=4)
+    want = tblock.fused_dit_stack_reference(*args, num_heads=4)
+    _close_to_twin(got, want, 3e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_stack_takes_a_batch_beyond_grid_y(cuda):
+    args = _stack_args(cuda, torch.bfloat16, B=70000, N=1, L=1)
+    assert _tc_route(70000, 1, 128, 256, 4)
+    got = tblock.fused_dit_stack(*args, num_heads=4)
+    want = tblock.fused_dit_stack_reference(*args, num_heads=4)
+    _close_to_twin(got, want, 3e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_stack_repeats_bit_for_bit(cuda):
+    args = _stack_args(cuda, torch.bfloat16, B=3, N=480)
+    a = tblock.fused_dit_stack(*args, num_heads=4)
+    b = tblock.fused_dit_stack(*args, num_heads=4)
+    assert torch.equal(a, b)
+
+
+def _stack_attention(qkv, heads):
+    """The tensor-core route's attention stage alone: o, row max, row sum."""
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    o = torch.empty((B, N, D), device=qkv.device, dtype=qkv.dtype)
+    m, r = (torch.empty((B, N, heads), device=qkv.device,
+                        dtype=torch.float32) for _ in range(2))
+    qscale = float(torch.tensor((D // heads) ** -0.5, dtype=qkv.dtype))
+    _build.launch(_build.load("dit_stack"), "dit_stack_attention_bf16",
+                  "dit_stack_attention", ValueError("refused"), qkv.device,
+                  qkv, o, m, r, B, N, D, heads, qscale)
+    return o, m, r, qscale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4, 2, 1])
+def test_stack_attention_row_stats_match_twin(cuda, heads):
+    """m and r, which the block backward rebuilds p from. q and k lie on a
+    grid of 1/8 in [-1, 1], so every score (a sum of products that are
+    multiples of 2^-16, below 2^3) is exact in f32 in any order: the row
+    max is bit-equal to the twin's. The row sums differ by summation order
+    (f32, 1e-5 relative) and at most one rounding flip of an exponential
+    (2^-8). o with the stats written is #9's o bit for bit (#9 writes
+    none), and within 1e-2 * max|ref| of the twin."""
+    B, N, D = 2, 130, 128
+    g = np.random.default_rng(heads)
+    qkv = torch.from_numpy(g.integers(-8, 9, (B, N, 3 * D)) / 8).to(
+        cuda, torch.bfloat16)
+    o, m, r, qscale = _stack_attention(qkv, heads)
+    torch.cuda.synchronize()
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    dh = D // heads
+    split = lambda t: t.unflatten(-1, (heads, dh)).transpose(1, 2)
+    qs = (q.float() * qscale).to(torch.bfloat16)          # T(q * scale)
+    s = split(qs).float() @ split(k).float().transpose(-1, -2)
+    m_twin = s.max(-1).values                              # (B, H, N)
+    e = torch.exp((s - m_twin[..., None]).to(torch.bfloat16).float())
+    r_twin = e.to(torch.bfloat16).float().sum(-1)
+    assert torch.equal(m.transpose(1, 2), m_twin)
+    torch.testing.assert_close(r.transpose(1, 2), r_twin, rtol=1e-5,
+                               atol=2 ** -8)
+    if dh >= 32:   # #9 takes head widths 32, 64 and 128
+        assert torch.equal(o, tattn.fused_heads_attention(q, k, v, heads))
+    _close_to_twin(o, tattn.fused_heads_reference(q, k, v, heads, dh ** -0.5),
+                   1e-2)
+
+
 # ------------------------------------------------- the block kernels (#2, #3)
 
 def _block_args(dev, dt, B=3, N=130, D=128, hidden=256, seed=1):
@@ -164,6 +268,47 @@ def test_block_kernels_match_twins_on_card(cuda, dt):
             ek = (g.float() - t).abs().mean().item()
             et = (w.float() - t).abs().mean().item()
             assert ek <= 1.5 * et + 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 2, 1])
+def test_bf16_block_kernels_match_twins_across_head_widths(cuda, heads):
+    """The block forward and backward in bf16 at the head widths 16, 64 and
+    128 of the tensor-core route, which the backward's recompute takes too,
+    with the bf16 bounds of test_block_kernels_match_twins_on_card. (The
+    backward's kernels take D 64 and 128 only, where every head width the
+    stack takes is on that route.)"""
+    args = _block_args(cuda, torch.bfloat16, seed=heads)
+    assert _tc_route(3, 130, 128, 256, heads)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5)).to(
+                         torch.bfloat16)
+    out, got = _block_grads(args, dy, num_heads=heads)
+    want_out, want = _block_grads(args, dy, num_heads=heads, twin=True)
+    _close_to_twin(out, want_out, 3e-2)
+    f32 = [a.float() for a in args]
+    _, truth = _block_grads(f32, dy.float(), num_heads=heads, twin=True)
+    for g, w, t in zip(got, want, truth):
+        _close_to_twin(g, w, 5e-2)
+        ek = (g.float() - t).abs().mean().item()
+        et = (w.float() - t).abs().mean().item()
+        assert ek <= 1.5 * et + 1e-12
+
+
+@pytest.mark.cuda
+def test_block_backward_repeats_bit_for_bit(cuda):
+    """The bf16 block backward, whose recompute runs the tensor-core
+    forward kernels, at a batch whose dmod and weight grads sum over many
+    tiles: every sum has one order (ordered per-tile partials, no
+    atomics), so two calls agree bit for bit."""
+    args = _block_args(cuda, torch.bfloat16, B=8, N=480, seed=6)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(7)).to(
+                         torch.bfloat16)
+    a = tblock._launch_block_bwd(args[0], args[1], args[2:], dy, 4, 1e-6)
+    b = tblock._launch_block_bwd(args[0], args[1], args[2:], dy, 4, 1e-6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
 
 
 @pytest.mark.cuda

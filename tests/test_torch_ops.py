@@ -141,6 +141,25 @@ def test_stack_twin_matches_jax_kernel_bf16():
                 _jax_stack(x, mod, ws, jnp.float32))
 
 
+@pytest.mark.parametrize("N", [24, 80])         # 80 crosses a 64-row tile
+@pytest.mark.parametrize("H", [4, 2, 1])         # head widths 16, 32, 64
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_stack_twin_matches_jax_kernel_across_head_widths(dt, H, N):
+    """The twin against the JAX kernel (interpret mode) at D 64 and the head
+    widths the CUDA stack's tensor-core route takes, at a token count inside
+    one 64-row tile and one across two; the bounds of the tests above."""
+    x, mod, ws = _stack_inputs(B=2, N=N, D=64, hidden=128, L=2,
+                               seed=10 * H + N)
+    if dt == "float32":
+        np.testing.assert_allclose(
+            _torch_stack(x, mod, ws, torch.float32, H),
+            _jax_stack(x, mod, ws, jnp.float32, H), rtol=2e-4, atol=2e-5)
+    else:
+        _close_bf16(_torch_stack(x, mod, ws, torch.bfloat16, H),
+                    _jax_stack(x, mod, ws, jnp.bfloat16, H),
+                    _jax_stack(x, mod, ws, jnp.float32, H))
+
+
 def test_stack_twin_block_matches_jax_block_reference():
     """One layer of the twin equals the JAX eager block oracle."""
     x, mod, ws = _stack_inputs(L=1, seed=2)
