@@ -17,7 +17,10 @@ failing with a non-zero exit on any error:
    recipe), as built into csrc/fused_heads.cu, and of the stack's
    tensor-core kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel``,
    ``heads_fwd_kernel`` at each head width, ``proj_mlp_tc_kernel``), as
-   built into csrc/dit_stack.cu;
+   built into csrc/dit_stack.cu, and of the bf16 block backward's own
+   kernels (csrc/dit_block_bwd.cu: ``mlp_bwd_tc_kernel``,
+   ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``
+   and the block recipe of ``heads_bwd_q_kernel``/``heads_bwd_kv_kernel``);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -42,13 +45,15 @@ failing with a non-zero exit on any error:
    over it, every one of the 10 gradients with its error, correlation and
    mean error against an f32 truth; again in f32 at a small batch; CUDA-event
    times, the twin's times, the bounds, device time by part (the forward
-   and the backward's recompute checked to run on the tensor-core
-   kernels), and torch SDPA forward+backward over the block's attention as
-   a yardstick;
+   and the whole bf16 backward checked to run on the tensor-core kernels
+   and on none of the first ones), and torch SDPA forward+backward over the
+   block's attention and cuBLAS over the backward's 12 dense products as
+   yardsticks;
 7. train phase: the flagship denoiser train step (B=1024 series of length
    96, LA-VAE encode inside the step, flow matching over 100 steps, one-cycle
    AdamW at 1e-4) for 2 warm-up and 10 timed steps: steps/s, peak memory,
-   device time by part, launch counts per step checked, loss finite; and at
+   device time by part beside the host time to enqueue one step, launch
+   counts per step checked, loss finite; and at
    B=128 the kernel path's loss and gradients against the eager bf16 and
    f32 opt-out paths on the same injected draws (three draws);
 8. split-kernel phase: ``fused_dit_block_split`` at the scaled DiT's call
@@ -651,12 +656,19 @@ def server_phase(dit, vae, seed):
 
 # --------------------------------------------- the train step's block kernels
 
-# the CUDA kernels of one fused_dit_block call and of one backward call
+# the CUDA kernels of one fused_dit_block call and of one bf16 backward
+# call (csrc/dit_block_bwd.cu: the recompute on the stack's kernels, then
+# the tensor-core backward, its attention VJP on csrc/heads_bwd.cuh)
 BLOCK_PARTS = STACK_PARTS
 BWD_PARTS = STACK_PARTS + (
+    "transpose4_kernel", "mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
+    "heads_bwd_q_kernel", "heads_bwd_kv_kernel", "qkv_bwd_tc_kernel",
+    "wgrad_tc_kernel", "sum_splits_kernel", "dmod_reduce_kernel")
+# the backward's first kernels, which the f32 entry still runs and the bf16
+# backward must not
+FIRST_BWD_PARTS = FIRST_PARTS + (
     "mlp_bwd_kernel", "attn_out_bwd_kernel", "attn_dq_kernel",
-    "attn_dkdv_kernel", "qkv_bwd_kernel", "wgrad_kernel", "sum_splits_kernel",
-    "dmod_reduce_kernel")
+    "attn_dkdv_kernel", "qkv_bwd_kernel", "wgrad_kernel")
 GRAD_NAMES = ("dx", "dmod", "dwqkv", "dbqkv", "dwproj", "dbproj", "dwfc1",
               "dbfc1", "dwfc2", "dbfc2")
 
@@ -777,14 +789,45 @@ def block_phase(gen):
                         "block bf16 forward", fwd, BLOCK_PARTS)))
                 log("block bf16 backward device time by part (torch.profiler,"
                     " one call): " + fmt_split(device_split_on_route(
-                        "block bf16 backward", bwd, BWD_PARTS)))
+                        "block bf16 backward", bwd, BWD_PARTS,
+                        FIRST_BWD_PARTS)))
             out["sdpa_ms"] = sdpa_fwd_bwd_ms(gen, B)
             log(f"yardstick: SDPA forward+backward over the block's attention "
                 f"alone (B={B}, {HEADS} heads, N={N_TOK}, "
                 f"d={D_MODEL // HEADS}): {out['sdpa_ms']:.4f} ms")
+            out["cublas_bwd_ms"] = bwd_dense_matmul_ms(B * N_TOK)
+            log(f"yardstick: cuBLAS (torch.matmul) over the backward's 12 "
+                f"dense products alone (rows={B * N_TOK}: the recompute's "
+                f"qkv, proj, fc1, fc2, then dX and dW of each): "
+                f"{out['cublas_bwd_ms']:.4f} ms")
         del args, dy
         torch.cuda.empty_cache()
     return out
+
+
+def bwd_dense_matmul_ms(rows):
+    """Time of torch.matmul (cuBLAS) on the dense products of one block
+    VJP alone, in bf16: the recompute's four (z1 @ wqkv, o @ wproj,
+    z2 @ wfc1, h1 @ wfc2), then for each layer dX = dY W^T and dW = X^T dY
+    (yardstick only: no biases, LayerNorm, GELU or attention). Its inputs
+    come from a generator of its own, so that it leaves the shared one,
+    and with it every later phase's data, as it was."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+    D, hid = D_MODEL, HIDDEN
+    a, h, g3, gd, gh = (f(rows, D), f(rows, hid), f(rows, 3 * D),
+                        f(rows, D), f(rows, hid))
+    ws = [f(D, 3 * D), f(D, D), f(D, hid), f(hid, D)]
+    pairs = ((a, ws[0], g3), (a, ws[1], gd), (a, ws[2], gh), (h, ws[3], gd))
+
+    def run():
+        for x, w, _ in pairs:
+            torch.matmul(x, w)
+        for x, w, g in pairs:
+            torch.matmul(g, w.t())
+            torch.matmul(x.t(), g)
+    return cuda_ms(run)
 
 
 def sdpa_fwd_bwd_ms(gen, B):
@@ -840,10 +883,8 @@ def train_phase(dit, vae, gen):
         f"({launches[BLOCK_KERNEL] // TRAIN_STEPS} forward and "
         f"{launches[BLOCK_BWD_KERNEL] // TRAIN_STEPS} backward per step), "
         f"losses {[round(v, 5) for v in lv]}")
-    split = device_ms_by_kernel(lambda: step(x, emb, generator=g),
-                                tuple(dict.fromkeys(BLOCK_PARTS + BWD_PARTS)))
-    log("train step device time by part (torch.profiler, one step): "
-        + fmt_split(split))
+    log_device_time("train flagship step", lambda: step(x, emb, generator=g),
+                    tuple(dict.fromkeys(BLOCK_PARTS + BWD_PARTS)))
 
     # the kernel path against the eager opt-out paths on the same draws
     Bs = 128
@@ -1141,6 +1182,42 @@ def log_stack_resources():
             smem = lib.dit_stack_smem(0, D_MODEL, HIDDEN, HEADS)
         _log_resources(f"stack kernel resources {what} (D={D_MODEL}, "
                        f"hidden={HIDDEN})", chunk, smem)
+
+
+def log_block_bwd_resources():
+    """ptxas's registers, stack, spills and static shared memory of the bf16
+    block backward's own kernels as built into csrc/dit_block_bwd.cu
+    (``mlp_bwd_tc_kernel``, ``attn_out_bwd_tc_kernel``,
+    ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``, and the BLOCK recipe of
+    ``heads_bwd_q_kernel`` and ``heads_bwd_kv_kernel`` at each head width),
+    with their dynamic shared memory at the main path's widths
+    (``dit_block_bwd_smem``)."""
+    from t2ms_tpu_torch.ops import _build
+    text = _build.build_logs.get("dit_block_bwd")
+    if not text:
+        log("block backward kernel resources: not measured (dit_block_bwd.cu "
+            "was not built in this process)")
+        return
+    lib = _build.load("dit_block_bwd")
+    rows = ("mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
+            "qkv_bwd_tc_kernel", "wgrad_tc_kernel")
+    for chunk in text.split("Compiling entry function")[1:]:
+        m = re.search(r"(mlp_bwd_tc_kernel|attn_out_bwd_tc_kernel|"
+                      r"qkv_bwd_tc_kernel|wgrad_tc_kernel|"
+                      r"heads_bwd_(q|kv)_kernelILi(\d+)ELi3E)", chunk)
+        if m is None:
+            continue
+        if m.group(2):
+            dh = int(m.group(3))
+            what = f"heads_bwd_{m.group(2)}_kernel d={dh} block"
+            smem = lib.dit_block_bwd_smem(4 if m.group(2) == "q" else 5,
+                                          D_MODEL, HIDDEN, D_MODEL // dh)
+        else:
+            what = m.group(1)
+            smem = lib.dit_block_bwd_smem(rows.index(what), D_MODEL, HIDDEN,
+                                          HEADS)
+        _log_resources(f"block backward kernel resources {what} "
+                       f"(D={D_MODEL}, hidden={HIDDEN})", chunk, smem)
 
 
 def log_attention_resources():
@@ -2454,6 +2531,7 @@ def main(argv=None):
     log(f"build: {secs} ({time.perf_counter() - t0:.2f} s wall)")
     log_attention_resources()
     log_stack_resources()
+    log_block_bwd_resources()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

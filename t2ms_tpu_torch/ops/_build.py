@@ -142,6 +142,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_stack_attention": [P] * 4 + [I] * 4 + [F, P],
         "dit_split_forward": [P] * 15 + [I] * 5 + [F, F, P],
         "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
+        "dit_block_attention_bwd": [P] * 4 + [I] * 4 + [F, P],
         "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
         "mod_ln_backward": [P] * 6 + [I] * 3 + [F, P],
         "res_mod_ln_forward": [P] * 5 + [I] * 3 + [F, P],
@@ -164,7 +165,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                   ("fused_heads_forward_smem", 1),
                   ("fused_heads_backward_smem", 3),
                   ("split_heads_smem", 4),
-                  ("dit_stack_smem", 4)):
+                  ("dit_stack_smem", 4),
+                  ("dit_block_bwd_smem", 4)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = ctypes.c_longlong

@@ -389,17 +389,23 @@ __device__ __forceinline__ void rows_by_tile(float (&acc)[NT][4],
   }
 }
 
-// acc[16 x DH] += P[16 x 16 KK] t[16 KK x DH], P given as KK A fragments
-template <int DH, int KK>
+// acc[16 x DH] += P[16 x 16 KK] t[16 KK x DH], P given as KK A fragments,
+// t's B fragments scaled by the bf16 pair s2 when SB
+template <int DH, int KK, bool SB = false>
 __device__ __forceinline__ void frags_by_tile(float (&acc)[DH / 8][4],
                                               const uint32_t (&P)[KK][4],
-                                              const bf16* t) {
+                                              const bf16* t,
+                                              uint32_t s2 = 0u) {
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
     for (int p = 0; p < DH / 16; ++p) {
       uint32_t b[4];
       ld_bt(b, t, DH + 8, 16 * kk, 16 * p);
+      if (SB) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[i] = mul_bf16x2(b[i], s2);
+      }
       mma16816(acc[2 * p], P[kk], b[0], b[1]);
       mma16816(acc[2 * p + 1], P[kk], b[2], b[3]);
     }

@@ -477,6 +477,7 @@ template <typename T>
 int run_backward(BwdArgs<T> a, Recipe rec, cudaStream_t st) {
   const int ok = check_all<T>(a.B, a.N, a.HD, a.H);
   if (ok) return ok;
+  a.ldo = a.HD;  // dq, dk and dv contiguous (B, N, HD)
   if (sizeof(T) == 2 && rec == PIPE) {  // the workspace's bf16 tiles
     a.qsc = reinterpret_cast<T*>(reinterpret_cast<char*>(a.st) +
                                  stats_bytes(a.B, a.N, a.H));

@@ -8,7 +8,9 @@
 //       written to the stats workspace and, pipelined, T(q * scale / r)
 //       and T(g / r) to a (B, N, HD) bf16 workspace (pass 2), then ds and
 //       dq += ds k (pass 3). The lean recipe reads lse and delta and runs
-//       pass 3 only.
+//       pass 3 only; so does the DiT block backward's recipe (BLOCK,
+//       dit_block_bwd.cu), which reads m, 1/r and delta from the stats
+//       workspace its caller fills.
 //   heads_bwd_kv_kernel  per (element, 64 k rows, head), 4 warps of 16 k
 //       rows each, over the q tiles of the head: S^T = K Qs^T and
 //       dP^T = V G^T, e^T and ds^T formed in the accumulators, then
@@ -43,18 +45,24 @@ template <typename T> struct Opd {
 
 template <typename T> struct BwdArgs {
   Opd<T> q, k, v, g;
-  T *dq, *dk, *dv;  // contiguous (B, N, HD)
-  float* st;        // (B*N, H, 3): m, 1/r, t
+  T *dq, *dk, *dv;  // (B, N, HD) at row stride ldo
+  float* st;        // (B*N, H, 3): m, 1/r, t (BLOCK: t = delta)
   int B, N, HD, H;
   float scale, qscale;
   const float *lse, *delta;  // the lean recipe's (B*N, H) inputs
   T *qsc, *gsc;  // bf16 pipelined: T(q * scale / r), T(g / r), (B, N, HD)
+  int ldo;  // row stride of dq, dk and dv: HD, or 3 * HD where they are
+            // the column slices of one dqkv (BLOCK)
 };
 
 // The backward's recipes: the rounding points of dq, dk and dv, and where
 // the rows' statistics come from (the backward's own first passes, or the
-// caller's lse and delta)
-enum Recipe { PIPE = 0, RECOMP = 1, LEAN = 2 };
+// caller's lse and delta, or, BLOCK, the caller's m, 1/r and delta in st).
+// BLOCK rounds as RECOMP does (p = e * (1/r), ds = T(p (dp - delta)),
+// dv = T(sum T(p)^T g), dq = T((ds k) * scale)) but takes dk from the
+// rounded operand: dk = T(sum ds^T T(q * qscale)), as the block's forward
+// scales q (dit_block_bwd.cu).
+enum Recipe { PIPE = 0, RECOMP = 1, LEAN = 2, BLOCK = 3 };
 
 // q rows per step of the kv kernel: 32 at head width 128 keeps its S^T,
 // dP^T, dK and dV sums within the register file
@@ -86,7 +94,7 @@ template <int DH, int REC>
 __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
     heads_bwd_q_kernel(BwdArgs<bf16> a) {
   constexpr int LD = DH + 8, TILE = TC_R * LD, CH = DH / 8;
-  constexpr int NP = REC == LEAN ? 1 : 3;  // passes over the k tiles
+  constexpr int NP = REC == LEAN || REC == BLOCK ? 1 : 3;  // k-tile passes
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qr = reinterpret_cast<bf16*>(smem);  // q, unscaled
   bf16* Gt = Qr + TILE;                      // g
@@ -103,7 +111,7 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
   const bf16* vh = a.v.head(pl.b, pl.h, DH);
 
   // the ring: iteration `it` is pass it / nk (pass 3 only for the lean
-  // recipe) over k tile it % nk; the first pass needs no V
+  // and block recipes) over k tile it % nk; the first pass needs no V
   auto fetch = [&](int it) {
     const int k0 = it % nk * TC_R;
     bf16* Ks = KV + (it & 1) * 2 * TILE;
@@ -125,8 +133,14 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
   for (int r = 0; r < 2; ++r) {
     const int n = q0 + w0 + gr + 8 * r;
     const size_t row = ((size_t)pl.b * N + (n < N ? n : 0)) * H + pl.h;
-    m[r] = REC == LEAN ? (n < N ? a.lse[row] : 0.0f) : -INFINITY;
-    tt[r] = REC == LEAN && n < N ? a.delta[row] : 0.0f;
+    if (REC == BLOCK) {
+      m[r] = n < N ? a.st[row * 3] : 0.0f;
+      ir[r] = n < N ? a.st[row * 3 + 1] : 0.0f;
+      tt[r] = n < N ? a.st[row * 3 + 2] : 0.0f;
+    } else {
+      m[r] = REC == LEAN ? (n < N ? a.lse[row] : 0.0f) : -INFINITY;
+      tt[r] = REC == LEAN && n < N ? a.delta[row] : 0.0f;
+    }
   }
   float dq[DH / 8][4];
 #pragma unroll
@@ -215,7 +229,8 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
         }
       } else {
         // ds: pipelined T(e (dp - t)); recompute p = e / r, T(p (dp - t));
-        // lean p = T(exp(T(s - lse))), T(p (dp - delta))
+        // lean p = T(exp(T(s - lse))), T(p (dp - delta)); block
+        // p = e * (1/r), T(p (dp - delta))
         uint32_t P[4][4];
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
@@ -223,7 +238,7 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
           for (int h = 0; h < 2; ++h) {
             float p0, p1;
             exp_rounded2(s[nt][2 * h], s[nt][2 * h + 1], m[h], m[h], p0, p1);
-            if (REC == RECOMP) {
+            if (REC == RECOMP || REC == BLOCK) {
               p0 *= ir[h];
               p1 *= ir[h];
             }
@@ -243,8 +258,8 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
   const float f0 = REC == PIPE ? a.scale * ir[0] : a.scale;
   const float f1 = REC == PIPE ? a.scale * ir[1] : a.scale;
   store_rows<DH>(dq, f0, f1, Qr + w0 * LD,
-                 a.dq + ((size_t)pl.b * N + q0 + w0) * a.HD + pl.h * DH, a.HD,
-                 N - q0 - w0);
+                 a.dq + ((size_t)pl.b * N + q0 + w0) * a.ldo + pl.h * DH,
+                 a.ldo, N - q0 - w0);
 }
 
 // ------------------------------------------------------- the k-tile kernel
@@ -343,7 +358,8 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
       }
     }
     // pipelined e and ds_u = T(e (dp - t)); recompute p = e / r, T(p) and
-    // ds = T(p (dp - t)); lean p = T(exp(T(s - lse))), ds = T(p (dp - delta))
+    // ds = T(p (dp - t)); lean p = T(exp(T(s - lse))), ds = T(p (dp - delta));
+    // block p = e * (1/r), T(p), ds = T(p (dp - delta))
     uint32_t Pe[BQ / 16][4], Pd[BQ / 16][4];
 #pragma unroll
     for (int nt = 0; nt < BQ / 8; ++nt) {
@@ -356,7 +372,7 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
         float p0, p1;
         uint32_t pb =
             exp_rounded2(s[nt][2 * h], s[nt][2 * h + 1], mm.x, mm.y, p0, p1);
-        if (REC == RECOMP) {
+        if (REC == RECOMP || REC == BLOCK) {
           p0 *= rr.x;
           p1 *= rr.y;
           pb = pack_bf16(p0, p1);
@@ -367,18 +383,23 @@ __global__ void __launch_bounds__(TC_NT, hb_min_blocks(DH))
       }
     }
     // pipelined dV += e^T T(g / r), dK += ds_u^T T(q * scale / r);
-    // otherwise dV += T(p)^T g, dK += ds^T q
+    // block dV += T(p)^T g, dK += ds^T T(q * qscale); otherwise
+    // dV += T(p)^T g, dK += ds^T q
     frags_by_tile<DH, BQ / 16>(dv, Pe, REC == PIPE ? Sq + 3 * QTILE : Gq);
-    frags_by_tile<DH, BQ / 16>(dk, Pd, REC == PIPE ? Sq + 2 * QTILE : Sq);
+    if constexpr (REC == BLOCK)
+      frags_by_tile<DH, BQ / 16, true>(dk, Pd, Sq, qs2);
+    else
+      frags_by_tile<DH, BQ / 16>(dk, Pd, REC == PIPE ? Sq + 2 * QTILE : Sq);
     __syncthreads();
   }
 
-  // dk = T(dK) pipelined, T(dK * scale) otherwise; dv = T(dV); staged
-  // through this warp's own rows of the K and V tiles
-  const float fk = REC == PIPE ? 1.0f : a.scale;
-  const size_t o = ((size_t)pl.b * N + k0 + w0) * a.HD + pl.h * DH;
-  store_rows<DH>(dk, fk, fk, Kt + w0 * LD, a.dk + o, a.HD, N - k0 - w0);
-  store_rows<DH>(dv, 1.0f, 1.0f, Vt + w0 * LD, a.dv + o, a.HD, N - k0 - w0);
+  // dk = T(dK) pipelined and block, T(dK * scale) otherwise; dv = T(dV);
+  // staged through this warp's own rows of the K and V tiles
+  const float fk = REC == PIPE || REC == BLOCK ? 1.0f : a.scale;
+  const size_t o = ((size_t)pl.b * N + k0 + w0) * a.ldo + pl.h * DH;
+  store_rows<DH>(dk, fk, fk, Kt + w0 * LD, a.dk + o, a.ldo, N - k0 - w0);
+  store_rows<DH>(dv, 1.0f, 1.0f, Vt + w0 * LD, a.dv + o, a.ldo,
+                 N - k0 - w0);
 }
 
 template <int DH, int REC>

@@ -41,6 +41,7 @@ __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "dit_stack_reference_block", "stack_kernel_supported",
            "fused_dit_block", "fused_dit_block_reference",
            "fused_dit_block_diffable", "block_kernel_supported",
+           "block_attn_stats", "block_attn_bwd_reference",
            "fused_dit_block_split", "split_kernel_supported",
            "mod_ln_diffable", "mod_ln_reference", "mod_ln_supported",
            "res_mod_ln_diffable", "res_mod_ln_reference",
@@ -107,6 +108,59 @@ def dit_stack_reference_block(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
     h1 = F.gelu(_dense(_mod_ln(x, m(3), m(4), eps), wfc1, bfc1),
                 approximate="tanh")
     return x + m(5).to(dt) * _dense(h1, wfc2, bfc2)
+
+
+def block_attn_stats(q, k, v, do, num_heads: int, scale: float):
+    """What the block backward's attention VJP reads besides q, k, v and
+    do, as its kernels make it: each (row, head)'s score max m and row sum
+    r = sum f32(T(exp(T(s - m)))) (the recompute's forward), and
+    delta = sum over the head of T(do) * o with o the attention output in
+    q's dtype (the attention-output kernel). q, k, v, do (B, N, H*D);
+    returns three f32 (B, N, H)."""
+    dt = q.dtype
+    D = q.shape[-1] // num_heads
+    o = fused_heads_reference(q, k, v, num_heads, scale)
+    ms, rs, deltas = [], [], []
+    for h in range(num_heads):
+        sl = slice(h * D, (h + 1) * D)
+        qs = (q[..., sl] * torch.tensor(scale, dtype=dt)).float()
+        s = torch.matmul(qs, k[..., sl].float().transpose(-1, -2))
+        m = s.amax(dim=-1)
+        ms.append(m)
+        rs.append(torch.exp((s - m[..., None]).to(dt)).float().sum(dim=-1))
+        deltas.append((do[..., sl].to(dt).float() * o[..., sl].float())
+                      .sum(dim=-1))
+    return tuple(torch.stack(t, dim=-1) for t in (ms, rs, deltas))
+
+
+def block_attn_bwd_reference(q, k, v, do, m, r, delta, scale: float):
+    """Plain twin of the block backward's attention VJP (the BLOCK recipe
+    of ``csrc/heads_bwd.cuh``), written out with its rounding points: per
+    head, qs = T(q * scale), s = qs k^T in f32, e = T(exp(T(s - m))),
+    p = e * (1/r) (one reciprocal a row), dp = do v^T, ds = T(p (dp -
+    delta)), dq = T((ds k) * scale), dk = T(ds^T qs), dv = T(T(p)^T do);
+    T() rounds to q's dtype, every product sums in f32. q, k, v, do
+    (B, N, H*D); m, r, delta (B, N, H) f32 (``block_attn_stats``); returns
+    (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    H = m.shape[-1]
+    D = q.shape[-1] // H
+    T = lambda t: t.to(dt).float()
+    outs = ([], [], [])
+    for h in range(H):
+        sl = slice(h * D, (h + 1) * D)
+        kh, vh = k[..., sl].float(), v[..., sl].float()
+        g = do[..., sl].to(dt).float()
+        qs = T(q[..., sl].float() * scale)
+        s = torch.matmul(qs, kh.transpose(-1, -2))
+        e = T(torch.exp(T(s - m[..., h, None])))
+        p = e * (1.0 / r[..., h, None])
+        dp = torch.matmul(g, vh.transpose(-1, -2))
+        ds = T(p * (dp - delta[..., h, None]))
+        outs[0].append(torch.matmul(ds, kh) * scale)
+        outs[1].append(torch.matmul(ds.transpose(-1, -2), qs))
+        outs[2].append(torch.matmul(T(p).transpose(-1, -2), g))
+    return tuple(torch.cat(o, dim=-1).to(dt) for o in outs)
 
 
 def fused_dit_stack_reference(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,

@@ -296,6 +296,31 @@ def test_bf16_block_kernels_match_twins_across_head_widths(cuda, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [4, 1])
+def test_bf16_block_kernels_match_twins_at_d64(cuda, heads):
+    """D 64 and hidden 192 (head widths 16 and 64): the row GEMMs' 64-wide
+    column chunks, the LayerNorm VJP's half row a thread group and the
+    weight grads' 64-wide output tiles (wqkv's 192 columns), which the
+    D-128 checks never reach; the bf16 bounds of
+    test_block_kernels_match_twins_on_card."""
+    args = _block_args(cuda, torch.bfloat16, D=64, hidden=192, seed=heads)
+    assert tblock.block_kernel_supported(64, 192, heads, torch.bfloat16)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(11)).to(
+                         torch.bfloat16)
+    out, got = _block_grads(args, dy, num_heads=heads)
+    want_out, want = _block_grads(args, dy, num_heads=heads, twin=True)
+    _close_to_twin(out, want_out, 3e-2)
+    f32 = [a.float() for a in args]
+    _, truth = _block_grads(f32, dy.float(), num_heads=heads, twin=True)
+    for g, w, t in zip(got, want, truth):
+        _close_to_twin(g, w, 5e-2)
+        ek = (g.float() - t).abs().mean().item()
+        et = (w.float() - t).abs().mean().item()
+        assert ek <= 1.5 * et + 1e-12
+
+
+@pytest.mark.cuda
 def test_block_backward_repeats_bit_for_bit(cuda):
     """The bf16 block backward, whose recompute runs the tensor-core
     forward kernels, at a batch whose dmod and weight grads sum over many
@@ -309,6 +334,79 @@ def test_block_backward_repeats_bit_for_bit(cuda):
     b = tblock._launch_block_bwd(args[0], args[1], args[2:], dy, 4, 1e-6)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+
+
+def _block_attention_bwd(qkv, do, heads):
+    """The bf16 block backward's attention VJP alone (the BLOCK recipe of
+    csrc/heads_bwd.cuh) on the statistics of block_attn_stats; returns the
+    kernel's (dq, dk, dv), the twin's, and the qkv slices."""
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    qscale = float(torch.tensor((D // heads) ** -0.5, dtype=qkv.dtype))
+    m, r, delta = tblock.block_attn_stats(q, k, v, do, heads, qscale)
+    st = torch.stack([m, 1.0 / r, delta], dim=-1).contiguous()
+    dqkv = torch.empty_like(qkv)
+    _build.launch(_build.load("dit_block_bwd"), "dit_block_attention_bwd_bf16",
+                  "dit_block_attention_bwd", ValueError("refused"), qkv.device,
+                  qkv, do, st, dqkv, B, N, D, heads, qscale)
+    want = tblock.block_attn_bwd_reference(q, k, v, do, m, r, delta, qscale)
+    return dqkv.split(D, dim=-1), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,N", [(8, 130), (4, 130), (4, 480), (2, 130),
+                                     (1, 130), (8, 17)])
+def test_block_attention_backward_matches_twin_on_card(cuda, heads, N):
+    """The block backward's attention VJP at head widths 16, 32, 64 and 128
+    (D 128) and ragged token counts, against block_attn_bwd_reference on the
+    same statistics: bf16 3e-2 * max|ref| and correlation >= 0.999, as the
+    other attention backwards (summation order and rounding flips of e and
+    ds only)."""
+    g = torch.Generator(cuda).manual_seed(heads * 1000 + N)
+    qkv = torch.randn(3, N, 3 * 128, device=cuda, generator=g).to(
+        torch.bfloat16)
+    do = torch.randn(3, N, 128, device=cuda, generator=g).to(torch.bfloat16)
+    got, want = _block_attention_bwd(qkv, do, heads)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_to_twin(a, b, 3e-2)
+        a, b = a.float().flatten(), b.float().flatten()
+        assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_bf16_block_backward_runs_the_tensor_core_kernels(cuda):
+    """One bf16 block backward's profile: the recompute on the stack's
+    kernels, the attention VJP on heads_bwd.cuh's q-tile and kv-tile
+    kernels, the MLP half, attention output, qkv half and weight grads on
+    the tensor-core kernels, and none of the backward's first kernels."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    args = _block_args(cuda, torch.bfloat16, B=2, N=130, seed=8)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(9)).to(
+                         torch.bfloat16)
+    run = lambda: tblock._launch_block_bwd(args[0], args[1], args[2:], dy, 4,
+                                           1e-6)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        run()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    named = lambda n: any(re.search(r"(?<![A-Za-z0-9_])" + n, k)
+                          for k in names)
+    for n in ("modln_qkv_tc_kernel", "heads_fwd_kernel", "proj_mlp_tc_kernel",
+              "mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
+              "heads_bwd_q_kernel", "heads_bwd_kv_kernel",
+              "qkv_bwd_tc_kernel", "wgrad_tc_kernel", "dmod_reduce_kernel"):
+        assert named(n), (n, sorted(names))
+    for n in ("attn_dq_kernel", "attn_dkdv_kernel", "mlp_bwd_kernel",
+              "attn_out_bwd_kernel", "qkv_bwd_kernel", "wgrad_kernel",
+              "attn_proj_kernel", "modln_qkv_kernel"):
+        assert not named(n), (n, sorted(names))
 
 
 @pytest.mark.cuda
