@@ -20,7 +20,12 @@ failing with a non-zero exit on any error:
    built into csrc/dit_stack.cu, and of the bf16 block backward's own
    kernels (csrc/dit_block_bwd.cu: ``mlp_bwd_tc_kernel``,
    ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``
-   and the block recipe of ``heads_bwd_q_kernel``/``heads_bwd_kv_kernel``);
+   and the block recipe of ``heads_bwd_q_kernel``/``heads_bwd_kv_kernel``),
+   and of the split block's wgmma GEMMs (csrc/wg_gemm.cuh:
+   ``wg_gemm_kernel`` on each route, as built into csrc/dit_split.cu),
+   checked to spill nothing and to draw no ptxas C7512 ("wgmma
+   serialized"), and of the bf16 #8 kernel on 16-byte chunks
+   (csrc/mod_ln.cu: ``res_mod_ln_bwd_vec_kernel`` at each lane split);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -61,8 +66,12 @@ failing with a non-zero exit on any error:
    vectors) against its twin, with the mean error against the f32 twin,
    again in f32 at a small batch, and against the stack kernel at the
    reference geometry; CUDA-event times, the twin's time, the bound,
-   device time by kernel and split into attention and GEMMs, and torch
-   SDPA over the block's attention as a yardstick;
+   device time by kernel and split into attention and GEMMs (the bf16
+   call checked to run on ``wg_gemm_kernel`` and on no bf16
+   ``gemm_kernel``), each GEMM stage alone (``dit_split_gemm_bf16``):
+   device time, TFLOP/s and share of its bound, and torch SDPA over the
+   block's attention and cuBLAS over its four dense products as
+   yardsticks; the LayerNorm GEMMs' route at each width;
 9. scaled offline path: the 56.7M-param DiT (scripts/bench_scaled.py:
    d_model 512, depth 12, 8 heads, mlp x4, 1024 tokens) and the LA-VAE at
    latent grid 64, seeded random weights, through the CFG sampler (B=16,
@@ -76,7 +85,7 @@ failing with a non-zero exit on any error:
    ``_mod_ln_diff_bwd`` at the scaled train step's call (B=64, N=1024,
    d_model 512, bf16, random shift/scale) against the twin and autograd
    over it, again in f32 at a small batch; CUDA-event times, the twin's
-   times and the bounds;
+   times and the bounds, and in bf16 each one's device time by kernel;
 12. fused-heads phase: ``fused_heads_attention`` and
    ``fused_heads_attention_bwd`` at the same call (8 heads of 64, q/k/v
    the column slices of one qkv tensor) against their twins, with the mean
@@ -102,7 +111,9 @@ failing with a non-zero exit on any error:
    (B=64, N=1024, d 512) and the long-series call (B=8, N=4096, d 128) in
    bf16, random x, h and gm3, against the twin and autograd over it, again
    in f32 at a small batch; CUDA-event times, the twin's times and the
-   bounds;
+   bounds; in bf16 each one's device time by kernel (its own, the ordered
+   dmod sum, the wrapper's casts), the backward checked to run on the
+   16-byte-chunk kernel;
 15. two-pass phase: ``fused_heads_attention_bwd_two_pass`` at the
    long-series train step's call (B=8, N=4096, 4 heads of 32, q/k/v the
    column slices of one qkv tensor) against its twin, with the mean error
@@ -402,16 +413,15 @@ def device_split_on_route(what, fn, parts, absent=FIRST_PARTS):
     return split
 
 
-def dense_matmul_ms(gen, rows, layers=DEPTH):
-    """Time of torch.matmul (cuBLAS) on the stack's four dense products
+def dense_matmul_ms(gen, rows, layers=DEPTH, D=D_MODEL, hidden=HIDDEN):
+    """Time of torch.matmul (cuBLAS) on a block's four dense products
     alone, (rows x D) @ wqkv, @ wproj, @ wfc1 and (rows x hidden) @ wfc2 in
     bf16, over ``layers`` layers (yardstick only: no biases, LayerNorm,
     GELU or residuals)."""
     f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
-    a, h = f(rows, D_MODEL), f(rows, HIDDEN)
-    ws = [f(D_MODEL, 3 * D_MODEL), f(D_MODEL, D_MODEL), f(D_MODEL, HIDDEN),
-          f(HIDDEN, D_MODEL)]
+    a, h = f(rows, D), f(rows, hidden)
+    ws = [f(D, 3 * D), f(D, D), f(D, hidden), f(hidden, D)]
 
     def run():
         for _ in range(layers):
@@ -904,13 +914,16 @@ def train_phase(dit, vae, gen):
 # ----------------------------------------- the scaled DiT's split kernel
 
 # the CUDA kernels of one bf16 fused_dit_block_split call at 8 heads of
-# 64, by their names in the profile: gemm_kernel<T, 0, 0> is modLN+qkv,
-# <T, 0, 1> modLN+fc1+GELU, <T, 1, 2> the proj and fc2 products with their
-# gated residuals; heads_fwd_kernel the attention
+# 64, by their names in the profile (csrc/wg_gemm.cuh's wg_gemm_kernel<PRO,
+# EPI, WG, BN>): <0, 0, 2, 128> is modLN+qkv, <0, 1, 2, 128> modLN+fc1+
+# GELU, <1, 2, 2, 128> the proj and fc2 products with their gated
+# residuals; heads_fwd_kernel the attention. None is the first version's
+# WMMA gemm_kernel.
 SPLIT_ATTN = "heads_fwd_kernel<64>"
-SPLIT_PARTS = ("gemm_kernel<__nv_bfloat16, 0, 0>", SPLIT_ATTN,
-               "gemm_kernel<__nv_bfloat16, 1, 2>",
-               "gemm_kernel<__nv_bfloat16, 0, 1>")
+SPLIT_GEMMS = ("wg_gemm_kernel<0, 0, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>",
+               "wg_gemm_kernel<0, 1, 2, 128>")
+SPLIT_PARTS = (SPLIT_GEMMS[0], SPLIT_ATTN) + SPLIT_GEMMS[1:]
+SPLIT_ABSENT = ("gemm_kernel<__nv_bfloat16",)
 
 
 def split_inputs(gen, B, N, D, hidden, dt):
@@ -972,21 +985,29 @@ def split_phase(gen):
                        by="operations" if t_ops >= t_bytes else "bytes")
         if dt == torch.bfloat16:
             with torch.no_grad():
-                split = device_ms_by_kernel(run, SPLIT_PARTS)
+                split = device_split_on_route("split bf16", run, SPLIT_PARTS,
+                                              SPLIT_ABSENT)
             log("split bf16 device time by kernel (torch.profiler, one call; "
-                "<T,0,0> modLN+qkv, <T,0,1> modLN+fc1+GELU, <T,1,2> proj and "
+                "<0, 0> modLN+qkv, <0, 1> modLN+fc1+GELU, <1, 2> proj and "
                 "fc2 with gated residuals): " + fmt_split(split))
             if split:
                 attn = split.get(SPLIT_ATTN, 0.0)
-                gemm = sum(v_ for k_, v_ in split.items()
-                           if k_.startswith("gemm_kernel"))
+                gemm = sum(split.get(k_, 0.0) for k_ in SPLIT_GEMMS)
                 log(f"split bf16 device time: attention {attn:.4f} ms "
                     f"({attn / (attn + gemm):.1%}), GEMMs {gemm:.4f} ms "
                     f"({gemm / (attn + gemm):.1%})")
+            out["gemms"] = split_gemm_stages(B * SC_N, D, hid)
             out["sdpa_ms"] = sdpa_attention_ms(gen, B, H, SC_N, D // H, 1)
             log(f"yardstick: SDPA over the split block's attention alone "
                 f"(B={B}, {H} heads, N={SC_N}, d={D // H}): "
                 f"{out['sdpa_ms']:.4f} ms")
+            out["cublas_ms"] = dense_matmul_ms(
+                torch.Generator(device="cuda").manual_seed(13), B * SC_N, 1,
+                D, hid)
+            log(f"yardstick: cuBLAS (torch.matmul) over the split block's "
+                f"four dense products alone ({B * SC_N} rows, D={D}, "
+                f"hidden={hid}; its own generator): "
+                f"{out['cublas_ms']:.4f} ms")
         del x, mod, ws
         torch.cuda.empty_cache()
 
@@ -1001,6 +1022,62 @@ def split_phase(gen):
         f"D={D_MODEL} H={HEADS}: max_abs_err={err:.6g} max|ref|={ref:.6g} "
         f"rel={err / ref:.3e} (tol 3e-2) corr={corr:.8f}")
     check(err <= 3e-2 * ref and corr >= 0.999, "split vs stack kernel")
+    from t2ms_tpu_torch.ops.dit_block import split_gemm_route
+    routes = {d: split_gemm_route(d) for d in (128, 512, 640, 1024, 1536)}
+    log(f"split bf16 LayerNorm GEMM route by D (wide: 128-row blocks, "
+        f"narrow: 64-row): {routes}")
+    check(routes[SC_D] == "wide", f"scaled split route {routes[SC_D]}")
+    return out
+
+
+def split_gemm_stages(rows, D, hidden, reps: int = 3):
+    """Each bf16 GEMM stage of the split block alone at ``rows`` rows
+    (``dit_split_gemm_bf16``, the block's own kernels): device time
+    (torch.profiler), TFLOP/s and share of its bound, the bound the larger
+    of its operations at 989 TFLOP/s and its bytes (a, w, bias, mod, res
+    and out, each once) at 3.35 TB/s. Inputs from their own generator."""
+    from t2ms_tpu_torch.ops.dit_block import (SPLIT_GEMM_STAGES,
+                                              _launch_split_gemm)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    f = lambda *s_: torch.randn(*s_, generator=g, device="cuda")
+    bf = lambda t: t.to(torch.bfloat16)
+    B = rows // SC_N
+    mod = 0.3 * f(B, 6, D)
+    out = {}
+    for stage in SPLIT_GEMM_STAGES:
+        K, cols = {"qkv": (D, 3 * D), "proj": (D, D), "fc1": (D, hidden),
+                   "fc2": (hidden, D)}[stage]
+        a, w = bf(f(B, SC_N, K)), bf(f(K, cols) / K ** 0.5)
+        bias, res = bf(0.1 * f(cols)), bf(f(B, SC_N, cols))
+        resid = stage in ("proj", "fc2")
+        run = lambda: _launch_split_gemm(a, mod, w, bias,
+                                         res if resid else None, stage)
+        with torch.no_grad():
+            times = device_ms_all(run, reps)
+        ms = sum(times.values())
+        flops = 2.0 * rows * K * cols
+        nbytes = _nbytes(a, w, bias, mod) + rows * cols * 2 * (2 if resid
+                                                                else 1)
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        if ms:
+            log(f"split bf16 GEMM {stage} ({rows} x {K} @ {K} x {cols}): "
+                f"device {ms:.4f} ms ({', '.join(sorted(times))}), "
+                f"{flops / ms / 1e9:.2f} TFLOP/s, bound {bound:.4f} ms "
+                f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+                f"{bound / ms:.2%} of its bound")
+        else:
+            log(f"split bf16 GEMM {stage}: not measured (no device time "
+                f"recorded)")
+        out[stage] = dict(ms=ms, flops=flops, bound=bound)
+        del a, w, bias, res
+    total = sum(r["ms"] for r in out.values())
+    fl = sum(r["flops"] for r in out.values())
+    if total:
+        log(f"split bf16 GEMMs alone: {total:.4f} ms of device time, "
+            f"{fl / total / 1e9:.2f} TFLOP/s over {fl / 1e9:.2f} GFLOP")
     return out
 
 
@@ -1108,8 +1185,8 @@ def scaled_server_phase(dit, vae, seed):
 
 # the CUDA kernels of the flax path, by their names in the profile
 MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
-                "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_kernel",
-                "dmod_reduce_kernel")
+                "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_vec_kernel",
+                "res_mod_ln_bwd_kernel", "dmod_reduce_kernel")
 HEADS_PARTS = ("heads_fwd_kernel", "heads_bwd_q_kernel",
                "heads_bwd_kv_kernel")
 # the library kernels around them, by name fragments: the dense products
@@ -1218,6 +1295,67 @@ def log_block_bwd_resources():
                                           HEADS)
         _log_resources(f"block backward kernel resources {what} "
                        f"(D={D_MODEL}, hidden={HIDDEN})", chunk, smem)
+
+
+def log_split_resources():
+    """ptxas's registers, stack, spills and static shared memory of the
+    split block's wgmma row GEMM (csrc/wg_gemm.cuh's ``wg_gemm_kernel`` as
+    built into csrc/dit_split.cu: the LayerNorm GEMMs on the 128-row and
+    64-row routes, the streamed one), with their dynamic shared memory
+    (``dit_split_smem``: the 128-row route at D 512, the 64-row one at D
+    1024); checked to spill nothing and to draw no ptxas C7512 ("wgmma
+    serialized")."""
+    from t2ms_tpu_torch.ops import _build
+    text = _build.build_logs.get("dit_split")
+    if not text:
+        log("split kernel resources: not measured (dit_split.cu was not "
+            "built in this process)")
+        return
+    lib = _build.load("dit_split")
+    seen = 0
+    for chunk in text.split("Compiling entry function")[1:]:
+        m = re.search(r"wg_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      chunk)
+        if m is None:
+            continue
+        pro, epi, wg, bn = (int(v) for v in m.groups())
+        stage = 1 if pro else (0 if epi == 0 else 2)
+        K = SC_D if wg == 2 else 1024
+        smem = lib.dit_split_smem(stage, K)
+        _log_resources(f"split kernel resources wg_gemm_kernel<{pro}, {epi}, "
+                       f"{wg}, {bn}> (K={K})", chunk, smem)
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", chunk)]
+        check(not any(spills), f"wg_gemm_kernel<{pro}, {epi}, {wg}, {bn}> "
+              f"spills {spills}")
+        seen += 1
+    check(seen == 5, f"{seen} wg_gemm_kernel instances in the build log, "
+          f"want 5")
+    check("C7512" not in text, "ptxas serialized a wgmma in dit_split.cu "
+          "(C7512): " + "; ".join(l_ for l_ in text.splitlines()
+                                   if "C7512" in l_))
+    log("split kernel resources: no spills and no C7512 in the wgmma "
+        "GEMMs")
+
+
+def log_mod_ln_resources():
+    """ptxas's registers, stack, spills and static shared memory of the
+    bf16 #8 kernel on 16-byte chunks (csrc/mod_ln.cu's
+    ``res_mod_ln_bwd_vec_kernel<CPL, G>``, CPL chunks a lane in groups of
+    G lanes: D 128 takes <1, 16>, D 512 <2, 32>), with its dynamic shared
+    memory at the widest D it serves, 8 CPL G (a 4 x 3 x D f32 buffer)."""
+    from t2ms_tpu_torch.ops import _build
+    text = _build.build_logs.get("mod_ln")
+    if not text:
+        log("mod_ln kernel resources: not measured (mod_ln.cu was not "
+            "built in this process)")
+        return
+    for chunk in text.split("Compiling entry function")[1:]:
+        m = re.search(r"res_mod_ln_bwd_vec_kernelILi(\d+)ELi(\d+)E", chunk)
+        if m:
+            cpl, g = int(m[1]), int(m[2])
+            _log_resources(f"mod_ln kernel resources res_mod_ln_bwd_vec_"
+                           f"kernel<{cpl}, {g}> (D={8 * cpl * g})", chunk,
+                           4 * 3 * 4 * 8 * cpl * g)
 
 
 def log_attention_resources():
@@ -1341,6 +1479,10 @@ def mod_ln_phase(gen):
             log(f"mod_ln {dt} B={B} {k}: {r['ms']:.4f} ms, twin "
                 f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
                 f"({r['by']})")
+        if dt == torch.bfloat16:
+            ln_device_time(f"mod_ln {dt} B={B}", (
+                ("fwd", fwd, "mod_ln_fwd_kernel", ()),
+                ("bwd", bwd, "mod_ln_bwd_kernel", ())), out[dt])
         del x, mod2, dy, got_y, got_dx, got_dm, want_dx, want_dm
         torch.cuda.empty_cache()
     return out
@@ -1720,9 +1862,41 @@ def res_mod_ln_phase(gen):
             log(f"res_mod_ln {dt} B={B} N={N} D={D} {k}: {r['ms']:.4f} ms, "
                 f"twin {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
                 f"({r['by']})")
+        if dt == torch.bfloat16:   # #8 on 16-byte chunks (D % 8 == 0)
+            ln_device_time(f"res_mod_ln {call} B={B} N={N} D={D}", (
+                ("fwd", fwd, "res_mod_ln_fwd_kernel", ()),
+                ("bwd", bwd, "res_mod_ln_bwd_vec_kernel",
+                 ("res_mod_ln_bwd_kernel",))), out[call])
         del x, h, do, dy, gm3, got_f, got_b, want_b
         torch.cuda.empty_cache()
     return out
+
+
+def ln_device_time(what, parts, rows):
+    """Device time by kernel (torch.profiler, one call) of the LayerNorm
+    kernels #5-#8: for each (key, fn, own kernel, kernels that must not
+    run) of ``parts``, the own kernel's, ``dmod_reduce_kernel``'s (a
+    backward's ordered sum over tiles) and the rest (the wrappers' casts);
+    checked to run on the own kernel and none of the others. rows[key]
+    gains "device" (the own kernel's ms)."""
+    for k, fn, own, absent in parts:
+        times = device_ms_all(fn)
+        if not times:
+            log(f"{what} {k} device time: not measured (no device time "
+                f"recorded)")
+            continue
+        mine = sum(v for n, v in times.items() if _named(n, own))
+        red = sum(v for n, v in times.items()
+                  if _named(n, "dmod_reduce_kernel"))
+        rest = sum(times.values()) - mine - red
+        off = sorted(n for n in times for a in absent if _named(n, a))
+        check(mine > 0 and not off, f"{what} {k} ran {sorted(times)}: want "
+              f"{own} and none of {absent}")
+        rows[k]["device"] = mine
+        log(f"{what} {k} device time (torch.profiler, one call): {own} "
+            f"{mine:.4f} ms ({rows[k]['bound'] / mine:.2%} of its bound "
+            f"{rows[k]['bound']:.4f}), dmod_reduce_kernel {red:.4f} ms, the "
+            f"wrapper's casts and the rest {rest:.4f} ms")
 
 
 def two_pass_phase(gen):
@@ -2532,6 +2706,8 @@ def main(argv=None):
     log_attention_resources()
     log_stack_resources()
     log_block_bwd_resources()
+    log_split_resources()
+    log_mod_ln_resources()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

@@ -141,6 +141,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_stack_forward": [P] * 13 + [I] * 6 + [F, F, P],
         "dit_stack_attention": [P] * 4 + [I] * 4 + [F, P],
         "dit_split_forward": [P] * 15 + [I] * 5 + [F, F, P],
+        "dit_split_gemm": [P] * 6 + [I] * 5 + [F, P],
         "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
         "dit_block_attention_bwd": [P] * 4 + [I] * 4 + [F, P],
         "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
@@ -166,14 +167,16 @@ def _declare(lib: ctypes.CDLL) -> None:
                   ("fused_heads_backward_smem", 3),
                   ("split_heads_smem", 4),
                   ("dit_stack_smem", 4),
-                  ("dit_block_bwd_smem", 4)):
+                  ("dit_block_bwd_smem", 4),
+                  ("dit_split_smem", 2)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = ctypes.c_longlong
     for fn, n in (("dit_stack_check", 4), ("dit_block_check", 4),
                   ("dit_split_check", 4), ("mod_ln_check", 2),
                   ("res_mod_ln_check", 2), ("fused_heads_check", 3),
-                  ("split_heads_check", 2), ("dit_stack_tc_route", 5)):
+                  ("split_heads_check", 2), ("dit_stack_tc_route", 5),
+                  ("dit_split_route", 1)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = I

@@ -4,19 +4,18 @@
 // Replaces the TPU kernel t2ms_tpu/ops/dit_block.py:fused_dit_block_split
 // (_qkv_split_kernel, _attn_split_kernel, _mlp_split_kernel): the block of
 // _block_math cut at its residual boundaries, for geometries too wide for
-// the stack's kernels in dit_common.cuh (a lane-strided LayerNorm row of
-// at most 256 values; whole D-wide K/V tiles and whole hidden-wide rows in
+// the stack's kernels (whole D-wide K/V tiles and hidden-wide rows in
 // shared memory). Its case is the scaled DiT: d_model 512, 8 heads of 64,
 // mlp hidden 2048, 1024 tokens. Five launches per block:
 //
-//   (1) gemm_kernel<LN, BIAS>     qkv = T(modLN(x; mod0, mod1) @ wqkv + bqkv)
-//   (2) heads_fwd_kernel          o   = softmax(q k^T) v, per head, merged
-//                                 (attn_heads.cuh, shared with fused_heads.cu;
-//                                 heads_attn_kernel in f32)
-//   (3) gemm_kernel<LOAD, RESID>  y1  = x + T(gate2) * T(o @ wproj + bproj)
-//   (4) gemm_kernel<LN, GELU>     h1  = gelu(T(modLN(y1; mod3, mod4) @ wfc1
-//                                       + bfc1))
-//   (5) gemm_kernel<LOAD, RESID>  y   = y1 + T(gate5) * T(h1 @ wfc2 + bfc2)
+//   (1) LN GEMM, BIAS       qkv = T(modLN(x; mod0, mod1) @ wqkv + bqkv)
+//   (2) heads_fwd_kernel    o   = softmax(q k^T) v, per head, merged
+//                           (attn_heads.cuh, shared with fused_heads.cu;
+//                           heads_attn_kernel in f32)
+//   (3) STREAM GEMM, RESID  y1  = x + T(gate2) * T(o @ wproj + bproj)
+//   (4) LN GEMM, GELU       h1  = gelu(T(modLN(y1; mod3, mod4) @ wfc1
+//                                 + bfc1))
+//   (5) STREAM GEMM, RESID  y   = y1 + T(gate5) * T(h1 @ wfc2 + bfc2)
 //
 // Numerics are the stack's: LayerNorm in f32 (eps from the caller), every
 // product accumulated in f32 with the rounded bias added in f32 and then
@@ -25,45 +24,46 @@
 // f32 PV), normalisation after PV, tanh-GELU, gated residuals in T.
 //
 // Bound on an H100 SXM at the scaled call (2B=32, N=1024, D=512, 8 heads,
-// hidden 2048, bf16): 274.9 GFLOP of matrix products (6.29 MFLOP per token
-// of qkv, proj, fc1 and fc2 plus 2.10 MFLOP per token of attention, times
-// 32,768 tokens), 0.278 ms at 989 TFLOP/s, against about 74 MB that must
-// move (x in and out, f32 mod, bf16 weights), 0.022 ms at 3.35 TB/s: the
-// call is bound by operations. The design therefore keeps every bf16
-// product on the tensor cores (WMMA bf16 16x16x16 with f32 accumulators
-// held in registers across the K loop; the f32 entry uses FMA loops so it
-// stays tight against its twin), and spends bytes where that keeps the
-// kernels simple:
+// hidden 2048, bf16): 274.9 GFLOP of matrix products, 206.2 of them in the
+// four GEMMs (qkv 51.5, proj 17.2, fc1 68.7, fc2 68.7), 0.278 ms at 989
+// TFLOP/s. The GEMMs also move their operands through device memory
+// between launches (x and qkv, o, y1 and x, y1 and h1, h1 and y1 and y:
+// about 0.58 GB, 0.17 ms at 3.35 TB/s), so each is near the line where
+// bytes and operations bound it alike: proj is bound by bytes (96 MB
+// against 17.2 GFLOP), the others by operations.
 //
-// - LayerNorm over D values: the 64-row tile of x is staged in shared
-//   memory (64 x 512 bf16 is 65 KB); one warp per row takes the f32 mean,
-//   then the f32 variance in a second pass over the staged row, and writes
-//   the modulated row in place. No register row, so D is not capped at 256.
-// - GEMMs: one block per 64-row tile walks the output in 128-column steps;
-//   the weight (and, in (3) and (5), the A operand) streams through shared
-//   memory in 64-deep K chunks, double-buffered with cp.async, so the
-//   staged tile and two chunks fit together (about 100 KB in bf16).
-// - Attention: one block per (batch element, 64 q rows, head), streaming
-//   64-row K/V tiles of that head only, so a head's whole K/V (128 KB at
-//   N=1024) is never staged; the 1-D grid is not held to grid.y's 65535.
-//   In bf16 the scores and exponentials stay in tensor-core registers and
-//   K/V come in through a cp.async ring (attn_heads.cuh says how).
-// - The merged attention output and the MLP hidden activations go through
-//   device memory between launches: at the scaled call that is about
-//   0.67 GB of extra traffic per block (qkv 0.10 GB, o 0.03 GB, y1 0.03 GB
-//   written and read twice, h1 0.13 GB written and read), about 0.2 ms at
-//   3.35 TB/s and still below the operations bound. The trade-off buys
-//   64-row tiles everywhere (a 64-row h1 tile in bf16 is 256 KB, beyond the
-//   227 KB a block may use) and one GEMM kernel for all four products.
+// bf16 runs the four GEMMs on wg_gemm.cuh's wgmma row GEMM: 128-row blocks
+// of two consumer warpgroups, 128-column steps, both operands through
+// 128-byte-swizzled shared memory filled by TMA from a producer warp, and
+// the epilogue from the accumulator registers through a shared output
+// tile. (1) and (4) normalise their 128 x D row tile once into shared
+// memory and serve every column step from it; where that tile, the ring
+// and the output tiles outgrow the opt-in (D above 512 at 227 KB) they
+// take 64-row blocks of one warpgroup and 64-column steps (ROUTE_NARROW;
+// D up to 1536). (3) and (5) stream A with W and prefetch the residual.
+// h1 (0.13 GB at the scaled call) still goes through device memory:
+// keeping it on chip (fc1 -> GELU -> fc2 over hidden chunks) is the next
+// step. The attention (2) takes one block per (batch element, 64 q rows,
+// head) and streams that head's K/V tiles, so a head's whole K/V is never
+// staged (attn_heads.cuh says how).
 //
-// Speed for the GEMMs (wgmma, TMA, keeping h1 on chip) is later work.
+// f32 keeps the first version's kernels: gemm_kernel, one block per 64-row
+// tile walking 128-column steps with FMA loops (WarpAcc<float>) that stay
+// tight against the twin, the weight (and a streamed A) through a
+// double-buffered cp.async ring of 64-deep chunks, the f32 output tile
+// through shared memory. No timed path runs f32.
 //
 // C interface for ctypes: dit_split_forward_{bf16,f32} launch the block on
 // the given stream and return cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE
 // (launching nothing) for a shape the kernels do not take; dit_split_check
-// answers that question alone. The limits live in check_split below.
+// answers that question alone (the limits live in check_split below);
+// dit_split_gemm_bf16 launches one of the four GEMMs alone, and
+// dit_split_route and dit_split_smem say which bf16 route and how much
+// shared memory a stage takes.
 
-#include "attn_heads.cuh"
+#include <type_traits>
+
+#include "wg_gemm.cuh"
 
 namespace {
 
@@ -90,48 +90,10 @@ __device__ void cp_tile(T* dst, int ldd, const T* __restrict__ src, size_t ld,
 }
 
 // ---------------------------------------------------------------------------
-// A warp's 32 x 32 block of C += A @ B, f32 sums kept in registers across
-// calls. A: 32 rows, row-major (lda); B: K x 32, row-major (ldb).
+// f32: a warp's 32 x 32 block of C += A @ B, f32 sums kept in registers
+// across calls. A: 32 rows, row-major (lda); B: K x 32, row-major (ldb).
 
 template <typename T> struct WarpAcc;
-
-template <> struct WarpAcc<__nv_bfloat16> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-  }
-  __device__ void mma(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
-                      int ldb, int K) {
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], A + i * 16 * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B + k * ldb + j * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ void store(float* C, int ldc) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(C + i * 16 * ldc + j * 16, c[i][j], ldc,
-                                wmma::mem_row_major);
-  }
-};
 
 template <> struct WarpAcc<float> {
   float c[32];  // lane l holds column l of the warp's 32 rows
@@ -171,13 +133,23 @@ __host__ __device__ size_t smem_gemm(bool staged, int K) {
   return a + (w > c ? w : c);
 }
 
+// bf16 routes of the LayerNorm GEMMs (1) and (4): 128-row blocks with
+// 128-column steps where the staged 128 x D tile and the ring fit the
+// device's opt-in, else 64-row blocks with 64-column steps, else none
+enum { ROUTE_NONE = 0, ROUTE_NARROW = 1, ROUTE_WIDE = 2 };
+inline int ln_route(int D, long long optin) {
+  if (smem_wg<2, 128>(true, D) <= (size_t)optin) return ROUTE_WIDE;
+  if (smem_wg<1, 64>(true, D) <= (size_t)optin) return ROUTE_NARROW;
+  return ROUTE_NONE;
+}
+
 // 0 when the kernels take (D, hidden, H) on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
 // D and hidden are multiples of the 128-column GEMM step (so of the 64-deep
 // K chunk too); the head width is 32, 64 or 128 (the attention holds a
 // warp's rows of a head as 16-wide tensor-core tiles); each kernel's
 // shared memory fits what one block may opt in to on this device (the
-// staged LayerNorm tile grows with D).
+// staged LayerNorm tile grows with D: in bf16 up to D = 1536 at 227 KB).
 template <typename T>
 int check_split(int D, int hidden, int H) {
   if (H < 1 || D < GN || hidden < GN || D % GN || hidden % GN || D % H)
@@ -186,14 +158,19 @@ int check_split(int D, int hidden, int H) {
   if (DH != 32 && DH != 64 && DH != 128) return T2MS_UNSUPPORTED_SHAPE;
   const long long optin = smem_optin();
   if (optin < 0) return (int)-optin;
-  size_t need = smem_gemm<T>(true, D);
-  if (smem_gemm<T>(false, 0) > need) need = smem_gemm<T>(false, 0);
-  if (smem_heads_attn<T>(DH) > need) need = smem_heads_attn<T>(DH);
+  size_t need = smem_heads_attn<T>(DH);
+  if constexpr (sizeof(T) == 2) {
+    if (ln_route(D, optin) == ROUTE_NONE) return T2MS_UNSUPPORTED_SHAPE;
+    if (smem_wg<2, 128>(false, 0) > need) need = smem_wg<2, 128>(false, 0);
+  } else {
+    if (smem_gemm<T>(true, D) > need) need = smem_gemm<T>(true, D);
+    if (smem_gemm<T>(false, 0) > need) need = smem_gemm<T>(false, 0);
+  }
   return need <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
 }
 
 // ---------------------------------------------------------------------------
-// (1), (3), (4), (5): out = epilogue(A @ w + bias) for one 64-row tile
+// f32 (1), (3), (4), (5): out = epilogue(A @ w + bias) for one 64-row tile
 
 template <typename T> struct GemmArgs {
   const T* a;        // (rows, K): x for the LayerNorm prologue, else A
@@ -324,6 +301,9 @@ __global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
 // ---------------------------------------------------------------------------
 // Launches
 
+// the four GEMMs of a block, by their place in it
+enum { STAGE_QKV, STAGE_PROJ, STAGE_FC1, STAGE_FC2 };
+
 template <typename T, int PRO, int EPI>
 cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
   const size_t s = smem_gemm<T>(PRO == PRO_LN, g.K);
@@ -333,6 +313,42 @@ cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
   if (e != cudaSuccess) return e;
   gemm_kernel<T, PRO, EPI><<<(g.rows + GM - 1) / GM, NT, s, st>>>(g);
   return cudaGetLastError();
+}
+
+// f32: one GEMM stage on gemm_kernel
+template <typename T>
+cudaError_t launch_stage(int stage, GemmArgs<T> g, int, cudaStream_t st) {
+  switch (stage) {
+    case STAGE_QKV:
+      g.ish = 0, g.isc = 1;
+      return launch_gemm<T, PRO_LN, EPI_BIAS>(g, st);
+    case STAGE_FC1:
+      g.ish = 3, g.isc = 4;
+      return launch_gemm<T, PRO_LN, EPI_GELU>(g, st);
+    default:
+      g.igate = stage == STAGE_PROJ ? 2 : 5;
+      return launch_gemm<T, PRO_LOAD, EPI_RESID>(g, st);
+  }
+}
+
+// bf16: one GEMM stage on the wgmma row GEMM, the LayerNorm stages on
+// `route` (ln_route)
+inline cudaError_t launch_stage(int stage, WgArgs g, int route,
+                                cudaStream_t st) {
+  const bool wide = route == ROUTE_WIDE;
+  switch (stage) {
+    case STAGE_QKV:
+      g.ish = 0, g.isc = 1;
+      return wide ? launch_wg<WG_PRO_LN, WG_EPI_BIAS, 2, 128>(g, st)
+                  : launch_wg<WG_PRO_LN, WG_EPI_BIAS, 1, 64>(g, st);
+    case STAGE_FC1:
+      g.ish = 3, g.isc = 4;
+      return wide ? launch_wg<WG_PRO_LN, WG_EPI_GELU, 2, 128>(g, st)
+                  : launch_wg<WG_PRO_LN, WG_EPI_GELU, 1, 64>(g, st);
+    default:
+      g.igate = stage == STAGE_PROJ ? 2 : 5;
+      return launch_wg<WG_PRO_STREAM, WG_EPI_RESID, 2, 128>(g, st);
+  }
 }
 
 template <typename T>
@@ -347,37 +363,42 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
     return T2MS_UNSUPPORTED_SHAPE;
   const int ok = check_split<T>(D, hidden, H);
   if (ok) return ok;
-  GemmArgs<T> g{};
-  g.mod = mod;
-  g.rows = B * N;
-  g.N = N;
-  g.eps = eps;
+  const int route = sizeof(T) == 2 ? ln_route(D, smem_optin()) : ROUTE_NONE;
+  // out = the stage's epilogue(prologue(a) @ w + bias), (B*N, K) @ (K, cols)
+  auto gemm = [&](int stage, const T* a, const T* w, const T* bias,
+                  const T* res, T* o, int K, int cols) {
+    using Args = std::conditional_t<sizeof(T) == 2, WgArgs, GemmArgs<T>>;
+    const Args g{a, mod, w, bias, res, o, B * N, N, K, cols, 0, 0, 0, eps};
+    return launch_stage(stage, g, route, st);
+  };
   cudaError_t e;
-  // (1) modLN(x) @ wqkv
-  g.a = x; g.w = wqkv; g.bias = bqkv; g.out = qkv;
-  g.K = D; g.cols = 3 * D; g.ish = 0; g.isc = 1;
-  if ((e = launch_gemm<T, PRO_LN, EPI_BIAS>(g, st)) != cudaSuccess) return e;
-  // (2) attention on the q, k and v columns of qkv
+  if ((e = gemm(STAGE_QKV, x, wqkv, bqkv, nullptr, qkv, D, 3 * D)))
+    return e;
+  // attention on the q, k and v columns of qkv
   const long long W3 = 3LL * D, sb = N * W3;
   if ((e = launch_heads_attn<T>(qkv, qkv + D, qkv + 2 * D, sb, W3, sb, W3, sb,
-                                W3, attn, B, N, D, H, qscale, st)) !=
-      cudaSuccess)
+                                W3, attn, B, N, D, H, qscale, st)))
     return e;
-  // (3) x + gate * (o @ wproj)
-  g.a = attn; g.w = wproj; g.bias = bproj; g.res = x; g.out = y1;
-  g.K = D; g.cols = D; g.igate = 2;
-  if ((e = launch_gemm<T, PRO_LOAD, EPI_RESID>(g, st)) != cudaSuccess)
+  if ((e = gemm(STAGE_PROJ, attn, wproj, bproj, x, y1, D, D))) return e;
+  if ((e = gemm(STAGE_FC1, y1, wfc1, bfc1, nullptr, h1, D, hidden)))
     return e;
-  // (4) gelu(modLN(y1) @ wfc1)
-  g.a = y1; g.w = wfc1; g.bias = bfc1; g.res = nullptr; g.out = h1;
-  g.K = D; g.cols = hidden; g.ish = 3; g.isc = 4;
-  if ((e = launch_gemm<T, PRO_LN, EPI_GELU>(g, st)) != cudaSuccess) return e;
-  // (5) y1 + gate * (h1 @ wfc2)
-  g.a = h1; g.w = wfc2; g.bias = bfc2; g.res = y1; g.out = out;
-  g.K = hidden; g.cols = D; g.igate = 5;
-  if ((e = launch_gemm<T, PRO_LOAD, EPI_RESID>(g, st)) != cudaSuccess)
-    return e;
+  if ((e = gemm(STAGE_FC2, h1, wfc2, bfc2, y1, out, hidden, D))) return e;
   return cudaGetLastError();
+}
+
+// dynamic shared memory of a bf16 GEMM stage at depth K on its route; 0
+// for a stage or K the kernels do not take on this device
+size_t stage_smem(int stage, int K, long long optin) {
+  if (stage == STAGE_PROJ || stage == STAGE_FC2)
+    return smem_wg<2, 128>(false, 0) <= (size_t)optin
+               ? smem_wg<2, 128>(false, 0)
+               : 0;
+  if (stage != STAGE_QKV && stage != STAGE_FC1) return 0;
+  switch (ln_route(K, optin)) {
+    case ROUTE_WIDE: return smem_wg<2, 128>(true, K);
+    case ROUTE_NARROW: return smem_wg<1, 64>(true, K);
+    default: return 0;
+  }
 }
 
 }  // namespace
@@ -402,6 +423,42 @@ T2MS_SPLIT_ENTRY(dit_split_forward_f32, float)
 extern "C" int dit_split_check(int D, int hidden, int H, int is_bf16) {
   return is_bf16 ? check_split<__nv_bfloat16>(D, hidden, H)
                  : check_split<float>(D, hidden, H);
+}
+
+// One bf16 GEMM stage of the block alone (STAGE_QKV 0, STAGE_PROJ 1,
+// STAGE_FC1 2, STAGE_FC2 3) on `rows` rows, N a batch element: a (rows, K),
+// mod (rows / N, 6, width) f32, w (K, cols), bias (cols), res (rows, cols)
+// for proj and fc2 (else unread), out (rows, cols); K and cols multiples
+// of 128. The block's launches run the same kernels.
+extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
+                                   const void* w, const void* bias,
+                                   const void* res, void* out, int rows,
+                                   int N, int K, int cols, int stage,
+                                   float eps, void* stream) {
+  if (rows < 1 || N < 1 || K < GN || cols < GN || K % GN || cols % GN)
+    return T2MS_UNSUPPORTED_SHAPE;
+  const long long optin = smem_optin();
+  if (optin < 0) return (int)-optin;
+  if (!stage_smem(stage, K, optin)) return T2MS_UNSUPPORTED_SHAPE;
+  const WgArgs g{(const bf16*)a, (const float*)mod, (const bf16*)w,
+                 (const bf16*)bias, (const bf16*)res, (bf16*)out, rows, N,
+                 K, cols, 0, 0, 0, eps};
+  const cudaError_t e =
+      launch_stage(stage, g, ln_route(K, optin), (cudaStream_t)stream);
+  return e ? (int)e : (int)cudaGetLastError();
+}
+
+// The bf16 route of the LayerNorm GEMMs at width D: ROUTE_WIDE 2 (128-row
+// blocks), ROUTE_NARROW 1 (64-row blocks) or ROUTE_NONE 0
+extern "C" int dit_split_route(int D) {
+  const long long optin = smem_optin();
+  return optin < 0 ? ROUTE_NONE : ln_route(D, optin);
+}
+
+// Dynamic shared memory (bytes) of bf16 GEMM stage `stage` at depth K
+extern "C" long long dit_split_smem(int stage, int K) {
+  const long long optin = smem_optin();
+  return optin < 0 ? 0 : (long long)stage_smem(stage, K, optin);
 }
 
 extern "C" const char* t2ms_cuda_error_string(int e) {

@@ -44,6 +44,16 @@
 // partial per (element, tile), summed over the tiles in a fixed order by
 // dmod_reduce_kernel (dit_common.cuh). No atomics: runs repeat bit for bit.
 //
+// The bf16 res backward (D a multiple of 8; the others keep the kernel
+// above) is res_mod_ln_bwd_vec_kernel: the lane-strided 2-byte accesses
+// made a warp instruction move 64 bytes and each warp walked its rows one
+// after another behind four serial 32-lane reductions, which held it near
+// a quarter of its byte bound. It reads and writes 16-byte chunks (a warp
+// instruction moves 512 bytes), issues a row's four loads before its first
+// sum, spreads a narrow row over fewer lanes (D = 128: 16 lanes, two rows a
+// warp), and keeps the per-column partials in registers, summed over the
+// warps through a buffer half the size of the warp partials' above.
+//
 // C interface for ctypes: {mod_ln,res_mod_ln}_{forward,backward}_{bf16,f32}
 // launch on the given stream and return cudaGetLastError(), or
 // T2MS_UNSUPPORTED_SHAPE (launching nothing) for a shape the kernels do not
@@ -323,6 +333,216 @@ res_mod_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
   flush_partials(Ps, 3, D, part);
 }
 
+// bf16 backward of the gated residual on 16-byte chunks: a row of D
+// values (D a multiple of 8) is D / 8 chunks spread over a group of G lanes
+// (the next power of two of D / 8, at most 32; 32 / G rows of a warp at
+// once), lane l of a group holding chunks l, l + G, ... (CPL of them). Each
+// lane loads its chunks of x, h, do and dy with one 16-byte load each, all
+// issued before the row's first sum, and stores dx and dh the same way; a
+// row's sums are chains of log2(G) shuffles. The lane's per-column partials
+// stay in registers over the warp's rows, then add up across the warp's
+// groups (shuffles) and across the 8 warps through a (NW / 2) x 3 x D
+// buffer, warp w + h into warp w for h = 4, 2, 1: a fixed order. The
+// arithmetic and its rounding points are res_mod_ln_bwd_kernel's.
+
+using bf16 = __nv_bfloat16;
+
+// two floats rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// the 8 floats at q (16-byte aligned) from p, or added into p
+__device__ __forceinline__ void put8(float* q, const float (&p)[8]) {
+  reinterpret_cast<float4*>(q)[0] = make_float4(p[0], p[1], p[2], p[3]);
+  reinterpret_cast<float4*>(q)[1] = make_float4(p[4], p[5], p[6], p[7]);
+}
+__device__ __forceinline__ void add8(const float* q, float (&p)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(q)[0];
+  const float4 c = reinterpret_cast<const float4*>(q)[1];
+  p[0] += a.x, p[1] += a.y, p[2] += a.z, p[3] += a.w;
+  p[4] += c.x, p[5] += c.y, p[6] += c.z, p[7] += c.w;
+}
+// the 8 floats at q (16-byte aligned), loaded where they are used: the
+// volatile loads stay in the row loop (the gate and scale, hoisted into
+// registers for the whole loop, made the kernel spill)
+__device__ __forceinline__ void ldg8(const float* q, float (&f)[8]) {
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(f[0]), "=f"(f[1]), "=f"(f[2]), "=f"(f[3])
+               : "l"(q));
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4+16];\n"
+               : "=f"(f[4]), "=f"(f[5]), "=f"(f[6]), "=f"(f[7])
+               : "l"(q));
+}
+
+template <int CPL, int G>
+__global__ void __launch_bounds__(NT, CPL <= 2 ? 2 : 1)
+res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
+                          const bf16* __restrict__ h,
+                          const float* __restrict__ gm3,
+                          const bf16* __restrict__ dout,
+                          const bf16* __restrict__ dy, bf16* __restrict__ dx,
+                          bf16* __restrict__ dh, float* __restrict__ part,
+                          int N, int D, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ps = reinterpret_cast<float*>(smem);  // (NW / 2) x 3 x D
+  constexpr int RPW = 32 / G;                  // rows of a warp at once
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gi = lane / G, l = lane % G, nch = D / 8;
+  const int tiles = (N + MLN_ROWS - 1) / MLN_ROWS;
+  const int b = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * MLN_ROWS;
+  const int valid = min(MLN_ROWS, N - n0);
+  const float* gate = gm3 + (size_t)b * 3 * D;
+  const float* sc = gate + 2 * D;
+  auto group_sum = [](float v) {
+#pragma unroll
+    for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
+  // the lane's chunk j: its first column (clamped for a lane without one)
+  auto col = [&](int j) { return 8 * min(l + G * j, nch - 1); };
+  float pg[CPL][8], psh[CPL][8], psc[CPL][8];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) pg[j][k] = psh[j][k] = psc[j][k] = 0.0f;
+  }
+  // every lane of a warp runs every pass (the shuffles take the whole
+  // warp); a row past `valid` loads zeros and adds nothing
+  for (int i0 = warp * RPW; i0 < valid; i0 += NW * RPW) {
+    const int i = i0 + gi;
+    const size_t r = (size_t)b * N + n0 + min(i, valid - 1);
+    bool on[CPL];
+    uint4 ux[CPL], uh[CPL], ud[CPL], uy[CPL];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      on[j] = i < valid && l + G * j < nch;
+      const size_t o = r * D + col(j);
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      ux[j] = on[j] ? *reinterpret_cast<const uint4*>(x + o) : z;
+      uh[j] = on[j] ? *reinterpret_cast<const uint4*>(h + o) : z;
+      ud[j] = on[j] ? *reinterpret_cast<const uint4*>(dout + o) : z;
+      uy[j] = on[j] ? *reinterpret_cast<const uint4*>(dy + o) : z;
+    }
+    // y = T(x + T(T(gate) * h)), then its f32 mean and 1 / sqrt(var + eps)
+    float v[CPL][8];
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8], hv[8], gs[8];
+      unpack8(ux[j], xv);
+      unpack8(uh[j], hv);
+      ldg8(gate + col(j), gs);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[j][k] = rnd<bf16>(xv[k] + rnd<bf16>(rnd<bf16>(gs[k]) * hv[k]));
+        s += on[j] ? v[j][k] : 0.0f;
+      }
+    }
+    const float mu = group_sum(s) / D;
+    float q = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float dv = on[j] ? v[j][k] - mu : 0.0f;
+        q += dv * dv;
+      }
+    }
+    const float rs = rsqrtf(group_sum(q) / D + eps);
+    // xh, the column sums of do and do * xh, g = do * (1 + scale) (formed
+    // again below from the packed do: fewer live registers)
+    auto grad = [&](int j, float (&d)[8]) {
+      float scj[8];
+      ldg8(sc + col(j), scj);
+      unpack8(ud[j], d);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) d[k] *= 1.0f + scj[k];
+    };
+    float sg = 0.0f, sgx = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float d[8], g[8];
+      unpack8(ud[j], d);
+      grad(j, g);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[j][k] = on[j] ? (v[j][k] - mu) * rs : 0.0f;  // xh
+        psh[j][k] += d[k];
+        psc[j][k] += d[k] * v[j][k];
+        sg += g[k];
+        sgx += g[k] * v[j][k];
+      }
+    }
+    const float mg = group_sum(sg) / D, mgx = group_sum(sgx) / D;
+    // dt = T(T(dln) + dy): dx = dt, dh = T(dt * T(gate)), dgate += dt * h
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (!on[j]) continue;
+      float yv[8], hv[8], gs[8], dt[8], g[8];
+      unpack8(uy[j], yv);
+      unpack8(uh[j], hv);
+      ldg8(gate + col(j), gs);
+      grad(j, g);
+      uint32_t wx[4], wh[4];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        dt[k] = rnd<bf16>(rnd<bf16>(rs * (g[k] - mg - v[j][k] * mgx)) +
+                          yv[k]);
+        gs[k] = rnd<bf16>(gs[k]);
+        pg[j][k] += dt[k] * hv[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        wx[k] = pack2(dt[2 * k], dt[2 * k + 1]);
+        wh[k] = pack2(dt[2 * k] * gs[2 * k], dt[2 * k + 1] * gs[2 * k + 1]);
+      }
+      const size_t o = r * D + col(j);
+      *reinterpret_cast<uint4*>(dx + o) =
+          make_uint4(wx[0], wx[1], wx[2], wx[3]);
+      *reinterpret_cast<uint4*>(dh + o) =
+          make_uint4(wh[0], wh[1], wh[2], wh[3]);
+    }
+  }
+
+  // the warp's groups into group 0 (shuffles), then warp w + half into
+  // warp w for half = 4, 2, 1 through Ps, then warp 0's sums out
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        pg[j][k] += __shfl_xor_sync(0xffffffffu, pg[j][k], o);
+        psh[j][k] += __shfl_xor_sync(0xffffffffu, psh[j][k], o);
+        psc[j][k] += __shfl_xor_sync(0xffffffffu, psc[j][k], o);
+      }
+    }
+  }
+  // the lane's sums into (or added from) a 3 x D buffer [pg, psh, psc]
+  auto io = [&](float* buf, bool add) {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (l + G * j >= nch) continue;
+      float* c = buf + 8 * (l + G * j);
+      if (add) {
+        add8(c, pg[j]), add8(c + D, psh[j]), add8(c + 2 * D, psc[j]);
+      } else {
+        put8(c, pg[j]), put8(c + D, psh[j]), put8(c + 2 * D, psc[j]);
+      }
+    }
+  };
+#pragma unroll
+  for (int half = NW / 2; half >= 1; half /= 2) {
+    if (gi == 0 && warp >= half && warp < 2 * half)
+      io(Ps + (size_t)(warp - half) * 3 * D, false);
+    __syncthreads();
+    if (gi == 0 && warp < half) io(Ps + (size_t)warp * 3 * D, true);
+    __syncthreads();
+  }
+  if (warp == 0 && gi == 0) io(part + (size_t)blockIdx.x * 3 * D, false);
+}
+
 // ------------------------------------------------------------ launches
 
 // shared memory of a backward with W per-column sums: NW x W x D floats
@@ -392,10 +612,43 @@ int by_lanes(const Args<T>& a, cudaStream_t st) {
   return L<T, 32, RES>::run(a, st);
 }
 
+// the bf16 gated-residual backward on 16-byte chunks (D a multiple of 8):
+// CPL chunks a lane in groups of G lanes, after by_lanes' shape checks
+template <int CPL, int G>
+cudaError_t launch_res_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
+  const size_t s = (size_t)(NW / 2) * 3 * a.D * 4;
+  const cudaError_t e =
+      set_smem((const void*)res_mod_ln_bwd_vec_kernel<CPL, G>, s);
+  if (e) return e;
+  const int blocks = a.B * ((a.N + MLN_ROWS - 1) / MLN_ROWS);
+  res_mod_ln_bwd_vec_kernel<CPL, G><<<blocks, NT, s, st>>>(
+      a.x, a.h, a.mod, a.dout, a.dy, a.out, a.out2, a.part, a.N, a.D, a.eps);
+  return cudaGetLastError();
+}
+
+int res_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
+  if (a.B < 1 || a.N < 1 || (long long)a.B * a.N > INT_MAX)
+    return T2MS_UNSUPPORTED_SHAPE;
+  const int ok = check_rows(a.D, 3);
+  if (ok) return ok;
+  const int nch = a.D / 8;
+  if (nch <= 8) return launch_res_bwd_vec<1, 8>(a, st);
+  if (nch <= 16) return launch_res_bwd_vec<1, 16>(a, st);
+  if (nch <= 32) return launch_res_bwd_vec<1, 32>(a, st);
+  if (nch <= 64) return launch_res_bwd_vec<2, 32>(a, st);
+  if (nch <= 96) return launch_res_bwd_vec<3, 32>(a, st);
+  return launch_res_bwd_vec<4, 32>(a, st);
+}
+
 // the backward, then the ordered sum of its W x D partials over the tiles
+// (the bf16 gated residual's on 16-byte chunks where D allows)
 template <typename T, bool RES>
 int run_backward(const Args<T>& a, float* dmod, cudaStream_t st) {
-  const int e = by_lanes<Backward, T, RES>(a, st);
+  int e;
+  if constexpr (RES && sizeof(T) == 2)
+    e = a.D % 8 ? by_lanes<Backward, T, RES>(a, st) : res_bwd_vec(a, st);
+  else
+    e = by_lanes<Backward, T, RES>(a, st);
   if (e) return e;
   launch_dmod_reduce(a.part, a.B, (a.N + MLN_ROWS - 1) / MLN_ROWS,
                      (RES ? 3 : 2) * a.D, dmod, st);

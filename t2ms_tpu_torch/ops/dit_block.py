@@ -43,6 +43,8 @@ __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "fused_dit_block_diffable", "block_kernel_supported",
            "block_attn_stats", "block_attn_bwd_reference",
            "fused_dit_block_split", "split_kernel_supported",
+           "split_gemm_reference", "split_gemm_route", "SPLIT_GEMM_STAGES",
+           "SPLIT_GEMM_KERNEL",
            "mod_ln_diffable", "mod_ln_reference", "mod_ln_supported",
            "res_mod_ln_diffable", "res_mod_ln_reference",
            "res_mod_ln_supported", "STACK_KERNEL", "BLOCK_KERNEL",
@@ -53,6 +55,7 @@ STACK_KERNEL = "fused_dit_stack"
 BLOCK_KERNEL = "fused_dit_block"
 BLOCK_BWD_KERNEL = "_fused_block_diff_bwd"
 SPLIT_KERNEL = "fused_dit_block_split"
+SPLIT_GEMM_KERNEL = "split_gemm"
 MOD_LN_KERNEL = "_mod_ln_call"
 MOD_LN_BWD_KERNEL = "_mod_ln_diff_bwd"
 RES_MOD_LN_KERNEL = "_res_mod_ln_call"
@@ -187,6 +190,29 @@ def fused_dit_block_reference(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
     return dit_stack_reference_block(x, mod, *ws, num_heads, eps)
 
 
+# the four GEMM stages of the split block, by their place in it
+SPLIT_GEMM_STAGES = ("qkv", "proj", "fc1", "fc2")
+
+
+def split_gemm_reference(a, mod, w, bias, res, stage: str,
+                         eps: float = 1e-6):
+    """Plain twin of one GEMM stage of the split block
+    (``dit_stack_reference_block``'s step): a (B, N, K), mod (B, 6, D),
+    w (K, cols) and bias (cols,) in a's dtype, res (B, N, cols) for the
+    residual stages (else unread). "qkv": modLN(a; mod0, mod1) @ w + bias;
+    "proj": res + gate2 * (a @ w + bias); "fc1": gelu(modLN(a; mod3,
+    mod4) @ w + bias); "fc2": res + gate5 * (a @ w + bias); each dense
+    product in f32 with the f32 bias added, then rounded (``_dense``)."""
+    m = lambda i: mod[:, i][:, None, :]
+    if stage == "qkv":
+        return _dense(_mod_ln(a, m(0), m(1), eps), w, bias)
+    if stage == "fc1":
+        return F.gelu(_dense(_mod_ln(a, m(3), m(4), eps), w, bias),
+                      approximate="tanh")
+    gate = m(2 if stage == "proj" else 5).to(a.dtype)
+    return res + gate * _dense(a, w, bias)
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 def _kernel_supported(library, check, D, hidden, num_heads, dtype):
@@ -294,6 +320,45 @@ def _launch_split(x, mod, ws, num_heads, eps):
     _build.launch(lib, _SPLIT_ENTRY[x.dtype], SPLIT_KERNEL, refused,
                   x.device, x, mod, *ws, out, qkv, attn, y1, h1, B, N, D,
                   hidden, num_heads, eps, qscale)
+    return out
+
+
+def split_gemm_route(D: int) -> str:
+    """Which wgmma route the bf16 split block's LayerNorm GEMMs take at
+    width D on the current device (``dit_split_route``): "wide" (128-row
+    blocks, 128-column steps), "narrow" (64-row blocks, 64-column steps)
+    or "none"."""
+    return ("none", "narrow", "wide")[_build.load("dit_split")
+                                      .dit_split_route(D)]
+
+
+def _launch_split_gemm(a, mod, w, bias, res, stage, eps=1e-6):
+    """One bf16 GEMM stage of the split block alone (the block's launches
+    run the same kernels), with ``split_gemm_reference``'s operands; counted
+    as ``split_gemm``. For measurements and tests."""
+    B, N, K = a.shape
+    cols = w.shape[-1]
+    resid = stage in ("proj", "fc2")
+    want = [("w", w, (K, cols)), ("bias", bias, (cols,)),
+            ("mod", mod, (B, 6, cols if resid else K))]
+    if resid:
+        want.append(("res", res, (B, N, cols)))
+    for name, t, shape in want:
+        if t is None or tuple(t.shape) != shape:
+            got = None if t is None else tuple(t.shape)
+            raise ValueError(f"{SPLIT_GEMM_KERNEL} {stage}: {name} must be "
+                             f"{shape}, got {got}")
+    refused = ValueError(f"{SPLIT_GEMM_KERNEL} {stage} does not take "
+                         f"B={B} N={N} K={K} cols={cols} dtype={a.dtype}")
+    if a.dtype != torch.bfloat16:
+        raise refused
+    lib = _build.load("dit_split")
+    out = torch.empty((B, N, cols), device=a.device, dtype=a.dtype)
+    res = res.contiguous() if resid else out
+    _build.launch(lib, "dit_split_gemm_bf16", SPLIT_GEMM_KERNEL, refused,
+                  a.device, a.contiguous(), mod.float().contiguous(),
+                  w.contiguous(), bias.contiguous(), res, out, B * N, N, K,
+                  cols, SPLIT_GEMM_STAGES.index(stage), float(eps))
     return out
 
 

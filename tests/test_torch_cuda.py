@@ -381,23 +381,13 @@ def test_bf16_block_backward_runs_the_tensor_core_kernels(cuda):
     kernels, the attention VJP on heads_bwd.cuh's q-tile and kv-tile
     kernels, the MLP half, attention output, qkv half and weight grads on
     the tensor-core kernels, and none of the backward's first kernels."""
-    import re
-    from torch.profiler import ProfilerActivity, profile
     args = _block_args(cuda, torch.bfloat16, B=2, N=130, seed=8)
     dy = torch.randn(args[0].shape, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(9)).to(
                          torch.bfloat16)
-    run = lambda: tblock._launch_block_bwd(args[0], args[1], args[2:], dy, 4,
-                                           1e-6)
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        run()
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()}
-    named = lambda n: any(re.search(r"(?<![A-Za-z0-9_])" + n, k)
-                          for k in names)
+    names, named = _profile_names(
+        lambda: tblock._launch_block_bwd(args[0], args[1], args[2:], dy, 4,
+                                         1e-6))
     for n in ("modln_qkv_tc_kernel", "heads_fwd_kernel", "proj_mlp_tc_kernel",
               "mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
               "heads_bwd_q_kernel", "heads_bwd_kv_kernel",
@@ -570,6 +560,110 @@ def test_split_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         tblock.fused_dit_block_split(*args, num_heads=4)
     assert not _build.launch_counts
+
+
+def _profile_names(run):
+    """The kernel names in a profile of two calls of ``run`` (after one
+    warm-up call), and a test of whether one names ``n`` as a whole
+    identifier."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        run()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    return names, lambda n: any(
+        re.search(r"(?<![A-Za-z0-9_])" + re.escape(n), k) for k in names)
+
+
+def _stage_args(dev, stage, D, hidden, B=3, N=130, seed=11):
+    """One GEMM stage's operands in bf16 (mod f32, random): a (B, N, K),
+    w (K, cols) of standard deviation 1/sqrt(K), bias, res (B, N, cols)."""
+    K, cols = {"qkv": (D, 3 * D), "proj": (D, D), "fc1": (D, hidden),
+               "fc2": (hidden, D)}[stage]
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    bf = lambda t: t.to(dev, torch.bfloat16)
+    return (bf(f(B, N, K)), (0.3 * f(B, 6, D)).to(dev),
+            bf(f(K, cols) / K ** 0.5), bf(0.1 * f(cols)), bf(f(B, N, cols)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", tblock.SPLIT_GEMM_STAGES)
+@pytest.mark.parametrize("D,hidden", [(128, 256), (512, 2048), (1024, 2048)])
+def test_split_gemm_stage_matches_twin_on_card(cuda, stage, D, hidden):
+    """Each bf16 GEMM stage of the split block alone (the wgmma row GEMM;
+    at D 1024 the LayerNorm stages take the 64-row route) against its twin
+    at ragged rows (B=3, N=130): 1e-2 * max|ref| (the same f32 products
+    in another order, so at most a rounding flip of the LayerNorm's output
+    or of the result) and correlation >= 0.999; one launch."""
+    args = _stage_args(cuda, stage, D, hidden)
+    _build.reset_launch_counts()
+    got = tblock._launch_split_gemm(*args, stage)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.SPLIT_GEMM_KERNEL: 1}
+    want = tblock.split_gemm_reference(*args, stage)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    _close_to_twin(got, want, 1e-2)
+    a, b = got.float().flatten(), want.float().flatten()
+    assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_split_gemm_routes_by_width(cuda):
+    """The LayerNorm GEMMs stage a 128 x D tile (128-row blocks) while it,
+    the ring and the output tiles fit 227 KB, else a 64 x D tile (64-row
+    blocks), up to the widest D the split kernel took before the wgmma
+    GEMMs (1536)."""
+    route = tblock.split_gemm_route
+    assert [route(d) for d in (128, 256, 512)] == ["wide"] * 3
+    assert [route(d) for d in (640, 1024, 1536)] == ["narrow"] * 3
+    assert route(1664) == "none"
+    ok = tblock.split_kernel_supported
+    assert ok(1536, 256, 12, torch.bfloat16)
+    assert not ok(1664, 256, 13, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_split_kernel_narrow_route_matches_twin_on_card(cuda):
+    """The block at D 1024 (the 64-row route of the LayerNorm GEMMs),
+    held as test_split_kernel_matches_twin_on_card holds the others."""
+    args = _split_args(cuda, torch.bfloat16, D=1024, hidden=2048)
+    assert tblock.split_gemm_route(1024) == "narrow"
+    with torch.no_grad():
+        got = tblock.fused_dit_block_split(*args, num_heads=8).float()
+        want = tblock.fused_dit_block_reference(*args, 8).float()
+        truth = tblock.fused_dit_block_reference(
+            *(a.float() for a in args), 8)
+    _close_to_twin(got, want, 3e-2)
+    assert (got - truth).abs().mean() <= 1.5 * (want - truth).abs().mean()
+
+
+@pytest.mark.cuda
+def test_bf16_split_kernel_repeats_bit_for_bit(cuda):
+    args = _split_args(cuda, torch.bfloat16, B=2, N=1024)
+    with torch.no_grad():
+        a = tblock.fused_dit_block_split(*args, num_heads=8)
+        b = tblock.fused_dit_block_split(*args, num_heads=8)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_split_kernel_runs_the_wgmma_gemms(cuda):
+    """One bf16 split block's profile: the attention on heads_fwd_kernel,
+    the four products on wg_gemm_kernel, and no WMMA gemm_kernel."""
+    args = _split_args(cuda, torch.bfloat16, B=2, N=130)
+    with torch.no_grad():
+        names, named = _profile_names(
+            lambda: tblock.fused_dit_block_split(*args, num_heads=8))
+    for n in ("heads_fwd_kernel", "wg_gemm_kernel<0, 0, 2, 128>",
+              "wg_gemm_kernel<1, 2, 2, 128>", "wg_gemm_kernel<0, 1, 2, 128>"):
+        assert named(n), (n, sorted(names))
+    assert not named("gemm_kernel"), sorted(names)
 
 
 @pytest.mark.cuda
@@ -846,6 +940,28 @@ def test_res_mod_ln_kernels_match_twins_on_card(cuda, dt, tol, D):
         g, w = g.float(), w.float()
         assert torch.isfinite(g).all()
         assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [130, 77])
+@pytest.mark.parametrize("D", [64, 100, 128, 512, 1024])
+def test_bf16_res_mod_ln_backward_matches_twin_across_widths(cuda, D, N):
+    """#8 in bf16 against autograd over its twin at ragged token counts:
+    dx, dh and dgm3 within 1e-2 * max|ref| (one rounding flip after f32
+    sums in another order). D a multiple of 8 runs the 16-byte-chunk
+    kernel (D 64: 8 lanes a row, 128: 16, 512: 2 chunks a lane, 1024: 4),
+    D 100 the lane-strided one: the profile says which."""
+    args = _res_args(cuda, torch.bfloat16, N=N, D=D)
+    got = _res_grads(*args, twin=False)
+    want = _res_grads(*args, twin=True)
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        _close_to_twin(g, w, 1e-2)
+    names, named = _profile_names(
+        lambda: tblock._launch_res_mod_ln_bwd(*args[:3], *args[3:], 1e-6))
+    vec = D % 8 == 0
+    assert named("res_mod_ln_bwd_vec_kernel") == vec, sorted(names)
+    assert named("res_mod_ln_bwd_kernel") == (not vec), sorted(names)
 
 
 @pytest.mark.cuda

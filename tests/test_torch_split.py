@@ -117,6 +117,7 @@ class _FakeLib:
 
     ENTRIES = ("dit_stack_forward_bf16", "dit_stack_forward_f32",
                "dit_split_forward_bf16", "dit_split_forward_f32",
+               "dit_split_gemm_bf16",
                "dit_block_backward_bf16", "dit_block_backward_f32",
                "dit_block_check", "dit_block_backward_workspace",
                "mod_ln_forward_bf16", "mod_ln_forward_f32",
@@ -195,6 +196,39 @@ def test_launchers_pass_each_entry_its_declared_arguments(
     *_, eps, qscale, stream = _one_launch(lib, entry, dt)
     assert stream.value == 7 and eps.value == pytest.approx(1e-6)
     assert qscale.value == float(torch.tensor(8 ** -0.5, dtype=dt))
+
+
+@pytest.mark.parametrize("stage", tblock.SPLIT_GEMM_STAGES)
+def test_split_gemm_launcher_passes_its_declared_arguments(monkeypatch,
+                                                           stage):
+    """One GEMM stage of the split block against the fake library: six
+    pointers (a first, the output last), rows, N, K, cols and the stage's
+    index as ints, eps and the stream last; one launch counted as
+    split_gemm; an input other than bf16 or a mismatched operand refused
+    before any call."""
+    lib = _rehearse(monkeypatch)
+    B, N, D, hidden = 2, 8, 32, 64
+    K, cols = {"qkv": (D, 3 * D), "proj": (D, D), "fc1": (D, hidden),
+               "fc2": (hidden, D)}[stage]
+    bf = lambda *s: torch.randn(*s).to(torch.bfloat16)
+    a, w, bias, res = bf(B, N, K), bf(K, cols), bf(cols), bf(B, N, cols)
+    out = tblock._launch_split_gemm(a, torch.randn(B, 6, D), w, bias, res,
+                                    stage)
+    *ptrs, rows, n, k, c, idx, eps, stream = _one_launch(
+        lib, "dit_split_gemm", torch.bfloat16)
+    assert dict(_build.launch_counts) == {tblock.SPLIT_GEMM_KERNEL: 1}
+    assert ptrs[0].value == a.data_ptr() and ptrs[5].value == out.data_ptr()
+    assert (rows, n, k, c) == (B * N, N, K, cols)
+    assert idx == tblock.SPLIT_GEMM_STAGES.index(stage)
+    assert eps.value == pytest.approx(1e-6) and stream.value == 7
+    assert out.shape == (B, N, cols) and out.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="does not take"):
+        tblock._launch_split_gemm(a.float(), torch.randn(B, 6, D), w, bias,
+                                  res, stage)
+    with pytest.raises(ValueError, match="bias must be"):
+        tblock._launch_split_gemm(a, torch.randn(B, 6, D), w, bias[:-1],
+                                  res, stage)
+    assert len(lib.calls) == 1
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
