@@ -191,7 +191,31 @@ failing with a non-zero exit on any error:
    the eager einsum bf16 and f32 paths for 4 steps;
 25. explicit-impl phase: the flagship DiT with ``attention_impl`` 'flash',
    'packed' and 'fused', one train step each (B=64), each launching the
-   kernel its impl names and nothing else.
+   kernel its impl names and nothing else;
+26. DDPM offline path: the flagship sampler with the DDPM backbone (B=256,
+   cfg 7, length 96, bf16), the ancestral sampler over the T=100
+   schedule: series/s, 100 stack launches per ``sample()`` checked, and
+   on a 4-step schedule the kernel path against the eager bf16 and f32
+   paths with the same injected x_t0 and step noise;
+27. DDIM offline path: the same over ``ddim_timesteps(100, 25)``: series/s,
+   one stack launch a sub-schedule step checked, 4 DDIM steps over T=100
+   against the eager paths;
+28. DDPM train phase: the flagship train step with the DDPM loss (B=1024,
+   block kernels): steps/s, peak memory, 4 + 4 launches per step checked,
+   and at B=128 the kernel path's loss and gradients against the eager
+   bf16 and f32 paths on the same injected draws (three draws);
+29. DDPM server: a ``ServingEngine`` with the DDPM backbone (bucket 96,
+   tiers 1/16/64), each row's step noise from its own seed: p50 latency,
+   and one seed served alone against the same seed inside a full batch;
+30. CLI phase: a synthetic ETTh1 corpus (lengths 24/48/96, 2100 rows each)
+   written by ``write_t2s_csv`` into a temporary directory, then
+   ``cli.train.main`` (B=1024, 2 epochs, T=100, bf16, a checkpoint each
+   epoch) and ``cli.infer.main`` on ``model_1`` (bf16, run_multi, one
+   batch a run), for flowmatching/euler and for ddpm with DDIM over 25
+   steps: the JAX CLIs' artifacts (``x_t.npy``, ``run_9/x_1.npy``, ...)
+   with their shapes and finite values, the block kernels' launches in
+   train and the stack's in infer checked, the train CLI's steps/s from
+   ``train_log.jsonl``, its peak memory and each CLI's wall time.
 
 The line before the last is the kernel table as JSON (all 17 TPU kernels'
 counterparts with their numbers under "kernels"; "to_port" is empty), the
@@ -1713,7 +1737,7 @@ def log_device_time(what, fn, parts=MOD_LN_PARTS + HEADS_PARTS):
 
 
 def train_paths_vs_eager(what, make_dit, dit, vae, x, emb, make_draws,
-                         precoded=False, n_draws=3):
+                         precoded=False, n_draws=3, backbone="flowmatching"):
     """One train step's loss and every parameter's gradient through the
     kernel path, the eager bf16 and the eager f32 opt-out paths on the same
     injected draws (SGD at lr 0, so the step leaves the weights), for
@@ -1733,7 +1757,7 @@ def train_paths_vs_eager(what, make_dit, dit, vae, x, emb, make_draws,
             m = make_dit(dt_, impl)
             m.load_state_dict(dit.state_dict())
             s_ = make_denoiser_train_step(
-                m, vae, torch.optim.SGD(m.parameters(), lr=0.0),
+                m, vae, torch.optim.SGD(m.parameters(), lr=0.0), backbone,
                 total_step=STEPS, precoded=precoded)
             _build.reset_launch_counts()
             loss = s_(x, emb, **draws).item()
@@ -1768,16 +1792,21 @@ def train_paths_vs_eager(what, make_dit, dit, vae, x, emb, make_draws,
 
 
 def sampler_vs_eager(what, dit, make_dit, vae, x1, emb, x_t0, out_len,
-                     want, few=4):
+                     want, few=4, step_noise=None, **sampler_kw):
     """``few`` sampler steps of ``dit`` against the eager bf16 and f32
-    ``attention_impl='einsum'`` paths on the same noise: the launches
-    ``want`` (kernel name -> count) and none on the eager paths, the
-    kernel path within 5e-2 * max|ref| of the eager bf16 path and no
-    further from the f32 path than 1.5x it."""
+    ``attention_impl='einsum'`` paths on the same noise (``x_t0``, and for
+    the DDPM ancestral sampler ``step_noise``): the launches ``want``
+    (kernel name -> count) and none on the eager paths, the kernel path
+    within 5e-2 * max|ref| of the eager bf16 path and no further from the
+    f32 path than 1.5x it. ``sampler_kw`` (backbone, solver, sample_steps,
+    total_step) goes to ``make_cfg_sampler``; total_step defaults to
+    ``few``."""
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.sampling import make_cfg_sampler
-    run = lambda m: make_cfg_sampler(m, vae, total_step=few, cfg_scale=CFG,
-                                     out_length=out_len)(x1, emb, x_t0=x_t0)
+    sampler_kw.setdefault("total_step", few)
+    run = lambda m: make_cfg_sampler(m, vae, cfg_scale=CFG,
+                                     out_length=out_len, **sampler_kw)(
+        x1, emb, x_t0=x_t0, step_noise=step_noise)
     _build.reset_launch_counts()
     outs = [run(dit)]
     check(dict(_build.launch_counts) == want,
@@ -2668,6 +2697,281 @@ def explicit_impl_phase(dit, vae, gen):
         torch.cuda.empty_cache()
 
 
+# ------------------------------- the DDPM backbone and the T2S entry points
+
+DDIM_STEPS = 25                        # cli.infer --sample_steps 25 over T=100
+
+
+def ddpm_offline_phase(dit, vae, gen, solver):
+    """The flagship sampler with the DDPM backbone (B=256, cfg 7, length
+    96, bf16) over the T=100 schedule: ancestral (``solver='euler'``, one
+    stack launch a step, noise added at each) or DDIM over
+    ``ddim_timesteps(100, 25)``. Checked first for 4 steps against the
+    eager bf16 and f32 paths on the same injected noise."""
+    from t2ms_tpu_torch.models.backbones.ddpm import ddim_timesteps
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    what = "ddpm offline" if solver == "euler" else "ddim offline"
+    x1 = torch.randn(B_SERIES, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(B_SERIES, D_MODEL, generator=gen, device="cuda")
+    x_t0 = torch.randn(B_SERIES, 64, 30, generator=gen, device="cuda")
+    few = 4
+    if solver == "euler":
+        # a 4-step schedule, its step noise injected
+        noise = torch.randn(few, B_SERIES, 64, 30, generator=gen,
+                            device="cuda")
+        sampler_vs_eager(what, dit, flagship_dit, vae, x1, emb, x_t0,
+                         OUT_LEN, {STACK_KERNEL: few}, few,
+                         step_noise=noise, backbone="ddpm")
+        kw, n_steps = {}, STEPS
+    else:
+        # 4 DDIM steps over the T=100 schedule
+        sampler_vs_eager(what, dit, flagship_dit, vae, x1, emb, x_t0,
+                         OUT_LEN, {STACK_KERNEL: few}, few, backbone="ddpm",
+                         solver="ddim", sample_steps=few, total_step=STEPS)
+        kw = dict(solver="ddim", sample_steps=DDIM_STEPS)
+        n_steps = len(ddim_timesteps(STEPS, DDIM_STEPS)[0])
+    sampler = make_cfg_sampler(dit, vae, "ddpm", total_step=STEPS,
+                               cfg_scale=CFG, out_length=OUT_LEN, **kw)
+    gen_noise = torch.Generator(device="cuda")
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sampler(x1, emb, generator=gen_noise.manual_seed(23))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    series = out.series
+    check(tuple(series.shape) == (B_SERIES, OUT_LEN), f"{what} series shape")
+    check(bool(torch.isfinite(series).all()), f"{what} series finite")
+    check(launches == {STACK_KERNEL: n_steps},
+          f"{what} sample() launches {launches}, want {n_steps} stack "
+          f"launches")
+    log(f"{what}: B={B_SERIES} {solver}/{n_steps} over T={STEPS}, cfg {CFG} "
+        f"len {OUT_LEN}: {dt:.3f} s, {B_SERIES / dt:.2f} series/s, launches "
+        f"{launches}, series mean {series.mean().item():.4g} std "
+        f"{series.std().item():.4g}")
+    return launches
+
+
+def ddpm_train_phase(dit, vae, gen):
+    """The flagship train step with the DDPM loss (B=1024, t = floor(u *
+    100) as int32, target eps) on the block kernels: steps/s, peak memory,
+    launches per step; then at B=128 the kernel path's loss and gradients
+    against the eager bf16 and f32 paths on the same injected draws."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import BLOCK_BWD_KERNEL, BLOCK_KERNEL
+    from t2ms_tpu_torch.training import (make_denoiser_train_step,
+                                         onecycle_adamw)
+    model = copy.deepcopy(dit)
+    opt = onecycle_adamw(model.parameters(), TRAIN_WARMUP + TRAIN_STEPS,
+                         max_lr=1e-4)
+    step = make_denoiser_train_step(model, vae, opt, "ddpm",
+                                    total_step=STEPS)
+    x = torch.randn(B_TRAIN, OUT_LEN, generator=gen, device="cuda")
+    emb = torch.randn(B_TRAIN, D_MODEL, generator=gen, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(29)
+    losses = [step(x, emb, generator=g) for _ in range(TRAIN_WARMUP)]
+    # the main path: counts set to 0 just before it, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step(x, emb, generator=g) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lv = torch.stack(losses).tolist()
+    check(all(np.isfinite(lv)), f"ddpm train losses finite {lv}")
+    want = {BLOCK_KERNEL: DEPTH * TRAIN_STEPS,
+            BLOCK_BWD_KERNEL: DEPTH * TRAIN_STEPS}
+    check(launches == want, f"ddpm train launches {launches}, want {want}")
+    log(f"ddpm train flagship: B={B_TRAIN} len {OUT_LEN} depth {DEPTH} bf16, "
+        f"{TRAIN_STEPS} steps in {dt:.3f} s: {TRAIN_STEPS / dt:.4f} "
+        f"steps/s, peak memory {peak_gb:.3f} GB, launches {launches}, "
+        f"losses {[round(v, 5) for v in lv]}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    Bs = 128
+    train_paths_vs_eager(
+        "ddpm train", lambda dt_, impl: flagship_dit(dt_, impl), dit, vae,
+        x[:Bs], emb[:Bs],
+        lambda: dict(u=torch.rand(Bs, generator=g, device="cuda"),
+                     x_0=torch.randn(Bs, 64, 30, generator=g,
+                                     device="cuda"),
+                     coin=torch.tensor(0.9, device="cuda")),
+        backbone="ddpm")
+    return launches
+
+
+def ddpm_server_phase(dit, vae, seed):
+    """A ``ServingEngine`` with the DDPM backbone (the ancestral sampler
+    over T=100, bucket 96, tiers 1/16/64): each row's noise from its own
+    seed, x_t0 then its step noise; one seed alone against the same seed
+    inside a full batch."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    from t2ms_tpu_torch.serving import ServingEngine
+    rng = np.random.default_rng(seed + 3)
+    embs = rng.standard_normal((72, D_MODEL)).astype(np.float32)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ServingEngine(dit, vae, backbone="ddpm", total_step=STEPS,
+                       out_lengths=(96,), batch_tiers=(1, 16, 64),
+                       max_wait_ms=50.0, text_emb_dim=D_MODEL) as eng:
+        res = eng.generate([(embs[i], 96, (3.0, 7.0)[i % 2], 3000 + i)
+                            for i in range(8)])
+        for r in res:
+            check(r.series.shape == (96,) and np.isfinite(r.series).all(),
+                  "ddpm engine result")
+        futs = [eng.submit(embs[8 + i], 96, CFG, 4000 + i)
+                for i in range(64)]
+        full = [f.result(timeout=600) for f in futs]
+        solo = eng.submit(embs[8 + 5], 96, CFG, 4005).result(timeout=600)
+        stats = eng.stats()
+    dt = time.perf_counter() - t0
+    check(full[5].batch_size == 64 and solo.batch_size == 1,
+          f"ddpm batch tiers {full[5].batch_size}, {solo.batch_size}")
+    err = float(np.abs(full[5].series - solo.series).max())
+    ref = float(np.abs(solo.series).max())
+    tol = 2e-2   # other batch sizes may pick other library GEMM algorithms
+    log(f"ddpm server: {stats['requests']} requests in {stats['batches']} "
+        f"batches, {dt:.3f} s, p50 {stats['p50_latency_s']:.3f} s, padding "
+        f"{stats['padding_fraction']:.3f}; seed alone vs in a full batch: "
+        f"max_abs_err={err:.4g} max|ref|={ref:.4g} (tol {tol:g}); launches "
+        f"{dict(_build.launch_counts)}")
+    check(err <= tol * ref, "ddpm seed alone vs in a full batch")
+    check(_build.launch_counts.get(STACK_KERNEL, 0) > 0,
+          "ddpm server path launched the stack kernel")
+
+
+# ETTh1 rows a length; the test CSV's 200 rows leave 2 for the test split
+CLI_ROWS, CLI_TEST_ROWS = 2100, 200
+
+
+def cli_phase(seed):
+    """The T2S entry points as a user runs them: a synthetic ETTh1 corpus
+    (lengths 24/48/96, 2100 rows each: whole batches of 1024) written by
+    ``write_t2s_csv`` into a temporary directory, then ``cli.train.main``
+    (B=1024, 2 epochs, T=100, bf16, a checkpoint each epoch) and
+    ``cli.infer.main`` on ``model_1`` (bf16, run_multi, one batch a run),
+    for flowmatching/euler and for ddpm with DDIM over 25 steps: the
+    artifacts the JAX CLIs write, their shapes, finite values, and by the
+    launch counter that train ran the block kernels and infer the stack."""
+    import tempfile
+
+    from t2ms_tpu_torch.cli import infer as cli_infer
+    from t2ms_tpu_torch.cli import train as cli_train
+    from t2ms_tpu_torch.data.synthetic import write_t2s_csv
+    from t2ms_tpu_torch.models.backbones.ddpm import ddim_timesteps
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
+                                              STACK_KERNEL)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="t2ms_cli_") as work:
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            for L in (24, 48, 96):
+                write_t2s_csv(os.path.join(
+                    "Data", "TSFragment-600K",
+                    f"embedding_cleaned_ETTh1_{L}.csv"), n=CLI_ROWS, T=L,
+                    seed=seed + L)
+            write_t2s_csv(os.path.join("Data", "our",
+                                       "embedding_cleaned_ETTh1_24.csv"),
+                          n=CLI_TEST_ROWS, T=24, seed=seed + 1)
+            log(f"cli corpus: 3 x {CLI_ROWS} rows + {CLI_TEST_ROWS} test "
+                f"rows written in {time.perf_counter() - t0:.2f} s")
+            # the loaders' 0.99 train split (datafactory/dataset.py:44-69)
+            n_test = CLI_TEST_ROWS - int(np.ceil(CLI_TEST_ROWS * 0.99))
+            steps_per_epoch = 3 * (int(np.ceil(CLI_ROWS * 0.99)) // 1024)
+            for backbone, solver in (("flowmatching", "euler"),
+                                     ("ddpm", "ddim")):
+                train_args = ["--dataset_name", "ETTh1", "--batch_size",
+                              "1024", "--epochs", "2", "--total_step",
+                              str(STEPS), "--compute_dtype", "bf16",
+                              "--save_every", "1", "--backbone", backbone,
+                              "--general_seed", str(seed)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                cli_train.main(train_args)
+                torch.cuda.synchronize()
+                t_train = time.perf_counter() - t0
+                launches = dict(_build.launch_counts)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                n_steps = 2 * steps_per_epoch
+                want = {BLOCK_KERNEL: DEPTH * n_steps,
+                        BLOCK_BWD_KERNEL: DEPTH * n_steps}
+                check(launches == want, f"cli train {backbone} launches "
+                      f"{launches}, want {want}")
+                ckpt_dir = os.path.join("results", "denoiser_results",
+                                        "checkpoints",
+                                        f"{backbone}_DiT_ETTh1")
+                for f in ("model_0", "model_1", "model_1.loss_history.npy",
+                          "train_log.jsonl"):
+                    check(os.path.exists(os.path.join(ckpt_dir, f)),
+                          f"cli train {backbone} wrote {f}")
+                hist = np.load(os.path.join(ckpt_dir,
+                                            "model_1.loss_history.npy"))
+                check(hist.shape == (n_steps,) and np.isfinite(hist).all(),
+                      f"cli train {backbone} loss history {hist}")
+                with open(os.path.join(ckpt_dir, "train_log.jsonl")) as f:
+                    rate = json.loads(f.readlines()[-1])["steps_per_sec"]
+                log(f"cli train {backbone}: B=1024 bf16, 2 epochs of "
+                    f"{steps_per_epoch} steps in {t_train:.3f} s wall "
+                    f"(corpus load and latent cache included), "
+                    f"{rate:.4f} steps/s by train_log.jsonl, peak memory "
+                    f"{peak_gb:.3f} GB, launches {launches}, last loss "
+                    f"{hist[-1]:.5f}")
+
+                infer_args = ["--dataset_name", "ETTh1_24", "--total_step",
+                              str(STEPS), "--checkpoint_id", "1",
+                              "--backbone", backbone, "--solver", solver,
+                              "--compute_dtype", "bf16", "--run_multi", "1",
+                              "--max_batches", "1", "--general_seed",
+                              str(seed)]
+                n_sample = STEPS
+                if solver == "ddim":
+                    infer_args += ["--sample_steps", str(DDIM_STEPS)]
+                    n_sample = len(ddim_timesteps(STEPS, DDIM_STEPS)[0])
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                cli_infer.main(infer_args)
+                torch.cuda.synchronize()
+                t_infer = time.perf_counter() - t0
+                launches = dict(_build.launch_counts)
+                want = {STACK_KERNEL: 11 * n_sample}
+                check(launches == want, f"cli infer {backbone} launches "
+                      f"{launches}, want {want}")
+                gen_dir = os.path.join(
+                    "results", "denoiser_results", "generation",
+                    f"{backbone}_DiT_ETTh1_24_7_{STEPS}")
+                b = n_test          # one batch of 2 (--batch_size 2)
+                for rel, shape in (("x_t.npy", (b, 24, 1)),
+                                   ("x_1.npy", (b, 24, 1)),
+                                   ("x_t_latent_dec_array.npy", (b, 64, 30)),
+                                   ("x_t_latent_enc_array.npy", (b, 64, 30)),
+                                   ("run_9/x_1.npy", (b, 24, 1)),
+                                   ("run_9/x_t.npy", (b, 24, 1))):
+                    path = os.path.join(gen_dir, rel)
+                    check(os.path.exists(path), f"cli infer wrote {rel}")
+                    a = np.load(path)
+                    check(a.shape == shape and np.isfinite(a).all(),
+                          f"cli infer {backbone} {rel} shape {a.shape}, "
+                          f"want {shape}, finite")
+                log(f"cli infer {backbone}/{solver}: 11 runs of one batch "
+                    f"of {b} at {n_sample} steps in {t_infer:.3f} s wall, "
+                    f"launches {launches}")
+        finally:
+            os.chdir(cwd)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2741,6 +3045,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     pk_launches = packed_offline_phase(dit, vae, gen)
     explicit_impl_phase(dit, vae, gen)
+    ddpm_offline_phase(dit, vae, gen, "euler")
+    ddpm_offline_phase(dit, vae, gen, "ddim")
+    ddpm_train_phase(dit, vae, gen)
+    ddpm_server_phase(dit, vae, args.seed)
+    del dit, vae
+    torch.cuda.empty_cache()
+    cli_phase(args.seed)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {

@@ -10,13 +10,21 @@ Layout (mirrors t2ms_tpu):
                         fused DiT stack and block, forward and backward
                         (CUDA kernels + plain twins), build
   models/vae/           LA-VAE
-  models/backbones/     rectified flow
+  models/backbones/     rectified flow, DDPM
   models/denoisers/     eager DiT + the fused serving and training
                         forwards (dit_fast)
-  sampling/             CFG sampler (euler / heun / midpoint)
+  sampling/             CFG sampler (euler / heun / midpoint; DDPM
+                        ancestral / ddim)
   serving/              dynamic-batching ServingEngine
   training/             AdamW with optax's semantics and schedules, the
-                        denoiser and LA-VAE train steps
+                        denoiser and LA-VAE train steps, checkpoints on
+                        torch files, EMA, the scaling plan
+  data/                 the T2S CSV corpora, length-bucketed batches,
+                        prefetch to the device
+  cli/                  ``python -m t2ms_tpu_torch.cli.train`` / ``.infer``
+  config.py, utils/, visualize/
+                        artifact paths, step logs and the profiler hook,
+                        the infer CLI's figures
   convert.py            JAX param tree / optax AdamW state -> port
 
 Entry points take ``device=None``, which means CUDA; without a card they

@@ -1,0 +1,48 @@
+"""Shared CLI plumbing: model factories and the CLIs' seeds (counterpart of
+t2ms_tpu/cli/_common.py)."""
+
+from __future__ import annotations
+
+import torch
+
+from t2ms_tpu_torch.models.denoisers import DiT
+from t2ms_tpu_torch.models.vae import LAVAE
+
+__all__ = ["build_denoiser", "build_t2s_vae", "batch_seed"]
+
+
+def build_denoiser(name: str, latent_len: int, latent_dim: int = 64,
+                   compute_dtype=torch.float32, device=None) -> DiT:
+    """The reference factory (train.py:16) at a parametric latent
+    geometry; ``compute_dtype`` is the activation dtype (params stay
+    f32). ``latent_len=30`` is the flagship DiT (480 tokens, d 128, 4
+    heads, depth 4)."""
+    if name == "DiT":
+        return DiT(latent_len=latent_len, latent_dim=latent_dim,
+                   compute_dtype=compute_dtype, device=device)
+    if name == "MLP":
+        raise NotImplementedError(
+            "the MLP denoiser is not ported to t2ms_tpu_torch yet (it comes "
+            "with the motion track)")
+    raise ValueError("No denoiser found")
+
+
+def build_t2s_vae(args=None, device=None) -> LAVAE:
+    """T2S LA-VAE at the reference pretraining defaults
+    (pretrained_lavae_unified.py:119-122)."""
+    g = (lambda k, d: getattr(args, k, d)) if args is not None else (
+        lambda k, d: d)
+    return LAVAE(in_channels=1,
+                 num_hiddens=g("block_hidden_size", 128),
+                 num_residual_layers=g("num_residual_layers", 2),
+                 num_residual_hiddens=g("res_hidden_size", 256),
+                 embedding_dim=g("embedding_dim", 64),
+                 latent_grid=g("latent_grid", 30),
+                 exact_length_output=False, device=device)
+
+
+def batch_seed(seed: int, index: int) -> int:
+    """The seed of draw ``index`` under run seed ``seed`` (the JAX CLIs
+    fold ``index`` into ``root_key(seed)``): a run that resumes at an
+    optimizer step draws what the uninterrupted run would have."""
+    return ((int(seed) & 0x7FFFFFFF) << 32) | (int(index) & 0xFFFFFFFF)

@@ -2,10 +2,13 @@
 
 Reference loop (infer.py:65-110): ``total_step`` steps with TWO forwards
 per step (uncond + cond), ``pred = uncond + cfg_scale * (cond - uncond)``
-and an Euler update over forward flow time t = j / total_step. As in the
-JAX package, cond and uncond run as ONE forward of batch 2B, the uncond
-half selected by a per-sample ``text_mask`` of zeros; the trajectory is
-optionally collected and decoded in one batched VAE decode afterwards.
+and an Euler update over forward flow time t = j / total_step, or for the
+DDPM backbone an ancestral step over the integer timestep t = T-1-j
+(``solver='ddim'``: deterministic DDIM over a ``sample_steps`` subset of
+the schedule). As in the JAX package, cond and uncond run as ONE forward
+of batch 2B, the uncond half selected by a per-sample ``text_mask`` of
+zeros; the trajectory is optionally collected and decoded in one batched
+VAE decode afterwards.
 
 On CUDA the DiT forward goes through a fused kernel path, picked once per
 sampler build (``_serving_forward``): the stack kernel, else the split
@@ -24,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from t2ms_tpu_torch import resolve_device
+from t2ms_tpu_torch.models.backbones import ddpm as ddpm_lib
 from t2ms_tpu_torch.models.backbones import rectified_flow as rf
 
 __all__ = ["SamplerOutput", "make_cfg_sampler", "decode_trajectory"]
@@ -92,8 +96,7 @@ def _fused_cfg_forward(forward: Callable, x_t, t, text_emb, cfg_scale):
 
 def _validate_solver(backbone: str, solver: str,
                      sample_steps: Optional[int]) -> None:
-    """Backbone/solver pairing rules of the JAX package; the DDPM backbone
-    (ancestral and ddim) is not ported yet."""
+    """Backbone/solver pairing rules of the JAX package."""
     if backbone not in ("flowmatching", "ddpm"):
         raise ValueError(f"Unsupported backbone type: {backbone}")
     if solver not in ("euler", "heun", "midpoint", "ddim"):
@@ -107,10 +110,6 @@ def _validate_solver(backbone: str, solver: str,
     if sample_steps is not None and solver != "ddim":
         raise ValueError("sample_steps only applies to solver='ddim' "
                          "(other solvers run total_step steps)")
-    if backbone == "ddpm":
-        raise ValueError("backbone 'ddpm' is not ported to t2ms_tpu_torch "
-                         "yet (the DDPM/DDIM slice comes next); use "
-                         "'flowmatching'")
 
 
 def _flow_step(solver: str, vel: Callable, x_t, j: int, total_step: int):
@@ -145,6 +144,39 @@ def _run_flow(forward, solver, total_step, x_t0, text_emb, cfg_scale,
     return x_t, (torch.stack(traj) if collect else None)
 
 
+def _run_ddpm(forward, sched, solver, sample_steps, x_t0, text_emb,
+              cfg_scale, collect: bool, step_noise=None, generator=None):
+    """The DDPM loop from x_t0: ancestral over t = T-1-j with
+    ``step_noise[j]`` (else drawn from ``generator``) added at every step,
+    t = 0 included; or DDIM over ``ddim_timesteps(T, sample_steps)``.
+    The timestep is int32, never the latent's dtype: the DiT scales it by
+    100 in f32. Returns (x_0, trajectory or None)."""
+    B, dev = x_t0.shape[0], x_t0.device
+    T = sched.total_steps
+    full = lambda v: torch.full((B,), int(v), dtype=torch.int32, device=dev)
+    if step_noise is not None:
+        step_noise = torch.as_tensor(step_noise, dtype=x_t0.dtype, device=dev)
+    x_t, traj = x_t0, []
+    if solver == "ddim":
+        ts, prev = ddpm_lib.ddim_timesteps(T, sample_steps or T)
+        for t_cur, t_prev in zip(ts.tolist(), prev.tolist()):
+            t = full(t_cur)
+            eps = _fused_cfg_forward(forward, x_t, t, text_emb, cfg_scale)
+            x_t = ddpm_lib.ddim_step(sched, x_t, eps, t, full(t_prev))
+            if collect:
+                traj.append(x_t)
+    else:
+        for j in range(T):
+            t = full(T - 1 - j)
+            eps = _fused_cfg_forward(forward, x_t, t, text_emb, cfg_scale)
+            x_t = ddpm_lib.p_sample(
+                sched, x_t, eps, t, generator=generator,
+                noise=None if step_noise is None else step_noise[j])
+            if collect:
+                traj.append(x_t)
+    return x_t, (torch.stack(traj) if collect else None)
+
+
 def make_cfg_sampler(
     denoiser,
     vae_model,
@@ -160,20 +192,27 @@ def make_cfg_sampler(
     """Build the offline sampler; moves both models to ``device`` (None =
     CUDA).
 
-    Returned signature: ``sample(x_1, text_emb, x_t0=None, generator=None)
-    -> SamplerOutput``. ``x_1`` is the conditioning ground-truth batch (its
-    encoded latent gives the noise shape and the diagnostic
-    ``latent_enc``, infer.py:73-75). ``x_t0`` injects the initial noise;
-    otherwise it is drawn from ``generator``.
+    Returned signature: ``sample(x_1, text_emb, x_t0=None, generator=None,
+    step_noise=None) -> SamplerOutput``. ``x_1`` is the conditioning
+    ground-truth batch (its encoded latent gives the noise shape and the
+    diagnostic ``latent_enc``, infer.py:73-75). ``x_t0`` injects the
+    initial noise; otherwise it is drawn from ``generator``. The DDPM
+    ancestral sampler adds ``step_noise[j]`` ((total_step, B, C, L)) at
+    step j; otherwise each step's noise is drawn from ``generator`` after
+    ``x_t0``. ``solver='ddim'`` (DDPM only) runs ``sample_steps`` of the
+    ``total_step`` schedule.
     """
     _validate_solver(backbone, solver, sample_steps)
     dev = resolve_device(device)
     denoiser.to(dev)
     vae_model.to(dev)
     forward = _serving_forward(denoiser, dev)
+    sched = (ddpm_lib.make_schedule(total_step, dev)
+             if backbone == "ddpm" else None)
 
     @torch.no_grad()
-    def sample(x_1, text_emb, x_t0=None, generator=None) -> SamplerOutput:
+    def sample(x_1, text_emb, x_t0=None, generator=None,
+               step_noise=None) -> SamplerOutput:
         x_1 = torch.as_tensor(x_1, dtype=torch.float32, device=dev)
         text_emb = torch.as_tensor(text_emb, dtype=torch.float32, device=dev)
         z_enc, _ = vae_model.encode(x_1)
@@ -181,8 +220,13 @@ def make_cfg_sampler(
             x_t0 = torch.randn(z_enc.shape, generator=generator,
                                dtype=z_enc.dtype, device=dev)
         x_t0 = torch.as_tensor(x_t0, dtype=z_enc.dtype, device=dev)
-        x_t, traj = _run_flow(forward, solver, total_step, x_t0, text_emb,
-                              cfg_scale, collect_trajectory)
+        if sched is not None:
+            x_t, traj = _run_ddpm(forward, sched, solver, sample_steps,
+                                  x_t0, text_emb, cfg_scale,
+                                  collect_trajectory, step_noise, generator)
+        else:
+            x_t, traj = _run_flow(forward, solver, total_step, x_t0,
+                                  text_emb, cfg_scale, collect_trajectory)
         series, _ = vae_model.decode(x_t, out_length)
         return SamplerOutput(series=series, latent=x_t, latent_enc=z_enc,
                              trajectory=traj)

@@ -5,10 +5,10 @@ The engine quantizes every request onto a fixed grid of (out_length
 bucket, batch tier) shapes, groups concurrent requests by bucket, pads the
 group up to the smallest admitted tier, runs ONE sampler call and slices
 the results back out per request. Results do not depend on batch
-composition: each row's initial noise comes from its own seeded
-``torch.Generator`` (or an injected tensor) and ``cfg_scale`` is a
-per-row vector, so request i's series depends only on (seed_i, cfg_i,
-text_emb_i, out_length_i).
+composition: each row's initial noise, and for the DDPM ancestral sampler
+each step's noise, comes from its own seeded ``torch.Generator`` (or an
+injected tensor) and ``cfg_scale`` is a per-row vector, so request i's
+series depends only on (seed_i, cfg_i, text_emb_i, out_length_i).
 
 Two threads form a pipeline: a dispatcher forms batches (deadline flush:
 a batch launches when it fills the largest tier or its oldest request has
@@ -35,27 +35,44 @@ import numpy as np
 import torch
 
 from t2ms_tpu_torch import resolve_device
-from t2ms_tpu_torch.sampling.sampler import (_run_flow, _serving_forward,
+from t2ms_tpu_torch.models.backbones import ddpm as ddpm_lib
+from t2ms_tpu_torch.sampling.sampler import (_run_ddpm, _run_flow,
+                                             _serving_forward,
                                              _validate_solver)
 
 __all__ = ["make_serving_sampler", "ServingEngine", "GenerationResult",
-           "EngineOverloaded", "row_noise"]
+           "EngineOverloaded", "row_noise", "row_draws"]
 
 
 class EngineOverloaded(RuntimeError):
     """Raised by submit() when the pending-request cap is reached."""
 
 
+def row_draws(seeds, latent_shape: Tuple[int, int], steps: int,
+              device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Row i's draws from its own generator seeded with seeds[i]: the
+    (C, H) initial noise, then (when ``steps`` > 0) the row's (steps, C, H)
+    DDPM step noise in one call. Returns x_t0 (B, C, H) and the step noise
+    (steps, B, C, H) or None. The JAX engine folds the step into each
+    row's key; here each row's generator continues after x_t0, so a row's
+    draws depend on its seed alone either way."""
+    x_t0, noise = [], []
+    for s in np.asarray(seeds).reshape(-1):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(s))
+        x_t0.append(torch.randn(latent_shape, generator=g, device=device))
+        if steps:
+            noise.append(torch.randn((steps,) + tuple(latent_shape),
+                                     generator=g, device=device))
+    return (torch.stack(x_t0),
+            torch.stack(noise, dim=1) if steps else None)
+
+
 def row_noise(seeds, latent_shape: Tuple[int, int],
               device) -> torch.Tensor:
     """(B, C, H) standard-normal initial noise, row i drawn from its own
     generator seeded with seeds[i] (batch-composition independent)."""
-    rows = []
-    for s in np.asarray(seeds).reshape(-1):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s))
-        rows.append(torch.randn(latent_shape, generator=g, device=device))
-    return torch.stack(rows)
+    return row_draws(seeds, latent_shape, 0, device)[0]
 
 
 def make_serving_sampler(
@@ -74,27 +91,42 @@ def make_serving_sampler(
 
     Returned signature::
 
-        sample(seeds, cfg_scale, text_emb, x_t0=None) -> series
+        sample(seeds, cfg_scale, text_emb, x_t0=None, step_noise=None)
+            -> series
 
     with ``seeds`` (B,) per-row noise seeds, ``cfg_scale`` (B,) per-row
     guidance weights, ``text_emb`` (B, E); ``x_t0`` (B, C, H) injects the
-    initial noise instead of drawing it from the seeds."""
+    initial noise and ``step_noise`` (total_step, B, C, H) the DDPM
+    ancestral noise instead of drawing them from the seeds (``row_draws``).
+    DDIM is deterministic and draws no step noise."""
     _validate_solver(backbone, solver, sample_steps)
     dev = resolve_device(device)
     denoiser.to(dev)
     vae_model.to(dev)
     forward = _serving_forward(denoiser, dev)
+    sched = (ddpm_lib.make_schedule(total_step, dev)
+             if backbone == "ddpm" else None)
+    steps = total_step if backbone == "ddpm" and solver != "ddim" else 0
 
     @torch.no_grad()
-    def sample(seeds, cfg_scale, text_emb, x_t0=None) -> torch.Tensor:
+    def sample(seeds, cfg_scale, text_emb, x_t0=None,
+               step_noise=None) -> torch.Tensor:
         if x_t0 is None:
-            x_t0 = row_noise(seeds, latent_shape, dev)
+            x_t0, drawn = row_draws(seeds, latent_shape, steps, dev)
+            step_noise = drawn if step_noise is None else step_noise
+        elif steps and step_noise is None:
+            raise ValueError("an injected x_t0 needs its step_noise too "
+                             "(DDPM ancestral sampling)")
         x_t0 = torch.as_tensor(x_t0, dtype=torch.float32, device=dev)
         scale = torch.as_tensor(cfg_scale, dtype=torch.float32,
                                 device=dev)[:, None, None]
         text_emb = torch.as_tensor(text_emb, dtype=torch.float32, device=dev)
-        x_t, _ = _run_flow(forward, solver, total_step, x_t0, text_emb,
-                           scale, collect=False)
+        if sched is None:
+            x_t, _ = _run_flow(forward, solver, total_step, x_t0, text_emb,
+                               scale, collect=False)
+        else:
+            x_t, _ = _run_ddpm(forward, sched, solver, sample_steps, x_t0,
+                               text_emb, scale, False, step_noise)
         series, _ = vae_model.decode(x_t, out_length)
         return series
 

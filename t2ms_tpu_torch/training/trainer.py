@@ -2,8 +2,9 @@
 t2ms_tpu/training/trainer.py).
 
 Reference loop (train.py:52-136): batch -> frozen VAE encode -> sample t
--> flow interpolant -> CFG text drop (one Bernoulli(0.3) per optimizer
-step) -> denoiser forward -> MSE -> AdamW step.
+-> flow interpolant (or the DDPM forward noising, target eps) -> CFG text
+drop (one Bernoulli(0.3) per optimizer step) -> denoiser forward -> MSE ->
+AdamW step.
 
 The JAX package builds one jitted, donated function over an immutable
 TrainState; the port updates the denoiser's parameters and the
@@ -23,8 +24,9 @@ eager module, which is also the path on the CPU.
 
 torch cannot reproduce the JAX package's threefry draws, so every random
 draw can be passed in: ``u`` (the uniform behind t, per row), ``x_0`` (the
-flow's noise, per row) and ``coin`` (the CFG drop draw, one per optimizer
-step). Otherwise they come from ``generator``.
+flow's noise, or DDPM's eps, per row) and ``coin`` (the CFG drop draw, one
+per optimizer step). Otherwise they come from ``generator``. The DDPM
+timestep is t = floor(u * T) as int32, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ from typing import Optional
 import torch
 
 from t2ms_tpu_torch import resolve_device
+from t2ms_tpu_torch.models.backbones import ddpm as ddpm_lib
 from t2ms_tpu_torch.models.backbones import rectified_flow as rf
 
 __all__ = ["encode_with_vae", "make_denoiser_train_step",
-           "make_vae_train_step", "DenoiserTrainStep", "VAETrainStep"]
+           "make_vae_train_step", "precompute_latent_buckets",
+           "DenoiserTrainStep", "VAETrainStep"]
 
 
 def encode_with_vae(vae_model, x):
@@ -90,10 +94,12 @@ class DenoiserTrainStep:
     batch and are split into microbatches as x is. ``steps`` counts
     attempted steps, skipped ones included."""
 
-    def __init__(self, denoiser, vae_model, optimizer, total_step,
+    def __init__(self, denoiser, vae_model, optimizer, backbone, total_step,
                  cfg_drop_prob, nan_guard, accum_steps, precoded, device):
         self.denoiser, self.vae_model = denoiser, vae_model
         self.optimizer = optimizer
+        self.sched = (ddpm_lib.make_schedule(total_step, device)
+                      if backbone == "ddpm" else None)
         self.total_step, self.cfg_drop_prob = total_step, cfg_drop_prob
         self.nan_guard, self.accum_steps = nan_guard, accum_steps
         self.precoded, self.device = precoded, device
@@ -105,10 +111,20 @@ class DenoiserTrainStep:
             z = x.detach()
         else:
             z, _ = encode_with_vae(self.vae_model, x)
-        t = rf.sample_t(z.shape[0], self.total_step, u=u, generator=generator,
-                        device=z.device)
-        x_t, x_0 = rf.create_flow(z, t, x_0=x_0, generator=generator)
-        target = z - x_0
+        if self.sched is None:
+            t = rf.sample_t(z.shape[0], self.total_step, u=u,
+                            generator=generator, device=z.device)
+            x_t, x_0 = rf.create_flow(z, t, x_0=x_0, generator=generator)
+            target = z - x_0
+        else:
+            if u is None:
+                u = torch.rand((z.shape[0],), generator=generator,
+                               device=z.device)
+            t = torch.floor(u.float() * self.total_step).to(torch.int32)
+            if x_0 is None:
+                x_0 = torch.randn(z.shape, generator=generator,
+                                  dtype=z.dtype, device=z.device)
+            x_t, target = ddpm_lib.q_sample(self.sched, z, t, x_0)
         mask = keep.to(x_t.dtype).expand(z.shape[0])
         pred = self.forward(x_t, t, text_emb, mask)
         return torch.mean(torch.square(pred - target))
@@ -178,11 +194,7 @@ def make_denoiser_train_step(denoiser, vae_model, optimizer,
     is already the frozen-VAE latent. ``nan_guard`` (or T2MS_NAN_CHECK=1)
     skips the update when the loss or the update is non-finite."""
     dev = resolve_device(device)
-    if backbone == "ddpm":
-        raise NotImplementedError(
-            "backbone='ddpm' is not ported yet (ROADMAP.md queue A, head "
-            "item: DDPM/DDIM sampling and training)")
-    if backbone != "flowmatching":
+    if backbone not in ("flowmatching", "ddpm"):
         raise ValueError(f"Unsupported backbone type: {backbone}")
     for name, m in (("denoiser", denoiser), ("vae_model", vae_model)):
         for p in m.parameters():
@@ -190,9 +202,44 @@ def make_denoiser_train_step(denoiser, vae_model, optimizer,
                 raise ValueError(f"{name} lives on {p.device}, the step on "
                                  f"{dev}")
             break
-    return DenoiserTrainStep(denoiser, vae_model, optimizer, total_step,
-                             cfg_drop_prob, nan_guard or _nan_check_env(),
+    return DenoiserTrainStep(denoiser, vae_model, optimizer, backbone,
+                             total_step, cfg_drop_prob, nan_guard or _nan_check_env(),
                              accum_steps, precoded, dev)
+
+
+@torch.no_grad()
+def precompute_latent_buckets(vae_model, batcher, chunk: int = 4096,
+                              max_bytes: int = 4 * 2 ** 30):
+    """One frozen-VAE encode of every bucket's series: a new BucketBatcher
+    whose ``x`` columns are the (N, C, latent_len) f32 latents, for a
+    ``precoded=True`` train step (t2ms_tpu/training/trainer.py
+    ``precompute_latent_buckets``). The encoder is frozen, deterministic
+    and per-sample, so encoding once is the reference's per-step encode
+    (train.py:73) without its cost. Chunks of ``chunk`` rows run on the
+    VAE's device; no padding, as torch compiles nothing per shape. Returns
+    None (the caller keeps the in-step encode) when the latent store would
+    exceed ``max_bytes`` of host memory."""
+    import numpy as np
+
+    from t2ms_tpu_torch.data.loaders import BucketBatcher
+
+    dev = next(vae_model.parameters()).device
+    enc = lambda a: vae_model.encode(torch.from_numpy(
+        np.ascontiguousarray(a, np.float32)).to(dev))[0]
+    probe = next(iter(batcher.buckets.values()))["x"]
+    per_row = int(np.prod(enc(probe[:1]).shape[1:])) * 4
+    total = sum(d["x"].shape[0] for d in batcher.buckets.values()) * per_row
+    if total > max_bytes:
+        return None
+    new_buckets = {}
+    for length, data in batcher.buckets.items():
+        x = np.asarray(data["x"])
+        zs = [enc(x[s:s + chunk]).cpu().numpy()
+              for s in range(0, x.shape[0], chunk)]
+        new_buckets[length] = dict(data, x=np.concatenate(zs))
+    return BucketBatcher(new_buckets, batcher.batch_size, batcher.seed,
+                         batcher.drop_last, batcher.process_index,
+                         batcher.process_count)
 
 
 class VAETrainStep:

@@ -1503,3 +1503,49 @@ def test_stack_variants_equal_the_plain_call_on_card(cuda, kw):
     torch.cuda.synchronize()
     assert dict(_build.launch_counts) == {tblock.STACK_KERNEL: 1}
     assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_prefetch_copies_batches_to_the_card(cuda):
+    """Pinned copies on a side stream: every batch arrives whole, and work
+    queued on the consumer's stream right after a batch is handed out
+    reads the copied values (the consumer waits on the copy's event)."""
+    from t2ms_tpu_torch.data.prefetch import prefetch_to_device
+    src = [np.full((4096, 4096), i, np.float32) for i in range(4)]
+    sums = []
+    for b, (x,) in prefetch_to_device(iter(src), device=cuda,
+                                      transform=lambda a: (a,)):
+        assert x.is_cuda and x.shape == b.shape
+        sums.append(x.sum())
+    got = [float(s) for s in sums]
+    assert got == [i * 4096.0 * 4096.0 for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,steps,want", [("euler", None, 5),
+                                               ("ddim", 3, 3)])
+def test_ddpm_samplers_launch_the_stack_once_a_step(cuda, solver, steps,
+                                                   want):
+    """The DDPM samplers at a stack-eligible geometry (480 tokens, bf16):
+    one stack launch a (sub-)schedule step, finite series."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    from t2ms_tpu_torch.models.vae import LAVAE
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    torch.manual_seed(0)
+    dit = DiT(latent_len=30, latent_dim=64, d_model=128, depth=2,
+              num_heads=4, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    vae = LAVAE(1, 16, 1, 16, 64, 30)
+    sample = make_cfg_sampler(dit, vae, "ddpm", total_step=5 if steps is
+                              None else 20, out_length=96, solver=solver,
+                              sample_steps=steps)
+    x1 = torch.randn(2, 96, device=cuda)
+    emb = torch.randn(2, 128, device=cuda)
+    _build.reset_launch_counts()
+    out = sample(x1, emb, generator=torch.Generator(cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.STACK_KERNEL: want}
+    assert out.series.shape == (2, 96)
+    assert torch.isfinite(out.series).all()

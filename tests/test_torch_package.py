@@ -1,7 +1,9 @@
 """The port package stands alone: importing it pulls in neither jax nor
-the JAX package (checked in a fresh interpreter, since this test process
-has jax loaded by conftest), no source file imports them, and every entry
-point refuses to drop onto the CPU unless asked."""
+the JAX package, nor pandas, matplotlib, imageio, yaml or sklearn, which
+the card's machine lacks (checked in a fresh interpreter, since this test
+process has jax loaded by conftest); no source file imports the first at
+all, nor the others at module level; and every entry point refuses to
+drop onto the CPU unless asked."""
 
 import os
 import re
@@ -30,21 +32,36 @@ MODULES = [
     "t2ms_tpu_torch.models.backbones.rectified_flow",
     "t2ms_tpu_torch.models.denoisers.dit",
     "t2ms_tpu_torch.models.denoisers.dit_fast",
+    "t2ms_tpu_torch.models.backbones.ddpm",
     "t2ms_tpu_torch.sampling.sampler", "t2ms_tpu_torch.serving.engine",
     "t2ms_tpu_torch.training", "t2ms_tpu_torch.training.optim",
-    "t2ms_tpu_torch.training.trainer"]
+    "t2ms_tpu_torch.training.trainer", "t2ms_tpu_torch.training.checkpoints",
+    "t2ms_tpu_torch.training.scaling", "t2ms_tpu_torch.training.ema",
+    "t2ms_tpu_torch.config", "t2ms_tpu_torch.utils.logging",
+    "t2ms_tpu_torch.data.registry", "t2ms_tpu_torch.data.t2s",
+    "t2ms_tpu_torch.data.synthetic", "t2ms_tpu_torch.data.loaders",
+    "t2ms_tpu_torch.data.embedder", "t2ms_tpu_torch.data.provider",
+    "t2ms_tpu_torch.data.prefetch", "t2ms_tpu_torch.visualize.diagnostics",
+    "t2ms_tpu_torch.cli._common", "t2ms_tpu_torch.cli.train",
+    "t2ms_tpu_torch.cli.infer"]
 
 # an import of jax/flax, of the JAX package or of tools/ — never the port
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|flax|t2ms_tpu|tools)(?:[.\s]|$)", re.M)
+# packages the card's machine lacks: imported inside a function, never at
+# module level (an unindented import)
+_ABSENT = ("pandas", "matplotlib", "imageio", "yaml", "sklearn")
+_TOP_LEVEL_ABSENT = re.compile(
+    r"^(?:import|from)\s+(?:%s)(?:[.\s]|$)" % "|".join(_ABSENT), re.M)
 
 
 def test_import_leaves_out_jax_and_the_jax_package():
+    roots = ("jax", "flax", "t2ms_tpu", "tools") + _ABSENT
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
-            "'t2ms_tpu', 'tools') or m.startswith(('jax.', 'flax.', "
-            "'t2ms_tpu.', 'tools.')))\n"
+            f"roots = {roots!r}\n"
+            "bad = sorted(m for m in sys.modules if m in roots or "
+            "m.startswith(tuple(r + '.' for r in roots)))\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -75,6 +92,7 @@ def test_sources_import_no_jax_nor_jax_package():
         with open(path) as f:
             src = f.read()
         assert not _FORBIDDEN.search(src), path
+        assert not _TOP_LEVEL_ABSENT.search(src), path
 
 
 def test_forbidden_pattern_spares_the_port():
@@ -84,6 +102,10 @@ def test_forbidden_pattern_spares_the_port():
     assert _FORBIDDEN.search("from tools.import_torch_ckpt import x")
     assert not _FORBIDDEN.search("from t2ms_tpu_torch.ops import resize")
     assert not _FORBIDDEN.search("import t2ms_tpu_torch")
+    assert _TOP_LEVEL_ABSENT.search("import pandas as pd")
+    assert _TOP_LEVEL_ABSENT.search("import matplotlib.pyplot as plt")
+    assert not _TOP_LEVEL_ABSENT.search("    import matplotlib")
+    assert not _TOP_LEVEL_ABSENT.search("import pandas_like")
 
 
 def _no_cuda():

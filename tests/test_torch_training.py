@@ -254,8 +254,9 @@ def test_train_step_refusals(stack):
                                     device="cpu")
     with pytest.raises(ValueError, match="accum_steps"):
         step(torch.ones(8, T), torch.ones(8, EMB))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_denoiser_train_step(td, tv, opt, backbone="ddpm", device="cpu")
+    # the DDPM loss is ported now (tests/test_torch_ddpm.py)
+    assert make_denoiser_train_step(td, tv, opt, backbone="ddpm",
+                                    device="cpu").sched.total_steps == 100
     with pytest.raises(ValueError, match="Unsupported backbone"):
         make_denoiser_train_step(td, tv, opt, backbone="edm", device="cpu")
 
