@@ -215,7 +215,22 @@ failing with a non-zero exit on any error:
    steps: the JAX CLIs' artifacts (``x_t.npy``, ``run_9/x_1.npy``, ...)
    with their shapes and finite values, the block kernels' launches in
    train and the stack's in infer checked, the train CLI's steps/s from
-   ``train_log.jsonl``, its peak memory and each CLI's wall time.
+   ``train_log.jsonl``, its peak memory and each CLI's wall time. Before
+   train, ``cli.pretrain_vae.main`` at its defaults (B=8, 2000 updates,
+   the reference widths): ``final_model`` where ``cli.train`` looks (each
+   train run checked to load it), finite MAE/RMSE overall and per length,
+   no DiT kernel launched, steps/s, wall time and peak memory. After
+   infer, ``cli.infer`` over a test split of 256 series (one batch of 256
+   a run, 11 x 100 stack launches) and ``cli.evaluation`` with MSE, WAPE,
+   MRR, CRPS and C-FID (TS2Vec on the card): both JSON files, every value
+   finite, MRR in [0, 1]; TS2Vec at ``initialize_ts2vec``'s settings:
+   fit iterations/s, encode time, C-FID(real, +0.1 std noise) below
+   C-FID(real, +1 std shift); a 20-iteration fit on the card against the
+   CPU from the same init, host draws and injected masks (losses and
+   encode within 1e-4 relative, TF32 switched on around the call and
+   restored, so TS2Vec's own scoping is what keeps it off); the f64
+   wavefront DTW on the card against the numpy DP at (64, 96, 1) and
+   (64, 24, 7), within 1e-9 relative, timed beside the native kernel.
 
 The line before the last is the kernel table as JSON (all 17 TPU kernels'
 counterparts with their numbers under "kernels"; "to_port" is empty), the
@@ -227,6 +242,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -2850,6 +2866,71 @@ def ddpm_server_phase(dit, vae, seed):
 
 # ETTh1 rows a length; the test CSV's 200 rows leave 2 for the test split
 CLI_ROWS, CLI_TEST_ROWS = 2100, 200
+# the evaluation's test CSV: the 0.99 split leaves 256 series (C-FID's
+# 100-dimensional covariance is singular below 100)
+CLI_EVAL_ROWS, CLI_EVAL_B = 25600, 256
+TS2VEC_CHECK_ITERS = 20      # TS2Vec's card-vs-CPU fit
+TS2VEC_TOL = 1e-4            # relative, losses and encode, TF32 off
+DTW_TOL = 1e-9               # relative, f64 wavefront vs the numpy DP
+
+
+class _Tee:
+    """stdout that also keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def cli_pretrain(seed):
+    """``cli.pretrain_vae.main`` at its defaults (B=8, 2000 updates, lr
+    1e-3, block_hidden 128, res_hidden 256, 2 residual layers, embedding
+    64, mix-train over 24/48/96) on the phase's corpus: ``final_model``
+    where ``cli.train`` looks (``t2s_pretrained_dir``), finite MAE/RMSE
+    overall and per length, no kernel of the DiT launched; steps/s from
+    ``train_log.jsonl``, wall time and peak memory."""
+    from t2ms_tpu_torch.cli import pretrain_vae as cli_pretrain_vae
+    from t2ms_tpu_torch.config import t2s_pretrained_dir
+    from t2ms_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_pretrain_vae.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not launches, f"cli pretrain launched DiT kernels: {launches}")
+    d = t2s_pretrained_dir("ETTh1")
+    for f in ("final_model/params.pt", "model_epoch_0/params.pt",
+              "train_log.jsonl", "metrics.txt"):
+        check(os.path.exists(os.path.join(d, f)), f"cli pretrain wrote {f}")
+    with open(os.path.join(d, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(d, "metrics.txt")) as f:
+        metrics = dict(line.strip().split(": ") for line in f)
+    want = ["MAE", "RMSE"] + [f"{m}_{L}" for L in (24, 48, 96)
+                              for m in ("MAE", "RMSE")]
+    check(list(metrics) == want, f"cli pretrain metrics.txt {list(metrics)}")
+    check(all(np.isfinite(float(v)) for v in metrics.values()),
+          f"cli pretrain metrics finite: {metrics}")
+    check(np.isfinite(rows[-1]["loss"]), "cli pretrain loss finite")
+    log(f"cli pretrain: B=8, 2000 updates ({len(rows)} epochs) in "
+        f"{wall:.3f} s wall (corpus load and reconstruction eval "
+        f"included), {rows[-1]['steps_per_sec']:.4f} steps/s by "
+        f"train_log.jsonl, peak memory {peak_gb:.3f} GB, last epoch loss "
+        f"{rows[-1]['loss']:.6f}; "
+        + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()))
 
 
 def cli_phase(seed):
@@ -2885,6 +2966,7 @@ def cli_phase(seed):
                           n=CLI_TEST_ROWS, T=24, seed=seed + 1)
             log(f"cli corpus: 3 x {CLI_ROWS} rows + {CLI_TEST_ROWS} test "
                 f"rows written in {time.perf_counter() - t0:.2f} s")
+            cli_pretrain(seed)
             # the loaders' 0.99 train split (datafactory/dataset.py:44-69)
             n_test = CLI_TEST_ROWS - int(np.ceil(CLI_TEST_ROWS * 0.99))
             steps_per_epoch = 3 * (int(np.ceil(CLI_ROWS * 0.99)) // 1024)
@@ -2899,9 +2981,13 @@ def cli_phase(seed):
                 torch.cuda.reset_peak_memory_stats()
                 _build.reset_launch_counts()
                 t0 = time.perf_counter()
-                cli_train.main(train_args)
+                tee = _Tee(sys.stdout)
+                with contextlib.redirect_stdout(tee):
+                    cli_train.main(train_args)
                 torch.cuda.synchronize()
                 t_train = time.perf_counter() - t0
+                check("Loaded pretrained VAE from" in tee.text(),
+                      f"cli train {backbone} loaded the pretrained VAE")
                 launches = dict(_build.launch_counts)
                 peak_gb = torch.cuda.max_memory_allocated() / 1e9
                 n_steps = 2 * steps_per_epoch
@@ -2968,8 +3054,179 @@ def cli_phase(seed):
                 log(f"cli infer {backbone}/{solver}: 11 runs of one batch "
                     f"of {b} at {n_sample} steps in {t_infer:.3f} s wall, "
                     f"launches {launches}")
+            cli_evaluate(seed)
         finally:
             os.chdir(cwd)
+
+
+def cli_evaluate(seed):
+    """``cli.infer`` over a test split of 256 series (flowmatching
+    ``model_1``, bf16, run_multi, one batch of 256 a run), then
+    ``cli.evaluation`` with MSE, WAPE, MRR, CRPS and C-FID on the card:
+    both JSON files, every value finite, MRR in [0, 1], no DiT kernel in
+    the evaluation; then TS2Vec, C-FID and DTW held to their plain
+    paths (``eval_checks``)."""
+    from t2ms_tpu_torch.cli import evaluation as cli_eval
+    from t2ms_tpu_torch.cli import infer as cli_infer
+    from t2ms_tpu_torch.data.synthetic import write_t2s_csv
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    t0 = time.perf_counter()
+    write_t2s_csv(os.path.join("Data", "our",
+                               "embedding_cleaned_ETTh1_24.csv"),
+                  n=CLI_EVAL_ROWS, T=24, seed=seed + 2)
+    log(f"cli eval corpus: {CLI_EVAL_ROWS} rows written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    common = ["--dataset_name", "ETTh1_24", "--total_step", str(STEPS),
+              "--cfg_scale", str(CFG)]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_infer.main(common + ["--checkpoint_id", "1", "--compute_dtype",
+                             "bf16", "--run_multi", "1", "--max_batches",
+                             "1", "--batch_size", str(CLI_EVAL_B),
+                             "--general_seed", str(seed)])
+    torch.cuda.synchronize()
+    t_infer = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    check(launches == {STACK_KERNEL: 11 * STEPS},
+          f"cli infer (256 series) launches {launches}")
+    gen_dir = os.path.join("results", "denoiser_results", "generation",
+                           f"flowmatching_DiT_ETTh1_24_{CFG}_{STEPS}")
+    x_1 = np.load(os.path.join(gen_dir, "run_0", "x_1.npy"))
+    x_t = np.load(os.path.join(gen_dir, "x_t.npy"))
+    check(x_1.shape == x_t.shape == (CLI_EVAL_B, 24, 1)
+          and np.isfinite(x_t).all(), f"cli infer 256 series: {x_t.shape}")
+    log(f"cli infer flowmatching/euler: 11 runs of one batch of "
+        f"{CLI_EVAL_B} at {STEPS} steps in {t_infer:.3f} s wall, launches "
+        f"{launches}")
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    single, multi = cli_eval.main(common + [
+        "--method_list", "MSE,WAPE,MRR,CRPS,C-FID"])
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    check(not _build.launch_counts,
+          f"cli evaluation launched DiT kernels: {dict(_build.launch_counts)}")
+    out = os.path.join("results", "denoiser_results", "evaluation",
+                       f"flowmatching_DiT_ETTh1_24_{CFG}_{STEPS}")
+    files = sorted(os.listdir(out))
+    check(len(files) == 2 and files[1].endswith("_multi.json"),
+          f"cli evaluation files {files}")
+    with open(os.path.join(out, files[0])) as f:
+        on_disk = json.load(f)
+    with open(os.path.join(out, files[1])) as f:
+        on_disk.update(json.load(f))
+    check(sorted(on_disk) == ["C-FID", "CRPS", "MRR", "MSE", "WAPE"]
+          and on_disk == {**single, **multi},
+          f"cli evaluation JSONs {on_disk}")
+    check(all(np.isfinite(v) for v in on_disk.values()),
+          f"cli evaluation values finite: {on_disk}")
+    check(0.0 <= on_disk["MRR"] <= 1.0, f"MRR {on_disk['MRR']} in [0, 1]")
+    log(f"cli evaluation: MSE,WAPE,MRR,CRPS,C-FID over {CLI_EVAL_B} series "
+        f"in {t_eval:.3f} s wall (TS2Vec fit on the card included): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in sorted(on_disk.items())))
+    eval_checks(x_1.astype(np.float32), seed)
+
+
+def eval_checks(real, seed):
+    """TS2Vec at ``initialize_ts2vec``'s settings (hidden 64, depth 10 +
+    the final block, output 100, batch 8, lr 1e-3, 200 iterations) on the
+    card over ``real`` (N, T, D): fit iterations/s and encode time;
+    C-FID(real, real + 0.1 std noise) below C-FID(real, real + 1 std);
+    a 20-iteration fit on the card (TF32 switched on outside it, so its
+    scoping is tested) against the CPU from the same init, host draws
+    and injected masks, losses and encode('full_series') within
+    TS2VEC_TOL; the f64 wavefront DTW on the card against the numpy DP at
+    (64, 96, 1) and (64, 24, 7), within DTW_TOL, timed."""
+    from t2ms_tpu_torch.evaluate import (TS2Vec, calculate_dtw,
+                                         calculate_fid, dtw_numpy,
+                                         dtw_wavefront_batch,
+                                         initialize_ts2vec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = initialize_ts2vec(real)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    check(model.n_iters == 200 and np.isfinite(model.last_losses).all(),
+          f"ts2vec fit {model.n_iters} iterations, finite losses")
+    model.encode(real, encoding_window="full_series")        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_real = model.encode(real, encoding_window="full_series")
+    t_enc = time.perf_counter() - t0
+    g = np.random.default_rng(seed)
+    std = float(real.std())
+    noisy = real + 0.1 * std * g.standard_normal(real.shape)
+    fid_noise = calculate_fid(r_real, model.encode(
+        noisy.astype(np.float32), encoding_window="full_series"))
+    fid_shift = calculate_fid(r_real, model.encode(
+        real + std, encoding_window="full_series"))
+    log(f"ts2vec on the card: fit 200 iterations (B=8, {real.shape}) in "
+        f"{t_fit:.3f} s, {200 / t_fit:.2f} iterations/s; encode "
+        f"full_series of {real.shape[0]} series {1e3 * t_enc:.2f} ms; "
+        f"C-FID real vs +0.1 std noise {fid_noise:.6f}, vs +1 std shift "
+        f"{fid_shift:.6f}; first/last loss {model.last_losses[0]:.5f} "
+        f"{model.last_losses[-1]:.5f}")
+    check(np.isfinite(fid_noise) and fid_noise < fid_shift,
+          f"C-FID discriminates: {fid_noise} < {fid_shift}")
+
+    n, (B, T, co) = TS2VEC_CHECK_ITERS, (8, real.shape[1], 100)
+    draws = {"mask1": g.random((n, B, T)) < 0.5,
+             "keep1": g.random((n, B, T, co)) < 0.9,
+             "mask2": g.random((n, B, T)) < 0.5,
+             "keep2": g.random((n, B, T, co)) < 0.9}
+    kw = dict(input_dims=real.shape[-1], batch_size=8, lr=1e-3,
+              output_dims=100, max_train_length=3000, seed=seed)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = TS2Vec(device=dev, **kw)
+        tf32 = torch.backends.cudnn.allow_tf32
+        precision = torch.get_float32_matmul_precision()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            m.fit(real, n_iters=n, draws=draws)
+            check(torch.backends.cudnn.allow_tf32
+                  and torch.get_float32_matmul_precision() == "high",
+                  "ts2vec restored the TF32 settings it was given")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.set_float32_matmul_precision(precision)
+        runs[dev] = (m.last_losses, m.encode(
+            real, encoding_window="full_series"))
+    (lg, eg), (lc, ec) = runs["cuda"], runs["cpu"]
+    loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    enc_rel = float(np.abs(eg - ec).max() / np.abs(ec).max())
+    log(f"ts2vec card vs CPU: {n} iterations at full width, same init, "
+        f"host draws and injected masks: losses max rel err {loss_rel:.3g}, "
+        f"encode full_series max abs err / max|ref| {enc_rel:.3g} (tol "
+        f"{TS2VEC_TOL:g}, TF32 off inside TS2Vec)")
+    check(loss_rel <= TS2VEC_TOL and enc_rel <= TS2VEC_TOL,
+          f"ts2vec card vs CPU: {loss_rel}, {enc_rel}")
+
+    for N, T, D in ((64, 96, 1), (64, 24, 7)):
+        a = g.standard_normal((N, T, D))
+        b = g.standard_normal((N, T, D))
+        ta = torch.from_numpy(a).cuda()
+        tb = torch.from_numpy(b).cuda()
+        got = dtw_wavefront_batch(ta, tb).cpu().numpy()
+        want = np.array([dtw_numpy(x, y) for x, y in zip(a, b)])
+        rel = float(np.max(np.abs(got - want) / want))
+        ms = cuda_ms(lambda: dtw_wavefront_batch(ta, tb))
+        calculate_dtw(a[:1], b[:1])          # builds the native library
+        t0 = time.perf_counter()
+        native = calculate_dtw(a, b)
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"dtw wavefront ({N}, {T}, {D}) f64 on the card: max rel err "
+            f"{rel:.3g} vs dtw_numpy (tol {DTW_TOL:g}), {ms:.3f} ms (CUDA "
+            f"events, median of 7); native batch on the host "
+            f"{native_ms:.3f} ms, mean {native:.6f} vs {want.mean():.6f}")
+        check(rel <= DTW_TOL, f"dtw wavefront ({N}, {T}, {D}): {rel}")
+        check(abs(native - want.mean()) <= DTW_TOL * want.mean(),
+              f"native dtw ({N}, {T}, {D})")
 
 
 def main(argv=None):

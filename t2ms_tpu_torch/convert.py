@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["dit_params_from_jax", "lavae_params_from_jax",
-           "adamw_state_from_optax"]
+           "ts2vec_params_from_jax", "adamw_state_from_optax"]
 
 
 def _inner(tree) -> dict:
@@ -93,6 +93,23 @@ def lavae_params_from_jax(tree) -> Dict[str, torch.Tensor]:
         _res_stack(sd, "decoder", dec["res_stack"])
         _conv(sd, "decoder._conv_trans_1", dec["convt1"])
         _conv(sd, "decoder._conv_trans_2", dec["convt2"])
+    return sd
+
+
+def ts2vec_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax TSEncoder params -> ``t2ms_tpu_torch...ts2vec.TSEncoder``
+    state_dict: ``input_fc`` and each ``block_{i}``'s ``projector`` are
+    Dense (transposed), its ``conv1``/``conv2`` kernels (O, I, 3) copy."""
+    p = _inner(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "input_fc", p["input_fc"])
+    depth = sum(1 for k in p if k.startswith("block_"))
+    for i in range(depth):
+        b, r = p[f"block_{i}"], f"blocks.{i}"
+        _conv(sd, f"{r}.conv1", b["conv1"])
+        _conv(sd, f"{r}.conv2", b["conv2"])
+        if "projector" in b:
+            _dense(sd, f"{r}.projector", b["projector"])
     return sd
 
 

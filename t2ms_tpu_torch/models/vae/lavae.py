@@ -25,7 +25,7 @@ from t2ms_tpu_torch import resolve_device
 from t2ms_tpu_torch.ops.conv1d import Conv1d, ConvTranspose1d
 from t2ms_tpu_torch.ops.resize import linear_resize
 
-__all__ = ["LAVAE", "lavae_loss"]
+__all__ = ["LAVAE", "lavae_loss", "smooth_l1_temporal_loss"]
 
 
 class _Residual(nn.Module):
@@ -156,3 +156,15 @@ def lavae_loss(model: LAVAE, batch: torch.Tensor):
     recon_error = torch.mean(torch.square(recon - target))
     cross = torch.mean(torch.square(before - after))
     return recon_error + cross, (recon_error, recon, z)
+
+
+def smooth_l1_temporal_loss(x, y, lambda_smooth: float = 0.1):
+    """myvqvae.custom_loss (myvqvae.py:144-156): smooth-L1 plus a temporal
+    smoothness term on first differences along the last axis. Unused by
+    the reference trainer but part of the public surface."""
+    def smooth_l1(a, b):
+        d = torch.abs(a - b)
+        return torch.mean(torch.where(d < 1.0, 0.5 * d * d, d - 0.5))
+    xd = x[..., 1:] - x[..., :-1]
+    yd = y[..., 1:] - y[..., :-1]
+    return smooth_l1(x, y) + lambda_smooth * smooth_l1(xd, yd)

@@ -1,7 +1,12 @@
-"""Structured step logs, a step timer and the profiler hook (counterpart of
-t2ms_tpu/utils/logging.py's ``JsonlLogger``, ``StepTimer`` and
-``profile_trace``; the trace goes through torch.profiler in place of
-jax.profiler)."""
+"""Loss curves, JSON artifacts, divider banners, structured step logs, a
+step timer and the profiler hook (counterpart of t2ms_tpu/utils/logging.py;
+the trace goes through torch.profiler in place of jax.profiler).
+
+Reference artifacts preserved: loss-curve PNGs (utils.py:8-24), JSON
+results (evaluate/utils.py:22-33), print-with-divider banners
+(evaluate/utils.py:10-19). matplotlib is imported inside
+``plot_loss_curve``: the port's paths do not need it.
+"""
 
 from __future__ import annotations
 
@@ -9,9 +14,55 @@ import contextlib
 import json
 import os
 import time
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional
 
-__all__ = ["JsonlLogger", "StepTimer", "profile_trace"]
+__all__ = ["plot_loss_curve", "write_json_data", "JsonlLogger",
+           "show_with_start_divider", "show_with_end_divider",
+           "profile_trace", "StepTimer"]
+
+
+def plot_loss_curve(loss_list, save_path: str,
+                    filename: str = "loss_curve.png") -> Optional[str]:
+    """Training-loss PNG (reference utils.py:8-24)."""
+    if len(loss_list) == 0:
+        print("loss_list is empty, skipping plotting.")
+        return None
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    plt.figure(figsize=(10, 6))
+    plt.plot(list(loss_list), label="Training Loss")
+    plt.xlabel("epochs")
+    plt.ylabel("Loss")
+    plt.title("Training Loss Curve")
+    plt.legend()
+    plt.grid(True)
+    os.makedirs(save_path, exist_ok=True)
+    full_path = os.path.join(save_path, filename)
+    plt.savefig(full_path)
+    plt.close()
+    print(f"Loss curve saved to {full_path}")
+    return full_path
+
+
+def write_json_data(content: Any, path: str) -> None:
+    """JSON artifact writer that creates the directory."""
+    d = path if os.path.isdir(path) else os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(content, f, indent=4)
+
+
+def show_with_start_divider(content) -> None:
+    print("=" * 20)
+    print(content)
+
+
+def show_with_end_divider(content) -> None:
+    print(content)
+    print("=" * 20)
+    print()
 
 
 class JsonlLogger:

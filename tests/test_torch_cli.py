@@ -5,11 +5,16 @@ the same array shapes (flowmatching/euler, one epoch, ``--total_step
 run's figures and GIF; a reference ``.pth`` checkpoint samples as the
 checkpoint it was made from; a resumed run continues the uninterrupted
 one bit for bit (the epoch and the optimizer step restored apart); the
-entry points refuse a machine with no card unless given the CPU, and run
-as ``python -m``."""
+whole chain pretrain_vae -> train (which loads the pretrained VAE) ->
+infer -> evaluation writes the JAX CLIs' artifacts, with MSE, WAPE, CRPS
+and MRR equal to JAX's ``evaluate_data``/``evaluate_muldata`` on the same
+arrays; the entry points refuse a machine with no card unless given the
+CPU, and run as ``python -m``."""
 
+import importlib.util
 import json
 import os
+import runpy
 import subprocess
 import sys
 
@@ -17,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+from t2ms_tpu_torch.cli import evaluation as tevaluation
 from t2ms_tpu_torch.cli import infer as tinfer
+from t2ms_tpu_torch.cli import pretrain_vae as tpretrain
 from t2ms_tpu_torch.cli import train as ttrain
 from t2ms_tpu_torch.data.synthetic import write_t2s_csv
 
@@ -175,3 +182,119 @@ def test_entry_points_run_as_modules():
                             "--help"], cwd=ROOT, env=env, capture_output=True,
                            text=True, timeout=120)
         assert r.returncode == 0 and flag in r.stdout, r.stderr
+
+
+PRETRAIN = ["--dataset_path", "ETTh1", "--batch_size", "10",
+            "--num_training_updates", "6", "--data_root", "./PData",
+            "--inference_samples", "4", "--num_embeddings", "128",
+            "--commitment_cost", "0.25", "--compression_factor", "4"]
+EVAL = ["--dataset_name", "ETTh1_24", "--cfg_scale", "7.0", "--total_step",
+        "2", "--method_list", "MSE,WAPE,MRR,CRPS,C-FID"]
+
+
+def test_pretrain_train_infer_evaluate_chain(tmp_path, corpus, monkeypatch,
+                                             capsys):
+    """The user's chain on the CPU. The pretrain corpus holds 3 test rows
+    a length; the infer corpus 10 test series, the C-FID's sample."""
+    from t2ms_tpu.cli import evaluation as jevaluation
+    work = tmp_path / "chain"
+    for L in (24, 48, 96):
+        write_t2s_csv(str(work / "PData" / "TSFragment-600K" /
+                          f"embedding_cleaned_ETTh1_{L}.csv"),
+                      n=300, T=L, seed=L)
+    os.makedirs(work / "Data")
+    os.symlink(corpus / "TSFragment-600K", work / "Data" / "TSFragment-600K")
+    write_t2s_csv(str(work / "Data" / "our" /
+                      "embedding_cleaned_ETTh1_24.csv"), n=1000, T=24, seed=7)
+    monkeypatch.chdir(work)
+
+    tpretrain.main(PRETRAIN, device="cpu")
+    d = "results/saved_pretrained_models/datasetETTh1_epoch6"
+    names = set(os.listdir(d))
+    assert {"final_model", "model_epoch_0", "train_log.jsonl",
+            "metrics.txt"} <= names
+    if all(importlib.util.find_spec(m) for m in ("matplotlib", "sklearn")):
+        assert "pca_tsne.png" in names and "comparison_0.png" in names
+    assert os.path.exists(os.path.join(d, "final_model", "params.pt"))
+    with open(os.path.join(d, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in log] == [0]
+    with open(os.path.join(d, "metrics.txt")) as f:
+        metrics = f.read().splitlines()
+    assert metrics[0].startswith("MAE: ") and metrics[1].startswith("RMSE: ")
+    assert [ln.split(":")[0] for ln in metrics[2:]] == [
+        "MAE_24", "RMSE_24", "MAE_48", "RMSE_48", "MAE_96", "RMSE_96"]
+    for ln in metrics:
+        assert np.isfinite(float(ln.split(": ")[1])), ln
+
+    # cli.train looks for the VAE of a 2000-update pretrain
+    os.rename(d, d.replace("epoch6", "epoch2000"))
+    capsys.readouterr()
+    ttrain.main(["--dataset_name", "ETTh1", "--batch_size", "20",
+                 "--epochs", "1", "--total_step", "2"], device="cpu")
+    assert "Loaded pretrained VAE from" in capsys.readouterr().out
+    tinfer.main(["--dataset_name", "ETTh1_24", "--total_step", "2",
+                 "--checkpoint_id", "0", "--run_multi", "1", "--max_batches",
+                 "1", "--batch_size", "10", "--cfg_scale", "7.0"],
+                device="cpu")
+    tevaluation.main(EVAL + ["--device", "cpu"])
+
+    out = "results/denoiser_results/evaluation/flowmatching_DiT_ETTh1_24_7.0_2"
+    files = sorted(os.listdir(out))
+    assert len(files) == 2 and files[1].endswith("_multi.json")
+    assert files[0].startswith("flowmatching_DiT_ETTh1_24_7.0_2_ETTh1_24_")
+    with open(os.path.join(out, files[0])) as f:
+        single = json.load(f)
+    with open(os.path.join(out, files[1])) as f:
+        multi = json.load(f)
+    assert sorted(single) == ["C-FID", "MSE", "WAPE"]
+    assert sorted(multi) == ["CRPS", "MRR"]
+    assert all(np.isfinite(v) for v in [*single.values(), *multi.values()])
+    assert 0.0 <= multi["MRR"] <= 1.0
+
+    # JAX's evaluation functions on the same arrays
+    gen = "results/denoiser_results/generation/flowmatching_DiT_ETTh1_24_7.0_2"
+    args = jevaluation.get_args(EVAL[:-2] + ["--method_list",
+                                             "MSE,WAPE,MRR,CRPS"])
+    args.evaluation_save_path = str(tmp_path / "jax_eval")
+    x_1 = np.load(os.path.join(gen, "run_0", "x_1.npy"))
+    assert x_1.shape == (10, 24, 1)
+    want = jevaluation.evaluate_data(
+        args, np.transpose(x_1, (0, 2, 1)),
+        np.transpose(np.load(os.path.join(gen, "x_t.npy")), (0, 2, 1)))
+    runs = [np.load(os.path.join(gen, f"run_{i}", "x_t.npy"))[..., None]
+            for i in range(10)]
+    x_1 = np.load(os.path.join(gen, "run_9", "x_1.npy"))
+    want.update(jevaluation.evaluate_muldata(args, x_1,
+                                             np.concatenate(runs, -1)))
+    for k in ("MSE", "WAPE"):
+        assert single[k] == pytest.approx(want[k], rel=1e-12), k
+    for k in ("CRPS", "MRR"):
+        assert multi[k] == pytest.approx(want[k], rel=1e-12), k
+
+
+@pytest.mark.parametrize("mod,argv", [
+    (tpretrain, PRETRAIN),
+    (tevaluation, EVAL),
+])
+def test_pretrain_and_evaluation_refuse_a_machine_with_no_card(
+        tmp_path, corpus, monkeypatch, mod, argv):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid here")
+    monkeypatch.chdir(_workdir(tmp_path, corpus, "nocard"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert not os.path.exists("results")
+
+
+@pytest.mark.parametrize("mod,flag", [
+    ("pretrain_vae", "--dataset_path"), ("evaluation", "--method_list"),
+    ("metrics_experiment", "--rival_root")])
+def test_new_entry_points_run_as_modules(mod, flag, monkeypatch, capsys):
+    """``python -m`` in this process (runpy), so no interpreter starts."""
+    monkeypatch.setattr(sys, "argv", [mod, "--help"])
+    monkeypatch.delitem(sys.modules, f"t2ms_tpu_torch.cli.{mod}",
+                        raising=False)
+    with pytest.raises(SystemExit) as e:
+        runpy.run_module(f"t2ms_tpu_torch.cli.{mod}", run_name="__main__")
+    assert e.value.code == 0 and flag in capsys.readouterr().out

@@ -43,7 +43,12 @@ MODULES = [
     "t2ms_tpu_torch.data.embedder", "t2ms_tpu_torch.data.provider",
     "t2ms_tpu_torch.data.prefetch", "t2ms_tpu_torch.visualize.diagnostics",
     "t2ms_tpu_torch.cli._common", "t2ms_tpu_torch.cli.train",
-    "t2ms_tpu_torch.cli.infer"]
+    "t2ms_tpu_torch.cli.infer", "t2ms_tpu_torch.cli.pretrain_vae",
+    "t2ms_tpu_torch.cli.evaluation", "t2ms_tpu_torch.cli.metrics_experiment",
+    "t2ms_tpu_torch.utils.native", "t2ms_tpu_torch.evaluate.dtw",
+    "t2ms_tpu_torch.evaluate.metrics", "t2ms_tpu_torch.evaluate.fid",
+    "t2ms_tpu_torch.evaluate.feature_measures",
+    "t2ms_tpu_torch.evaluate.ts2vec"]
 
 # an import of jax/flax, of the JAX package or of tools/ — never the port
 _FORBIDDEN = re.compile(
