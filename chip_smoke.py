@@ -230,7 +230,28 @@ failing with a non-zero exit on any error:
    encode within 1e-4 relative, TF32 switched on around the call and
    restored, so TS2Vec's own scoping is what keeps it off); the f64
    wavefront DTW on the card against the numpy DP at (64, 96, 1) and
-   (64, 24, 7), within 1e-9 relative, timed beside the native kernel.
+   (64, 24, 7), within 1e-9 relative, timed beside the native kernel;
+31. serve phase, over the CLI phase's ``final_model`` and flowmatching
+   ``model_1`` in its work directory: ``cli.serve.build_server``
+   (buckets 24 and 96, tiers 1/16/64, euler/100, bf16, port 0) served
+   from a thread: the warmup's time and launches (6 x 100 stack, nothing
+   else), 96 requests from 16 client threads (lengths 24 and 96, cfg 3,
+   5 and 7, distinct seeds; every answer finite, of its length, echoing
+   seed and cfg, at a tier; 100 stack launches a batch), one seed alone
+   against the same seed in a full 64-row batch and one HTTP result
+   against ``make_serving_sampler`` on the same weights (each within
+   2e-2 of max|ref|), 400 for each bad request, 404, and 503 from an
+   engine with ``max_pending=1`` and a tier that cannot fill; requests/s,
+   p50 and p95 latency and padding from /stats. Then ``python -m
+   t2ms_tpu_torch.cli.serve --port 0`` (bucket 96, tiers 1 and 16) as a
+   subprocess: its address from the ``Serving on`` line, /healthz, one
+   POST /generate, SIGINT and exit 0 within 60 s; its time to the line
+   and to the first answer. Then ``--denoiser MLP``: ``cli.train``
+   (B=1024, 2 epochs, bf16), ``cli.infer`` on its ``model_1`` (run_multi,
+   one batch of 256 a run) and 16 requests to ``build_server`` serving
+   it: the JAX CLIs' files and shapes, finite values, no DiT kernel
+   launched, steps/s, series/s and wall times; one MLP forward (B=64,
+   f32, TF32 off) on the card against the CPU within 1e-5 relative.
 
 The line before the last is the kernel table as JSON (all 17 TPU kernels'
 counterparts with their numbers under "kernels"; "to_port" is empty), the
@@ -246,10 +267,13 @@ import contextlib
 import copy
 import json
 import os
+import queue
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2933,7 +2957,7 @@ def cli_pretrain(seed):
         + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()))
 
 
-def cli_phase(seed):
+def cli_phase(seed, smi):
     """The T2S entry points as a user runs them: a synthetic ETTh1 corpus
     (lengths 24/48/96, 2100 rows each: whole batches of 1024) written by
     ``write_t2s_csv`` into a temporary directory, then ``cli.train.main``
@@ -3055,8 +3079,406 @@ def cli_phase(seed):
                     f"of {b} at {n_sample} steps in {t_infer:.3f} s wall, "
                     f"launches {launches}")
             cli_evaluate(seed)
+            serve_phase(seed, smi)
         finally:
             os.chdir(cwd)
+
+
+# ----------------------------------------------------------- the serve phase
+
+SERVE_ARGS = ["--dataset_name", "ETTh1_24", "--checkpoint_id", "1",
+              "--total_step", str(STEPS), "--solver", "euler",
+              "--compute_dtype", "bf16", "--port", "0"]
+SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 6      # 96 requests
+SERVE_TOL = 2e-2             # of max|ref|: other batch sizes may pick
+#                              other library GEMM algorithms
+SERVE_START_S = 300          # the subprocess's limit to print its address
+SERVE_SIGINT_S = 60          # and to exit 0 after SIGINT
+MLP_TOL = 1e-5               # relative, the MLP on the card vs the CPU
+
+
+def _http(url, path, payload=None, timeout=300):
+    """(status, JSON body) of one request, an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+    data = (None if payload is None else payload if isinstance(payload, bytes)
+            else json.dumps(payload).encode())
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _serving(server):
+    """Serve ``server`` from a thread; returns its URL."""
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _clients(url, reqs, n_clients):
+    """Post every request from ``n_clients`` threads (client k sends
+    requests k, k + n_clients, ...); returns [(status, body)] in order and
+    the wall time."""
+    out = [None] * len(reqs)
+
+    def client(k):
+        for i in range(k, len(reqs), n_clients):
+            out[i] = _http(url, "/generate", reqs[i])
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def _check_responses(what, reqs, res, tiers):
+    for q, r in zip(reqs, res):
+        check(r is not None and r[0] == 200, f"{what}: {r}")
+        body = r[1]
+        s = np.asarray(body["series"], np.float32)
+        check(s.shape == (q["out_length"],) and np.isfinite(s).all(),
+              f"{what}: series {s.shape} for length {q['out_length']}")
+        check(body["seed"] == q["seed"]
+              and body["cfg_scale"] == q["cfg_scale"]
+              and body["out_length"] == q["out_length"],
+              f"{what}: echo {body['seed']} {body['cfg_scale']}")
+        check(body["batch_size"] in tiers
+              and 1 <= body["batched_with"] <= body["batch_size"],
+              f"{what}: batch {body['batch_size']}/{body['batched_with']}")
+
+
+def serve_phase(seed, smi):
+    """``cli.serve`` over the CLI phase's files, in its work directory:
+    the in-process server, the real entry point as a subprocess, and the
+    MLP through train, infer and serve."""
+    serve_in_process(seed, smi)
+    serve_subprocess()
+    serve_mlp(seed)
+
+
+def serve_in_process(seed, smi):
+    """``cli.serve.build_server`` (buckets 24 and 96, tiers 1/16/64,
+    euler/100, bf16) over the pretrained ``final_model`` and cli.train's
+    flowmatching ``model_1``, served from a thread: warmup time and its
+    launches (6 x 100 stack, nothing else), 96 requests from 16 client
+    threads, one seed alone against the same seed in a full 64-row batch,
+    one HTTP result against ``make_serving_sampler`` on the same weights,
+    400/404/503, and /stats."""
+    from t2ms_tpu_torch.cli import serve as cli_serve
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    from t2ms_tpu_torch.serving import ServingEngine, make_serving_sampler
+    tiers = (1, 16, 64)
+    argv = SERVE_ARGS + ["--buckets", "24,96", "--tiers", "1,16,64"]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        server, engine = cli_serve.build_server(argv)
+    t_build = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    text = tee.text()
+    check("Loaded denoiser from" in text and "WARNING" not in text,
+          "serve loaded final_model and model_1")
+    m = re.search(r"Warmed up (\d+) programs in ([0-9.]+) s", text)
+    check(m is not None and int(m.group(1)) == 6, "serve warmup line")
+    want = {STACK_KERNEL: 6 * STEPS}
+    check(launches == want, f"serve warmup launches {launches}, want {want}")
+    url = _serving(server)
+    try:
+        status, h = _http(url, "/healthz")
+        check(status == 200 and h["buckets"] == [24, 96]
+              and h["tiers"] == list(tiers), f"serve healthz {h}")
+        rng = np.random.default_rng(seed + 16)
+        n = SERVE_CLIENTS * SERVE_PER_CLIENT
+        embs = rng.standard_normal((n + 65, D_MODEL)).astype(np.float32)
+        reqs = [dict(text_embedding=embs[i].tolist(),
+                     out_length=(24, 96)[i % 2],
+                     cfg_scale=(3.0, 5.0, 7.0)[i % 3], seed=5000 + i)
+                for i in range(n)]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        res, wall = _clients(url, reqs, SERVE_CLIENTS)
+        load_launches = dict(_build.launch_counts)
+        _check_responses("serve load", reqs, res, tiers)
+        status, st = _http(url, "/stats")
+        check(status == 200 and st["requests"] == n
+              and st["served_rows"] == n, f"serve stats {st}")
+        check(load_launches == {STACK_KERNEL: STEPS * st["batches"]},
+              f"serve load launches {load_launches}, {st['batches']} "
+              f"batches")
+        sizes = sorted({r[1]["batch_size"] for r in res})
+
+        # one seed inside a full 64-row batch, then alone
+        futs = [engine.submit(embs[n + i], 96, CFG, 7000 + i)
+                for i in range(64)]
+        full = [f.result(timeout=600) for f in futs]
+        solo = engine.submit(embs[n + 5], 96, CFG, 7005).result(timeout=600)
+        check(full[5].batch_size == 64 and solo.batch_size == 1,
+              f"serve batch tiers {full[5].batch_size}, {solo.batch_size}")
+        err_b = float(np.abs(full[5].series - solo.series).max())
+        ref_b = float(np.abs(solo.series).max())
+        check(err_b <= SERVE_TOL * ref_b, "serve seed alone vs in a full "
+              f"batch: {err_b:.4g} of {ref_b:.4g}")
+
+        # one HTTP result against the sampler called directly
+        status, one = _http(url, "/generate", dict(
+            text_embedding=embs[n + 64].tolist(), out_length=96,
+            cfg_scale=CFG, seed=4242))
+        check(status == 200 and one["batch_size"] == 1,
+              f"serve one request: {status}")
+        vae, denoiser, _ = cli_serve.load_bundle(cli_serve.get_args(argv))
+        direct = make_serving_sampler(denoiser, vae, "flowmatching", STEPS,
+                                      engine._latent[96], 96)
+        want_s = direct(np.array([4242], np.uint32),
+                        np.array([CFG], np.float32),
+                        embs[n + 64:n + 65]).float().cpu().numpy()[0]
+        err_d = float(np.abs(np.asarray(one["series"]) - want_s).max())
+        ref_d = float(np.abs(want_s).max())
+        check(err_d <= SERVE_TOL * ref_d, "serve HTTP vs the direct "
+              f"sampler: {err_d:.4g} of {ref_d:.4g}")
+
+        # the error codes
+        bad = [dict(text_embedding=[0.0] * D_MODEL, out_length=999),
+               dict(text_embedding=[0.0] * 5, out_length=96),
+               dict(out_length=96), dict(text_embedding=[0.0] * D_MODEL),
+               b"{not json"]
+        codes = [_http(url, "/generate", p)[0] for p in bad]
+        check(codes == [400] * len(bad), f"serve bad requests {codes}")
+        codes404 = [_http(url, "/nope")[0],
+                    _http(url, "/nope", dict(out_length=96))[0]]
+        check(codes404 == [404, 404], f"serve unknown paths {codes404}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+    # 503: a tier that cannot fill, a far deadline, one pending request
+    full_eng = ServingEngine(denoiser, vae, total_step=2, out_lengths=(96,),
+                             batch_tiers=(4,), max_wait_ms=600_000.0,
+                             text_emb_dim=D_MODEL, max_pending=1)
+    server2 = cli_serve.make_server(full_eng, "127.0.0.1", 0)
+    url2 = _serving(server2)
+    parked = dict(text_embedding=[0.0] * D_MODEL, out_length=96, seed=1,
+                  cfg_scale=CFG)
+    first = []
+    th = threading.Thread(target=lambda: first.append(
+        _http(url2, "/generate", parked)), daemon=True)
+    try:
+        th.start()
+        deadline = time.monotonic() + 60
+        while full_eng.stats()["requests"] < 1:
+            check(time.monotonic() < deadline, "serve: first request parked")
+            time.sleep(0.01)
+        code503 = _http(url2, "/generate", parked)[0]
+    finally:
+        server2.shutdown()
+        server2.server_close()
+        full_eng.close()                 # serves the parked request
+        th.join(timeout=120)
+    check(code503 == 503, f"serve overload answered {code503}")
+    check(first and first[0][0] == 200, f"serve parked request {first}")
+    log(f"serve in-process (cli.serve.build_server; buckets 24,96, tiers "
+        f"1,16,64, euler/{STEPS}, bf16; {smi}): load and warmup "
+        f"{t_build:.3f} s, warmup {float(m.group(2)):.3f} s for 6 programs "
+        f"({launches}); {n} requests from {SERVE_CLIENTS} client threads "
+        f"in {wall:.3f} s, {n / wall:.3f} requests/s, {st['batches']} "
+        f"batches at tiers {sizes}, p50 {st['p50_latency_s']:.4f} s, p95 "
+        f"{st['p95_latency_s']:.4f} s, padding "
+        f"{st['padding_fraction']:.4f}; seed alone vs in a full batch "
+        f"max_abs_err={err_b:.4g} max|ref|={ref_b:.4g}; HTTP vs direct "
+        f"sampler max_abs_err={err_d:.4g} max|ref|={ref_d:.4g} (tol "
+        f"{SERVE_TOL:g}); 400 x{len(bad)}, 404 x2, 503 x1")
+
+
+def serve_subprocess():
+    """``python -m t2ms_tpu_torch.cli.serve --port 0`` (bucket 96, tiers 1
+    and 16) over the same files: the address from its ``Serving on`` line,
+    GET /healthz, one POST /generate, then SIGINT: exit 0 within
+    SERVE_SIGINT_S. Logs its time to the line and to the first answer."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "t2ms_tpu_torch.cli.serve"] + SERVE_ARGS + [
+        "--buckets", "96", "--tiers", "1,16"]
+    lines = queue.Queue()
+    # a handler, not SIG_IGN, across the exec: the child starts with SIGINT
+    # at its default and so turns it into KeyboardInterrupt
+    old = signal.signal(signal.SIGINT, signal.default_int_handler)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, env=env)
+    finally:
+        signal.signal(signal.SIGINT, old)
+    out = []
+
+    def reader():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+    try:
+        url = None
+        while url is None:
+            left = SERVE_START_S - (time.perf_counter() - t0)
+            check(left > 0, f"serve subprocess printed no address: {out}")
+            try:
+                line = lines.get(timeout=left)
+            except queue.Empty:
+                continue
+            check(line is not None, f"serve subprocess ended: {out}")
+            out.append(line.rstrip())
+            m = re.search(r"Serving on (http://[^ ]+)", line)
+            url = m.group(1) if m else None
+        t_line = time.perf_counter() - t0
+        status, h = _http(url, "/healthz")
+        check(status == 200 and h["ok"] and h["tiers"] == [1, 16],
+              f"serve subprocess healthz {status} {h}")
+        status, r = _http(url, "/generate", dict(
+            text_embedding=[0.1] * D_MODEL, out_length=96, seed=3))
+        t_first = time.perf_counter() - t0
+        s = np.asarray(r.get("series", []), np.float32)
+        check(status == 200 and s.shape == (96,) and np.isfinite(s).all(),
+              f"serve subprocess answer {status}")
+        proc.send_signal(signal.SIGINT)
+        t1 = time.perf_counter()
+        rc = proc.wait(timeout=SERVE_SIGINT_S)
+        t_exit = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    try:
+        while (line := lines.get(timeout=10)) is not None:
+            out.append(line.rstrip())
+    except queue.Empty:
+        pass
+    check(rc == 0, f"serve subprocess exit {rc} after SIGINT: {out[-5:]}")
+    log(f"serve subprocess (python -m t2ms_tpu_torch.cli.serve, bucket 96, "
+        f"tiers 1,16): 'Serving on' after {t_line:.3f} s, first answer "
+        f"after {t_first:.3f} s, exit {rc} {t_exit:.3f} s after SIGINT "
+        f"(limit {SERVE_SIGINT_S} s); its lines: {' | '.join(out)}")
+
+
+def serve_mlp(seed):
+    """``--denoiser MLP`` through the entry points: ``cli.train`` (B=1024,
+    2 epochs, bf16) on the CLI corpus, ``cli.infer`` on its ``model_1``
+    (run_multi, one batch of 256 a run), then 16 concurrent requests to
+    ``cli.serve.build_server`` serving it (bucket 24, tiers 1 and 16): the
+    JAX CLIs' files and shapes, finite values, no DiT kernel launched
+    anywhere; and one MLP forward on the card against the CPU in f32 with
+    TF32 off, within MLP_TOL relative."""
+    from t2ms_tpu_torch.cli import infer as cli_infer
+    from t2ms_tpu_torch.cli import serve as cli_serve
+    from t2ms_tpu_torch.cli import train as cli_train
+    from t2ms_tpu_torch.models.denoisers import MLPDenoiser
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.training import checkpoints as ckpt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        cli_train.main(["--dataset_name", "ETTh1", "--batch_size", "1024",
+                        "--epochs", "2", "--total_step", str(STEPS),
+                        "--compute_dtype", "bf16", "--save_every", "1",
+                        "--denoiser", "MLP", "--general_seed", str(seed)])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check("Loaded pretrained VAE from" in tee.text(),
+          "cli train MLP loaded the pretrained VAE")
+    check(not _build.launch_counts,
+          f"cli train MLP launched DiT kernels {dict(_build.launch_counts)}")
+    ckpt_dir = os.path.join("results", "denoiser_results", "checkpoints",
+                            "flowmatching_MLP_ETTh1")
+    steps_per_epoch = 3 * (int(np.ceil(CLI_ROWS * 0.99)) // 1024)
+    for f in ("model_0", "model_1", "model_1.loss_history.npy",
+              "train_log.jsonl"):
+        check(os.path.exists(os.path.join(ckpt_dir, f)),
+              f"cli train MLP wrote {f}")
+    hist = np.load(os.path.join(ckpt_dir, "model_1.loss_history.npy"))
+    check(hist.shape == (2 * steps_per_epoch,) and np.isfinite(hist).all(),
+          f"cli train MLP loss history {hist}")
+    with open(os.path.join(ckpt_dir, "train_log.jsonl")) as f:
+        rate = json.loads(f.readlines()[-1])["steps_per_sec"]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_infer.main(["--dataset_name", "ETTh1_24", "--total_step", str(STEPS),
+                    "--checkpoint_id", "1", "--denoiser", "MLP",
+                    "--compute_dtype", "bf16", "--run_multi", "1",
+                    "--max_batches", "1", "--batch_size", str(CLI_EVAL_B),
+                    "--general_seed", str(seed)])
+    torch.cuda.synchronize()
+    t_infer = time.perf_counter() - t0
+    check(not _build.launch_counts,
+          f"cli infer MLP launched DiT kernels {dict(_build.launch_counts)}")
+    gen_dir = os.path.join("results", "denoiser_results", "generation",
+                           f"flowmatching_MLP_ETTh1_24_7_{STEPS}")
+    b = CLI_EVAL_B
+    for rel, shape in (("x_t.npy", (b, 24, 1)), ("x_1.npy", (b, 24, 1)),
+                       ("x_t_latent_dec_array.npy", (b, 64, 30)),
+                       ("x_t_latent_enc_array.npy", (b, 64, 30)),
+                       ("run_9/x_t.npy", (b, 24, 1))):
+        a = np.load(os.path.join(gen_dir, rel))
+        check(a.shape == shape and np.isfinite(a).all(),
+              f"cli infer MLP {rel} shape {a.shape}, want {shape}, finite")
+
+    server, engine = cli_serve.build_server(
+        SERVE_ARGS + ["--denoiser", "MLP", "--buckets", "24", "--tiers",
+                      "1,16"])
+    url = _serving(server)
+    rng = np.random.default_rng(seed + 17)
+    reqs = [dict(text_embedding=rng.standard_normal(D_MODEL).tolist(),
+                 out_length=24, cfg_scale=CFG, seed=9000 + i)
+            for i in range(16)]
+    try:
+        res, wall = _clients(url, reqs, 16)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+    _check_responses("serve MLP", reqs, res, (1, 16))
+    check(not _build.launch_counts,
+          f"MLP paths launched DiT kernels {dict(_build.launch_counts)}")
+
+    params = ckpt.load_train_ckpt(os.path.join(ckpt_dir, "model_1"))["params"]
+    card = MLPDenoiser(64, 30)
+    card.load_state_dict(params)
+    host = MLPDenoiser(64, 30, device="cpu")
+    host.load_state_dict(params)
+    g = torch.Generator().manual_seed(seed + 18)
+    x, t = torch.randn(64, 64, 30, generator=g), torch.rand(64, generator=g)
+    e = torch.randn(64, D_MODEL, generator=g)
+    mask = (torch.arange(64) % 2).float()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off")
+    with torch.no_grad():
+        want = host(x, t, e, mask)
+        got = card(x.cuda(), t.cuda(), e.cuda(), mask.cuda()).cpu()
+    err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    check(err <= MLP_TOL * ref, f"MLP card vs CPU {err:.4g} of {ref:.4g}")
+    log(f"serve MLP: cli.train --denoiser MLP B=1024 bf16, 2 epochs of "
+        f"{steps_per_epoch} steps in {t_train:.3f} s wall, {rate:.4f} "
+        f"steps/s by train_log.jsonl, peak memory {peak_gb:.3f} GB, last "
+        f"loss {hist[-1]:.5f}; cli.infer --denoiser MLP 11 runs of {b} "
+        f"series at {STEPS} steps in {t_infer:.3f} s wall "
+        f"({11 * b / t_infer:.2f} series/s); 16 requests to cli.serve in "
+        f"{wall:.3f} s ({16 / wall:.3f} series/s); no DiT kernel launched; "
+        f"forward f32 card vs CPU max_abs_err={err:.4g} max|ref|={ref:.4g} "
+        f"(rel {err / ref:.3e}, tol {MLP_TOL:g})")
 
 
 def cli_evaluate(seed):
@@ -3308,7 +3730,7 @@ def main(argv=None):
     ddpm_server_phase(dit, vae, args.seed)
     del dit, vae
     torch.cuda.empty_cache()
-    cli_phase(args.seed)
+    cli_phase(args.seed, smi)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {

@@ -12,7 +12,7 @@ Layout (mirrors t2ms_tpu):
   models/vae/           LA-VAE
   models/backbones/     rectified flow, DDPM
   models/denoisers/     eager DiT + the fused serving and training
-                        forwards (dit_fast)
+                        forwards (dit_fast); the MLP denoiser
   sampling/             CFG sampler (euler / heun / midpoint; DDPM
                         ancestral / ddim)
   serving/              dynamic-batching ServingEngine
@@ -22,6 +22,8 @@ Layout (mirrors t2ms_tpu):
   data/                 the T2S CSV corpora, length-bucketed batches,
                         prefetch to the device
   cli/                  ``python -m t2ms_tpu_torch.cli.train`` / ``.infer``
+                        / ``.serve`` (HTTP) / ``.pretrain_vae`` /
+                        ``.evaluation``
   config.py, utils/, visualize/
                         artifact paths, step logs and the profiler hook,
                         the infer CLI's figures

@@ -5,25 +5,28 @@ from __future__ import annotations
 
 import torch
 
-from t2ms_tpu_torch.models.denoisers import DiT
+from t2ms_tpu_torch.models.denoisers import DiT, MLPDenoiser
 from t2ms_tpu_torch.models.vae import LAVAE
 
-__all__ = ["build_denoiser", "build_t2s_vae", "batch_seed"]
+__all__ = ["build_denoiser", "build_t2s_vae", "batch_seed",
+           "DENOISER_CHOICES"]
+
+DENOISER_CHOICES = ("DiT", "MLP")
 
 
 def build_denoiser(name: str, latent_len: int, latent_dim: int = 64,
-                   compute_dtype=torch.float32, device=None) -> DiT:
-    """The reference factory (train.py:16) at a parametric latent
-    geometry; ``compute_dtype`` is the activation dtype (params stay
-    f32). ``latent_len=30`` is the flagship DiT (480 tokens, d 128, 4
-    heads, depth 4)."""
+                   compute_dtype=torch.float32, device=None):
+    """The reference factory {'DiT': Transformer, 'MLP': MLP} (train.py:16)
+    at a parametric latent geometry; ``compute_dtype`` is the activation
+    dtype (params stay f32). ``latent_len=30`` is the flagship DiT (480
+    tokens, d 128, 4 heads, depth 4) or the MLP on the LA-VAE grid (feat
+    64, depth 8, hidden 256, 4 heads, text 128)."""
     if name == "DiT":
         return DiT(latent_len=latent_len, latent_dim=latent_dim,
                    compute_dtype=compute_dtype, device=device)
     if name == "MLP":
-        raise NotImplementedError(
-            "the MLP denoiser is not ported to t2ms_tpu_torch yet (it comes "
-            "with the motion track)")
+        return MLPDenoiser(feat_dim=latent_dim, latent_len=latent_len,
+                           compute_dtype=compute_dtype, device=device)
     raise ValueError("No denoiser found")
 
 

@@ -36,7 +36,7 @@ from t2ms_tpu_torch.data.provider import t2s_loader_provider
 from t2ms_tpu_torch.sampling import decode_trajectory, make_cfg_sampler
 from t2ms_tpu_torch.training import checkpoints as ckpt
 from t2ms_tpu_torch.training.ema import load_ema_for_inference
-from t2ms_tpu_torch.training.scaling import setup_scaling
+from t2ms_tpu_torch.training.scaling import parse_dtype
 from t2ms_tpu_torch.visualize.diagnostics import (plot_generation_figs,
                                                   save_diffusion_gif)
 
@@ -79,7 +79,8 @@ def get_args(argv=None):
                    help="explicit denoiser checkpoint path; a .pth file "
                         "is a reference torch checkpoint")
     p.add_argument("--latent_grid", type=int, default=30,
-                   help="VAE latent grid length (30 = T2S reference)")
+                   help="VAE latent grid length (30 = T2S reference; "
+                        "use 6 with imported reference MLP checkpoints)")
     p.add_argument("--vae_file", type=str, default="",
                    help="explicit VAE checkpoint path; a .pth file is a "
                         "reference torch checkpoint (whole pickled module "
@@ -102,14 +103,16 @@ def get_args(argv=None):
     return args
 
 
-def _build_ctx(args, device=None):
-    """Everything reused across runs: loader, models and the samplers."""
-    dev = resolve_device(device)
-    datasets, batcher = t2s_loader_provider(args, "test")
-    length = datasets[0].length
-
+def load_models(args, device, probe_len: int):
+    """The LA-VAE and the denoiser on ``device``, loaded as the JAX CLIs
+    load them (cli.infer and cli.serve): a ``.pth`` VAE or denoiser file
+    is a reference checkpoint; else ``final_model`` and ``model_{id}``
+    (``load_train_ckpt``); a file that is absent leaves the deterministic
+    random init with a WARNING. ``probe_len`` is the series length of the
+    zero probe whose latent length a reference MLP checkpoint must match.
+    Returns (vae, denoiser)."""
     torch.manual_seed(0)      # cli.train's random frozen VAE, if missing
-    vae = build_t2s_vae(args, device=dev).eval()
+    vae = build_t2s_vae(args, device=device).eval()
     path = args.pretrained_model_path
     if path.endswith(".pth") and os.path.exists(path):
         ckpt.load_reference_state_dict(vae, path)
@@ -121,13 +124,27 @@ def _build_ctx(args, device=None):
               f"deterministic random init (pass --vae_file for real "
               f"outputs)")
 
-    plan = setup_scaling(args, for_training=False)
+    path = args.checkpoint_path
+    imported = path.endswith(".pth") and os.path.exists(path)
+    if imported and args.denoiser == "MLP":
+        # the reference MLP hard-codes its token count (mlp.py:49-85, 6 at
+        # reference scale): the VAE's latent grid must match it, or the
+        # first forward would fail deep inside
+        with torch.no_grad():
+            z, _ = vae.encode(torch.zeros((1, probe_len), device=device))
+        sd = ckpt.load_torch_file(path)
+        ckpt_len = int(sd["layers.0.mlp2.0.weight"].shape[1])
+        if ckpt_len != z.shape[-1]:
+            raise ValueError(
+                f"imported reference MLP expects latent length {ckpt_len} "
+                f"but the VAE produces {z.shape[-1]}; pass a VAE with "
+                f"latent_grid={ckpt_len} (--vae_file)")
     torch.manual_seed(1)
     denoiser = build_denoiser(args.denoiser, latent_len=args.latent_grid,
                               latent_dim=64,
-                              compute_dtype=plan.compute_dtype, device=dev)
-    path = args.checkpoint_path
-    if path.endswith(".pth") and os.path.exists(path):
+                              compute_dtype=parse_dtype(args.compute_dtype),
+                              device=device)
+    if imported:
         ckpt.load_reference_state_dict(denoiser, path)
         print(f"Imported reference denoiser from {path}")
     elif os.path.exists(path):
@@ -136,8 +153,18 @@ def _build_ctx(args, device=None):
     else:
         print(f"WARNING: no checkpoint at {path}; sampling from random "
               f"weights")
+    return vae, denoiser
+
+
+def _build_ctx(args, device=None):
+    """Everything reused across runs: loader, models and the samplers."""
+    dev = resolve_device(device)
+    datasets, batcher = t2s_loader_provider(args, "test")
+    length = datasets[0].length
+    vae, denoiser = load_models(args, dev, length)
     if args.use_ema:
-        denoiser.load_state_dict(load_ema_for_inference(path))
+        denoiser.load_state_dict(load_ema_for_inference(
+            args.checkpoint_path))
     return dict(batcher=batcher, length=length, vae=vae, denoiser=denoiser,
                 device=dev, samplers={})
 

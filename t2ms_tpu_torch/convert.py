@@ -23,8 +23,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["dit_params_from_jax", "lavae_params_from_jax",
-           "ts2vec_params_from_jax", "adamw_state_from_optax"]
+__all__ = ["dit_params_from_jax", "mlp_params_from_jax",
+           "lavae_params_from_jax", "ts2vec_params_from_jax",
+           "adamw_state_from_optax"]
 
 
 def _inner(tree) -> dict:
@@ -60,6 +61,25 @@ def dit_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     sd["ln.weight"] = _t(p["final_ln"]["scale"])
     sd["ln.bias"] = _t(p["final_ln"]["bias"])
     _dense(sd, "linear_emb_to_patch", p["unpatch"])
+    return sd
+
+
+def mlp_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax MLPDenoiser params -> ``t2ms_tpu_torch...mlp.MLPDenoiser``
+    state_dict (flax ``layer_{i}`` -> the reference's ``layers.{i}``)."""
+    p = _inner(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    depth = sum(1 for k in p if k.startswith("layer_"))
+    for i in range(depth):
+        lp, r = p[f"layer_{i}"], f"layers.{i}"
+        for n in ("key", "query", "value", "proj"):
+            _dense(sd, f"{r}.cross_attn.{n}", lp["cross_attn"][n])
+        sd[f"{r}.norm2.weight"] = _t(lp["norm"]["scale"])
+        sd[f"{r}.norm2.bias"] = _t(lp["norm"]["bias"])
+        _dense(sd, f"{r}.mlp.0", lp["mlp_fc1"])
+        _dense(sd, f"{r}.mlp.2", lp["mlp_fc2"])
+        _dense(sd, f"{r}.mlp2.0", lp["mlp2_fc1"])
+        _dense(sd, f"{r}.mlp2.2", lp["mlp2_fc2"])
     return sd
 
 

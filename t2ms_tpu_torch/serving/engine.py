@@ -177,7 +177,9 @@ class ServingEngine:
         Admission-control cap on queued requests; ``submit`` raises
         EngineOverloaded beyond it (None = unbounded).
     scaling_plan
-        Data-parallel serving over a mesh is not ported; must be None.
+        A one-device ``training.scaling.ScalingPlan`` (``n_data == 1``),
+        as ``cli.serve`` passes, or None; data-parallel serving over
+        several devices is not ported.
     device
         Where the models run (None = CUDA).
     """
@@ -194,10 +196,11 @@ class ServingEngine:
                  scaling_plan=None,
                  max_pending: Optional[int] = None,
                  device=None):
-        if scaling_plan is not None:
+        n_data = getattr(scaling_plan, "n_data", None)
+        if scaling_plan is not None and n_data != 1:
             raise NotImplementedError(
-                "scaling_plan (data-parallel serving) is not ported to "
-                "t2ms_tpu_torch yet")
+                f"scaling_plan with n_data={n_data}: data-parallel serving "
+                f"across devices is not ported to t2ms_tpu_torch yet")
         if not out_lengths:
             raise ValueError("need at least one out_length bucket")
         tiers = sorted(set(int(b) for b in batch_tiers))
@@ -226,6 +229,8 @@ class ServingEngine:
                 self._latent[int(L)], int(L), solver, sample_steps,
                 self._device)
 
+        # serializes the device work of the dispatcher and of warmup()
+        self._dispatch_lock = threading.Lock()
         self._lock = threading.Condition()
         self._queues: Dict[int, collections.deque] = {
             int(L): collections.deque() for L in out_lengths}
@@ -284,6 +289,22 @@ class ServingEngine:
         block for all results (order preserved)."""
         futs = [self.submit(*r) for r in requests]
         return [f.result() for f in futs]
+
+    def warmup(self) -> None:
+        """Run every (bucket, tier) once with zero embeddings and the
+        default cfg, through the launch path of a real batch: on the card
+        that builds the kernels on first use and lets the library GEMMs
+        pick their algorithms for each shape. Leaves ``stats()`` and the
+        seed counter alone and returns when the device work is done."""
+        for L in self._samplers:
+            for tier in self._tiers:
+                out = self._sample(L, np.zeros((tier,), np.uint32),
+                                   np.full((tier,), self._default_cfg,
+                                           np.float32),
+                                   np.zeros((tier, self._emb_dim),
+                                            np.float32))
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
 
     @staticmethod
     def _summarize(s: dict) -> dict:
@@ -401,12 +422,18 @@ class ServingEngine:
                          dtype=np.uint32)
         cfg = np.array([r.cfg for r in reqs] +
                        [self._default_cfg] * (tier - n), dtype=np.float32)
-        out = self._samplers[L](seeds, cfg, emb)
+        out = self._sample(L, seeds, cfg, emb)
         done = None
         if out.is_cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(out.device))
         self._inflight.put((L, tier, reqs, out, done))
+
+    def _sample(self, L: int, seeds, cfg, emb) -> torch.Tensor:
+        """Enqueue one batch's device work; returns the (still running)
+        series."""
+        with self._dispatch_lock:
+            return self._samplers[L](seeds, cfg, emb)
 
     def _complete_loop(self):
         """Copy each in-flight batch to the host, account stats, fulfil

@@ -10,7 +10,7 @@ The CLIs derive a ScalingPlan from the same flags as the JAX package:
 
 The port plans for one device (the JAX package's mesh over every visible
 device, data-parallel training and serving, is not ported): ``n_data`` is
-always 1, and the serving engine refuses a scaling plan.
+always 1, and the serving engine takes such a plan and refuses any other.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import t2ms_tpu_torch
-from t2ms_tpu_torch.models.denoisers import DiT
+from t2ms_tpu_torch.models.denoisers import DiT, MLPDenoiser
 from t2ms_tpu_torch.models.vae import LAVAE
 from t2ms_tpu_torch.sampling import make_cfg_sampler
 from t2ms_tpu_torch.serving import ServingEngine, make_serving_sampler
@@ -32,6 +32,7 @@ MODULES = [
     "t2ms_tpu_torch.models.backbones.rectified_flow",
     "t2ms_tpu_torch.models.denoisers.dit",
     "t2ms_tpu_torch.models.denoisers.dit_fast",
+    "t2ms_tpu_torch.models.denoisers.mlp",
     "t2ms_tpu_torch.models.backbones.ddpm",
     "t2ms_tpu_torch.sampling.sampler", "t2ms_tpu_torch.serving.engine",
     "t2ms_tpu_torch.training", "t2ms_tpu_torch.training.optim",
@@ -45,6 +46,7 @@ MODULES = [
     "t2ms_tpu_torch.cli._common", "t2ms_tpu_torch.cli.train",
     "t2ms_tpu_torch.cli.infer", "t2ms_tpu_torch.cli.pretrain_vae",
     "t2ms_tpu_torch.cli.evaluation", "t2ms_tpu_torch.cli.metrics_experiment",
+    "t2ms_tpu_torch.cli.serve",
     "t2ms_tpu_torch.utils.native", "t2ms_tpu_torch.evaluate.dtw",
     "t2ms_tpu_torch.evaluate.metrics", "t2ms_tpu_torch.evaluate.fid",
     "t2ms_tpu_torch.evaluate.feature_measures",
@@ -124,6 +126,7 @@ def _no_cuda():
                 num_heads=2),
     lambda: LAVAE(num_hiddens=16, num_residual_hiddens=16,
                   embedding_dim=8, latent_grid=6),
+    lambda: MLPDenoiser(latent_len=6, depth=1),
     lambda: make_cfg_sampler(
         DiT(6, 8, 32, 1, 2, device="cpu"),
         LAVAE(1, 16, 1, 16, 8, 6, device="cpu")),
@@ -142,9 +145,9 @@ def _no_cuda():
         LAVAE(1, 16, 1, 16, 8, 6, device="cpu"),
         onecycle_adamw(LAVAE(1, 16, 1, 16, 8, 6, device="cpu").parameters(),
                        4)),
-], ids=["resolve_device", "DiT", "LAVAE", "make_cfg_sampler",
-        "make_serving_sampler", "ServingEngine", "make_denoiser_train_step",
-        "make_vae_train_step"])
+], ids=["resolve_device", "DiT", "LAVAE", "MLPDenoiser",
+        "make_cfg_sampler", "make_serving_sampler", "ServingEngine",
+        "make_denoiser_train_step", "make_vae_train_step"])
 def test_entry_points_refuse_missing_cuda(make):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
