@@ -251,7 +251,28 @@ failing with a non-zero exit on any error:
    one batch of 256 a run) and 16 requests to ``build_server`` serving
    it: the JAX CLIs' files and shapes, finite values, no DiT kernel
    launched, steps/s, series/s and wall times; one MLP forward (B=64,
-   f32, TF32 off) on the card against the CPU within 1e-5 relative.
+   f32, TF32 off) on the card against the CPU within 1e-5 relative;
+32. motion phase (the T2MS track): ``fused_dit_stack`` at 2B=2 and 64
+   (bf16) and 2 (f32), and ``fused_dit_block`` with its backward at B=4
+   (bf16 and f32), against their twins at the motion DiTs' 1024 and 800
+   tokens; the motion DiT's train step at B=16 through the kernel path
+   against the eager bf16 and f32 paths (three draws) at both token
+   counts; then, in a temporary directory with the repository's
+   config.yaml, synthetic benchpress and deadlift corpora (1800 clips
+   each) written by ``write_motion_dataset``: ``cli.pretrain_mylavae``
+   with the conv VAE (B=128, 200 updates) and with the TSae (50 updates,
+   its own --save_path, its autoregressive inference), the TSae on the
+   card against the CPU (``reconstruct_teacher_forced`` and ``generate``
+   at B=8, T=144, f32, within 1e-4 relative; ``generate`` timed);
+   ``cli.mytrain`` (B=512, bf16, 2 epochs: 4 #2 + 4 #3 launches a step
+   at 1024 tokens, nothing else; model_0 and model_1; steps/s, peak
+   memory); ``cli.myinfer`` on ``model_1`` (B=1, bf16, 2 runs of 11
+   batches: 100 #1 launches a batch; every file with shape (1, 10, T) or
+   (10, T), finite; the skip lines without matplotlib; series/s);
+   ``cli.myevaluation`` (MSE, WAPE, MRR, CRPS, DTW over the two runs:
+   the JSON, finite, MRR in [0, 1]); then deadlift (800 tokens): the
+   conv pretrain, ``cli.mytrain`` and ``cli.myinfer`` (2 batches) with
+   the same checks.
 
 The line before the last is the kernel table as JSON (all 17 TPU kernels'
 counterparts with their numbers under "kernels"; "to_port" is empty), the
@@ -265,6 +286,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import importlib.util
 import json
 import os
 import queue
@@ -3650,6 +3672,424 @@ def eval_checks(real, seed):
         check(abs(native - want.mean()) <= DTW_TOL * want.mean(),
               f"native dtw ({N}, {T}, {D})")
 
+# ------------------------------------------------- the T2MS motion track
+
+# the repository's per-sport config (config.yaml:9-103): benchpress 10
+# features over a 64-long latent grid (64 x 64 in 2x2 patches: 1024
+# tokens), deadlift 7 over 50 (800 tokens); caption folders as configured
+MOTION_SPORTS = {
+    "benchpress": dict(caption="Caption_explain_no_barbell_length",
+                       split=36, epoch=16000, n_f=10, flow=64, tokens=1024),
+    "deadlift": dict(caption="Caption_explain_no_barbell", split=48,
+                     epoch=20000, n_f=7, flow=50, tokens=800)}
+# the synthetic corpora: 30 subjects x 60 clips, 600 clips a length bucket
+# (the capture datasets are not in the repository): about 540 train rows a
+# bucket, one whole batch of 512 a bucket an epoch
+MOTION_SUBJECTS, MOTION_CLIPS, MOTION_B = 30, 60, 512
+MOTION_CONV_UPDATES, MOTION_TSAE_UPDATES = 200, 50   # config epoch: 16000
+MOTION_TSAE_TOL = 1e-4         # relative, card vs CPU, f32 with TF32 off
+# cli.myinfer's and cli.myevaluation's defaults; the cfg default is the int
+# 3 (argparse leaves a default untyped), so the directories say "_3_"
+MOTION_STEPS, MOTION_CFG = 100, 3
+MOTION_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "config.yaml")
+
+
+def motion_dit(N_lat, dtype, impl="auto"):
+    """The motion track's DiT (``build_denoiser``'s defaults over the
+    (64, flow_dim) latent: d 128, 4 heads, depth 4, mlp x2)."""
+    from t2ms_tpu_torch.models.denoisers import DiT
+    return DiT(latent_len=N_lat, latent_dim=64, compute_dtype=dtype,
+               attention_impl=impl)
+
+
+def motion_kernel_checks(gen):
+    """#1 at the CFG pairs of one and of 32 series (2B=2 and 64, bf16; and
+    2B=2 in f32) and #2/#3 at B=4 (bf16 and f32) against their twins at
+    the motion DiTs' 1024 and 800 tokens (d 128, 4 heads, depth 4),
+    random adaLN vectors, the tolerances of the kernel and block phases.
+    800 = 6*128 + 32 = 12*64 + 32: the last 128-row block and 64-row tile
+    hold 32 live rows."""
+    from t2ms_tpu_torch.ops.dit_block import (fused_dit_block_diffable,
+                                              fused_dit_block_reference,
+                                              fused_dit_stack,
+                                              fused_dit_stack_reference)
+    dev = torch.device("cuda")
+    f = lambda *s_: torch.randn(*s_, generator=gen, device=dev)
+    D, hid, L = D_MODEL, HIDDEN, DEPTH
+    weights = lambda *lead: [0.2 * f(*lead, D, 3 * D), 0.1 * f(*lead, 3 * D),
+                             0.2 * f(*lead, D, D), 0.1 * f(*lead, D),
+                             0.2 * f(*lead, D, hid), 0.1 * f(*lead, hid),
+                             0.2 * f(*lead, hid, D), 0.1 * f(*lead, D)]
+    for N in (1024, 800):
+        for dt, B2, tol in ((torch.bfloat16, 2, 3e-2),
+                            (torch.bfloat16, 64, 3e-2),
+                            (torch.float32, 2, 2e-4)):
+            x, mod = f(B2, N, D).to(dt), (0.3 * f(B2, L, 6, D)).to(dt)
+            ws = [w.to(dt) for w in weights(L)]
+            got = fused_dit_stack(x, mod, *ws, HEADS)
+            want = fused_dit_stack_reference(x, mod, *ws, HEADS)
+            err, ref, corr = _err(got, want)
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"motion stack {dt} N={N} finite")
+            ms = cuda_ms(lambda: fused_dit_stack(x, mod, *ws, HEADS))
+            plain = cuda_ms(lambda: fused_dit_stack_reference(x, mod, *ws,
+                                                              HEADS))
+            log(f"motion stack {dt} 2B={B2} N={N}: max_abs_err={err:.6g} "
+                f"max|ref|={ref:.6g} rel={err / ref:.3e} (tol {tol:g}) "
+                f"corr={corr:.8f}; {ms:.4f} ms, twin {plain:.4f} ms")
+            check(err <= tol * ref and corr >= 0.999,
+                  f"motion stack {dt} 2B={B2} N={N} vs twin")
+        for dt, tol_f, tol_b in ((torch.bfloat16, 3e-2, 5e-2),
+                                 (torch.float32, 2e-4, 5e-4)):
+            args = [f(4, N, D).to(dt), (0.3 * f(4, 6, D)).to(dt),
+                    *weights()]
+            dy = f(4, N, D).to(dt)
+            got_y, got = _vjp(fused_dit_block_diffable, args, dy)
+            want_y, want = _vjp(fused_dit_block_reference, args, dy)
+            truth = (None if dt == torch.float32 else
+                     _vjp(fused_dit_block_reference,
+                          [a.float() for a in args], dy.float())[1])
+            worst = 0.0
+            for i, (name, g, w) in enumerate(zip(("y",) + GRAD_NAMES,
+                                                 (got_y, *got),
+                                                 (want_y, *want))):
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"motion block {dt} N={N} {name} finite")
+                err, ref, corr = _err(g, w)
+                tol = tol_f if name == "y" else tol_b
+                check(err <= tol * ref and corr >= 0.999,
+                      f"motion block {dt} N={N} {name}: {err} > {tol}*{ref} "
+                      f"or corr {corr}")
+                worst = max(worst, err / ref)
+                if truth is not None and i:
+                    ek = (g.float() - truth[i - 1]).abs().mean().item()
+                    et = (w.float() - truth[i - 1]).abs().mean().item()
+                    check(ek <= 1.5 * et + 1e-12,
+                          f"motion block bf16 N={N} {name} rounds worse "
+                          f"than its twin: {ek} vs {et}")
+            log(f"motion block {dt} B=4 N={N}: y and the 10 gradients "
+                f"against the twin and autograd over it, worst rel "
+                f"{worst:.3e} (tol fwd {tol_f:g}, bwd {tol_b:g}"
+                + (", each mean error vs the f32 truth at most 1.5x the "
+                   "twin's)" if truth is not None else ")"))
+        torch.cuda.empty_cache()
+
+
+def _run_cli(main, argv):
+    """``main(argv)`` with the launch counts set to 0 just before it and
+    read just after: (return value, launches, wall s, stdout text, peak
+    GB)."""
+    from t2ms_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        ret = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (ret, dict(_build.launch_counts), wall, tee.text(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _train_rows(sport, B):
+    """The optimizer steps of one motion epoch at batch B: whole batches
+    of the train split in each bucket (``cli.mytrain``'s own loader)."""
+    from t2ms_tpu_torch.data.provider import motion_loader_provider
+    from t2ms_tpu_torch.cli import mytrain
+    args = mytrain.get_args(["--dataset_name", sport, "--config",
+                             MOTION_CONFIG, "--batch_size", str(B)])
+    train, _ = motion_loader_provider(args, "train")
+    return len(train), {k: v["x"].shape[0] for k, v in train.buckets.items()}
+
+
+def motion_pretrain(sport):
+    """``cli.pretrain_mylavae --vae_kind conv`` (B=128, lr 1e-3) with the
+    update budget cut to MOTION_CONV_UPDATES: ``final_model`` where
+    ``cli.mytrain`` looks, finite losses, no DiT kernel launched."""
+    from t2ms_tpu_torch.cli import pretrain_mylavae
+    s = MOTION_SPORTS[sport]
+    _, launches, wall, _, peak = _run_cli(
+        lambda a: pretrain_mylavae.main(a), [
+            "--dataset_name", sport, "--config", MOTION_CONFIG,
+            "--vae_kind", "conv", "--max_updates",
+            str(MOTION_CONV_UPDATES)])
+    check(not launches, f"motion pretrain conv launched {launches}")
+    d = os.path.join("results", "saved_pretrained_models",
+                     f"{s['split']}_{sport}_epoch{s['epoch']}")
+    check(os.path.exists(os.path.join(d, "final_model", "params.pt")),
+          f"motion pretrain {sport} final_model in {d}")
+    with open(os.path.join(d, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(all(np.isfinite(r["loss"]) for r in rows),
+          f"motion pretrain {sport} losses {rows}")
+    log(f"motion pretrain conv {sport}: B=128, {MOTION_CONV_UPDATES} "
+        f"updates ({len(rows)} epochs) in {wall:.3f} s wall (corpus load, "
+        f"validation and reconstruction included), "
+        f"{rows[-1]['steps_per_sec']:.4f} steps/s by train_log.jsonl, peak "
+        f"memory {peak:.3f} GB, last epoch loss {rows[-1]['loss']:.6f}")
+
+
+def motion_tsae(seed):
+    """``cli.pretrain_mylavae --vae_kind tsae`` (the reference default:
+    B=128, 3 + 3 layers, d 64, 8 heads, d_ff 128, dropout 0.1) for
+    MOTION_TSAE_UPDATES updates into its own --save_path, then its
+    autoregressive inference over the test split; then the trained TSae
+    on the card against the same weights on the CPU, f32 with TF32 off:
+    ``reconstruct_teacher_forced`` and ``generate`` at B=8, T=144."""
+    from t2ms_tpu_torch.cli import pretrain_mylavae
+    from t2ms_tpu_torch.models.vae import TSae
+    from t2ms_tpu_torch.training import checkpoints as ckpt
+    (real, reco), launches, wall, _, peak = _run_cli(
+        lambda a: pretrain_mylavae.main(a), [
+            "--dataset_name", "benchpress", "--config", MOTION_CONFIG,
+            "--vae_kind", "tsae", "--max_updates", str(MOTION_TSAE_UPDATES),
+            "--save_path", "tsae_results/"])
+    check(not launches, f"motion pretrain tsae launched {launches}")
+    d = os.path.join("tsae_results", "36_benchpress_epoch16000")
+    with open(os.path.join(d, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(all(np.isfinite(r["loss"]) for r in rows)
+          and len(real) == len(reco) > 0
+          and all(a.shape == b.shape and np.isfinite(b).all()
+                  for a, b in zip(real, reco)),
+          f"motion pretrain tsae: losses {rows}, {len(reco)} recons")
+    log(f"motion pretrain tsae benchpress: B=128, {MOTION_TSAE_UPDATES} "
+        f"updates ({len(rows)} epochs) and the autoregressive "
+        f"reconstruction of {len(reco)} test series in {wall:.3f} s wall, "
+        f"{rows[-1]['steps_per_sec']:.4f} steps/s by train_log.jsonl, peak "
+        f"memory {peak:.3f} GB, last epoch loss {rows[-1]['loss']:.6f}")
+
+    sd = ckpt.load_params(os.path.join(d, "final_model"))
+    kw = dict(n_features=10, flow_dim=64, num_encoder_layers=3,
+              num_decoder_layers=3, d_ff=128, num_heads=8)
+    card, cpu = TSae(**kw), TSae(**kw, device="cpu")
+    card.load_state_dict(sd)
+    cpu.load_state_dict(sd)
+    long = [a for a in real if a.shape[-1] == 144][:8]
+    check(len(long) == 8, "motion tsae: 8 test series of length 144")
+    x = torch.from_numpy(np.stack(long).transpose(0, 2, 1).copy())
+    with torch.no_grad():
+        for name, fn in (("reconstruct_teacher_forced",
+                          lambda m, s: m.reconstruct_teacher_forced(s)),
+                         ("generate", lambda m, s: m.generate(m.encode(s)))):
+            want = fn(cpu, x)
+            got = fn(card, x.cuda())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(card, x.cuda())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            # each step against its own scale: an autoregressive decoder
+            # this briefly trained feeds its growth back, and the later
+            # steps' magnitude would hide the earlier steps' errors
+            d = (got.cpu() - want).abs().amax(dim=(0, 2))
+            ref_t = want.abs().amax(dim=(0, 2))
+            rel = (d / ref_t.clamp_min(1e-30)).max().item()
+            log(f"motion tsae {name} B=8 T=144 f32, card vs CPU: max_abs_err"
+                f"={d.max().item():.4g} max|ref|={ref_t.max().item():.4g} "
+                f"(step 0 {ref_t[0].item():.4g}, last "
+                f"{ref_t[-1].item():.4g}); worst step's max_abs_err / its "
+                f"max|ref| {rel:.3e} (tol {MOTION_TSAE_TOL:g}); card "
+                f"{ms:.3f} ms (the second call, eager"
+                + (", 144 decoder reruns)" if name == "generate" else ")"))
+            check(rel <= MOTION_TSAE_TOL, f"motion tsae {name} card vs CPU")
+
+
+def motion_train(sport, seed):
+    """``cli.mytrain`` (B=512, bf16, 2 epochs, a checkpoint each epoch):
+    4 #2 and 4 #3 launches a step and nothing else, model_0 and model_1,
+    steps/s by train_log.jsonl and peak memory."""
+    from t2ms_tpu_torch.cli import mytrain
+    from t2ms_tpu_torch.ops.dit_block import BLOCK_BWD_KERNEL, BLOCK_KERNEL
+    s = MOTION_SPORTS[sport]
+    per_epoch, rows = _train_rows(sport, MOTION_B)
+    _, launches, wall, text, peak = _run_cli(
+        lambda a: mytrain.main(a), [
+            "--dataset_name", sport, "--config", MOTION_CONFIG,
+            "--batch_size", str(MOTION_B), "--epochs", "2",
+            "--save_every", "1", "--compute_dtype", "bf16"])
+    n_steps = 2 * per_epoch
+    want = {BLOCK_KERNEL: DEPTH * n_steps, BLOCK_BWD_KERNEL: DEPTH * n_steps}
+    check(n_steps > 0 and launches == want,
+          f"motion train {sport} launches {launches}, want {want}")
+    check("Loaded pretrained VAE from" in text,
+          f"motion train {sport} loaded its pretrained VAE")
+    ckpt_dir = os.path.join("results", "denoiser_results", "checkpoints",
+                            f"flowmatching_DiT_{sport}_{s['caption']}_"
+                            f"{s['epoch']}")
+    for f_ in ("model_0", "model_1", "model_1.loss_history.npy",
+               "train_log.jsonl"):
+        check(os.path.exists(os.path.join(ckpt_dir, f_)),
+              f"motion train {sport} wrote {f_}")
+    hist = np.load(os.path.join(ckpt_dir, "model_1.loss_history.npy"))
+    check(hist.shape == (2,) and np.isfinite(hist).all(),
+          f"motion train {sport} loss history {hist}")
+    with open(os.path.join(ckpt_dir, "train_log.jsonl")) as f:
+        rate = json.loads(f.readlines()[-1])["steps_per_sec"]
+    log(f"motion train {sport}: {s['tokens']} tokens, B={MOTION_B} bf16, "
+        f"train rows by bucket {rows}, 2 epochs of {per_epoch} steps in "
+        f"{wall:.3f} s wall (corpus load and latent cache included), "
+        f"{rate:.4f} steps/s by train_log.jsonl, peak memory {peak:.3f} "
+        f"GB, launches {launches} ({DEPTH} + {DEPTH} a step), epoch losses "
+        f"{hist.tolist()}")
+
+
+def motion_train_vs_eager(gen):
+    """At B=16, three draws: the motion DiT's train step through the
+    kernel path against the eager bf16 and f32 paths on the same injected
+    draws (precoded latents), at 1024 and 800 tokens; seeded random
+    weights moved off the adaLN-zero init."""
+    from t2ms_tpu_torch.models.vae import LAVAE
+    Bs = 16
+    for sport in ("benchpress", "deadlift"):
+        s = MOTION_SPORTS[sport]
+        vae = LAVAE(in_channels=s["n_f"], num_residual_layers=3,
+                    latent_grid=s["flow"], exact_length_output=True).eval()
+        dit = motion_dit(s["flow"], torch.bfloat16)
+        with torch.no_grad():
+            for p in dit.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen,
+                                          device="cuda"))
+        z = torch.randn(Bs, 64, s["flow"], generator=gen, device="cuda")
+        emb = torch.randn(Bs, 128, generator=gen, device="cuda")
+        train_paths_vs_eager(
+            f"motion train {sport} ({s['tokens']} tokens)",
+            lambda dt_, impl, n=s["flow"]: motion_dit(n, dt_, impl), dit,
+            vae, z, emb,
+            lambda: dict(u=torch.rand(Bs, generator=gen, device="cuda"),
+                         x_0=torch.randn(Bs, 64, s["flow"], generator=gen,
+                                         device="cuda"),
+                         coin=torch.tensor(0.9, device="cuda")),
+            precoded=True)
+        del vae, dit
+        torch.cuda.empty_cache()
+
+
+def motion_infer(sport, max_batches, run_time):
+    """``cli.myinfer`` on ``model_1`` (B=1, bf16, euler/100, cfg 3): 100
+    #1 launches a batch and nothing else; every file the JAX CLI writes,
+    of shape (1, n_f, T) (``x_t.npy``) or (n_f, T), T the series' native
+    length, finite; the JSON's features; the skip lines where matplotlib
+    is absent. Returns the generation directory."""
+    from t2ms_tpu_torch.cli import myinfer
+    from t2ms_tpu_torch.ops.dit_block import STACK_KERNEL
+    s = MOTION_SPORTS[sport]
+    ctx, launches, wall, text, peak = _run_cli(
+        lambda a: myinfer.main(a), [
+            "--dataset_name", sport, "--config", MOTION_CONFIG,
+            "--checkpoint_id", "1", "--compute_dtype", "bf16",
+            "--run_time", str(run_time), "--max_batches", str(max_batches)])
+    n_b = min(max_batches + 1, len(ctx["test_batcher"]))
+    want = {STACK_KERNEL: MOTION_STEPS * n_b * run_time}
+    check(launches == want, f"motion infer {sport} launches {launches}, "
+          f"want {want}")
+    check("Loaded denoiser from" in text, f"motion infer {sport} loaded "
+          f"model_1")
+    gen_dir = os.path.join("results", "denoiser_results", "generation",
+                           f"flowmatching_DiT_{sport}_{MOTION_CFG}_"
+                           f"{MOTION_STEPS}")
+    lengths = []
+    for b in range(n_b):
+        x1 = np.load(os.path.join(gen_dir, f"x_1_sample_{b}.npy"))
+        T = x1.shape[-1]
+        lengths.append(T)
+        check(x1.shape == (s["n_f"], T), f"motion infer x_1_sample_{b} "
+              f"{x1.shape}")
+        for r in range(run_time):
+            run = os.path.join(gen_dir, f"run_{r}")
+            for rel, shape in ((f"sample_{b}/x_t.npy", (1, s["n_f"], T)),
+                               (f"x_t_sample_{b}.npy", (s["n_f"], T))):
+                a = np.load(os.path.join(run, rel))
+                check(a.shape == shape and np.isfinite(a).all(),
+                      f"motion infer {sport} {rel} {a.shape}, want {shape}")
+            with open(os.path.join(run, f"sample_{b}", "data.json")) as f:
+                feats = json.load(f)
+            check(len(feats) == s["n_f"] and all(
+                len(v) == T and np.isfinite(v).all() for v in feats.values()),
+                f"motion infer {sport} sample_{b}/data.json")
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        check("figures skipped: matplotlib" in text,
+              f"motion infer {sport} says it skips the figures")
+        if sport == "benchpress":
+            check("skeleton GIFs skipped: matplotlib" in text,
+                  "motion infer benchpress says it skips the GIFs")
+    n_series = n_b * run_time
+    log(f"motion infer {sport}: {s['tokens']} tokens (2B=2), {run_time} runs "
+        f"of {n_b} batches of one series (native lengths {lengths}) at "
+        f"euler/{MOTION_STEPS} bf16 in {wall:.3f} s wall (loader and "
+        f"models included): {n_series / wall:.4f} series/s, peak memory "
+        f"{peak:.3f} GB, launches {launches}; figures and GIFs "
+        + ("written" if figures else "skipped (no matplotlib), as said"))
+    return gen_dir
+
+
+def motion_evaluate():
+    """``cli.myevaluation`` over benchpress's two runs with MSE, WAPE, MRR,
+    CRPS and DTW: the JSON written, every value finite, MRR in [0, 1], no
+    DiT kernel launched."""
+    from t2ms_tpu_torch.cli import myevaluation
+    result, launches, wall, _, _ = _run_cli(
+        lambda a: myevaluation.main(a), [
+            "--dataset_name", "benchpress", "--config", MOTION_CONFIG,
+            "--run_time", "2", "--method_list", "MSE,WAPE,MRR,CRPS,DTW"])
+    check(not launches, f"motion evaluation launched {launches}")
+    out = os.path.join("results", "denoiser_results", "evaluation",
+                       f"flowmatching_DiT_benchpress_{MOTION_CFG}_"
+                       f"{MOTION_STEPS}")
+    files = os.listdir(out)
+    check(len(files) == 1, f"motion evaluation files {files}")
+    with open(os.path.join(out, files[0])) as f:
+        on_disk = json.load(f)
+    summary = on_disk["summary"]
+    check(sorted(summary) == ["CRPS", "DTW", "MRR", "MSE", "WAPE"]
+          and len(on_disk) == 11 and summary == result["summary"],
+          f"motion evaluation JSON {sorted(on_disk)}")
+    check(all(np.isfinite(v) for r in on_disk.values() for v in r.values()),
+          "motion evaluation values finite")
+    check(all(0.0 <= r["MRR"] <= 1.0 for r in on_disk.values()),
+          "motion evaluation MRR in [0, 1]")
+    log(f"motion evaluation benchpress: 10 samples x 2 runs in {wall:.3f} s "
+        f"wall, summary " + ", ".join(f"{k} {v:.6f}"
+                                      for k, v in sorted(summary.items())))
+
+
+def motion_phase(seed, gen):
+    """The motion track through its four entry points on synthetic
+    benchpress and deadlift corpora, in a temporary directory with the
+    repository's config.yaml; then the kernels at its token counts."""
+    import tempfile
+
+    from t2ms_tpu_torch.data.synthetic import write_motion_dataset
+    t_phase = time.perf_counter()
+    motion_kernel_checks(gen)
+    motion_train_vs_eager(gen)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="t2ms_motion_") as work:
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            for i, (sport, s) in enumerate(MOTION_SPORTS.items()):
+                write_motion_dataset("Data", sport, MOTION_SUBJECTS,
+                                     MOTION_CLIPS, seed=seed + i,
+                                     caption_dir=s["caption"])
+            log(f"motion corpora: 2 x {MOTION_SUBJECTS * MOTION_CLIPS} "
+                f"clips written in {time.perf_counter() - t0:.2f} s")
+            motion_pretrain("benchpress")
+            motion_tsae(seed)
+            motion_train("benchpress", seed)
+            motion_infer("benchpress", 10, 2)
+            motion_evaluate()
+            motion_pretrain("deadlift")
+            motion_train("deadlift", seed)
+            motion_infer("deadlift", 1, 1)
+        finally:
+            os.chdir(cwd)
+    log(f"motion phase: {time.perf_counter() - t_phase:.2f} s wall")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3731,6 +4171,7 @@ def main(argv=None):
     del dit, vae
     torch.cuda.empty_cache()
     cli_phase(args.seed, smi)
+    motion_phase(args.seed, gen)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {

@@ -9,7 +9,7 @@ Layout (mirrors t2ms_tpu):
   ops/                  resize-as-matmul, conv1d, attention oracles, the
                         fused DiT stack and block, forward and backward
                         (CUDA kernels + plain twins), build
-  models/vae/           LA-VAE
+  models/vae/           LA-VAE, the TSae seq2seq autoencoder
   models/backbones/     rectified flow, DDPM
   models/denoisers/     eager DiT + the fused serving and training
                         forwards (dit_fast); the MLP denoiser
@@ -19,14 +19,17 @@ Layout (mirrors t2ms_tpu):
   training/             AdamW with optax's semantics and schedules, the
                         denoiser and LA-VAE train steps, checkpoints on
                         torch files, EMA, the scaling plan
-  data/                 the T2S CSV corpora, length-bucketed batches,
-                        prefetch to the device
+  data/                 the T2S CSV corpora and the motion JSON corpora,
+                        length-bucketed batches, prefetch to the device
   cli/                  ``python -m t2ms_tpu_torch.cli.train`` / ``.infer``
                         / ``.serve`` (HTTP) / ``.pretrain_vae`` /
-                        ``.evaluation``
+                        ``.evaluation``; the motion track's
+                        ``.pretrain_mylavae`` / ``.mytrain`` / ``.myinfer``
+                        / ``.myevaluation``
   config.py, utils/, visualize/
+                        config.yaml (read without a YAML library) and
                         artifact paths, step logs and the profiler hook,
-                        the infer CLI's figures
+                        the CLIs' figures and the benchpress animators
   convert.py            JAX param tree / optax AdamW state -> port
 
 Entry points take ``device=None``, which means CUDA; without a card they

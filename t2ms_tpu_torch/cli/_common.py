@@ -8,8 +8,8 @@ import torch
 from t2ms_tpu_torch.models.denoisers import DiT, MLPDenoiser
 from t2ms_tpu_torch.models.vae import LAVAE
 
-__all__ = ["build_denoiser", "build_t2s_vae", "batch_seed",
-           "DENOISER_CHOICES"]
+__all__ = ["build_denoiser", "build_t2s_vae", "build_motion_vae",
+           "batch_seed", "DENOISER_CHOICES"]
 
 DENOISER_CHOICES = ("DiT", "MLP")
 
@@ -42,6 +42,18 @@ def build_t2s_vae(args=None, device=None) -> LAVAE:
                  embedding_dim=g("embedding_dim", 64),
                  latent_grid=g("latent_grid", 30),
                  exact_length_output=False, device=device)
+
+
+def build_motion_vae(args, device=None) -> LAVAE:
+    """Motion conv VAE (model/pretrained/myvqvae.py topology): channels =
+    input_dim, latent grid = flow_dim, exact-length decode."""
+    return LAVAE(in_channels=args.input_dim,
+                 num_hiddens=getattr(args, "block_hidden_size", 128),
+                 num_residual_layers=getattr(args, "num_residual_layers", 3),
+                 num_residual_hiddens=getattr(args, "res_hidden_size", 256),
+                 embedding_dim=getattr(args, "embedding_dim", 64),
+                 latent_grid=args.flow_dim,
+                 exact_length_output=True, device=device)
 
 
 def batch_seed(seed: int, index: int) -> int:

@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["dit_params_from_jax", "mlp_params_from_jax",
            "lavae_params_from_jax", "ts2vec_params_from_jax",
-           "adamw_state_from_optax"]
+           "tsae_params_from_jax", "adamw_state_from_optax"]
 
 
 def _inner(tree) -> dict:
@@ -130,6 +130,51 @@ def ts2vec_params_from_jax(tree) -> Dict[str, torch.Tensor]:
         _conv(sd, f"{r}.conv2", b["conv2"])
         if "projector" in b:
             _dense(sd, f"{r}.projector", b["projector"])
+    return sd
+
+
+def _ln(sd: dict, key: str, node: dict) -> None:
+    sd[f"{key}.weight"] = _t(node["scale"])
+    sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def _mha(sd: dict, key: str, node: dict) -> None:
+    for n in ("q", "k", "v", "out"):
+        _dense(sd, f"{key}.{n}", node[n])
+
+
+def tsae_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax TSae params (also ``TSaeDiffusion``'s, the same tree) ->
+    ``t2ms_tpu_torch...tsae.TSae`` state_dict: flax's ``enc_{i}``/``dec_{i}``
+    become ``enc_layers.{i}``/``dec_layers.{i}``, their numbered
+    ``LayerNorm_{j}`` ``norm{j+1}`` and ``Dense_0``/``Dense_1`` ``ff1``/
+    ``ff2``; the AdaLN's ``LayerNorm_0`` becomes ``norm``, and its
+    ``Dense_1`` (d -> 4d, built second by flax though applied first) and
+    ``Dense_0`` (4d -> 2d) become ``fc1`` and ``fc2``."""
+    p = _inner(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("value_embedding", "text_projection",
+                 "condition_projection", "fusion_fc1", "fusion_fc2",
+                 "input_projection", "output_projection"):
+        _dense(sd, name, p[name])
+    _ln(sd, "embedding_ln", p["embedding_ln"])
+    _ln(sd, "fusion_ln", p["fusion_ln"])
+    ada = p["ada_ln"]
+    _ln(sd, "ada_ln.norm", ada["LayerNorm_0"])
+    _dense(sd, "ada_ln.fc1", ada["Dense_1"])
+    _dense(sd, "ada_ln.fc2", ada["Dense_0"])
+    for prefix, root, attns in (("enc", "enc_layers", ("self_attn",)),
+                                ("dec", "dec_layers",
+                                 ("self_attn", "cross_attn"))):
+        depth = sum(1 for k in p if k.startswith(f"{prefix}_"))
+        for i in range(depth):
+            b, r = p[f"{prefix}_{i}"], f"{root}.{i}"
+            for a in attns:
+                _mha(sd, f"{r}.{a}", b[a])
+            for j in range(len(attns) + 1):
+                _ln(sd, f"{r}.norm{j + 1}", b[f"LayerNorm_{j}"])
+            _dense(sd, f"{r}.ff1", b["Dense_0"])
+            _dense(sd, f"{r}.ff2", b["Dense_1"])
     return sd
 
 

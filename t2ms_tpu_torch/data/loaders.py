@@ -7,7 +7,7 @@ buckets' batches in a seeded shuffled order, so the same seed gives the
 same batch order as the JAX package. The JAX package reads the process
 topology from jax when none is passed; the port runs one process unless
 ``process_index``/``process_count`` are passed, which are honoured as
-there. ``from_motion`` comes with the motion track.
+there.
 """
 
 from __future__ import annotations
@@ -121,4 +121,27 @@ class BucketBatcher:
         for ds in datasets:
             buckets[ds.length] = dict(x=ds.samples, embedding=ds.embeddings,
                                       texts=ds.texts)
+        return BucketBatcher(buckets, batch_size, seed, drop_last)
+
+    @staticmethod
+    def from_motion(records_by_bucket: Dict[int, list], batch_size: int,
+                    seed: int = 0, drop_last: bool = True,
+                    emb_index: int = 0) -> "BucketBatcher":
+        """Build from {target_len: [MotionRecord,...]}. ``emb_index`` picks
+        which caption embedding is the conditioning one (benchpress trains on
+        Prefix_embedding — pretrained_mylavae.py:207-210 and mytrain.py:61
+        consume the 3rd tuple slot)."""
+        buckets = {}
+        for length, recs in records_by_bucket.items():
+            if not recs:
+                continue
+            buckets[length] = dict(
+                x=np.stack([r.x for r in recs]),
+                embedding=np.stack([r.embeddings[emb_index] for r in recs]),
+                texts=[r.text for r in recs],
+                subjects=[r.subject for r in recs],
+            )
+            if len(recs[0].embeddings) > 1:
+                buckets[length]["extra_embedding"] = np.stack(
+                    [r.embeddings[1] for r in recs])
         return BucketBatcher(buckets, batch_size, seed, drop_last)

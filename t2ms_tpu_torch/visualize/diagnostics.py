@@ -1,22 +1,33 @@
-"""The T2S CLIs' figures (counterpart of the functions of
+"""The CLIs' figures (counterpart of the functions of
 t2ms_tpu/visualize/diagnostics.py that ``cli/pretrain_vae.py`` and
 ``cli/infer.py`` call): reconstruction comparisons and the PCA/t-SNE
 scatter (reference pretrained_lavae_unified.py:25-52,
 pretrained_mylavae.py:85-130), the ground-truth-vs-generated line plots
-(infer.py:157-176) and the diffusion GIF (myinfer.py:48-65). matplotlib,
+(infer.py:157-176), the motion track's side-by-side panels
+(myinfer.py:67-100) and the diffusion GIF (myinfer.py:48-65). matplotlib,
 sklearn and imageio are imported inside the functions: the port's paths
 do not need them, and the CLIs skip the figures where they are absent.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 __all__ = ["plot_comparison", "plot_pca_tsne", "plot_generation_figs",
-           "save_diffusion_gif"]
+           "plot_side_by_side_comparison", "save_diffusion_gif", "skipped"]
+
+
+def skipped(what: str, *packages: str) -> bool:
+    """Whether ``what`` must be skipped for want of ``packages``; if so,
+    prints one line naming the missing ones."""
+    missing = [m for m in packages if importlib.util.find_spec(m) is None]
+    if missing:
+        print(f"{what} skipped: {', '.join(missing)} not installed")
+    return bool(missing)
 
 
 def _plt():
@@ -90,6 +101,36 @@ def plot_pca_tsne(real_samples, reconstructed_samples, save_path: str) -> str:
     plt.savefig(out)
     plt.close(fig)
     return out
+
+
+def plot_side_by_side_comparison(x_1: Sequence[np.ndarray],
+                                 x_t: Sequence[np.ndarray],
+                                 mse_list: Sequence[float],
+                                 subjects_list: Sequence,
+                                 save_path: str,
+                                 feature_names: Optional[List[str]] = None
+                                 ) -> None:
+    """Ground-truth vs generated multivariate panels
+    (reference myinfer.py:67-100)."""
+    plt = _plt()
+    os.makedirs(save_path, exist_ok=True)
+    for i in range(len(x_1)):
+        fig = plt.figure(figsize=(12, 6))
+        fig.suptitle(f"{subjects_list[i]} {mse_list[i]:.4f}", fontsize=10)
+        ax1 = plt.subplot(1, 2, 1)
+        ax2 = plt.subplot(1, 2, 2)
+        for j in range(len(x_1[i])):
+            name = (feature_names[j] if feature_names
+                    and j < len(feature_names) else f"f{j}")
+            ax1.plot(np.asarray(x_1[i][j]), label=name)
+            ax2.plot(np.asarray(x_t[i][j]), label=name)
+        ax1.set_title("Ground Truth")
+        ax2.set_title("Generated")
+        ax1.legend(fontsize=6)
+        ax2.legend(fontsize=6)
+        plt.tight_layout()
+        plt.savefig(os.path.join(save_path, f"sample_{i}.jpg"))
+        plt.close(fig)
 
 
 def plot_generation_figs(x_1: np.ndarray, x_t: np.ndarray, save_path: str,

@@ -1549,3 +1549,52 @@ def test_ddpm_samplers_launch_the_stack_once_a_step(cuda, solver, steps,
     assert dict(_build.launch_counts) == {tblock.STACK_KERNEL: want}
     assert out.series.shape == (2, 96)
     assert torch.isfinite(out.series).all()
+
+
+# ------------------- the motion DiTs' token counts (benchpress, deadlift)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 2e-4),
+                                    (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("N", [1024, 800])
+def test_stack_matches_twin_at_motion_token_counts(cuda, dt, tol, N):
+    """#1 at the CFG pair of one series (2B=2) of the motion DiTs (d 128,
+    4 heads, depth 4): 1024 tokens (benchpress, 64 x 64 in 2x2 patches)
+    and 800 (deadlift, 64 x 50), whose last 128-row block and 64-row tile
+    hold 32 live rows."""
+    args = _stack_args(cuda, dt, B=2, N=N, L=4, seed=N)
+    _build.reset_launch_counts()
+    got = tblock.fused_dit_stack(*args, num_heads=4)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.STACK_KERNEL: 1}
+    want = tblock.fused_dit_stack_reference(*args, num_heads=4)
+    _close_to_twin(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [800, 1024])
+def test_block_kernels_match_twins_at_motion_token_counts(cuda, dt, N):
+    """#2 and #3 at B=4 of the motion DiTs' train step, with the bounds of
+    test_block_kernels_match_twins_on_card: the dmod partials of the tiles
+    that end in dead rows (800 = 12 * 64 + 32) must not count them."""
+    args = _block_args(cuda, dt, B=4, N=N, seed=N + 1)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(N)).to(dt)
+    _build.reset_launch_counts()
+    out, got = _block_grads(args, dy)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.BLOCK_KERNEL: 1,
+                                          tblock.BLOCK_BWD_KERNEL: 1}
+    want_out, want = _block_grads(args, dy, twin=True)
+    _close_to_twin(out, want_out, 2e-4 if dt == torch.float32 else 3e-2)
+    tol = 5e-4 if dt == torch.float32 else 5e-2
+    for g, w in zip(got, want):
+        _close_to_twin(g, w, tol)
+    if dt == torch.bfloat16:
+        f32 = [a.float() for a in args]
+        _, truth = _block_grads(f32, dy.float(), twin=True)
+        for g, w, t in zip(got, want, truth):
+            ek = (g.float() - t).abs().mean().item()
+            et = (w.float() - t).abs().mean().item()
+            assert ek <= 1.5 * et + 1e-12

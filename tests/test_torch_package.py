@@ -16,7 +16,7 @@ import torch
 
 import t2ms_tpu_torch
 from t2ms_tpu_torch.models.denoisers import DiT, MLPDenoiser
-from t2ms_tpu_torch.models.vae import LAVAE
+from t2ms_tpu_torch.models.vae import LAVAE, TSae, TSaeDiffusion
 from t2ms_tpu_torch.sampling import make_cfg_sampler
 from t2ms_tpu_torch.serving import ServingEngine, make_serving_sampler
 from t2ms_tpu_torch.training import (make_denoiser_train_step,
@@ -46,7 +46,10 @@ MODULES = [
     "t2ms_tpu_torch.cli._common", "t2ms_tpu_torch.cli.train",
     "t2ms_tpu_torch.cli.infer", "t2ms_tpu_torch.cli.pretrain_vae",
     "t2ms_tpu_torch.cli.evaluation", "t2ms_tpu_torch.cli.metrics_experiment",
-    "t2ms_tpu_torch.cli.serve",
+    "t2ms_tpu_torch.cli.serve", "t2ms_tpu_torch.cli.pretrain_mylavae",
+    "t2ms_tpu_torch.cli.mytrain", "t2ms_tpu_torch.cli.myinfer",
+    "t2ms_tpu_torch.cli.myevaluation", "t2ms_tpu_torch.data.motion",
+    "t2ms_tpu_torch.models.vae.tsae", "t2ms_tpu_torch.visualize.benchpress",
     "t2ms_tpu_torch.utils.native", "t2ms_tpu_torch.evaluate.dtw",
     "t2ms_tpu_torch.evaluate.metrics", "t2ms_tpu_torch.evaluate.fid",
     "t2ms_tpu_torch.evaluate.feature_measures",
@@ -145,9 +148,12 @@ def _no_cuda():
         LAVAE(1, 16, 1, 16, 8, 6, device="cpu"),
         onecycle_adamw(LAVAE(1, 16, 1, 16, 8, 6, device="cpu").parameters(),
                        4)),
+    lambda: TSae(n_features=3, flow_dim=8, num_heads=2),
+    lambda: TSaeDiffusion(n_features=3, flow_dim=8, num_heads=2),
 ], ids=["resolve_device", "DiT", "LAVAE", "MLPDenoiser",
         "make_cfg_sampler", "make_serving_sampler", "ServingEngine",
-        "make_denoiser_train_step", "make_vae_train_step"])
+        "make_denoiser_train_step", "make_vae_train_step", "TSae",
+        "TSaeDiffusion"])
 def test_entry_points_refuse_missing_cuda(make):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
