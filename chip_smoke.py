@@ -272,7 +272,24 @@ failing with a non-zero exit on any error:
    ``cli.myevaluation`` (MSE, WAPE, MRR, CRPS, DTW over the two runs:
    the JSON, finite, MRR in [0, 1]); then deadlift (800 tokens): the
    conv pretrain, ``cli.mytrain`` and ``cli.myinfer`` (2 batches) with
-   the same checks.
+   the same checks. Before the CLIs, on the host: a benchpress corpus
+   built by ``t2ms_tpu_torch.pipeline`` (synthetic capture files ->
+   ``BenchpressFeatureMerger`` -> ``generate_captions`` with ``FakeChat``
+   -> ``enrich_captions`` with ``FakeEmbed`` -> ``rebuild_motion_json``),
+   read back by ``data/motion.py``;
+33. parallel phase: ``parallel.dryrun.dryrun_multichip`` at full width on
+   W = ``torch.cuda.device_count()`` ranks over NCCL through a FileStore
+   in a temporary directory (in this process when W = 1, spawned
+   processes otherwise): the flagship train step at B=1024 bf16 on a
+   (W/2 x 2) mesh with TP (1 x 1 at W = 1: the data-parallel branch of
+   the step), again with generator draws, ring attention at 16 tokens a
+   rank and at N 2048, 4 heads of 512 (refused by the fused-heads
+   kernel), a pipeline of W DiT blocks forward and backward, the sampler
+   (B=256, euler/100, bf16) and f32 DiT gradients over 'data', and the
+   engine (256 requests at one tier) under the plan; each result against
+   the one-rank no-plan path on the card (bit for bit expected at W = 1;
+   otherwise the difference beside the tolerance used), the launches of
+   #1-#3 with and without the plan, the phase's wall time.
 
 The line before the last is the kernel table as JSON (all 17 TPU kernels'
 counterparts with their numbers under "kernels"; "to_port" is empty), the
@@ -4057,6 +4074,102 @@ def motion_evaluate():
                                       for k, v in sorted(summary.items())))
 
 
+BP_FEATURES = ["bar_x", "bar_y", "barx/bar_y", "left_shoulder_y",
+               "right_shoulder_y", "left_dist", "right_dist", "left_elbow",
+               "left_shoulder", "right_elbow", "right_shoulder",
+               "left_torso-arm", "right_torso-arm"]
+
+
+def _write_capture(root, rng, clips):
+    """Synthetic benchpress capture files in the recording layout the
+    merger reads: ``clips`` maps (class, subject, clip) to a frame count."""
+    views = {"rear": BP_FEATURES[7:11], "top": BP_FEATURES[11:]}
+    for (cls, subj, clip), n in clips.items():
+        base = os.path.join(root, cls, subj)
+        for view, names in views.items():
+            for name in names:
+                d = os.path.join(base, "angle_dataset", view, name)
+                os.makedirs(d, exist_ok=True)
+                v = 90 + 30 * np.sin(np.linspace(0, 3, n) + rng.random())
+                with open(os.path.join(d, f"{clip}.txt"), "w") as f:
+                    f.write("\n".join(f"{i},{x:.4f}" for i, x in enumerate(v)))
+        coord = os.path.join(base, "coordinate_dataset")
+        lines = {"lateral_view": [], "rear_view": [], "top_view": []}
+        for i in range(n):
+            bx, by = 300 + rng.random() * 20, 200 + 50 * np.sin(i / 9)
+            lines["lateral_view"].append(f"{i},{bx:.3f},{by:.3f}")
+            lines["rear_view"].append(
+                f"Frame {i}: [[(10, {300 + i % 7}), (60, {310 - i % 5}), "
+                f"(1, 1)]]")
+            w = 0.2 * np.sin(i / 5)
+            lines["top_view"].append(
+                f"Frame {i}: [[(0, 0), (2, 0), (0, -2), (2, -2), (0, -1), "
+                f"(2, -1), ({0.5 + w:.4f}, -1.5), ({1.5 - w:.4f}, -2.5)]]")
+        for view, ls in lines.items():
+            os.makedirs(os.path.join(coord, view), exist_ok=True)
+            with open(os.path.join(coord, view, f"{clip}.txt"), "w") as f:
+                f.write("\n".join(ls))
+
+
+def motion_pipeline_check(seed):
+    """Host only: a benchpress corpus built by the port's ``pipeline/``
+    (capture files -> ``BenchpressFeatureMerger`` -> ``generate_captions``
+    with ``FakeChat`` -> ``enrich_captions`` with ``FakeEmbed`` ->
+    ``rebuild_motion_json``), read back by ``data/motion.py``."""
+    from t2ms_tpu_torch.data.motion import load_motion_records
+    from t2ms_tpu_torch.pipeline import FakeChat, FakeEmbed
+    from t2ms_tpu_torch.pipeline.captions import generate_captions
+    from t2ms_tpu_torch.pipeline.corpus import rebuild_motion_json
+    from t2ms_tpu_torch.pipeline.embeddings import enrich_captions
+    from t2ms_tpu_torch.pipeline.mergers import BenchpressFeatureMerger
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    frames = (40, 64, 90)
+    clips = {(cls, f"{cls}{s}", f"clip{c}"): frames[(s + c) % 3]
+             for cls in ("correct", "tilting") for s in range(2)
+             for c in range(3)}
+    _write_capture("capture", rng, clips)
+    with open("multi_error.csv", "w") as f:
+        f.write("subject,err1,err2\ntilting1,tilting_to_the_right,"
+                "elbows_flaring\n")
+    feature = {f"feature_{i}": n for i, n in enumerate(BP_FEATURES)}
+    class_dirs = [os.path.join("capture", c) for c in ("correct", "tilting")]
+    merged = BenchpressFeatureMerger(class_dirs, "pipe_merged",
+                                     "multi_error.csv", feature).data
+    n_cap = generate_captions(FakeChat(), "pipe_merged/data.json",
+                              "pipe_captions", {"feature_3": "left shoulder"},
+                              make_figures=False)
+    n_emb = enrich_captions(FakeEmbed(), "pipe_merged/data.json",
+                            "pipe_captions")
+    rebuilt = rebuild_motion_json("benchpress", class_dirs, "pipe_rebuilt",
+                                  "multi_error.csv", feature).data
+    check(rebuilt == merged, "pipeline rebuild_motion_json == the merger's")
+    subjects = sorted(merged)
+    check(n_cap == len(clips) == n_emb and len(subjects) == 4
+          and "tilting1_tilting_to_the_right_elbows_flaring" in subjects,
+          f"pipeline captions {n_cap}, embeddings {n_emb}, subjects "
+          f"{subjects}")
+    recs = load_motion_records("benchpress", "pipe_rebuilt/data.json",
+                               "pipe_captions", "test", 36)
+    check(len(recs) == len(clips)
+          and all(r.x.shape[0] == 10 and len(r.embeddings) == 2
+                  and all(e.shape == (128,) for e in r.embeddings)
+                  and np.isfinite(r.x).all() for r in recs),
+          "pipeline corpus read by data/motion.py")
+    buckets = {d: len(load_motion_records("benchpress",
+                                          "pipe_rebuilt/data.json",
+                                          "pipe_captions", "train", d))
+               for d in (36, 72, 144)}
+    check(sum(buckets.values()) == len(clips),
+          f"pipeline train buckets {buckets}")
+    log(f"motion pipeline: {len(clips)} captured clips -> merger, "
+        f"{n_cap} captions (FakeChat), {n_emb} embeddings (FakeEmbed), "
+        f"rebuild_motion_json equal to the merger; data/motion.py reads "
+        f"{len(recs)} test records (10 features, 2 x 128-d embeddings), "
+        f"train rows by bucket {buckets}, subjects {subjects}, in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
 def motion_phase(seed, gen):
     """The motion track through its four entry points on synthetic
     benchpress and deadlift corpora, in a temporary directory with the
@@ -4078,6 +4191,7 @@ def motion_phase(seed, gen):
                                      caption_dir=s["caption"])
             log(f"motion corpora: 2 x {MOTION_SUBJECTS * MOTION_CLIPS} "
                 f"clips written in {time.perf_counter() - t0:.2f} s")
+            motion_pipeline_check(seed)
             motion_pretrain("benchpress")
             motion_tsae(seed)
             motion_train("benchpress", seed)
@@ -4089,6 +4203,242 @@ def motion_phase(seed, gen):
         finally:
             os.chdir(cwd)
     log(f"motion phase: {time.perf_counter() - t_phase:.2f} s wall")
+
+
+def _bits(a, b, what, atol=0.0, rtol=0.0, expect_equal=False):
+    """Log a result against its no-plan reference: bit-equal, or the max
+    difference beside the tolerance used (atol + rtol * max|reference|);
+    fail beyond it."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    check(a.shape == b.shape, f"parallel {what}: shapes {a.shape} {b.shape}")
+    check(np.isfinite(a).all(), f"parallel {what}: non-finite values")
+    err = float(np.max(np.abs(a - b))) if a.size else 0.0
+    if err == 0.0:
+        log(f"parallel {what}: bit-equal to the no-plan path")
+        return err
+    tol = atol + rtol * float(np.max(np.abs(b)))
+    log(f"parallel {what}: max_abs_err={err:.3e} against the no-plan path, "
+        f"tol {tol:.3e}" + (" (bit-equality expected at this world size)"
+                            if expect_equal else ""))
+    check(err <= tol, f"parallel {what}: {err} > {tol}")
+    return err
+
+
+# The W > 1 train steps against the no-plan step, each gradient tensor by
+# its relative L2 error: the TP step runs the eager bf16 model where the
+# no-plan step runs the block kernels, both rounding to bf16 (8 bits of
+# mantissa, 3.9e-3). A wrong scale, a wrong sign or a missing all-reduce
+# gives 0.1 to 2.
+PARALLEL_GRAD_RTOL = 3e-2
+
+
+def _rel_bits(a, b, what, rtol, expect_equal=False):
+    """Log dicts of tensors against their no-plan references: bit-equal,
+    or the worst relative L2 error ||a - b|| / ||b|| of one tensor beside
+    the limit; fail beyond it."""
+    check(a.keys() == b.keys(), f"parallel {what}: names differ")
+    worst, name = 0.0, None
+    for k in b:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        check(x.shape == y.shape and np.isfinite(x).all(),
+              f"parallel {what}: {k} shape {x.shape} vs {y.shape} or "
+              f"non-finite")
+        err = float(np.linalg.norm(x - y)) / max(float(np.linalg.norm(y)),
+                                                 1e-30)
+        if err > worst:
+            worst, name = err, k
+    if worst == 0.0:
+        log(f"parallel {what}: bit-equal to the no-plan path")
+        return worst
+    log(f"parallel {what}: worst relative L2 error {worst:.3e} ({name}) "
+        f"against the no-plan path, limit {rtol:.1e}"
+        + (" (bit-equality expected at this world size)"
+           if expect_equal else ""))
+    check(worst <= rtol, f"parallel {what}: {name} {worst} > {rtol}")
+    return worst
+
+
+def parallel_phase(seed):
+    """The parallel layer over NCCL: ``parallel.dryrun.dryrun_multichip``
+    at full width on W = torch.cuda.device_count() ranks (in this process
+    when W = 1, spawned processes otherwise) over a FileStore in a
+    temporary directory, each result held to the one-rank no-plan path on
+    this card: bit for bit where W = 1."""
+    import tempfile
+
+    from t2ms_tpu_torch.cli._common import batch_seed
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL, BLOCK_KERNEL,
+                                              STACK_KERNEL)
+    from t2ms_tpu_torch.parallel.dryrun import (CHECKS, _models, _t,
+                                                dryrun_multichip,
+                                                flagship_inputs, launch,
+                                                save_inputs)
+    from t2ms_tpu_torch.sampling import make_cfg_sampler
+    from t2ms_tpu_torch.serving import ServingEngine
+    from t2ms_tpu_torch.training import (ScheduledAdamW,
+                                         make_denoiser_train_step)
+    t_phase = time.perf_counter()
+    W = torch.cuda.device_count()
+    inp = flagship_inputs(seed, W)
+    cfg = inp["config"]
+    checks = CHECKS + ("train_dp",)
+    cfg["train_seed"] = seed + 11
+    with tempfile.TemporaryDirectory(prefix="t2ms_parallel_") as work:
+        out_dir = os.path.join(work, "out")
+        if W == 1:
+            rec = dryrun_multichip(0, 1, "cuda", work, inp, out_dir, checks)
+        else:
+            path = os.path.join(work, "inputs.npz")
+            save_inputs(path, inp)
+            launch(W, "cuda", path, out_dir, timeout_s=600.0, checks=checks)
+            with open(os.path.join(out_dir, "rank0.json")) as f:
+                rec = json.load(f)
+        got = dict(np.load(os.path.join(out_dir, "rank0.npz")))
+    check(rec["backend"] == "nccl", f"parallel backend {rec['backend']}")
+    t_dry = time.perf_counter() - t_phase
+    log(f"parallel dry run: world {W} over {rec['backend']}, meshes "
+        f"{rec['meshes']}, seconds " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rec["seconds"].items()))
+    exact = W == 1
+    dev = torch.device("cuda", 0)
+    lr = cfg["lr"]
+
+    # the train step without a plan: same init, same draws, same batch
+    def plain_step(accum=1, **draws):
+        dit, vae = _models(inp, cfg, dev, torch.bfloat16)
+        opt = ScheduledAdamW(dit.parameters(), lambda _: lr)
+        step = make_denoiser_train_step(dit, vae, opt, "flowmatching",
+                                        cfg["train_total_step"],
+                                        accum_steps=accum, device=dev)
+        _build.reset_launch_counts()
+        loss = step(_t(inp["train_x"], dev), _t(inp["train_emb"], dev),
+                    **draws)
+        torch.cuda.synchronize()
+        return (loss, dit.state_dict(),
+                {k: p.grad for k, p in dit.named_parameters()},
+                dict(_build.launch_counts))
+
+    def held(tag, what, loss, sd, grads):
+        """The loss and the applied gradients at every W (AdamW's first
+        update is about lr * sign(g), so only the gradients show a wrong
+        scale or a missing all-reduce); the parameters where W = 1, bit
+        for bit."""
+        _bits(got[f"{tag}_loss"], float(loss), f"{what} loss", rtol=1e-2,
+              expect_equal=exact)
+        _rel_bits({k: got[f"{tag}_grad.{k}"] for k in grads},
+                  {k: g.float().cpu().numpy() for k, g in grads.items()},
+                  f"{what} gradients", PARALLEL_GRAD_RTOL,
+                  expect_equal=exact)
+        if exact:
+            _bits(np.concatenate([got[f"{tag}_param.{k}"].ravel()
+                                  for k in sd]),
+                  np.concatenate([v.float().cpu().numpy().ravel()
+                                  for v in sd.values()]),
+                  f"{what} params after one AdamW step", expect_equal=True)
+
+    loss, sd, grads, n_plain = plain_step(
+        u=_t(inp["train_u"], dev), x_0=_t(inp["train_x0"], dev),
+        coin=_t(inp["train_coin"], dev))
+    held("train", "train step", loss, sd, grads)
+    for accum, tag in ((1, "train_dp"), (2, "train_dp_accum2")):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(batch_seed(cfg["train_seed"], 0))
+        held(tag, f"generator-drawn train step, accum_steps={accum}",
+             *plain_step(accum, generator=gen)[:3])
+    n_plan = rec["launches"]["train"]
+    log(f"parallel train launches under the plan {n_plan}, without "
+        f"{n_plain}")
+    if exact:
+        check(n_plan == n_plain and n_plan.get(BLOCK_KERNEL) == 4
+              and n_plan.get(BLOCK_BWD_KERNEL) == 4,
+              f"parallel train launches {n_plan} vs {n_plain}")
+
+    # ring attention against full attention (f32, TF32 off)
+    for name, key in (("ring", "ring_qkv"), ("ring_big", "ring_big_qkv")):
+        q, k, v = (_t(a, dev) for a in inp[key])
+        full = torch.softmax(q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5,
+                             dim=-1) @ v
+        _bits(got[f"{name}_out"], full.cpu().numpy(),
+              f"{name} attention {tuple(q.shape)} vs full", atol=1e-4)
+    check(bool(got["ring_big_refused"]),
+          "ring_big geometry refused by fused_heads_block_q")
+
+    # the pipeline against its stages in sequence
+    from t2ms_tpu_torch.models.denoisers.dit import DiTBlock
+    from t2ms_tpu_torch.parallel.dryrun import _sd
+    Np = inp["pp_x"].shape[1]
+    h = torch.cat([_t(inp["pp_x"], dev), _t(inp["pp_c"], dev)[:, None]],
+                  1).requires_grad_(True)
+    y, blocks = h, []
+    for st in range(W):
+        blk = DiTBlock(inp["pp_x"].shape[2], cfg["pp_heads"], 2.0).to(dev)
+        blk.load_state_dict({a: b * (1.0 + 0.1 * st)
+                             for a, b in _sd(inp, "pp_block.").items()})
+        blocks.append(blk)
+        y = torch.cat([blk(y[:, :Np], y[:, Np], torch.float32, "einsum"),
+                       y[:, Np:]], 1)
+    (y[:, :Np] * _t(inp["pp_cot"], dev)).sum().backward()
+    _bits(got["pp_out"], y[:, :Np].detach().cpu().numpy(),
+          f"pipeline of {W} DiT blocks, forward", atol=1e-4)
+    _bits(got["pp_dx"], h.grad.cpu().numpy(), "pipeline input gradient",
+          atol=1e-4)
+    _bits(np.concatenate([got[f"pp_grad0.{k}"].ravel()
+                          for k, _ in blocks[0].named_parameters()]),
+          np.concatenate([p.grad.cpu().numpy().ravel()
+                          for p in blocks[0].parameters()]),
+          "pipeline stage-0 parameter gradients", atol=1e-4)
+
+    # the sampler, the DiT gradients and the engine without a plan
+    dit, vae = _models(inp, cfg, dev, torch.bfloat16)
+    sampler = make_cfg_sampler(dit, vae, "flowmatching", cfg["samp_steps"],
+                               cfg["cfg"], out_length=cfg["T"], device=dev)
+    _build.reset_launch_counts()
+    series = sampler(inp["samp_x"], inp["samp_emb"],
+                     x_t0=_t(inp["samp_x0"], dev)).series
+    torch.cuda.synchronize()
+    n_plain = dict(_build.launch_counts)
+    _bits(got["samp_series"], series.float().cpu().numpy(),
+          f"sampler B={len(inp['samp_x'])} {cfg['serve_dtype']} "
+          f"euler/{cfg['samp_steps']}",
+          rtol=2e-2, expect_equal=exact)
+    n_plan = rec["launches"]["sampler"]
+    log(f"parallel sampler launches under the plan {n_plan}, without "
+        f"{n_plain}")
+    if exact:
+        check(n_plan == n_plain
+              and n_plan.get(STACK_KERNEL) == cfg["samp_steps"],
+              f"parallel sampler launches {n_plan} vs {n_plain}")
+    d32, _ = _models(inp, cfg, dev, torch.float32)
+    x, tt, e = (_t(inp[k], dev) for k in ("grad_x", "grad_t", "grad_e"))
+    torch.mean(torch.square(d32(x, tt, e) - x)).backward()
+    _bits(np.concatenate([got[f"grad.{k}"].ravel()
+                          for k, _ in d32.named_parameters()]),
+          np.concatenate([p.grad.cpu().numpy().ravel()
+                          for p in d32.parameters()]),
+          "data-parallel DiT gradients (f32)", rtol=1e-4)
+    emb = inp["eng_emb"]
+    reqs = [(emb[i], cfg["T"], float(inp["eng_cfg"][i]),
+             int(inp["eng_seed"][i])) for i in range(len(emb))]
+    dit, vae = _models(inp, cfg, dev, torch.bfloat16)
+    _build.reset_launch_counts()
+    with ServingEngine(dit, vae, total_step=cfg["eng_steps"],
+                       out_lengths=(cfg["T"],), batch_tiers=(len(emb),),
+                       max_wait_ms=500.0, text_emb_dim=emb.shape[1],
+                       device=dev) as eng:
+        served = np.stack([r.series for r in eng.generate(reqs)])
+    n_plain = dict(_build.launch_counts)
+    _bits(got["eng_series"], served, f"engine, {len(reqs)} requests at tier "
+          f"{len(emb)}, row for row", rtol=2e-2, expect_equal=exact)
+    n_plan = rec["launches"]["engine"]
+    log(f"parallel engine launches under the plan {n_plan}, without "
+        f"{n_plain}")
+    if exact:
+        check(n_plan == n_plain
+              and n_plan.get(STACK_KERNEL) == cfg["eng_steps"],
+              f"parallel engine launches {n_plan} vs {n_plain}")
+    log(f"parallel phase: world {W}, dry run {t_dry:.2f} s, "
+        f"{time.perf_counter() - t_phase:.2f} s wall")
 
 
 def main(argv=None):
@@ -4172,6 +4522,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     cli_phase(args.seed, smi)
     motion_phase(args.seed, gen)
+    parallel_phase(args.seed)
 
     bf = k[torch.bfloat16]
     entry = lambda name, src, rep, n, r: {

@@ -7,6 +7,7 @@ import torch
 
 from t2ms_tpu_torch.models.denoisers import DiT, MLPDenoiser
 from t2ms_tpu_torch.models.vae import LAVAE
+from t2ms_tpu_torch.utils.prng import root_key, step_key
 
 __all__ = ["build_denoiser", "build_t2s_vae", "build_motion_vae",
            "batch_seed", "DENOISER_CHOICES"]
@@ -57,7 +58,7 @@ def build_motion_vae(args, device=None) -> LAVAE:
 
 
 def batch_seed(seed: int, index: int) -> int:
-    """The seed of draw ``index`` under run seed ``seed`` (the JAX CLIs
-    fold ``index`` into ``root_key(seed)``): a run that resumes at an
+    """The seed of draw ``index`` under run seed ``seed``: ``index`` folded
+    into ``root_key(seed)``, as the JAX CLIs do. A run that resumes at an
     optimizer step draws what the uninterrupted run would have."""
-    return ((int(seed) & 0x7FFFFFFF) << 32) | (int(index) & 0xFFFFFFFF)
+    return step_key(root_key(seed), index)

@@ -15,7 +15,10 @@ either way.
 
 runs on the card; ``main(argv, device="cpu")`` runs the plain path on the
 CPU. Batch b of run r draws its noise from a generator seeded with
-(general_seed + r, b).
+(general_seed + r, b). Under ``torchrun`` with WORLD_SIZE > 1 every rank
+joins the process group and samples its rows of each batch that the data
+axis divides, from the noise drawn for the whole batch, so the arrays are
+those of a one-process run; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from t2ms_tpu_torch.cli._common import (batch_seed, build_denoiser,
 from t2ms_tpu_torch.config import (denoiser_ckpt_dir, generation_dir,
                                    t2s_pretrained_dir)
 from t2ms_tpu_torch.data.provider import t2s_loader_provider
+from t2ms_tpu_torch.parallel.collectives import all_gather
+from t2ms_tpu_torch.parallel.mesh import init_from_env, is_main, shard_batch
 from t2ms_tpu_torch.sampling import decode_trajectory, make_cfg_sampler
 from t2ms_tpu_torch.training import checkpoints as ckpt
 from t2ms_tpu_torch.training.ema import load_ema_for_inference
-from t2ms_tpu_torch.training.scaling import parse_dtype
+from t2ms_tpu_torch.training.scaling import parse_dtype, setup_scaling
 from t2ms_tpu_torch.visualize.diagnostics import (plot_generation_figs,
                                                   save_diffusion_gif)
 
@@ -157,8 +162,12 @@ def load_models(args, device, probe_len: int):
 
 
 def _build_ctx(args, device=None):
-    """Everything reused across runs: loader, models and the samplers."""
-    dev = resolve_device(device)
+    """Everything reused across runs: loader, models, the plan and the
+    samplers."""
+    dev = init_from_env(resolve_device(device))
+    plan = setup_scaling(args, for_training=False)
+    if plan.n_data > 1:
+        print(f"Serving plan: {plan.describe()}")
     datasets, batcher = t2s_loader_provider(args, "test")
     length = datasets[0].length
     vae, denoiser = load_models(args, dev, length)
@@ -166,7 +175,7 @@ def _build_ctx(args, device=None):
         denoiser.load_state_dict(load_ema_for_inference(
             args.checkpoint_path))
     return dict(batcher=batcher, length=length, vae=vae, denoiser=denoiser,
-                device=dev, samplers={})
+                device=dev, plan=plan, samplers={})
 
 
 def infer(args, run_dir: str, seed_offset: int = 0, collect_gif=True,
@@ -192,9 +201,20 @@ def infer(args, run_dir: str, seed_offset: int = 0, collect_gif=True,
             break
         print(f"Generating {b}th Batch TS...")
         gen.manual_seed(batch_seed(args.general_seed + seed_offset, b))
-        out = sampler(np.asarray(batch.x, np.float32),
-                      np.asarray(batch.embedding, np.float32),
-                      generator=gen)
+        x_in = np.asarray(batch.x, np.float32)
+        e_in = np.asarray(batch.embedding, np.float32)
+        mesh = ctx["plan"].mesh
+        if mesh is not None and x_in.shape[0] % ctx["plan"].n_data == 0:
+            # DP-shard the serving batch; tail batches that don't divide
+            # the data axis run replicated. (Deliberate deviation: the
+            # reference drops eval tails too — dataloader.py:98,111
+            # drop_last=True — but dropping rows silently shrinks the
+            # metric set, so our test loaders keep them; every run keeps
+            # the same rows, so multi-run metrics stay aligned.)
+            out = _sample_sharded(sampler, vae, args, mesh, x_in, e_in, gen,
+                                  ctx["device"])
+        else:
+            out = sampler(x_in, e_in, generator=gen)
         x1s.append(np.asarray(batch.x))
         xts.append(out.series.cpu().numpy())
         lat_dec.append(out.latent.cpu().numpy())
@@ -207,6 +227,8 @@ def infer(args, run_dir: str, seed_offset: int = 0, collect_gif=True,
 
     x_1 = np.concatenate(x1s)[:, :, None]
     x_t = np.concatenate(xts)[:, :, None]
+    if not is_main():
+        return x_1, x_t, gif_frames
     np.save(os.path.join(run_dir, "x_1.npy"), x_1)
     np.save(os.path.join(run_dir, "x_t.npy"), x_t)
     np.save(os.path.join(run_dir, "x_t_latent_dec_array.npy"),
@@ -216,7 +238,32 @@ def infer(args, run_dir: str, seed_offset: int = 0, collect_gif=True,
     return x_1, x_t, gif_frames
 
 
+def _sample_sharded(sampler, vae, args, mesh, x_in, e_in, gen, dev):
+    """This rank's rows of one batch, sampled from the global batch's
+    draws (x_t0, then each DDPM ancestral step's noise, in the order the
+    one-device sampler draws them), and gathered whole over 'data'."""
+    x_loc, e_loc = shard_batch(mesh, (x_in, e_in))
+    with torch.no_grad():
+        z, _ = vae.encode(torch.as_tensor(x_loc, device=dev))
+    shape = (x_in.shape[0],) + tuple(z.shape[1:])
+    x_t0 = torch.randn(shape, generator=gen, dtype=z.dtype, device=dev)
+    step_noise = None
+    if args.backbone == "ddpm" and args.solver != "ddim":
+        step_noise = torch.stack([
+            torch.randn(shape, generator=gen, dtype=z.dtype, device=dev)
+            for _ in range(args.total_step)])
+        step_noise = shard_batch(mesh, step_noise.transpose(0, 1)
+                                 ).transpose(0, 1)
+    out = sampler(x_loc, e_loc, x_t0=shard_batch(mesh, x_t0),
+                  step_noise=step_noise)
+    group = mesh.group("data")
+    return out._replace(**{k: all_gather(getattr(out, k), group)
+                           for k in ("series", "latent", "latent_enc")})
+
+
 def _figures(args, x_1, x_t, frames=None) -> None:
+    if not is_main():
+        return
     if importlib.util.find_spec("matplotlib") is None:
         print("figures skipped: matplotlib is not installed")
         return

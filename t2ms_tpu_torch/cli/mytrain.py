@@ -35,6 +35,7 @@ from t2ms_tpu_torch.config import (FrameworkConfig, denoiser_ckpt_dir,
                                    get_cfg, motion_pretrained_dir)
 from t2ms_tpu_torch.data.prefetch import prefetch_to_device
 from t2ms_tpu_torch.data.provider import motion_loader_provider
+from t2ms_tpu_torch.parallel.mesh import init_from_env, is_main
 from t2ms_tpu_torch.training import checkpoints as ckpt
 from t2ms_tpu_torch.training import scaling
 from t2ms_tpu_torch.training.ema import save_cli_ema, setup_cli_ema
@@ -113,8 +114,10 @@ def build_motion_denoiser(args, compute_dtype, device):
 
 
 def train(args, device=None):
-    """Train on ``device`` (None = CUDA); returns the denoiser."""
-    dev = resolve_device(device)
+    """Train on ``device`` (None = CUDA); returns the denoiser. Under
+    ``torchrun`` with WORLD_SIZE > 1 every rank joins the process group
+    and trains on its rows of each batch; rank 0 writes the files."""
+    dev = init_from_env(resolve_device(device))
     print(f"Training config::\tepoch: {args.epochs}\t"
           f"save_path: {args.save_path}")
     os.makedirs(args.save_path, exist_ok=True)
@@ -146,7 +149,8 @@ def train(args, device=None):
                          total_steps=max(1, len(train_batcher)) * args.epochs)
     step_fn = make_denoiser_train_step(
         denoiser, vae, opt, args.backbone, args.total_step,
-        accum_steps=plan.accum_steps, precoded=precoded, device=dev)
+        accum_steps=plan.accum_steps, precoded=precoded, device=dev,
+        mesh=plan.mesh)
 
     loss_list, start_epoch, step_no = [], 0, 0
     if args.checkpoint_path:
@@ -163,7 +167,8 @@ def train(args, device=None):
     ema, ema_update = setup_cli_ema(args.ema_decay, denoiser,
                                     args.checkpoint_path)
     print("training...")
-    logger = JsonlLogger(os.path.join(args.save_path, "train_log.jsonl"))
+    logger = (JsonlLogger(os.path.join(args.save_path, "train_log.jsonl"))
+              if is_main() else None)
     with profile_trace(FrameworkConfig.from_env().profile_dir):
         _run_epochs(args, train_batcher, step_fn, denoiser, opt, dev,
                     logger, StepTimer(), loss_list, start_epoch, step_no,
@@ -180,7 +185,7 @@ def _run_epochs(args, batcher, step_fn, denoiser, opt, dev, logger, timer,
     gen = torch.Generator(device=dev)
     for epoch in range(start_epoch, args.epochs):
         staged = prefetch_to_device(
-            batcher.epoch(epoch), device=dev,
+            batcher.epoch(epoch), device=dev, mesh=args.scaling_plan.mesh,
             transform=lambda b: (np.asarray(b.x, np.float32),
                                  np.asarray(b.embedding, np.float32)))
         # losses stay on the device until the epoch ends (one transfer)
@@ -196,9 +201,11 @@ def _run_epochs(args, batcher, step_fn, denoiser, opt, dev, logger, timer,
         # 93); the epoch means are persisted, as in JAX
         loss_list.append(float(torch.stack(losses).mean()))
         print(f"[Epoch {epoch}] loss: {loss_list[-1]:.5f}")
-        logger.log(epoch=epoch, loss=loss_list[-1],
-                   steps_per_sec=timer.steps_per_sec)
-        if epoch % args.save_every == 0 or epoch == args.epochs - 1:
+        if logger is not None:
+            logger.log(epoch=epoch, loss=loss_list[-1],
+                       steps_per_sec=timer.steps_per_sec)
+        if (epoch % args.save_every == 0 or epoch == args.epochs - 1) \
+                and is_main():
             print(f"Saving model {epoch} to {args.save_path}...")
             if plots:
                 plot_loss_curve(loss_list, args.save_path)

@@ -20,6 +20,11 @@ serves on the card; ``main(argv, device="cpu")`` serves the plain path on
 the CPU. The handler threads only stage numpy and wait on futures: the
 engine's dispatcher thread owns the device. Ctrl-C closes the server,
 drains the engine and exits 0.
+
+Under ``torchrun`` with WORLD_SIZE > 1, rank 0 serves HTTP with a
+data-parallel engine and every other rank runs ``serve_worker`` until the
+engine closes; each tier that the world size divides is split over all
+ranks.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ import numpy as np
 from t2ms_tpu_torch import resolve_device
 from t2ms_tpu_torch.cli.infer import load_models
 from t2ms_tpu_torch.config import denoiser_ckpt_dir, t2s_pretrained_dir
+from t2ms_tpu_torch.parallel.mesh import init_from_env, is_main
 from t2ms_tpu_torch.serving import EngineOverloaded, ServingEngine
+from t2ms_tpu_torch.serving.engine import serve_worker
 from t2ms_tpu_torch.training.scaling import setup_scaling
 
 
@@ -168,7 +175,7 @@ def build_server(argv=None, device=None):
     and bind. Returns (server, engine); the caller closes the server, then
     the engine."""
     args = get_args(argv)
-    dev = resolve_device(device)
+    dev = init_from_env(resolve_device(device))
     vae, denoiser, buckets = load_bundle(args, dev)
     tiers = [int(t) for t in str(args.tiers).split(",")]
     plan = setup_scaling(args, batch_size=max(tiers), for_training=False)
@@ -196,10 +203,31 @@ def build_server(argv=None, device=None):
     return server, engine
 
 
+def run_worker(argv=None, device=None) -> int:
+    """A data-parallel server's rank other than 0: load the same bundle
+    and serve rank 0's dispatches (``serve_worker``) until its engine
+    closes. Returns the number of dispatches served."""
+    args = get_args(argv)
+    dev = init_from_env(resolve_device(device))
+    vae, denoiser, buckets = load_bundle(args, dev)
+    tiers = [int(t) for t in str(args.tiers).split(",")]
+    plan = setup_scaling(args, batch_size=max(tiers), for_training=False)
+    return serve_worker(plan, denoiser, vae, backbone=args.backbone,
+                        total_step=args.total_step, solver=args.solver,
+                        sample_steps=args.sample_steps or None,
+                        out_lengths=buckets, text_emb_dim=args.text_emb_dim,
+                        device=dev)
+
+
 def main(argv=None, device=None):
     """Serve until Ctrl-C on ``device`` (None = CUDA: raises on a machine
     with no card unless ``device="cpu"``)."""
-    server, engine = build_server(argv, device)
+    get_args(argv)                       # --help and bad flags exit here
+    dev = init_from_env(resolve_device(device))
+    if not is_main():
+        run_worker(argv, dev)
+        return
+    server, engine = build_server(argv, dev)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -4,15 +4,13 @@ t2ms_tpu/data/embedder.py).
   * PrecomputedEmbedder — default: embeddings come from the dataset (CSV
     columns), no network.
   * FakeEmbedder — deterministic hash-seeded unit vectors for tests and
-    benches, the same vectors as the JAX package's (its
-    ``pipeline.llm.FakeEmbed``, copied here).
+    benches: ``pipeline.llm.FakeEmbed``'s, as in the JAX package.
   * OpenAIEmbedder — the reference's live path (myinfer.py:24-46), gated
     on the ``openai`` package and OPENAI_API_KEY.
 """
 
 from __future__ import annotations
 
-import hashlib
 from typing import Protocol, Sequence
 
 import numpy as np
@@ -47,18 +45,16 @@ class PrecomputedEmbedder:
 
 class FakeEmbedder:
     """Deterministic unit-norm embedding seeded by the first 8 bytes of
-    the text's SHA-256: an offline stand-in for the OpenAI call."""
+    the text's SHA-256: an offline stand-in for the OpenAI call. Delegates
+    to ``pipeline.llm.FakeEmbed``, so the dataset-construction and
+    inference paths give the same vectors."""
     def __init__(self, dim: int = 128):
         self.dim = dim
 
-    def _one(self, text: str) -> np.ndarray:
-        seed = int.from_bytes(hashlib.sha256(text.encode()).digest()[:8],
-                              "little")
-        v = np.random.default_rng(seed).standard_normal(self.dim)
-        return v / np.linalg.norm(v)
-
     def embed(self, texts: Sequence[str]) -> np.ndarray:
-        return np.asarray([self._one(t) for t in texts], np.float32)
+        from t2ms_tpu_torch.pipeline.llm import FakeEmbed
+        fe = FakeEmbed(self.dim)
+        return np.asarray([fe.embed(t) for t in texts], np.float32)
 
 
 class OpenAIEmbedder:

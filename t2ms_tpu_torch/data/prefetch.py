@@ -1,6 +1,9 @@
 """Host -> device prefetch: overlap the next batch's copy with the current
 step (counterpart of t2ms_tpu/data/prefetch.py).
 
+With a mesh, each rank places only its own rows of the global batch
+(``parallel.mesh.shard_batch``), as JAX shards the batch over 'data'.
+
 A background thread turns each host batch into tensors and, for a CUDA
 device, pins them and copies them with ``non_blocking=True`` on a side
 stream, recording an event after the copy. The consumer's stream waits on
@@ -33,11 +36,13 @@ def _map(fn, tree):
 
 
 def prefetch_to_device(batch_iter: Iterator, size: int = 2, device=None,
-                       transform: Optional[Callable] = None) -> Iterator:
+                       transform: Optional[Callable] = None,
+                       mesh=None) -> Iterator:
     """Wrap a host batch iterator with a staging thread; yields
     ``(batch, payload)``. ``transform(batch)`` gives the arrays to place
     (a tuple, list or dict of them; default the batch itself); numpy
-    arrays and tensors in it move to ``device`` (None = the CPU)."""
+    arrays and tensors in it move to ``device`` (None = the CPU). With a
+    ``mesh`` each array keeps this rank's rows only."""
     dev = torch.device("cpu" if device is None else device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     q: "queue.Queue" = queue.Queue(maxsize=size)
@@ -52,6 +57,9 @@ def prefetch_to_device(batch_iter: Iterator, size: int = 2, device=None,
 
     def _place(batch):
         payload = transform(batch) if transform is not None else batch
+        if mesh is not None:
+            from t2ms_tpu_torch.parallel.mesh import shard_batch
+            payload = shard_batch(mesh, payload)
         if side is None:
             return batch, _map(_to_dev, payload), None
         with torch.cuda.stream(side):

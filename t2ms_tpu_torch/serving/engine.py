@@ -19,6 +19,17 @@ futures, so the host copy of batch N overlaps the device work of batch N+1.
 ``make_serving_sampler`` is the shape-static analogue of
 ``sampling.make_cfg_sampler`` without the ground-truth input: serving never
 touches the VAE encoder.
+
+Data parallelism (a ``scaling_plan`` whose mesh spans a process group, one
+process per device): the engine runs on rank 0 and every other rank runs
+``serve_worker``. A dispatch of a tier that ``n_data`` divides broadcasts
+a fixed-size header (stop flag, length, tier) and the rows' seeds, cfg and
+embeddings over 'data'; every rank samples its own rows, and
+``dist.gather`` brings the series back to rank 0. A tier that ``n_data``
+does not divide runs whole on rank 0, as in JAX. Per-row seeds and cfg
+keep a row's series independent of the batch it is in, which is what
+makes the split exact. All of rank 0's collectives go from the
+dispatcher thread; ``close()`` sends the workers the stop header.
 """
 
 from __future__ import annotations
@@ -36,12 +47,13 @@ import torch
 
 from t2ms_tpu_torch import resolve_device
 from t2ms_tpu_torch.models.backbones import ddpm as ddpm_lib
+from t2ms_tpu_torch.parallel.mesh import shard_batch
 from t2ms_tpu_torch.sampling.sampler import (_run_ddpm, _run_flow,
                                              _serving_forward,
                                              _validate_solver)
 
 __all__ = ["make_serving_sampler", "ServingEngine", "GenerationResult",
-           "EngineOverloaded", "row_noise", "row_draws"]
+           "EngineOverloaded", "row_noise", "row_draws", "serve_worker"]
 
 
 class EngineOverloaded(RuntimeError):
@@ -133,6 +145,134 @@ def make_serving_sampler(
     return sample
 
 
+def _dp_mesh(plan):
+    """The mesh a plan's dispatches split over, or None. A plan with
+    n_data > 1 and no process group is refused: it never runs
+    undistributed."""
+    if plan is None:
+        return None
+    mesh = getattr(plan, "mesh", None)
+    if mesh is not None and getattr(mesh, "distributed", False):
+        return mesh
+    n_data = getattr(plan, "n_data", None)
+    if n_data != 1:
+        raise ValueError(
+            f"scaling_plan with n_data={n_data} and no process group: a "
+            f"data-parallel plan needs the mesh of its ranks "
+            f"(training.scaling.setup_scaling in every rank's process)")
+    return None
+
+
+def _bucket_samplers(denoiser, vae_model, backbone, total_step, solver,
+                     sample_steps, out_lengths, probe_shape, device):
+    """One serving sampler per output-length bucket (every tier shares it:
+    eager torch has no per-shape compile), and each bucket's latent shape
+    from one encoder pass over a zero probe."""
+    vae_model.to(device)
+    samplers: Dict[int, Callable] = {}
+    latent: Dict[int, Tuple[int, int]] = {}
+    for L in out_lengths:
+        probe = ((int(L),) if probe_shape is None
+                 else tuple(probe_shape[:-1]) + (int(L),))
+        with torch.no_grad():
+            z, _ = vae_model.encode(torch.zeros((1,) + probe, device=device))
+        latent[int(L)] = (int(z.shape[1]), int(z.shape[2]))
+        samplers[int(L)] = make_serving_sampler(
+            denoiser, vae_model, backbone, total_step, latent[int(L)],
+            int(L), solver, sample_steps, device)
+    return samplers, latent
+
+
+# header of a data-parallel dispatch: (stop, out_length, tier); tier 0 is
+# a no-op that keeps the other ranks' pending broadcast inside the group's
+# timeout while rank 0 has no batch
+_HEADER = 3
+
+
+def _root(mesh) -> int:
+    """The global rank of data coordinate 0 in this rank's data group."""
+    return torch.distributed.get_global_rank(mesh.group("data"), 0)
+
+
+def _send_header(mesh, device, stop, L, tier):
+    h = torch.tensor([stop, L, tier], dtype=torch.int64, device=device)
+    torch.distributed.broadcast(h, _root(mesh), group=mesh.group("data"))
+
+
+def _dp_sample(mesh, device, sampler, L, seeds, cfg, emb):
+    """Rank 0's side of one dispatch: the header and the rows, then its
+    own rows, then the series of every rank's rows."""
+    _send_header(mesh, device, 0, L, len(seeds))
+    rows = _broadcast_rows(mesh, device, len(seeds), emb.shape[1],
+                           (seeds, cfg, emb))
+    return _sample_rows(mesh, sampler, *rows)
+
+
+def _broadcast_rows(mesh, device, tier, emb_dim, arrays=None):
+    """Broadcast a dispatch's seeds (int64), cfg and embeddings from rank
+    0 of 'data'; ``arrays`` on rank 0, None on the others."""
+    src, group = _root(mesh), mesh.group("data")
+    out = []
+    for i, (shape, dt) in enumerate((((tier,), torch.int64),
+                                     ((tier,), torch.float32),
+                                     ((tier, emb_dim), torch.float32))):
+        t = (torch.as_tensor(np.asarray(arrays[i]).astype(
+                 np.int64 if dt == torch.int64 else np.float32),
+                 device=device) if arrays is not None
+             else torch.empty(shape, dtype=dt, device=device))
+        torch.distributed.broadcast(t, src, group=group)
+        out.append(t)
+    return out
+
+
+def _sample_rows(mesh, sampler, seeds, cfg, emb):
+    """Sample this rank's rows of a dispatch; rank 0 gets every rank's
+    series back (in rank order), the others None."""
+    seeds, cfg, emb = shard_batch(mesh, (seeds, cfg, emb))
+    series = sampler(seeds.cpu().numpy().astype(np.uint32), cfg, emb)
+    parts = None
+    if mesh.index("data") == 0:
+        parts = [torch.empty_like(series)
+                 for _ in range(mesh.shape["data"])]
+    torch.distributed.gather(series.contiguous(), parts, _root(mesh),
+                             group=mesh.group("data"))
+    return None if parts is None else torch.cat(parts)
+
+
+def serve_worker(plan, denoiser, vae_model, *,
+                 backbone: str = "flowmatching", total_step: int = 100,
+                 solver: str = "euler", sample_steps: Optional[int] = None,
+                 out_lengths: Sequence[int] = (96,),
+                 probe_shape: Optional[Tuple[int, ...]] = None,
+                 text_emb_dim: int = 128, device=None, **_engine_kw) -> int:
+    """The loop of a data-parallel engine's other ranks: take each
+    dispatch's header and rows from rank 0, sample this rank's rows and
+    send their series back, until the engine's ``close()`` sends the stop
+    header; a no-op header (tier 0) only restarts the wait. Takes the
+    engine's keyword arguments (the batching ones are ignored). Returns the
+    number of dispatches served."""
+    mesh = _dp_mesh(plan)
+    if mesh is None or mesh.index("data") == 0:
+        raise ValueError("serve_worker runs on the data ranks other than "
+                         "0 of a data-parallel plan")
+    dev = resolve_device(device)
+    samplers, _ = _bucket_samplers(denoiser, vae_model, backbone,
+                                   total_step, solver, sample_steps,
+                                   out_lengths, probe_shape, dev)
+    n = 0
+    while True:
+        h = torch.empty((_HEADER,), dtype=torch.int64, device=dev)
+        torch.distributed.broadcast(h, _root(mesh), group=mesh.group("data"))
+        stop, L, tier = (int(v) for v in h.tolist())
+        if stop:
+            return n
+        if not tier:
+            continue
+        _sample_rows(mesh, samplers[L],
+                     *_broadcast_rows(mesh, dev, tier, text_emb_dim))
+        n += 1
+
+
 @dataclass
 class GenerationResult:
     """One fulfilled request."""
@@ -177,9 +317,13 @@ class ServingEngine:
         Admission-control cap on queued requests; ``submit`` raises
         EngineOverloaded beyond it (None = unbounded).
     scaling_plan
-        A one-device ``training.scaling.ScalingPlan`` (``n_data == 1``),
-        as ``cli.serve`` passes, or None; data-parallel serving over
-        several devices is not ported.
+        A ``training.scaling.ScalingPlan`` or None. A plan whose mesh runs
+        over a process group makes the engine data parallel (this rank
+        must be rank 0, the others run ``serve_worker``); a plan with
+        ``n_data > 1`` and no such mesh is refused, as it never runs
+        undistributed. While it has no batch, a data-parallel engine sends
+        the other ranks a no-op header every quarter of the group's
+        timeout, so that an idle server outlives it.
     device
         Where the models run (None = CUDA).
     """
@@ -196,41 +340,27 @@ class ServingEngine:
                  scaling_plan=None,
                  max_pending: Optional[int] = None,
                  device=None):
-        n_data = getattr(scaling_plan, "n_data", None)
-        if scaling_plan is not None and n_data != 1:
-            raise NotImplementedError(
-                f"scaling_plan with n_data={n_data}: data-parallel serving "
-                f"across devices is not ported to t2ms_tpu_torch yet")
+        self._mesh = _dp_mesh(scaling_plan)
+        if self._mesh is not None and self._mesh.index("data") != 0:
+            raise ValueError("the data-parallel engine runs on rank 0; "
+                             "the other ranks run serve_worker")
         if not out_lengths:
             raise ValueError("need at least one out_length bucket")
         tiers = sorted(set(int(b) for b in batch_tiers))
         if not tiers or tiers[0] < 1:
             raise ValueError(f"bad batch_tiers {batch_tiers}")
         self._device = resolve_device(device)
+        self._emb_dim = int(text_emb_dim)
+        self._samplers, self._latent = _bucket_samplers(
+            denoiser, vae_model, backbone, total_step, solver, sample_steps,
+            out_lengths, probe_shape, self._device)
         self._tiers = tiers
         self._max_wait = max_wait_ms / 1e3
         self._default_cfg = float(default_cfg_scale)
-        self._emb_dim = int(text_emb_dim)
         self._max_pending = max_pending
-        vae_model.to(self._device)
-        self._samplers: Dict[int, Callable] = {}
-        self._latent: Dict[int, Tuple[int, int]] = {}
-        for L in out_lengths:
-            probe = ((int(L),) if probe_shape is None
-                     else tuple(probe_shape[:-1]) + (int(L),))
-            with torch.no_grad():
-                z, _ = vae_model.encode(torch.zeros((1,) + probe,
-                                                    device=self._device))
-            self._latent[int(L)] = (int(z.shape[1]), int(z.shape[2]))
-            # one sampler per bucket serves every tier (eager torch has no
-            # per-shape compile)
-            self._samplers[int(L)] = make_serving_sampler(
-                denoiser, vae_model, backbone, total_step,
-                self._latent[int(L)], int(L), solver, sample_steps,
-                self._device)
+        self._tasks: collections.deque = collections.deque()
+        self._last_header = time.monotonic()
 
-        # serializes the device work of the dispatcher and of warmup()
-        self._dispatch_lock = threading.Lock()
         self._lock = threading.Condition()
         self._queues: Dict[int, collections.deque] = {
             int(L): collections.deque() for L in out_lengths}
@@ -295,7 +425,18 @@ class ServingEngine:
         default cfg, through the launch path of a real batch: on the card
         that builds the kernels on first use and lets the library GEMMs
         pick their algorithms for each shape. Leaves ``stats()`` and the
-        seed counter alone and returns when the device work is done."""
+        seed counter alone and returns when the device work is done. It
+        runs on the dispatcher thread, which makes every device call (and
+        every collective of rank 0)."""
+        fut = Future()
+        with self._lock:
+            if self._stop:
+                raise RuntimeError("engine is shut down")
+            self._tasks.append((self._warmup, fut))
+            self._lock.notify_all()
+        fut.result()
+
+    def _warmup(self) -> None:
         for L in self._samplers:
             for tier in self._tiers:
                 out = self._sample(L, np.zeros((tier,), np.uint32),
@@ -355,15 +496,50 @@ class ServingEngine:
     def _run(self):
         while True:
             batch = None
+            task = None
+            ping = False
             with self._lock:
                 while True:
+                    if self._tasks:
+                        task = self._tasks.popleft()
+                        break
                     batch = self._pick_batch()
                     if batch is not None or self._stop:
                         break
-                    self._lock.wait(timeout=self._wait_budget())
-                if batch is None and self._stop:
+                    wait = self._wait_budget()
+                    if self._mesh is not None:
+                        left = (self._last_header - time.monotonic()
+                                + self._mesh.timeout_s / 4)
+                        if left <= 0:
+                            ping = True
+                            break
+                        wait = left if wait is None else min(wait, left)
+                    self._lock.wait(timeout=wait)
+            if ping:
+                try:
+                    self._header(0, 0, 0)
+                except Exception as e:  # noqa: BLE001 - a rank is gone
+                    # the group is broken: shut down and fail what waits
+                    with self._lock:
+                        self._stop = True
+                        for q in self._queues.values():
+                            while q:
+                                q.popleft().future.set_exception(e)
                     self._inflight.put(None)       # completer sentinel
                     return
+                continue
+            if task is not None:
+                fn, fut = task
+                try:
+                    fut.set_result(self._on_device(fn))
+                except Exception as e:  # noqa: BLE001 - to the caller
+                    fut.set_exception(e)
+                continue
+            if batch is None:
+                if self._mesh is not None:
+                    self._header(1, 0, 0)
+                self._inflight.put(None)           # completer sentinel
+                return
             L, reqs = batch
             try:
                 self._launch(L, reqs)
@@ -431,9 +607,28 @@ class ServingEngine:
 
     def _sample(self, L: int, seeds, cfg, emb) -> torch.Tensor:
         """Enqueue one batch's device work; returns the (still running)
-        series."""
-        with self._dispatch_lock:
+        series. A tier that the data axis divides is split over it."""
+        mesh = self._mesh
+        if mesh is None or len(seeds) % mesh.shape["data"]:
             return self._samplers[L](seeds, cfg, emb)
+        self._last_header = time.monotonic()
+        return self._on_device(lambda: _dp_sample(
+            mesh, self._device, self._samplers[L], L, seeds, cfg, emb))
+
+    def _header(self, stop, L, tier):
+        """Send the other ranks a header with no rows: the stop header, or
+        a no-op (tier 0)."""
+        self._last_header = time.monotonic()
+        self._on_device(lambda: _send_header(self._mesh, self._device, stop,
+                                             L, tier))
+
+    def _on_device(self, fn):
+        """Run fn with this engine's card current (collectives of a
+        thread go to the thread's current card)."""
+        if self._device.type != "cuda":
+            return fn()
+        with torch.cuda.device(self._device):
+            return fn()
 
     def _complete_loop(self):
         """Copy each in-flight batch to the host, account stats, fulfil

@@ -1,16 +1,17 @@
-"""CLI-facing scaling policy: gradient accumulation and the compute dtype
-(counterpart of t2ms_tpu/training/scaling.py), on one device.
+"""CLI-facing scaling policy: the data-parallel mesh, gradient
+accumulation and the compute dtype (counterpart of
+t2ms_tpu/training/scaling.py).
 
 The CLIs derive a ScalingPlan from the same flags as the JAX package:
 
-  * accum_steps: the smallest count whose microbatch is at most
-    ``--microbatch_cap`` rows and divides the batch (``--accum_steps``
-    sets it);
+  * mesh / n_data: with a process group of W ranks (``torchrun``, one
+    process per device), data parallelism over all W, and a batch that W
+    does not divide is refused; without a group, one device (``n_data``
+    1, no mesh);
+  * accum_steps: the smallest count whose per-device microbatch is at
+    most ``--microbatch_cap`` rows and still splits evenly over the data
+    axis (``--accum_steps`` sets it);
   * compute_dtype: the activation dtype (params stay f32).
-
-The port plans for one device (the JAX package's mesh over every visible
-device, data-parallel training and serving, is not ported): ``n_data`` is
-always 1, and the serving engine takes such a plan and refuses any other.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+
+from t2ms_tpu_torch.parallel.mesh import make_mesh
 
 __all__ = ["ScalingPlan", "parse_dtype", "auto_accum_steps",
            "setup_scaling", "add_scaling_args", "DEFAULT_MICROBATCH_CAP"]
@@ -34,14 +38,17 @@ _DTYPE_ALIASES = {
 
 
 class ScalingPlan(NamedTuple):
-    n_data: int                   # data-parallel width (1 on the port)
+    n_data: int                   # data-parallel width
     accum_steps: int              # gradient-accumulation microsteps
     compute_dtype: torch.dtype    # activation dtype (params stay f32)
+    mesh: object = None           # parallel.mesh.Mesh, None on one device
 
     def describe(self) -> str:
         name = str(self.compute_dtype).replace("torch.", "")
-        return (f"devices={self.n_data}, accum_steps={self.accum_steps}, "
-                f"compute_dtype={name}")
+        world = (dist.get_world_size() if dist.is_available()
+                 and dist.is_initialized() else 1)
+        return (f"devices={self.n_data} (of {world}), "
+                f"accum_steps={self.accum_steps}, compute_dtype={name}")
 
 
 def parse_dtype(name) -> torch.dtype:
@@ -86,22 +93,36 @@ def add_scaling_args(p, default_dtype: str = "f32",
 
 def setup_scaling(args, batch_size: Optional[int] = None,
                   for_training: bool = True) -> ScalingPlan:
-    """The ScalingPlan of a CLI call on one device. ``batch_size``
-    defaults to args.batch_size; serving (``for_training=False``) never
-    accumulates."""
+    """The ScalingPlan of a CLI call. ``batch_size`` defaults to
+    args.batch_size; serving (``for_training=False``) never accumulates."""
     if batch_size is None:
         batch_size = args.batch_size
+    mesh = None
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        # every rank runs the step, so every rank joins the mesh: demand
+        # divisibility instead of shrinking the DP width
+        n_data = dist.get_world_size()
+        if batch_size % n_data:
+            raise ValueError(
+                f"global batch {batch_size} must divide over all "
+                f"{n_data} devices in a multi-host run (every host's "
+                f"chips must join the mesh); pad the batch or adjust "
+                f"--batch_size")
+        mesh = make_mesh(data=n_data, model=1)
+    else:
+        n_data = 1
     dtype = parse_dtype(getattr(args, "compute_dtype", "f32"))
     if not for_training:
-        return ScalingPlan(1, 1, dtype)
+        return ScalingPlan(n_data, 1, dtype, mesh)
+    cap = getattr(args, "microbatch_cap", DEFAULT_MICROBATCH_CAP)
     accum = getattr(args, "accum_steps", 0)
     if accum:
-        if batch_size % accum:
+        mb = batch_size // accum
+        if batch_size % accum or mb % n_data:
             raise ValueError(
                 f"--accum_steps {accum} does not evenly split batch "
-                f"{batch_size} over 1 devices")
+                f"{batch_size} over {n_data} devices")
     else:
-        accum = auto_accum_steps(
-            batch_size, 1,
-            getattr(args, "microbatch_cap", DEFAULT_MICROBATCH_CAP))
-    return ScalingPlan(1, accum, dtype)
+        accum = auto_accum_steps(batch_size, n_data, cap)
+    return ScalingPlan(n_data, accum, dtype, mesh)

@@ -25,8 +25,23 @@ eager module, which is also the path on the CPU.
 torch cannot reproduce the JAX package's threefry draws, so every random
 draw can be passed in: ``u`` (the uniform behind t, per row), ``x_0`` (the
 flow's noise, or DDPM's eps, per row) and ``coin`` (the CFG drop draw, one
-per optimizer step). Otherwise they come from ``generator``. The DDPM
-timestep is t = floor(u * T) as int32, as in JAX.
+per optimizer step). Otherwise they come from ``generator``, once a step
+and for the whole batch, in the order coin, u, x_0, and each microbatch
+takes its rows of them. The DDPM timestep is t = floor(u * T) as int32,
+as in JAX.
+
+Data parallelism (a ``mesh`` whose process group spans W data ranks, one
+process per device): each rank passes its own rows of the global batch.
+The step draws ``coin``, ``u`` and ``x_0`` for the whole global batch
+from the same generator state on every rank (JAX draws over the global
+batch and lets XLA shard), and each rank uses its own rows; injected
+``u``/``x_0`` likewise cover the global batch. Gradients are all-reduced
+(the mean over ``data``) before the optimizer step, the loss returned is
+the global mean, and ``nan_guard``'s flag is all-reduced so every rank
+skips together. So every row gets the draws it gets on one device, and a
+W-rank step is the one-rank step on the concatenated batch at any
+``accum_steps`` (up to the order of the gradient sums). Inside each rank
+the forward is what it is without a mesh.
 """
 
 from __future__ import annotations
@@ -95,7 +110,8 @@ class DenoiserTrainStep:
     attempted steps, skipped ones included."""
 
     def __init__(self, denoiser, vae_model, optimizer, backbone, total_step,
-                 cfg_drop_prob, nan_guard, accum_steps, precoded, device):
+                 cfg_drop_prob, nan_guard, accum_steps, precoded, device,
+                 mesh=None):
         self.denoiser, self.vae_model = denoiser, vae_model
         self.optimizer = optimizer
         self.sched = (ddpm_lib.make_schedule(total_step, device)
@@ -104,26 +120,22 @@ class DenoiserTrainStep:
         self.nan_guard, self.accum_steps = nan_guard, accum_steps
         self.precoded, self.device = precoded, device
         self.forward = _training_forward(denoiser)
+        self.mesh = (mesh if mesh is not None and getattr(
+            mesh, "distributed", False) else None)
         self.steps = 0
 
-    def _loss(self, x, text_emb, keep, u, x_0, generator):
+    def _encode(self, x):
         if self.precoded:
-            z = x.detach()
-        else:
-            z, _ = encode_with_vae(self.vae_model, x)
+            return x.detach()
+        return encode_with_vae(self.vae_model, x)[0]
+
+    def _loss(self, z, text_emb, keep, u, x_0):
         if self.sched is None:
-            t = rf.sample_t(z.shape[0], self.total_step, u=u,
-                            generator=generator, device=z.device)
-            x_t, x_0 = rf.create_flow(z, t, x_0=x_0, generator=generator)
+            t = rf.sample_t(z.shape[0], self.total_step, u=u)
+            x_t, x_0 = rf.create_flow(z, t, x_0=x_0)
             target = z - x_0
         else:
-            if u is None:
-                u = torch.rand((z.shape[0],), generator=generator,
-                               device=z.device)
             t = torch.floor(u.float() * self.total_step).to(torch.int32)
-            if x_0 is None:
-                x_0 = torch.randn(z.shape, generator=generator,
-                                  dtype=z.dtype, device=z.device)
             x_t, target = ddpm_lib.q_sample(self.sched, z, t, x_0)
         mask = keep.to(x_t.dtype).expand(z.shape[0])
         pred = self.forward(x_t, t, text_emb, mask)
@@ -145,17 +157,32 @@ class DenoiserTrainStep:
         # one Bernoulli per OPTIMIZER step: every microbatch shares it
         # (train.py:80-82), so a whole update is conditioned or dropped
         keep = torch.as_tensor(coin, device=dev) >= self.cfg_drop_prob
-        cut = lambda a, i: (None if a is None else
-                            torch.as_tensor(a, device=dev)[i * mb:(i + 1) * mb])
+        W, off = 1, 0
+        if self.mesh is not None:
+            W = self.mesh.shape["data"]
+            off = self.mesh.index("data") * B
+        if u is None:
+            u = torch.rand((B * W,), generator=generator, device=dev)
+        cut = lambda a, i: torch.as_tensor(a, device=dev)[
+            off + i * mb:off + (i + 1) * mb]
         params = [p for p in self.denoiser.parameters() if p.requires_grad]
         self.optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=dev)
         for i in range(k):
-            loss = self._loss(cut(x, i), cut(text_emb, i), keep, cut(u, i),
-                              cut(x_0, i), generator)
+            z = self._encode(x[i * mb:(i + 1) * mb])
+            if x_0 is None:
+                # the global batch's noise, drawn once the latent's shape
+                # is known
+                x_0 = torch.randn((B * W,) + tuple(z.shape[1:]),
+                                  generator=generator, dtype=z.dtype,
+                                  device=dev)
+            loss = self._loss(z, text_emb[i * mb:(i + 1) * mb], keep,
+                              cut(u, i), cut(x_0, i))
             (loss / k).backward()
             total = total + loss.detach()
         loss = total / k
+        if self.mesh is not None:
+            loss = self._all_reduce_mean(loss, params)
         if self.nan_guard:
             saved_p = [p.detach().clone() for p in params]
             saved_s = {p: {n: v.clone() if torch.is_tensor(v) else v
@@ -169,6 +196,12 @@ class DenoiserTrainStep:
             ok = torch.isfinite(loss)
             for p in params:
                 ok = ok & torch.isfinite(p).all()
+            if self.mesh is not None:
+                # every rank (data and model) skips together
+                flag = ok.to(torch.int32).reshape(1)
+                torch.distributed.all_reduce(
+                    flag, op=torch.distributed.ReduceOp.MIN)
+                ok = flag[0] > 0
             if not bool(ok):
                 with torch.no_grad():
                     for p, old in zip(params, saved_p):
@@ -181,6 +214,23 @@ class DenoiserTrainStep:
         self.steps += 1
         return loss
 
+    def _all_reduce_mean(self, loss, params):
+        """Average every gradient (one flat all-reduce) and the loss over
+        the ``data`` axis."""
+        group, W = self.mesh.group("data"), self.mesh.shape["data"]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [loss.reshape(1).to(params[0].grad.dtype)])
+        torch.distributed.all_reduce(flat, group=group)
+        flat /= W
+        i = 0
+        for p in params:
+            p.grad.copy_(flat[i:i + p.numel()].view_as(p))
+            i += p.numel()
+        return flat[i].to(loss.dtype)
+
 
 def make_denoiser_train_step(denoiser, vae_model, optimizer,
                              backbone: str = "flowmatching",
@@ -188,11 +238,14 @@ def make_denoiser_train_step(denoiser, vae_model, optimizer,
                              cfg_drop_prob: float = 0.3,
                              nan_guard: bool = False, accum_steps: int = 1,
                              precoded: bool = False,
-                             device=None) -> DenoiserTrainStep:
+                             device=None, mesh=None) -> DenoiserTrainStep:
     """Build the denoiser train step. ``device=None`` means CUDA (raises
     without it); the models must already live there. ``precoded`` means x
     is already the frozen-VAE latent. ``nan_guard`` (or T2MS_NAN_CHECK=1)
-    skips the update when the loss or the update is non-finite."""
+    skips the update when the loss or the update is non-finite. ``mesh``
+    (a ``parallel.mesh.Mesh`` over a process group) makes the step data
+    parallel over its ``data`` axis; a mesh without a group changes
+    nothing."""
     dev = resolve_device(device)
     if backbone not in ("flowmatching", "ddpm"):
         raise ValueError(f"Unsupported backbone type: {backbone}")
@@ -203,8 +256,9 @@ def make_denoiser_train_step(denoiser, vae_model, optimizer,
                                  f"{dev}")
             break
     return DenoiserTrainStep(denoiser, vae_model, optimizer, backbone,
-                             total_step, cfg_drop_prob, nan_guard or _nan_check_env(),
-                             accum_steps, precoded, dev)
+                             total_step, cfg_drop_prob,
+                             nan_guard or _nan_check_env(), accum_steps,
+                             precoded, dev, mesh)
 
 
 @torch.no_grad()

@@ -53,7 +53,14 @@ MODULES = [
     "t2ms_tpu_torch.utils.native", "t2ms_tpu_torch.evaluate.dtw",
     "t2ms_tpu_torch.evaluate.metrics", "t2ms_tpu_torch.evaluate.fid",
     "t2ms_tpu_torch.evaluate.feature_measures",
-    "t2ms_tpu_torch.evaluate.ts2vec"]
+    "t2ms_tpu_torch.evaluate.ts2vec", "t2ms_tpu_torch.utils.prng",
+    "t2ms_tpu_torch.parallel", "t2ms_tpu_torch.parallel.mesh",
+    "t2ms_tpu_torch.parallel.collectives", "t2ms_tpu_torch.parallel.pp",
+    "t2ms_tpu_torch.parallel.ring_attention", "t2ms_tpu_torch.parallel.tp",
+    "t2ms_tpu_torch.parallel.dryrun", "t2ms_tpu_torch.pipeline",
+    "t2ms_tpu_torch.pipeline.llm", "t2ms_tpu_torch.pipeline.captions",
+    "t2ms_tpu_torch.pipeline.corpus", "t2ms_tpu_torch.pipeline.embeddings",
+    "t2ms_tpu_torch.pipeline.mergers"]
 
 # an import of jax/flax, of the JAX package or of tools/ — never the port
 _FORBIDDEN = re.compile(

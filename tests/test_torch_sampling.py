@@ -349,7 +349,7 @@ def test_engine_deadline_flush_single_request(stack):
 
 def test_engine_rejects_bad_requests_admission_and_shutdown(stack):
     s = stack
-    with pytest.raises(NotImplementedError, match="scaling_plan"):
+    with pytest.raises(ValueError, match="scaling_plan"):
         _engine(s, scaling_plan=object())
     with pytest.raises(ValueError):
         _engine(s, batch_tiers=())

@@ -256,8 +256,10 @@ def test_one_device_plan_is_taken_and_data_parallel_refused(n_data):
     vae, dit = _models(3)
     plan = ScalingPlan(n_data, 1, torch.float32)
     if n_data > 1:
-        with pytest.raises(NotImplementedError,
-                           match="n_data=2: data-parallel serving"):
+        # a data-parallel plan without its ranks' process group never
+        # runs undistributed
+        with pytest.raises(ValueError,
+                           match="n_data=2 and no process group"):
             _engine(vae, dit, scaling_plan=plan)
         return
     with _engine(vae, dit, scaling_plan=plan) as eng:
