@@ -277,7 +277,16 @@ failing with a non-zero exit on any error:
    ``BenchpressFeatureMerger`` -> ``generate_captions`` with ``FakeChat``
    -> ``enrich_captions`` with ``FakeEmbed`` -> ``rebuild_motion_json``),
    read back by ``data/motion.py``;
-33. parallel phase: ``parallel.dryrun.dryrun_multichip`` at full width on
+33. quality gate phase: ``cli.quality_gate.main`` in this process on the
+   t2s track (B=256, 800 LA-VAE steps, 1500 DiT steps on the block
+   kernels, euler/100 at cfg 7 on the stack, C-FID): the JSON's keys
+   (JAX's, the MSE gate named ``mse_under_half_noise_floor``), every
+   value finite, the noise floor equal to the JAX script's on the CPU
+   within 1e-12, the exit code against the gates, 4 + 4 block launches
+   a step and 100 stack launches; MSE, C-FID, the VAE and denoiser
+   steps/s, the sample-and-score time and the phase's wall time (green
+   is not required at 1500 steps);
+34. parallel phase: ``parallel.dryrun.dryrun_multichip`` at full width on
    W = ``torch.cuda.device_count()`` ranks over NCCL through a FileStore
    in a temporary directory (in this process when W = 1, spawned
    processes otherwise): the flagship train step at B=1024 bf16 on a
@@ -4205,6 +4214,61 @@ def motion_phase(seed, gen):
     log(f"motion phase: {time.perf_counter() - t_phase:.2f} s wall")
 
 
+# the quality gate's 1500-step cut of the t2s track at B=256
+QG_STEPS, QG_VAE_STEPS = 1500, 800
+QG_ARGV = ["--steps", str(QG_STEPS), "--vae_steps", str(QG_VAE_STEPS),
+           "--eval_cfid", "--cfg_scale", "7"]
+QG_FLOOR = 0.20946913918608598     # scripts/quality_gate.py's t2s floor, CPU
+QG_KEYS = {"vae_recon_error", "final_train_loss", "MSE", "WAPE", "DTW",
+           "ACD", "SD", "KD", "MSE_noise_floor", "C-FID", "gates"}
+QG_GATES = {"mse_under_half_noise_floor", "finite", "distribution_close"}
+
+
+def quality_gate_phase():
+    """``cli.quality_gate.main`` in process on the t2s track (B=256, 800
+    VAE and 1500 DiT steps, euler/100 at cfg 7, C-FID): the JSON's keys,
+    finite values, the CPU's noise floor, the exit code against the
+    gates, and 4 + 4 block launches a step and 100 stack launches in the
+    one sample. Green is not required at 1500 steps."""
+    import io
+
+    from t2ms_tpu_torch.cli import quality_gate
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.dit_block import (BLOCK_BWD_KERNEL,
+                                              BLOCK_KERNEL, STACK_KERNEL)
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = quality_gate.main(QG_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    for line in err.getvalue().splitlines():
+        log(f"quality gate: {line}")
+    res = json.loads(out.getvalue())
+    check(set(res) == QG_KEYS and set(res["gates"]) == QG_GATES,
+          f"quality gate keys {sorted(res)} {sorted(res['gates'])}")
+    check(all(np.isfinite(v) for k, v in res.items() if k != "gates"),
+          f"quality gate values not finite: {res}")
+    check(abs(res["MSE_noise_floor"] - QG_FLOOR) <= 1e-12,
+          f"quality gate floor {res['MSE_noise_floor']!r} != {QG_FLOOR!r}")
+    check(rc == int(not all(res["gates"].values())),
+          f"quality gate exit code {rc} for gates {res['gates']}")
+    want = {BLOCK_KERNEL: 4 * QG_STEPS, BLOCK_BWD_KERNEL: 4 * QG_STEPS,
+            STACK_KERNEL: 100}
+    check(launches == want,
+          f"quality gate launches {launches}, want {want}")
+    secs = [float(s) for s in re.findall(r"\(?([0-9.]+) s\)?$",
+                                         err.getvalue(), re.M)]
+    log(f"quality gate (t2s, {QG_STEPS} steps, cfg 7): MSE {res['MSE']!r} "
+        f"(floor {res['MSE_noise_floor']!r}), C-FID {res['C-FID']!r}, "
+        f"gates {res['gates']}, exit {rc}; VAE {QG_VAE_STEPS / secs[0]:.4f} "
+        f"steps/s, denoiser {QG_STEPS / secs[1]:.4f} steps/s, sample and "
+        f"score {secs[2]:.2f} s; launches {launches}")
+    log(f"quality gate phase: {wall:.2f} s wall")
+
+
 def _bits(a, b, what, atol=0.0, rtol=0.0, expect_equal=False):
     """Log a result against its no-plan reference: bit-equal, or the max
     difference beside the tolerance used (atol + rtol * max|reference|);
@@ -4522,6 +4586,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     cli_phase(args.seed, smi)
     motion_phase(args.seed, gen)
+    quality_gate_phase()
     parallel_phase(args.seed)
 
     bf = k[torch.bfloat16]

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import t2ms_tpu_torch
+from t2ms_tpu_torch.cli import quality_gate
 from t2ms_tpu_torch.models.denoisers import DiT, MLPDenoiser
 from t2ms_tpu_torch.models.vae import LAVAE, TSae, TSaeDiffusion
 from t2ms_tpu_torch.sampling import make_cfg_sampler
@@ -60,7 +61,7 @@ MODULES = [
     "t2ms_tpu_torch.parallel.dryrun", "t2ms_tpu_torch.pipeline",
     "t2ms_tpu_torch.pipeline.llm", "t2ms_tpu_torch.pipeline.captions",
     "t2ms_tpu_torch.pipeline.corpus", "t2ms_tpu_torch.pipeline.embeddings",
-    "t2ms_tpu_torch.pipeline.mergers"]
+    "t2ms_tpu_torch.pipeline.mergers", "t2ms_tpu_torch.cli.quality_gate"]
 
 # an import of jax/flax, of the JAX package or of tools/ — never the port
 _FORBIDDEN = re.compile(
@@ -157,10 +158,11 @@ def _no_cuda():
                        4)),
     lambda: TSae(n_features=3, flow_dim=8, num_heads=2),
     lambda: TSaeDiffusion(n_features=3, flow_dim=8, num_heads=2),
+    lambda: quality_gate.main(["--steps", "1", "--vae_steps", "1"]),
 ], ids=["resolve_device", "DiT", "LAVAE", "MLPDenoiser",
         "make_cfg_sampler", "make_serving_sampler", "ServingEngine",
         "make_denoiser_train_step", "make_vae_train_step", "TSae",
-        "TSaeDiffusion"])
+        "TSaeDiffusion", "quality_gate"])
 def test_entry_points_refuse_missing_cuda(make):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
