@@ -11,13 +11,12 @@ failing with a non-zero exit on any error:
    flags (both set off, so f32 products and convs are full f32);
 2. builds every kernel (one nvcc per source, started together) and logs
    ptxas's registers, stack, spills and shared memory of the bf16
-   attention forward's kernel (``heads_fwd_kernel``, csrc/attn_heads.cuh,
-   at each head width) and of the backward's (``heads_bwd_q_kernel``,
+   attention backward's kernels (``heads_bwd_q_kernel``,
    ``heads_bwd_kv_kernel``, csrc/heads_bwd.cuh, at each head width and
    recipe), as built into csrc/fused_heads.cu, and of the stack's
-   tensor-core kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel``,
-   ``heads_fwd_kernel`` at each head width, ``proj_mlp_tc_kernel``), as
-   built into csrc/dit_stack.cu, and of the bf16 block backward's own
+   tensor-core row kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel``,
+   ``proj_mlp_tc_kernel``), as built into csrc/dit_stack.cu, and of the
+   bf16 block backward's own
    kernels (csrc/dit_block_bwd.cu: ``mlp_bwd_tc_kernel``,
    ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``
    and the block recipe of ``heads_bwd_q_kernel``/``heads_bwd_kv_kernel``),
@@ -26,6 +25,16 @@ failing with a non-zero exit on any error:
    checked to spill nothing and to draw no ptxas C7512 ("wgmma
    serialized"), and of the bf16 #8 kernel on 16-byte chunks
    (csrc/mod_ln.cu: ``res_mod_ln_bwd_vec_kernel`` at each lane split);
+   every ``heads_fwd_kernel`` instance of fused_heads.cu, dit_stack.cu,
+   dit_split.cu and dit_block_bwd.cu checked the same way, with its SASS
+   instructions by pipe (``cuobjdump -sass``); then the attention
+   forward alone at each path's call (``ATTN_FWD_SHAPES``: #1, #2/#3's
+   recompute, the motion calls, #4/#9, #10, 4096 tokens, head widths 16
+   and 128), o against the twin, with the device time by profiler,
+   TFLOP/s, share of its bound, the exponent unit's floor and SDPA's
+   device time (``--attention_forward`` runs only this section, and with
+   ``--root DIR`` on another checkout's package: the parent and the change
+   in one call);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -317,6 +326,7 @@ import json
 import os
 import queue
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -1029,8 +1039,8 @@ def train_phase(dit, vae, gen):
 # 64, by their names in the profile (csrc/wg_gemm.cuh's wg_gemm_kernel<PRO,
 # EPI, WG, BN>): <0, 0, 2, 128> is modLN+qkv, <0, 1, 2, 128> modLN+fc1+
 # GELU, <1, 2, 2, 128> the proj and fc2 products with their gated
-# residuals; heads_fwd_kernel the attention. None is the first version's
-# WMMA gemm_kernel.
+# residuals; heads_fwd_kernel<64> (attn_heads.cuh) the attention. None is
+# the first version's WMMA gemm_kernel.
 SPLIT_ATTN = "heads_fwd_kernel<64>"
 SPLIT_GEMMS = ("wg_gemm_kernel<0, 0, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>",
                "wg_gemm_kernel<0, 1, 2, 128>")
@@ -1340,10 +1350,10 @@ def _log_resources(what, chunk, smem):
 
 def log_stack_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    stack's tensor-core kernels as built into csrc/dit_stack.cu
-    (``modln_qkv_tc_kernel``, ``heads_fwd_kernel`` at each head width,
-    ``proj_mlp_tc_kernel`` with and without the MLP half), with their
-    dynamic shared memory at the main path's widths (``dit_stack_smem``)."""
+    stack's row GEMM kernels as built into csrc/dit_stack.cu
+    (``modln_qkv_tc_kernel``, ``proj_mlp_tc_kernel`` with and without the
+    MLP half), with their dynamic shared memory at the main path's widths
+    (``dit_stack_smem``); its attention, ``check_fwd_resources``."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("dit_stack")
     if not text:
@@ -1353,16 +1363,10 @@ def log_stack_resources():
     lib = _build.load("dit_stack")
     for chunk in text.split("Compiling entry function")[1:]:
         m = re.search(r"(modln_qkv_tc_kernel|"
-                      r"proj_mlp_tc_kernelILi\d+ELb([01])E|"
-                      r"heads_fwd_kernelILi(\d+)E)", chunk)
+                      r"proj_mlp_tc_kernelILi\d+ELb([01])E)", chunk)
         if m is None:
             continue
-        if m.group(3):
-            dh = int(m.group(3))
-            what, smem = (f"heads_fwd_kernel d={dh}",
-                          lib.dit_stack_smem(1, D_MODEL, HIDDEN,
-                                             max(D_MODEL // dh, 1)))
-        elif m.group(2):
+        if m.group(2):
             mlp = m.group(2) == "1"
             what = f"proj_mlp_tc_kernel<{'true' if mlp else 'false'}>"
             smem = lib.dit_stack_smem(2 if mlp else 3, D_MODEL, HIDDEN, HEADS)
@@ -1473,10 +1477,10 @@ def log_mod_ln_resources():
 def log_attention_resources():
     """ptxas's registers, stack, spills and static shared memory of the
     bf16 attention kernels (the -Xptxas=-v lines of this run's builds):
-    the fused-heads forward's ``heads_fwd_kernel`` and the backward's
-    ``heads_bwd_q_kernel`` and ``heads_bwd_kv_kernel`` (csrc/fused_heads.cu),
-    with their dynamic shared memory from ``fused_heads_forward_smem`` and
-    ``fused_heads_backward_smem``; and the head-split kernels of
+    the fused-heads backward's ``heads_bwd_q_kernel`` and
+    ``heads_bwd_kv_kernel`` (csrc/fused_heads.cu), with their dynamic
+    shared memory from ``fused_heads_backward_smem`` (the forward's,
+    ``check_fwd_resources``); and the head-split kernels of
     csrc/split_heads.cu at each head width: ``split_heads_online_kernel``
     (#15), ``split_heads_resident_kernel`` and ``split_heads_exact_kernel``
     (#16, #17: the resident and the streaming route), with
@@ -1489,22 +1493,15 @@ def log_attention_resources():
     text = _build.build_logs.get("fused_heads")
     recipes = ("pipelined", "recompute", "lean")
     for chunk in (text or "").split("Compiling entry function")[1:]:
-        fwd = re.search(r"heads_fwd_kernelILi(\d+)E", chunk)
         bwd = re.search(r"(heads_bwd_(?:q|kv)_kernel)ILi(\d+)ELi(\d+)E",
                         chunk)
-        lib = _build.load("fused_heads")
-        if fwd is not None:
-            dh = int(fwd.group(1))
-            what = f"fwd kernel resources heads_fwd_kernel d={dh}"
-            smem = lib.fused_heads_forward_smem(dh)
-        elif bwd is not None:
-            kern, dh, rec = bwd.group(1), int(bwd.group(2)), int(bwd.group(3))
-            what = f"bwd kernel resources {kern} d={dh} {recipes[rec]}"
-            smem = lib.fused_heads_backward_smem(
-                dh, rec, int(kern == "heads_bwd_kv_kernel"))
-        else:
+        if bwd is None:
             continue
-        _log_resources(what, chunk, smem)
+        kern, dh, rec = bwd.group(1), int(bwd.group(2)), int(bwd.group(3))
+        smem = _build.load("fused_heads").fused_heads_backward_smem(
+            dh, rec, int(kern == "heads_bwd_kv_kernel"))
+        _log_resources(f"bwd kernel resources {kern} d={dh} {recipes[rec]}",
+                       chunk, smem)
     text = _build.build_logs.get("split_heads")
     for chunk in (text or "").split("Compiling entry function")[1:]:
         m = re.search(r"(split_heads_(online|resident|exact)_kernel)ILi(\d+)E",
@@ -1691,6 +1688,194 @@ def fused_heads_phase(gen):
         del q, k, v, g, got_o, want_o
         torch.cuda.empty_cache()
     return out
+
+
+# The bf16 attention forward (attn_heads.cuh's heads_fwd_kernel) at each
+# path's call: (what, entry, B, N, heads, head width). "stack" is the stack
+# and block kernels' attention stage (dit_stack_attention_bf16 on a qkv of
+# row stride 3D; "stack_stats" with each row's m and r, as #3's recompute
+# writes them), "heads" #9 and #4's attention stage (q, k, v the column
+# slices of one qkv), "heads_stats" #10.
+ATTN_FWD_SHAPES = (
+    ("flagship stack #1 (2B=512)", "stack", 512, 480, 4, 32),
+    ("flagship train #2/#3 (B=1024)", "stack_stats", 1024, 480, 4, 32),
+    ("motion train #2/#3 N=1024 (B=512)", "stack_stats", 512, 1024, 4, 32),
+    ("motion train #2/#3 N=800 (B=512)", "stack_stats", 512, 800, 4, 32),
+    ("motion infer #1 (2B=2)", "stack", 2, 1024, 4, 32),
+    ("scaled #4/#9 (B=64)", "heads", 64, 1024, 8, 64),
+    ("scaled #10 (B=64)", "heads_stats", 64, 1024, 8, 64),
+    ("long series #9 (B=8)", "heads", 8, 4096, 4, 32),
+    ("long series #10 (B=8)", "heads_stats", 8, 4096, 4, 32),
+    ("head width 16, stack (2B=512)", "stack", 512, 480, 8, 16),
+    ("head width 128, #9 (B=64)", "heads", 64, 1024, 4, 128),
+)
+ATTN_FWD_TOL = 1e-2   # bf16, of max|twin|: rounding flips of e (2^-8)
+
+
+def attention_forward_call(entry, qkv, heads):
+    """The forward at one path's call on a (B, N, 3D) bf16 qkv, through
+    the entry that path launches: returns the call (o, and m/r or lse)."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops.attention import (
+        fused_heads_attention, fused_heads_attention_with_stats)
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    if entry == "heads":
+        return lambda: (fused_heads_attention(q, k, v, heads),)
+    if entry == "heads_stats":
+        return lambda: fused_heads_attention_with_stats(q, k, v, heads)
+    lib = _build.load("dit_stack")
+    o = torch.empty((B, N, D), device="cuda", dtype=qkv.dtype)
+    m, r = (torch.empty((B, N, heads), device="cuda", dtype=torch.float32)
+            for _ in range(2))
+    stats = entry == "stack_stats"
+    qscale = float(torch.tensor((D // heads) ** -0.5, dtype=qkv.dtype))
+
+    def run():
+        _build.launch(lib, "dit_stack_attention_bf16", "dit_stack_attention",
+                      ValueError("dit_stack_attention refused"), qkv.device,
+                      qkv, o, m if stats else None, r if stats else None, B,
+                      N, D, heads, qscale)
+        return (o, m, r) if stats else (o,)
+    return run
+
+
+def attention_forward_phase(gen, check_twin=True):
+    """heads_fwd_kernel at every path shape of ATTN_FWD_SHAPES: o against
+    the twin (``fused_heads_reference``, tol ATTN_FWD_TOL * max|twin|),
+    the device time per launch by torch.profiler, the achieved TFLOP/s of
+    the two N x N x DH products and the share of their bound (operations
+    at the bf16 peak, or q, k, v, o bytes), the exponent unit's floor (one
+    MUFU.EX2 a score of the second pass, H100_EX2_RATE) and torch SDPA's
+    device time over the head-split views (yardstick only). Returns
+    {what: row}."""
+    import torch.nn.functional as F
+    from t2ms_tpu_torch.ops.attention import fused_heads_reference
+    out = {}
+    for what, entry, B, N, H, dh in ATTN_FWD_SHAPES:
+        D = H * dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        call = attention_forward_call(entry, qkv, H)
+        with torch.no_grad():
+            got = call()
+            if check_twin:
+                q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+                want = torch.cat([fused_heads_reference(
+                    q[i:i + 64], k[i:i + 64], v[i:i + 64], H)
+                    for i in range(0, B, 64)])
+                _check_err(f"attention forward {what} o", got[0], want,
+                           ATTN_FWD_TOL)
+                del want
+            torch.cuda.synchronize()
+            times = device_ms_by_kernel(call, ("heads_fwd_kernel",))
+            ms = times.get("heads_fwd_kernel")
+            split = lambda t: t.view(B, N, H, dh).transpose(1, 2)
+            qh, kh, vh = (split(qkv[..., i * D:(i + 1) * D])
+                          for i in range(3))
+            lib = device_ms_all(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            lib_ms = sum(lib.values()) if lib else None
+        fl = 4 * B * H * N * N * dh
+        nb = 4 * B * N * D * 2 + (8 * B * N * H if entry == "stack_stats"
+                                  else 4 * B * N * H if entry ==
+                                  "heads_stats" else 0)
+        t_ops, t_bytes = fl / H100_BF16_FLOPS * 1e3, nb / H100_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        exp_floor = B * H * N * N / H100_EX2_RATE * 1e3
+        row = dict(ms=ms, tflops=fl / ms / 1e9 if ms else None, bound=bound,
+                   exp_floor=exp_floor, sdpa=lib_ms)
+        out[what] = row
+        if ms:
+            log(f"attention forward {what} N={N} {H}x{dh}: device "
+                f"{ms:.4f} ms, {fl / ms / 1e9:.2f} TFLOP/s, {bound / ms:.2%}"
+                f" of its bound {bound:.4f} ms "
+                f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+                f"exponent floor {exp_floor:.4f} ms ({exp_floor / ms:.2%}), "
+                f"SDPA device {lib_ms if lib_ms is None else round(lib_ms, 4)}"
+                f" ms")
+        else:
+            log(f"attention forward {what}: device time not measured (no "
+                "device time recorded)")
+        del qkv, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def log_fwd_sass():
+    """Instructions of each heads_fwd_kernel instance in the built
+    fused_heads and dit_stack libraries by pipe (cuobjdump -sass where the
+    toolkit has it): the exponent unit (MUFU.EX2), the other MUFU ops,
+    conversions (F2FP, F2F), f32 arithmetic (FADD, FMUL, FFMA, FMNMX), the
+    integer and logic ops (LOP3, SHF, PRMT, IMAD, IADD3), the wgmma
+    instructions (HGMMA), each as a static count over the function's
+    code."""
+    from t2ms_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("heads_fwd_kernel SASS: not measured (no cuobjdump)")
+        return
+    groups = (("MUFU.EX2", r"MUFU\.EX2"), ("MUFU other", r"MUFU\.(?!EX2)"),
+              ("F2FP", r"F2FP"), ("F2F", r"\bF2F\."),
+              ("FADD", r"\bFADD"), ("FMUL", r"\bFMUL"), ("FFMA", r"\bFFMA"),
+              ("FMNMX", r"\bFMNMX"), ("FSETP/FSEL", r"\bFSETP|\bFSEL"),
+              ("LOP3", r"\bLOP3"), ("SHF", r"\bSHF"), ("PRMT", r"\bPRMT"),
+              ("IMAD", r"\bIMAD"), ("IADD3", r"\bIADD3"),
+              ("HGMMA", r"\bHGMMA"), ("BAR", r"\bBAR\."),
+              ("LDGSTS", r"\bLDGSTS"))
+    for name in ("fused_heads", "dit_stack"):
+        _build.load(name)
+        text = subprocess.run([tool, "-sass", _build._target(name)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        for chunk in text.split("Function : ")[1:]:
+            fn = chunk.split("\n", 1)[0].strip()
+            m = re.search(r"heads_fwd_kernelILi(\d+)E", fn)
+            if m is None:
+                continue
+            lines = [l_ for l_ in chunk.splitlines()
+                     if re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", l_)]
+            counts = {g: sum(bool(re.search(p, l_)) for l_ in lines)
+                      for g, p in groups}
+            log(f"heads_fwd_kernel<{m.group(1)}> SASS "
+                f"({name}.cu, "
+                f"{len(lines)} instructions): "
+                + ", ".join(f"{g} {n}" for g, n in counts.items()))
+
+
+def check_fwd_resources():
+    """Every heads_fwd_kernel instance of this run's builds (fused_heads,
+    dit_stack, dit_split, dit_block_bwd): ptxas's registers, spills and
+    shared memory, checked to spill nothing and to draw no C7512 ("wgmma
+    serialized")."""
+    from t2ms_tpu_torch.ops import _build
+    seen = 0
+    for name in ("fused_heads", "dit_stack", "dit_split", "dit_block_bwd"):
+        text = _build.build_logs.get(name)
+        if not text:
+            log(f"heads_fwd_kernel resources: not measured ({name}.cu was not "
+                "built in this process)")
+            continue
+        serial = [l_ for l_ in text.splitlines()
+                  if "C7512" in l_ and "heads_fwd_kernel" in l_]
+        check(not serial, f"ptxas serialized heads_fwd_kernel's wgmma in "
+              f"{name}.cu (C7512): " + "; ".join(serial))
+        for chunk in text.split("Compiling entry function")[1:]:
+            m = re.search(r"heads_fwd_kernelILi(\d+)E", chunk.split("\n")[0])
+            if m is None:
+                continue
+            what = f"heads_fwd_kernel<{m.group(1)}>"
+            _log_resources(f"{what} in {name}.cu",
+                           chunk, _build.load("fused_heads")
+                           .fused_heads_forward_smem(int(m.group(1))))
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                 chunk)]
+            check(not any(spills), f"{what} in {name}.cu spills {spills}")
+            seen += 1
+    log(f"heads_fwd_kernel resources: {seen} instances, no spills and no "
+        "C7512")
 
 
 def scaled_train_phase(sc_dit, sc_vae, gen):
@@ -4505,14 +4690,71 @@ def parallel_phase(seed):
         f"{time.perf_counter() - t_phase:.2f} s wall")
 
 
+def log_exp_floors():
+    """Each attention kernel's exponent-unit floor at the call the kernel
+    table times it at: its exponentials over H100_EX2_RATE. One a score of
+    each pass that forms e or p: #1, #2, #4, #9, #10 one (the second
+    pass); #3 three (the forward's recompute, the q-tile and the k-tile
+    kernel); #11 and #12 three (the q-tile kernel's second and third
+    passes, the k-tile kernel); #13 and #14 two; #15 one (the online
+    softmax); #16 and #17 two (statistics, then p)."""
+    sc = SC_HEADS * SC_N * SC_N
+    ls = HEADS * LS_N * LS_N
+    fl = HEADS * N_TOK * N_TOK
+    counts = (("#1", DEPTH * 2 * B_SERIES * fl), ("#2", B_TRAIN * fl),
+              ("#3", 3 * B_TRAIN * fl), ("#4", 2 * SC_B * sc),
+              ("#9", SC_TRAIN_B * sc), ("#10", SC_TRAIN_B * sc),
+              ("#11", 3 * SC_TRAIN_B * sc), ("#12", 3 * LS_TRAIN_B * ls),
+              ("#13", 2 * SC_TRAIN_B * sc), ("#14", 2 * LS_TRAIN_B * ls),
+              ("#15", 2 * XL_B * HEADS * XL_N * XL_N), ("#16", 2 * 8 * fl),
+              ("#17", 2 * 2 * PK_B * fl))
+    log("exponent-unit floors (16 MUFU.EX2 a clock an SM, "
+        f"{H100_EX2_RATE:.4g}/s): " + ", ".join(
+            f"{k} {n:.4g} exps {n / H100_EX2_RATE * 1e3:.4f} ms"
+            for k, n in counts))
+
+
+def attention_forward_only(seed, root):
+    """The attention forward's section alone, on this tree's package or on
+    ``root``'s: the card, the build of fused_heads.cu and dit_stack.cu with
+    their heads_fwd_kernel resources and SASS counts, then
+    attention_forward_phase; the last line is {"attention_forward": {what:
+    row}, "root": ...}."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    from t2ms_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"card: {smi}; package {os.path.dirname(_build.__file__)}")
+    log(f"build: {_build.build_all(['fused_heads', 'dit_stack'])}")
+    check_fwd_resources()
+    log_fwd_sass()
+    rows = attention_forward_phase(
+        torch.Generator(device="cuda").manual_seed(seed + 20))
+    print(json.dumps({"attention_forward": rows, "root": root or ".",
+                      "card": smi}), flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attention_forward", action="store_true",
+                    help="build, then run only the attention forward's "
+                    "section, its last line a JSON of each path shape's row")
+    ap.add_argument("--root", default=None,
+                    help="with --attention_forward: import t2ms_tpu_torch "
+                    "from this tree (another checkout, to time it beside "
+                    "this one)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
         return 1
+    if args.attention_forward:
+        return attention_forward_only(args.seed, args.root)
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (
         FLASH_KERNEL, FUSED_HEADS_BWD_KERNEL, FUSED_HEADS_KERNEL,
@@ -4545,6 +4787,12 @@ def main(argv=None):
     log_block_bwd_resources()
     log_split_resources()
     log_mod_ln_resources()
+    check_fwd_resources()
+    log_fwd_sass()
+    log_exp_floors()
+    # its own generator, so that the later phases draw what they drew before
+    attention_forward_phase(
+        torch.Generator(device="cuda").manual_seed(args.seed + 20))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

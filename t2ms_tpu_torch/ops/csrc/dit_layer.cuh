@@ -7,9 +7,10 @@
 //   (a) modln_qkv_tc_kernel   one block per 128-row tile of the (B*N) rows:
 //       f32 LayerNorm -> *(1+scale)+shift -> cast (the rows stay in shared
 //       memory) -> qkv = T(rows @ wqkv + T(bqkv)), the sum in f32.
-//   (b) heads_fwd_kernel      (attn_heads.cuh) one block per (element, 64 q
-//       rows, head): q, k and v read in place from qkv (row stride 3*D);
-//       the merged attention output o, (B*N, D), to a workspace.
+//   (b) heads_fwd_kernel      (attn_heads.cuh) one block per (element, 128
+//       q rows, head), two warpgroups on wgmma: q, k and v read in place
+//       from qkv (row stride 3*D; K and V by TMA); the merged attention
+//       output o, (B*N, D), to a workspace.
 //   (c) proj_mlp_tc_kernel    one block per 64-row tile: x1 = x + T(gate2)
 //       * T(o @ wproj + T(bproj)) in T, kept in shared memory; then LN +
 //       modulate(mod[3], mod[4]) -> fc1 + bias -> tanh-GELU (the 64 x
@@ -45,9 +46,10 @@
 // - the LayerNorm rows, x1 and the MLP hidden tile never leave shared
 //   memory; (c) fuses the out-projection with the MLP, so x1 makes no round
 //   trip through device memory.
-// - attention is attn_heads.cuh's register-tile kernel (scores,
-//   exponentials and PV in registers, K and V through a cp.async ring); it
-//   takes head widths 16, 32, 64 and 128.
+// - attention is attn_heads.cuh's wgmma kernel (scores, exponentials and
+//   the row sums in registers, K and V through a TMA ring, launched by its
+//   one helper, launch_fwd_bf16); it takes head widths 16, 32, 64 and
+//   128.
 // Probes on an H100 chose these shapes: two blocks an SM of each row
 // kernel; cutting shared memory and registers for three or four ran
 // slower (PERF.md).
@@ -103,7 +105,7 @@ inline bool tc_route(int B, int N, int D, int hidden, int H) {
     need = smem_mlp_tc(D, hidden, true);
   if (smem_fwd(D / H) > need) need = smem_fwd(D / H);
   return optin > 0 && need <= (size_t)optin &&
-         (long long)B * ((N + TC_R - 1) / TC_R) * H <= INT_MAX;
+         fwd_blocks(B, N, H) <= INT_MAX;
 }
 
 // ------------------------------------------------------------ tile copies
@@ -475,14 +477,10 @@ template <int DH>
 cudaError_t launch_layer_attn_dh(const bf16* qkv, bf16* o, int B, int N,
                                  int D, int H, float qscale, float* m_out,
                                  float* r_out, cudaStream_t st) {
-  const size_t s = smem_fwd(DH);
-  const cudaError_t e = set_smem((const void*)heads_fwd_kernel<DH>, s);
-  if (e != cudaSuccess) return e;
   const long long sb = (long long)N * 3 * D, sn = 3 * D;
-  heads_fwd_kernel<DH><<<B * ((N + TC_R - 1) / TC_R) * H, TC_NT, s, st>>>(
-      qkv, qkv + D, qkv + 2 * D, sb, sn, sb, sn, sb, sn, o, N, D, H, qscale,
-      nullptr, m_out, r_out);
-  return cudaGetLastError();
+  return launch_fwd_bf16<DH>(qkv, qkv + D, qkv + 2 * D, sb, sn, sb, sn, sb,
+                             sn, o, B, N, D, H, qscale, st, nullptr, m_out,
+                             r_out);
 }
 
 inline cudaError_t launch_layer_attn(const bf16* qkv, bf16* o, int B, int N,

@@ -10,8 +10,9 @@
 //
 //   (1) LN GEMM, BIAS       qkv = T(modLN(x; mod0, mod1) @ wqkv + bqkv)
 //   (2) heads_fwd_kernel    o   = softmax(q k^T) v, per head, merged
-//                           (attn_heads.cuh, shared with fused_heads.cu;
-//                           heads_attn_kernel in f32)
+//                           (attn_heads.cuh, shared with fused_heads.cu:
+//                           bf16 on wgmma, 128 q rows a block, K and V by
+//                           TMA; heads_attn_kernel in f32)
 //   (3) STREAM GEMM, RESID  y1  = x + T(gate2) * T(o @ wproj + bproj)
 //   (4) LN GEMM, GELU       h1  = gelu(T(modLN(y1; mod3, mod4) @ wfc1
 //                                 + bfc1))

@@ -147,7 +147,7 @@ extern "C" int dit_stack_attention_bf16(const void* qkv, void* o, void* m,
                                         void* r, int B, int N, int D, int H,
                                         float qscale, void* stream) {
   if (B < 1 || N < 1 || H < 1 || D % H || D % 64 || !tc_head_width(D / H) ||
-      (long long)B * ((N + TC_R - 1) / TC_R) * H > INT_MAX)
+      fwd_blocks(B, N, H) > INT_MAX)
     return T2MS_UNSUPPORTED_SHAPE;
   return launch_layer_attn((const bf16*)qkv, (bf16*)o, B, N, D, H, qscale,
                            (float*)m, (float*)r, (cudaStream_t)stream);

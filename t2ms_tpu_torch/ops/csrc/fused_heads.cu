@@ -15,12 +15,14 @@
 // row strides, so the column slices of one qkv projection are not copied.
 //
 //   forward   heads_fwd_kernel in bf16, heads_attn_kernel in f32
-//             (attn_heads.cuh, shared with the split block): per (element,
-//             64 q rows, head), q scaled at input width, f32 scores, the
-//             exact softmax in two passes over 64-row K tiles (row max;
-//             then e = T(exp(T(s - m))), f32 row sums, f32 PV),
-//             o = T(PV / r); the stats forward also writes each row's
-//             lse = m + log(r) (f32, (B, N, H)), and o stays bit-equal.
+//             (attn_heads.cuh, shared with the split block and the stack,
+//             whose source note has the design): bf16 per (element, 128 q
+//             rows, head), two warpgroups on wgmma over a TMA ring of
+//             64-key K/V tiles; q scaled at input width, f32 scores, the
+//             exact softmax in two passes (row max; then e =
+//             T(exp(T(s - m))), f32 row sums, f32 PV), o = T(PV / r); the
+//             stats forward also writes each row's lse = m + log(r) (f32,
+//             (B, N, H)), and o stays bit-equal.
 //   backward  recomputes the probabilities from q and k with one of three
 //             recipes' rounding points:
 //     rows    m, the row max of s = T(q * scale) k^T (f32); e =

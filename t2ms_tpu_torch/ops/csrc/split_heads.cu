@@ -95,7 +95,6 @@ constexpr int SW = 8;         // warps of a bf16 block, 16 q rows each
 constexpr int SNT = SW * 32;  // its threads
 constexpr int SR = SW * 16;   // q rows of a streaming block
 constexpr int KR = TC_R;      // keys a tile
-constexpr float LOG2E = 1.4426950408889634f;
 
 // the ring's stages: three, but two for the exact kernel at head widths 64
 // and 128 (padded tiles)
@@ -118,35 +117,6 @@ __host__ __device__ inline size_t smem_resident(int N, int DH) {
   return 2 * tc_tile((N + KR - 1) / KR * KR, DH);
 }
 
-// 2^x on the exponent unit (MUFU.EX2); 2^-inf = +0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The A fragments of q's 16 rows r0.. of a head slice (row stride sn),
-// read from device memory straight into registers; rows at or past N zero
-template <int DH>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[DH / 16][4],
-                                       const bf16* __restrict__ qh,
-                                       long long sn, int r0, int N) {
-  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
-  const bool ok0 = r0 + gr < N, ok1 = r0 + gr + 8 < N;
-  const bf16* p0 = qh + (size_t)(r0 + gr) * sn + 2 * tq;
-  const bf16* p1 = p0 + 8 * sn;
-  auto ld = [](const bf16* p, bool ok) {
-    return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-  };
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    qa[kk][0] = ld(p0 + 16 * kk, ok0);
-    qa[kk][1] = ld(p1 + 16 * kk, ok1);
-    qa[kk][2] = ld(p0 + 16 * kk + 8, ok0);
-    qa[kk][3] = ld(p1 + 16 * kk + 8, ok1);
-  }
-}
-
 // s = q K^T (f32 sums) for the 64 keys of tile Ks. s[nt][e] is row gr + 8
 // (e / 2), key 8 nt + 2 tq + e % 2 of the tile.
 template <int DH>
@@ -164,19 +134,6 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4],
       ld_b(b, Ks, DH + 8, 16 * p, 16 * kk);
       mma16816(s[2 * p], qa[kk], b[0], b[1]);
       mma16816(s[2 * p + 1], qa[kk], b[2], b[3]);
-    }
-  }
-}
-
-// in the tile at k0 that crosses N, the keys at or past N to -inf
-__device__ __forceinline__ void mask_tile(float (&s)[8][4], int k0, int N) {
-  if (k0 + KR > N) {
-    const int tq = threadIdx.x & 3;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + 8 * nt + 2 * tq + (e & 1) >= N) s[nt][e] = -INFINITY;
     }
   }
 }
@@ -306,160 +263,6 @@ template <int DH> struct CoreCopy {
     }
   }
 };
-
-// a shared-memory matrix descriptor, no swizzle: leading and stride byte
-// offsets as wgmma reads them for the operand's major-ness
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((sm_addr(p) & 0x3FFFF) >> 4) |
-         (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32;
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// the generic proxy's shared-memory writes (cp.async) made visible to
-// wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keeps the compiler from moving uses of an accumulator across a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-  }
-}
-
-// d[64 x N] (+)= a[64 x 16] b[16 x N] for a warpgroup, a from registers
-// (each warp's 16 rows in the mma16816 A layout), b through a descriptor,
-// read transposed when TB; d in the mma16816 C layout per n8 tile. scale_d
-// 0 overwrites d.
-template <int N> struct WgMma;
-template <> struct WgMma<16> {
-  template <int TB>
-  static __device__ __forceinline__ void run(float (&d)[2][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TB));
-  }
-};
-template <> struct WgMma<32> {
-  template <int TB>
-  static __device__ __forceinline__ void run(float (&d)[4][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TB));
-  }
-};
-template <> struct WgMma<64> {
-  template <int TB>
-  static __device__ __forceinline__ void run(float (&d)[8][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-        "%27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TB));
-  }
-};
-template <> struct WgMma<128> {
-  template <int TB>
-  static __device__ __forceinline__ void run(float (&d)[16][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-        "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
-          "n"(TB));
-  }
-};
-
-// T(acc), or with DIV T(acc / l), for the warp's 16 rows r0.. below N, in
-// pairs of 4 bytes through o's row stride
-template <int DH, bool DIV>
-__device__ __forceinline__ void store_o(const float (&acc)[DH / 8][4],
-                                        const float (&l)[2], bf16* oh,
-                                        long long sn, int r0, int N) {
-  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + gr + 8 * h;
-    if (row >= N) continue;
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      float x = acc[nt][2 * h], y = acc[nt][2 * h + 1];
-      if (DIV) {
-        x /= l[h];
-        y /= l[h];
-      }
-      *reinterpret_cast<uint32_t*>(oh + (size_t)row * sn + 8 * nt + 2 * tq) =
-          pack_bf16(x, y);
-    }
-  }
-}
 
 // Streaming route of the exact softmax (#16, #17 where K and V do not fit):
 // one block per (b, h, 128 q rows), the q tile fastest, so the blocks of

@@ -52,9 +52,6 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "attn_heads.cuh"
 
 namespace {
@@ -106,30 +103,9 @@ __host__ __device__ constexpr size_t smem_wg(bool staged, int K) {
 
 // ------------------------------------------------- mbarriers and TMA, in PTX
 
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(sm_addr(b)),
-               "r"(count));
-}
 __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(sm_addr(b))
                : "memory");
-}
-// arrives on b and expects `bytes` more from copies that complete on it
-__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          sm_addr(b)),
-      "r"(bytes)
-      : "memory");
-}
-// waits until the phase of parity `ph` of b has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int ph) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(sm_addr(b)),
-      "r"(ph)
-      : "memory");
 }
 // a barrier of `n` threads on hardware barrier `id` (0 is __syncthreads')
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -152,20 +128,7 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* m,
 // encoder is missing or refuses the map.
 inline bool make_tmap(CUtensorMap* m, const void* p, int rows, int cols,
                       int box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
-               : nullptr;
-  }();
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tmap_encoder();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
@@ -192,30 +155,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
          (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
 }
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// the generic proxy's shared-memory writes (cp.async, the LayerNorm's
-// stores) made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keeps the compiler from moving uses of an accumulator across a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-  }
-}
-
 // d[64 x N] (+)= a[64 x 16] b[16 x N] for a warpgroup, a K-major and b
 // MN-major through descriptors; d in the mma16816 C layout per n8 tile
 // (row 16 * warp + lane / 4 (+ 8), columns 8 nt + 2 (lane % 4) (+ 1)).

@@ -134,11 +134,13 @@ def _close_to_twin(got, want, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 17, 130, 480, 1000])
+@pytest.mark.parametrize("N", [1, 17, 130, 480, 1000]
+                         + [127, 128, 129, 1024, 4096])
 @pytest.mark.parametrize("heads", [8, 4, 2, 1])   # head widths 16 to 128
 def test_bf16_stack_matches_twin_across_head_widths(cuda, heads, N):
     """The tensor-core route at every head width it takes, at token counts
-    below, across and beyond the 64-row tiles; bf16 3e-2 * max|ref|."""
+    below, across and beyond the attention's 64-key tiles and 128-row
+    blocks; bf16 3e-2 * max|ref|."""
     args = _stack_args(cuda, torch.bfloat16, B=2, N=N, seed=N + heads)
     assert _tc_route(2, N, 128, 256, heads)
     got = tblock.fused_dit_stack(*args, num_heads=heads)
@@ -190,16 +192,18 @@ def _stack_attention(qkv, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [130] + [1, 17, 127, 128, 129, 480, 1000, 1024, 4096])
 @pytest.mark.parametrize("heads", [8, 4, 2, 1])
-def test_stack_attention_row_stats_match_twin(cuda, heads):
+def test_stack_attention_row_stats_match_twin(cuda, heads, N):
     """m and r, which the block backward rebuilds p from. q and k lie on a
     grid of 1/8 in [-1, 1], so every score (a sum of products that are
     multiples of 2^-16, below 2^3) is exact in f32 in any order: the row
     max is bit-equal to the twin's. The row sums differ by summation order
     (f32, 1e-5 relative) and at most one rounding flip of an exponential
     (2^-8). o with the stats written is #9's o bit for bit (#9 writes
-    none), and within 1e-2 * max|ref| of the twin."""
-    B, N, D = 2, 130, 128
+    none), and within 1e-2 * max|ref| of the twin. N runs across the
+    kernel's 64-key tiles and 128-row blocks."""
+    B, D = 2, 128
     g = np.random.default_rng(heads)
     qkv = torch.from_numpy(g.integers(-8, 9, (B, N, 3 * D)) / 8).to(
         cuda, torch.bfloat16)
@@ -758,7 +762,8 @@ def _heads_args(dev, dt, B=3, N=130, HD=512, seed=4):
 @pytest.mark.parametrize("dt,tol_f,tol_b", [(torch.float32, 2e-4, 5e-4),
                                             (torch.bfloat16, 1e-2, 3e-2)])
 @pytest.mark.parametrize("heads", [16, 8, 4])         # head widths 32, 64, 128
-@pytest.mark.parametrize("N", [1, 17, 130, 1000])
+@pytest.mark.parametrize("N", [1, 17, 130, 1000]
+                         + [127, 128, 129, 480, 1024, 4096])
 def test_fused_heads_kernels_match_twins_on_card(cuda, dt, tol_f, tol_b,
                                                  heads, N):
     """#9 and #11 on the column slices of one qkv tensor (read in place
@@ -1330,7 +1335,8 @@ def test_eager_dit_dispatches_attention_impl_on_card(cuda, impl, name):
 @pytest.mark.parametrize("dt,tol_f,tol_lse", [(torch.float32, 2e-4, 1e-4),
                                               (torch.bfloat16, 1e-2, 1e-2)])
 @pytest.mark.parametrize("heads", [16, 8, 4])         # head widths 32, 64, 128
-@pytest.mark.parametrize("N", [1, 17, 130, 1000])
+@pytest.mark.parametrize("N", [1, 17, 130, 1000]
+                         + [127, 128, 129, 480, 1024, 4096])
 def test_stats_forward_matches_forward_and_twin_on_card(cuda, dt, tol_f,
                                                         tol_lse, heads, N):
     """#10 on the column slices of one qkv tensor (read in place through

@@ -145,7 +145,11 @@ def _qkv_slices(B, N, HD, dt, seed=0):
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N,HD,H", [(96, 128, 4), (40, 128, 2),
-                                    (130, 256, 2)])  # head width 128, 3 tiles
+                                    (130, 256, 2)]  # head width 128, 3 tiles
+                         # the bf16 kernel's tile edges (64-key tiles,
+                         # 128-row blocks) at head widths 16 and 32
+                         + [(n, 64, h) for n in (1, 127, 128, 129, 480)
+                            for h in (4, 2)])
 def test_fused_heads_twin_matches_jax_kernel(dt, N, HD, H):
     (q, k, v), (jq, jk, jv) = _qkv_slices(2, N, HD, dt)
     want = jattn.fused_heads_attention(jq, jk, jv, H, interpret=True)

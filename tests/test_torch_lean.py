@@ -89,13 +89,16 @@ def _jax_stats(jq, jk, jv, H):
 @pytest.mark.parametrize("dt,N,HD,H", [
     pytest.param("float32", 128, 128, 4, id="float32"),
     pytest.param("bfloat16", 128, 128, 4, id="bfloat16"),
-    ("float32", 130, 256, 2), ("bfloat16", 130, 256, 2)])
+    ("float32", 130, 256, 2), ("bfloat16", 130, 256, 2)] + [
+    (dt, n, 64, h) for dt in ("float32", "bfloat16")
+    for n in (1, 127, 128, 129, 480) for h in (4, 2)])
 def test_stats_twin_matches_jax_kernel(dt, N, HD, H):
     """#10's twin against ``fused_heads_attention_with_stats`` in interpret
-    mode at (2, 128, 128), 4 heads of 32, and at (2, 130, 256), 2 heads of
-    128 over three K tiles with a ragged end: o as #9's, lse absolute; no
-    launch on the CPU, and o equal to ``fused_heads_attention``'s bit for
-    bit."""
+    mode at (2, 128, 128), 4 heads of 32, at (2, 130, 256), 2 heads of 128
+    over three K tiles with a ragged end, and at the bf16 kernel's tile
+    edges (N from 1 to 480 across its 64-key tiles and 128-row blocks) at
+    head widths 16 and 32: o as #9's, lse absolute; no launch on the CPU,
+    and o equal to ``fused_heads_attention``'s bit for bit."""
     (q, k, v, _), (jq, jk, jv, _) = _inputs(2, N, HD, dt)
     jo, jl = jattn.fused_heads_attention_with_stats(jq, jk, jv, H,
                                                     interpret=True)

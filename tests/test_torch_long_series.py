@@ -22,6 +22,8 @@ gradients rtol 2e-3 / atol 2e-4 and losses rtol 1e-4 (the JAX block-VJP
 test's bounds); the sampler rtol 2e-4 / atol 2e-5 (the JAX serving tests'
 bound)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -576,6 +578,36 @@ def test_res_mod_ln_launchers_pass_their_declared_arguments(
     assert [o.dtype for o in out] == [dt] * len(out)
     if launcher == "_launch_res_mod_ln_bwd":
         assert tuple(out[2].shape) == (2, 3, 32)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [4, 2, 1])          # head widths 32 to 128
+@pytest.mark.parametrize("fn,entry", [
+    ("fused_heads_attention", "fused_heads_forward"),
+    ("fused_heads_attention_with_stats", "fused_heads_forward_stats")])
+def test_forward_launchers_leave_the_sizing_to_the_library(
+        monkeypatch, fn, entry, heads, dt):
+    """#9 and #10 on a tensor that reports CUDA, against the fake library:
+    one forward entry with (B, N, H*D, H), the strides and the scale, and
+    no other call. The grid and the shared memory are the library's own
+    (attn_heads.cuh's launch_fwd_bf16, whose shared memory
+    ``fused_heads_forward_smem`` reports), so a new tile height changes no
+    wrapper; no workspace is asked for."""
+    lib = _rehearse(monkeypatch)
+    qkv = torch.randn(2, 130, 3 * 128).to(dt)
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    out = getattr(tattn, fn)(q, k, v, heads)
+    call = _one_launch(lib, entry, dt)
+    assert [c[0] for c in lib.calls] == [
+        f"{entry}_{'bf16' if dt == torch.bfloat16 else 'f32'}"]
+    assert tuple(call[-12:-8]) == (2, 130, 128, heads)   # B, N, H*D, H
+    assert list(call[-8:-2]) == [130 * 384, 384] * 3     # q, k, v strides
+    assert call[-1].value == 7
+    o = out[0] if fn.endswith("stats") else out
+    assert o.shape == q.shape and o.dtype == dt
+    assert lib.fused_heads_forward_smem.argtypes == [ctypes.c_int]
+    assert lib.fused_heads_forward_smem.restype == ctypes.c_longlong
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

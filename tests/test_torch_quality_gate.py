@@ -283,3 +283,171 @@ def test_summary_and_gates_of_jax_rows(jax_runs):
     assert res == {k: v for k, v in want.items() if k != "gates"}
     assert q.gate(res) == {GATE_KEY.get(k, k): v
                            for k, v in want["gates"].items()}
+
+
+# ---------------------------------------- the motion track against JAX
+
+MOTION_B = 2
+
+
+def _uniform_ok(t, bound):
+    """All of t within (-bound, bound) and, for tensors of 256 values or
+    more, its largest magnitude above 0.9 bound and its std within 2.7 /
+    sqrt(n) (six standard errors of a uniform sample's std) of
+    bound / sqrt(3)."""
+    t = np.asarray(t, np.float64).ravel()
+    if np.abs(t).max() > bound * (1 + 1e-6):
+        return False
+    if t.size < 256:
+        return True
+    rel = t.std() / (bound / np.sqrt(3)) - 1
+    return np.abs(t).max() > 0.9 * bound and abs(rel) < 2.7 / np.sqrt(t.size)
+
+
+def _family(name, mod, p):
+    """The initializer the JAX package gives the port's parameter ``name``
+    of module ``mod``: ("zeros",), ("ones",) or ("uniform", bound) —
+    xavier-uniform Linear kernels with zero bias, zero adaLN (adaLN-zero),
+    the torch-conv uniform U(+-1/sqrt(fan_in)) of t2ms_tpu/ops/conv1d.py
+    (fan_in = weight.size(1) * kernel, for ConvTranspose1d too) on conv
+    weights and biases, LayerNorm scale one and bias zero."""
+    if isinstance(mod, torch.nn.Linear):
+        if "adaLN_modulation" in name or name.endswith("bias"):
+            return ("zeros",)
+        return ("uniform", float(np.sqrt(6 / (mod.in_features
+                                               + mod.out_features))))
+    if isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d,
+                        torch.nn.Conv2d)):
+        w = mod.weight
+        return ("uniform", float(w.shape[1] * np.prod(w.shape[2:])) ** -0.5)
+    if isinstance(mod, torch.nn.LayerNorm):
+        return ("ones",) if name.endswith("weight") else ("zeros",)
+    raise AssertionError(f"{name}: no JAX initializer for {type(mod)}")
+
+
+def _jax_motion_models(dt):
+    """The JAX gate's motion models (scripts/quality_gate.py) and their
+    initial params from the gate's keys 0 and 1."""
+    import jax
+    import jax.numpy as jnp
+    from t2ms_tpu.models.denoisers import DiT as JDiT
+    from t2ms_tpu.models.vae import LAVAE as JLAVAE
+    x0, e0, _ = q.make_batch(0, MOTION_B, 96, 10)
+    jv = JLAVAE(in_channels=10, num_residual_layers=3, latent_grid=64,
+                exact_length_output=True)
+    vp = jv.init(jax.random.key(0), jnp.asarray(x0))
+    jd = JDiT(latent_len=64, latent_dim=64, compute_dtype=dt)
+    z, _ = jv.apply(vp, jnp.asarray(x0), method=jv.encode)
+    dp = jd.init(jax.random.key(1), z, jnp.zeros(MOTION_B), jnp.asarray(e0))
+    return jv, vp, jd, dp
+
+
+def test_motion_models_draw_from_jax_initializers():
+    """Every parameter of the gate's motion models as the port builds them
+    (``_build_models``: the 10-feature LAVAE with 3 residual layers and
+    exact_length_output, the DiT over the 64 x 64 latent) is drawn from the
+    initializer family and bounds that JAX's gate draws the same parameter
+    from: the family is read off the port's module, and JAX's initial
+    value of that parameter (through ``t2ms_tpu_torch.convert``) is held
+    to it as well, by range and std over each tensor."""
+    import jax
+    import jax.numpy as jnp
+    from t2ms_tpu_torch.convert import (dit_params_from_jax,
+                                        lavae_params_from_jax)
+    vae, dit = q._build_models(q.get_args(["--track", "motion"]), "cpu")
+    _, vp, _, dp = _jax_motion_models(jnp.bfloat16)
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    seen = 0
+    for model, want in ((vae, lavae_params_from_jax(tree(vp))),
+                        (dit, dit_params_from_jax(tree(dp)))):
+        assert set(want) == {n for n, _ in model.named_parameters()}
+        for mname, mod in model.named_modules():
+            for pname, p in mod.named_parameters(recurse=False):
+                name = f"{mname}.{pname}" if mname else pname
+                fam = _family(name, mod, p)
+                for who, t in (("port", p.detach().float().numpy()),
+                               ("jax", want[name].float().numpy())):
+                    assert t.shape == tuple(p.shape), (name, who)
+                    if fam[0] == "zeros":
+                        ok = not t.any()
+                    elif fam[0] == "ones":
+                        ok = (t == 1).all()
+                    else:
+                        ok = _uniform_ok(t, fam[1])
+                    assert ok, (name, who, fam)
+                seen += 1
+    assert seen == len(list(vae.parameters())) + len(list(dit.parameters()))
+
+
+def test_motion_loop_matches_jax_from_jax_weights():
+    """Two VAE steps and three denoiser steps of the gate's motion loop
+    (B=2 series of 10 features, length 96; warmup-cosine AdamW on the VAE,
+    one-cycle AdamW over 3 steps on the DiT; flow matching over 100 steps;
+    the gate's --f32 denoiser) from JAX's initial weights, with JAX's draws
+    injected into the port's denoiser step: the losses within rtol 1e-4
+    and, after the steps, every weight within 2 * the sum of the applied
+    learning rates (Adam's normalised update turns a gradient that differs
+    by rounding near zero into a full +-lr step) and rtol 1e-4. The
+    denoiser stage starts both sides from JAX's pretrained VAE."""
+    import jax
+    import jax.numpy as jnp
+    from t2ms_tpu.training import optim as joptim
+    from t2ms_tpu.training.trainer import TrainState
+    from t2ms_tpu.training.trainer import \
+        make_denoiser_train_step as j_make_step
+    from t2ms_tpu.training.trainer import make_vae_train_step as j_vae_step
+    from t2ms_tpu_torch.convert import (dit_params_from_jax,
+                                        lavae_params_from_jax)
+    from t2ms_tpu_torch.training import (make_denoiser_train_step,
+                                         make_vae_train_step,
+                                         onecycle_adamw, onecycle_schedule,
+                                         vae_schedule, warmup_cosine_adamw)
+    from test_torch_training import _draws
+
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    jv, vp, jd, dp = _jax_motion_models(jnp.float32)
+    vae, dit = q._build_models(
+        q.get_args(["--track", "motion", "--f32"]), "cpu")
+    vae.load_state_dict(lavae_params_from_jax(tree(vp)))
+    dit.load_state_dict(dit_params_from_jax(tree(dp)))
+
+    jopt = joptim.warmup_cosine_adamw(1e-3, warmup_steps=100,
+                                      cosine_period=600)
+    jstep = j_vae_step(jv, jopt, donate=False)
+    sv = TrainState(vp, jopt.init(vp), jnp.zeros((), jnp.int32))
+    tstep = make_vae_train_step(vae, warmup_cosine_adamw(
+        vae.parameters(), 1e-3, warmup_steps=100, cosine_period=600),
+        device="cpu")
+    for i in range(2):
+        x, _, _ = q.make_batch(i, MOTION_B, 96, 10)
+        sv, (jl, jre) = jstep(sv, jnp.asarray(x))
+        tl, tre = tstep(torch.from_numpy(x))
+        np.testing.assert_allclose([tl.item(), tre.item()],
+                                   [float(jl), float(jre)], rtol=1e-4)
+    sched = vae_schedule(1e-3, warmup_steps=100, cosine_period=600)
+    atol = 2 * sum(sched(i) for i in range(2)) + 1e-7
+    want = lavae_params_from_jax(tree(sv.params))
+    for name, p in vae.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=atol, err_msg=name)
+
+    vp = sv.params
+    vae.load_state_dict(lavae_params_from_jax(tree(vp)))
+    jopt = joptim.onecycle_adamw(3)
+    jstep = j_make_step(jd, jv, jopt, "flowmatching", 100, donate=False)
+    sd = TrainState(dp, jopt.init(dp), jnp.zeros((), jnp.int32))
+    tstep = make_denoiser_train_step(dit, vae, onecycle_adamw(
+        dit.parameters(), 3), "flowmatching", 100, device="cpu")
+    for i in range(3):
+        x, e, _ = q.make_batch(1000 + i, MOTION_B, 96, 10)
+        key = jax.random.key(i)
+        sd, jl = jstep(sd, vp, key, jnp.asarray(x), jnp.asarray(e))
+        tl = tstep(torch.from_numpy(x), torch.from_numpy(e),
+                   **_draws(key, jv, vp, jnp.asarray(x)))
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4)
+    sched = onecycle_schedule(3)
+    atol = 2 * sum(sched(i) for i in range(3))
+    want = dit_params_from_jax(tree(sd.params))
+    for name, p in dit.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=atol, err_msg=name)

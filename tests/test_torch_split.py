@@ -132,7 +132,7 @@ class _FakeLib:
                "fused_heads_backward_bf16", "fused_heads_backward_f32",
                "fused_heads_backward_lean_bf16",
                "fused_heads_backward_lean_f32",
-               "fused_heads_backward_workspace",
+               "fused_heads_backward_workspace", "fused_heads_forward_smem",
                "split_heads_forward_bf16", "split_heads_forward_f32")
 
     def __init__(self):
