@@ -11,15 +11,16 @@ failing with a non-zero exit on any error:
    flags (both set off, so f32 products and convs are full f32);
 2. builds every kernel (one nvcc per source, started together) and logs
    ptxas's registers, stack, spills and shared memory of the bf16
-   attention backward's kernels (``heads_bwd_q_kernel``,
+   attention backward's wgmma kernels (``heads_bwd_q_kernel``,
    ``heads_bwd_kv_kernel``, csrc/heads_bwd.cuh, at each head width and
-   recipe), as built into csrc/fused_heads.cu, and of the stack's
+   recipe, as built into csrc/fused_heads.cu and, the block recipe, into
+   csrc/dit_block_bwd.cu), checked to spill nothing and to draw no ptxas
+   C7512, and of the stack's
    tensor-core row kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel``,
    ``proj_mlp_tc_kernel``), as built into csrc/dit_stack.cu, and of the
    bf16 block backward's own
    kernels (csrc/dit_block_bwd.cu: ``mlp_bwd_tc_kernel``,
-   ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``
-   and the block recipe of ``heads_bwd_q_kernel``/``heads_bwd_kv_kernel``),
+   ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``),
    and of the split block's wgmma GEMMs (csrc/wg_gemm.cuh:
    ``wg_gemm_kernel`` on each route, as built into csrc/dit_split.cu),
    checked to spill nothing and to draw no ptxas C7512 ("wgmma
@@ -34,7 +35,12 @@ failing with a non-zero exit on any error:
    TFLOP/s, share of its bound, the exponent unit's floor and SDPA's
    device time (``--attention_forward`` runs only this section, and with
    ``--root DIR`` on another checkout's package: the parent and the change
-   in one call);
+   in one call); then the attention backward alone at each path's call
+   (``ATTN_BWD_SHAPES``: #3 at the flagship and motion calls, #11, #12,
+   #13, #14, head widths 16 and 128), dq, dk, dv against the twin, with the
+   device time of both kernels by profiler, TFLOP/s, share of its bound,
+   the exponent floor and SDPA's forward + backward minus forward
+   (``--attention_backward [--root DIR]`` runs only this section);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -1381,10 +1387,9 @@ def log_block_bwd_resources():
     """ptxas's registers, stack, spills and static shared memory of the bf16
     block backward's own kernels as built into csrc/dit_block_bwd.cu
     (``mlp_bwd_tc_kernel``, ``attn_out_bwd_tc_kernel``,
-    ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``, and the BLOCK recipe of
-    ``heads_bwd_q_kernel`` and ``heads_bwd_kv_kernel`` at each head width),
-    with their dynamic shared memory at the main path's widths
-    (``dit_block_bwd_smem``)."""
+    ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``), with their dynamic shared
+    memory at the main path's widths (``dit_block_bwd_smem``); its
+    attention VJP's, ``check_bwd_resources``."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("dit_block_bwd")
     if not text:
@@ -1396,19 +1401,12 @@ def log_block_bwd_resources():
             "qkv_bwd_tc_kernel", "wgrad_tc_kernel")
     for chunk in text.split("Compiling entry function")[1:]:
         m = re.search(r"(mlp_bwd_tc_kernel|attn_out_bwd_tc_kernel|"
-                      r"qkv_bwd_tc_kernel|wgrad_tc_kernel|"
-                      r"heads_bwd_(q|kv)_kernelILi(\d+)ELi3E)", chunk)
+                      r"qkv_bwd_tc_kernel|wgrad_tc_kernel)", chunk)
         if m is None:
             continue
-        if m.group(2):
-            dh = int(m.group(3))
-            what = f"heads_bwd_{m.group(2)}_kernel d={dh} block"
-            smem = lib.dit_block_bwd_smem(4 if m.group(2) == "q" else 5,
-                                          D_MODEL, HIDDEN, D_MODEL // dh)
-        else:
-            what = m.group(1)
-            smem = lib.dit_block_bwd_smem(rows.index(what), D_MODEL, HIDDEN,
-                                          HEADS)
+        what = m.group(1)
+        smem = lib.dit_block_bwd_smem(rows.index(what), D_MODEL, HIDDEN,
+                                      HEADS)
         _log_resources(f"block backward kernel resources {what} "
                        f"(D={D_MODEL}, hidden={HIDDEN})", chunk, smem)
 
@@ -1476,32 +1474,17 @@ def log_mod_ln_resources():
 
 def log_attention_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    bf16 attention kernels (the -Xptxas=-v lines of this run's builds):
-    the fused-heads backward's ``heads_bwd_q_kernel`` and
-    ``heads_bwd_kv_kernel`` (csrc/fused_heads.cu), with their dynamic
-    shared memory from ``fused_heads_backward_smem`` (the forward's,
-    ``check_fwd_resources``); and the head-split kernels of
-    csrc/split_heads.cu at each head width: ``split_heads_online_kernel``
+    head-split kernels of csrc/split_heads.cu (the -Xptxas=-v lines of
+    this run's build; the fused-heads forward's and backward's,
+    ``check_fwd_resources`` and ``check_bwd_resources``) at each head
+    width: ``split_heads_online_kernel``
     (#15), ``split_heads_resident_kernel`` and ``split_heads_exact_kernel``
     (#16, #17: the resident and the streaming route), with
     ``split_heads_smem`` (the resident route's at 480 tokens)."""
     from t2ms_tpu_torch.ops import _build
-    for name in ("fused_heads", "split_heads"):
-        if not _build.build_logs.get(name):
-            log(f"attention kernel resources: not measured ({name}.cu was "
-                "not built in this process)")
-    text = _build.build_logs.get("fused_heads")
-    recipes = ("pipelined", "recompute", "lean")
-    for chunk in (text or "").split("Compiling entry function")[1:]:
-        bwd = re.search(r"(heads_bwd_(?:q|kv)_kernel)ILi(\d+)ELi(\d+)E",
-                        chunk)
-        if bwd is None:
-            continue
-        kern, dh, rec = bwd.group(1), int(bwd.group(2)), int(bwd.group(3))
-        smem = _build.load("fused_heads").fused_heads_backward_smem(
-            dh, rec, int(kern == "heads_bwd_kv_kernel"))
-        _log_resources(f"bwd kernel resources {kern} d={dh} {recipes[rec]}",
-                       chunk, smem)
+    if not _build.build_logs.get("split_heads"):
+        log("attention kernel resources: not measured (split_heads.cu was "
+            "not built in this process)")
     text = _build.build_logs.get("split_heads")
     for chunk in (text or "").split("Compiling entry function")[1:]:
         m = re.search(r"(split_heads_(online|resident|exact)_kernel)ILi(\d+)E",
@@ -1801,6 +1784,196 @@ def attention_forward_phase(gen, check_twin=True):
         del qkv, got
         torch.cuda.empty_cache()
     return out
+
+
+# The bf16 attention backward (heads_bwd.cuh's heads_bwd_q_kernel and
+# heads_bwd_kv_kernel) at each path's call: (what, entry, B, N, heads, head
+# width). "block" is #3's attention VJP alone (dit_block_attention_bwd_bf16:
+# q, k, v read in place from qkv at row stride 3D, dq, dk, dv written into
+# the column slices of dqkv, on block_attn_stats), "pipelined" #11 (the
+# scaled train step's recipe), "two_pass" #12, "lean" #13 and
+# "lean_two_pass" #14 (from #10's o and lse), the last four on the column
+# slices of one qkv.
+ATTN_BWD_SHAPES = (
+    ("flagship train #3 (B=1024)", "block", 1024, 480, 4, 32),
+    ("motion train #3 N=1024 (B=512)", "block", 512, 1024, 4, 32),
+    ("motion train #3 N=800 (B=512)", "block", 512, 800, 4, 32),
+    ("scaled #11 (B=64)", "pipelined", 64, 1024, 8, 64),
+    ("long series #12 (B=8)", "two_pass", 8, 4096, 4, 32),
+    ("scaled #13 (B=64)", "lean", 64, 1024, 8, 64),
+    ("long series #14 (B=8)", "lean_two_pass", 8, 4096, 4, 32),
+    ("head width 16, #3 (B=1024)", "block", 1024, 480, 8, 16),
+    ("head width 128, #11 (B=64)", "pipelined", 64, 1024, 4, 128),
+)
+ATTN_BWD_TOL = 3e-2   # bf16, of max|twin|: rounding flips of e, p and ds
+BWD_PARTS = ("heads_bwd_q_kernel", "heads_bwd_kv_kernel")
+
+
+def _chunked(fn, B, step):
+    """fn(i, j) over batch slices [i, j) of ``step``, the results of each
+    position concatenated along the batch (the twins at full size)."""
+    parts = [fn(i, min(i + step, B)) for i in range(0, B, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def attention_backward_call(entry, qkv, g, heads):
+    """The backward at one path's call on a (B, N, 3D) bf16 qkv and g (B, N,
+    D), through the entry that path launches: (run, twin, stats bytes),
+    run() and twin() each returning (dq, dk, dv)."""
+    from t2ms_tpu_torch.ops import _build
+    from t2ms_tpu_torch.ops import attention as ta
+    from t2ms_tpu_torch.ops import dit_block as tb
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    step = max(1, (1 << 28) // (heads * N * N))   # twin rows of 1 GiB f32
+    if entry == "block":
+        qscale = float(torch.tensor((D // heads) ** -0.5, dtype=qkv.dtype))
+        m, r, delta = _chunked(lambda i, j: tb.block_attn_stats(
+            q[i:j], k[i:j], v[i:j], g[i:j], heads, qscale), B, step)
+        st = torch.stack([m, 1.0 / r, delta], dim=-1).contiguous()
+        dqkv = torch.empty_like(qkv)
+
+        def run():
+            _build.launch(_build.load("dit_block_bwd"),
+                          "dit_block_attention_bwd_bf16",
+                          "dit_block_attention_bwd",
+                          ValueError("dit_block_attention_bwd refused"),
+                          qkv.device, qkv, g, st, dqkv, B, N, D, heads,
+                          qscale)
+            return dqkv[..., :D], dqkv[..., D:2 * D], dqkv[..., 2 * D:]
+        return run, lambda: _chunked(lambda i, j: tb.block_attn_bwd_reference(
+            q[i:j], k[i:j], v[i:j], g[i:j], m[i:j], r[i:j], delta[i:j],
+            qscale), B, step), _nbytes(st)
+    if entry.startswith("lean"):
+        o, lse = ta.fused_heads_attention_with_stats(q, k, v, heads)
+        fn = (ta.fused_heads_attention_bwd_lean_two_pass
+              if entry == "lean_two_pass"
+              else ta.fused_heads_attention_bwd_lean)
+        twin = ta.fused_heads_bwd_lean_reference
+        return (lambda: fn(q, k, v, g, o, lse, heads),
+                lambda: _chunked(lambda i, j: twin(
+                    q[i:j], k[i:j], v[i:j], g[i:j], o[i:j], lse[i:j], heads),
+                    B, step), _nbytes(o, lse))
+    if entry == "two_pass":
+        return (lambda: ta.fused_heads_attention_bwd_two_pass(q, k, v, g,
+                                                              heads),
+                lambda: _chunked(
+                    lambda i, j: ta.fused_heads_bwd_two_pass_reference(
+                        q[i:j], k[i:j], v[i:j], g[i:j], heads), B, step), 0)
+    return (lambda: ta.fused_heads_attention_bwd(q, k, v, g, heads,
+                                                 pipelined=True),
+            lambda: _chunked(lambda i, j: ta.fused_heads_bwd_reference(
+                q[i:j], k[i:j], v[i:j], g[i:j], heads), B, step), 0)
+
+
+def attention_backward_phase(gen, check_twin=True):
+    """heads_bwd_q_kernel and heads_bwd_kv_kernel at every path shape of
+    ATTN_BWD_SHAPES: dq, dk, dv against the twin (tol ATTN_BWD_TOL *
+    max|twin|, correlation >= 0.999), the device time per call of both
+    kernels by torch.profiler, the achieved TFLOP/s of the five N x N x DH
+    products the gradient needs and the share of their bound (operations
+    at the bf16 peak, or the bytes of q, k, v, g, dq, dk, dv and the
+    statistics), the exponent unit's floor (H100_EX2_RATE; three
+    exponentials a score for the pipelined and recompute recipes, two for
+    the lean and block ones) and torch SDPA's forward + backward minus its
+    forward on the head-split views (yardstick only). Returns {what: row}."""
+    import torch.nn.functional as F
+    out = {}
+    for what, entry, B, N, H, dh in ATTN_BWD_SHAPES:
+        D = H * dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        g = torch.randn(B, N, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        run, twin, stat_bytes = attention_backward_call(entry, qkv, g, H)
+        with torch.no_grad():
+            got = run()
+            torch.cuda.synchronize()
+            if check_twin:
+                for name, a, w in zip(("dq", "dk", "dv"), got, twin()):
+                    _check_err(f"attention backward {what} {name}", a, w,
+                               ATTN_BWD_TOL)
+                torch.cuda.synchronize()
+            del got
+            times = device_ms_by_kernel(run, BWD_PARTS)
+        ms = (times.get(BWD_PARTS[0], 0.0) + times.get(BWD_PARTS[1], 0.0)
+              or None)
+        split = lambda t: t.view(B, N, H, dh).transpose(1, 2).detach() \
+            .requires_grad_()
+        qh, kh, vh = (split(qkv[..., i * D:(i + 1) * D]) for i in range(3))
+        gh = g.view(B, N, H, dh).transpose(1, 2)
+        fwd = device_ms_all(lambda: F.scaled_dot_product_attention(qh, kh,
+                                                                   vh))
+        both = device_ms_all(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), gh))
+        lib_ms = (sum(both.values()) - sum(fwd.values())
+                  if fwd and both else None)
+        fl = 10 * B * H * N * N * dh
+        nb = 7 * B * N * D * 2 + stat_bytes
+        t_ops, t_bytes = fl / H100_BF16_FLOPS * 1e3, nb / H100_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        n_exp = 3 if entry in ("pipelined", "two_pass") else 2
+        exp_floor = n_exp * B * H * N * N / H100_EX2_RATE * 1e3
+        row = dict(ms=ms, q_ms=times.get(BWD_PARTS[0]),
+                   kv_ms=times.get(BWD_PARTS[1]),
+                   tflops=fl / ms / 1e9 if ms else None, bound=bound,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   exp_floor=exp_floor, sdpa=lib_ms)
+        out[what] = row
+        if ms:
+            log(f"attention backward {what} N={N} {H}x{dh}: device "
+                f"{ms:.4f} ms (q {row['q_ms']:.4f}, kv {row['kv_ms']:.4f}), "
+                f"{fl / ms / 1e9:.2f} TFLOP/s, {bound / ms:.2%} of its bound "
+                f"{bound:.4f} ms ({row['bound_by']}), exponent floor "
+                f"{exp_floor:.4f} ms ({exp_floor / ms:.2%}), SDPA fwd+bwd-fwd "
+                f"device {lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+        else:
+            log(f"attention backward {what}: device time not measured (no "
+                "device time recorded)")
+        del qkv, g, run, twin, qh, kh, vh, gh
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_bwd_resources():
+    """Every heads_bwd_q_kernel and heads_bwd_kv_kernel instance of this
+    run's builds (fused_heads: the pipelined, recompute and lean recipes at
+    head widths 32, 64, 128; dit_block_bwd: the block recipe at 16 to 128):
+    ptxas's registers, spills and shared memory, checked to spill nothing
+    and to draw no C7512 ("wgmma serialized")."""
+    from t2ms_tpu_torch.ops import _build
+    recipes = ("pipelined", "recompute", "lean", "block")
+    seen = 0
+    for name in ("fused_heads", "dit_block_bwd"):
+        text = _build.build_logs.get(name)
+        if not text:
+            log(f"heads_bwd resources: not measured ({name}.cu was not built "
+                "in this process)")
+            continue
+        serial = [l_ for l_ in text.splitlines()
+                  if "C7512" in l_ and "heads_bwd_" in l_]
+        check(not serial, f"ptxas serialized a heads_bwd kernel's wgmma in "
+              f"{name}.cu (C7512): " + "; ".join(serial))
+        lib = _build.load(name)
+        for chunk in text.split("Compiling entry function")[1:]:
+            m = re.search(r"(heads_bwd_(q|kv)_kernel)ILi(\d+)ELi(\d+)E",
+                          chunk.split("\n")[0])
+            if m is None:
+                continue
+            dh, rec = int(m.group(3)), int(m.group(4))
+            kv = int(m.group(2) == "kv")
+            smem = (lib.fused_heads_backward_smem(dh, rec, kv)
+                    if name == "fused_heads" else
+                    lib.dit_block_bwd_smem(4 + kv, D_MODEL, HIDDEN,
+                                           D_MODEL // dh))
+            what = f"{m.group(1)}<{dh}, {recipes[rec]}>"
+            _log_resources(f"{what} in {name}.cu", chunk, smem)
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                 chunk)]
+            check(not any(spills), f"{what} in {name}.cu spills {spills}")
+            seen += 1
+    log(f"heads_bwd resources: {seen} instances, no spills and no C7512")
 
 
 def log_fwd_sass():
@@ -4527,6 +4700,7 @@ def parallel_phase(seed):
     from t2ms_tpu_torch.serving import ServingEngine
     from t2ms_tpu_torch.training import (ScheduledAdamW,
                                          make_denoiser_train_step)
+    from t2ms_tpu_torch.utils.prng import torch_seed
     t_phase = time.perf_counter()
     W = torch.cuda.device_count()
     inp = flagship_inputs(seed, W)
@@ -4592,7 +4766,7 @@ def parallel_phase(seed):
     held("train", "train step", loss, sd, grads)
     for accum, tag in ((1, "train_dp"), (2, "train_dp_accum2")):
         gen = torch.Generator(device=dev)
-        gen.manual_seed(batch_seed(cfg["train_seed"], 0))
+        gen.manual_seed(torch_seed(batch_seed(cfg["train_seed"], 0)))
         held(tag, f"generator-drawn train step, accum_steps={accum}",
              *plain_step(accum, generator=gen)[:3])
     n_plan = rec["launches"]["train"]
@@ -4738,16 +4912,42 @@ def attention_forward_only(seed, root):
     return 0
 
 
+def attention_backward_only(seed, root):
+    """The attention backward's section alone, on this tree's package or
+    on ``root``'s: the card, the build of fused_heads.cu and
+    dit_block_bwd.cu with their heads_bwd resources, then
+    attention_backward_phase; the last line is {"attention_backward":
+    {what: row}, "root": ...}."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    from t2ms_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"card: {smi}; package {os.path.dirname(_build.__file__)}")
+    log(f"build: {_build.build_all(['fused_heads', 'dit_block_bwd'])}")
+    check_bwd_resources()
+    rows = attention_backward_phase(
+        torch.Generator(device="cuda").manual_seed(seed + 21))
+    print(json.dumps({"attention_backward": rows, "root": root or ".",
+                      "card": smi}), flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attention_forward", action="store_true",
                     help="build, then run only the attention forward's "
                     "section, its last line a JSON of each path shape's row")
+    ap.add_argument("--attention_backward", action="store_true",
+                    help="build, then run only the attention backward's "
+                    "section, its last line a JSON of each path shape's row")
     ap.add_argument("--root", default=None,
-                    help="with --attention_forward: import t2ms_tpu_torch "
-                    "from this tree (another checkout, to time it beside "
-                    "this one)")
+                    help="with --attention_forward or --attention_backward: "
+                    "import t2ms_tpu_torch from this tree (another checkout, "
+                    "to time it beside this one)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -4755,6 +4955,8 @@ def main(argv=None):
         return 1
     if args.attention_forward:
         return attention_forward_only(args.seed, args.root)
+    if args.attention_backward:
+        return attention_backward_only(args.seed, args.root)
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (
         FLASH_KERNEL, FUSED_HEADS_BWD_KERNEL, FUSED_HEADS_KERNEL,
@@ -4788,11 +4990,15 @@ def main(argv=None):
     log_split_resources()
     log_mod_ln_resources()
     check_fwd_resources()
+    check_bwd_resources()
     log_fwd_sass()
     log_exp_floors()
-    # its own generator, so that the later phases draw what they drew before
+    # their own generators, so that the later phases draw what they drew
+    # before
     attention_forward_phase(
         torch.Generator(device="cuda").manual_seed(args.seed + 20))
+    attention_backward_phase(
+        torch.Generator(device="cuda").manual_seed(args.seed + 21))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

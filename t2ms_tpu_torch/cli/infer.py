@@ -42,6 +42,7 @@ from t2ms_tpu_torch.sampling import decode_trajectory, make_cfg_sampler
 from t2ms_tpu_torch.training import checkpoints as ckpt
 from t2ms_tpu_torch.training.ema import load_ema_for_inference
 from t2ms_tpu_torch.training.scaling import parse_dtype, setup_scaling
+from t2ms_tpu_torch.utils.prng import torch_seed
 from t2ms_tpu_torch.visualize.diagnostics import (plot_generation_figs,
                                                   save_diffusion_gif)
 
@@ -200,7 +201,8 @@ def infer(args, run_dir: str, seed_offset: int = 0, collect_gif=True,
         if args.max_batches and b >= args.max_batches:
             break
         print(f"Generating {b}th Batch TS...")
-        gen.manual_seed(batch_seed(args.general_seed + seed_offset, b))
+        gen.manual_seed(
+            torch_seed(batch_seed(args.general_seed + seed_offset, b)))
         x_in = np.asarray(batch.x, np.float32)
         e_in = np.asarray(batch.embedding, np.float32)
         mesh = ctx["plan"].mesh

@@ -44,6 +44,7 @@ from t2ms_tpu_torch.sampling import make_cfg_sampler
 from t2ms_tpu_torch.training import checkpoints as ckpt
 from t2ms_tpu_torch.training.ema import load_ema_for_inference
 from t2ms_tpu_torch.training.scaling import parse_dtype
+from t2ms_tpu_torch.utils.prng import torch_seed
 from t2ms_tpu_torch.visualize.benchpress import (RearV_BenchpressAnimator,
                                                  TopV_BenchpressAnimator)
 from t2ms_tpu_torch.visualize.diagnostics import (plot_pca_tsne,
@@ -177,7 +178,8 @@ def infer(args, run_dir: str, seed_offset: int = 0, ctx=None):
                 device=ctx["device"])
         emb = (embedder.embed(batch.texts) if embedder is not None
                else batch.embedding)
-        gen.manual_seed(batch_seed(args.general_seed + seed_offset, b))
+        gen.manual_seed(
+            torch_seed(batch_seed(args.general_seed + seed_offset, b)))
         out = samplers[length](np.asarray(batch.x, np.float32),
                                np.asarray(emb, np.float32), generator=gen)
         x1 = np.asarray(batch.x)

@@ -44,6 +44,7 @@ from t2ms_tpu_torch.training.trainer import (make_denoiser_train_step,
                                              precompute_latent_buckets)
 from t2ms_tpu_torch.utils.logging import (JsonlLogger, StepTimer,
                                           plot_loss_curve, profile_trace)
+from t2ms_tpu_torch.utils.prng import torch_seed
 from t2ms_tpu_torch.visualize.diagnostics import skipped
 
 
@@ -191,7 +192,8 @@ def _run_epochs(args, batcher, step_fn, denoiser, opt, dev, logger, timer,
         # losses stay on the device until the epoch ends (one transfer)
         losses = []
         for _, (x, emb) in staged:
-            gen.manual_seed(batch_seed(args.general_seed, step_no))
+            gen.manual_seed(
+                torch_seed(batch_seed(args.general_seed, step_no)))
             losses.append(step_fn(x, emb, generator=gen))
             if ema_update is not None:
                 ema_update(ema, denoiser)

@@ -41,6 +41,7 @@ from t2ms_tpu_torch.training.optim import warmup_cosine_adamw
 from t2ms_tpu_torch.training.trainer import make_vae_train_step
 from t2ms_tpu_torch.utils.logging import (JsonlLogger, StepTimer,
                                           plot_loss_curve)
+from t2ms_tpu_torch.utils.prng import torch_seed
 from t2ms_tpu_torch.visualize.diagnostics import plot_pca_tsne, skipped
 
 
@@ -84,7 +85,8 @@ class _TSaeStep:
         self.steps = 0
 
     def __call__(self, x):
-        self.gen.manual_seed(batch_seed(self.seed, self.steps))
+        self.gen.manual_seed(
+            torch_seed(batch_seed(self.seed, self.steps)))
         self.opt.zero_grad(set_to_none=True)
         loss, _ = tsae_loss(self.model, x,
                             self.model.dropout_draws(generator=self.gen))

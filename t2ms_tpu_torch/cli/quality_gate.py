@@ -22,7 +22,8 @@ torch cannot draw threefry's numbers, so each JAX key is a torch seed of
 ``utils/prng.py``: the VAE's init from ``root_key(0)``, the denoiser's
 from ``root_key(1)``, step i's draws from ``root_key(i)``, every
 sampler's from ``root_key(42)``, the TSae's dropout at step s from
-``step_key(root_key(777), s)``. A run repeats on one device.
+``step_key(root_key(777), s)``, each through ``torch_seed``. A run
+repeats on one device.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from t2ms_tpu_torch.training.ema import setup_cli_ema
 from t2ms_tpu_torch.training.optim import onecycle_adamw, warmup_cosine_adamw
 from t2ms_tpu_torch.training.trainer import (make_denoiser_train_step,
                                              make_vae_train_step)
-from t2ms_tpu_torch.utils.prng import root_key, step_key
+from t2ms_tpu_torch.utils.prng import root_key, step_key, torch_seed
 
 __all__ = ["build_bucket_schedule", "make_batch", "noise_floor",
            "summarize", "gate", "main"]
@@ -215,7 +216,7 @@ def _build_models(args, dev):
     multivariate = n_feat > 1
     latent_len = args.latent_grid or (
         64 if multivariate else (6 if args.denoiser == "MLP" else 30))
-    torch.manual_seed(root_key(0))
+    torch.manual_seed(torch_seed(root_key(0)))
     if args.vae_kind == "tsae":
         vae = TSaeDiffusion(n_features=n_feat, flow_dim=64, device=dev)
         latent_len = T_SERIES            # the memory latent is (B, 64, T)
@@ -226,7 +227,7 @@ def _build_models(args, dev):
     else:
         vae = LAVAE(in_channels=1, latent_grid=latent_len, device=dev)
     cdt = torch.float32 if args.f32 else torch.bfloat16
-    torch.manual_seed(root_key(1))
+    torch.manual_seed(torch_seed(root_key(1)))
     if args.denoiser == "DiT":
         dit = DiT(latent_len=latent_len, latent_dim=64, compute_dtype=cdt,
                   attention_impl=args.attention_impl, device=dev)
@@ -248,7 +249,7 @@ def _vae_step(args, vae, dev):
     gen = torch.Generator(device=dev)
 
     def tsae_step(i, x):
-        gen.manual_seed(step_key(root_key(777), i))
+        gen.manual_seed(torch_seed(step_key(root_key(777), i)))
         opt.zero_grad(set_to_none=True)
         loss, (re, _) = tsae_adapter_loss(
             vae, torch.as_tensor(x, device=dev),
@@ -288,7 +289,8 @@ def main(argv=None, device=None) -> int:
     t0 = time.perf_counter()
     for i in range(args.steps):
         x, e, _ = batch(1000 + i, B, schedule[i % len(schedule)])
-        dloss = dstep(x, e, generator=gen.manual_seed(root_key(i)))
+        dloss = dstep(x, e, generator=gen.manual_seed(
+            torch_seed(root_key(i))))
         if ema_update is not None:
             ema_update(ema, dit)
         if i % 300 == 0:
@@ -320,7 +322,7 @@ def main(argv=None, device=None) -> int:
                                    device=dev)
         x_gt, e_gt, _ = evals[L]
         out = sampler(x_gt, e_gt, generator=torch.Generator(
-            device=dev).manual_seed(root_key(42)))
+            device=dev).manual_seed(torch_seed(root_key(42))))
         return out.series.float().cpu().numpy()
 
     def to_ntd(a):

@@ -38,6 +38,7 @@ from t2ms_tpu_torch.training.trainer import (make_denoiser_train_step,
                                              precompute_latent_buckets)
 from t2ms_tpu_torch.utils.logging import (JsonlLogger, StepTimer,
                                           profile_trace)
+from t2ms_tpu_torch.utils.prng import torch_seed
 
 
 def get_args(argv=None):
@@ -182,7 +183,8 @@ def _run_epochs(args, batcher, step_fn, denoiser, opt, dev, logger, timer,
         # losses stay on the device until the epoch ends (one transfer)
         epoch_losses = []
         for i, (_, (x, emb)) in enumerate(staged):
-            gen.manual_seed(batch_seed(args.general_seed, step_no))
+            gen.manual_seed(
+                torch_seed(batch_seed(args.general_seed, step_no)))
             loss = step_fn(x, emb, generator=gen)
             if ema_update is not None:
                 ema_update(ema, denoiser)

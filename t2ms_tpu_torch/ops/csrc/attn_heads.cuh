@@ -224,8 +224,7 @@ heads_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TC_NT = 128;  // threads per block: 4 warps of 16 rows
-constexpr int TC_R = 64;    // rows of a block's own tile, k rows a step
+constexpr int TC_R = 64;  // keys a tile of the forward's and backward's rings
 
 // Block -> (element b, tile, head h), the tile fastest, so the blocks of
 // one (element, head) run together and share its operands in L2
@@ -249,17 +248,12 @@ __host__ __device__ constexpr size_t tc_tile(int rows, int DH) {
 __device__ __forceinline__ uint32_t sm_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// 16 (or 4) bytes from device to shared memory, asynchronously; zeros when
+// 16 bytes from device to shared memory, asynchronously; zeros when
 // !ok (src is then not read)
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    sm_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   sm_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -565,20 +559,22 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tmap_encoder() {
   return encode;
 }
 
-// K or V of every (element, head) on the natural (B, N, HD) layout (row
-// stride sn, batch stride sb, in elements) for tma_load4: dimensions (the 8
-// columns of a 16-byte chunk, N rows, HD / 8 chunks, B), boxes of 64 rows x
-// one head's DH / 8 chunks. A box lands chunk by chunk, each chunk's 64 rows
-// of 16 bytes contiguous: wgmma's core matrices without swizzle (fwd_kt,
-// fwd_vt), rows past N zero. False when the encoder is missing or refuses.
+// One operand (q, k, v, g) of every (element, head) on the natural (B, N,
+// HD) layout (row stride sn, batch stride sb, in elements) for tma_load4:
+// dimensions (the 8 columns of a 16-byte chunk, N rows, HD / 8 chunks, B),
+// boxes of `rows` rows (64 unless given) x one head's DH / 8 chunks. A box
+// lands chunk by chunk, each chunk's rows of 16 bytes contiguous: wgmma's
+// core matrices without swizzle (fwd_kt, fwd_vt; the backward's desc_k,
+// desc_t), rows past N zero. False when the encoder is missing or refuses.
 inline bool make_heads_map(CUtensorMap* m, const bf16* p, int B, int N,
-                           int HD, int DH, long long sb, long long sn) {
+                           int HD, int DH, long long sb, long long sn,
+                           int rows = TC_R) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tmap_encoder();
   if (!encode) return false;
   const cuuint64_t dims[4] = {8, (cuuint64_t)N, (cuuint64_t)HD / 8,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, 16, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {8, TC_R, (cuuint32_t)DH / 8, 1};
+  const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)DH / 8, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p),
                 dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -660,7 +656,7 @@ __device__ __forceinline__ void ld_bt(uint32_t (&b)[4], const bf16* t, int ld,
 
 // rows [0, ROWS) of a head slice (row stride sn) into a padded tile,
 // asynchronously, by a block of NTH threads; rows from `valid` on are zeros
-template <int ROWS, int DH, int NTH = TC_NT>
+template <int ROWS, int DH, int NTH>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
                                         long long sn, int valid) {
   constexpr int CH = DH / 8, LD = DH + 8;
@@ -680,112 +676,20 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
   }
 }
 
-// The A fragments of a warp's 16 rows of a fixed [rows][DH] tile, each
-// optionally scaled by a bf16 pair: held in registers up to head width 64,
-// read again at each use at 128 (which keeps the sums in registers).
-template <int DH, bool SCALED> struct RowFrags {
-  static constexpr bool REGS = DH <= 64;
-  uint32_t f[REGS ? DH / 16 : 1][4];
-  const bf16* t;
-  int r0;
-  uint32_t s2;
-  __device__ __forceinline__ void load(uint32_t (&a)[4], int kk) const {
-    ld_a(a, t, DH + 8, r0, kk * 16);
-    if (SCALED) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = mul_bf16x2(a[i], s2);
-    }
-  }
-  __device__ __forceinline__ void init(const bf16* tile, int row0,
-                                       uint32_t scale2) {
-    t = tile;
-    r0 = row0;
-    s2 = scale2;
-    if constexpr (REGS) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) load(f[kk], kk);
-    }
-  }
-  __device__ __forceinline__ void get(uint32_t (&a)[4], int kk) const {
-    if constexpr (REGS) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
-    } else {
-      load(a, kk);
-    }
-  }
-};
-
-// acc[16 x 8 NT] += A[16 x DH] B, B(c, n) = t[n][c] for the NT * 8 rows of
-// tile t, its B fragments scaled by the bf16 pair s2 when SB
-template <int DH, int NT, bool SA, bool SB>
-__device__ __forceinline__ void rows_by_tile(float (&acc)[NT][4],
-                                             const RowFrags<DH, SA>& A,
-                                             const bf16* t, uint32_t s2) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    A.get(a, kk);
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t b[4];
-      ld_b(b, t, DH + 8, 16 * p, 16 * kk);
-      if (SB) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) b[i] = mul_bf16x2(b[i], s2);
-      }
-      mma16816(acc[2 * p], a, b[0], b[1]);
-      mma16816(acc[2 * p + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x DH] += P[16 x 16 KK] t[16 KK x DH], P given as KK A fragments,
-// t's B fragments scaled by the bf16 pair s2 when SB
-template <int DH, int KK, bool SB = false>
+// acc[16 x DH] += P[16 x 16 KK] t[16 KK x DH], P given as KK A fragments
+template <int DH, int KK>
 __device__ __forceinline__ void frags_by_tile(float (&acc)[DH / 8][4],
                                               const uint32_t (&P)[KK][4],
-                                              const bf16* t,
-                                              uint32_t s2 = 0u) {
+                                              const bf16* t) {
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
     for (int p = 0; p < DH / 16; ++p) {
       uint32_t b[4];
       ld_bt(b, t, DH + 8, 16 * kk, 16 * p);
-      if (SB) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) b[i] = mul_bf16x2(b[i], s2);
-      }
       mma16816(acc[2 * p], P[kk], b[0], b[1]);
       mma16816(acc[2 * p + 1], P[kk], b[2], b[3]);
     }
-  }
-}
-
-// T(acc * (row's factor)) for a warp's 16 rows into rows [0, 16) of the
-// padded tile O, then rows n0 + r < N out to dst (row stride HD), 16 bytes
-// a lane
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4],
-                                           float f0, float f1, bf16* O,
-                                           bf16* dst, int HD, int rows) {
-  constexpr int LD = DH + 8, CH = DH / 8;
-  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int c = 8 * nt + 2 * tq;
-    *reinterpret_cast<uint32_t*>(O + gr * LD + c) =
-        pack_bf16(acc[nt][0] * f0, acc[nt][1] * f0);
-    *reinterpret_cast<uint32_t*>(O + (gr + 8) * LD + c) =
-        pack_bf16(acc[nt][2] * f1, acc[nt][3] * f1);
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * CH; idx += 32) {
-    const int r = idx / CH, c = idx % CH * 8;
-    if (r < rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)r * HD + c) =
-          *reinterpret_cast<const uint4*>(O + r * LD + c);
   }
 }
 
@@ -830,18 +734,6 @@ __device__ __forceinline__ void mask_tile(float (&s)[8][4], int k0, int N) {
         if (k0 + 8 * nt + 2 * tq + (e & 1) >= N) s[nt][e] = -INFINITY;
     }
   }
-}
-
-// s = T(q * qscale) K^T for the 64 k rows of tile Ks at k0, with the
-// columns past N at -inf
-template <int DH>
-__device__ __forceinline__ void score_tile(float (&s)[8][4],
-                                           const RowFrags<DH, true>& qf,
-                                           const bf16* Ks, int k0, int N) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-  rows_by_tile<DH, 8, true, false>(s, qf, Ks, 0u);
-  mask_tile(s, k0, N);
 }
 
 // pass 1: m = max(m, the thread's scores of each of its two rows)

@@ -65,18 +65,19 @@
 // bound by operations. The cut at the residual boundaries adds the
 // intermediates above, about 2.5 GB written and read (0.75 ms at 3.35
 // TB/s), so a realistic floor is near 2 ms. What the design does about it:
-// - every product is mma.sync m16n8k16 with the sums in registers and the
-//   operands through ldmatrix (.trans where read k-major); no f32 tile of a
-//   product goes through shared memory except dz, which the LayerNorm VJP
-//   reads by row;
+// - every dense product is mma.sync m16n8k16 with the sums in registers
+//   and the operands through ldmatrix (.trans where read k-major); no f32
+//   tile of a product goes through shared memory except dz, which the
+//   LayerNorm VJP reads by row;
 // - the MLP half keeps z2, a1, h1, h2, dh2 and da1 of its 64 rows in shared
 //   memory through all four products (two blocks an SM), and writes z2, h1,
 //   dh2 and da1 once for the weight grads;
 // - the weights stream through tile_gemm's cp.async rings; the four that
 //   are multiplied transposed are copied transposed once a call;
-// - the attention VJP streams K/V (q kernel) and q/do (kv kernel) tiles of
-//   one head through cp.async rings with S, dP, e and ds in registers, one
-//   pass over the k tiles (the statistics come from the recompute);
+// - the attention VJP (heads_bwd.cuh's BLOCK recipe) runs on wgmma: K/V
+//   (q kernel) and q/do (kv kernel) tiles of one head come in by TMA,
+//   shared by two warpgroups, with S, dP, e and ds in registers, one pass
+//   over the k tiles (the statistics come from the recompute);
 // - the weight grads run 128 x 128 output tiles over about 256 row splits,
 //   so A and G are read once a tile column (L2 catches the rest).
 // Probes on an H100 chose the rings (two stages of 32 weight rows in the
@@ -1281,16 +1282,16 @@ inline cudaError_t launch_block_attn_bwd(const bf16* qkv, const bf16* dO,
   a.scale = a.qscale = qscale;
   a.ldo = 3 * D;
   switch (D / H) {
-    case 16: return launch_bwd_mma<16, BLOCK>(a, s);
-    case 32: return launch_bwd_mma<32, BLOCK>(a, s);
-    case 64: return launch_bwd_mma<64, BLOCK>(a, s);
-    default: return launch_bwd_mma<128, BLOCK>(a, s);
+    case 16: return launch_bwd_bf16<16, BLOCK>(a, s);
+    case 32: return launch_bwd_bf16<32, BLOCK>(a, s);
+    case 64: return launch_bwd_bf16<64, BLOCK>(a, s);
+    default: return launch_bwd_bf16<128, BLOCK>(a, s);
   }
 }
 
 // whether the bf16 kernels above take the attention VJP's grid
 inline bool block_attn_grid_ok(int B, int N, int H) {
-  return (long long)B * ((N + TC_R - 1) / TC_R) * H <= INT_MAX;
+  return bwd_blocks(B, N, H) <= INT_MAX;
 }
 
 // check_shape (the forward kernels) plus the backward kernels' shared memory:

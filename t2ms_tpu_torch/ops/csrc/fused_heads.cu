@@ -65,28 +65,15 @@
 // are bound by operations. The forward's two products at the scaled call
 // are 137.4 GFLOP, 0.139 ms, against 268 MB, 0.080 ms: operations again.
 //
-// The bf16 forward and backward run on the same register-resident
-// mma.sync tiles fed by cp.async (attn_heads.cuh holds the primitives and
-// the forward's note). The forward keeps S in accumulators, takes the row
-// max over the lanes that hold a row, and packs e where it is formed as
-// the A operand of O = e V; it shares the row-max pass and the formation
-// of e and r with the backward's q-tile kernel, so both compute one e.
-//
-// What the bf16 backward's design does about what held the earlier WMMA
-// kernels to about 2% of that bound:
-// - scores through shared memory: S and dP stay in mma.sync accumulators,
-//   e and ds are formed there and packed as the next product's A operand;
-//   no f32 score tile, no per-element index division;
-// - copies that waited: every streamed tile comes in through cp.async into
-//   a two-stage ring, and q, k, v stay column slices read in place (16-byte
-//   rows, checked by the launcher);
-// - per-q-row work in every k block: T(q * scale / r) and T(g / r) are
-//   formed once in the q kernel; the kv kernel streams them and scales the
-//   unscaled q to T(q * qscale) on its ldmatrix fragments (one bf16x2
-//   multiply a register, the same single rounding);
-// - products: the statistics fold into the q kernel (one launch and one q/g
-//   load fewer); the count stays 10 (7 lean), since an exact row max needs
-//   its own pass.
+// The bf16 forward and backward run on wgmma with their streamed tiles
+// by TMA (attn_heads.cuh holds the shared primitives and the forward's
+// note, heads_bwd.cuh the backward's): 128-row blocks of two warpgroups
+// that share each streamed tile, S and dP in accumulator registers, e and
+// ds packed where they are formed as the next product's A operand, and
+// one formula for e in both directions (exp_rounded2). The q-tile kernel
+// also forms T(q * scale / r) and T(g / r) once per q row for the
+// pipelined recipe, which the kv kernel streams; the product count stays
+// 10 (7 lean), since an exact row max needs its own pass.
 //
 // C interface for ctypes: fused_heads_forward_{bf16,f32},
 // fused_heads_forward_stats_{bf16,f32} (with the lse output),
@@ -413,9 +400,9 @@ template <typename T, int DH>
 cudaError_t launch_recipe(const BwdArgs<T>& a, Recipe rec, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
     switch (rec) {
-      case PIPE: return launch_bwd_mma<DH, PIPE>(a, st);
-      case RECOMP: return launch_bwd_mma<DH, RECOMP>(a, st);
-      default: return launch_bwd_mma<DH, LEAN>(a, st);
+      case PIPE: return launch_bwd_bf16<DH, PIPE>(a, st);
+      case RECOMP: return launch_bwd_bf16<DH, RECOMP>(a, st);
+      default: return launch_bwd_bf16<DH, LEAN>(a, st);
     }
   } else {
     switch (rec) {
@@ -434,9 +421,9 @@ long long stats_bytes(int B, int N, int H) {
 
 // 0 when the kernels take H*DH = HD in H heads on the current device,
 // T2MS_UNSUPPORTED_SHAPE when they do not, else the CUDA error of the query.
-// The head width is 32, 64 or 128 (the bf16 kernels hold a warp's rows of
-// a head in registers as 16-wide ldmatrix tiles, the f32 forward splits a
-// head's columns over two warps); every kernel's shared memory fits what
+// The head width is 32, 64 or 128 (the width JAX's fused-heads route
+// takes; the f32 forward splits a head's columns over two warps); every
+// kernel's shared memory fits what
 // one block may opt in to on this device.
 template <typename T> int check_heads(int HD, int H) {
   if (H < 1 || HD < 1 || HD % H) return T2MS_UNSUPPORTED_SHAPE;

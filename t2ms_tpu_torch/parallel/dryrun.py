@@ -145,6 +145,7 @@ def check_train_dp(inp, cfg, dev, world):
     from t2ms_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from t2ms_tpu_torch.training import (ScheduledAdamW,
                                          make_denoiser_train_step)
+    from t2ms_tpu_torch.utils.prng import torch_seed
     mesh = make_mesh(data=world, model=1)
     x, emb = shard_batch(mesh, (inp["train_x"], inp["train_emb"]))
     out = {}
@@ -156,7 +157,7 @@ def check_train_dp(inp, cfg, dev, world):
                                         accum_steps=accum, device=dev,
                                         mesh=mesh)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(batch_seed(cfg["train_seed"], 0))
+        gen.manual_seed(torch_seed(batch_seed(cfg["train_seed"], 0)))
         loss = step(_t(x, dev), _t(emb, dev), generator=gen)
         out[f"{tag}_loss"] = _np(loss)
         out.update({f"{tag}_param.{k}": _np(v)
@@ -244,6 +245,7 @@ def check_infer(inp, cfg, dev, world):
     from t2ms_tpu_torch.cli.infer import _sample_sharded
     from t2ms_tpu_torch.parallel.mesh import make_mesh
     from t2ms_tpu_torch.sampling import make_cfg_sampler
+    from t2ms_tpu_torch.utils.prng import torch_seed
     mesh = make_mesh(data=world, model=1)
     dit, vae = _models(inp, cfg, dev, _dtype(cfg["serve_dtype"]))
     sampler = make_cfg_sampler(dit, vae, "ddpm", cfg["infer_steps"],
@@ -251,7 +253,7 @@ def check_infer(inp, cfg, dev, world):
     args = Namespace(backbone="ddpm", solver="euler",
                      total_step=cfg["infer_steps"])
     gen = torch.Generator(device=dev)
-    gen.manual_seed(batch_seed(cfg["train_seed"], 1))
+    gen.manual_seed(torch_seed(batch_seed(cfg["train_seed"], 1)))
     out = _sample_sharded(sampler, vae, args, mesh, inp["samp_x"],
                           inp["samp_emb"], gen, dev)
     return {f"infer_{k}": _np(getattr(out, k))

@@ -7,6 +7,9 @@ named fold of it) and whose low 32 bits hold the step. ``step_key(
 root_key(seed), i)`` is the seed of the CLIs' draw i, so a run that
 resumes at an optimizer step draws what the uninterrupted run would have;
 ``named_fold`` hashes JAX's sha256 tag of the name into a new stream.
+A key seeds a generator only through ``torch_seed``: torch's CPU
+generator (mt19937) keeps a seed's low 32 bits alone, and a key's stream
+lives in its high word.
 """
 
 from __future__ import annotations
@@ -14,9 +17,10 @@ from __future__ import annotations
 import hashlib
 
 __all__ = ["root_key", "step_key", "named_fold", "name_tag",
-           "seed_everything"]
+           "seed_everything", "torch_seed"]
 
 _LOW = 0xFFFFFFFF
+_M64 = 0xFFFFFFFFFFFFFFFF
 
 
 def seed_everything(seed) -> int:
@@ -68,3 +72,16 @@ def name_tag(name: str) -> int:
 def named_fold(key: int, name: str) -> int:
     """Deterministically derive a stream from a string tag."""
     return _stream(key, name_tag(name)) << 32
+
+
+def torch_seed(key: int) -> int:
+    """The seed that ``manual_seed`` takes for ``key``: the splitmix64
+    finaliser of the key, cut to 63 bits. Every bit of the key reaches the
+    low 32 bits, which are all that torch's CPU generator keeps, so two
+    streams, or two steps of one, draw apart on the CPU as on the card. A
+    pure function of the key: a resumed run draws what the uninterrupted
+    one would."""
+    z = (int(key) + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1

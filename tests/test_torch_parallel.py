@@ -49,6 +49,7 @@ from t2ms_tpu_torch.data.prefetch import prefetch_to_device
 from t2ms_tpu_torch.sampling import make_cfg_sampler
 from t2ms_tpu_torch.serving import ServingEngine
 from t2ms_tpu_torch.training import ScheduledAdamW, make_denoiser_train_step
+from t2ms_tpu_torch.utils.prng import torch_seed
 
 W = 4
 L, C, D, DEPTH, HEADS, T = 6, 8, 32, 2, 4, 24
@@ -295,7 +296,8 @@ def runs(tmp_path_factory):
     opt = ScheduledAdamW(dit.parameters(), lambda _: cfg["lr"])
     step = make_denoiser_train_step(dit, vae, opt, "flowmatching",
                                     cfg["train_total_step"], device=dev)
-    gen = torch.Generator().manual_seed(batch_seed(cfg["train_seed"], 0))
+    gen = torch.Generator().manual_seed(
+        torch_seed(batch_seed(cfg["train_seed"], 0)))
     ref["train_dp_loss"] = float(step(_t(inp["train_x"], dev),
                                       _t(inp["train_emb"], dev),
                                       generator=gen))
@@ -306,7 +308,8 @@ def runs(tmp_path_factory):
     step = make_denoiser_train_step(dit, vae, opt, "flowmatching",
                                     cfg["train_total_step"], accum_steps=2,
                                     device=dev)
-    gen = torch.Generator().manual_seed(batch_seed(cfg["train_seed"], 0))
+    gen = torch.Generator().manual_seed(
+        torch_seed(batch_seed(cfg["train_seed"], 0)))
     ref["train_dp_accum2_loss"] = float(step(_t(inp["train_x"], dev),
                                              _t(inp["train_emb"], dev),
                                              generator=gen))
@@ -315,7 +318,8 @@ def runs(tmp_path_factory):
     dit, vae = _models(inp, cfg, dev, torch.float32)
     sampler = make_cfg_sampler(dit, vae, "ddpm", cfg["infer_steps"],
                                cfg["cfg"], out_length=T, device=dev)
-    gen = torch.Generator().manual_seed(batch_seed(cfg["train_seed"], 1))
+    gen = torch.Generator().manual_seed(
+        torch_seed(batch_seed(cfg["train_seed"], 1)))
     out = sampler(inp["samp_x"], inp["samp_emb"], generator=gen)
     ref.update({f"infer_{k}": getattr(out, k).numpy()
                 for k in ("series", "latent", "latent_enc")})

@@ -7,8 +7,9 @@ a directory of its own, and must return the same values and write the
 same files, byte for byte (the cases of the JAX package's
 tests/test_pipeline.py and tests/test_mergers.py). The prng checks: the
 name tag is JAX's, ``seed_everything`` leaves ``random`` and numpy in the
-JAX package's state, and the CLIs' ``batch_seed`` gives the seeds it gave
-before it went through ``utils/prng``."""
+JAX package's state, the CLIs' ``batch_seed`` gives the seeds it gave
+before it went through ``utils/prng``, and ``torch_seed`` makes two keys
+draw apart on torch's CPU generator, which keeps a seed's low 32 bits."""
 
 import importlib.util
 import json
@@ -347,3 +348,41 @@ def test_batch_seed_is_unchanged():
     k = tprng.step_key(tprng.root_key(1), 5)
     assert tprng.step_key(k, 0) != k and tprng.step_key(k, 1) != \
         tprng.step_key(k, 2)
+
+
+def _draw(seed):
+    return torch.randn(8, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("pair", ["root_keys", "named_folds", "batch_seeds",
+                                  "steps"])
+def test_torch_seed_draws_streams_apart(pair):
+    """Two streams seed a CPU generator apart through ``torch_seed``,
+    where the raw keys (low 32 bits zero, or equal) draw the same."""
+    a, b = {"root_keys": (tprng.root_key(0), tprng.root_key(5)),
+            "named_folds": (tprng.named_fold(tprng.root_key(3), "t"),
+                            tprng.named_fold(tprng.root_key(3), "noise")),
+            "batch_seeds": (batch_seed(0, 7), batch_seed(5, 7)),
+            "steps": (batch_seed(0, 1), batch_seed(0, 2))}[pair]
+    assert a != b
+    if pair != "steps":   # the fault: mt19937 keeps the low 32 bits alone
+        assert torch.equal(_draw(a), _draw(b))
+    sa, sb = tprng.torch_seed(a), tprng.torch_seed(b)
+    assert (sa ^ sb) & 0xFFFFFFFF
+    assert not torch.allclose(_draw(sa), _draw(sb))
+
+
+def test_torch_seed_is_a_pure_function_of_the_key():
+    """The same key gives the same seed and draws (a resumed run draws
+    what the uninterrupted one would), every seed fits a generator, and
+    every bit of a key reaches the low 32 bits of its seed."""
+    keys = [tprng.root_key(s) for s in (0, 1, 2025)] + [
+        batch_seed(3, i) for i in (0, 1, 2 ** 31)] + [
+        tprng.named_fold(tprng.root_key(1), "cfg")]
+    for k in keys:
+        s = tprng.torch_seed(k)
+        assert s == tprng.torch_seed(k) and 0 <= s < 2 ** 63
+        assert torch.equal(_draw(s), _draw(tprng.torch_seed(k)))
+    low = lambda k: tprng.torch_seed(k) & 0xFFFFFFFF
+    k = batch_seed(11, 4)
+    assert all(low(k ^ (1 << bit)) != low(k) for bit in range(63))

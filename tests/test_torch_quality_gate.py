@@ -451,3 +451,22 @@ def test_motion_loop_matches_jax_from_jax_weights():
     for name, p in dit.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    rtol=1e-4, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("track", ["t2s", "deadlift"])
+def test_gate_models_init_from_two_streams(monkeypatch, track):
+    """``_build_models`` seeds the VAE's init and the denoiser's from
+    ``root_key(0)`` and ``root_key(1)`` through ``torch_seed``: two seeds
+    whose low 32 bits differ, so the two inits draw apart on the CPU, as
+    JAX's ``key(0)`` and ``key(1)`` do."""
+    from t2ms_tpu_torch.utils.prng import root_key, torch_seed
+    seeds = []
+    real = torch.manual_seed
+    monkeypatch.setattr(q.torch, "manual_seed",
+                        lambda s: seeds.append(s) or real(s))
+    q._build_models(q.get_args(TINY + TRACKS[track]), "cpu")
+    assert seeds == [torch_seed(root_key(0)), torch_seed(root_key(1))]
+    assert (seeds[0] ^ seeds[1]) & 0xFFFFFFFF
+    draws = [torch.randn(16, generator=torch.Generator().manual_seed(s))
+             for s in seeds]
+    assert not torch.allclose(draws[0], draws[1])
