@@ -16,8 +16,10 @@ failing with a non-zero exit on any error:
    recipe, as built into csrc/fused_heads.cu and, the block recipe, into
    csrc/dit_block_bwd.cu), checked to spill nothing and to draw no ptxas
    C7512, and of the stack's
-   tensor-core row kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel``,
-   ``proj_mlp_tc_kernel``), as built into csrc/dit_stack.cu, and of the
+   persistent wgmma row kernels (csrc/dit_layer.cuh:
+   ``modln_qkv_tc_kernel<D>``, ``proj_mlp_tc_kernel<D, MLP>`` at D 64, 128
+   and 192, as built into csrc/dit_stack.cu and csrc/dit_block_bwd.cu),
+   checked to spill nothing and to draw no C7512, and of the
    bf16 block backward's own
    kernels (csrc/dit_block_bwd.cu: ``mlp_bwd_tc_kernel``,
    ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``),
@@ -40,7 +42,14 @@ failing with a non-zero exit on any error:
    #13, #14, head widths 16 and 128), dq, dk, dv against the twin, with the
    device time of both kernels by profiler, TFLOP/s, share of its bound,
    the exponent floor and SDPA's forward + backward minus forward
-   (``--attention_backward [--root DIR]`` runs only this section);
+   (``--attention_backward [--root DIR]`` runs only this section); then
+   the stack's two row kernels at each path's call through the public
+   entries (``ROW_SHAPES``: #1 at the CFG call, #2 and #3's recompute at
+   the train and motion calls, D 192 with the weights streamed, a ragged
+   call of one tile), the forwards' outputs against the twin, each
+   kernel's device time by profiler, its operations and bytes, the share
+   of its bound and cuBLAS over its products (``--row_gemms [--root DIR]``
+   runs only this section);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -1356,31 +1365,45 @@ def _log_resources(what, chunk, smem):
 
 def log_stack_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    stack's row GEMM kernels as built into csrc/dit_stack.cu
-    (``modln_qkv_tc_kernel``, ``proj_mlp_tc_kernel`` with and without the
-    MLP half), with their dynamic shared memory at the main path's widths
-    (``dit_stack_smem``); its attention, ``check_fwd_resources``."""
+    forward row kernels (csrc/dit_layer.cuh: ``modln_qkv_tc_kernel<D>``,
+    ``proj_mlp_tc_kernel<D, MLP>`` with and without the MLP half, at D 64,
+    128 and 192) as built into csrc/dit_stack.cu and csrc/dit_block_bwd.cu,
+    with their dynamic shared memory at hidden 2D (``dit_stack_smem``);
+    checked to spill nothing and to draw no ptxas C7512 ("wgmma
+    serialized"); their attention, ``check_fwd_resources``."""
     from t2ms_tpu_torch.ops import _build
-    text = _build.build_logs.get("dit_stack")
-    if not text:
-        log("stack kernel resources: not measured (dit_stack.cu was not "
-            "built in this process)")
-        return
-    lib = _build.load("dit_stack")
-    for chunk in text.split("Compiling entry function")[1:]:
-        m = re.search(r"(modln_qkv_tc_kernel|"
-                      r"proj_mlp_tc_kernelILi\d+ELb([01])E)", chunk)
-        if m is None:
+    seen = 0
+    for name in ("dit_stack", "dit_block_bwd"):
+        text = _build.build_logs.get(name)
+        if not text:
+            log(f"row kernel resources: not measured ({name}.cu was not "
+                "built in this process)")
             continue
-        if m.group(2):
-            mlp = m.group(2) == "1"
-            what = f"proj_mlp_tc_kernel<{'true' if mlp else 'false'}>"
-            smem = lib.dit_stack_smem(2 if mlp else 3, D_MODEL, HIDDEN, HEADS)
-        else:
-            what = "modln_qkv_tc_kernel"
-            smem = lib.dit_stack_smem(0, D_MODEL, HIDDEN, HEADS)
-        _log_resources(f"stack kernel resources {what} (D={D_MODEL}, "
-                       f"hidden={HIDDEN})", chunk, smem)
+        serial = [l_ for l_ in text.splitlines() if "C7512" in l_ and
+                  ("modln_qkv_tc_kernel" in l_ or "proj_mlp_tc_kernel" in l_)]
+        check(not serial, f"ptxas serialized a row kernel's wgmma in "
+              f"{name}.cu (C7512): " + "; ".join(serial))
+        lib = _build.load("dit_stack")
+        for chunk in text.split("Compiling entry function")[1:]:
+            m = re.search(r"modln_qkv_tc_kernelILi(\d+)E|"
+                          r"proj_mlp_tc_kernelILi(\d+)ELb([01])E",
+                          chunk.split("\n")[0])
+            if m is None:
+                continue
+            if m.group(1):
+                D = int(m.group(1))
+                what = f"modln_qkv_tc_kernel<{D}>"
+                smem = lib.dit_stack_smem(0, D, 2 * D, D // 32)
+            else:
+                D, mlp = int(m.group(2)), m.group(3) == "1"
+                what = f"proj_mlp_tc_kernel<{D}, {'true' if mlp else 'false'}>"
+                smem = lib.dit_stack_smem(2 if mlp else 3, D, 2 * D, D // 32)
+            _log_resources(f"row kernel resources {what} in {name}.cu "
+                           f"(hidden={2 * D})", chunk, smem)
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill", chunk)]
+            check(not any(spills), f"{what} in {name}.cu spills {spills}")
+            seen += 1
+    log(f"row kernel resources: {seen} instances, no spills and no C7512")
 
 
 def log_block_bwd_resources():
@@ -1932,6 +1955,149 @@ def attention_backward_phase(gen, check_twin=True):
             log(f"attention backward {what}: device time not measured (no "
                 "device time recorded)")
         del qkv, g, run, twin, qh, kh, vh, gh
+        torch.cuda.empty_cache()
+    return out
+
+
+# The stack's forward row kernels (csrc/dit_layer.cuh: modln_qkv_tc_kernel,
+# proj_mlp_tc_kernel) at each path's call, through the public entries:
+# (what, entry, B, N, D, heads, hidden, L). "stack" is fused_dit_stack (#1),
+# "block" fused_dit_block (#2), "block_bwd" the block backward (#3), whose
+# recompute runs both kernels (its (c) without the MLP half). D 192 and
+# hidden 384 is the widest geometry the route takes with the weights
+# streamed through the slots (check_shape refuses D 256 for the first
+# kernels' attention tile), and B 3 x N 17 one tile, fewer than the SMs.
+ROW_SHAPES = (
+    ("flagship CFG #1 (2B=512)", "stack", 512, 480, 128, 4, 256, 4),
+    ("train forward #2 (B=1024)", "block", 1024, 480, 128, 4, 256, 1),
+    ("train recompute #3 (B=1024)", "block_bwd", 1024, 480, 128, 4, 256, 1),
+    ("motion #2 N=1024 (B=512)", "block", 512, 1024, 128, 4, 256, 1),
+    ("motion #3 N=1024 (B=512)", "block_bwd", 512, 1024, 128, 4, 256, 1),
+    ("motion #2 N=800 (B=512)", "block", 512, 800, 128, 4, 256, 1),
+    ("motion #3 N=800 (B=512)", "block_bwd", 512, 800, 128, 4, 256, 1),
+    ("streamed D=192 hidden 384 #1 (B=64)", "stack", 64, 480, 192, 6, 384,
+     1),
+    ("ragged #1 (B=3, N=17)", "stack", 3, 17, 128, 4, 256, 4),
+)
+ROW_PARTS = ("modln_qkv_tc_kernel", "proj_mlp_tc_kernel")
+ROW_TOL = 3e-2   # bf16, of max|twin|: the stack and block bounds
+
+
+def row_work(entry, B, N, D, hidden, L):
+    """(operations, bytes) of each row kernel over one call: its products,
+    and each input read once and each output written once per layer ((a):
+    x, the weights, bias and mod[0:2] in, qkv and, in the recompute, z out;
+    (c): o, x, the weights, biases and mod[2:6] in, y out, or without the
+    MLP mod[2], proj and x1 out)."""
+    rows, bf = B * N, 2
+    recompute = entry == "block_bwd"
+    qkv_ops = 2 * rows * D * 3 * D
+    qkv_bytes = (rows * D * bf + rows * 3 * D * bf + 3 * D * D * bf
+                 + 3 * D * bf + B * 2 * D * 4
+                 + (rows * D * bf if recompute else 0))
+    if recompute:
+        mlp_ops = 2 * rows * D * D
+        mlp_bytes = 4 * rows * D * bf + D * D * bf + D * bf + B * D * 4
+    else:
+        mlp_ops = 2 * rows * (D * D + 2 * D * hidden)
+        mlp_bytes = (3 * rows * D * bf + (D * D + 2 * D * hidden) * bf
+                     + (2 * D + hidden) * bf + B * 4 * D * 4)
+    return {ROW_PARTS[0]: (L * qkv_ops, L * qkv_bytes),
+            ROW_PARTS[1]: (L * mlp_ops, L * mlp_bytes)}
+
+
+def row_cublas_ms(entry, rows, D, hidden, L):
+    """Device time of torch.matmul (cuBLAS) over each row kernel's products
+    alone at this call, bf16 (yardstick only: no LayerNorm, bias, GELU or
+    residual): (a) x @ wqkv; (c) o @ wproj and, with the MLP, z2 @ w1 and
+    h @ w2; L times. Its inputs come from a generator of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+    a, wq, wp = f(rows, D), f(D, 3 * D), f(D, D)
+    mlp = entry != "block_bwd"
+    h, w1, w2 = (f(rows, hidden), f(D, hidden), f(hidden, D)) if mlp else (
+        None, None, None)
+
+    def qkv():
+        for _ in range(L):
+            torch.matmul(a, wq)
+
+    def rest():
+        for _ in range(L):
+            torch.matmul(a, wp)
+            if mlp:
+                torch.matmul(a, w1)
+                torch.matmul(h, w2)
+    out = {}
+    for name, fn in zip(ROW_PARTS, (qkv, rest)):
+        times = device_ms_all(fn)
+        out[name] = sum(times.values()) if times else None
+    return out
+
+
+def row_gemm_phase(gen, check_twin=True):
+    """The two row kernels at every call of ROW_SHAPES through the public
+    entries: the output against the twin where the entry is a forward
+    (tol ROW_TOL * max|twin|), each kernel's device time by torch.profiler,
+    its operations and bytes (row_work), the share of its bound and
+    cuBLAS over its products (row_cublas_ms). Returns {what: {kernel:
+    row}}."""
+    from t2ms_tpu_torch.ops.dit_block import (_launch_block_bwd,
+                                              fused_dit_block,
+                                              fused_dit_block_reference,
+                                              fused_dit_stack,
+                                              fused_dit_stack_reference)
+    out = {}
+    for what, entry, B, N, D, H, hidden, L in ROW_SHAPES:
+        f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+        x = f(B, N, D).to(torch.bfloat16)
+        mod = 0.3 * f(B, L, 6, D)
+        ws = [0.2 * f(L, D, 3 * D), 0.1 * f(L, 3 * D), 0.2 * f(L, D, D),
+              0.1 * f(L, D), 0.2 * f(L, D, hidden), 0.1 * f(L, hidden),
+              0.2 * f(L, hidden, D), 0.1 * f(L, D)]
+        if entry == "stack":
+            ws = [w_.to(torch.bfloat16) for w_ in ws]
+            call = lambda: fused_dit_stack(x, mod, *ws, H)
+            twin = lambda: fused_dit_stack_reference(x, mod, *ws, H)
+        else:
+            mod, ws = mod[:, 0], [w_[0] for w_ in ws]
+            if entry == "block":
+                call = lambda: fused_dit_block(x, mod, *ws, H)
+                twin = lambda: fused_dit_block_reference(x, mod, *ws, H)
+            else:
+                dy = f(B, N, D).to(torch.bfloat16)
+                call = lambda: _launch_block_bwd(x, mod, ws, dy, H, 1e-6)
+                twin = None
+        with torch.no_grad():
+            got = call()
+            if check_twin and twin is not None:
+                _check_err(f"row kernels {what} y", got, twin(), ROW_TOL)
+            torch.cuda.synchronize()
+            del got
+            times = device_ms_by_kernel(call, ROW_PARTS)
+        lib = row_cublas_ms(entry, B * N, D, hidden, L)
+        rows = {}
+        for name, (fl, nb) in row_work(entry, B, N, D, hidden, L).items():
+            t_ops, t_bytes = fl / H100_BF16_FLOPS * 1e3, nb / H100_BYTES * 1e3
+            bound, ms = max(t_ops, t_bytes), times.get(name)
+            rows[name] = dict(ms=ms, gflop=fl / 1e9, mb=nb / 1e6, bound=bound,
+                              by="operations" if t_ops >= t_bytes else
+                              "bytes", share=bound / ms if ms else None,
+                              cublas=lib[name])
+            lib_s = ("not measured" if lib[name] is None
+                     else f"{lib[name]:.4f} ms")
+            if ms:
+                log(f"row kernels {what} N={N} D={D} hidden={hidden} L={L}: "
+                    f"{name} device {ms:.4f} ms ({ms / L:.4f} a layer), "
+                    f"{fl / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB, bound "
+                    f"{bound:.4f} ms ({rows[name]['by']}), {bound / ms:.2%} "
+                    f"of it, cuBLAS over its products {lib_s}")
+            else:
+                log(f"row kernels {what}: {name} device time not measured (no "
+                    "device time recorded)")
+        out[what] = rows
+        del x, mod, ws
         torch.cuda.empty_cache()
     return out
 
@@ -4912,6 +5078,29 @@ def attention_forward_only(seed, root):
     return 0
 
 
+def row_gemms_only(seed, root):
+    """The row kernels' section alone, on this tree's package or on
+    ``root``'s: the card, the build of dit_stack.cu and dit_block_bwd.cu
+    (this tree's row kernels' resources checked), then row_gemm_phase; the
+    last line is {"row_gemms": {what: {kernel: row}}, "root": ...}."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    from t2ms_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"card: {smi}; package {os.path.dirname(_build.__file__)}")
+    log(f"build: {_build.build_all(['dit_stack', 'dit_block_bwd'])}")
+    if root is None:
+        log_stack_resources()
+    rows = row_gemm_phase(
+        torch.Generator(device="cuda").manual_seed(seed + 22))
+    print(json.dumps({"row_gemms": rows, "root": root or ".", "card": smi}),
+          flush=True)
+    return 0
+
+
 def attention_backward_only(seed, root):
     """The attention backward's section alone, on this tree's package or
     on ``root``'s: the card, the build of fused_heads.cu and
@@ -4944,10 +5133,13 @@ def main(argv=None):
     ap.add_argument("--attention_backward", action="store_true",
                     help="build, then run only the attention backward's "
                     "section, its last line a JSON of each path shape's row")
+    ap.add_argument("--row_gemms", action="store_true",
+                    help="build, then run only the row kernels' section, its "
+                    "last line a JSON of each call's rows")
     ap.add_argument("--root", default=None,
-                    help="with --attention_forward or --attention_backward: "
-                    "import t2ms_tpu_torch from this tree (another checkout, "
-                    "to time it beside this one)")
+                    help="with --attention_forward, --attention_backward or "
+                    "--row_gemms: import t2ms_tpu_torch from this tree "
+                    "(another checkout, to time it beside this one)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -4957,6 +5149,8 @@ def main(argv=None):
         return attention_forward_only(args.seed, args.root)
     if args.attention_backward:
         return attention_backward_only(args.seed, args.root)
+    if args.row_gemms:
+        return row_gemms_only(args.seed, args.root)
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (
         FLASH_KERNEL, FUSED_HEADS_BWD_KERNEL, FUSED_HEADS_KERNEL,
@@ -4999,6 +5193,7 @@ def main(argv=None):
         torch.Generator(device="cuda").manual_seed(args.seed + 20))
     attention_backward_phase(
         torch.Generator(device="cuda").manual_seed(args.seed + 21))
+    row_gemm_phase(torch.Generator(device="cuda").manual_seed(args.seed + 22))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

@@ -4,7 +4,10 @@
 //
 // for A (rows, K) and W (K, cols) row-major (W in flax's (in, out) layout),
 // the products of one adaLN-zero DiT block (dit_split.cu runs its four on
-// them). Prologues: LN stages the block's whole K-wide row tile in shared
+// them; dit_layer.cuh's persistent row kernels build on the primitives
+// below: the mbarrier and TMA helpers, the swizzled descriptors, WgSS,
+// wg_modln_rows, epi_pair and resid_pair). Prologues: LN stages the
+// block's whole K-wide row tile in shared
 // memory and replaces it, once, by T(LN(a) * (1 + mod[b, isc]) +
 // mod[b, ish]) (f32 statistics, one rounding); STREAM brings A in with W,
 // K chunk by K chunk. Epilogues, from the accumulator registers (the
@@ -122,9 +125,34 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* m,
       : "memory");
 }
 
-// A map of a row-major (rows, cols) bf16 matrix for tma_load: boxes of 64
-// columns (128 bytes, the swizzle's width) x box_rows rows, laid out in
-// the 128-byte swizzle, zeros past the last row. False when the driver's
+// the box of map m at (column c0, row c1) out of shared memory at src, by
+// the tensor memory accelerator (rows past the map's last are not written);
+// completes in the issuing thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* m,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(sm_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the issuing thread's bulk groups but the N youngest have read their
+// shared memory (READ) or are complete
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A map of a row-major (rows, cols) bf16 matrix for tma_load and
+// tma_store: boxes of 64 columns (128 bytes, the swizzle's width) x
+// box_rows rows, laid out in the 128-byte swizzle, zeros past the last row
+// on loads, rows past it left alone on stores. False when the driver's
 // encoder is missing or refuses the map.
 inline bool make_tmap(CUtensorMap* m, const void* p, int rows, int cols,
                       int box_rows) {
@@ -138,6 +166,13 @@ inline bool make_tmap(CUtensorMap* m, const void* p, int rows, int cols,
                 dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the swizzle is a function of the address: dynamic shared memory from
+// its first 1 KB swizzle atom (WG_ALIGN of slack kept for it)
+__device__ __forceinline__ unsigned char* align_atoms(unsigned char* raw) {
+  return raw +
+         ((WG_ALIGN - (sm_addr(raw) & (WG_ALIGN - 1))) & (WG_ALIGN - 1));
 }
 
 // ------------------------------------------------------ wgmma, in PTX
@@ -214,59 +249,124 @@ template <> struct WgSS<128> {
   }
 };
 
+// the row kernels' widest products (dit_layer.cuh, D 192)
+template <> struct WgSS<192> {
+  static __device__ __forceinline__ void run(float (&d)[24][4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 // ------------------------------------------------------------ prologue
 
-// In place over the staged tile A (K / 64 slabs of BM swizzled rows): row
-// i = T(LN(row i) * (1 + mod[b, isc]) + mod[b, ish]) in f32, P = NTH / BM
-// threads a row over its chunks q, q + P, ..., statistics in two passes
-// (mean, then the variance of the centred row). Rows past `valid` stay
-// zero. No barrier inside.
-template <int BM, int NTH>
-__device__ __forceinline__ void wg_modln(unsigned char* A, int valid,
-                                         int r0, const WgArgs& g) {
+// Over a staged tile of K / 64 slabs of BM swizzled rows: row i of Z =
+// T(LN(row i of A) * (1 + m[isc * K]) + m[ish * K]) in f32, m = modrow(i)
+// (the row's adaLN block: its rows of K values), for the rows below
+// `valid`; Z may be A. P = NTH / BM threads a row (t the thread's index
+// among the NTH) over its chunks q, q + P, ..., statistics in two passes
+// (mean, then the variance of the centred row), eight partial sums a
+// thread (one per place in a chunk). KC > 0: K is 8 * P * KC, and the
+// thread's KC chunks are read once into registers (one pass over shared
+// memory, every load in flight together); the sums run in the same order.
+// Rows past `valid` are left as they are. No barrier inside.
+template <int BM, int NTH, int KC = 0, typename ModRow>
+__device__ __forceinline__ void wg_modln_rows(const unsigned char* A,
+                                              unsigned char* Z, int valid,
+                                              int K, float eps, int ish,
+                                              int isc, int t,
+                                              ModRow&& modrow) {
   constexpr int P = NTH / BM;
-  const int i = threadIdx.x / P, q = threadIdx.x % P, K = g.K, nc = K / 8;
-  auto chunk = [&](int c) {
-    return reinterpret_cast<uint4*>(A + (c >> 3) * (BM * 128) +
-                                    sw128(i, c & 7));
-  };
+  constexpr int NC = KC > 0 ? KC : 1;  // chunks held in registers
+  const int i = t / P, q = t % P, nc = KC > 0 ? P * KC : K / 8;
+  auto at = [&](int c) { return (c >> 3) * (BM * 128) + sw128(i, c & 7); };
   auto lanes_sum = [](float v) {
 #pragma unroll
     for (int o = P / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
   };
-  // eight partial sums a thread (one per place in a chunk), so the adds
-  // form eight short chains
+  // the adds form eight short chains
   auto total = [](const float (&p)[8]) {
     return ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7]));
   };
-  float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-  for (int c = q; c < nc; c += P) {
-    float f[8];
-    unpack8(*chunk(c), f);
+  float f[NC][8];
+  // fn(u, c) over the thread's chunks c (the u-th of them)
+  auto each = [&](auto&& fn) {
+    if constexpr (KC > 0) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) s[k] += f[k];
-  }
+      for (int u = 0; u < KC; ++u) fn(u, q + P * u);
+    } else {
+#pragma unroll 4
+      for (int c = q; c < nc; c += P) fn(0, c);
+    }
+  };
+  // chunk c's eight values: from the registers, or read anew
+  auto chunk = [&](int u, int c) -> const float(&)[8] {
+    if constexpr (KC == 0)
+      unpack8(*reinterpret_cast<const uint4*>(A + at(c)), f[0]);
+    return f[u];
+  };
+  if constexpr (KC > 0)
+    each([&](int u, int c) {
+      unpack8(*reinterpret_cast<const uint4*>(A + at(c)), f[u]);
+    });
+  float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  each([&](int u, int c) {
+    const float(&x)[8] = chunk(u, c);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] += x[k];
+  });
   const float mu = lanes_sum(total(s)) / K;
 #pragma unroll
   for (int k = 0; k < 8; ++k) s[k] = 0.0f;
-#pragma unroll 4
-  for (int c = q; c < nc; c += P) {
-    float f[8];
-    unpack8(*chunk(c), f);
+  each([&](int u, int c) {
+    const float(&x)[8] = chunk(u, c);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) s[k] += (f[k] - mu) * (f[k] - mu);
-  }
-  const float rs = rsqrtf(lanes_sum(total(s)) / K + g.eps);
+    for (int k = 0; k < 8; ++k) s[k] += (x[k] - mu) * (x[k] - mu);
+  });
+  const float rs = rsqrtf(lanes_sum(total(s)) / K + eps);
   if (i >= valid) return;
-  const size_t mb = (size_t)((r0 + i) / g.N) * 6;
-  const float* msh = g.mod + (mb + g.ish) * K;
-  const float* msc = g.mod + (mb + g.isc) * K;
-#pragma unroll 4
-  for (int c = q; c < nc; c += P) {
-    float f[8];
-    unpack8(*chunk(c), f);
+  const float* m = modrow(i);
+  const float* msh = m + (size_t)ish * K;
+  const float* msc = m + (size_t)isc * K;
+  each([&](int u, int c) {
+    const float(&x)[8] = chunk(u, c);
     const float4 h0 = *reinterpret_cast<const float4*>(msh + 8 * c);
     const float4 h1 = *reinterpret_cast<const float4*>(msh + 8 * c + 4);
     const float4 g0 = *reinterpret_cast<const float4*>(msc + 8 * c);
@@ -277,10 +377,21 @@ __device__ __forceinline__ void wg_modln(unsigned char* A, int valid,
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       w[k] = pack_bf16(
-          (f[2 * k] - mu) * rs * (1.0f + sc[2 * k]) + sh[2 * k],
-          (f[2 * k + 1] - mu) * rs * (1.0f + sc[2 * k + 1]) + sh[2 * k + 1]);
-    *chunk(c) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
+          (x[2 * k] - mu) * rs * (1.0f + sc[2 * k]) + sh[2 * k],
+          (x[2 * k + 1] - mu) * rs * (1.0f + sc[2 * k + 1]) + sh[2 * k + 1]);
+    *reinterpret_cast<uint4*>(Z + at(c)) = make_uint4(w[0], w[1], w[2], w[3]);
+  });
+}
+
+// wg_gemm_kernel's LN prologue: in place over its staged tile, mod (B, 6,
+// K) indexed by each row's element; rows past `valid` stay zero
+template <int BM, int NTH>
+__device__ __forceinline__ void wg_modln(unsigned char* A, int valid,
+                                         int r0, const WgArgs& g) {
+  wg_modln_rows<BM, NTH>(A, A, valid, g.K, g.eps, g.ish, g.isc, threadIdx.x,
+                         [&](int i) {
+                           return g.mod + (size_t)((r0 + i) / g.N) * 6 * g.K;
+                         });
 }
 
 // ------------------------------------------------------------- the kernel
@@ -327,10 +438,7 @@ __global__ void __launch_bounds__(wg_threads(WG), 1)
   extern __shared__ unsigned char wg_raw[];
   constexpr bool RES = EPI == WG_EPI_RESID;
   __shared__ uint64_t full[S::ST], empty[S::ST], tile, rfull[2], rempty[2];
-  // the swizzle is a function of the address: align the atoms to 1 KB
-  unsigned char* smem =
-      wg_raw + ((WG_ALIGN - (sm_addr(wg_raw) & (WG_ALIGN - 1))) &
-                (WG_ALIGN - 1));
+  unsigned char* smem = align_atoms(wg_raw);
   const int tid = threadIdx.x, K = g.K, nk = K / WG_BK, ncs = g.cols / BN;
   const int r0 = blockIdx.x * S::BM, valid = min(S::BM, g.rows - r0);
   const int total = ncs * nk;  // chunks over all column steps

@@ -139,18 +139,68 @@ def _close_to_twin(got, want, tol):
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()
 
 
+# (D, hidden, heads) of the route's widths: D 128 at hidden 256 at every head
+# width (16 to 128), and at hidden 2D and 4D where the route takes it: D 64
+# and 128 (the row kernels' weights resident; hidden 512 at D 128 streams
+# them) and D 192 at hidden 384 (streamed; hidden 768 is past check_shape's
+# limit, and D 256 past it for every hidden)
+_ROUTE_GEOMS = ([(128, 256, h) for h in (8, 4, 2, 1)]
+                + [(128, 512, 4), (64, 128, 4), (64, 128, 2), (64, 128, 1),
+                   (64, 256, 4), (192, 384, 12), (192, 384, 6),
+                   (192, 384, 3)])
+_ROUTE_TOKENS = [1, 17, 130, 480, 1000, 127, 128, 129, 1024, 4096]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 17, 130, 480, 1000]
-                         + [127, 128, 129, 1024, 4096])
-@pytest.mark.parametrize("heads", [8, 4, 2, 1])   # head widths 16 to 128
-def test_bf16_stack_matches_twin_across_head_widths(cuda, heads, N):
+@pytest.mark.parametrize("D,hidden,heads,N",
+                         [(128, 256, h, N) for h in (8, 4, 2, 1)
+                          for N in _ROUTE_TOKENS]
+                         + [g + (N,) for g in _ROUTE_GEOMS[4:]
+                            for N in (1, 17, 130, 480)])
+def test_bf16_stack_matches_twin_across_head_widths(cuda, D, hidden, heads,
+                                                     N):
     """The tensor-core route at every head width it takes, at token counts
     below, across and beyond the attention's 64-key tiles and 128-row
-    blocks; bf16 3e-2 * max|ref|."""
-    args = _stack_args(cuda, torch.bfloat16, B=2, N=N, seed=N + heads)
-    assert _tc_route(2, N, 128, 256, heads)
+    blocks, and at the widths of _ROUTE_GEOMS; bf16 3e-2 * max|ref|."""
+    args = _stack_args(cuda, torch.bfloat16, B=2, N=N, D=D, hidden=hidden,
+                       seed=N + heads + D + hidden)
+    assert _tc_route(2, N, D, hidden, heads)
     got = tblock.fused_dit_stack(*args, num_heads=heads)
     want = tblock.fused_dit_stack_reference(*args, num_heads=heads)
+    _close_to_twin(got, want, 3e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_stack_route_takes_every_geometry_the_shape_check_takes(cuda):
+    """Every bf16 geometry that check_shape takes at a head width with a
+    heads_fwd_kernel instance (16, 32, 64, 128) runs on the tensor-core
+    route (dit_stack_tc_route), none on the first kernels; the others take
+    the first kernels or are refused."""
+    lib = _build.load("dit_stack")
+    taken = 0
+    for D in (64, 128, 192, 256):
+        for hidden in range(64, 1025, 64):
+            for heads in (1, 2, 3, 4, 6, 8, 12, 16):
+                if D % heads:
+                    continue
+                shape_ok = lib.dit_stack_check(D, hidden, heads, 1) == 0
+                wide = (D // heads) in (16, 32, 64, 128)
+                route = bool(lib.dit_stack_tc_route(2, 480, D, hidden, heads))
+                assert route == (shape_ok and wide), (D, hidden, heads)
+                taken += route
+    assert taken > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(1, 17), (3, 130), (70000, 1)])
+def test_bf16_row_kernels_take_any_tile_count(cuda, B, N):
+    """The persistent row kernels at one 64-row tile (fewer tiles than SMs),
+    a few, and many times more tiles than SMs (B 70000 x N 1: 1094 tiles),
+    two layers in place; bf16 3e-2 * max|ref|."""
+    args = _stack_args(cuda, torch.bfloat16, B=B, N=N, L=2, seed=B + N)
+    assert _tc_route(B, N, 128, 256, 4)
+    got = tblock.fused_dit_stack(*args, num_heads=4)
+    want = tblock.fused_dit_stack_reference(*args, num_heads=4)
     _close_to_twin(got, want, 3e-2)
 
 
@@ -281,15 +331,19 @@ def test_block_kernels_match_twins_on_card(cuda, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [8, 2, 1])
-def test_bf16_block_kernels_match_twins_across_head_widths(cuda, heads):
+@pytest.mark.parametrize("D,hidden,heads", [(128, 256, 8), (128, 256, 2),
+                                            (128, 256, 1), (128, 512, 4),
+                                            (64, 128, 4), (64, 256, 2)])
+def test_bf16_block_kernels_match_twins_across_head_widths(cuda, D, hidden,
+                                                           heads):
     """The block forward and backward in bf16 at the head widths 16, 64 and
     128 of the tensor-core route, which the backward's recompute takes too,
-    with the bf16 bounds of test_block_kernels_match_twins_on_card. (The
-    backward's kernels take D 64 and 128 only, where every head width the
-    stack takes is on that route.)"""
-    args = _block_args(cuda, torch.bfloat16, seed=heads)
-    assert _tc_route(3, 130, 128, 256, heads)
+    and at hidden 2D and 4D, with the bf16 bounds of
+    test_block_kernels_match_twins_on_card. (The backward's kernels take D
+    64 and 128 only, where every head width the stack takes is on that
+    route.)"""
+    args = _block_args(cuda, torch.bfloat16, D=D, hidden=hidden, seed=heads)
+    assert _tc_route(3, 130, D, hidden, heads)
     dy = torch.randn(args[0].shape, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(5)).to(
                          torch.bfloat16)
