@@ -21,8 +21,9 @@ failing with a non-zero exit on any error:
    and 192, as built into csrc/dit_stack.cu and csrc/dit_block_bwd.cu),
    checked to spill nothing and to draw no C7512, and of the
    bf16 block backward's own
-   kernels (csrc/dit_block_bwd.cu: ``mlp_bwd_tc_kernel``,
-   ``attn_out_bwd_tc_kernel``, ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``),
+   kernels (csrc/dit_block_bwd.cu: the wgmma row kernels
+   ``mlp_bwd_tc_kernel<D>`` and ``qkv_bwd_tc_kernel<D>`` at D 64 and 128,
+   checked the same way, ``attn_out_bwd_tc_kernel``, ``wgrad_tc_kernel``),
    and of the split block's wgmma GEMMs (csrc/wg_gemm.cuh:
    ``wg_gemm_kernel`` on each route, as built into csrc/dit_split.cu),
    checked to spill nothing and to draw no ptxas C7512 ("wgmma
@@ -48,8 +49,13 @@ failing with a non-zero exit on any error:
    the train and motion calls, D 192 with the weights streamed, a ragged
    call of one tile), the forwards' outputs against the twin, each
    kernel's device time by profiler, its operations and bytes, the share
-   of its bound and cuBLAS over its products (``--row_gemms [--root DIR]``
-   runs only this section);
+   of its bound and cuBLAS over its products; then the block backward's
+   four row kernels at #3's calls (``ROW_BWD_SHAPES``: the flagship and
+   motion train calls, hidden 512 with the MLP half's weights streamed, a
+   ragged call), the MLP-half and qkv-half kernels alone against their
+   twins, each kernel's device time, bytes, share of its bound and cuBLAS
+   over its products (``--row_gemms [--root DIR]`` runs these two sections
+   only);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -808,7 +814,7 @@ def server_phase(dit, vae, seed):
 # the tensor-core backward, its attention VJP on csrc/heads_bwd.cuh)
 BLOCK_PARTS = STACK_PARTS
 BWD_PARTS = STACK_PARTS + (
-    "transpose4_kernel", "mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
+    "transpose_kernel", "mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
     "heads_bwd_q_kernel", "heads_bwd_kv_kernel", "qkv_bwd_tc_kernel",
     "wgrad_tc_kernel", "sum_splits_kernel", "dmod_reduce_kernel")
 # the backward's first kernels, which the f32 entry still runs and the bf16
@@ -1408,11 +1414,12 @@ def log_stack_resources():
 
 def log_block_bwd_resources():
     """ptxas's registers, stack, spills and static shared memory of the bf16
-    block backward's own kernels as built into csrc/dit_block_bwd.cu
-    (``mlp_bwd_tc_kernel``, ``attn_out_bwd_tc_kernel``,
-    ``qkv_bwd_tc_kernel``, ``wgrad_tc_kernel``), with their dynamic shared
-    memory at the main path's widths (``dit_block_bwd_smem``); its
-    attention VJP's, ``check_bwd_resources``."""
+    block backward's own kernels as built into csrc/dit_block_bwd.cu: the
+    wgmma row kernels ``mlp_bwd_tc_kernel<D>`` and ``qkv_bwd_tc_kernel<D>``
+    at D 64 and 128, checked to spill nothing and to draw no ptxas C7512
+    ("wgmma serialized"), and ``attn_out_bwd_tc_kernel`` and
+    ``wgrad_tc_kernel``, with their dynamic shared memory at hidden 2D
+    (``dit_block_bwd_smem``); its attention VJP's, ``check_bwd_resources``."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("dit_block_bwd")
     if not text:
@@ -1422,16 +1429,34 @@ def log_block_bwd_resources():
     lib = _build.load("dit_block_bwd")
     rows = ("mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
             "qkv_bwd_tc_kernel", "wgrad_tc_kernel")
+    serial = [l_ for l_ in text.splitlines() if "C7512" in l_ and
+              ("mlp_bwd_tc_kernel" in l_ or "qkv_bwd_tc_kernel" in l_)]
+    check(not serial, "ptxas serialized a backward row kernel's wgmma "
+          "(C7512): " + "; ".join(serial))
+    seen = 0
     for chunk in text.split("Compiling entry function")[1:]:
+        head = chunk.split("\n")[0]
         m = re.search(r"(mlp_bwd_tc_kernel|attn_out_bwd_tc_kernel|"
-                      r"qkv_bwd_tc_kernel|wgrad_tc_kernel)", chunk)
+                      r"qkv_bwd_tc_kernel|wgrad_tc_kernel)(?:ILi(\d+)E)?",
+                      head)
         if m is None:
             continue
-        what = m.group(1)
-        smem = lib.dit_block_bwd_smem(rows.index(what), D_MODEL, HIDDEN,
-                                      HEADS)
+        what, D = m.group(1), int(m.group(2) or D_MODEL)
+        smem = lib.dit_block_bwd_smem(rows.index(what), D, 2 * D,
+                                      D // (D_MODEL // HEADS))
+        if m.group(2):
+            what = f"{what}<{D}>"
         _log_resources(f"block backward kernel resources {what} "
-                       f"(D={D_MODEL}, hidden={HIDDEN})", chunk, smem)
+                       f"(D={D}, hidden={2 * D})", chunk, smem)
+        if m.group(2):
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                 chunk)]
+            check(not any(spills), f"{what} in dit_block_bwd.cu spills "
+                  f"{spills}")
+            seen += 1
+    check(seen == 4, f"backward row kernel instances: {seen} of 4")
+    log(f"backward row kernel resources: {seen} instances, no spills and no "
+        "C7512")
 
 
 def log_split_resources():
@@ -2098,6 +2123,166 @@ def row_gemm_phase(gen, check_twin=True):
                     "device time recorded)")
         out[what] = rows
         del x, mod, ws
+        torch.cuda.empty_cache()
+    return out
+
+
+# The bf16 block backward's four row kernels (csrc/dit_block_bwd.cu:
+# mlp_bwd_tc_kernel, attn_out_bwd_tc_kernel, qkv_bwd_tc_kernel,
+# wgrad_tc_kernel) at #3's calls, through _launch_block_bwd: (what, B, N,
+# D, heads, hidden). The flagship train call; the motion track's at 1024
+# and 800 tokens, B=512; D 128 at hidden 512, where the MLP half streams w1
+# and w2 through the slots; one ragged tile a batch element.
+ROW_BWD_SHAPES = (
+    ("flagship #3 (B=1024)", 1024, 480, 128, 4, 256),
+    ("motion #3 N=1024 (B=512)", 512, 1024, 128, 4, 256),
+    ("motion #3 N=800 (B=512)", 512, 800, 128, 4, 256),
+    ("streamed hidden 512 #3 (B=64)", 64, 480, 128, 4, 512),
+    ("ragged #3 (B=3, N=17)", 3, 17, 128, 4, 256),
+)
+ROW_BWD_PARTS = ("mlp_bwd_tc_kernel", "attn_out_bwd_tc_kernel",
+                 "qkv_bwd_tc_kernel", "wgrad_tc_kernel")
+
+
+def row_bwd_work(B, N, D, H, hidden):
+    """(operations, bytes) of each backward row kernel over one call: its
+    products, and its inputs read and its outputs written once (bf16 but
+    dx1, f32; mod's rows and the weights once), except that the MLP half
+    reads x1 and dy twice: its LayerNorm VJP reads them again (x1 for its
+    statistics and x̂, dy for dx1 = dy + LN-VJP), so both count twice.
+    MLP half: x1, dy in; dx1, z2, h1, dh2, da1 out; z2 @ w1, h1 @ w2, dh2 @
+    w2^T, da1 @ w1^T. Attention output: dx1, proj, o, the rows' m and r
+    in; dpo, do and the (m, 1/r, delta) rows out; dpo @ wproj^T. qkv half:
+    dqkv, x, dx1 in; dx out; dqkv @ wqkv^T. Weight grads: the four (A, G)
+    pairs read once, dW and db out."""
+    rows, bf, f4 = B * N, 2, 4
+    act = rows * D * bf
+    mlp_ops = 2 * rows * 4 * D * hidden
+    mlp_bytes = (4 * act + rows * D * f4 + 2 * act + 2 * rows * hidden * bf
+                 + 2 * D * hidden * bf + (hidden + D) * bf + B * 3 * D * f4)
+    out_ops = 2 * rows * D * D
+    out_bytes = (rows * D * f4 + 2 * act + 2 * rows * H * f4 + D * D * bf
+                 + B * D * f4 + 2 * act + 3 * rows * H * f4)
+    qkv_ops = 2 * rows * D * 3 * D
+    qkv_bytes = (3 * act + act + rows * D * f4 + act + 3 * D * D * bf
+                 + B * 2 * D * f4)
+    km = ((D, 3 * D), (D, D), (D, hidden), (hidden, D))
+    wg_ops = sum(2 * rows * k * m for k, m in km)
+    wg_bytes = sum(rows * (k + m) * bf + (k * m + m) * f4 for k, m in km)
+    return dict(zip(ROW_BWD_PARTS, ((mlp_ops, mlp_bytes),
+                                    (out_ops, out_bytes),
+                                    (qkv_ops, qkv_bytes),
+                                    (wg_ops, wg_bytes))))
+
+
+def row_bwd_cublas_ms(rows, D, hidden):
+    """Device time of torch.matmul (cuBLAS) over each backward row kernel's
+    products alone at this call, bf16 (yardstick only: no LayerNorm, bias,
+    GELU or epilogue): the MLP half's four, the attention output's one, the
+    qkv half's one and the weight grads' four A^T G. Inputs from a
+    generator of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+    a, h, g3 = f(rows, D), f(rows, hidden), f(rows, 3 * D)
+    wq, wp, w1, w2 = f(D, 3 * D), f(D, D), f(D, hidden), f(hidden, D)
+    runs = {
+        ROW_BWD_PARTS[0]: lambda: (torch.matmul(a, w1), torch.matmul(h, w2),
+                                   torch.matmul(a, w2.t()),
+                                   torch.matmul(h, w1.t())),
+        ROW_BWD_PARTS[1]: lambda: torch.matmul(a, wp.t()),
+        ROW_BWD_PARTS[2]: lambda: torch.matmul(g3, wq.t()),
+        ROW_BWD_PARTS[3]: lambda: (torch.matmul(a.t(), g3),
+                                   torch.matmul(a.t(), a),
+                                   torch.matmul(a.t(), h),
+                                   torch.matmul(h.t(), a)),
+    }
+    out = {}
+    for name, fn in runs.items():
+        times = device_ms_all(fn)
+        out[name] = sum(times.values()) if times else None
+    return out
+
+
+def row_bwd_twin_check(what, gen, B, N, D, hidden):
+    """The MLP-half and qkv-half kernels alone against their twins at this
+    call (every output; ROW_TOL * max|twin|, correlation >= 0.999)."""
+    from t2ms_tpu_torch.ops import dit_block as tb
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+    bf = torch.bfloat16
+    x, dy = f(B, N, D).to(bf), f(B, N, D).to(bf)
+    mod = 0.3 * f(B, 6, D)
+    w1, b1 = (f(D, hidden) / D ** 0.5).to(bf), (0.1 * f(hidden)).to(bf)
+    w2, b2 = (f(hidden, D) / hidden ** 0.5).to(bf), (0.1 * f(D)).to(bf)
+    names = ("dx1", "z2", "h1", "dh2", "da1", "dshift_m", "dscale_m",
+             "dgate_m")
+    with torch.no_grad():
+        args = (x, mod, w1, b1, w2, b2, dy)
+        got = tb._launch_mlp_half_bwd(*args)
+        want = tb.mlp_half_bwd_reference(*args)
+        for name, g_, w_ in zip(names, got, want):
+            _check_err(f"row backward {what} mlp_bwd_tc_kernel {name}", g_,
+                       w_, ROW_TOL)
+        del got, want, args
+        wqkv = (f(D, 3 * D) / D ** 0.5).to(bf)
+        args = (x, mod, wqkv, f(B, N, 3 * D).to(bf), f(B, N, D))
+        got = tb._launch_qkv_half_bwd(*args)
+        want = tb.qkv_half_bwd_reference(*args)
+        for name, g_, w_ in zip(("dx", "dshift_a", "dscale_a"), got, want):
+            _check_err(f"row backward {what} qkv_bwd_tc_kernel {name}", g_,
+                       w_, ROW_TOL)
+    torch.cuda.synchronize()
+
+
+def row_bwd_phase(gen, check_twin=True):
+    """The block backward's four row kernels at every call of
+    ROW_BWD_SHAPES through _launch_block_bwd: each kernel's device time by
+    torch.profiler, its operations and bytes (row_bwd_work), the share of
+    its bound and cuBLAS over its products (row_bwd_cublas_ms); with
+    check_twin, the MLP-half and qkv-half kernels alone against their
+    twins at the call's shapes first. Returns {what: {kernel: row}}."""
+    from t2ms_tpu_torch.ops.dit_block import _launch_block_bwd
+    out = {}
+    for what, B, N, D, H, hidden in ROW_BWD_SHAPES:
+        if check_twin:
+            row_bwd_twin_check(what, gen, B, N, D, hidden)
+        f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+        x, dy = f(B, N, D).to(torch.bfloat16), f(B, N, D).to(torch.bfloat16)
+        mod = 0.3 * f(B, 6, D)
+        ws = [0.2 * f(D, 3 * D), 0.1 * f(3 * D), 0.2 * f(D, D), 0.1 * f(D),
+              0.2 * f(D, hidden), 0.1 * f(hidden), 0.2 * f(hidden, D),
+              0.1 * f(D)]
+        call = lambda: _launch_block_bwd(x, mod, ws, dy, H, 1e-6)
+        with torch.no_grad():
+            got = call()
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      (got[0], got[1], *got[2])),
+                  f"row backward {what}: finite gradients")
+            del got
+            times = device_ms_by_kernel(call, ROW_BWD_PARTS)
+        lib = row_bwd_cublas_ms(B * N, D, hidden)
+        rows = {}
+        for name, (fl, nb) in row_bwd_work(B, N, D, H, hidden).items():
+            t_ops, t_bytes = fl / H100_BF16_FLOPS * 1e3, nb / H100_BYTES * 1e3
+            bound, ms = max(t_ops, t_bytes), times.get(name)
+            rows[name] = dict(ms=ms, gflop=fl / 1e9, mb=nb / 1e6, bound=bound,
+                              by="operations" if t_ops >= t_bytes else
+                              "bytes", share=bound / ms if ms else None,
+                              cublas=lib[name])
+            lib_s = ("not measured" if lib[name] is None
+                     else f"{lib[name]:.4f} ms")
+            if ms:
+                log(f"row backward {what} N={N} D={D} hidden={hidden}: {name} "
+                    f"device {ms:.4f} ms, {fl / 1e9:.2f} GFLOP, "
+                    f"{nb / 1e6:.2f} MB, bound {bound:.4f} ms "
+                    f"({rows[name]['by']}), {bound / ms:.2%} of it, cuBLAS "
+                    f"over its products {lib_s}")
+            else:
+                log(f"row backward {what}: {name} device time not measured "
+                    "(no device time recorded)")
+        out[what] = rows
+        del x, dy, mod, ws
         torch.cuda.empty_cache()
     return out
 
@@ -5081,8 +5266,9 @@ def attention_forward_only(seed, root):
 def row_gemms_only(seed, root):
     """The row kernels' section alone, on this tree's package or on
     ``root``'s: the card, the build of dit_stack.cu and dit_block_bwd.cu
-    (this tree's row kernels' resources checked), then row_gemm_phase; the
-    last line is {"row_gemms": {what: {kernel: row}}, "root": ...}."""
+    (this tree's row kernels' resources checked), then row_gemm_phase and
+    row_bwd_phase (the twin checks on this tree only); the last line is
+    {"row_gemms": {what: {kernel: row}}, "row_bwd": {...}, "root": ...}."""
     if root is not None:
         sys.path.insert(0, os.path.abspath(root))
     from t2ms_tpu_torch.ops import _build
@@ -5094,10 +5280,13 @@ def row_gemms_only(seed, root):
     log(f"build: {_build.build_all(['dit_stack', 'dit_block_bwd'])}")
     if root is None:
         log_stack_resources()
+        log_block_bwd_resources()
     rows = row_gemm_phase(
         torch.Generator(device="cuda").manual_seed(seed + 22))
-    print(json.dumps({"row_gemms": rows, "root": root or ".", "card": smi}),
-          flush=True)
+    bwd = row_bwd_phase(torch.Generator(device="cuda").manual_seed(seed + 23),
+                        check_twin=root is None)
+    print(json.dumps({"row_gemms": rows, "row_bwd": bwd, "root": root or ".",
+                      "card": smi}), flush=True)
     return 0
 
 
@@ -5194,6 +5383,7 @@ def main(argv=None):
     attention_backward_phase(
         torch.Generator(device="cuda").manual_seed(args.seed + 21))
     row_gemm_phase(torch.Generator(device="cuda").manual_seed(args.seed + 22))
+    row_bwd_phase(torch.Generator(device="cuda").manual_seed(args.seed + 23))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     k = kernel_phase(gen)

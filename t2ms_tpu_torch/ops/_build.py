@@ -144,6 +144,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_split_gemm": [P] * 6 + [I] * 5 + [F, P],
         "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
         "dit_block_attention_bwd": [P] * 4 + [I] * 4 + [F, P],
+        "dit_block_mlp_bwd": [P] * 13 + [I] * 4 + [F, P],
+        "dit_block_qkv_bwd": [P] * 7 + [I] * 3 + [F, P],
         "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
         "mod_ln_backward": [P] * 6 + [I] * 3 + [F, P],
         "res_mod_ln_forward": [P] * 5 + [I] * 3 + [F, P],

@@ -45,17 +45,23 @@
 // would hide faults: every check feeds random mod.
 //
 // bf16 runs this on tensor-core kernels (below, "bf16"): the recompute on
-// dit_layer.cuh's three; the MLP half, the attention output and the qkv
-// half on its row GEMM (tile_gemm), each with its elementwise and LayerNorm
-// VJP work in the same kernel; the attention VJP on heads_bwd.cuh's q-tile
-// and kv-tile kernels with their BLOCK recipe (the rows' m, 1/r and delta
-// from the attention-output kernel); the weight grads on wgrad_tc_kernel.
-// Rounding points as above, with these differences from the first kernels
-// (f32 still runs those, FMA loops held tightly to the twin):
+// dit_layer.cuh's three; the MLP half and the qkv half on persistent,
+// warp-specialised wgmma kernels (mlp_bwd_tc_kernel, qkv_bwd_tc_kernel),
+// each with its elementwise work and LayerNorm VJP in the same kernel; the
+// attention output on dit_layer.cuh's row GEMM (tile_gemm, mma.sync); the
+// attention VJP on heads_bwd.cuh's q-tile and kv-tile kernels with their
+// BLOCK recipe (the rows' m, 1/r and delta from the attention-output
+// kernel); the weight grads on wgrad_tc_kernel. Rounding points as above,
+// with these differences from the first kernels (f32 still runs those, FMA
+// loops held tightly to the twin):
 //   - p = e * (1/r), one f32 reciprocal a row, where they divide by r;
+//   - tanh-GELU and its derivative from exp(-2u) on the exponent unit (the
+//     forward's gelu_fast), where they call tanhf: h1 rounds as the
+//     forward's h does;
 //   - every sum over rows or columns runs in another (still fixed) order:
 //     the dmod, dgate and bias partials through warp shuffles and then the
-//     warps in order, the LayerNorm statistics four threads a row.
+//     warps in order; the LayerNorm statistics of the VJP over the four
+//     lanes that hold a row in wgmma's accumulator layout.
 //
 // Bound on an H100 SXM at the main-path call (B=1024, N=480, D=128, 4
 // heads, hidden 256, bf16): the recompute is the forward's ~0.25 TFLOP and
@@ -64,26 +70,42 @@
 // at 989 TFLOP/s, against ~0.5 GB that must move (x, dy, dx) or 0.15 ms:
 // bound by operations. The cut at the residual boundaries adds the
 // intermediates above, about 2.5 GB written and read (0.75 ms at 3.35
-// TB/s), so a realistic floor is near 2 ms. What the design does about it:
-// - every dense product is mma.sync m16n8k16 with the sums in registers
-//   and the operands through ldmatrix (.trans where read k-major); no f32
-//   tile of a product goes through shared memory except dz, which the
-//   LayerNorm VJP reads by row;
-// - the MLP half keeps z2, a1, h1, h2, dh2 and da1 of its 64 rows in shared
-//   memory through all four products (two blocks an SM), and writes z2, h1,
-//   dh2 and da1 once for the weight grads;
-// - the weights stream through tile_gemm's cp.async rings; the four that
-//   are multiplied transposed are copied transposed once a call;
+// TB/s), so a realistic floor is near 2 ms. Each row kernel alone is bound
+// by its bytes: the MLP half moves about 1.5 GB a call (x1 and dy read
+// twice, as below; dx1 in f32, z2, h1, dh2 and da1 out) against 161 GFLOP
+// (its z2 @ w1 twice), 0.45 against 0.16 ms; the qkv half 0.89 GB (dqkv, x,
+// dx1 in; dx out) against 48 GFLOP, 0.27 against 0.05 ms.
+// What the design does about it:
+// - the MLP and qkv halves (dit_layer.cuh's row-kernel design: one block
+//   an SM, two consumer warpgroups on their own 64-row tiles, a TMA producer
+//   warpgroup, the weights resident in shared memory where they fit, else
+//   streamed through row_plan's slots; wgmma with the sums in registers,
+//   epilogues from registers, outputs by TMA store through 3-d maps that
+//   clip each element's last tile): the weights are read both ways from
+//   one copy (a slab MN-major for z2 @ w1 is K-major for da1 @ w1^T), so
+//   no transposed copy is made; the MLP's hidden-width tiles never sit in
+//   shared memory (h1 and da1 are computed 64 columns at a time, stored
+//   through a staging slab and packed into register-A fragments of h2 and
+//   dz2, whose sums stay in registers over all of hidden; a1 is rebuilt by
+//   a second z2 @ w1 in pass 2, cheaper than holding it); z2 and dh2 are
+//   written over the x1 and dy tiles, which come in again for the
+//   LayerNorm VJP (a group's x1, dy and staging tiles beside the 128 KB of
+//   weights fill the block's shared memory); the VJP's statistics are
+//   recomputed from x1 in registers; the qkv half takes dqkv's 3 D columns as 64-column K
+//   slabs, each on its own barrier, and loads dx1 into registers under the
+//   products;
+// - the attention output runs dit_layer.cuh's tile_gemm (mma.sync m16n8k16
+//   with the sums in registers, operands through ldmatrix, the weight
+//   through a cp.async ring, wproj^T copied once a call);
 // - the attention VJP (heads_bwd.cuh's BLOCK recipe) runs on wgmma: K/V
 //   (q kernel) and q/do (kv kernel) tiles of one head come in by TMA,
 //   shared by two warpgroups, with S, dP, e and ds in registers, one pass
 //   over the k tiles (the statistics come from the recompute);
 // - the weight grads run 128 x 128 output tiles over about 256 row splits,
 //   so A and G are read once a tile column (L2 catches the rest).
-// Probes on an H100 chose the rings (two stages of 32 weight rows in the
-// MLP kernel, three in the qkv kernel: deeper rings, 64-row stages and one
-// block an SM ran slower) and the weight grads' split count; other launch
-// bounds for the attention kernels gained nothing (PERF.md).
+// Probes on an H100 chose the out-projection's ring (two stages of 64 rows)
+// and the weight grads' split count; other launch bounds for the attention
+// kernels gained nothing; the two row kernels' variants are in PERF.md.
 
 // C interface for ctypes: dit_block_backward_{bf16,f32} launch everything
 // on the given stream and return cudaGetLastError(), or
@@ -707,15 +729,15 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int S,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the backward's own kernels on tensor-core tiles. The row kernels
-// run dit_layer.cuh's tile_gemm (8 warps of mma.sync m16n8k16, sums in
-// registers, the weight through a cp.async ring) on 64-row tiles aligned to
+// bf16: the attention output's and the weight grads' kernels on mma.sync
+// m16n8k16 (sums in registers, operands through cp.async rings). The
+// out-projection runs dit_layer.cuh's tile_gemm on 64-row tiles aligned to
 // one element (tile_of), so each tile's dmod partials belong to one
-// element. Products by a transposed weight read W^T from copies the launch
-// makes once a call (transpose4_kernel). The row passes around them run
-// LP = 4 threads a row over 16-byte chunks; column sums over a tile's rows
-// go through the warp (shuffles over its 8 rows) and then over the 8 warps
-// in order, so every sum keeps one order.
+// element, and reads wproj^T from a copy the launch makes once a call
+// (transpose_kernel). The row pass around it runs LP = 4 threads a row over
+// 16-byte chunks; column sums over a tile's rows go through the warp
+// (shuffles over its 8 rows) and then over the 8 warps in order, so every
+// sum keeps one order.
 
 constexpr int LP = NT / RT;  // threads a row in the row passes
 
@@ -768,232 +790,11 @@ __device__ __forceinline__ void warps_sum(const float* CS, int W,
   }
 }
 
-// The VJP of z = LN(x) * (1 + scale) + shift for a 64-row tile, given dz
-// (f32 in shared memory, row stride ldz, zero past `valid`):
-// dst = base + rs * (g - mean(g) - xhat * mean(g * xhat)), g = dz * (1 +
-// scale), LP threads a row with its chunks in registers (D <= GC); the
-// tile's column sums of dz and dz * xhat (dshift, dscale) into pt[ish * D]
-// and pt[(ish + 1) * D] through CS (NW x 2D floats). x, base and dst point
-// at the tile's first row. The LayerNorm statistics are summed as
-// modln_tile<64> sums them, so the MLP half's match its z2's bit for bit.
-template <typename Base, typename Out>
-__device__ void ln_vjp_rows(const bf16* __restrict__ x,
-                            const float* __restrict__ modb, int ish,
-                            const float* DZ, int ldz, float* CS,
-                            const Base* __restrict__ base,
-                            Out* __restrict__ dst, float* __restrict__ pt,
-                            int valid, int D, float eps) {
-  constexpr int MC = GC / (8 * LP);  // chunks a thread holds at D = GC
-  const int i = threadIdx.x / LP, q = threadIdx.x % LP, nc = D / (8 * LP);
-  const bool ok = i < valid;
-  float xv[MC][8];
-  float s = 0.0f;
-#pragma unroll
-  for (int u = 0; u < MC; ++u) {
-    if (u >= nc) break;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) xv[u][k] = 0.0f;
-    if (ok) ld8(x + (size_t)i * D + 8 * q + 8 * LP * u, xv[u]);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s += xv[u][k];
-  }
-  const float mu = lanes_sum<LP>(s) / D;
-  float v = 0.0f;
-#pragma unroll
-  for (int u = 0; u < MC; ++u) {
-    if (u >= nc) break;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v += (xv[u][k] - mu) * (xv[u][k] - mu);
-  }
-  const float rs = rsqrtf(lanes_sum<LP>(v) / D + eps);
-  const float* sc = modb + (ish + 1) * D;
-  float* CSw = CS + (threadIdx.x >> 5) * 2 * D;
-  float sg = 0.0f, sgx = 0.0f;
-#pragma unroll
-  for (int u = 0; u < MC; ++u) {
-    if (u >= nc) break;
-    const int c = 8 * q + 8 * LP * u;
-    float dz[8], s8[8], a[8], b[8];
-    ld8(DZ + i * ldz + c, dz);
-    ld8(sc + c, s8);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float xh = (xv[u][k] - mu) * rs, g = dz[k] * (1.0f + s8[k]);
-      xv[u][k] = xh;
-      sg += g;
-      sgx += g * xh;
-      a[k] = ok ? dz[k] : 0.0f;
-      b[k] = ok ? dz[k] * xh : 0.0f;
-    }
-    warp_col_sums8(a, CSw, c);
-    warp_col_sums8(b, CSw + D, c);
-  }
-  const float mg = lanes_sum<LP>(sg) / D, mgx = lanes_sum<LP>(sgx) / D;
-  if (ok) {
-#pragma unroll
-    for (int u = 0; u < MC; ++u) {
-      if (u >= nc) break;
-      const int c = 8 * q + 8 * LP * u;
-      float dz[8], s8[8], o[8];
-      ld8(DZ + i * ldz + c, dz);
-      ld8(sc + c, s8);
-      ld8(base + (size_t)i * D + c, o);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        o[k] += rs * (dz[k] * (1.0f + s8[k]) - mg - xv[u][k] * mgx);
-      st8(dst + (size_t)i * D + c, o);
-    }
-  }
-  __syncthreads();
-  warps_sum(CS, 2 * D, pt + ish * D);
-}
-
-// bytes of the region that holds a1 and then dz2 (f32)
-__host__ __device__ inline size_t mlp_a1_bytes(int D, int hidden) {
-  const size_t a = row_tile(hidden), b = (size_t)RT * (D + 4) * 4;
-  return a > b ? a : b;
-}
-// ... and of the one that holds h1, then da1, then column sums
-__host__ __device__ inline size_t mlp_h1_bytes(int D, int hidden) {
-  const size_t a = row_tile(hidden), b = (size_t)NW * 2 * D * 4;
-  return a > b ? a : b;
-}
-// weight rings: two stages of 32 rows in the MLP kernel, three in the qkv
-// kernel, two of 64 in the out-projection kernel
-constexpr size_t RING32x2 = (size_t)2 * 32 * GLD * 2;
-constexpr size_t RING32x3 = (size_t)3 * 32 * GLD * 2;
+// bytes of the out-projection kernel's shared memory: weight ring of two
+// stages of 64 rows
 constexpr size_t RING64x2 = (size_t)2 * 64 * GLD * 2;
-__host__ __device__ inline size_t smem_mlp_bwd_tc(int D, int hidden) {
-  return row_tile(D) + mlp_a1_bytes(D, hidden) + mlp_h1_bytes(D, hidden) +
-         RING32x2;
-}
 __host__ __device__ inline size_t smem_attn_out_tc(int D) {
   return 2 * row_tile(D) + (size_t)NW * D * 4 + RING64x2;
-}
-__host__ __device__ inline size_t smem_qkv_bwd_tc(int D) {
-  return row_tile(3 * D) + (size_t)RT * (D + 4) * 4 + RING32x3;
-}
-
-// MLP half: recompute z2, a1, h1, h2; dgate_m = column sums of dy * h2;
-// dh2 = T(T(gate_m) dy); da1 = T((dh2 w2^T) * gelu'(a1)); dz2 = da1 w1^T;
-// the LayerNorm VJP -> dshift_m, dscale_m, dx1 = dy + LN-VJP (f32). z2,
-// h1, dh2 and da1 go out for the weight grads.
-__global__ void __launch_bounds__(NT, 2)
-mlp_bwd_tc_kernel(const bf16* __restrict__ x1, const float* __restrict__ mod,
-                  const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                  const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                  const bf16* __restrict__ w1t, const bf16* __restrict__ w2t,
-                  const bf16* __restrict__ dy, float* __restrict__ dx1,
-                  bf16* __restrict__ z2_out, bf16* __restrict__ h1_out,
-                  bf16* __restrict__ dh2_out, bf16* __restrict__ da1_out,
-                  float* __restrict__ part, int N, int D, int hidden,
-                  float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int R = RT;
-  const int lda = D + 8, ldh = hidden + 8, ldz = D + 4;
-  bf16* Zs = reinterpret_cast<bf16*>(smem);  // z2, then h2, then dh2
-  unsigned char* p = smem + row_tile(D);
-  bf16* A1 = reinterpret_cast<bf16*>(p);     // a1, then dz2 (f32)
-  float* DZ = reinterpret_cast<float*>(p);
-  p += mlp_a1_bytes(D, hidden);
-  bf16* Hs = reinterpret_cast<bf16*>(p);     // h1, then da1; column sums
-  float* CS = reinterpret_cast<float*>(p);
-  bf16* ring = reinterpret_cast<bf16*>(p + mlp_h1_bytes(D, hidden));
-
-  const Tile tl = tile_of<bf16>(N);
-  const int valid = tl.valid, r0 = (int)tl.r0;
-  const float* modb = mod + (size_t)tl.b * 6 * D;
-  float* pt = part + (size_t)blockIdx.x * 6 * D;
-
-  // z2 = T(modLN(x1; shift_m, scale_m)) in place of the x1 tile; then
-  // a1 = T(z2 w1 + T(b1)) and h1 = T(gelu(a1))
-  cp_rows<R>(Zs, x1 + (size_t)r0 * D, D, D, valid);
-  cp_commit();  // older than the ring's groups
-  tile_gemm<R, 32, 2>(
-      Zs, lda, w1, D, hidden, ring,
-      [&] {
-        cp_wait<1>();
-        __syncthreads();
-        modln_tile<R>(Zs, lda, Zs, lda, mod, r0, r0 + valid, N, D, 1, 0, 3,
-                      4, eps);
-        __syncthreads();
-        st_rows(z2_out + (size_t)r0 * D, D, Zs, lda, D, valid);
-      },
-      [&](int c0, const Acc<R>& acc) {
-        for_pairs<R>(acc, [&](int r, int, int c, float v0, float v1) {
-          const int col = c0 + c;
-          if (col >= hidden) return;
-          const float2 b = ld_bf16x2(b1 + col);
-          float a0, a1;
-          *reinterpret_cast<uint32_t*>(A1 + r * ldh + col) =
-              round2(v0 + b.x, v1 + b.y, a0, a1);
-          const uint32_t h = pack_bf16(gelu_tanh(a0), gelu_tanh(a1));
-          *reinterpret_cast<uint32_t*>(Hs + r * ldh + col) = h;
-          if (r < valid)
-            *reinterpret_cast<uint32_t*>(
-                h1_out + ((size_t)r0 + r) * hidden + col) = h;
-        });
-      });
-  // h2 = T(h1 w2 + T(b2)) into Zs
-  tile_gemm<R, 32, 2>(Hs, ldh, w2, hidden, D, ring, [] {},
-                      [&](int c0, const Acc<R>& acc) {
-    for_pairs<R>(acc, [&](int r, int, int c, float v0, float v1) {
-      const int col = c0 + c;
-      if (col >= D) return;
-      const float2 b = ld_bf16x2(b2 + col);
-      st_bf16x2(Zs + r * lda + col, v0 + b.x, v1 + b.y);
-    });
-  });
-  // dgate_m partial = column sums of dy * h2 (the sums in Hs: h1 is done);
-  // dh2 = T(T(gate_m) dy) in place of h2, zero past `valid`
-  {
-    const int i = threadIdx.x / LP, q = threadIdx.x % LP;
-    float* CSw = CS + (threadIdx.x >> 5) * D;
-    for (int c = 8 * q; c < D; c += 8 * LP) {
-      float d[8] = {}, h2[8], g[8], pr[8];
-      if (i < valid) ld8(dy + ((size_t)r0 + i) * D + c, d);
-      ld8(Zs + i * lda + c, h2);
-      ld8(modb + 5 * D + c, g);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        pr[k] = d[k] * h2[k];
-        d[k] = rnd<bf16>(rnd<bf16>(g[k]) * d[k]);
-      }
-      warp_col_sums8(pr, CSw, c);
-      st8(Zs + i * lda + c, d);
-      if (i < valid) st8(dh2_out + ((size_t)r0 + i) * D + c, d);
-    }
-  }
-  __syncthreads();
-  warps_sum(CS, D, pt + 5 * D);
-  // da1 = T((dh2 w2^T) * gelu'(a1)) into Hs
-  tile_gemm<R, 32, 2>(Zs, lda, w2t, D, hidden, ring, [] {},
-                      [&](int c0, const Acc<R>& acc) {
-    for_pairs<R>(acc, [&](int r, int, int c, float v0, float v1) {
-      const int col = c0 + c;
-      if (col >= hidden) return;
-      const float2 a = ld_bf16x2(A1 + r * ldh + col);
-      const uint32_t d = pack_bf16(v0 * gelu_tanh_grad(a.x),
-                                   v1 * gelu_tanh_grad(a.y));
-      *reinterpret_cast<uint32_t*>(Hs + r * ldh + col) = d;
-      if (r < valid)
-        *reinterpret_cast<uint32_t*>(da1_out + ((size_t)r0 + r) * hidden +
-                                     col) = d;
-    });
-  });
-  // dz2 = da1 w1^T (f32) in place of a1
-  tile_gemm<R, 32, 2>(Hs, ldh, w1t, hidden, D, ring, [] {},
-                      [&](int c0, const Acc<R>& acc) {
-    for_pairs<R>(acc, [&](int r, int, int c, float v0, float v1) {
-      const int col = c0 + c;
-      if (col < D)
-        *reinterpret_cast<float2*>(DZ + r * ldz + col) = make_float2(v0, v1);
-    });
-  });
-  // dshift_m, dscale_m; dx1 = dy + LN-VJP
-  ln_vjp_rows<bf16, float>(x1 + (size_t)r0 * D, modb, 3, DZ, ldz, CS,
-                           dy + (size_t)r0 * D, dx1 + (size_t)r0 * D, pt,
-                           valid, D, eps);
 }
 
 // Attention output: dpo = T(T(gate_a) dx1) and the dgate_a partial (column
@@ -1071,39 +872,6 @@ attn_out_bwd_tc_kernel(const float* __restrict__ dx1,
     st[row * 3 + 1] = 1.0f / rst[row];
     st[row * 3 + 2] = s;
   }
-}
-
-// qkv half: dz1 = dqkv wqkv^T (f32), then dshift_a, dscale_a and
-// dx = T(dx1 + LN-VJP).
-__global__ void __launch_bounds__(NT, 2)
-qkv_bwd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ mod,
-                  const bf16* __restrict__ wqkvt,
-                  const bf16* __restrict__ dqkv,
-                  const float* __restrict__ dx1, bf16* __restrict__ dx,
-                  float* __restrict__ part, int N, int D, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int R = RT;
-  const int W3 = 3 * D, lda = W3 + 8, ldz = D + 4;
-  bf16* As = reinterpret_cast<bf16*>(smem);  // dqkv, then column sums
-  float* DZ = reinterpret_cast<float*>(smem + row_tile(W3));
-  bf16* ring = reinterpret_cast<bf16*>(DZ + R * ldz);
-
-  const Tile tl = tile_of<bf16>(N);
-  const size_t r0 = tl.r0;
-  cp_rows<R>(As, dqkv + r0 * W3, W3, W3, tl.valid);
-  cp_commit();  // older than the ring's groups, so in before its first slice
-  tile_gemm<R, 32, 3>(As, lda, wqkvt, W3, D, ring, [] {},
-                      [&](int c0, const Acc<R>& acc) {
-    for_pairs<R>(acc, [&](int r, int, int c, float v0, float v1) {
-      const int col = c0 + c;
-      if (col < D)
-        *reinterpret_cast<float2*>(DZ + r * ldz + col) = make_float2(v0, v1);
-    });
-  });
-  ln_vjp_rows<float, bf16>(x + r0 * D, mod + (size_t)tl.b * 6 * D, 0, DZ, ldz,
-                           reinterpret_cast<float*>(As), dx1 + r0 * D,
-                           dx + r0 * D, part + (size_t)blockIdx.x * 6 * D,
-                           tl.valid, D, eps);
 }
 
 // Weight grads: part_w[s] = A[rows of s]^T G[rows of s] (A rows x K,
@@ -1238,23 +1006,847 @@ inline int wgrad_tc_splits(int rows, int K, int M) {
   return (rows + split - 1) / split;
 }
 
-// W^T of the four weights the backward multiplies by transposed, made once
-// a call: dst (cols x rows) = src (rows x cols)^T, blockIdx.y the weight
-struct Transpose {
-  const bf16* src;
-  bf16* dst;
-  int rows, cols;
+// ---------------------------------------------------------------------------
+// bf16 MLP and qkv halves: persistent, warp-specialised wgmma kernels on
+// dit_layer.cuh's row-kernel machinery (its note has the common design).
+// One block an SM, two consumer warpgroups each walking its own 64-row tiles
+// (rw_tile's fixed order over tile_of's element-aligned tiles, so each
+// tile's dmod partials belong to one element and `part` keeps its layout)
+// and a producer warpgroup (setmaxnreg 40 / 232) whose threads fill the
+// groups' tiles and the weight slots by TMA into 128-byte-swizzled slabs.
+// The activations come through 3-d maps over (B, N, columns): a tile at an
+// element's end loads zeros past its last row and stores nothing there.
+// The weights are read both ways from one copy: a slab that is MN-major
+// for x @ W is K-major for dz @ W^T (wgmma's B may be either), so no
+// transposed copy is made.
+
+struct BwdRowArgs {
+  const float* mod;  // (B, 6, D) adaLN vectors, f32
+  const bf16* b1;    // fc1's bias (MLP half)
+  const bf16* b2;    // fc2's bias (MLP half)
+  float* dx1;        // (B * N, D) f32: the MLP half's output, the qkv half's input
+  float* part;       // (B * tiles, 6, D) per-(element, tile) dmod partials
+  int B, N, hidden;
+  float eps;
+  int items, slots, stages;  // the plan
 };
-struct Transposes {
-  Transpose t[4];
+
+// element b, its first row n0 and live rows of the element-aligned tile t
+struct RowTile {
+  int b, n0, valid;
 };
-__global__ void transpose4_kernel(Transposes job) {
-  const Transpose t = job.t[blockIdx.y];
-  const int n = t.rows * t.cols;
+__device__ __forceinline__ RowTile bwd_tile(int t, int N) {
+  const int tpe = (N + 63) / 64, n0 = (t % tpe) * 64;
+  return RowTile{t / tpe, n0, min(64, N - n0)};
+}
+
+// The MLP half's plan: per 64 columns of hidden an item of w1 (D K rows x
+// those columns) and one of w2 (those 64 rows x D columns), each read in
+// both passes of a tile; a stage is a group's x1 and dy tiles; fixed, its
+// staging tile of two 64 x 64 slabs (h1 and da1 out, the column sums).
+constexpr size_t MB_STAGING = 16384;
+inline RowPlan plan_mlp_bwd(int D, int hidden, long long optin) {
+  return row_plan(D, hidden / 32, (size_t)256 * D, MB_STAGING, 4, optin);
+}
+// The qkv half's: an item per 64 columns of wqkv (D rows x those columns);
+// a stage is a group's x tile and dqkv's 3 D / 64 K slabs of 64 columns.
+inline RowPlan plan_qkv_bwd(int D, long long optin) {
+  return row_plan(D, 3 * D / 64, (size_t)512 * D, 0, 2, optin);
+}
+// their dynamic shared memory (LLONG_MAX: no plan fits)
+inline size_t smem_mlp_bwd_tc(int D, int hidden) {
+  const RowPlan p = plan_mlp_bwd(D, hidden, smem_optin());
+  return p.slots ? p.smem : (size_t)LLONG_MAX;
+}
+inline size_t smem_qkv_bwd_tc(int D) {
+  const RowPlan p = plan_qkv_bwd(D, smem_optin());
+  return p.slots ? p.smem : (size_t)LLONG_MAX;
+}
+
+// tanh-GELU's derivative from the exponential gelu_fast takes (the same
+// t = tanh(u) = 2 s - 1, s = 1 / (1 + exp(-2u))): 0.5 (1 + t) = s and
+// 1 - t^2 = 4 s (1 - s), so gelu'(v) = s + 2 k v s (1 - s) (1 + 3 c v^2)
+__device__ __forceinline__ float gelu_fast_grad(float v) {
+  const float k = 0.7978845608028654f, c = 0.044715f;
+  const float u = k * (v + c * v * v * v);
+  const float s = __fdividef(1.0f, 1.0f + ex2(-2.0f * LOG2E * u));
+  return s + 2.0f * k * v * s * (1.0f - s) * (1.0f + 3.0f * c * v * v);
+}
+// T(g gelu'(T(a1 + T(b1)))) of the thread's pair in row h of an n8 tile
+__device__ __forceinline__ uint32_t dgelu_pair(const float (&a)[4],
+                                               const float (&gv)[4], int h,
+                                               uint32_t bp) {
+  float x0, x1;
+  round2(a[2 * h] + __uint_as_float(bp << 16),
+         a[2 * h + 1] + __uint_as_float(bp & 0xffff0000u), x0, x1);
+  return pack_bf16(gv[2 * h] * gelu_fast_grad(x0),
+                   gv[2 * h + 1] * gelu_fast_grad(x1));
+}
+// a 128-byte-swizzle descriptor at base + off, built where its wgmma is
+// issued (opaque: with the products of pass 2 and dz2's in flight, the
+// descriptors of a whole step held at once spill)
+__device__ __forceinline__ uint64_t desc_at(uint32_t base, uint32_t off,
+                                            uint32_t lbo) {
+  return sw128_desc(opaque(base) + off, lbo);
+}
+__device__ __forceinline__ float bf_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+// the sum of v over the 8 lanes of a warp that hold the same columns
+__device__ __forceinline__ float col_sum8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// The LayerNorm VJP of a warpgroup's 64-row tile (both halves' epilogue),
+// from dz, the sums of its product in wgmma's accumulator layout (the
+// thread's rows 16 warp + lane / 4 (+ 8), columns 8 nt + 2 (lane % 4)
+// (+ 1)), and X, the tile's input rows (64-column slabs in the 128-byte
+// swizzle). With x̂ = (x - mu) rs, scale = modb[ish + 1], g = dz (1 +
+// scale): out(h, nt, v0, v1) gets the pair of base(h, nt) + rs (g -
+// mean(g) - x̂ mean(g x̂)) (it may write it over X), and pt[ish * D + c],
+// pt[(ish + 1) * D + c] the tile's column sums of dz and dz x̂ over its
+// live rows. The statistics of x in f32 over the quad of lanes that holds
+// a row (the mean, then the variance of the centred row); the column sums
+// by shuffles over the warp's rows, then over the four warps in order
+// through cs (8 D floats). Ends past a barrier of the group, after which
+// the caller may store X.
+template <int D, typename Base, typename Out>
+__device__ __forceinline__ void wg_ln_vjp(const float (&dz)[D / 8][4],
+                                         const unsigned char* X,
+                                         const float* modb, int ish,
+                                         int valid, float eps, float* cs,
+                                         float* pt, int w, Base&& base,
+                                         Out&& out) {
+  constexpr int NT8 = D / 8;
+  const int wt = threadIdx.x & 127, warp = wt >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  auto xp = [&](int h, int nt) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(
+        X + out_at(16 * warp + gr + 8 * h, nt) + 4 * tq);
+    return make_float2(bf_lo(u), bf_hi(u));
+  };
+  float mu[2], rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      const float2 p = xp(h, nt);
+      s += p.x + p.y;
+    }
+    mu[h] = quad_sum(s) / D;
+    float v = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      const float2 p = xp(h, nt);
+      v += (p.x - mu[h]) * (p.x - mu[h]) + (p.y - mu[h]) * (p.y - mu[h]);
+    }
+    rs[h] = rsqrtf(quad_sum(v) / D + eps);
+  }
+  const float* sc = modb + (size_t)(ish + 1) * D + 2 * tq;
+  float* csw = cs + warp * 2 * D + 2 * tq;
+  float sg[2] = {0.0f, 0.0f}, sgx[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    const float2 s2 = __ldg(reinterpret_cast<const float2*>(sc + 8 * nt));
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // dz, dz x̂ of the two columns
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 p = xp(h, nt);
+      const float d0 = dz[nt][2 * h], d1 = dz[nt][2 * h + 1];
+      const float x0 = (p.x - mu[h]) * rs[h], x1 = (p.y - mu[h]) * rs[h];
+      const float g0 = d0 * (1.0f + s2.x), g1 = d1 * (1.0f + s2.y);
+      sg[h] += g0 + g1;
+      sgx[h] += g0 * x0 + g1 * x1;
+      if (16 * warp + gr + 8 * h < valid) {
+        c[0] += d0;
+        c[1] += d1;
+        c[2] += d0 * x0;
+        c[3] += d1 * x1;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = col_sum8(c[e]);
+    if (gr == 0) {
+      *reinterpret_cast<float2*>(csw + 8 * nt) = make_float2(c[0], c[1]);
+      *reinterpret_cast<float2*>(csw + D + 8 * nt) = make_float2(c[2], c[3]);
+    }
+  }
+  float mg[2], mgx[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mg[h] = quad_sum(sg[h]) / D;
+    mgx[h] = quad_sum(sgx[h]) / D;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt) {
+    const float2 s2 = __ldg(reinterpret_cast<const float2*>(sc + 8 * nt));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 p = xp(h, nt), b = base(h, nt);
+      const float x0 = (p.x - mu[h]) * rs[h], x1 = (p.y - mu[h]) * rs[h];
+      const float g0 = dz[nt][2 * h] * (1.0f + s2.x);
+      const float g1 = dz[nt][2 * h + 1] * (1.0f + s2.y);
+      out(h, nt, b.x + rs[h] * (g0 - mg[h] - x0 * mgx[h]),
+          b.y + rs[h] * (g1 - mg[h] - x1 * mgx[h]));
+    }
+  }
+  fence_async_shared();  // out's stores over X, to a TMA store
+  bar_sync(1 + w, 128);
+  for (int c = wt; c < 2 * D; c += 128)
+    pt[(size_t)ish * D + c] =
+        ((cs[c] + cs[2 * D + c]) + cs[4 * D + c]) + cs[6 * D + c];
+}
+
+// MLP half, per 64-row tile of one element:
+//   z2 = T(modLN(x1; mod[3], mod[4])) over the x1 tile, out;
+//   pass 1, per 64 columns hc of hidden: a1 = z2 @ w1[:, hc] (32 sums a
+//     thread), h1 = T(gelu(T(a1 + T(b1)))) out through the staging slab and
+//     packed into register-A fragments of h2 += h1 @ w2[hc] (its sums over
+//     all of hidden in registers);
+//   h2 = T(h2 + T(b2)); the dgate partial = column sums of dy h2; dh2 =
+//     T(T(gate) dy) over the dy tile, out;
+//   pass 2, per hc: a1 = z2 @ w1[:, hc] again and g = dh2 @ w2[hc]^T (w2's
+//     item read K-major), da1 = T(g gelu'(T(a1 + T(b1)))) out and packed
+//     into register-A fragments of dz2 += da1 @ w1[:, hc]^T (w1's item read
+//     K-major);
+//   x1 and dy come in again over z2 and dh2; the LayerNorm VJP from dz2's
+//     registers (wg_ln_vjp): dshift and dscale partials and dx1 = dy +
+//     LN-VJP, f32, stored from registers.
+// Rounding points as the first kernels' but the GELU and its derivative,
+// taken from exp(-2u) on the exponent unit as the forward's gelu_fast does.
+// L2 policies: every load (x1 and dy, both times) and every store (z2,
+// h1, dh2, da1; dx1 streaming) with evict_first, so the kernel leaves
+// nothing of its own in L2 (without them it ran 2.57 ms at the flagship
+// call; with x1 and dy first kept by evict_last, 1.79; so, 1.41: PERF.md).
+template <int D>
+__global__ void __launch_bounds__(RW_NT, 1)
+    mlp_bwd_tc_kernel(const BwdRowArgs g,
+                      const __grid_constant__ CUtensorMap m_x1,
+                      const __grid_constant__ CUtensorMap m_dy,
+                      const __grid_constant__ CUtensorMap m_w1,
+                      const __grid_constant__ CUtensorMap m_w2,
+                      const __grid_constant__ CUtensorMap m_z2,
+                      const __grid_constant__ CUtensorMap m_h1,
+                      const __grid_constant__ CUtensorMap m_dh2,
+                      const __grid_constant__ CUtensorMap m_da1) {
+  constexpr int NK = D / 64, TILE = 128 * D;
+  extern __shared__ unsigned char rw_raw[];
+  __shared__ uint64_t wfull[RW_SLOTS], wempty[RW_SLOTS];
+  // a stage's x1 and dy tiles, loaded twice a tile on one barrier pair
+  __shared__ uint64_t afull[RW_WG][RW_STAGES], aempty[RW_WG][RW_STAGES];
+  unsigned char* wsl = align_atoms(rw_raw);
+  unsigned char* acts = wsl + (size_t)g.slots * TILE;
+  const size_t group = (size_t)g.stages * 2 * TILE + MB_STAGING;
+  const int nh = g.hidden / 64;
+  // item k is w1's (k even) or w2's (k odd) of columns k / 2 of hidden;
+  // resident, both passes read the same slots; streamed, the ring carries
+  // the two passes' 4 nh reads in order
+  const WRing wr{wfull, wempty, g.slots >= 2 * nh ? 2 * nh : 4 * nh,
+                 g.slots};
+  const int tid = threadIdx.x, tiles = g.B * ((g.N + 63) / 64);
+  const int iters = rw_iters(tiles);
+  if (tid == 0) {
+    for (int i = 0; i < g.slots; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], RW_NC / 32);
+    }
+    for (int w = 0; w < RW_WG; ++w)
+      for (int s = 0; s < g.stages; ++s) {
+        mbar_init(&afull[w][s], 1);
+        mbar_init(&aempty[w][s], 4);
+      }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= RW_NC) {
+    regs_dec<RW_PRODUCER_REGS>();
+    const int pw = (tid - RW_NC) >> 5;
+    if ((tid & 31) != 0 || pw > RW_WG) return;
+    if (pw < RW_WG) {
+      // group pw's x1 and dy tiles, twice a tile: at its start, and for the
+      // LayerNorm VJP once pass 2 has read z2 and dh2 over them (each
+      // load waits for the release before it: completions alternate)
+      for (int j = 0; j < iters; ++j) {
+        const int t = rw_tile(j, pw);
+        if (t >= tiles) break;
+        const RowTile rt = bwd_tile(t, g.N);
+        const int s = j % g.stages;
+        unsigned char* X = acts + pw * group + (size_t)s * 2 * TILE;
+        for (int again = 0; again < 2; ++again) {
+          if (again || j >= g.stages) mbar_wait(&aempty[pw][s], again ^ 1);
+          mbar_expect(&afull[pw][s], 2 * TILE);
+#pragma unroll
+          for (int kc = 0; kc < NK; ++kc) {
+            tma_load3(X + kc * 8192, &m_x1, 64 * kc, rt.n0, rt.b,
+                      &afull[pw][s], l2_evict_first());
+            tma_load3(X + TILE + kc * 8192, &m_dy, 64 * kc, rt.n0, rt.b,
+                      &afull[pw][s], l2_evict_first());
+          }
+        }
+      }
+    } else {
+      const CUtensorMap *m1 = &m_w1, *m2 = &m_w2;
+      wr.produce<TILE>(wsl, iters, [=](unsigned char* dst, int k,
+                                       uint64_t* bar) {
+        const int q = k % (2 * nh), hc = q >> 1;
+        mbar_expect(bar, TILE);
+#pragma unroll
+        for (int jj = 0; jj < NK; ++jj) {
+          if (q & 1)
+            tma_load(dst + jj * 8192, m2, 64 * jj, 64 * hc, bar);
+          else
+            tma_load(dst + jj * 8192, m1, 64 * hc, 64 * jj, bar);
+        }
+      });
+    }
+    return;
+  }
+
+  regs_inc<RW_CONSUMER_REGS>();
+  const int w = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  unsigned char* grp = acts + w * group;
+  unsigned char* C = grp + (size_t)g.stages * 2 * TILE;  // the staging tile
+  float* cs = reinterpret_cast<float*>(C);
+  const uint32_t wsl_at = sm_addr(wsl);
+  auto item = [&](int pass, int k) {
+    return wr.resident() ? k : pass * 2 * nh + k;
+  };
+  auto at = [&](int j, int k) { return wsl_at + wr.slot(j, k) * TILE; };
+  // one set of sums over D columns (h2, then dz2) and two over 64 (fc1's
+  // in pass 1; a1 and g in pass 2) for every phase: wgmma's sums sit in
+  // ranges of registers, and arrays of their own a phase left the
+  // allocator too few
+  float acc[D / 8][4], ra[8][4], rb[8][4];
+  for (int j = 0; j < iters; ++j) {
+    const int t = rw_tile(j, w);
+    if (t >= tiles) {
+      wr.drain(j);
+      continue;
+    }
+    const RowTile rt = bwd_tile(t, g.N);
+    const int s = j % g.stages, valid = rt.valid;
+    unsigned char* X = grp + (size_t)s * 2 * TILE;
+    unsigned char* Y = X + TILE;
+    const uint32_t xa = sm_addr(X), ya = sm_addr(Y);
+    const float* modb = g.mod + (size_t)rt.b * 6 * D;
+    float* pt = g.part + (size_t)t * 6 * D;
+    // chunk hc of h1 or da1 out of its staging slab; the store before it
+    // (the other slab's) must have read its slab before anyone writes it
+    auto stage_out = [&](const CUtensorMap* m, int hc) {
+      fence_async_shared();
+      if (wt == 0) bulk_wait<0, true>();
+      bar_sync(1 + w, 128);
+      if (wt == 0) {
+        tma_store3(m, C + (hc & 1) * 8192, 64 * hc, rt.n0, rt.b,
+                   l2_evict_first());
+        bulk_commit();
+      }
+    };
+
+    mbar_wait(&afull[w][s], 0);
+    wg_modln_rows<64, 128, D / 16>(X, X, valid, D, g.eps, 3, 4, wt,
+                                   [&](int) { return modb; });
+    fence_async_shared();  // z2, to wgmma and the store
+    bar_sync(1 + w, 128);
+    if (wt == 0) {
+#pragma unroll
+      for (int kc = 0; kc < NK; ++kc)
+        tma_store3(&m_z2, X + kc * 8192, 64 * kc, rt.n0, rt.b,
+                   l2_evict_first());
+      bulk_commit();
+    }
+
+    // pass 1 (as proj_mlp_tc_kernel's MLP: fc1 of chunk hc + 1 runs under
+    // chunk hc's GELU, the one wait after fc2 drains both)
+    float (&acc2)[D / 8][4] = acc;
+    {
+      float (&a1a)[8][4] = ra;
+      float (&a1b)[8][4] = rb;
+      auto fc1 = [&](float (&a1)[8][4], int hc) {
+        const int k = item(0, 2 * hc);
+        wr.wait(j, k);
+        const uint32_t wa = at(j, k);
+        wg_fence();
+#pragma unroll
+        for (int s16 = 0; s16 < D / 16; ++s16)
+          WgSS<64>::run(a1,
+                        desc_at(xa, (s16 >> 2) * 8192 + 32 * (s16 & 3), 16),
+                        desc_at(wa, 2048 * s16, 8192), s16 > 0);
+        wg_commit();
+      };
+      auto fc2 = [&](const float (&a1)[8][4], int hc) {
+        unsigned char* cb = C + (hc & 1) * 8192;
+        uint32_t hf[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const uint32_t bp = ld_pair(g.b1 + 64 * hc + 8 * nt + 2 * tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t v = gelu_pair(a1[nt], h, bp);
+            hf[nt >> 1][(nt & 1) * 2 + h] = v;
+            *reinterpret_cast<uint32_t*>(
+                cb + out_at(16 * warp + gr + 8 * h, nt) + 4 * tq) = v;
+          }
+        }
+        const int k = item(0, 2 * hc + 1);
+        wr.wait(j, k);
+        const uint32_t wa = at(j, k);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgMma<D>::template run<1>(acc2, hf[kk],
+                                    desc_at(wa, 2048 * kk, 8192),
+                                    hc > 0 || kk > 0);
+        wg_commit();
+        stage_out(&m_h1, hc);
+      };
+      auto step = [&](const float (&cur)[8][4], float (&nxt)[8][4], int hc) {
+        fc1(nxt, hc + 1);
+        fc2(cur, hc);
+        wg_wait<0>();
+        fence_regs(nxt);
+        wr.release(j, item(0, 2 * hc + 2));
+        wr.release(j, item(0, 2 * hc + 1));
+      };
+      auto last = [&](const float (&cur)[8][4], int hc) {
+        fc2(cur, hc);
+        wg_wait<0>();
+        wr.release(j, item(0, 2 * hc + 1));
+      };
+      fc1(a1a, 0);
+      wg_wait<0>();
+      fence_regs(a1a);
+      wr.release(j, item(0, 0));
+      int hc = 0;
+      for (; hc + 2 < nh; hc += 2) {
+        step(a1a, a1b, hc);
+        step(a1b, a1a, hc + 1);
+      }
+      if (nh - hc == 2) {
+        step(a1a, a1b, hc);
+        last(a1b, hc + 1);
+      } else {
+        last(a1a, hc);
+      }
+      fence_regs(acc2);
+    }
+
+    // h2, the dgate partial (through cs, once the last h1 store has read
+    // the staging tile) and dh2 over dy
+    if (wt == 0) bulk_wait<0, true>();
+    bar_sync(1 + w, 128);
+    {
+      float* csw = cs + warp * D + 2 * tq;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const uint32_t bp = ld_pair(g.b2 + 8 * nt + 2 * tq);
+        const uint32_t gp = gate_pair(modb + 5 * D + 8 * nt + 2 * tq);
+        float c0 = 0.0f, c1 = 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * warp + gr + 8 * h;
+          uint32_t* yp =
+              reinterpret_cast<uint32_t*>(Y + out_at(i, nt) + 4 * tq);
+          const uint32_t dv = *yp;
+          float h0, h1;
+          round2(acc2[nt][2 * h] + bf_lo(bp), acc2[nt][2 * h + 1] + bf_hi(bp),
+                 h0, h1);
+          if (i < valid) {
+            c0 += bf_lo(dv) * h0;
+            c1 += bf_hi(dv) * h1;
+          }
+          *yp = pack_bf16(bf_lo(gp) * bf_lo(dv), bf_hi(gp) * bf_hi(dv));
+        }
+        c0 = col_sum8(c0);
+        c1 = col_sum8(c1);
+        if (gr == 0)
+          *reinterpret_cast<float2*>(csw + 8 * nt) = make_float2(c0, c1);
+      }
+      fence_async_shared();  // dh2, to wgmma and the store
+      bar_sync(1 + w, 128);
+      if (wt == 0) {
+#pragma unroll
+        for (int kc = 0; kc < NK; ++kc)
+          tma_store3(&m_dh2, Y + kc * 8192, 64 * kc, rt.n0, rt.b,
+                     l2_evict_first());
+        bulk_commit();
+      }
+      for (int c = wt; c < D; c += 128)
+        pt[5 * D + c] = ((cs[c] + cs[D + c]) + cs[2 * D + c]) + cs[3 * D + c];
+      bar_sync(1 + w, 128);  // cs read, before da1's staging
+    }
+
+    // pass 2: chunk hc's two products, then its da1 and dz2's product
+    // under chunk hc + 1's two
+    float (&dz)[D / 8][4] = acc;
+    {
+      float (&a1)[8][4] = ra;
+      float (&gg)[8][4] = rb;
+      auto rg = [&](int hc) {
+        const int k1 = item(1, 2 * hc), k2 = item(1, 2 * hc + 1);
+        wr.wait(j, k1);
+        wr.wait(j, k2);
+        const uint32_t w1a = at(j, k1), w2a = at(j, k2);
+        wg_fence();
+#pragma unroll
+        for (int s16 = 0; s16 < D / 16; ++s16)
+          WgSS<64>::run(a1,
+                        desc_at(xa, (s16 >> 2) * 8192 + 32 * (s16 & 3), 16),
+                        desc_at(w1a, 2048 * s16, 8192), s16 > 0);
+#pragma unroll
+        for (int s16 = 0; s16 < D / 16; ++s16) {
+          const uint32_t ko = (s16 >> 2) * 8192 + 32 * (s16 & 3);
+          WgSS<64>::run<0>(gg, desc_at(ya, ko, 16), desc_at(w2a, ko, 16),
+                           s16 > 0);
+        }
+        wg_commit();
+      };
+      auto dzp = [&](int hc) {
+        unsigned char* cb = C + (hc & 1) * 8192;
+        uint32_t df[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const uint32_t bp = ld_pair(g.b1 + 64 * hc + 8 * nt + 2 * tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t v = dgelu_pair(a1[nt], gg[nt], h, bp);
+            df[nt >> 1][(nt & 1) * 2 + h] = v;
+            *reinterpret_cast<uint32_t*>(
+                cb + out_at(16 * warp + gr + 8 * h, nt) + 4 * tq) = v;
+          }
+        }
+        const uint32_t wa = at(j, item(1, 2 * hc));
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgMma<D>::template run<0>(dz, df[kk], desc_at(wa, 32 * kk, 16),
+                                    hc > 0 || kk > 0);
+        wg_commit();
+      };
+      rg(0);
+      wg_wait<0>();
+      fence_regs(a1);
+      fence_regs(gg);
+      wr.release(j, item(1, 1));
+      for (int hc = 0; hc + 1 < nh; ++hc) {
+        dzp(hc);
+        rg(hc + 1);
+        stage_out(&m_da1, hc);
+        wg_wait<0>();
+        fence_regs(a1);
+        fence_regs(gg);
+        fence_regs(dz);
+        wr.release(j, item(1, 2 * hc));
+        wr.release(j, item(1, 2 * hc + 3));
+      }
+      // z2 and dh2 have had their last readers (the stores of both have
+      // read them: every store but the last da1 chunk's), so x1 and dy may
+      // come in again over them under the last chunk
+      if (wt == 0) {
+        if (nh > 1)
+          bulk_wait<1, true>();
+        else
+          bulk_wait<0, true>();
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&aempty[w][s]);
+      dzp(nh - 1);
+      stage_out(&m_da1, nh - 1);
+      wg_wait<0>();
+      fence_regs(dz);
+      wr.release(j, item(1, 2 * nh - 2));
+    }
+
+    // the LayerNorm VJP: cs once the last da1 store has read the staging
+    // tile, x1 and dy once in again; dx1 (f32) stored from registers,
+    // streaming (the attention output's kernel reads it back from memory)
+    if (wt == 0) bulk_wait<0, true>();
+    mbar_wait(&afull[w][s], 1);
+    bar_sync(1 + w, 128);
+    float* dst = g.dx1 + ((size_t)rt.b * g.N + rt.n0) * D + 2 * tq;
+    wg_ln_vjp<D>(
+        dz, X, modb, 3, valid, g.eps, cs, pt, w,
+        [&](int h, int nt) {
+          const uint32_t u = *reinterpret_cast<const uint32_t*>(
+              Y + out_at(16 * warp + gr + 8 * h, nt) + 4 * tq);
+          return make_float2(bf_lo(u), bf_hi(u));
+        },
+        [&](int h, int nt, float v0, float v1) {
+          const int i = 16 * warp + gr + 8 * h;
+          if (i < valid)
+            __stcs(reinterpret_cast<float2*>(dst + (size_t)i * D + 8 * nt),
+                   make_float2(v0, v1));
+        });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&aempty[w][s]);  // x1 and dy read
+  }
+  if (wt == 0) bulk_wait<0, false>();
+}
+
+// qkv half, per 64-row tile of one element: dz1 = dqkv @ wqkv^T (f32; each
+// of dqkv's 64-column K slabs on its own barrier, wqkv's item read
+// K-major), dx1 loaded into registers under the products, then the
+// LayerNorm VJP from dz1's registers (wg_ln_vjp): the dshift_a and
+// dscale_a partials and dx = T(dx1 + LN-VJP) over the x tile, out. The
+// stage's last dqkv slab holds the column sums; it and the x tile go back
+// to the producer once dx's store has read the tile, the other slabs once
+// the products have read them.
+template <int D>
+__global__ void __launch_bounds__(RW_NT, 1)
+    qkv_bwd_tc_kernel(const BwdRowArgs g,
+                      const __grid_constant__ CUtensorMap m_dq,
+                      const __grid_constant__ CUtensorMap m_x,
+                      const __grid_constant__ CUtensorMap m_w,
+                      const __grid_constant__ CUtensorMap m_dx) {
+  constexpr int NK = D / 64, NS = 3 * NK, TILE = 128 * D;
+  constexpr int STAGE = NS * 8192 + TILE;  // the dqkv slabs, then x
+  extern __shared__ unsigned char rw_raw[];
+  __shared__ uint64_t wfull[RW_SLOTS], wempty[RW_SLOTS];
+  __shared__ uint64_t sfull[RW_WG][RW_STAGES][NS + 1];
+  __shared__ uint64_t pempty[RW_WG][RW_STAGES], tempty[RW_WG][RW_STAGES];
+  unsigned char* wsl = align_atoms(rw_raw);
+  unsigned char* acts = wsl + (size_t)g.slots * TILE;
+  const size_t group = (size_t)g.stages * STAGE;
+  const WRing wr{wfull, wempty, g.items, g.slots};
+  const int tid = threadIdx.x, tiles = g.B * ((g.N + 63) / 64);
+  const int iters = rw_iters(tiles);
+  if (tid == 0) {
+    for (int i = 0; i < g.slots; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], RW_NC / 32);
+    }
+    for (int w = 0; w < RW_WG; ++w)
+      for (int s = 0; s < g.stages; ++s) {
+        for (int k = 0; k <= NS; ++k) mbar_init(&sfull[w][s][k], 1);
+        mbar_init(&pempty[w][s], 4);
+        mbar_init(&tempty[w][s], 1);
+      }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= RW_NC) {
+    regs_dec<RW_PRODUCER_REGS>();
+    const int pw = (tid - RW_NC) >> 5;
+    if ((tid & 31) != 0 || pw > RW_WG) return;
+    if (pw < RW_WG) {
+      for (int j = 0; j < iters; ++j) {
+        const int t = rw_tile(j, pw);
+        if (t >= tiles) break;
+        const RowTile rt = bwd_tile(t, g.N);
+        const int s = j % g.stages, u = j / g.stages;
+        unsigned char* S0 = acts + pw * group + (size_t)s * STAGE;
+        uint64_t* f = sfull[pw][s];
+        if (u > 0) mbar_wait(&pempty[pw][s], (u - 1) & 1);
+        for (int k = 0; k < NS - 1; ++k) {
+          mbar_expect(&f[k], 8192);
+          tma_load3(S0 + k * 8192, &m_dq, 64 * k, rt.n0, rt.b, &f[k]);
+        }
+        if (u > 0) mbar_wait(&tempty[pw][s], (u - 1) & 1);
+        mbar_expect(&f[NS - 1], 8192);
+        tma_load3(S0 + (NS - 1) * 8192, &m_dq, 64 * (NS - 1), rt.n0, rt.b,
+                  &f[NS - 1]);
+        mbar_expect(&f[NS], TILE);
+#pragma unroll
+        for (int kc = 0; kc < NK; ++kc)
+          tma_load3(S0 + NS * 8192 + kc * 8192, &m_x, 64 * kc, rt.n0, rt.b,
+                    &f[NS]);
+      }
+    } else {
+      // item k: wqkv's columns 64 k.. over its D rows, D / 64 slabs
+      const CUtensorMap* mw = &m_w;
+      wr.produce<TILE>(wsl, iters, [=](unsigned char* dst, int k,
+                                       uint64_t* bar) {
+        mbar_expect(bar, TILE);
+#pragma unroll
+        for (int dd = 0; dd < NK; ++dd)
+          tma_load(dst + dd * 8192, mw, 64 * k, 64 * dd, bar);
+      });
+    }
+    return;
+  }
+
+  regs_inc<RW_CONSUMER_REGS>();
+  const int w = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  unsigned char* grp = acts + w * group;
+  const uint32_t wsl_at = sm_addr(wsl);
+  for (int j = 0; j < iters; ++j) {
+    const int t = rw_tile(j, w);
+    if (t >= tiles) {
+      wr.drain(j);
+      continue;
+    }
+    const RowTile rt = bwd_tile(t, g.N);
+    const int s = j % g.stages, ph = (j / g.stages) & 1, valid = rt.valid;
+    unsigned char* S0 = grp + (size_t)s * STAGE;
+    unsigned char* X = S0 + NS * 8192;
+    const uint32_t sa = sm_addr(S0);
+    float dz[D / 8][4];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      mbar_wait(&sfull[w][s][k], ph);
+      wr.wait(j, k);
+      const uint32_t wa = wsl_at + wr.slot(j, k) * TILE;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgSS<D>::template run<0>(dz, sw128_desc(sa + k * 8192 + 32 * kk, 16),
+                                 sw128_desc(wa + 32 * kk, 16),
+                                 k > 0 || kk > 0);
+      wg_commit();
+    }
+    float2 dxr[2][D / 8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * warp + gr + 8 * h;
+      const float* src =
+          g.dx1 + ((size_t)rt.b * g.N + rt.n0 + i) * D + 2 * tq;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        dxr[h][nt] = i < valid
+                         ? __ldg(reinterpret_cast<const float2*>(src + 8 * nt))
+                         : make_float2(0.0f, 0.0f);
+    }
+    wg_wait<0>();
+    fence_regs(dz);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) wr.release(j, k);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&pempty[w][s]);
+    mbar_wait(&sfull[w][s][NS], ph);
+    wg_ln_vjp<D>(
+        dz, X, g.mod + (size_t)rt.b * 6 * D, 0, valid, g.eps,
+        reinterpret_cast<float*>(S0 + (NS - 1) * 8192),
+        g.part + (size_t)t * 6 * D, w,
+        [&](int h, int nt) { return dxr[h][nt]; },
+        [&](int h, int nt, float v0, float v1) {
+          *reinterpret_cast<uint32_t*>(
+              X + out_at(16 * warp + gr + 8 * h, nt) + 4 * tq) =
+              pack_bf16(v0, v1);
+        });
+    if (wt == 0) {
+#pragma unroll
+      for (int kc = 0; kc < NK; ++kc)
+        tma_store3(&m_dx, X + kc * 8192, 64 * kc, rt.n0, rt.b);
+      bulk_commit();
+    }
+    bar_sync(1 + w, 128);  // every column sum read
+    if (wt == 0) {
+      bulk_wait<0, true>();
+      mbar_arrive(&tempty[w][s]);
+    }
+  }
+  if (wt == 0) bulk_wait<0, false>();
+}
+
+// blocks of a persistent row kernel over B * ceil(N / 64) tiles
+inline int bwd_row_grid(int B, int N, int sms) {
+  const long long tiles = (long long)B * ((N + 63) / 64);
+  const long long blocks = (tiles + RW_WG - 1) / RW_WG;
+  return blocks < sms ? (int)blocks : sms;
+}
+
+template <int D>
+cudaError_t launch_mlp_bwd_tc(const bf16* x1, const float* mod,
+                              const bf16* w1, const bf16* b1, const bf16* w2,
+                              const bf16* b2, const bf16* dy, float* dx1,
+                              bf16* z2, bf16* h1, bf16* dh2, bf16* da1,
+                              float* part, int B, int N, int hidden,
+                              float eps, cudaStream_t st) {
+  const long long optin = smem_optin();
+  if (optin < 0) return (cudaError_t)-optin;
+  const RowPlan p = plan_mlp_bwd(D, hidden, optin);
+  const int sms = rw_sms();
+  if (!p.slots || sms <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = set_smem((const void*)mlp_bwd_tc_kernel<D>, p.smem);
+  if (e) return e;
+  CUtensorMap mx, mdy, mw1, mw2, mz, mh, mdh, mda;
+  if (!make_tmap3(&mx, x1, B, N, D) || !make_tmap3(&mdy, dy, B, N, D) ||
+      !make_tmap(&mw1, w1, D, hidden, 64) ||
+      !make_tmap(&mw2, w2, hidden, D, 64) ||
+      !make_tmap3(&mz, z2, B, N, D) || !make_tmap3(&mh, h1, B, N, hidden) ||
+      !make_tmap3(&mdh, dh2, B, N, D) || !make_tmap3(&mda, da1, B, N, hidden))
+    return cudaErrorInvalidValue;
+  const BwdRowArgs g{mod,  b1,    b2,      dx1,     part,    B,
+                     N,    hidden, eps,    p.items, p.slots, p.stages};
+  mlp_bwd_tc_kernel<D><<<bwd_row_grid(B, N, sms), RW_NT, p.smem, st>>>(
+      g, mx, mdy, mw1, mw2, mz, mh, mdh, mda);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_qkv_bwd_tc(const bf16* x, const float* mod,
+                              const bf16* wqkv, const bf16* dqkv,
+                              const float* dx1, bf16* dx, float* part, int B,
+                              int N, float eps, cudaStream_t st) {
+  const long long optin = smem_optin();
+  if (optin < 0) return (cudaError_t)-optin;
+  const RowPlan p = plan_qkv_bwd(D, optin);
+  const int sms = rw_sms();
+  if (!p.slots || sms <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = set_smem((const void*)qkv_bwd_tc_kernel<D>, p.smem);
+  if (e) return e;
+  CUtensorMap mdq, mx, mw, mdx;
+  if (!make_tmap3(&mdq, dqkv, B, N, 3 * D) || !make_tmap3(&mx, x, B, N, D) ||
+      !make_tmap(&mw, wqkv, D, 3 * D, 64) || !make_tmap3(&mdx, dx, B, N, D))
+    return cudaErrorInvalidValue;
+  const BwdRowArgs g{mod,  nullptr, nullptr, const_cast<float*>(dx1),
+                     part, B,       N,       0,
+                     eps,  p.items, p.slots, p.stages};
+  qkv_bwd_tc_kernel<D><<<bwd_row_grid(B, N, sms), RW_NT, p.smem, st>>>(
+      g, mdq, mx, mw, mdx);
+  return cudaGetLastError();
+}
+
+// the widths with instances of the two kernels above (check_bwd takes D up
+// to GC = 128 in bf16)
+inline cudaError_t launch_mlp_bwd(const bf16* x1, const float* mod,
+                                  const bf16* w1, const bf16* b1,
+                                  const bf16* w2, const bf16* b2,
+                                  const bf16* dy, float* dx1, bf16* z2,
+                                  bf16* h1, bf16* dh2, bf16* da1, float* part,
+                                  int B, int N, int D, int hidden, float eps,
+                                  cudaStream_t st) {
+  if (D == 64)
+    return launch_mlp_bwd_tc<64>(x1, mod, w1, b1, w2, b2, dy, dx1, z2, h1,
+                                 dh2, da1, part, B, N, hidden, eps, st);
+  if (D == 128)
+    return launch_mlp_bwd_tc<128>(x1, mod, w1, b1, w2, b2, dy, dx1, z2, h1,
+                                  dh2, da1, part, B, N, hidden, eps, st);
+  return cudaErrorInvalidValue;
+}
+inline cudaError_t launch_qkv_bwd(const bf16* x, const float* mod,
+                                  const bf16* wqkv, const bf16* dqkv,
+                                  const float* dx1, bf16* dx, float* part,
+                                  int B, int N, int D, float eps,
+                                  cudaStream_t st) {
+  if (D == 64)
+    return launch_qkv_bwd_tc<64>(x, mod, wqkv, dqkv, dx1, dx, part, B, N, eps,
+                                 st);
+  if (D == 128)
+    return launch_qkv_bwd_tc<128>(x, mod, wqkv, dqkv, dx1, dx, part, B, N,
+                                  eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// wproj^T, which the out-projection kernel multiplies by, made once a call:
+// dst (cols x rows) = src (rows x cols)^T
+__global__ void transpose_kernel(const bf16* __restrict__ src,
+                                 bf16* __restrict__ dst, int rows, int cols) {
+  const int n = rows * cols;
   for (int idx = blockIdx.x * NT + threadIdx.x; idx < n;
        idx += gridDim.x * NT) {
-    const int r = idx / t.cols, c = idx % t.cols;
-    t.dst[(size_t)c * t.rows + r] = t.src[idx];
+    const int r = idx / cols, c = idx % cols;
+    dst[(size_t)c * rows + r] = src[idx];
   }
 }
 
@@ -1296,8 +1888,9 @@ inline bool block_attn_grid_ok(int B, int N, int H) {
 
 // check_shape (the forward kernels) plus the backward kernels' shared memory:
 // in bf16 those of the tensor-core route (a head width heads_bwd.cuh takes,
-// D within one GEMM chunk, which the LayerNorm VJP's row pass holds in
-// registers, and the recompute's kernels), in f32 the FMA-loop kernels'
+// D within one GEMM chunk of the out-projection's tile_gemm, where the MLP
+// and qkv halves have instances, a plan for each, and the recompute's
+// kernels), in f32 the FMA-loop kernels'
 template <typename T> int check_bwd(int D, int hidden, int H) {
   const int ok = check_shape<T>(D, hidden, H);
   if (ok) return ok;
@@ -1329,7 +1922,7 @@ template <typename T> int check_bwd(int D, int hidden, int H) {
 template <typename T> struct Work {
   T *qkv, *z1, *o, *proj, *x1, *z2, *h1, *dh2, *da1, *dpo, *dO, *dqkv;
   float *mst, *rst, *delta, *st, *dx1, *part, *pw, *pb;
-  T *wqkvt, *wprojt, *w1t, *w2t;  // bf16: the transposed weights
+  T* wprojt;  // bf16: wproj^T
 };
 
 // rows of one f32 weight-grad split, and the number of splits (grid.z <=
@@ -1379,10 +1972,7 @@ size_t carve(unsigned char* base, int B, int N, int D, int hidden, int H,
     }
     w->st = f(rows * H * 3);
     w->delta = nullptr;
-    w->wqkvt = t((size_t)3 * D * D);
     w->wprojt = t((size_t)D * D);
-    w->w1t = t((size_t)hidden * D);
-    w->w2t = t((size_t)D * hidden);
   } else {
     const int split = wgrad_split_rows((int)rows);
     const size_t S = (rows + split - 1) / split;
@@ -1391,7 +1981,7 @@ size_t carve(unsigned char* base, int B, int N, int D, int hidden, int H,
     pb = S * wmax;
     w->st = nullptr;
     w->delta = f(rows * H);
-    w->wqkvt = w->wprojt = w->w1t = w->w2t = nullptr;
+    w->wprojt = nullptr;
   }
   w->pw = f(pw);
   w->pb = f(pb);
@@ -1431,20 +2021,13 @@ inline cudaError_t run_backward_tc(
     const bf16* wfc2, const bf16* bfc2, const bf16* dy, bf16* dx,
     const Work<bf16>& w, int B, int N, int D, int hidden, int H, float eps,
     float qscale, cudaStream_t st) {
-  const size_t s_mlp = smem_mlp_bwd_tc(D, hidden), s_out = smem_attn_out_tc(D);
-  const size_t s_qkv = smem_qkv_bwd_tc(D);
+  const size_t s_out = smem_attn_out_tc(D);
   cudaError_t e;
-  if ((e = set_smem((const void*)mlp_bwd_tc_kernel, s_mlp)) ||
-      (e = set_smem((const void*)attn_out_bwd_tc_kernel, s_out)) ||
-      (e = set_smem((const void*)qkv_bwd_tc_kernel, s_qkv)) ||
+  if ((e = set_smem((const void*)attn_out_bwd_tc_kernel, s_out)) ||
       (e = set_smem((const void*)wgrad_tc_kernel, SMEM_WGRAD_TC)))
     return e;
   const dim3 g_tiles(B * ((N + RT - 1) / RT));
-  const Transposes tr{{{wqkv, w.wqkvt, D, 3 * D},
-                       {wproj, w.wprojt, D, D},
-                       {wfc1, w.w1t, D, hidden},
-                       {wfc2, w.w2t, hidden, D}}};
-  transpose4_kernel<<<dim3(64, 4), NT, 0, st>>>(tr);
+  transpose_kernel<<<64, NT, 0, st>>>(wproj, w.wprojt, D, D);
   // recompute the forward's intermediates
   if ((e = run_layer_tc(x, mod, wqkv, bqkv, wproj, bproj, nullptr, nullptr,
                         nullptr, nullptr, w.qkv, w.o, nullptr, B, N, D,
@@ -1452,9 +2035,10 @@ inline cudaError_t run_backward_tc(
                         w.proj, w.x1)) != cudaSuccess)
     return e;
   // activation grads, back to front
-  mlp_bwd_tc_kernel<<<g_tiles, NT, s_mlp, st>>>(
-      w.x1, mod, wfc1, bfc1, wfc2, bfc2, w.w1t, w.w2t, dy, w.dx1, w.z2, w.h1,
-      w.dh2, w.da1, w.part, N, D, hidden, eps);
+  if ((e = launch_mlp_bwd(w.x1, mod, wfc1, bfc1, wfc2, bfc2, dy, w.dx1, w.z2,
+                          w.h1, w.dh2, w.da1, w.part, B, N, D, hidden, eps,
+                          st)) != cudaSuccess)
+    return e;
   attn_out_bwd_tc_kernel<<<g_tiles, NT, s_out, st>>>(
       w.dx1, w.proj, w.o, mod, w.wprojt, w.mst, w.rst, w.dpo, w.dO, w.st,
       w.part, N, D, H);
@@ -1462,9 +2046,8 @@ inline cudaError_t run_backward_tc(
       (e = launch_block_attn_bwd(w.qkv, w.dO, w.st, w.dqkv, B, N, D, H,
                                  qscale, st)) != cudaSuccess)
     return e;
-  qkv_bwd_tc_kernel<<<g_tiles, NT, s_qkv, st>>>(x, mod, w.wqkvt, w.dqkv,
-                                                w.dx1, dx, w.part, N, D, eps);
-  return cudaGetLastError();
+  return launch_qkv_bwd(x, mod, wqkv, w.dqkv, w.dx1, dx, w.part, B, N, D,
+                        eps, st);
 }
 
 template <typename T>
@@ -1577,6 +2160,45 @@ extern "C" int dit_block_attention_bwd_bf16(const void* qkv, const void* dO,
   return launch_block_attn_bwd((const bf16*)qkv, (const bf16*)dO,
                                (const float*)st, (bf16*)dqkv, B, N, D, H,
                                qscale, (cudaStream_t)stream);
+}
+
+// The bf16 MLP half's and qkv half's kernels alone (for checks against
+// their twins, mlp_half_bwd_reference and qkv_half_bwd_reference), on the
+// operands run_backward_tc passes them: (B, N, .) activations, mod (B, 6, D)
+// f32, flax-layout weights; part (B * ceil(N / 64), 6, D) f32 receives the
+// MLP half's rows 3 to 5 or the qkv half's rows 0 and 1 of each tile's
+// dmod partials (the other rows are left as they are)
+inline bool row_bwd_ok(int B, int N, int D, int hidden) {
+  const long long optin = smem_optin();
+  return B >= 1 && N >= 1 && (long long)B * N <= INT_MAX &&
+         (D == 64 || D == 128) && hidden >= 64 && hidden % 64 == 0 &&
+         optin > 0 && plan_mlp_bwd(D, hidden, optin).slots &&
+         plan_qkv_bwd(D, optin).slots;
+}
+extern "C" int dit_block_mlp_bwd_bf16(const void* x1, const void* mod,
+                                      const void* w1, const void* b1,
+                                      const void* w2, const void* b2,
+                                      const void* dy, void* dx1, void* z2,
+                                      void* h1, void* dh2, void* da1,
+                                      void* part, int B, int N, int D,
+                                      int hidden, float eps, void* stream) {
+  if (!row_bwd_ok(B, N, D, hidden)) return T2MS_UNSUPPORTED_SHAPE;
+  return launch_mlp_bwd((const bf16*)x1, (const float*)mod, (const bf16*)w1,
+                        (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
+                        (const bf16*)dy, (float*)dx1, (bf16*)z2, (bf16*)h1,
+                        (bf16*)dh2, (bf16*)da1, (float*)part, B, N, D, hidden,
+                        eps, (cudaStream_t)stream);
+}
+extern "C" int dit_block_qkv_bwd_bf16(const void* x, const void* mod,
+                                      const void* wqkv, const void* dqkv,
+                                      const void* dx1, void* dx, void* part,
+                                      int B, int N, int D, float eps,
+                                      void* stream) {
+  if (!row_bwd_ok(B, N, D, 64)) return T2MS_UNSUPPORTED_SHAPE;
+  return launch_qkv_bwd((const bf16*)x, (const float*)mod,
+                        (const bf16*)wqkv, (const bf16*)dqkv,
+                        (const float*)dx1, (bf16*)dx, (float*)part, B, N, D,
+                        eps, (cudaStream_t)stream);
 }
 
 extern "C" long long dit_block_backward_workspace(int B, int N, int D,

@@ -122,19 +122,6 @@ __host__ __device__ constexpr bool tc_head_width(int dh) {
 
 // ------------------------------------------------------------ tile copies
 
-// rows [0, R) of a matrix of `cols` values a row (row stride ld) into the
-// padded tile dst, asynchronously; rows from `valid` on are zeros
-template <int R>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
-                                        size_t ld, int cols, int valid) {
-  const int ch = cols / 8;
-  for (int idx = threadIdx.x; idx < R * ch; idx += NT) {
-    const int r = idx / ch, c = idx % ch * 8;
-    const bool ok = r < valid;
-    cp16(dst + r * (cols + 8) + c, src + (size_t)(ok ? r : 0) * ld + c, ok);
-  }
-}
-
 // rows [0, valid) of `cols` values of the tile src (row stride lds) out to
 // dst (row stride ldd), 16 bytes a thread
 __device__ __forceinline__ void st_rows(bf16* dst, size_t ldd,
@@ -148,9 +135,6 @@ __device__ __forceinline__ void st_rows(bf16* dst, size_t ldd,
   }
 }
 
-__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void st_bf16x2(bf16* p, float lo, float hi) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
 }
@@ -263,79 +247,6 @@ __device__ __forceinline__ void tile_gemm(const bf16* As, int lda,
   }
   cp_wait<0>();  // only empty groups are left
   __syncthreads();
-}
-
-// the sum of x over the P (2 or 4) neighbouring lanes that share a row
-template <int P> __device__ __forceinline__ float lanes_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return P == 4 ? x + __shfl_xor_sync(0xffffffffu, x, 2) : x;
-}
-
-// Z[i] = T(LN(X[i]) * (1 + mod[b, l, isc]) + mod[b, l, ish]) in f32 for
-// the R rows of the tile X (row stride ldx) into Z (row stride ldz; Z may
-// be X): P = NT / R threads a row, each over the row's 16-byte chunks q,
-// q + P, ..., so the whole tile's statistics take one pass of short chains.
-// Rows past `rows` are zero.
-template <int R>
-__device__ __forceinline__ void modln_tile(const bf16* X, int ldx, bf16* Z,
-                                           int ldz,
-                                           const float* __restrict__ mod,
-                                           int r0, int rows, int N, int D,
-                                           int L, int l, int ish, int isc,
-                                           float eps) {
-  constexpr int P = NT / R;
-  const int i = threadIdx.x / P, q = threadIdx.x % P, r = r0 + i;
-  const bf16* xr = X + i * ldx;
-  auto row8 = [&](int c, float (&f)[8]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      f[2 * k] = __uint_as_float(w[k] << 16);
-      f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-    }
-  };
-  float s = 0.0f;
-  for (int c = 8 * q; c < D; c += 8 * P) {
-    float f[8];
-    row8(c, f);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s += f[k];
-  }
-  const float mu = lanes_sum<P>(s) / D;
-  float v = 0.0f;
-  for (int c = 8 * q; c < D; c += 8 * P) {
-    float f[8];
-    row8(c, f);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v += (f[k] - mu) * (f[k] - mu);
-  }
-  const float rs = rsqrtf(lanes_sum<P>(v) / D + eps);
-  const size_t mb = ((size_t)(min(r, rows - 1) / N) * L + l) * 6;
-  const float* msh = mod + (mb + ish) * D;
-  const float* msc = mod + (mb + isc) * D;
-  for (int c = 8 * q; c < D; c += 8 * P) {
-    float f[8];
-    row8(c, f);
-    const float4 h0 = *reinterpret_cast<const float4*>(msh + c);
-    const float4 h1 = *reinterpret_cast<const float4*>(msh + c + 4);
-    const float4 g0 = *reinterpret_cast<const float4*>(msc + c);
-    const float4 g1 = *reinterpret_cast<const float4*>(msc + c + 4);
-    const float sh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-    const float sc[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-    uint4 o = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      uint32_t w[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        w[k] = pack_bf16((f[2 * k] - mu) * rs * (1.0f + sc[2 * k]) +
-                             sh[2 * k],
-                         (f[2 * k + 1] - mu) * rs * (1.0f + sc[2 * k + 1]) +
-                             sh[2 * k + 1]);
-      o = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-    *reinterpret_cast<uint4*>(Z + i * ldz + c) = o;
-  }
 }
 
 // ===================================================== the forward row kernels

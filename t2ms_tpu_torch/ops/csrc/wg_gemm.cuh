@@ -168,6 +168,75 @@ inline bool make_tmap(CUtensorMap* m, const void* p, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The same over the 3-d (B, N, cols) view of a (B * N, cols) bf16 matrix:
+// boxes of 64 columns x 64 rows of one element, so a box at an element's
+// last tile loads zeros past its last row and stores nothing there
+// (tma_load3, tma_store3 at (column, row in the element, element)).
+inline bool make_tmap3(CUtensorMap* m, const void* p, int B, int N,
+                       int cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tmap_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)N * cols * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* m,
+                                          int c0, int c1, int c2,
+                                          uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(sm_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(sm_addr(b))
+      : "memory");
+}
+__device__ __forceinline__ void tma_store3(const CUtensorMap* m,
+                                           const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(sm_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same with an L2 cache policy (createpolicy's, below), e.g. evict_first
+// for a stream that should not stay in L2: its lines go first, dirty ones
+// back to memory as they come rather than filling the cache.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* m,
+                                          int c0, int c1, int c2,
+                                          uint64_t* b, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          sm_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(sm_addr(b)), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store3(const CUtensorMap* m,
+                                           const void* src, int c0, int c1,
+                                           int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(sm_addr(src)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
 // the swizzle is a function of the address: dynamic shared memory from
 // its first 1 KB swizzle atom (WG_ALIGN of slack kept for it)
 __device__ __forceinline__ unsigned char* align_atoms(unsigned char* raw) {
@@ -191,11 +260,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
 }
 // d[64 x N] (+)= a[64 x 16] b[16 x N] for a warpgroup, a K-major and b
-// MN-major through descriptors; d in the mma16816 C layout per n8 tile
-// (row 16 * warp + lane / 4 (+ 8), columns 8 nt + 2 (lane % 4) (+ 1)).
-// scale_d 0 overwrites d.
+// MN-major (TB 1, a weight (K, N) as stored) or K-major (TB 0, the same
+// slabs read as its transpose) through descriptors; d in the mma16816 C
+// layout per n8 tile (row 16 * warp + lane / 4 (+ 8), columns 8 nt + 2
+// (lane % 4) (+ 1)). scale_d 0 overwrites d.
 template <int N> struct WgSS;
 template <> struct WgSS<64> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[8][4], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -204,7 +275,7 @@ template <> struct WgSS<64> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
         "%26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -213,10 +284,11 @@ template <> struct WgSS<64> {
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 template <> struct WgSS<128> {
+  template <int TB = 1>
   static __device__ __forceinline__ void run(float (&d)[16][4], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -228,7 +300,7 @@ template <> struct WgSS<128> {
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
         "%62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -245,7 +317,7 @@ template <> struct WgSS<128> {
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 

@@ -42,6 +42,7 @@ __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "fused_dit_block", "fused_dit_block_reference",
            "fused_dit_block_diffable", "block_kernel_supported",
            "block_attn_stats", "block_attn_bwd_reference",
+           "mlp_half_bwd_reference", "qkv_half_bwd_reference",
            "fused_dit_block_split", "split_kernel_supported",
            "split_gemm_reference", "split_gemm_route", "SPLIT_GEMM_STAGES",
            "SPLIT_GEMM_KERNEL",
@@ -60,6 +61,9 @@ MOD_LN_KERNEL = "_mod_ln_call"
 MOD_LN_BWD_KERNEL = "_mod_ln_diff_bwd"
 RES_MOD_LN_KERNEL = "_res_mod_ln_call"
 RES_MOD_LN_BWD_KERNEL = "_res_mod_ln_diff_bwd"
+# the block backward's MLP-half and qkv-half kernels launched alone
+MLP_HALF_BWD_KERNEL = "mlp_half_bwd"
+QKV_HALF_BWD_KERNEL = "qkv_half_bwd"
 _ENTRY = {torch.bfloat16: "dit_stack_forward_bf16",
           torch.float32: "dit_stack_forward_f32"}
 _BWD_ENTRY = {torch.bfloat16: "dit_block_backward_bf16",
@@ -164,6 +168,81 @@ def block_attn_bwd_reference(q, k, v, do, m, r, delta, scale: float):
         outs[1].append(torch.matmul(ds.transpose(-1, -2), qs))
         outs[2].append(torch.matmul(T(p).transpose(-1, -2), g))
     return tuple(torch.cat(o, dim=-1).to(dt) for o in outs)
+
+
+_GELU_K, _GELU_C = 0.7978845608028654, 0.044715     # sqrt(2/pi), tanh-GELU's
+
+
+def _gelu_exp(v):
+    """tanh-GELU in f32 as the bf16 row kernels take it: v / (1 + exp(-2u)),
+    u = sqrt(2/pi) (v + 0.044715 v^3), since 0.5 (1 + tanh(u)) = 1 / (1 +
+    exp(-2u)). The same function as ``F.gelu(approximate="tanh")``, its
+    value differing in the last f32 bits."""
+    u = _GELU_K * (v + _GELU_C * v * v * v)
+    return v / (1.0 + torch.exp(-2.0 * u))
+
+
+def _gelu_exp_grad(v):
+    """Its derivative from the same s = 1 / (1 + exp(-2u)) (0.5 (1 + tanh)
+    = s, 1 - tanh^2 = 4 s (1 - s)): s + 2 k v s (1 - s) (1 + 3 c v^2)."""
+    u = _GELU_K * (v + _GELU_C * v * v * v)
+    s = 1.0 / (1.0 + torch.exp(-2.0 * u))
+    return s + 2.0 * _GELU_K * v * s * (1.0 - s) * (
+        1.0 + 3.0 * _GELU_C * v * v)
+
+
+def _ln_vjp(x, dz, scale, eps):
+    """The VJP of LN(x) * (1 + scale) + shift at dz (f32), LN as ``_ln``:
+    (dx, dshift, dscale) in f32, the last two summed over each element's
+    rows (dim 1). x (B, N, D), dz (B, N, D), scale (B, 1, D)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt(torch.square(xf - mu).mean(dim=-1, keepdim=True) + eps)
+    xh = (xf - mu) * rs
+    g = dz * (1.0 + scale.float())
+    dx = rs * (g - g.mean(dim=-1, keepdim=True)
+               - xh * (g * xh).mean(dim=-1, keepdim=True))
+    return dx, dz.sum(dim=1), (dz * xh).sum(dim=1)
+
+
+def mlp_half_bwd_reference(x1, mod, w1, b1, w2, b2, dy, eps: float = 1e-6):
+    """Plain twin of the bf16 block backward's MLP-half kernel
+    (``mlp_bwd_tc_kernel`` in csrc/dit_block_bwd.cu): the VJP of the
+    block's MLP half (``_mlp_half`` in JAX: LN -> modulate(mod[3], mod[4])
+    -> fc1 -> tanh-GELU -> fc2 -> gated residual with mod[5]) at dy, with
+    the kernel's rounding points, T() rounding to x1's dtype and every
+    product summed in f32: z2 = T(modLN(x1)), a1 = T(z2 w1 + b1), h1 =
+    T(gelu(a1)), h2 = T(h1 w2 + b2), dh2 = T(T(gate) dy), da1 = T((dh2
+    w2^T) gelu'(a1)), dz2 = da1 w1^T; the GELU as the kernel takes it
+    (``_gelu_exp``). x1, dy (B, N, D), mod (B, 6, D), the weights in x1's
+    dtype. Returns (dx1 = dy + LN-VJP in f32, z2, h1, dh2, da1, dshift_m,
+    dscale_m, dgate_m), the last three f32 column sums over each element's
+    rows, (B, D)."""
+    dt = x1.dtype
+    f = lambda t: t.float()
+    m = lambda i: mod[:, i, None, :].float()                  # (B, 1, D)
+    z2 = _mod_ln(x1, m(3), m(4), eps)
+    a1 = (f(z2) @ f(w1) + f(b1)).to(dt)
+    h1 = _gelu_exp(f(a1)).to(dt)
+    h2 = (f(h1) @ f(w2) + f(b2)).to(dt)
+    dgate = (f(dy) * f(h2)).sum(dim=1)
+    dh2 = (f(m(5).to(dt)) * f(dy)).to(dt)
+    da1 = ((f(dh2) @ f(w2).t()) * _gelu_exp_grad(f(a1))).to(dt)
+    dx, dshift, dscale = _ln_vjp(x1, f(da1) @ f(w1).t(), m(4), eps)
+    return f(dy) + dx, z2, h1, dh2, da1, dshift, dscale, dgate
+
+
+def qkv_half_bwd_reference(x, mod, wqkv, dqkv, dx1, eps: float = 1e-6):
+    """Plain twin of the bf16 block backward's qkv-half kernel
+    (``qkv_bwd_tc_kernel``): the VJP of the block's qkv half (``_dense(
+    _mod_ln(x, mod[0], mod[1]), wqkv, bqkv)`` in JAX) at dqkv, added to the
+    residual stream's gradient dx1 (f32): dz1 = dqkv wqkv^T in f32, dx =
+    T(dx1 + LN-VJP). x (B, N, D), mod (B, 6, D), wqkv (D, 3D) and dqkv
+    (B, N, 3D) in x's dtype. Returns (dx, dshift_a, dscale_a), the last two
+    f32 column sums over each element's rows, (B, D)."""
+    dz = dqkv.float() @ wqkv.float().t()
+    dx, dshift, dscale = _ln_vjp(x, dz, mod[:, 1, None, :], eps)
+    return (dx1.float() + dx).to(x.dtype), dshift, dscale
 
 
 def fused_dit_stack_reference(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
@@ -389,6 +468,80 @@ def _launch_block_bwd(x, mod, ws, dy, num_heads, eps):
                   mod, *ws, dy, dx, dmod, *dws, work, B, N, D, hidden,
                   num_heads, eps, qscale)
     return dx, dmod, dws
+
+
+def _row_bwd_refused(name, x, D, hidden):
+    B, N = x.shape[:2]
+    return ValueError(f"{name} CUDA kernel does not take B={B} N={N} D={D} "
+                      f"hidden={hidden} dtype={x.dtype}")
+
+
+def _check_row_bwd(name, want):
+    for what, t, shape in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _launch_mlp_half_bwd(x1, mod, w1, b1, w2, b2, dy, eps: float = 1e-6):
+    """The bf16 block backward's MLP-half kernel alone (the C entry
+    ``dit_block_mlp_bwd_bf16``; the backward launches the same kernel), on
+    ``mlp_half_bwd_reference``'s operands, returning what the twin returns:
+    the kernel's per-tile column sums summed over each element's tiles.
+    Counted as ``mlp_half_bwd``. For checks and measurements."""
+    B, N, D = x1.shape
+    hidden = w1.shape[-1]
+    refused = _row_bwd_refused(MLP_HALF_BWD_KERNEL, x1, D, hidden)
+    _check_row_bwd(MLP_HALF_BWD_KERNEL, [
+        ("mod", mod, (B, 6, D)), ("w1", w1, (D, hidden)),
+        ("b1", b1, (hidden,)), ("w2", w2, (hidden, D)), ("b2", b2, (D,)),
+        ("dy", dy, (B, N, D))])
+    if x1.dtype != torch.bfloat16:
+        raise refused
+    lib = _build.load("dit_block_bwd")
+    dev, dt = x1.device, x1.dtype
+    c = lambda t: t.to(device=dev, dtype=dt).contiguous()
+    dx1 = torch.empty((B, N, D), device=dev, dtype=torch.float32)
+    z2, dh2 = torch.empty_like(x1), torch.empty_like(x1)
+    h1, da1 = (torch.empty((B, N, hidden), device=dev, dtype=dt)
+               for _ in range(2))
+    part = torch.zeros((B, -(-N // 64), 6, D), device=dev,
+                       dtype=torch.float32)
+    _build.launch(lib, "dit_block_mlp_bwd_bf16", MLP_HALF_BWD_KERNEL,
+                  refused, dev, c(x1),
+                  mod.to(device=dev, dtype=torch.float32).contiguous(),
+                  c(w1), c(b1), c(w2), c(b2), c(dy), dx1, z2, h1, dh2, da1,
+                  part, B, N, D, hidden, float(eps))
+    sums = part.sum(dim=1)
+    return dx1, z2, h1, dh2, da1, sums[:, 3], sums[:, 4], sums[:, 5]
+
+
+def _launch_qkv_half_bwd(x, mod, wqkv, dqkv, dx1, eps: float = 1e-6):
+    """The bf16 block backward's qkv-half kernel alone (the C entry
+    ``dit_block_qkv_bwd_bf16``), on ``qkv_half_bwd_reference``'s operands,
+    returning what the twin returns. Counted as ``qkv_half_bwd``. For
+    checks and measurements."""
+    B, N, D = x.shape
+    refused = _row_bwd_refused(QKV_HALF_BWD_KERNEL, x, D, 3 * D)
+    _check_row_bwd(QKV_HALF_BWD_KERNEL, [
+        ("mod", mod, (B, 6, D)), ("wqkv", wqkv, (D, 3 * D)),
+        ("dqkv", dqkv, (B, N, 3 * D)), ("dx1", dx1, (B, N, D))])
+    if x.dtype != torch.bfloat16:
+        raise refused
+    lib = _build.load("dit_block_bwd")
+    dev, dt = x.device, x.dtype
+    c = lambda t: t.to(device=dev, dtype=dt).contiguous()
+    dx = torch.empty_like(x)
+    part = torch.zeros((B, -(-N // 64), 6, D), device=dev,
+                       dtype=torch.float32)
+    _build.launch(lib, "dit_block_qkv_bwd_bf16", QKV_HALF_BWD_KERNEL,
+                  refused, dev, c(x),
+                  mod.to(device=dev, dtype=torch.float32).contiguous(),
+                  c(wqkv), c(dqkv),
+                  dx1.to(device=dev, dtype=torch.float32).contiguous(), dx,
+                  part, B, N, D, float(eps))
+    sums = part.sum(dim=1)
+    return dx, sums[:, 0], sums[:, 1]
 
 
 def fused_dit_stack(x: torch.Tensor, mod: torch.Tensor, wqkv, bqkv, wproj,

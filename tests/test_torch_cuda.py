@@ -447,6 +447,57 @@ def test_block_attention_backward_matches_twin_on_card(cuda, heads, N):
         assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.999
 
 
+# (D, hidden) of the block backward's two LayerNorm-VJP row kernels: the
+# flagship's, hidden 4D at D 128 (w1 and w2 streamed through the slots) and
+# D 64 at hidden 2D and 4D; tokens about the 64-row tile: a ragged one, 64,
+# 65, 127, 128 and 130
+_ROW_BWD_GEOMS = [(128, 256), (128, 512), (64, 128), (64, 256)]
+_ROW_BWD_TOKENS = [17, 64, 65, 127, 128, 130]
+
+
+def _row_bwd_args(dev, B, N, D, hidden, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, device=dev, generator=g)
+    bf = torch.bfloat16
+    return dict(x=f(B, N, D).to(bf), mod=0.3 * f(B, 6, D),
+                w1=(f(D, hidden) / D ** 0.5).to(bf),
+                b1=(0.1 * f(hidden)).to(bf),
+                w2=(f(hidden, D) / hidden ** 0.5).to(bf),
+                b2=(0.1 * f(D)).to(bf), dy=f(B, N, D).to(bf),
+                wqkv=(f(D, 3 * D) / D ** 0.5).to(bf),
+                dqkv=f(B, N, 3 * D).to(bf), dx1=f(B, N, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", _ROW_BWD_TOKENS)
+@pytest.mark.parametrize("D,hidden", _ROW_BWD_GEOMS)
+def test_block_backward_row_kernels_match_twins_on_card(cuda, D, hidden, N):
+    """The block backward's MLP-half and qkv-half kernels alone (the C
+    entries beside dit_block_attention_bwd_bf16) against their twins on the
+    same inputs: every output (dx1 f32, z2, h1, dh2, da1 and the dshift,
+    dscale and dgate sums; dx and the qkv half's two sums), bf16 3e-2 *
+    max|ref| and correlation >= 0.999, as the block bounds (rounding flips
+    of the GELU's exponential and of sums in another order only). The
+    tiles at N = 65, 127 and 130 end in dead rows, which must neither enter
+    the column sums nor be written."""
+    a = _row_bwd_args(cuda, 3, N, D, hidden, seed=D + hidden + N)
+    mlp = (a["x"], a["mod"], a["w1"], a["b1"], a["w2"], a["b2"], a["dy"])
+    qkv = (a["x"], a["mod"], a["wqkv"], a["dqkv"], a["dx1"])
+    _build.reset_launch_counts()
+    got = (*tblock._launch_mlp_half_bwd(*mlp),
+           *tblock._launch_qkv_half_bwd(*qkv))
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.MLP_HALF_BWD_KERNEL: 1,
+                                          tblock.QKV_HALF_BWD_KERNEL: 1}
+    want = (*tblock.mlp_half_bwd_reference(*mlp),
+            *tblock.qkv_half_bwd_reference(*qkv))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_to_twin(g, w, 3e-2)
+        g, w = g.float().flatten(), w.float().flatten()
+        assert torch.corrcoef(torch.stack([g, w]))[0, 1].item() >= 0.999
+
+
 @pytest.mark.cuda
 def test_bf16_block_backward_runs_the_tensor_core_kernels(cuda):
     """One bf16 block backward's profile: the recompute on the stack's

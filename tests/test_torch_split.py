@@ -120,6 +120,7 @@ class _FakeLib:
                "dit_split_gemm_bf16",
                "dit_block_backward_bf16", "dit_block_backward_f32",
                "dit_block_check", "dit_block_backward_workspace",
+               "dit_block_mlp_bwd_bf16", "dit_block_qkv_bwd_bf16",
                "mod_ln_forward_bf16", "mod_ln_forward_f32",
                "mod_ln_backward_bf16", "mod_ln_backward_f32",
                "mod_ln_backward_workspace",
@@ -228,6 +229,51 @@ def test_split_gemm_launcher_passes_its_declared_arguments(monkeypatch,
     with pytest.raises(ValueError, match="bias must be"):
         tblock._launch_split_gemm(a, torch.randn(B, 6, D), w, bias[:-1],
                                   res, stage)
+    assert len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("half", ["mlp", "qkv"])
+def test_row_backward_launchers_pass_their_declared_arguments(monkeypatch,
+                                                              half):
+    """The block backward's MLP-half and qkv-half kernels alone against the
+    fake library: the pointers (inputs first, part last), B, N, D (and the
+    MLP's hidden) as ints, eps and the stream last; one launch counted
+    under the half's own name; the twin's output shapes and dtypes; an f32
+    input or a mismatched operand refused before any call."""
+    lib = _rehearse(monkeypatch)
+    B, N, D, hidden = 2, 70, 64, 128
+    bf = lambda *s: torch.randn(*s).to(torch.bfloat16)
+    mod = torch.randn(B, 6, D)
+    if half == "mlp":
+        fn, entry, name = (tblock._launch_mlp_half_bwd, "dit_block_mlp_bwd",
+                           tblock.MLP_HALF_BWD_KERNEL)
+        args = [bf(B, N, D), mod, bf(D, hidden), bf(hidden), bf(hidden, D),
+                bf(D), bf(B, N, D)]
+        shapes = [(B, N, D), (B, N, D), (B, N, hidden), (B, N, D),
+                  (B, N, hidden)] + [(B, D)] * 3
+        dtypes = [torch.float32] + [torch.bfloat16] * 4 + [torch.float32] * 3
+        bad, what = 4, "w2 must be"
+    else:
+        fn, entry, name = (tblock._launch_qkv_half_bwd, "dit_block_qkv_bwd",
+                           tblock.QKV_HALF_BWD_KERNEL)
+        args = [bf(B, N, D), mod, bf(D, 3 * D), bf(B, N, 3 * D),
+                torch.randn(B, N, D)]
+        shapes = [(B, N, D), (B, D), (B, D)]
+        dtypes = [torch.bfloat16, torch.float32, torch.float32]
+        bad, what = 3, "dqkv must be"
+    out = fn(*args)
+    call = _one_launch(lib, entry, torch.bfloat16)
+    ints = [a for a in call if type(a) is int]
+    assert ints == ([B, N, D, hidden] if half == "mlp" else [B, N, D])
+    assert call[0].value == args[0].data_ptr()
+    assert call[-2].value == pytest.approx(1e-6) and call[-1].value == 7
+    assert dict(_build.launch_counts) == {name: 1}
+    assert [tuple(o.shape) for o in out] == shapes
+    assert [o.dtype for o in out] == dtypes
+    with pytest.raises(ValueError, match="does not take"):
+        fn(*[args[0].float()] + args[1:])
+    with pytest.raises(ValueError, match=what):
+        fn(*args[:bad] + [args[bad][..., :-1]] + args[bad + 1:])
     assert len(lib.calls) == 1
 
 
