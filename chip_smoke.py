@@ -24,10 +24,12 @@ failing with a non-zero exit on any error:
    kernels (csrc/dit_block_bwd.cu: the wgmma row kernels
    ``mlp_bwd_tc_kernel<D>`` and ``qkv_bwd_tc_kernel<D>`` at D 64 and 128,
    checked the same way, ``attn_out_bwd_tc_kernel``, ``wgrad_tc_kernel``),
-   and of the split block's wgmma GEMMs (csrc/wg_gemm.cuh:
-   ``wg_gemm_kernel`` on each route, as built into csrc/dit_split.cu),
-   checked to spill nothing and to draw no ptxas C7512 ("wgmma
-   serialized"), and of the bf16 #8 kernel on 16-byte chunks
+   and of the split block's wgmma GEMMs as built into csrc/dit_split.cu
+   (csrc/split_tc.cuh: ``split_rows_tc_kernel<D, PROJ>`` and
+   ``split_mlp_tc_kernel<D>`` at D 128, 256 and 512; csrc/wg_gemm.cuh:
+   ``wg_gemm_kernel`` on each route), checked to spill nothing and to draw
+   no ptxas C7512 ("wgmma serialized"), and of the bf16 #8 kernel on
+   16-byte chunks
    (csrc/mod_ln.cu: ``res_mod_ln_bwd_vec_kernel`` at each lane split);
    every ``heads_fwd_kernel`` instance of fused_heads.cu, dit_stack.cu,
    dit_split.cu and dit_block_bwd.cu checked the same way, with its SASS
@@ -55,7 +57,14 @@ failing with a non-zero exit on any error:
    ragged call), the MLP-half and qkv-half kernels alone against their
    twins, each kernel's device time, bytes, share of its bound and cuBLAS
    over its products (``--row_gemms [--root DIR]`` runs these two sections
-   only);
+   only); the split block's GEMM stages alone at #4's calls
+   (``SPLIT_SHAPES``: the scaled CFG call, one server request's 2048 rows,
+   D 1024 / hidden 4096, a ragged B=3 x N=17): qkv, proj and the MLP half
+   against their twins, each stage's device time by kernel, operations,
+   bytes, share of its bound and cuBLAS over its products, and the whole
+   block's device time by kernel (``--split_gemms [--root DIR]`` runs this
+   section only; with --root the parent's MLP half is its fc1 then fc2
+   stage);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -97,11 +106,13 @@ failing with a non-zero exit on any error:
    again in f32 at a small batch, and against the stack kernel at the
    reference geometry; CUDA-event times, the twin's time, the bound,
    device time by kernel and split into attention and GEMMs (the bf16
-   call checked to run on ``wg_gemm_kernel`` and on no bf16
-   ``gemm_kernel``), each GEMM stage alone (``dit_split_gemm_bf16``):
+   call checked to run on ``split_rows_tc_kernel`` and
+   ``split_mlp_tc_kernel`` and on no ``wg_gemm_kernel`` and no bf16
+   ``gemm_kernel``), each stage alone (qkv and proj through
+   ``dit_split_gemm_bf16``, the MLP half through ``dit_split_mlp_bf16``):
    device time, TFLOP/s and share of its bound, and torch SDPA over the
    block's attention and cuBLAS over its four dense products as
-   yardsticks; the LayerNorm GEMMs' route at each width;
+   yardsticks; the route at each width;
 9. scaled offline path: the 56.7M-param DiT (scripts/bench_scaled.py:
    d_model 512, depth 12, 8 heads, mlp x4, 1024 tokens) and the LA-VAE at
    latent grid 64, seeded random weights, through the CFG sampler (B=16,
@@ -1056,17 +1067,20 @@ def train_phase(dit, vae, gen):
 
 # ----------------------------------------- the scaled DiT's split kernel
 
-# the CUDA kernels of one bf16 fused_dit_block_split call at 8 heads of
-# 64, by their names in the profile (csrc/wg_gemm.cuh's wg_gemm_kernel<PRO,
-# EPI, WG, BN>): <0, 0, 2, 128> is modLN+qkv, <0, 1, 2, 128> modLN+fc1+
-# GELU, <1, 2, 2, 128> the proj and fc2 products with their gated
-# residuals; heads_fwd_kernel<64> (attn_heads.cuh) the attention. None is
-# the first version's WMMA gemm_kernel.
+# the CUDA kernels of one bf16 fused_dit_block_split call at the scaled DiT's
+# width (D 512) and 8 heads of 64, by their names in the profile:
+# split_rows_tc_kernel<512, false> modLN+qkv and <512, true> proj with its
+# gated residual (csrc/split_tc.cuh, persistent), wg_gemm_kernel<0, 1, 2,
+# 128> modLN+fc1+GELU and <1, 2, 2, 128> fc2 with its gated residual
+# (csrc/wg_gemm.cuh, 128-row blocks), heads_fwd_kernel<64> (attn_heads.cuh)
+# the attention. Neither wg_gemm_kernel's qkv <0, 0, 2, 128> nor the first
+# version's WMMA gemm_kernel.
 SPLIT_ATTN = "heads_fwd_kernel<64>"
-SPLIT_GEMMS = ("wg_gemm_kernel<0, 0, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>",
-               "wg_gemm_kernel<0, 1, 2, 128>")
+SPLIT_GEMMS = ("split_rows_tc_kernel<512, false>",
+               "split_rows_tc_kernel<512, true>",
+               "wg_gemm_kernel<0, 1, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>")
 SPLIT_PARTS = (SPLIT_GEMMS[0], SPLIT_ATTN) + SPLIT_GEMMS[1:]
-SPLIT_ABSENT = ("gemm_kernel<__nv_bfloat16",)
+SPLIT_ABSENT = ("gemm_kernel<__nv_bfloat16", "wg_gemm_kernel<0, 0, 2, 128>")
 
 
 def split_inputs(gen, B, N, D, hidden, dt):
@@ -1131,8 +1145,10 @@ def split_phase(gen):
                 split = device_split_on_route("split bf16", run, SPLIT_PARTS,
                                               SPLIT_ABSENT)
             log("split bf16 device time by kernel (torch.profiler, one call; "
-                "<0, 0> modLN+qkv, <0, 1> modLN+fc1+GELU, <1, 2> proj and "
-                "fc2 with gated residuals): " + fmt_split(split))
+                "split_rows_tc_kernel<512, false> modLN+qkv, <512, true> "
+                "proj with its gated residual, wg_gemm_kernel<0, 1> "
+                "modLN+fc1+GELU, <1, 2> fc2 with its gated residual): "
+                + fmt_split(split))
             if split:
                 attn = split.get(SPLIT_ATTN, 0.0)
                 gemm = sum(split.get(k_, 0.0) for k_ in SPLIT_GEMMS)
@@ -1167,60 +1183,205 @@ def split_phase(gen):
     check(err <= 3e-2 * ref and corr >= 0.999, "split vs stack kernel")
     from t2ms_tpu_torch.ops.dit_block import split_gemm_route
     routes = {d: split_gemm_route(d) for d in (128, 512, 640, 1024, 1536)}
-    log(f"split bf16 LayerNorm GEMM route by D (wide: 128-row blocks, "
-        f"narrow: 64-row): {routes}")
-    check(routes[SC_D] == "wide", f"scaled split route {routes[SC_D]}")
+    log(f"split bf16 route by D (persistent: qkv and proj on split_tc.cuh; "
+        f"else the LayerNorm GEMMs' wide: 128-row blocks, narrow: 64-row): "
+        f"{routes}")
+    check(routes[SC_D] == "persistent", f"scaled split route {routes[SC_D]}")
     return out
 
 
 def split_gemm_stages(rows, D, hidden, reps: int = 3):
-    """Each bf16 GEMM stage of the split block alone at ``rows`` rows
-    (``dit_split_gemm_bf16``, the block's own kernels): device time
-    (torch.profiler), TFLOP/s and share of its bound, the bound the larger
-    of its operations at 989 TFLOP/s and its bytes (a, w, bias, mod, res
-    and out, each once) at 3.35 TB/s. Inputs from their own generator."""
-    from t2ms_tpu_torch.ops.dit_block import (SPLIT_GEMM_STAGES,
-                                              _launch_split_gemm)
+    """Each bf16 stage of the split block alone at ``rows`` rows (the
+    block's own kernels: qkv and proj through ``dit_split_gemm_bf16``, the
+    MLP half through ``dit_split_mlp_bf16``): device time (torch.profiler),
+    TFLOP/s and share of its bound (``split_stage_work``: the larger of its
+    operations at 989 TFLOP/s and its bytes, each input and the output
+    once, at 3.35 TB/s). Inputs from their own generator."""
+    from t2ms_tpu_torch.ops import dit_block as db
     g = torch.Generator(device="cuda").manual_seed(17)
     f = lambda *s_: torch.randn(*s_, generator=g, device="cuda")
     bf = lambda t: t.to(torch.bfloat16)
+    w = lambda i, o_: bf(f(i, o_) / i ** 0.5)
     B = rows // SC_N
-    mod = 0.3 * f(B, 6, D)
+    x, o, mod = bf(f(B, SC_N, D)), bf(f(B, SC_N, D)), 0.3 * f(B, 6, D)
+    ws = [w(D, 3 * D), bf(0.1 * f(3 * D)), w(D, D), bf(0.1 * f(D)),
+          w(D, hidden), bf(0.1 * f(hidden)), w(hidden, D), bf(0.1 * f(D))]
     out = {}
-    for stage in SPLIT_GEMM_STAGES:
-        K, cols = {"qkv": (D, 3 * D), "proj": (D, D), "fc1": (D, hidden),
-                   "fc2": (hidden, D)}[stage]
-        a, w = bf(f(B, SC_N, K)), bf(f(K, cols) / K ** 0.5)
-        bias, res = bf(0.1 * f(cols)), bf(f(B, SC_N, cols))
-        resid = stage in ("proj", "fc2")
-        run = lambda: _launch_split_gemm(a, mod, w, bias,
-                                         res if resid else None, stage)
+    for stage, run in split_stage_calls(db, x, o, mod, ws).items():
         with torch.no_grad():
             times = device_ms_all(run, reps)
         ms = sum(times.values())
-        flops = 2.0 * rows * K * cols
-        nbytes = _nbytes(a, w, bias, mod) + rows * cols * 2 * (2 if resid
-                                                                else 1)
+        flops, nbytes = split_stage_work(stage, B, SC_N, D, hidden)
         t_ops = flops / H100_BF16_FLOPS * 1e3
         t_bytes = nbytes / H100_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         if ms:
-            log(f"split bf16 GEMM {stage} ({rows} x {K} @ {K} x {cols}): "
-                f"device {ms:.4f} ms ({', '.join(sorted(times))}), "
-                f"{flops / ms / 1e9:.2f} TFLOP/s, bound {bound:.4f} ms "
+            log(f"split bf16 stage {stage} ({rows} rows, D={D}, hidden="
+                f"{hidden}): device {ms:.4f} ms ({', '.join(sorted(times))}),"
+                f" {flops / ms / 1e9:.2f} TFLOP/s, bound {bound:.4f} ms "
                 f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
                 f"{bound / ms:.2%} of its bound")
         else:
-            log(f"split bf16 GEMM {stage}: not measured (no device time "
+            log(f"split bf16 stage {stage}: not measured (no device time "
                 f"recorded)")
         out[stage] = dict(ms=ms, flops=flops, bound=bound)
-        del a, w, bias, res
     total = sum(r["ms"] for r in out.values())
     fl = sum(r["flops"] for r in out.values())
     if total:
-        log(f"split bf16 GEMMs alone: {total:.4f} ms of device time, "
+        log(f"split bf16 GEMM stages alone: {total:.4f} ms of device time, "
             f"{fl / total / 1e9:.2f} TFLOP/s over {fl / 1e9:.2f} GFLOP")
+    return out
+
+
+# The split block's GEMM stages at #4's calls, for --split_gemms: (what, B,
+# N, D, heads, hidden). The scaled sampler's CFG call (2B=32 x 1024
+# tokens), one server request's CFG batch (2B=2), D 1024 / hidden 4096 / 16
+# heads on whichever route takes it, and a ragged B=3 x N=17.
+SPLIT_SHAPES = (
+    ("scaled CFG #4 (2B=32)", 32, 1024, 512, 8, 2048),
+    ("server request #4 (2B=2)", 2, 1024, 512, 8, 2048),
+    ("D 1024 hidden 4096 #4 (B=4)", 4, 1024, 1024, 16, 4096),
+    ("ragged #4 (B=3, N=17)", 3, 17, 512, 8, 2048),
+)
+# of max|twin|: one stage's output a rounding flip after f32 sums in another
+# order; the MLP half's flips in h1 feed fc2 (the block-level bf16 bound)
+SPLIT_STAGE_TOL = {"qkv": 1e-2, "proj": 1e-2, "mlp": 3e-2,
+                   "mlp_one_launch": 3e-2}
+
+
+def split_stage_work(stage, B, N, D, hidden):
+    """(operations, bytes) of one stage of the split block as a function:
+    its products, each input read once (a, the weights and biases, the f32
+    adaLN rows it reads, the residual) and its output written once; the MLP
+    half's h1 is internal to it and not counted."""
+    rows, bf = B * N, 2
+    if stage == "qkv":
+        return (2 * rows * D * 3 * D,
+                bf * (rows * D + 3 * D * D + 3 * D + rows * 3 * D)
+                + 4 * B * 2 * D)
+    if stage == "proj":
+        return 2 * rows * D * D, bf * (3 * rows * D + D * D + D) + 4 * B * D
+    # the MLP half, as the block runs it or in one launch
+    return (4 * rows * D * hidden,
+            bf * (2 * rows * D + 2 * D * hidden + hidden + D) + 4 * B * 3 * D)
+
+
+def split_mlp_in_one(db, D):
+    """Whether the package ``db`` has the split block's MLP half in one
+    launch at width D (the widths of its persistent route)."""
+    return (hasattr(db, "_launch_split_mlp")
+            and db.split_gemm_route(D) == "persistent")
+
+
+def split_stage_calls(db, x, o, mod, ws):
+    """stage -> a function launching that stage of the split block alone
+    through the package ``db`` (ops.dit_block of this tree or another):
+    qkv on x, proj on o with x as the residual, the MLP half on x as y1 as
+    the block runs it (its fc1 and fc2 stages in turn), and, where the
+    package has it at this width, the MLP half in one launch
+    (``mlp_one_launch``: ``_launch_split_mlp``)."""
+    wqkv, bqkv, wproj, bproj, w1, b1, w2, b2 = ws
+    g = db._launch_split_gemm
+    calls = {"qkv": lambda: g(x, mod, wqkv, bqkv, None, "qkv"),
+             "proj": lambda: g(o, mod, wproj, bproj, x, "proj"),
+             "mlp": lambda: g(g(x, mod, w1, b1, None, "fc1"), mod, w2, b2, x,
+                              "fc2")}
+    if split_mlp_in_one(db, x.shape[-1]):
+        calls["mlp_one_launch"] = lambda: db._launch_split_mlp(
+            x, mod, w1, b1, w2, b2)
+    return calls
+
+
+def split_stage_cublas_ms(stage, rows, D, hidden):
+    """Device time of torch.matmul (cuBLAS) over one stage's products alone
+    in bf16 (yardstick only: no LayerNorm, bias, GELU or residual): qkv
+    a @ wqkv, proj a @ wproj, the MLP half z @ w1 and h @ w2. Its inputs
+    come from a generator of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+    a = f(rows, D)
+    if stage.startswith("mlp"):
+        w1, w2, h = f(D, hidden), f(hidden, D), f(rows, hidden)
+        fn = lambda: (torch.matmul(a, w1), torch.matmul(h, w2))
+    else:
+        w = f(D, 3 * D if stage == "qkv" else D)
+        fn = lambda: torch.matmul(a, w)
+    times = device_ms_all(fn)
+    return sum(times.values()) if times else None
+
+
+def split_gemm_phase(gen, check_twin=True):
+    """The split block's GEMM stages at every call of SPLIT_SHAPES through
+    the stage launchers: each stage's output against its twin on this tree
+    (SPLIT_STAGE_TOL * max|twin|), its device time by torch.profiler, its
+    operations and bytes (split_stage_work), the share of its bound and
+    cuBLAS over its products; then the whole block's device time by
+    kernel. Returns {what: {stage: row, "block": {kernel: ms}}}."""
+    from t2ms_tpu_torch.ops import dit_block as db
+    out = {}
+    for what, B, N, D, H, hidden in SPLIT_SHAPES:
+        f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
+        bf = lambda t: t.to(torch.bfloat16)
+        w = lambda i, o_: bf(f(i, o_) / i ** 0.5)
+        x, o, mod = bf(f(B, N, D)), bf(f(B, N, D)), 0.3 * f(B, 6, D)
+        ws = [w(D, 3 * D), bf(0.1 * f(3 * D)), w(D, D), bf(0.1 * f(D)),
+              w(D, hidden), bf(0.1 * f(hidden)), w(hidden, D),
+              bf(0.1 * f(D))]
+        calls = split_stage_calls(db, x, o, mod, ws)
+        rows = {}
+        with torch.no_grad():
+            if check_twin:
+                twins = {
+                    "qkv": lambda: db.split_gemm_reference(
+                        x, mod, ws[0], ws[1], None, "qkv"),
+                    "proj": lambda: db.split_gemm_reference(
+                        o, mod, ws[2], ws[3], x, "proj"),
+                    "mlp": lambda: db.split_gemm_reference(
+                        db.split_gemm_reference(x, mod, ws[4], ws[5], None,
+                                                "fc1"), mod, ws[6], ws[7], x,
+                        "fc2"),
+                    "mlp_one_launch": lambda: db.split_mlp_reference(
+                        x, mod, *ws[4:])}
+                for stage, call in calls.items():
+                    _check_err(f"split stage {what} {stage}", call(),
+                               twins[stage](), SPLIT_STAGE_TOL[stage])
+                torch.cuda.synchronize()
+            for stage, call in calls.items():
+                times = device_ms_all(call)
+                ms = sum(times.values()) if times else None
+                fl, nb = split_stage_work(stage, B, N, D, hidden)
+                t_ops = fl / H100_BF16_FLOPS * 1e3
+                t_bytes = nb / H100_BYTES * 1e3
+                bound = max(t_ops, t_bytes)
+                lib = split_stage_cublas_ms(stage, B * N, D, hidden)
+                rows[stage] = dict(
+                    ms=ms, kernels=times, gflop=fl / 1e9, mb=nb / 1e6,
+                    bound=bound,
+                    by="operations" if t_ops >= t_bytes else "bytes",
+                    share=bound / ms if ms else None, cublas=lib)
+                lib_s = "not measured" if lib is None else f"{lib:.4f} ms"
+                if ms:
+                    log(f"split stage {what} N={N} D={D} hidden={hidden}: "
+                        f"{stage} device {ms:.4f} ms ({fmt_split(times)}), "
+                        f"{fl / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB, bound "
+                        f"{bound:.4f} ms ({rows[stage]['by']}), "
+                        f"{bound / ms:.2%} of it, {fl / ms / 1e9:.2f} "
+                        f"TFLOP/s, cuBLAS over its products {lib_s}")
+                else:
+                    log(f"split stage {what}: {stage} device time not "
+                        f"measured (no device time recorded)")
+            block = device_ms_all(
+                lambda: db.fused_dit_block_split(x, mod, *ws, H))
+            ev = cuda_ms(lambda: db.fused_dit_block_split(x, mod, *ws, H))
+        rows["block"] = dict(kernels=block, ms=ev,
+                             device=sum(block.values()) if block else None)
+        log(f"split block {what}: {ev:.4f} ms by events, device by kernel: "
+            f"{fmt_split(block)}")
+        out[what] = rows
+        del x, o, mod, ws
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1461,12 +1622,14 @@ def log_block_bwd_resources():
 
 def log_split_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    split block's wgmma row GEMM (csrc/wg_gemm.cuh's ``wg_gemm_kernel`` as
-    built into csrc/dit_split.cu: the LayerNorm GEMMs on the 128-row and
-    64-row routes, the streamed one), with their dynamic shared memory
-    (``dit_split_smem``: the 128-row route at D 512, the 64-row one at D
-    1024); checked to spill nothing and to draw no ptxas C7512 ("wgmma
-    serialized")."""
+    split block's kernels as built into csrc/dit_split.cu: the persistent
+    wgmma kernels of csrc/split_tc.cuh (``split_rows_tc_kernel<D, PROJ>``
+    and ``split_mlp_tc_kernel<D>`` at D 128, 256 and 512) and
+    csrc/wg_gemm.cuh's ``wg_gemm_kernel`` (the LayerNorm GEMMs on the
+    128-row and 64-row routes, the streamed one), with their dynamic shared
+    memory (``dit_split_smem``: the new kernels at their D, wg_gemm_kernel's
+    128-row route at D 384, its 64-row one at D 1024); each checked to spill
+    nothing and to draw no ptxas C7512 ("wgmma serialized")."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("dit_split")
     if not text:
@@ -1474,29 +1637,44 @@ def log_split_resources():
             "built in this process)")
         return
     lib = _build.load("dit_split")
-    seen = 0
+    seen = {"wg_gemm_kernel": 0, "split_rows_tc_kernel": 0,
+            "split_mlp_tc_kernel": 0}
     for chunk in text.split("Compiling entry function")[1:]:
         m = re.search(r"wg_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                       chunk)
-        if m is None:
+        r = re.search(r"split_rows_tc_kernelILi(\d+)ELb([01])E", chunk)
+        p = re.search(r"split_mlp_tc_kernelILi(\d+)E", chunk)
+        if m is not None:
+            pro, epi, wg, bn = (int(v) for v in m.groups())
+            stage = 1 if pro else (0 if epi == 0 else 2)
+            K = 384 if wg == 2 else 1024
+            name = f"wg_gemm_kernel<{pro}, {epi}, {wg}, {bn}> (K={K})"
+            kind = "wg_gemm_kernel"
+        elif r is not None:
+            K, proj = (int(v) for v in r.groups())
+            stage = 1 if proj else 0
+            name = f"split_rows_tc_kernel<{K}, {str(bool(proj)).lower()}>"
+            kind = "split_rows_tc_kernel"
+        elif p is not None:
+            K = int(p.group(1))
+            stage = 4
+            name = f"split_mlp_tc_kernel<{K}>"
+            kind = "split_mlp_tc_kernel"
+        else:
             continue
-        pro, epi, wg, bn = (int(v) for v in m.groups())
-        stage = 1 if pro else (0 if epi == 0 else 2)
-        K = SC_D if wg == 2 else 1024
-        smem = lib.dit_split_smem(stage, K)
-        _log_resources(f"split kernel resources wg_gemm_kernel<{pro}, {epi}, "
-                       f"{wg}, {bn}> (K={K})", chunk, smem)
+        _log_resources(f"split kernel resources {name}", chunk,
+                       lib.dit_split_smem(stage, K))
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", chunk)]
-        check(not any(spills), f"wg_gemm_kernel<{pro}, {epi}, {wg}, {bn}> "
-              f"spills {spills}")
-        seen += 1
-    check(seen == 5, f"{seen} wg_gemm_kernel instances in the build log, "
-          f"want 5")
+        check(not any(spills), f"{name} spills {spills}")
+        seen[kind] += 1
+    check(seen == {"wg_gemm_kernel": 5, "split_rows_tc_kernel": 6,
+                   "split_mlp_tc_kernel": 3},
+          f"split kernel instances in the build log: {seen}")
     check("C7512" not in text, "ptxas serialized a wgmma in dit_split.cu "
           "(C7512): " + "; ".join(l_ for l_ in text.splitlines()
                                    if "C7512" in l_))
-    log("split kernel resources: no spills and no C7512 in the wgmma "
-        "GEMMs")
+    log("split kernel resources: no spills and no C7512 in the split "
+        "block's wgmma kernels")
 
 
 def log_mod_ln_resources():
@@ -5290,6 +5468,31 @@ def row_gemms_only(seed, root):
     return 0
 
 
+def split_gemms_only(seed, root):
+    """The split block's GEMM section alone, on this tree's package or on
+    ``root``'s: the card, the build of dit_split.cu (this tree's kernels'
+    resources checked), then split_gemm_phase (the twin checks on this tree
+    only); the last line is {"split_gemms": {what: {stage: row}}, "root":
+    ...}."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    from t2ms_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"card: {smi}; package {os.path.dirname(_build.__file__)}")
+    log(f"build: {_build.build_all(['dit_split'])}")
+    if root is None:
+        log_split_resources()
+    rows = split_gemm_phase(
+        torch.Generator(device="cuda").manual_seed(seed + 24),
+        check_twin=root is None)
+    print(json.dumps({"split_gemms": rows, "root": root or ".",
+                      "card": smi}), flush=True)
+    return 0
+
+
 def attention_backward_only(seed, root):
     """The attention backward's section alone, on this tree's package or
     on ``root``'s: the card, the build of fused_heads.cu and
@@ -5325,10 +5528,14 @@ def main(argv=None):
     ap.add_argument("--row_gemms", action="store_true",
                     help="build, then run only the row kernels' section, its "
                     "last line a JSON of each call's rows")
+    ap.add_argument("--split_gemms", action="store_true",
+                    help="build, then run only the split block's GEMM "
+                    "section, its last line a JSON of each call's stages")
     ap.add_argument("--root", default=None,
-                    help="with --attention_forward, --attention_backward or "
-                    "--row_gemms: import t2ms_tpu_torch from this tree "
-                    "(another checkout, to time it beside this one)")
+                    help="with --attention_forward, --attention_backward, "
+                    "--row_gemms or --split_gemms: import t2ms_tpu_torch "
+                    "from this tree (another checkout, to time it beside "
+                    "this one)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -5340,6 +5547,8 @@ def main(argv=None):
         return attention_backward_only(args.seed, args.root)
     if args.row_gemms:
         return row_gemms_only(args.seed, args.root)
+    if args.split_gemms:
+        return split_gemms_only(args.seed, args.root)
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (
         FLASH_KERNEL, FUSED_HEADS_BWD_KERNEL, FUSED_HEADS_KERNEL,

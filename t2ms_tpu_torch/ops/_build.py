@@ -142,6 +142,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_stack_attention": [P] * 4 + [I] * 4 + [F, P],
         "dit_split_forward": [P] * 15 + [I] * 5 + [F, F, P],
         "dit_split_gemm": [P] * 6 + [I] * 5 + [F, P],
+        "dit_split_mlp": [P] * 7 + [I] * 4 + [F, P],
         "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
         "dit_block_attention_bwd": [P] * 4 + [I] * 4 + [F, P],
         "dit_block_mlp_bwd": [P] * 13 + [I] * 4 + [F, P],

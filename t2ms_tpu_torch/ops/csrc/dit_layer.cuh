@@ -100,7 +100,7 @@
 
 #pragma once
 
-#include "wg_gemm.cuh"
+#include "rw_common.cuh"
 
 namespace {
 
@@ -251,19 +251,12 @@ __device__ __forceinline__ void tile_gemm(const bf16* As, int lda,
 
 // ===================================================== the forward row kernels
 
-constexpr int RW_WG = 2;                // consumer warpgroups of a block
-constexpr int RW_NC = 128 * RW_WG;      // their threads
-constexpr int RW_NT = RW_NC + 128;      // and a producer warpgroup
-// registers a thread after the split: a sub-partition holds a producer
-// warp and two consumer warps, (40 + 2 * 232) * 32 <= 16384
-constexpr int RW_PRODUCER_REGS = 40, RW_CONSUMER_REGS = 232;
 // (c)'s MLP output columns a pass: all D up to 128; at D 192 three passes
 // of 64 (each recomputes fc1 and the GELU), since 96 registers of fc2 sums
 // beside fc1's spill even at 255 a thread
 __host__ __device__ constexpr int mlp_cols(int D) { return D > 128 ? 64 : D; }
 constexpr int RW_SLOTS = 32;            // weight slots at most
 constexpr int RW_STAGES = 2;            // activation stages a group at most
-constexpr size_t RW_STATIC = 1024;      // kept for the static barriers
 
 // the widths with an instance of both kernels
 __host__ __device__ constexpr bool rw_width(int D) {
@@ -352,12 +345,6 @@ struct RowArgs {
   int z, proj, x1;                  // optional outputs given
 };
 
-template <int N> __device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N> __device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -413,61 +400,6 @@ struct WRing {
       }
   }
 };
-
-// T(acc + T(bias)) of the thread's pairs, column c0 + 8 nt + 2 (lane % 4)
-// of row h of the two it holds, as a bf16 pair (EPI: epi_pair)
-template <int EPI>
-__device__ __forceinline__ uint32_t bias_pair(const float (&a)[4], int h,
-                                              uint32_t bp) {
-  return epi_pair<EPI>(a[2 * h] + __uint_as_float(bp << 16),
-                       a[2 * h + 1] + __uint_as_float(bp & 0xffff0000u));
-}
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned*>(p));
-}
-
-// a value the compiler must take as new where it is used: keeps
-// descriptors built from it inside the loop that uses them (hoisted, D 192's
-// twelve fc1 descriptors stay live across the whole tile and spill)
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
-  return x;
-}
-// T(res + T(g * v)) of bf16 pairs, g the rounded gate pair: resid_pair's
-// arithmetic without rounding g again
-__device__ __forceinline__ uint32_t resid2(uint32_t v, uint32_t res,
-                                          uint32_t g) {
-  float p0, p1;
-  round2(__uint_as_float(g << 16) * __uint_as_float(v << 16),
-         __uint_as_float(g & 0xffff0000u) * __uint_as_float(v & 0xffff0000u),
-         p0, p1);
-  return pack_bf16(__uint_as_float(res << 16) + p0,
-                   __uint_as_float(res & 0xffff0000u) + p1);
-}
-// the rounded gate pair T(mod[row, col..col+1])
-__device__ __forceinline__ uint32_t gate_pair(const float* p) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  return pack_bf16(v.x, v.y);
-}
-
-// tanh-GELU in f32 written as v * sigmoid(2u), u = sqrt(2/pi) (v + 0.044715
-// v^3), since 0.5 (1 + tanh(u)) = 1 / (1 + exp(-2u)): the exponential on the
-// exponent unit (ex2, relative error about 2^-22) and a fast reciprocal, no
-// branch (tanhf's range split kept the unrolled epilogue from overlapping
-// its values). The value differs from tanhf's in the last f32 bits, so a
-// bf16 rounding of h flips now and then, as with the attention's exp.
-__device__ __forceinline__ float gelu_fast(float v) {
-  const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-  return __fdividef(v, 1.0f + ex2(-2.0f * LOG2E * u));
-}
-// T(gelu(T(v))) of a pair: the rounded fc1 output, GELU'd in f32, rounded
-__device__ __forceinline__ uint32_t gelu_pair(const float (&a)[4], int h,
-                                              uint32_t bp) {
-  float x0, x1;
-  round2(a[2 * h] + __uint_as_float(bp << 16),
-         a[2 * h + 1] + __uint_as_float(bp & 0xffff0000u), x0, x1);
-  return pack_bf16(gelu_fast(x0), gelu_fast(x1));
-}
 
 // ---------------------------------------------------------------------------
 // (a) qkv = T(modLN(x; mod[0], mod[1]) @ w + T(bias)); z_out, if given,
@@ -1017,16 +949,6 @@ inline cudaError_t launch_layer_attn(const bf16* qkv, bf16* o, int B, int N,
       return launch_layer_attn_dh<128>(qkv, o, B, N, D, H, qscale, m_out,
                                        r_out, st);
   }
-}
-
-// SMs of the current device (0 on an error)
-inline int rw_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return n;
 }
 
 // The three launches of one layer at width D (run_layer_tc's arguments)

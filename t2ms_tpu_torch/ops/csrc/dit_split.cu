@@ -18,11 +18,20 @@
 //                                 + bfc1))
 //   (5) STREAM GEMM, RESID  y   = y1 + T(gate5) * T(h1 @ wfc2 + bfc2)
 //
+// In bf16 at D 128, 256 and 512 (ROUTE_TC) (1) and (3) run on split_tc.cuh's
+// persistent, warp-specialised kernel (split_rows_tc_kernel). split_tc.cuh
+// also holds the MLP half (4) + (5) as one launch with h1 kept on chip
+// (split_mlp_tc_kernel, reached alone through dit_split_mlp_bf16); it is on
+// no route: at the scaled call it ran 0.75 ms against 0.46 for (4) and (5)
+// (PERF.md), its weight stream bound by latency.
+//
 // Numerics are the stack's: LayerNorm in f32 (eps from the caller), every
 // product accumulated in f32 with the rounded bias added in f32 and then
 // cast, q scaled at input width, f32 scores, the exact row softmax in two
 // passes over K (row max first; then e = T(exp(T(s - m))), f32 row sums,
-// f32 PV), normalisation after PV, tanh-GELU, gated residuals in T.
+// f32 PV), normalisation after PV, tanh-GELU (split_mlp_tc_kernel: v / (1 +
+// exp(-2u)), dit_layer.cuh's gelu_fast, as the stack's bf16 MLP), gated
+// residuals in T.
 //
 // Bound on an H100 SXM at the scaled call (2B=32, N=1024, D=512, 8 heads,
 // hidden 2048, bf16): 274.9 GFLOP of matrix products, 206.2 of them in the
@@ -30,23 +39,21 @@
 // TFLOP/s. The GEMMs also move their operands through device memory
 // between launches (x and qkv, o, y1 and x, y1 and h1, h1 and y1 and y:
 // about 0.58 GB, 0.17 ms at 3.35 TB/s), so each is near the line where
-// bytes and operations bound it alike: proj is bound by bytes (96 MB
+// bytes and operations bound it alike: proj is bound by bytes (101 MB
 // against 17.2 GFLOP), the others by operations.
 //
-// bf16 runs the four GEMMs on wg_gemm.cuh's wgmma row GEMM: 128-row blocks
-// of two consumer warpgroups, 128-column steps, both operands through
-// 128-byte-swizzled shared memory filled by TMA from a producer warp, and
-// the epilogue from the accumulator registers through a shared output
-// tile. (1) and (4) normalise their 128 x D row tile once into shared
-// memory and serve every column step from it; where that tile, the ring
-// and the output tiles outgrow the opt-in (D above 512 at 227 KB) they
-// take 64-row blocks of one warpgroup and 64-column steps (ROUTE_NARROW;
-// D up to 1536). (3) and (5) stream A with W and prefetch the residual.
-// h1 (0.13 GB at the scaled call) still goes through device memory:
-// keeping it on chip (fc1 -> GELU -> fc2 over hidden chunks) is the next
-// step. The attention (2) takes one block per (batch element, 64 q rows,
-// head) and streams that head's K/V tiles, so a head's whole K/V is never
-// staged (attn_heads.cuh says how).
+// Elsewhere, and (4) and (5) always, the GEMMs run on wg_gemm.cuh's wgmma
+// row GEMM: 128-row blocks of two consumer warpgroups, 128-column steps,
+// both operands through 128-byte-swizzled shared memory filled by TMA from
+// a producer warp, and the epilogue from the accumulator registers through
+// a shared output tile. (1) and (4) normalise their 128 x D row tile once
+// into shared memory and serve every column step from it; where that tile,
+// the ring and the output tiles outgrow the opt-in (D above 512 at 227 KB)
+// they take 64-row blocks of one warpgroup and 64-column steps
+// (ROUTE_NARROW; D up to 1536). (3) and (5) stream A with W and prefetch
+// the residual. The attention (2) takes one block per (batch element, 64
+// q rows, head) and streams that head's K/V tiles, so a head's whole K/V
+// is never staged (attn_heads.cuh says how).
 //
 // f32 keeps the first version's kernels: gemm_kernel, one block per 64-row
 // tile walking 128-column steps with FMA loops (WarpAcc<float>) that stay
@@ -58,13 +65,14 @@
 // the given stream and return cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE
 // (launching nothing) for a shape the kernels do not take; dit_split_check
 // answers that question alone (the limits live in check_split below);
-// dit_split_gemm_bf16 launches one of the four GEMMs alone, and
-// dit_split_route and dit_split_smem say which bf16 route and how much
-// shared memory a stage takes.
+// dit_split_gemm_bf16 launches one of the four GEMMs alone and
+// dit_split_mlp_bf16 the MLP half in one launch, and dit_split_route and
+// dit_split_smem say which bf16 route and how much shared memory a stage
+// takes.
 
 #include <type_traits>
 
-#include "wg_gemm.cuh"
+#include "split_tc.cuh"
 
 namespace {
 
@@ -137,11 +145,21 @@ __host__ __device__ size_t smem_gemm(bool staged, int K) {
 // bf16 routes of the LayerNorm GEMMs (1) and (4): 128-row blocks with
 // 128-column steps where the staged 128 x D tile and the ring fit the
 // device's opt-in, else 64-row blocks with 64-column steps, else none
-enum { ROUTE_NONE = 0, ROUTE_NARROW = 1, ROUTE_WIDE = 2 };
+enum { ROUTE_NONE = 0, ROUTE_NARROW = 1, ROUTE_WIDE = 2, ROUTE_TC = 3 };
 inline int ln_route(int D, long long optin) {
   if (smem_wg<2, 128>(true, D) <= (size_t)optin) return ROUTE_WIDE;
   if (smem_wg<1, 64>(true, D) <= (size_t)optin) return ROUTE_NARROW;
   return ROUTE_NONE;
+}
+// The bf16 block's route at width D: qkv and proj on split_tc.cuh's
+// persistent kernel where it has an instance and fits the opt-in beside its
+// static barriers (fc1 and fc2 then on ln_route's 128-row kernels), else
+// ln_route's for all four
+inline int split_route(int D, long long optin) {
+  if (sp_width(D) && smem_sp_rows(D) + RW_STATIC <= (size_t)optin &&
+      ln_route(D, optin) == ROUTE_WIDE)
+    return ROUTE_TC;
+  return ln_route(D, optin);
 }
 
 // 0 when the kernels take (D, hidden, H) on the current device,
@@ -302,8 +320,9 @@ __global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
 // ---------------------------------------------------------------------------
 // Launches
 
-// the four GEMMs of a block, by their place in it
-enum { STAGE_QKV, STAGE_PROJ, STAGE_FC1, STAGE_FC2 };
+// the four GEMMs of a block, by their place in it, and the MLP half
+// (fc1 and fc2 in one launch on ROUTE_TC)
+enum { STAGE_QKV, STAGE_PROJ, STAGE_FC1, STAGE_FC2, STAGE_MLP };
 
 template <typename T, int PRO, int EPI>
 cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
@@ -364,32 +383,50 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
     return T2MS_UNSUPPORTED_SHAPE;
   const int ok = check_split<T>(D, hidden, H);
   if (ok) return ok;
-  const int route = sizeof(T) == 2 ? ln_route(D, smem_optin()) : ROUTE_NONE;
+  const int route = sizeof(T) == 2 ? split_route(D, smem_optin()) : ROUTE_NONE;
   // out = the stage's epilogue(prologue(a) @ w + bias), (B*N, K) @ (K, cols)
   auto gemm = [&](int stage, const T* a, const T* w, const T* bias,
                   const T* res, T* o, int K, int cols) {
     using Args = std::conditional_t<sizeof(T) == 2, WgArgs, GemmArgs<T>>;
     const Args g{a, mod, w, bias, res, o, B * N, N, K, cols, 0, 0, 0, eps};
-    return launch_stage(stage, g, route, st);
+    // fc1 and fc2 on ROUTE_TC take the 128-row kernels (ln_route's wide)
+    return launch_stage(stage, g, route == ROUTE_TC ? ROUTE_WIDE : route, st);
+  };
+  // qkv and proj: on ROUTE_TC split_tc.cuh's persistent kernel
+  auto rows_gemm = [&](int stage, const T* a, const T* w, const T* bias,
+                       const T* res, T* o, int cols) -> cudaError_t {
+    if constexpr (sizeof(T) == 2)
+      if (route == ROUTE_TC)
+        return launch_sp(stage, D, (const bf16*)a, mod, (const bf16*)w,
+                         (const bf16*)bias, (const bf16*)res, nullptr,
+                         nullptr, (bf16*)o, B * N, N, 0, eps, st);
+    return gemm(stage, a, w, bias, res, o, D, cols);
   };
   cudaError_t e;
-  if ((e = gemm(STAGE_QKV, x, wqkv, bqkv, nullptr, qkv, D, 3 * D)))
+  if ((e = rows_gemm(STAGE_QKV, x, wqkv, bqkv, nullptr, qkv, 3 * D)))
     return e;
   // attention on the q, k and v columns of qkv
   const long long W3 = 3LL * D, sb = N * W3;
   if ((e = launch_heads_attn<T>(qkv, qkv + D, qkv + 2 * D, sb, W3, sb, W3, sb,
                                 W3, attn, B, N, D, H, qscale, st)))
     return e;
-  if ((e = gemm(STAGE_PROJ, attn, wproj, bproj, x, y1, D, D))) return e;
+  if ((e = rows_gemm(STAGE_PROJ, attn, wproj, bproj, x, y1, D))) return e;
   if ((e = gemm(STAGE_FC1, y1, wfc1, bfc1, nullptr, h1, D, hidden)))
     return e;
   if ((e = gemm(STAGE_FC2, h1, wfc2, bfc2, y1, out, hidden, D))) return e;
   return cudaGetLastError();
 }
 
-// dynamic shared memory of a bf16 GEMM stage at depth K on its route; 0
-// for a stage or K the kernels do not take on this device
+// dynamic shared memory of a bf16 GEMM stage at depth K on its route
+// (split_route at D = K; STAGE_MLP the MLP half at width K); 0 for a stage
+// or K the kernels do not take on this device
 size_t stage_smem(int stage, int K, long long optin) {
+  const bool tc = split_route(K, optin) == ROUTE_TC;
+  if (stage == STAGE_MLP)
+    return tc && smem_sp_mlp(K) + RW_STATIC <= (size_t)optin ? smem_sp_mlp(K)
+                                                             : 0;
+  if (tc && (stage == STAGE_QKV || stage == STAGE_PROJ))
+    return smem_sp_rows(K);
   if (stage == STAGE_PROJ || stage == STAGE_FC2)
     return smem_wg<2, 128>(false, 0) <= (size_t)optin
                ? smem_wg<2, 128>(false, 0)
@@ -430,33 +467,68 @@ extern "C" int dit_split_check(int D, int hidden, int H, int is_bf16) {
 // STAGE_FC1 2, STAGE_FC2 3) on `rows` rows, N a batch element: a (rows, K),
 // mod (rows / N, 6, width) f32, w (K, cols), bias (cols), res (rows, cols)
 // for proj and fc2 (else unread), out (rows, cols); K and cols multiples
-// of 128. The block's launches run the same kernels.
+// of 128. The block's launches run the same kernels: qkv and proj on
+// split_tc.cuh's where split_route takes K (cols 3K and K), else on
+// wg_gemm.cuh's, as fc1 and fc2 always.
 extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
                                    const void* w, const void* bias,
                                    const void* res, void* out, int rows,
                                    int N, int K, int cols, int stage,
                                    float eps, void* stream) {
-  if (rows < 1 || N < 1 || K < GN || cols < GN || K % GN || cols % GN)
+  if (rows < 1 || N < 1 || K < GN || cols < GN || K % GN || cols % GN ||
+      stage < STAGE_QKV || stage > STAGE_FC2)
     return T2MS_UNSUPPORTED_SHAPE;
   const long long optin = smem_optin();
   if (optin < 0) return (int)-optin;
   if (!stage_smem(stage, K, optin)) return T2MS_UNSUPPORTED_SHAPE;
-  const WgArgs g{(const bf16*)a, (const float*)mod, (const bf16*)w,
-                 (const bf16*)bias, (const bf16*)res, (bf16*)out, rows, N,
-                 K, cols, 0, 0, 0, eps};
-  const cudaError_t e =
-      launch_stage(stage, g, ln_route(K, optin), (cudaStream_t)stream);
+  cudaError_t e;
+  if (split_route(K, optin) == ROUTE_TC &&
+      ((stage == STAGE_QKV && cols == 3 * K) ||
+       (stage == STAGE_PROJ && cols == K))) {
+    e = launch_sp(stage, K, (const bf16*)a, (const float*)mod,
+                  (const bf16*)w, (const bf16*)bias, (const bf16*)res,
+                  nullptr, nullptr, (bf16*)out, rows, N, 0, eps,
+                  (cudaStream_t)stream);
+  } else {
+    const WgArgs g{(const bf16*)a, (const float*)mod, (const bf16*)w,
+                   (const bf16*)bias, (const bf16*)res, (bf16*)out, rows, N,
+                   K, cols, 0, 0, 0, eps};
+    e = launch_stage(stage, g, ln_route(K, optin), (cudaStream_t)stream);
+  }
   return e ? (int)e : (int)cudaGetLastError();
 }
 
-// The bf16 route of the LayerNorm GEMMs at width D: ROUTE_WIDE 2 (128-row
-// blocks), ROUTE_NARROW 1 (64-row blocks) or ROUTE_NONE 0
-extern "C" int dit_split_route(int D) {
+// The bf16 MLP half alone on split_mlp_tc_kernel, the block's (4) on
+// ROUTE_TC: y1 and out (rows, D), mod (rows / N, 6, D) f32, w1 (D, hidden),
+// b1 (hidden), w2 (hidden, D), b2 (D); hidden a multiple of 128.
+// T2MS_UNSUPPORTED_SHAPE where split_route does not pick ROUTE_TC at D.
+extern "C" int dit_split_mlp_bf16(const void* y1, const void* mod,
+                                  const void* w1, const void* b1,
+                                  const void* w2, const void* b2, void* out,
+                                  int rows, int N, int D, int hidden,
+                                  float eps, void* stream) {
+  if (rows < 1 || N < 1 || hidden < GN || hidden % GN)
+    return T2MS_UNSUPPORTED_SHAPE;
   const long long optin = smem_optin();
-  return optin < 0 ? ROUTE_NONE : ln_route(D, optin);
+  if (optin < 0) return (int)-optin;
+  if (!stage_smem(STAGE_MLP, D, optin)) return T2MS_UNSUPPORTED_SHAPE;
+  const cudaError_t e = launch_sp(
+      STAGE_MLP, D, (const bf16*)y1, (const float*)mod, (const bf16*)w1,
+      (const bf16*)b1, nullptr, (const bf16*)w2, (const bf16*)b2,
+      (bf16*)out, rows, N, hidden, eps, (cudaStream_t)stream);
+  return e ? (int)e : (int)cudaGetLastError();
 }
 
-// Dynamic shared memory (bytes) of bf16 GEMM stage `stage` at depth K
+// The bf16 route of the block at width D: ROUTE_TC 3 (split_tc.cuh),
+// ROUTE_WIDE 2 (128-row blocks), ROUTE_NARROW 1 (64-row blocks) or
+// ROUTE_NONE 0
+extern "C" int dit_split_route(int D) {
+  const long long optin = smem_optin();
+  return optin < 0 ? ROUTE_NONE : split_route(D, optin);
+}
+
+// Dynamic shared memory (bytes) of bf16 stage `stage` (STAGE_MLP 4: the
+// MLP half) at depth K on its route
 extern "C" long long dit_split_smem(int stage, int K) {
   const long long optin = smem_optin();
   return optin < 0 ? 0 : (long long)stage_smem(stage, K, optin);

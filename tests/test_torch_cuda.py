@@ -598,6 +598,7 @@ def _split_args(dev, dt, B=3, N=130, D=512, hidden=2048, seed=2):
                                     (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("D,hidden,heads", [(512, 2048, 8),   # head width 64
                                             (512, 2048, 4),   # 128
+                                            (256, 1024, 4),   # 64
                                             (128, 256, 4)])   # 32
 def test_split_kernel_matches_twin_on_card(cuda, dt, tol, D, hidden, heads):
     """At a ragged N=130 and a batch that fills no tile; the bf16 kernel's
@@ -716,13 +717,17 @@ def _stage_args(dev, stage, D, hidden, B=3, N=130, seed=11):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", tblock.SPLIT_GEMM_STAGES)
-@pytest.mark.parametrize("D,hidden", [(128, 256), (512, 2048), (1024, 2048)])
+@pytest.mark.parametrize("D,hidden", [(128, 256), (256, 1024), (512, 2048),
+                                      (640, 1280), (1024, 2048),
+                                      (1536, 1536)])
 def test_split_gemm_stage_matches_twin_on_card(cuda, stage, D, hidden):
-    """Each bf16 GEMM stage of the split block alone (the wgmma row GEMM;
-    at D 1024 the LayerNorm stages take the 64-row route) against its twin
-    at ragged rows (B=3, N=130): 1e-2 * max|ref| (the same f32 products
-    in another order, so at most a rounding flip of the LayerNorm's output
-    or of the result) and correlation >= 0.999; one launch."""
+    """Each bf16 GEMM stage of the split block alone (qkv and proj on the
+    persistent kernel at D 128, 256 and 512, else and fc1 and fc2 always on
+    the wgmma row GEMM; from D 640 the LayerNorm stages take the 64-row
+    route) against its twin at ragged rows (B=3, N=130): 1e-2 * max|ref|
+    (the same f32 products in another order, so at most a rounding flip of
+    the LayerNorm's output or of the result) and correlation >= 0.999; one
+    launch."""
     args = _stage_args(cuda, stage, D, hidden)
     _build.reset_launch_counts()
     got = tblock._launch_split_gemm(*args, stage)
@@ -738,12 +743,15 @@ def test_split_gemm_stage_matches_twin_on_card(cuda, stage, D, hidden):
 
 @pytest.mark.cuda
 def test_split_gemm_routes_by_width(cuda):
-    """The LayerNorm GEMMs stage a 128 x D tile (128-row blocks) while it,
-    the ring and the output tiles fit 227 KB, else a 64 x D tile (64-row
+    """D 128, 256 and 512 take the persistent kernel for qkv and proj
+    (split_tc.cuh; fc1 and fc2 on the 128-row blocks); elsewhere the
+    LayerNorm GEMMs stage a 128 x D tile (128-row blocks) while it, the
+    ring and the output tiles fit 227 KB, else a 64 x D tile (64-row
     blocks), up to the widest D the split kernel took before the wgmma
     GEMMs (1536)."""
     route = tblock.split_gemm_route
-    assert [route(d) for d in (128, 256, 512)] == ["wide"] * 3
+    assert [route(d) for d in (128, 256, 512)] == ["persistent"] * 3
+    assert route(384) == "wide"
     assert [route(d) for d in (640, 1024, 1536)] == ["narrow"] * 3
     assert route(1664) == "none"
     ok = tblock.split_kernel_supported
@@ -752,18 +760,75 @@ def test_split_gemm_routes_by_width(cuda):
 
 
 @pytest.mark.cuda
-def test_bf16_split_kernel_narrow_route_matches_twin_on_card(cuda):
-    """The block at D 1024 (the 64-row route of the LayerNorm GEMMs),
-    held as test_split_kernel_matches_twin_on_card holds the others."""
-    args = _split_args(cuda, torch.bfloat16, D=1024, hidden=2048)
-    assert tblock.split_gemm_route(1024) == "narrow"
+@pytest.mark.parametrize("D,hidden,heads,route", [
+    (384, 1536, 6, "wide"), (640, 1280, 10, "narrow"),
+    (1024, 2048, 8, "narrow"), (1536, 1536, 12, "narrow")])
+def test_bf16_split_kernel_narrow_route_matches_twin_on_card(cuda, D, hidden,
+                                                             heads, route):
+    """The block off the persistent route (wg_gemm.cuh's 128-row route at D
+    384, its 64-row route from D 640; h1 through device memory), held as
+    test_split_kernel_matches_twin_on_card holds the others."""
+    args = _split_args(cuda, torch.bfloat16, D=D, hidden=hidden)
+    assert tblock.split_gemm_route(D) == route
     with torch.no_grad():
-        got = tblock.fused_dit_block_split(*args, num_heads=8).float()
-        want = tblock.fused_dit_block_reference(*args, 8).float()
+        got = tblock.fused_dit_block_split(*args, num_heads=heads).float()
+        want = tblock.fused_dit_block_reference(*args, heads).float()
         truth = tblock.fused_dit_block_reference(
-            *(a.float() for a in args), 8)
+            *(a.float() for a in args), heads)
     _close_to_twin(got, want, 3e-2)
     assert (got - truth).abs().mean() <= 1.5 * (want - truth).abs().mean()
+
+
+# (D, B, N) of the persistent route's kernels alone: the scaled CFG call
+# (2B=32 x 1024 tokens), one server request's 2048 rows and a ragged B=3 x
+# N=17 at D 512, the last two at D 128 and 256
+_SPLIT_TC_CALLS = [(512, 32, 1024), (512, 2, 1024), (512, 3, 17),
+                   (256, 2, 1024), (256, 3, 17), (128, 2, 1024),
+                   (128, 3, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,B,N", _SPLIT_TC_CALLS)
+def test_split_mlp_kernel_matches_twin_on_card(cuda, D, B, N):
+    """The MLP half in one launch (split_mlp_tc_kernel, hidden 4D, reached
+    alone) against split_mlp_reference: 3e-2 * max|ref| (rounding flips of
+    h feed fc2, the block-level bf16 bound), correlation >= 0.999, and a
+    mean error against the f32 twin at most 1.5x the bf16 twin's; one
+    launch counted as split_mlp; repeated bit for bit."""
+    hidden = 4 * D
+    y1, mod, w1, b1, res = _stage_args(cuda, "fc1", D, hidden, B, N, 21)
+    _, _, w2, b2, _ = _stage_args(cuda, "fc2", D, hidden, B, N, 22)
+    _build.reset_launch_counts()
+    got = tblock._launch_split_mlp(y1, mod, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {tblock.SPLIT_MLP_KERNEL: 1}
+    want = tblock.split_mlp_reference(y1, mod, w1, b1, w2, b2)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (B, N, D)
+    _close_to_twin(got, want, 3e-2)
+    g_, w_ = got.float().flatten(), want.float().flatten()
+    assert torch.corrcoef(torch.stack([g_, w_]))[0, 1].item() >= 0.999
+    truth = tblock.split_mlp_reference(
+        *(t.float() for t in (y1, mod, w1, b1, w2, b2))).flatten()
+    assert (g_ - truth).abs().mean() <= 1.5 * (w_ - truth).abs().mean()
+    assert torch.equal(got, tblock._launch_split_mlp(y1, mod, w1, b1, w2, b2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["qkv", "proj"])
+@pytest.mark.parametrize("D,B,N", _SPLIT_TC_CALLS)
+def test_split_rows_kernel_matches_twin_on_card(cuda, stage, D, B, N):
+    """qkv and proj on split_rows_tc_kernel at the persistent route's calls
+    against their twin, as test_split_gemm_stage_matches_twin_on_card
+    holds them at B=3, N=130."""
+    args = _stage_args(cuda, stage, D, 4 * D, B, N, 23)
+    got = tblock._launch_split_gemm(*args, stage)
+    torch.cuda.synchronize()
+    want = tblock.split_gemm_reference(*args, stage)
+    assert got.shape == want.shape
+    _close_to_twin(got, want, 1e-2)
+    a, b = got.float().flatten(), want.float().flatten()
+    assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.999
 
 
 @pytest.mark.cuda
@@ -777,15 +842,19 @@ def test_bf16_split_kernel_repeats_bit_for_bit(cuda):
 
 @pytest.mark.cuda
 def test_bf16_split_kernel_runs_the_wgmma_gemms(cuda):
-    """One bf16 split block's profile: the attention on heads_fwd_kernel,
-    the four products on wg_gemm_kernel, and no WMMA gemm_kernel."""
+    """One bf16 split block's profile at D 512: the attention on
+    heads_fwd_kernel, qkv and proj on the persistent split_rows_tc_kernel,
+    fc1 and fc2 on wg_gemm_kernel's 128-row route, and neither
+    wg_gemm_kernel's qkv nor the first version's WMMA gemm_kernel."""
     args = _split_args(cuda, torch.bfloat16, B=2, N=130)
     with torch.no_grad():
         names, named = _profile_names(
             lambda: tblock.fused_dit_block_split(*args, num_heads=8))
-    for n in ("heads_fwd_kernel", "wg_gemm_kernel<0, 0, 2, 128>",
-              "wg_gemm_kernel<1, 2, 2, 128>", "wg_gemm_kernel<0, 1, 2, 128>"):
+    for n in ("heads_fwd_kernel", "split_rows_tc_kernel<512, false>",
+              "split_rows_tc_kernel<512, true>",
+              "wg_gemm_kernel<0, 1, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>"):
         assert named(n), (n, sorted(names))
+    assert not named("wg_gemm_kernel<0, 0, 2, 128>"), sorted(names)
     assert not named("gemm_kernel"), sorted(names)
 
 
