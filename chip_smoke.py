@@ -354,6 +354,7 @@ import argparse
 import contextlib
 import copy
 import importlib.util
+import inspect
 import json
 import os
 import queue
@@ -1247,7 +1248,8 @@ SPLIT_SHAPES = (
 # of max|twin|: one stage's output a rounding flip after f32 sums in another
 # order; the MLP half's flips in h1 feed fc2 (the block-level bf16 bound)
 SPLIT_STAGE_TOL = {"qkv": 1e-2, "proj": 1e-2, "mlp": 3e-2,
-                   "mlp_one_launch": 3e-2}
+                   "mlp_one_launch": 3e-2, "mlp_one_launch_cl2": 3e-2,
+                   "mlp_one_launch_cl4": 3e-2}
 
 
 def split_stage_work(stage, B, N, D, hidden):
@@ -1290,6 +1292,13 @@ def split_stage_calls(db, x, o, mod, ws):
     if split_mlp_in_one(db, x.shape[-1]):
         calls["mlp_one_launch"] = lambda: db._launch_split_mlp(
             x, mod, w1, b1, w2, b2)
+        # the same kernel in clusters sharing each weight item (D 512)
+        if (x.shape[-1] == 512 and "cluster" in
+                inspect.signature(db._launch_split_mlp).parameters):
+            for cl in (2, 4):
+                calls[f"mlp_one_launch_cl{cl}"] = (
+                    lambda cl=cl: db._launch_split_mlp(
+                        x, mod, w1, b1, w2, b2, cluster=cl))
     return calls
 
 
@@ -1344,6 +1353,8 @@ def split_gemm_phase(gen, check_twin=True):
                         "fc2"),
                     "mlp_one_launch": lambda: db.split_mlp_reference(
                         x, mod, *ws[4:])}
+                twins["mlp_one_launch_cl2"] = twins["mlp_one_launch"]
+                twins["mlp_one_launch_cl4"] = twins["mlp_one_launch"]
                 for stage, call in calls.items():
                     _check_err(f"split stage {what} {stage}", call(),
                                twins[stage](), SPLIT_STAGE_TOL[stage])
@@ -1643,7 +1654,7 @@ def log_split_resources():
         m = re.search(r"wg_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                       chunk)
         r = re.search(r"split_rows_tc_kernelILi(\d+)ELb([01])E", chunk)
-        p = re.search(r"split_mlp_tc_kernelILi(\d+)E", chunk)
+        p = re.search(r"split_mlp_tc_kernelILi(\d+)ELi(\d+)E", chunk)
         if m is not None:
             pro, epi, wg, bn = (int(v) for v in m.groups())
             stage = 1 if pro else (0 if epi == 0 else 2)
@@ -1656,9 +1667,9 @@ def log_split_resources():
             name = f"split_rows_tc_kernel<{K}, {str(bool(proj)).lower()}>"
             kind = "split_rows_tc_kernel"
         elif p is not None:
-            K = int(p.group(1))
+            K, cl = (int(v) for v in p.groups())
             stage = 4
-            name = f"split_mlp_tc_kernel<{K}>"
+            name = f"split_mlp_tc_kernel<{K}, {cl}>"
             kind = "split_mlp_tc_kernel"
         else:
             continue
@@ -1668,7 +1679,7 @@ def log_split_resources():
         check(not any(spills), f"{name} spills {spills}")
         seen[kind] += 1
     check(seen == {"wg_gemm_kernel": 5, "split_rows_tc_kernel": 6,
-                   "split_mlp_tc_kernel": 3},
+                   "split_mlp_tc_kernel": 5},
           f"split kernel instances in the build log: {seen}")
     check("C7512" not in text, "ptxas serialized a wgmma in dit_split.cu "
           "(C7512): " + "; ".join(l_ for l_ in text.splitlines()

@@ -519,6 +519,29 @@ extern "C" int dit_split_mlp_bf16(const void* y1, const void* mod,
   return e ? (int)e : (int)cudaGetLastError();
 }
 
+// dit_split_mlp_bf16's kernel at D 512 in clusters of `cluster` (2 or 4)
+// blocks that share each weight item by TMA multicast: a measurement of
+// the weight stream's L2 traffic (stream-ordered, arguments as there)
+extern "C" int dit_split_mlp_cluster_bf16(const void* y1, const void* mod,
+                                          const void* w1, const void* b1,
+                                          const void* w2, const void* b2,
+                                          void* out, int rows, int N, int D,
+                                          int hidden, float eps, int cluster,
+                                          void* stream) {
+  if (rows < 1 || N < 1 || hidden < GN || hidden % GN || D != 512 ||
+      (cluster != 2 && cluster != 4))
+    return T2MS_UNSUPPORTED_SHAPE;
+  const long long optin = smem_optin();
+  if (optin < 0) return (int)-optin;
+  if (!stage_smem(STAGE_MLP, D, optin)) return T2MS_UNSUPPORTED_SHAPE;
+  auto run = cluster == 2 ? launch_sp_mlp<512, 2> : launch_sp_mlp<512, 4>;
+  const cudaError_t e =
+      run((const bf16*)y1, (const float*)mod, (const bf16*)w1,
+          (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (bf16*)out,
+          rows, N, hidden, eps, (cudaStream_t)stream);
+  return e ? (int)e : (int)cudaGetLastError();
+}
+
 // The bf16 route of the block at width D: ROUTE_TC 3 (split_tc.cuh),
 // ROUTE_WIDE 2 (128-row blocks), ROUTE_NARROW 1 (64-row blocks) or
 // ROUTE_NONE 0

@@ -269,6 +269,62 @@ __device__ __forceinline__ void sp_wait(uint64_t* b, int ph) {
     if (++n == (1u << 26)) __trap();
 }
 
+// ------------------------------------------------ clusters of CL blocks
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t sp_cl_rank() {
+  uint32_t v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
+  return v;
+}
+// every thread of every block of the cluster: arrive, then wait
+__device__ __forceinline__ void sp_cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+// sp_test at cluster scope: the phase's arrivals came from every block
+__device__ __forceinline__ bool sp_test_cl(uint64_t* b, int ph) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(sm_addr(b)), "r"(ph)
+      : "memory");
+  return ok != 0;
+}
+// an arrival on barrier b of every block of a cluster of CL (its own too)
+template <int CL> __device__ __forceinline__ void sp_arrive_all(uint64_t* b) {
+  if constexpr (CL == 1) {
+    mbar_arrive(b);
+  } else {
+    const uint32_t a = sm_addr(b);
+#pragma unroll
+    for (int r = 0; r < CL; ++r)
+      asm volatile(
+          "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
+          ::"r"(a), "r"(r)
+          : "memory");
+  }
+}
+// a weight box into the same place of every block of the cluster (mask),
+// its bytes completing on each block's barrier at b's offset, evict_last
+__device__ __forceinline__ void tma_w_mc(void* dst, const CUtensorMap* m,
+                                         int c0, int c1, uint64_t* b,
+                                         uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster.L2::cache_hint [%0], [%1, {%2, %3}], [%4], "
+      "%5, %6;\n" ::"r"(sm_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(sm_addr(b)),
+      "h"(mask), "l"(l2_evict_last())
+      : "memory");
+}
+
 // in an unrolled epilogue, every G column tiles: the compiler may not hoist
 // the next tiles' loads (bias, gate, residual) above this one's stores, so
 // they do not all sit in registers beside the sums
@@ -353,7 +409,7 @@ struct SplitArgs {
 
 // The weight ring's consumer side: item g in slot g % S, phase (g / S) & 1,
 // released by lane 0 of each warp that reads it
-template <int S> struct SpRing {
+template <int S, int CL = 1> struct SpRing {
   uint64_t* full;
   uint64_t* empty;
   uint32_t base;  // the slots' shared address
@@ -368,8 +424,9 @@ template <int S> struct SpRing {
   __device__ uint32_t at(uint32_t g) const {
     return base + (g % S) * SP_SLOT;
   }
+  // (CL > 1: on the slot's barrier in every block of the cluster)
   __device__ void release(uint32_t g) const {
-    if ((sp_tid() & 31) == 0) mbar_arrive(&empty[g % S]);  // lane, anew
+    if ((sp_tid() & 31) == 0) sp_arrive_all<CL>(&empty[g % S]);  // lane
   }
 };
 
@@ -579,7 +636,7 @@ __global__ void __launch_bounds__(RW_NT, 1)
 // (with one shared ring and a blocking producer, fc1's items waited behind
 // fc2's, and the kernel was slower).
 
-template <int D>
+template <int D, int CL>
 __global__ void __launch_bounds__(RW_NT, 1)
     split_mlp_tc_kernel(const SplitArgs g,
                         const __grid_constant__ CUtensorMap m_x,
@@ -611,11 +668,11 @@ __global__ void __launch_bounds__(RW_NT, 1)
   if (tid == 0) {
     for (int s = 0; s < SA; ++s) {
       mbar_init(&fullA[s], 1);
-      mbar_init(&emptyA[s], 4);  // warpgroup 2
+      mbar_init(&emptyA[s], 4 * CL);  // warpgroup 2 of every block
     }
     for (int s = 0; s < SB; ++s) {
       mbar_init(&fullB[s], 1);
-      mbar_init(&emptyB[s], 4);  // the item's fc2 group
+      mbar_init(&emptyB[s], 4 * CL);  // the item's fc2 group, each block
     }
     for (int i = 0; i < NH; ++i) {
       mbar_init(&hfull[i], 4);        // warpgroup 2's warps
@@ -624,8 +681,11 @@ __global__ void __launch_bounds__(RW_NT, 1)
     mbar_init(&xfull, 1);
     mbar_init(&zfree, 4);   // warpgroup 2's warps
     mbar_init(&xfree, 1);
+    if constexpr (CL > 1)
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (CL > 1) sp_cluster_sync();  // every block's barriers are set
   const int w = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
   const int gr = lane >> 2, tq = lane & 3;
   auto modrow = [&](int r) {
@@ -634,40 +694,64 @@ __global__ void __launch_bounds__(RW_NT, 1)
 
   if (w == 2) {
     // ---- warpgroup 2: LayerNorm, fc1, GELU; its first thread the TMA
-    const SpRing<SA> ra{fullA, emptyA, sm_addr(ringA)};
+    const SpRing<SA, CL> ra{fullA, emptyA, sm_addr(ringA)};
     const CUtensorMap *m1 = &m_w1, *m2 = &m_w2;
     uint32_t ia = 0, ib = 0;  // items of rings A and B issued (wt == 0)
-    // issue each ring's next items while their slots are free; never waits
+    // issue each ring's next items while their slots are free; never waits.
+    // In a cluster each block sets up every item on its own barriers and
+    // item i is loaded by block i % CL into all of them, once every block
+    // has released its slot
+    auto free_slot = [&](uint64_t* b, int ph) {
+      if constexpr (CL > 1)
+        return sp_test_cl(b, ph);
+      else
+        return sp_test(b, ph);
+    };
+    auto mine = [&](uint32_t i) {
+      return CL == 1 || i % CL == sp_cl_rank();
+    };
+    constexpr uint16_t MASK = (uint16_t)((1u << CL) - 1);
+    auto load_w = [&](unsigned char* dst, const CUtensorMap* m, int c0,
+                      int c1, uint64_t* b) {
+      if constexpr (CL > 1)
+        tma_w_mc(dst, m, c0, c1, b, MASK);
+      else
+        tma_w(dst, m, c0, c1, b);
+    };
     auto pump = [&]() {
       const int P = pairs();
       const uint32_t na = (uint32_t)iters() * P * NK;
       const uint32_t nb = (uint32_t)iters() * P * 8;
       for (; ia < na; ++ia) {
         const uint32_t s = ia % SA;
-        if (ia >= (uint32_t)SA && !sp_test(&emptyA[s], ((ia / SA) - 1) & 1))
+        if (ia >= (uint32_t)SA && !free_slot(&emptyA[s], ((ia / SA) - 1) & 1))
           break;
         // fc1 of pair pp: K rows [64 m, +64) of hidden [128 pp, +128)
         const uint32_t r = ia % ((uint32_t)P * NK);
         const int pp = r / NK, m = r % NK;
         mbar_expect(&fullA[s], SP_SLOT);
+        if (mine(ia)) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          tma_w(ringA + s * SP_SLOT + h * 8192, m1, 128 * pp + 64 * h,
-                64 * m, &fullA[s]);
+          for (int h = 0; h < 2; ++h)
+            load_w(ringA + s * SP_SLOT + h * 8192, m1, 128 * pp + 64 * h,
+                   64 * m, &fullA[s]);
+        }
       }
       for (; ib < nb; ++ib) {
         const uint32_t s = ib % SB;
-        if (ib >= (uint32_t)SB && !sp_test(&emptyB[s], ((ib / SB) - 1) & 1))
+        if (ib >= (uint32_t)SB && !free_slot(&emptyB[s], ((ib / SB) - 1) & 1))
           break;
         // fc2 of pair p: hidden rows [128 p + 32 q, +32) of group wc's
         // columns, NP / 64 slabs of 32 rows
         const uint32_t r = ib % ((uint32_t)P * 8);
         const int p = r / 8, q = (r % 8) >> 1, wc = r & 1;
         mbar_expect(&fullB[s], F2);
+        if (mine(ib)) {
 #pragma unroll
-        for (int c = 0; c < NP / 64; ++c)
-          tma_w(ringB + s * SP_SLOT + c * 4096, m2, wc * NP + 64 * c,
-                128 * p + 32 * q, &fullB[s]);
+          for (int c = 0; c < NP / 64; ++c)
+            load_w(ringB + s * SP_SLOT + c * 4096, m2, wc * NP + 64 * c,
+                   128 * p + 32 * q, &fullB[s]);
+        }
       }
     };
     // wait for b's phase ph: the first thread pumping meanwhile (bounded, as
@@ -770,11 +854,13 @@ __global__ void __launch_bounds__(RW_NT, 1)
         }
       }
     }
+    // no block leaves while its partners may still arrive on its barriers
+    if constexpr (CL > 1) sp_cluster_sync();
     return;
   }
 
   // ---- warpgroups 0 and 1: fc2 for columns [w NP, +NP), and the epilogue
-  const SpRing<SB> rb{fullB, emptyB, sm_addr(ringB)};
+  const SpRing<SB, CL> rb{fullB, emptyB, sm_addr(ringB)};
   const uint32_t ha = sm_addr(Hs);
   float acc2[NP / 8][4];
   for (int j = 0; j < iters(); ++j) {
@@ -869,6 +955,7 @@ __global__ void __launch_bounds__(RW_NT, 1)
     }
   }
   if (sp_tid() == 0) bulk_wait<0, false>();
+  if constexpr (CL > 1) sp_cluster_sync();
 }
 
 // --------------------------------------------------------------- launches
@@ -904,25 +991,50 @@ cudaError_t launch_sp_rows(const bf16* a, const float* mod, const bf16* w,
 }
 
 // (4+5) on `rows` rows: y1 and out (rows, D), w1 (D, hidden), w2 (hidden,
-// D); hidden a multiple of 128
-template <int D>
+// D); hidden a multiple of 128. CL > 1: clusters of CL blocks sharing each
+// weight item by multicast, as many as can be resident at once
+template <int D, int CL = 1>
 cudaError_t launch_sp_mlp(const bf16* y1, const float* mod, const bf16* w1,
                           const bf16* b1, const bf16* w2, const bf16* b2,
                           bf16* out, int rows, int N, int hidden, float eps,
                           cudaStream_t st) {
-  const int grid = sp_grid((rows + 63) / 64);
+  const int tiles = (rows + 63) / 64;
+  int grid = sp_grid(tiles);
   CUtensorMap mx, m1, m2, my;
   if (grid <= 0 || !make_tmap(&mx, y1, rows, D, 64) ||
       !make_tmap(&m1, w1, D, hidden, 64) ||
       !make_tmap(&m2, w2, hidden, D, 32) || !make_tmap(&my, out, rows, D, 64))
     return cudaErrorInvalidValue;
-  const void* k = (const void*)split_mlp_tc_kernel<D>;
-  const cudaError_t e = set_smem(k, smem_sp_mlp(D));
+  auto kern = split_mlp_tc_kernel<D, CL>;
+  cudaError_t e = set_smem((const void*)kern, smem_sp_mlp(D));
   if (e != cudaSuccess) return e;
   const SplitArgs g{mod, b1, b2, rows, N, hidden, eps, y1};
-  split_mlp_tc_kernel<D><<<grid, RW_NT, smem_sp_mlp(D), st>>>(g, mx, m1, m2,
-                                                               my);
-  return cudaGetLastError();
+  if constexpr (CL == 1) {
+    kern<<<grid, RW_NT, smem_sp_mlp(D), st>>>(g, mx, m1, m2, my);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = CL;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.blockDim = dim3(RW_NT);
+    cfg.dynamicSmemBytes = smem_sp_mlp(D);
+    cfg.stream = st;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    cfg.gridDim = dim3(CL * 132);
+    int clusters = 0;
+    if ((e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern,
+                                            &cfg)) != cudaSuccess)
+      return e;
+    if (clusters <= 0) return cudaErrorInvalidValue;
+    const int need = (tiles + CL - 1) / CL;
+    grid = CL * (need < clusters ? need : clusters);
+    cfg.gridDim = dim3(grid);
+    return cudaLaunchKernelEx(&cfg, kern, g, mx, m1, m2, my);
+  }
 }
 
 // stage 0 qkv, 1 proj, 4 the MLP half at width D on the kernels above (the
@@ -939,7 +1051,7 @@ inline cudaError_t launch_sp(int stage, int D, const bf16* a,
                                                     out, rows, N, eps, st)    \
            : stage == 1 ? launch_sp_rows<DD, true>(a, mod, w, bias, res, out, \
                                                    rows, N, eps, st)          \
-                        : launch_sp_mlp<DD>(a, mod, w, bias, w2, b2, out,     \
+                        : launch_sp_mlp<DD, 1>(a, mod, w, bias, w2, b2, out,  \
                                             rows, N, hidden, eps, st);
   switch (D) {
     T2MS_SP_CASE(128)

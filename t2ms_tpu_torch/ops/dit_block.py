@@ -475,7 +475,7 @@ def _launch_split_gemm(a, mod, w, bias, res, stage, eps=1e-6):
     return out
 
 
-def _launch_split_mlp(y1, mod, w1, b1, w2, b2, eps=1e-6):
+def _launch_split_mlp(y1, mod, w1, b1, w2, b2, eps=1e-6, cluster=1):
     """The bf16 split block's MLP half alone in one launch
     (``dit_split_mlp_bf16``: ``split_mlp_tc_kernel``, h1 kept on chip, at
     the widths of the persistent route; on no route of the block, which
@@ -497,10 +497,14 @@ def _launch_split_mlp(y1, mod, w1, b1, w2, b2, eps=1e-6):
         raise refused
     lib = _build.load("dit_split")
     out = torch.empty_like(y1)
-    _build.launch(lib, "dit_split_mlp_bf16", SPLIT_MLP_KERNEL, refused,
+    # cluster 2 or 4: the same kernel in clusters sharing each weight item
+    # by multicast (D 512; a measurement)
+    entry, extra = (("dit_split_mlp_bf16", ()) if cluster == 1 else
+                    ("dit_split_mlp_cluster_bf16", (int(cluster),)))
+    _build.launch(lib, entry, SPLIT_MLP_KERNEL, refused,
                   y1.device, y1.contiguous(), mod.float().contiguous(),
                   *(t.to(y1.dtype).contiguous() for t in (w1, b1, w2, b2)),
-                  out, B * N, N, D, hidden, float(eps))
+                  out, B * N, N, D, hidden, float(eps), *extra)
     return out
 
 
