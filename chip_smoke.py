@@ -25,8 +25,8 @@ failing with a non-zero exit on any error:
    ``mlp_bwd_tc_kernel<D>`` and ``qkv_bwd_tc_kernel<D>`` at D 64 and 128,
    checked the same way, ``attn_out_bwd_tc_kernel``, ``wgrad_tc_kernel``),
    and of the split block's wgmma GEMMs as built into csrc/dit_split.cu
-   (csrc/split_tc.cuh: ``split_rows_tc_kernel<D, PROJ>`` and
-   ``split_mlp_tc_kernel<D>`` at D 128, 256 and 512; csrc/wg_gemm.cuh:
+   (csrc/split_tc.cuh: ``split_rows_tc_kernel<D, PROJ>`` at D 128, 256
+   and 512; csrc/wg_gemm.cuh:
    ``wg_gemm_kernel`` on each route), checked to spill nothing and to draw
    no ptxas C7512 ("wgmma serialized"), and of the bf16 #8 kernel on
    16-byte chunks
@@ -63,8 +63,7 @@ failing with a non-zero exit on any error:
    against their twins, each stage's device time by kernel, operations,
    bytes, share of its bound and cuBLAS over its products, and the whole
    block's device time by kernel (``--split_gemms [--root DIR]`` runs this
-   section only; with --root the parent's MLP half is its fc1 then fc2
-   stage);
+   section only);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -106,13 +105,14 @@ failing with a non-zero exit on any error:
    again in f32 at a small batch, and against the stack kernel at the
    reference geometry; CUDA-event times, the twin's time, the bound,
    device time by kernel and split into attention and GEMMs (the bf16
-   call checked to run on ``split_rows_tc_kernel`` and
-   ``split_mlp_tc_kernel`` and on no ``wg_gemm_kernel`` and no bf16
-   ``gemm_kernel``), each stage alone (qkv and proj through
-   ``dit_split_gemm_bf16``, the MLP half through ``dit_split_mlp_bf16``):
-   device time, TFLOP/s and share of its bound, and torch SDPA over the
-   block's attention and cuBLAS over its four dense products as
-   yardsticks; the route at each width;
+   call checked to run on ``split_rows_tc_kernel`` for qkv and proj,
+   ``wg_gemm_kernel`` for fc1 and fc2, and on neither ``wg_gemm_kernel``'s
+   qkv instance nor a bf16 ``gemm_kernel``), each stage alone (through
+   ``dit_split_gemm_bf16``; the MLP half as fc1 then fc2): device time,
+   TFLOP/s and share of its bound, and torch SDPA over the block's
+   attention and cuBLAS over its four dense products as yardsticks; the
+   route at each width, at the scaled call's rows and at one server
+   request's;
 9. scaled offline path: the 56.7M-param DiT (scripts/bench_scaled.py:
    d_model 512, depth 12, 8 heads, mlp x4, 1024 tokens) and the LA-VAE at
    latent grid 64, seeded random weights, through the CFG sampler (B=16,
@@ -354,7 +354,6 @@ import argparse
 import contextlib
 import copy
 import importlib.util
-import inspect
 import json
 import os
 import queue
@@ -1183,18 +1182,21 @@ def split_phase(gen):
         f"rel={err / ref:.3e} (tol 3e-2) corr={corr:.8f}")
     check(err <= 3e-2 * ref and corr >= 0.999, "split vs stack kernel")
     from t2ms_tpu_torch.ops.dit_block import split_gemm_route
-    routes = {d: split_gemm_route(d) for d in (128, 512, 640, 1024, 1536)}
-    log(f"split bf16 route by D (persistent: qkv and proj on split_tc.cuh; "
-        f"else the LayerNorm GEMMs' wide: 128-row blocks, narrow: 64-row): "
-        f"{routes}")
-    check(routes[SC_D] == "persistent", f"scaled split route {routes[SC_D]}")
+    for rows, want in ((2 * SC_B * SC_N, "persistent"), (2 * SC_N, "wide")):
+        routes = {d: split_gemm_route(d, rows)
+                  for d in (128, 512, 640, 1024, 1536)}
+        log(f"split bf16 route by D at {rows} rows (persistent: qkv and "
+            f"proj on split_tc.cuh; else the LayerNorm GEMMs' wide: 128-row "
+            f"blocks, narrow: 64-row): {routes}")
+        check(routes[SC_D] == want, f"split route at {rows} rows "
+              f"{routes[SC_D]}")
     return out
 
 
 def split_gemm_stages(rows, D, hidden, reps: int = 3):
     """Each bf16 stage of the split block alone at ``rows`` rows (the
-    block's own kernels: qkv and proj through ``dit_split_gemm_bf16``, the
-    MLP half through ``dit_split_mlp_bf16``): device time (torch.profiler),
+    block's own kernels through ``dit_split_gemm_bf16``; the MLP half as
+    fc1 then fc2): device time (torch.profiler),
     TFLOP/s and share of its bound (``split_stage_work``: the larger of its
     operations at 989 TFLOP/s and its bytes, each input and the output
     once, at 3.35 TB/s). Inputs from their own generator."""
@@ -1247,9 +1249,7 @@ SPLIT_SHAPES = (
 )
 # of max|twin|: one stage's output a rounding flip after f32 sums in another
 # order; the MLP half's flips in h1 feed fc2 (the block-level bf16 bound)
-SPLIT_STAGE_TOL = {"qkv": 1e-2, "proj": 1e-2, "mlp": 3e-2,
-                   "mlp_one_launch": 3e-2, "mlp_one_launch_cl2": 3e-2,
-                   "mlp_one_launch_cl4": 3e-2}
+SPLIT_STAGE_TOL = {"qkv": 1e-2, "proj": 1e-2, "mlp": 3e-2}
 
 
 def split_stage_work(stage, B, N, D, hidden):
@@ -1264,41 +1264,22 @@ def split_stage_work(stage, B, N, D, hidden):
                 + 4 * B * 2 * D)
     if stage == "proj":
         return 2 * rows * D * D, bf * (3 * rows * D + D * D + D) + 4 * B * D
-    # the MLP half, as the block runs it or in one launch
+    # the MLP half; h1 between fc1 and fc2 is not counted
     return (4 * rows * D * hidden,
             bf * (2 * rows * D + 2 * D * hidden + hidden + D) + 4 * B * 3 * D)
-
-
-def split_mlp_in_one(db, D):
-    """Whether the package ``db`` has the split block's MLP half in one
-    launch at width D (the widths of its persistent route)."""
-    return (hasattr(db, "_launch_split_mlp")
-            and db.split_gemm_route(D) == "persistent")
 
 
 def split_stage_calls(db, x, o, mod, ws):
     """stage -> a function launching that stage of the split block alone
     through the package ``db`` (ops.dit_block of this tree or another):
     qkv on x, proj on o with x as the residual, the MLP half on x as y1 as
-    the block runs it (its fc1 and fc2 stages in turn), and, where the
-    package has it at this width, the MLP half in one launch
-    (``mlp_one_launch``: ``_launch_split_mlp``)."""
+    the block runs it (its fc1 and fc2 stages in turn)."""
     wqkv, bqkv, wproj, bproj, w1, b1, w2, b2 = ws
     g = db._launch_split_gemm
     calls = {"qkv": lambda: g(x, mod, wqkv, bqkv, None, "qkv"),
              "proj": lambda: g(o, mod, wproj, bproj, x, "proj"),
              "mlp": lambda: g(g(x, mod, w1, b1, None, "fc1"), mod, w2, b2, x,
                               "fc2")}
-    if split_mlp_in_one(db, x.shape[-1]):
-        calls["mlp_one_launch"] = lambda: db._launch_split_mlp(
-            x, mod, w1, b1, w2, b2)
-        # the same kernel in clusters sharing each weight item (D 512)
-        if (x.shape[-1] == 512 and "cluster" in
-                inspect.signature(db._launch_split_mlp).parameters):
-            for cl in (2, 4):
-                calls[f"mlp_one_launch_cl{cl}"] = (
-                    lambda cl=cl: db._launch_split_mlp(
-                        x, mod, w1, b1, w2, b2, cluster=cl))
     return calls
 
 
@@ -1350,11 +1331,7 @@ def split_gemm_phase(gen, check_twin=True):
                     "mlp": lambda: db.split_gemm_reference(
                         db.split_gemm_reference(x, mod, ws[4], ws[5], None,
                                                 "fc1"), mod, ws[6], ws[7], x,
-                        "fc2"),
-                    "mlp_one_launch": lambda: db.split_mlp_reference(
-                        x, mod, *ws[4:])}
-                twins["mlp_one_launch_cl2"] = twins["mlp_one_launch"]
-                twins["mlp_one_launch_cl4"] = twins["mlp_one_launch"]
+                        "fc2")}
                 for stage, call in calls.items():
                     _check_err(f"split stage {what} {stage}", call(),
                                twins[stage](), SPLIT_STAGE_TOL[stage])
@@ -1634,13 +1611,13 @@ def log_block_bwd_resources():
 def log_split_resources():
     """ptxas's registers, stack, spills and static shared memory of the
     split block's kernels as built into csrc/dit_split.cu: the persistent
-    wgmma kernels of csrc/split_tc.cuh (``split_rows_tc_kernel<D, PROJ>``
-    and ``split_mlp_tc_kernel<D>`` at D 128, 256 and 512) and
-    csrc/wg_gemm.cuh's ``wg_gemm_kernel`` (the LayerNorm GEMMs on the
-    128-row and 64-row routes, the streamed one), with their dynamic shared
-    memory (``dit_split_smem``: the new kernels at their D, wg_gemm_kernel's
-    128-row route at D 384, its 64-row one at D 1024); each checked to spill
-    nothing and to draw no ptxas C7512 ("wgmma serialized")."""
+    wgmma kernel of csrc/split_tc.cuh (``split_rows_tc_kernel<D, PROJ>`` at
+    D 128, 256 and 512) and csrc/wg_gemm.cuh's ``wg_gemm_kernel`` (the
+    LayerNorm GEMMs on the 128-row and 64-row routes, the streamed one),
+    with their dynamic shared memory (``dit_split_smem``: the persistent
+    kernel at its D, wg_gemm_kernel's 128-row route at D 384, its 64-row
+    one at D 1024); each checked to spill nothing and to draw no ptxas
+    C7512 ("wgmma serialized")."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("dit_split")
     if not text:
@@ -1648,13 +1625,11 @@ def log_split_resources():
             "built in this process)")
         return
     lib = _build.load("dit_split")
-    seen = {"wg_gemm_kernel": 0, "split_rows_tc_kernel": 0,
-            "split_mlp_tc_kernel": 0}
+    seen = {"wg_gemm_kernel": 0, "split_rows_tc_kernel": 0}
     for chunk in text.split("Compiling entry function")[1:]:
         m = re.search(r"wg_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                       chunk)
         r = re.search(r"split_rows_tc_kernelILi(\d+)ELb([01])E", chunk)
-        p = re.search(r"split_mlp_tc_kernelILi(\d+)ELi(\d+)E", chunk)
         if m is not None:
             pro, epi, wg, bn = (int(v) for v in m.groups())
             stage = 1 if pro else (0 if epi == 0 else 2)
@@ -1666,11 +1641,6 @@ def log_split_resources():
             stage = 1 if proj else 0
             name = f"split_rows_tc_kernel<{K}, {str(bool(proj)).lower()}>"
             kind = "split_rows_tc_kernel"
-        elif p is not None:
-            K, cl = (int(v) for v in p.groups())
-            stage = 4
-            name = f"split_mlp_tc_kernel<{K}, {cl}>"
-            kind = "split_mlp_tc_kernel"
         else:
             continue
         _log_resources(f"split kernel resources {name}", chunk,
@@ -1678,8 +1648,7 @@ def log_split_resources():
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", chunk)]
         check(not any(spills), f"{name} spills {spills}")
         seen[kind] += 1
-    check(seen == {"wg_gemm_kernel": 5, "split_rows_tc_kernel": 6,
-                   "split_mlp_tc_kernel": 5},
+    check(seen == {"wg_gemm_kernel": 5, "split_rows_tc_kernel": 6},
           f"split kernel instances in the build log: {seen}")
     check("C7512" not in text, "ptxas serialized a wgmma in dit_split.cu "
           "(C7512): " + "; ".join(l_ for l_ in text.splitlines()

@@ -142,7 +142,6 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_stack_attention": [P] * 4 + [I] * 4 + [F, P],
         "dit_split_forward": [P] * 15 + [I] * 5 + [F, F, P],
         "dit_split_gemm": [P] * 6 + [I] * 5 + [F, P],
-        "dit_split_mlp": [P] * 7 + [I] * 4 + [F, P],
         "dit_block_backward": [P] * 22 + [I] * 5 + [F, F, P],
         "dit_block_attention_bwd": [P] * 4 + [I] * 4 + [F, P],
         "dit_block_mlp_bwd": [P] * 13 + [I] * 4 + [F, P],
@@ -179,7 +178,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                   ("dit_split_check", 4), ("mod_ln_check", 2),
                   ("res_mod_ln_check", 2), ("fused_heads_check", 3),
                   ("split_heads_check", 2), ("dit_stack_tc_route", 5),
-                  ("dit_split_route", 1)):
+                  ("dit_split_route", 2)):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [I] * n
             getattr(lib, fn).restype = I

@@ -19,19 +19,22 @@
 //   (5) STREAM GEMM, RESID  y   = y1 + T(gate5) * T(h1 @ wfc2 + bfc2)
 //
 // In bf16 at D 128, 256 and 512 (ROUTE_TC) (1) and (3) run on split_tc.cuh's
-// persistent, warp-specialised kernel (split_rows_tc_kernel). split_tc.cuh
-// also holds the MLP half (4) + (5) as one launch with h1 kept on chip
-// (split_mlp_tc_kernel, reached alone through dit_split_mlp_bf16); it is on
-// no route: at the scaled call it ran 0.75 ms against 0.46 for (4) and (5)
-// (PERF.md), its weight stream bound by latency.
+// persistent, warp-specialised kernel (split_rows_tc_kernel) once a call has
+// more rows than one 128-row tile a SM (sp_rows_take: the scaled CFG call's
+// 32,768); on fewer (one server request's 2048) wg_gemm.cuh's kernel was as
+// fast or faster (PERF.md). The MLP half stays two launches with h1 through
+// device memory: one launch that keeps h1 on chip was built and measured
+// slower (PERF.md: 0.76 ms against 0.43 for (4) and (5) at the scaled call,
+// its 64-row tiles streaming 2.2 GB of weights through L2, and slower still
+// in clusters of two and four blocks sharing each weight item).
 //
 // Numerics are the stack's: LayerNorm in f32 (eps from the caller), every
 // product accumulated in f32 with the rounded bias added in f32 and then
 // cast, q scaled at input width, f32 scores, the exact row softmax in two
 // passes over K (row max first; then e = T(exp(T(s - m))), f32 row sums,
-// f32 PV), normalisation after PV, tanh-GELU (split_mlp_tc_kernel: v / (1 +
-// exp(-2u)), dit_layer.cuh's gelu_fast, as the stack's bf16 MLP), gated
-// residuals in T.
+// f32 PV), normalisation after PV, tanh-GELU (in bf16 as v / (1 +
+// exp(-2u)) on the exponent unit, wg_gemm.cuh's gelu_fast, as the stack's
+// bf16 MLP takes it), gated residuals in T.
 //
 // Bound on an H100 SXM at the scaled call (2B=32, N=1024, D=512, 8 heads,
 // hidden 2048, bf16): 274.9 GFLOP of matrix products, 206.2 of them in the
@@ -65,10 +68,9 @@
 // the given stream and return cudaGetLastError(), or T2MS_UNSUPPORTED_SHAPE
 // (launching nothing) for a shape the kernels do not take; dit_split_check
 // answers that question alone (the limits live in check_split below);
-// dit_split_gemm_bf16 launches one of the four GEMMs alone and
-// dit_split_mlp_bf16 the MLP half in one launch, and dit_split_route and
-// dit_split_smem say which bf16 route and how much shared memory a stage
-// takes.
+// dit_split_gemm_bf16 launches one of the four GEMMs alone, and
+// dit_split_route and dit_split_smem say which bf16 route a call takes and
+// how much shared memory a stage takes.
 
 #include <type_traits>
 
@@ -160,6 +162,22 @@ inline int split_route(int D, long long optin) {
       ln_route(D, optin) == ROUTE_WIDE)
     return ROUTE_TC;
   return ln_route(D, optin);
+}
+// Whether a call of `rows` rows on ROUTE_TC runs qkv and proj on the
+// persistent kernel: with more rows than one 128-row tile a SM, the 128-row
+// kernel needs a second wave and the persistent one overlaps one group's
+// LayerNorm and epilogue with the other's products; with fewer, each of its
+// groups has one tile at most, nothing to overlap, and it was no faster
+// (qkv) or slower (proj, 0.0225 against 0.0212 ms at 2048 rows, PERF.md),
+// so wg_gemm.cuh's 128-row kernel takes them (ROUTE_WIDE)
+inline bool sp_rows_take(int rows) {
+  const int sms = rw_sms();
+  return sms > 0 && (long long)rows > 128LL * sms;
+}
+// The route a bf16 call of `rows` rows takes at width D
+inline int call_route(int D, int rows, long long optin) {
+  const int r = split_route(D, optin);
+  return r == ROUTE_TC && !sp_rows_take(rows) ? ROUTE_WIDE : r;
 }
 
 // 0 when the kernels take (D, hidden, H) on the current device,
@@ -320,9 +338,8 @@ __global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
 // ---------------------------------------------------------------------------
 // Launches
 
-// the four GEMMs of a block, by their place in it, and the MLP half
-// (fc1 and fc2 in one launch on ROUTE_TC)
-enum { STAGE_QKV, STAGE_PROJ, STAGE_FC1, STAGE_FC2, STAGE_MLP };
+// the four GEMMs of a block, by their place in it
+enum { STAGE_QKV, STAGE_PROJ, STAGE_FC1, STAGE_FC2 };
 
 template <typename T, int PRO, int EPI>
 cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
@@ -383,7 +400,8 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
     return T2MS_UNSUPPORTED_SHAPE;
   const int ok = check_split<T>(D, hidden, H);
   if (ok) return ok;
-  const int route = sizeof(T) == 2 ? split_route(D, smem_optin()) : ROUTE_NONE;
+  const int route =
+      sizeof(T) == 2 ? call_route(D, B * N, smem_optin()) : ROUTE_NONE;
   // out = the stage's epilogue(prologue(a) @ w + bias), (B*N, K) @ (K, cols)
   auto gemm = [&](int stage, const T* a, const T* w, const T* bias,
                   const T* res, T* o, int K, int cols) {
@@ -398,8 +416,8 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
     if constexpr (sizeof(T) == 2)
       if (route == ROUTE_TC)
         return launch_sp(stage, D, (const bf16*)a, mod, (const bf16*)w,
-                         (const bf16*)bias, (const bf16*)res, nullptr,
-                         nullptr, (bf16*)o, B * N, N, 0, eps, st);
+                         (const bf16*)bias, (const bf16*)res, (bf16*)o,
+                         B * N, N, eps, st);
     return gemm(stage, a, w, bias, res, o, D, cols);
   };
   cudaError_t e;
@@ -418,13 +436,10 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
 }
 
 // dynamic shared memory of a bf16 GEMM stage at depth K on its route
-// (split_route at D = K; STAGE_MLP the MLP half at width K); 0 for a stage
-// or K the kernels do not take on this device
+// (split_route at D = K: qkv and proj on ROUTE_TC at the persistent
+// kernel's); 0 for a stage or K the kernels do not take on this device
 size_t stage_smem(int stage, int K, long long optin) {
   const bool tc = split_route(K, optin) == ROUTE_TC;
-  if (stage == STAGE_MLP)
-    return tc && smem_sp_mlp(K) + RW_STATIC <= (size_t)optin ? smem_sp_mlp(K)
-                                                             : 0;
   if (tc && (stage == STAGE_QKV || stage == STAGE_PROJ))
     return smem_sp_rows(K);
   if (stage == STAGE_PROJ || stage == STAGE_FC2)
@@ -468,8 +483,8 @@ extern "C" int dit_split_check(int D, int hidden, int H, int is_bf16) {
 // mod (rows / N, 6, width) f32, w (K, cols), bias (cols), res (rows, cols)
 // for proj and fc2 (else unread), out (rows, cols); K and cols multiples
 // of 128. The block's launches run the same kernels: qkv and proj on
-// split_tc.cuh's where split_route takes K (cols 3K and K), else on
-// wg_gemm.cuh's, as fc1 and fc2 always.
+// split_tc.cuh's where call_route takes K and rows (cols 3K and K), else
+// on wg_gemm.cuh's, as fc1 and fc2 always.
 extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
                                    const void* w, const void* bias,
                                    const void* res, void* out, int rows,
@@ -482,13 +497,12 @@ extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
   if (optin < 0) return (int)-optin;
   if (!stage_smem(stage, K, optin)) return T2MS_UNSUPPORTED_SHAPE;
   cudaError_t e;
-  if (split_route(K, optin) == ROUTE_TC &&
+  if (call_route(K, rows, optin) == ROUTE_TC &&
       ((stage == STAGE_QKV && cols == 3 * K) ||
        (stage == STAGE_PROJ && cols == K))) {
     e = launch_sp(stage, K, (const bf16*)a, (const float*)mod,
                   (const bf16*)w, (const bf16*)bias, (const bf16*)res,
-                  nullptr, nullptr, (bf16*)out, rows, N, 0, eps,
-                  (cudaStream_t)stream);
+                  (bf16*)out, rows, N, eps, (cudaStream_t)stream);
   } else {
     const WgArgs g{(const bf16*)a, (const float*)mod, (const bf16*)w,
                    (const bf16*)bias, (const bf16*)res, (bf16*)out, rows, N,
@@ -498,60 +512,16 @@ extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
   return e ? (int)e : (int)cudaGetLastError();
 }
 
-// The bf16 MLP half alone on split_mlp_tc_kernel, the block's (4) on
-// ROUTE_TC: y1 and out (rows, D), mod (rows / N, 6, D) f32, w1 (D, hidden),
-// b1 (hidden), w2 (hidden, D), b2 (D); hidden a multiple of 128.
-// T2MS_UNSUPPORTED_SHAPE where split_route does not pick ROUTE_TC at D.
-extern "C" int dit_split_mlp_bf16(const void* y1, const void* mod,
-                                  const void* w1, const void* b1,
-                                  const void* w2, const void* b2, void* out,
-                                  int rows, int N, int D, int hidden,
-                                  float eps, void* stream) {
-  if (rows < 1 || N < 1 || hidden < GN || hidden % GN)
-    return T2MS_UNSUPPORTED_SHAPE;
+// The bf16 route a call of `rows` rows takes at width D: ROUTE_TC 3 (qkv
+// and proj on split_tc.cuh), ROUTE_WIDE 2 (128-row blocks), ROUTE_NARROW 1
+// (64-row blocks) or ROUTE_NONE 0
+extern "C" int dit_split_route(int D, int rows) {
   const long long optin = smem_optin();
-  if (optin < 0) return (int)-optin;
-  if (!stage_smem(STAGE_MLP, D, optin)) return T2MS_UNSUPPORTED_SHAPE;
-  const cudaError_t e = launch_sp(
-      STAGE_MLP, D, (const bf16*)y1, (const float*)mod, (const bf16*)w1,
-      (const bf16*)b1, nullptr, (const bf16*)w2, (const bf16*)b2,
-      (bf16*)out, rows, N, hidden, eps, (cudaStream_t)stream);
-  return e ? (int)e : (int)cudaGetLastError();
+  return optin < 0 ? ROUTE_NONE : call_route(D, rows, optin);
 }
 
-// dit_split_mlp_bf16's kernel at D 512 in clusters of `cluster` (2 or 4)
-// blocks that share each weight item by TMA multicast: a measurement of
-// the weight stream's L2 traffic (stream-ordered, arguments as there)
-extern "C" int dit_split_mlp_cluster_bf16(const void* y1, const void* mod,
-                                          const void* w1, const void* b1,
-                                          const void* w2, const void* b2,
-                                          void* out, int rows, int N, int D,
-                                          int hidden, float eps, int cluster,
-                                          void* stream) {
-  if (rows < 1 || N < 1 || hidden < GN || hidden % GN || D != 512 ||
-      (cluster != 2 && cluster != 4))
-    return T2MS_UNSUPPORTED_SHAPE;
-  const long long optin = smem_optin();
-  if (optin < 0) return (int)-optin;
-  if (!stage_smem(STAGE_MLP, D, optin)) return T2MS_UNSUPPORTED_SHAPE;
-  auto run = cluster == 2 ? launch_sp_mlp<512, 2> : launch_sp_mlp<512, 4>;
-  const cudaError_t e =
-      run((const bf16*)y1, (const float*)mod, (const bf16*)w1,
-          (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (bf16*)out,
-          rows, N, hidden, eps, (cudaStream_t)stream);
-  return e ? (int)e : (int)cudaGetLastError();
-}
-
-// The bf16 route of the block at width D: ROUTE_TC 3 (split_tc.cuh),
-// ROUTE_WIDE 2 (128-row blocks), ROUTE_NARROW 1 (64-row blocks) or
-// ROUTE_NONE 0
-extern "C" int dit_split_route(int D) {
-  const long long optin = smem_optin();
-  return optin < 0 ? ROUTE_NONE : split_route(D, optin);
-}
-
-// Dynamic shared memory (bytes) of bf16 stage `stage` (STAGE_MLP 4: the
-// MLP half) at depth K on its route
+// Dynamic shared memory (bytes) of bf16 stage `stage` at depth K on its
+// route
 extern "C" long long dit_split_smem(int stage, int K) {
   const long long optin = smem_optin();
   return optin < 0 ? 0 : (long long)stage_smem(stage, K, optin);

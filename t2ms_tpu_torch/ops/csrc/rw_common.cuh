@@ -61,17 +61,8 @@ __device__ __forceinline__ uint32_t gate_pair(const float* p) {
   return pack_bf16(v.x, v.y);
 }
 
-// tanh-GELU in f32 written as v * sigmoid(2u), u = sqrt(2/pi) (v + 0.044715
-// v^3), since 0.5 (1 + tanh(u)) = 1 / (1 + exp(-2u)): the exponential on the
-// exponent unit (ex2, relative error about 2^-22) and a fast reciprocal, no
-// branch (tanhf's range split kept the unrolled epilogue from overlapping
-// its values). The value differs from tanhf's in the last f32 bits, so a
-// bf16 rounding of h flips now and then, as with the attention's exp.
-__device__ __forceinline__ float gelu_fast(float v) {
-  const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-  return __fdividef(v, 1.0f + ex2(-2.0f * LOG2E * u));
-}
-// T(gelu(T(v))) of a pair: the rounded fc1 output, GELU'd in f32, rounded
+// T(gelu(T(v))) of a pair: the rounded fc1 output, GELU'd in f32
+// (wg_gemm.cuh's gelu_fast), rounded
 __device__ __forceinline__ uint32_t gelu_pair(const float (&a)[4], int h,
                                               uint32_t bp) {
   float x0, x1;

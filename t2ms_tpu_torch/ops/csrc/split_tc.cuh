@@ -1,203 +1,56 @@
-// The split block's bf16 GEMMs as persistent, warp-specialised wgmma
-// kernels for Hopper (sm_90a), at D 128, 256 and 512:
+// The split block's qkv and proj GEMMs as a persistent, warp-specialised
+// wgmma kernel for Hopper (sm_90a), at D 128, 256 and 512:
 //
 //   split_rows_tc_kernel<D, false>  (1) qkv = T(modLN(x; mod0, mod1) @ wqkv
 //                                       + T(bqkv))
 //   split_rows_tc_kernel<D, true>   (3) y1  = x + T(gate2) * T(o @ wproj
 //                                       + T(bproj))
-//   split_mlp_tc_kernel<D>          (4+5) y = y1 + T(gate5) * T(T(gelu(
-//                                       T(modLN(y1; mod3, mod4) @ w1
-//                                       + T(b1)))) @ w2 + T(b2))
 //
-// dit_split.cu's ROUTE_TC runs (1) and (3) here in place of wg_gemm_kernel.
-// (4+5), the MLP half in one launch with h1 kept on chip, is reached alone
-// (dit_split_mlp_bf16) and is on no route: it is slower than wg_gemm.cuh's
-// fc1 and fc2 (below). The rounding points are wg_gemm.cuh's: f32
-// LayerNorm statistics and one rounding of the modulated row, every
-// product summed in f32 with the rounded bias added in f32 and one
-// rounding, fc1's output rounded before the GELU and h before fc2, gated
-// residuals in bf16. The GELU is dit_layer.cuh's gelu_fast, v / (1 +
-// exp(-2u)) on the exponent unit.
+// dit_split.cu's ROUTE_TC runs (1) and (3) here in place of wg_gemm_kernel
+// on calls of more rows than one 128-row tile a SM (sp_rows_take); the MLP
+// half stays on wg_gemm.cuh's fc1 and fc2. The rounding points are
+// wg_gemm.cuh's: f32 LayerNorm statistics and one rounding of the
+// modulated row, every product summed in f32 with the rounded bias added in
+// f32 and one rounding, gated residuals in bf16.
 //
-// Bound on an H100 SXM at the scaled DiT's CFG call (32,768 rows, D 512,
-// hidden 2048): qkv 51.5 GFLOP (0.052 ms at 989 TFLOP/s), proj 17.2 GFLOP
-// against 101 MB (0.030 ms at 3.35 TB/s: bytes), the MLP half 137.4 GFLOP
-// (0.139 ms) against 72 MB once h1 (134 MB) stays on chip.
+// Bound on an H100 SXM at the scaled DiT's CFG call (32,768 rows, D 512):
+// qkv 51.5 GFLOP (0.052 ms at 989 TFLOP/s), proj 17.2 GFLOP against 101 MB
+// (0.030 ms at 3.35 TB/s: bytes).
 //
-// Shared design (rw_common.cuh's pieces, as dit_layer.cuh's kernels):
-// - Grid: at most one block an SM, 384 threads. Every block walks its tiles
-//   in a fixed order (no atomics, no split-K: calls repeat bit for bit); a
-//   warpgroup with no tile left in an iteration runs a tile past the last
-//   row (loads give zeros, stores are clipped), so every item of the
-//   weight ring has all its readers.
-// - Weights stream by TMA through rings of 16 KB slots (128-byte-swizzled
-//   slabs of 64 columns), refilled in a fixed item order once every warp
-//   that reads a slot has released it, with L2 policies: the weights
-//   evict_last, the activations evict_first (every stage faster with
-//   them; multicast over clusters of two blocks was slower).
+// Design (rw_common.cuh's pieces, as dit_layer.cuh's kernels):
+// - Grid: at most one block an SM, 384 threads: two consumer warpgroups and
+//   a producer warpgroup (setmaxnreg 40 / 232). Every block walks its tiles
+//   in a fixed order (no atomics, no split-K: calls repeat bit for bit);
+//   each consumer warpgroup owns its own 64-row tiles ((j * grid + block) *
+//   2 + w), so one group's LayerNorm, residual wait and epilogue overlap
+//   the other's products. A group with no tile left in an iteration runs a
+//   tile past the last row (loads give zeros, stores are clipped), so every
+//   item of the weight ring has all its readers.
+// - Weights stream by TMA through a ring of 16 KB slots (128-byte-swizzled
+//   slabs of 64 columns: 64 K rows x 128 columns an item), refilled in a
+//   fixed item order once every consumer warp has released the slot, with
+//   L2 policies: the weights evict_last, the activations evict_first (every
+//   stage faster with them). Both groups read every item, one commit group
+//   left in flight while the next item is awaited, in column steps of 128
+//   (64 registers of sums) K chunk by K chunk.
 // - wgmma with both operands through swizzled descriptors (A K-major, B
-//   MN-major as the weights are stored); one commit group per item. No
-//   wgmma sits under a branch, so ptxas serialises none (C7512).
-// - Epilogues from the accumulator registers (bias_pair, resid2, gate_pair,
-//   gelu_pair), into a swizzled shared tile, out by TMA store. The waits on
-//   the producers' side are bounded (sp_wait: a fault traps instead of
+//   MN-major as the weights are stored). No wgmma sits under a branch, so
+//   ptxas serialises none (C7512).
+// - A group's A tile (64 x D: x, normalised in place, or o) stays in shared
+//   memory for all its column steps; its 64 x 128 C tile takes each step's
+//   output (qkv) or first the step's residual, by TMA under the step's
+//   products (proj), then the gated sum over it; out by TMA store. The
+//   producer's waits are bounded (sp_wait: a fault traps instead of
 //   hanging the card).
 //
-// split_rows_tc_kernel: two consumer warpgroups and a producer warpgroup
-// (setmaxnreg 40 / 232, as dit_layer.cuh's). Each consumer warpgroup owns
-// its own 64-row tiles ((j * grid + block) * 2 + w), so one group's
-// LayerNorm, residual wait and epilogue overlap the other's products; both
-// read every weight item (64 K rows x 128 columns, one group left in flight
-// while the next is awaited), in column steps of 128 (64 registers of
-// sums) K chunk by K chunk. A group's A tile (64 x D: x, normalised in
-// place, or o) stays in shared memory for all its column steps; its 64 x
-// 128 C tile takes each step's output (qkv) or first the step's residual,
-// by TMA under the step's products (proj), then the gated sum over it.
-//
-// split_mlp_tc_kernel: all three warpgroups share one 64-row tile. ptxas
-// compiles every thread of a 384-thread block at 168 registers, whatever
-// setmaxnreg asks later, so the roles are split by registers: warpgroups
-// 0 and 1 run only fc2, each for D/2 output columns (D/4 registers of sums
-// kept over all of hidden: 128 at D 512), and the epilogue; warpgroup 2
-// normalises y1 in place (z2), runs fc1 per pair of 64-column chunks of
-// hidden (m64n128, 64 sums), rounds, GELUs and rounds it into one of two
-// shared 64 x 128 h tiles (mbarriers hand each to the fc2 groups and
-// back), and its first thread issues every TMA. h1 never leaves the SM.
-// Its limit is the weight stream: each 64-row tile reads all 4 MB of w1
-// and w2 through 128 KB of rings, and an item lands thousands of clocks
-// after its issue, so warpgroup 2 waits on most of its fc1 items.
-//
-// Shared memory (227 KB opt-in): the rings, then rows: two A tiles (128 D
-// bytes each) and two C tiles (16 KB each); MLP: the y1 / z2 / v / y tile
-// (128 D bytes) and two h tiles (16 KB each).
+// Shared memory (227 KB opt-in): the ring, then two A tiles (128 D bytes
+// each) and two C tiles (16 KB each).
 
 #pragma once
-
-#include <type_traits>
 
 #include "rw_common.cuh"
 
 namespace {
-
-// m64n256k16: the split kernels' widest products (D 512's fc2 half)
-template <> struct WgSS<256> {
-  static __device__ __forceinline__ void run(float (&d)[32][4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-        "%127}, "
-        "%128, %129, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
-          "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
-          "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
-          "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
-          "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
-          "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
-          "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
-          "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
-          "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
-          "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
-          "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
-          "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
-          "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
-          "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
-          "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
-          "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
-          "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // the same with d overwritten and not read: d's old values are dead
-  // before it (a tile's first product), so they need no registers there
-  static __device__ __forceinline__ void run0(float (&d)[32][4], uint64_t a,
-                                              uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-        "%127}, "
-        "%128, %129, p, 1, 1, 0, 1;\n}\n"
-        : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
-          "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),
-          "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),
-          "=f"(d[3][0]), "=f"(d[3][1]), "=f"(d[3][2]), "=f"(d[3][3]),
-          "=f"(d[4][0]), "=f"(d[4][1]), "=f"(d[4][2]), "=f"(d[4][3]),
-          "=f"(d[5][0]), "=f"(d[5][1]), "=f"(d[5][2]), "=f"(d[5][3]),
-          "=f"(d[6][0]), "=f"(d[6][1]), "=f"(d[6][2]), "=f"(d[6][3]),
-          "=f"(d[7][0]), "=f"(d[7][1]), "=f"(d[7][2]), "=f"(d[7][3]),
-          "=f"(d[8][0]), "=f"(d[8][1]), "=f"(d[8][2]), "=f"(d[8][3]),
-          "=f"(d[9][0]), "=f"(d[9][1]), "=f"(d[9][2]), "=f"(d[9][3]),
-          "=f"(d[10][0]), "=f"(d[10][1]), "=f"(d[10][2]), "=f"(d[10][3]),
-          "=f"(d[11][0]), "=f"(d[11][1]), "=f"(d[11][2]), "=f"(d[11][3]),
-          "=f"(d[12][0]), "=f"(d[12][1]), "=f"(d[12][2]), "=f"(d[12][3]),
-          "=f"(d[13][0]), "=f"(d[13][1]), "=f"(d[13][2]), "=f"(d[13][3]),
-          "=f"(d[14][0]), "=f"(d[14][1]), "=f"(d[14][2]), "=f"(d[14][3]),
-          "=f"(d[15][0]), "=f"(d[15][1]), "=f"(d[15][2]), "=f"(d[15][3]),
-          "=f"(d[16][0]), "=f"(d[16][1]), "=f"(d[16][2]), "=f"(d[16][3]),
-          "=f"(d[17][0]), "=f"(d[17][1]), "=f"(d[17][2]), "=f"(d[17][3]),
-          "=f"(d[18][0]), "=f"(d[18][1]), "=f"(d[18][2]), "=f"(d[18][3]),
-          "=f"(d[19][0]), "=f"(d[19][1]), "=f"(d[19][2]), "=f"(d[19][3]),
-          "=f"(d[20][0]), "=f"(d[20][1]), "=f"(d[20][2]), "=f"(d[20][3]),
-          "=f"(d[21][0]), "=f"(d[21][1]), "=f"(d[21][2]), "=f"(d[21][3]),
-          "=f"(d[22][0]), "=f"(d[22][1]), "=f"(d[22][2]), "=f"(d[22][3]),
-          "=f"(d[23][0]), "=f"(d[23][1]), "=f"(d[23][2]), "=f"(d[23][3]),
-          "=f"(d[24][0]), "=f"(d[24][1]), "=f"(d[24][2]), "=f"(d[24][3]),
-          "=f"(d[25][0]), "=f"(d[25][1]), "=f"(d[25][2]), "=f"(d[25][3]),
-          "=f"(d[26][0]), "=f"(d[26][1]), "=f"(d[26][2]), "=f"(d[26][3]),
-          "=f"(d[27][0]), "=f"(d[27][1]), "=f"(d[27][2]), "=f"(d[27][3]),
-          "=f"(d[28][0]), "=f"(d[28][1]), "=f"(d[28][2]), "=f"(d[28][3]),
-          "=f"(d[29][0]), "=f"(d[29][1]), "=f"(d[29][2]), "=f"(d[29][3]),
-          "=f"(d[30][0]), "=f"(d[30][1]), "=f"(d[30][2]), "=f"(d[30][3]),
-          "=f"(d[31][0]), "=f"(d[31][1]), "=f"(d[31][2]), "=f"(d[31][3])
-        : "l"(a), "l"(b), "r"(0));
-  }
-};
-
-// a tile's first product into d, overwriting it: write-only at N 256 (the
-// MLP kernel's fc2 sums at D 512, 128 registers that would otherwise stay
-// live from the last tile's epilogue to this product), else scale-d 0
-template <int N, int R>
-__device__ __forceinline__ void wg_first(float (&d)[R][4], uint64_t a,
-                                         uint64_t b) {
-  if constexpr (N == 256)
-    WgSS<256>::run0(d, a, b);
-  else
-    WgSS<N>::run(d, a, b, 0);
-}
 
 // ------------------------------------------- TMA with L2 policies, waits
 
@@ -252,77 +105,9 @@ __device__ __forceinline__ bool sp_try(uint64_t* b, int ph) {
       : "memory");
   return ok != 0;
 }
-// whether b's phase of parity ph has completed, without waiting
-__device__ __forceinline__ bool sp_test(uint64_t* b, int ph) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(sm_addr(b)), "r"(ph)
-      : "memory");
-  return ok != 0;
-}
 __device__ __forceinline__ void sp_wait(uint64_t* b, int ph) {
   for (uint32_t n = 0; !sp_try(b, ph);)
     if (++n == (1u << 26)) __trap();
-}
-
-// ------------------------------------------------ clusters of CL blocks
-
-// the block's rank in its cluster
-__device__ __forceinline__ uint32_t sp_cl_rank() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
-  return v;
-}
-// every thread of every block of the cluster: arrive, then wait
-__device__ __forceinline__ void sp_cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
-          : "memory");
-}
-// sp_test at cluster scope: the phase's arrivals came from every block
-__device__ __forceinline__ bool sp_test_cl(uint64_t* b, int ph) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-      "%2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(sm_addr(b)), "r"(ph)
-      : "memory");
-  return ok != 0;
-}
-// an arrival on barrier b of every block of a cluster of CL (its own too)
-template <int CL> __device__ __forceinline__ void sp_arrive_all(uint64_t* b) {
-  if constexpr (CL == 1) {
-    mbar_arrive(b);
-  } else {
-    const uint32_t a = sm_addr(b);
-#pragma unroll
-    for (int r = 0; r < CL; ++r)
-      asm volatile(
-          "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
-          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
-          ::"r"(a), "r"(r)
-          : "memory");
-  }
-}
-// a weight box into the same place of every block of the cluster (mask),
-// its bytes completing on each block's barrier at b's offset, evict_last
-__device__ __forceinline__ void tma_w_mc(void* dst, const CUtensorMap* m,
-                                         int c0, int c1, uint64_t* b,
-                                         uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster.L2::cache_hint [%0], [%1, {%2, %3}], [%4], "
-      "%5, %6;\n" ::"r"(sm_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(c0), "r"(c1), "r"(sm_addr(b)),
-      "h"(mask), "l"(l2_evict_last())
-      : "memory");
 }
 
 // in an unrolled epilogue, every G column tiles: the compiler may not hoist
@@ -332,42 +117,10 @@ template <int G> __device__ __forceinline__ void sp_group_fence(int nt) {
   if (nt % G == 0) asm volatile("" ::: "memory");
 }
 
-// a bf16 pair from device memory and a word to shared memory, kept in
-// program order with every other volatile access (an epilogue's loads
-// cannot all be hoisted ahead of its stores)
-__device__ __forceinline__ uint32_t sp_ld_pair(const bf16* p) {
-  uint32_t v;
-  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ void sp_st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// the thread's and the block's index and the grid's size read afresh at
-// each use (volatile: a special register read once at the start and kept
-// for the epilogue costs the MLP kernel's fc2 groups a register they do
-// not have)
-__device__ __forceinline__ int sp_cta() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(v));
-  return (int)v;
-}
-__device__ __forceinline__ int sp_tid() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v));
-  return (int)v;
-}
-__device__ __forceinline__ int sp_ncta() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(v));
-  return (int)v;
-}
-
 // ------------------------------------------------------------ geometry
 
 constexpr int SP_SLOT = 16384;            // a ring slot: two 8 KB slabs
-constexpr int SP_CT = 16384;              // a 64 x 128 output or h tile
+constexpr int SP_CT = 16384;              // a 64 x 128 output tile
 constexpr size_t SP_OPTIN = 232448;       // the H100's opt-in per block
 // ring slots beside `fixed` bytes: as many as fit, at most 8, a power of
 // two (slot and phase of item g are g % S and g / S)
@@ -376,57 +129,40 @@ __host__ __device__ constexpr int sp_slots(size_t fixed) {
          : (SP_OPTIN - RW_STATIC - WG_ALIGN - fixed) / SP_SLOT >= 4 ? 4
                                                                      : 2;
 }
-// the rows kernel: two A tiles and two C tiles; the MLP kernel: the tile
-// and two h tiles
+// beside the ring: two A tiles and two C tiles
 __host__ __device__ constexpr size_t sp_rows_fixed(int D) {
   return 2 * (size_t)128 * D + 2 * SP_CT;
-}
-__host__ __device__ constexpr size_t sp_mlp_fixed(int D) {
-  return (size_t)128 * D + 2 * SP_CT;
 }
 __host__ __device__ constexpr size_t smem_sp_rows(int D) {
   return WG_ALIGN + (size_t)sp_slots(sp_rows_fixed(D)) * SP_SLOT +
          sp_rows_fixed(D);
 }
-__host__ __device__ constexpr size_t smem_sp_mlp(int D) {
-  return WG_ALIGN + (size_t)sp_slots(sp_mlp_fixed(D)) * SP_SLOT +
-         sp_mlp_fixed(D);
-}
-// the widths with instances (the MLP's D/2 output columns a group: 64, 128
-// or 256, one wgmma)
+// the widths with instances
 __host__ __device__ constexpr bool sp_width(int D) {
   return D == 128 || D == 256 || D == 512;
 }
 
 struct SplitArgs {
   const float* mod;  // (B, 6, D) adaLN vectors, f32
-  const bf16* b1;    // rows: the bias (cols); MLP: fc1's (hidden)
-  const bf16* b2;    // MLP: fc2's bias (D)
-  int rows, N, hidden;
+  const bf16* bias;  // (cols)
+  int rows, N;
   float eps;
-  const bf16* x;     // MLP: y1 (rows, D), read again as the residual
 };
 
 // The weight ring's consumer side: item g in slot g % S, phase (g / S) & 1,
 // released by lane 0 of each warp that reads it
-template <int S, int CL = 1> struct SpRing {
+template <int S> struct SpRing {
   uint64_t* full;
   uint64_t* empty;
   uint32_t base;  // the slots' shared address
   __device__ void wait(uint32_t g) const {
     sp_wait(&full[g % S], (g / S) & 1);
   }
-  // unbounded (one register fewer): for the MLP kernel's fc2 groups, whose
-  // sums leave none; a stuck ring still traps in warpgroup 2's waits
-  __device__ void wait_plain(uint32_t g) const {
-    mbar_wait(&full[g % S], (g / S) & 1);
-  }
   __device__ uint32_t at(uint32_t g) const {
     return base + (g % S) * SP_SLOT;
   }
-  // (CL > 1: on the slot's barrier in every block of the cluster)
   __device__ void release(uint32_t g) const {
-    if ((sp_tid() & 31) == 0) sp_arrive_all<CL>(&empty[g % S]);  // lane
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[g % S]);
   }
 };
 
@@ -590,7 +326,7 @@ __global__ void __launch_bounds__(RW_NT, 1)
 #pragma unroll
           for (int nt = 0; nt < 16; ++nt) {
             sp_group_fence<8>(nt);
-            const uint32_t bp = ld_pair(g.b1 + 128 * cs + 8 * nt + 2 * tq);
+            const uint32_t bp = ld_pair(g.bias + 128 * cs + 8 * nt + 2 * tq);
             uint32_t* o =
                 reinterpret_cast<uint32_t*>(C + out_at(i, nt) + 4 * tq);
             if constexpr (PROJ)
@@ -615,347 +351,6 @@ __global__ void __launch_bounds__(RW_NT, 1)
     }
     if (wt == 0) bulk_wait<0, false>();
   }
-}
-
-// ---------------------------------------------------------------------------
-// (4+5): the MLP half, y over y1 in one pass; h1 stays on chip. Warpgroups
-// 0 and 1 run fc2, each for its NP = D/2 output columns (their sums, D/4
-// registers a thread, the most 384 threads leave room for beside
-// addresses: ptxas compiles every thread at 168 whatever setmaxnreg asks
-// later); warpgroup 2 normalises the tile (z2), runs fc1 a pair of 64
-// hidden columns at a time (m64n128, 64 sums), rounds, GELUs and rounds it
-// into one of two shared h tiles, and its first thread issues every TMA.
-//
-// The weights stream through two rings, one a role, so neither stream
-// waits on the other's readers: ring A holds fc1's items (64 K rows x 128
-// hidden columns of a pair), ring B fc2's (32 hidden rows x one group's NP
-// columns; item m = 2 q + w of a pair, quarter q, group w). The issuing
-// thread never blocks on a slot: its pump issues each ring's next items
-// while their slots are free (mbarrier.test_wait), and runs inside every
-// wait of warpgroup 2, so an item goes out as soon as its slot is released
-// (with one shared ring and a blocking producer, fc1's items waited behind
-// fc2's, and the kernel was slower).
-
-template <int D, int CL>
-__global__ void __launch_bounds__(RW_NT, 1)
-    split_mlp_tc_kernel(const SplitArgs g,
-                        const __grid_constant__ CUtensorMap m_x,
-                        const __grid_constant__ CUtensorMap m_w1,
-                        const __grid_constant__ CUtensorMap m_w2,
-                        const __grid_constant__ CUtensorMap m_y) {
-  constexpr int NP = D / 2, NK = D / 64;  // fc1 items of a pair: NK
-  constexpr uint32_t F2 = 64 * NP;        // bytes of an fc2 item
-  constexpr int S = sp_slots(sp_mlp_fixed(D)), TILE = 128 * D;
-  constexpr int SA = S / 2, SB = S / 2;  // slots of rings A and B
-  constexpr int NH = 2;                   // h tiles
-  extern __shared__ unsigned char sp_raw[];
-  __shared__ uint64_t fullA[SA], emptyA[SA], fullB[SB], emptyB[SB];
-  __shared__ uint64_t hfull[NH], hempty[NH], xfull, zfree, xfree;
-  unsigned char* ringA = align_atoms(sp_raw);
-  unsigned char* ringB = ringA + SA * SP_SLOT;
-  unsigned char* X = ringB + SB * SP_SLOT;  // y1, then z2, then v, then y
-  unsigned char* Hs = X + TILE;             // h tiles: 64 rows x 128 hidden
-  const int tid = threadIdx.x;
-  // The pairs of 64-column chunks of hidden and this block's tile
-  // iterations, derived anew from the arguments where used: kept in
-  // registers from the start they cost the fc2 groups, whose sums take
-  // 128 of 168 at D 512, registers they do not have
-  auto pairs = [&]() { return (int)opaque(g.hidden) / 128; };
-  auto iters = [&]() {
-    const int tiles = ((int)opaque(g.rows) + 63) / 64;
-    return (tiles + sp_ncta() - 1) / sp_ncta();
-  };
-  if (tid == 0) {
-    for (int s = 0; s < SA; ++s) {
-      mbar_init(&fullA[s], 1);
-      mbar_init(&emptyA[s], 4 * CL);  // warpgroup 2 of every block
-    }
-    for (int s = 0; s < SB; ++s) {
-      mbar_init(&fullB[s], 1);
-      mbar_init(&emptyB[s], 4 * CL);  // the item's fc2 group, each block
-    }
-    for (int i = 0; i < NH; ++i) {
-      mbar_init(&hfull[i], 4);        // warpgroup 2's warps
-      mbar_init(&hempty[i], 8);       // the fc2 groups' warps
-    }
-    mbar_init(&xfull, 1);
-    mbar_init(&zfree, 4);   // warpgroup 2's warps
-    mbar_init(&xfree, 1);
-    if constexpr (CL > 1)
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if constexpr (CL > 1) sp_cluster_sync();  // every block's barriers are set
-  const int w = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  auto modrow = [&](int r) {
-    return g.mod + (size_t)(min(r, g.rows - 1) / g.N) * 6 * D;
-  };
-
-  if (w == 2) {
-    // ---- warpgroup 2: LayerNorm, fc1, GELU; its first thread the TMA
-    const SpRing<SA, CL> ra{fullA, emptyA, sm_addr(ringA)};
-    const CUtensorMap *m1 = &m_w1, *m2 = &m_w2;
-    uint32_t ia = 0, ib = 0;  // items of rings A and B issued (wt == 0)
-    // issue each ring's next items while their slots are free; never waits.
-    // In a cluster each block sets up every item on its own barriers and
-    // item i is loaded by block i % CL into all of them, once every block
-    // has released its slot
-    auto free_slot = [&](uint64_t* b, int ph) {
-      if constexpr (CL > 1)
-        return sp_test_cl(b, ph);
-      else
-        return sp_test(b, ph);
-    };
-    auto mine = [&](uint32_t i) {
-      return CL == 1 || i % CL == sp_cl_rank();
-    };
-    constexpr uint16_t MASK = (uint16_t)((1u << CL) - 1);
-    auto load_w = [&](unsigned char* dst, const CUtensorMap* m, int c0,
-                      int c1, uint64_t* b) {
-      if constexpr (CL > 1)
-        tma_w_mc(dst, m, c0, c1, b, MASK);
-      else
-        tma_w(dst, m, c0, c1, b);
-    };
-    auto pump = [&]() {
-      const int P = pairs();
-      const uint32_t na = (uint32_t)iters() * P * NK;
-      const uint32_t nb = (uint32_t)iters() * P * 8;
-      for (; ia < na; ++ia) {
-        const uint32_t s = ia % SA;
-        if (ia >= (uint32_t)SA && !free_slot(&emptyA[s], ((ia / SA) - 1) & 1))
-          break;
-        // fc1 of pair pp: K rows [64 m, +64) of hidden [128 pp, +128)
-        const uint32_t r = ia % ((uint32_t)P * NK);
-        const int pp = r / NK, m = r % NK;
-        mbar_expect(&fullA[s], SP_SLOT);
-        if (mine(ia)) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            load_w(ringA + s * SP_SLOT + h * 8192, m1, 128 * pp + 64 * h,
-                   64 * m, &fullA[s]);
-        }
-      }
-      for (; ib < nb; ++ib) {
-        const uint32_t s = ib % SB;
-        if (ib >= (uint32_t)SB && !free_slot(&emptyB[s], ((ib / SB) - 1) & 1))
-          break;
-        // fc2 of pair p: hidden rows [128 p + 32 q, +32) of group wc's
-        // columns, NP / 64 slabs of 32 rows
-        const uint32_t r = ib % ((uint32_t)P * 8);
-        const int p = r / 8, q = (r % 8) >> 1, wc = r & 1;
-        mbar_expect(&fullB[s], F2);
-        if (mine(ib)) {
-#pragma unroll
-          for (int c = 0; c < NP / 64; ++c)
-            load_w(ringB + s * SP_SLOT + c * 4096, m2, wc * NP + 64 * c,
-                   128 * p + 32 * q, &fullB[s]);
-        }
-      }
-    };
-    // wait for b's phase ph: the first thread pumping meanwhile (bounded, as
-    // sp_wait), the others suspended on it
-    auto wait_pumping = [&](uint64_t* b, int ph) {
-      if (wt != 0) return sp_wait(b, ph);
-      for (uint32_t n = 0; !sp_test(b, ph);) {
-        pump();
-        if (++n == (1u << 28)) __trap();
-      }
-    };
-    auto load_x = [&](int t) {
-      mbar_expect(&xfull, TILE);
-#pragma unroll
-      for (int kc = 0; kc < D / 64; ++kc)
-        tma_load_l2(X + kc * 8192, &m_x, 64 * kc, 64 * t, &xfull,
-                    l2_evict_first());
-    };
-    const uint32_t xa = sm_addr(X);
-    float a1[16][4];
-    uint32_t pend = ~0u;  // the item of the group left in flight
-    if (wt == 0) {
-      load_x(sp_cta());
-      pump();
-    }
-    for (int j = 0; j < iters(); ++j) {
-      const int t = j * sp_ncta() + sp_cta(), r0 = 64 * t;
-      // fc1 of pair pp into a1: NK items of ring A
-      auto fc1 = [&](int pp) {
-        const uint32_t za = opaque(xa);
-        const uint32_t g0 = ((uint32_t)j * pairs() + pp) * NK;
-        // rolled: unrolled copies of the item, pump and all, spill
-#pragma unroll 1
-        for (int m = 0; m < NK; ++m) {
-          const uint32_t gi = g0 + m;
-          wait_pumping(&fullA[gi % SA], (gi / SA) & 1);
-          const uint32_t b0 = ra.at(gi);
-          wg_fence();
-#pragma unroll
-          for (int s = 0; s < 4; ++s)
-            WgSS<128>::run(a1, sw128_desc(za + m * 8192 + 32 * s, 16),
-                           sw128_desc(b0 + 2048 * s, 8192), m > 0 || s > 0);
-          wg_commit();
-          wg_wait<1>();  // the group before it is done: its item goes back
-          if (pend != ~0u) ra.release(pend);
-          pend = gi;
-        }
-        wg_wait<0>();
-        fence_regs(a1);
-        ra.release(pend);
-        pend = ~0u;
-      };
-      // h of pair pp: T(gelu(T(a1 + b1))) into h tile u % NH once the fc2
-      // groups have read it (u = j P + pp), then theirs
-      auto gelu = [&](int pp) {
-        const uint32_t u = (uint32_t)j * pairs() + pp;
-        if (u >= (uint32_t)NH)
-          wait_pumping(&hempty[u % NH], ((u / NH) - 1) & 1);
-        unsigned char* H = Hs + (u % NH) * SP_CT;
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          const uint32_t bp = ld_pair(g.b1 + 128 * pp + 8 * nt + 2 * tq);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<uint32_t*>(
-                H + out_at(16 * warp + gr + 8 * h, nt) + 4 * tq) =
-                gelu_pair(a1[nt], h, bp);
-        }
-        fence_async_shared();  // h's stores, to the fc2 groups' wgmma
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&hfull[u % NH]);
-      };
-
-      // y1 in, normalised in place (two threads a row)
-      wait_pumping(&xfull, j & 1);
-      wg_modln_rows<64, 128>(X, X, g.rows - r0, D, g.eps, 3, 4, wt,
-                             [&](int i) { return modrow(r0 + i); });
-      fence_async_shared();
-      bar_sync(3, 128);
-      fc1(0);
-      for (int pp = 1; pp < pairs(); ++pp) {
-        gelu(pp - 1);
-        fc1(pp);
-      }
-      // z2 read for the last time: the tile is the fc2 groups'
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&zfree);
-      gelu(pairs() - 1);
-      if (wt == 0) {
-        if (j + 1 < iters()) {
-          wait_pumping(&xfree, j & 1);  // y is out: the next y1
-          load_x(t + sp_ncta());
-        } else {  // the last items of the last tile
-          const uint32_t na = (uint32_t)iters() * pairs() * NK;
-          const uint32_t nb = (uint32_t)iters() * pairs() * 8;
-          for (uint32_t n = 0; ia < na || ib < nb;) {
-            pump();
-            if (++n == (1u << 28)) __trap();
-          }
-        }
-      }
-    }
-    // no block leaves while its partners may still arrive on its barriers
-    if constexpr (CL > 1) sp_cluster_sync();
-    return;
-  }
-
-  // ---- warpgroups 0 and 1: fc2 for columns [w NP, +NP), and the epilogue
-  const SpRing<SB, CL> rb{fullB, emptyB, sm_addr(ringB)};
-  const uint32_t ha = sm_addr(Hs);
-  float acc2[NP / 8][4];
-  for (int j = 0; j < iters(); ++j) {
-    // fc2 of pair p: acc2 += h tile @ w2 rows of p, the group's columns
-    // (first: pair 0, whose first product overwrites acc2)
-    auto fc2 = [&](int p, auto first) {
-      const uint32_t u = (uint32_t)j * pairs() + p;
-      mbar_wait(&hfull[u % NH], (u / NH) & 1);
-      const uint32_t hb = opaque(ha) + (u % NH) * SP_CT;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t gi = u * 8 + 2 * q + (uint32_t)(sp_tid() >> 7);
-        rb.wait_plain(gi);
-        const uint32_t b0 = rb.at(gi);
-        // the item's h rows (k16 steps 2 q, 2 q + 1), built here: eight
-        // descriptors made at once would sit beside the sums
-        const uint32_t hq = opaque(hb + (q >> 1) * 8192 + 64 * (q & 1));
-        wg_fence();
-        if (decltype(first)::value && q == 0)
-          wg_first<NP>(acc2, sw128_desc(hq, 16), sw128_desc(b0, 4096));
-        else
-          WgSS<NP>::run(acc2, sw128_desc(hq, 16), sw128_desc(b0, 4096), 1);
-        WgSS<NP>::run(acc2, sw128_desc(hq + 32, 16),
-                      sw128_desc(b0 + 2048, 4096), 1);
-        wg_commit();
-        // drained before the next item (warpgroup 2 and the other fc2
-        // group keep the tensor cores fed): no item index kept in flight
-        wg_wait<0>();
-        rb.release(gi);
-      }
-      __syncwarp();
-      if ((sp_tid() & 31) == 0) mbar_arrive(&hempty[u % NH]);  // read
-    };
-    fc2(0, std::true_type{});
-    for (int p = 1; p < pairs(); ++p) fc2(p, std::false_type{});
-    fence_regs(acc2);
-
-    // y = y1 + T(T(gate5) * v), v = T(acc2 + T(b2)), in two passes over the
-    // tile (z2's, once warpgroup 2's last fc1 has read it): v straight from
-    // the sums into the tile's swizzled layout, then, the sums dead, the
-    // gated residual in place, 16-byte chunks, y1 read again from device
-    // memory
-    mbar_wait(&zfree, j & 1);
-    {
-      // the thread's place derived anew from an opaque thread index, and
-      // volatile loads and stores in program order: the compiler may
-      // neither keep the thread's rows, columns and swizzled addresses live
-      // from the kernel's start across the tile loop nor hoist the bias
-      // loads, which would put them in registers beside the sums
-      const int me = sp_tid();
-      const int ew = me >> 7, ei = 16 * ((me >> 5) & 3) + ((me & 31) >> 2);
-      const int etq = me & 3;
-      const uint32_t xb = sm_addr(X);
-      const bf16* b2 = g.b2 + ew * NP + 2 * etq;
-#pragma unroll
-      for (int nt = 0; nt < NP / 8; ++nt) {
-        const uint32_t bp = sp_ld_pair(b2 + 8 * nt);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          sp_st_shared(xb + out_at(ei + 8 * h, ew * NP / 8 + nt) + 4 * etq,
-                       bias_pair<WG_EPI_RESID>(acc2[nt], h, bp));
-      }
-    }
-    bar_sync(1, RW_NC);
-    // the tile's first row, derived anew (not live across the fc2 loop)
-    const int r0 = 64 * (int)(opaque(j) * sp_ncta() + sp_cta());
-    constexpr int CPR = D / 8;  // 16-byte chunks of a row
-#pragma unroll 4
-    for (int idx = sp_tid(); idx < 64 * CPR; idx += RW_NC) {
-      const int i = idx / CPR, cc = idx % CPR, r = r0 + i;
-      uint4* xp = reinterpret_cast<uint4*>(X + out_at(i, cc));
-      const uint4 v = *xp;
-      const uint4 res =
-          r < g.rows ? __ldg(reinterpret_cast<const uint4*>(
-                           g.x + (size_t)r * D + 8 * cc))
-                     : make_uint4(0u, 0u, 0u, 0u);
-      const float* gp = modrow(r) + 5 * D + 8 * cc;
-      *xp = make_uint4(resid2(v.x, res.x, gate_pair(gp)),
-                       resid2(v.y, res.y, gate_pair(gp + 2)),
-                       resid2(v.z, res.z, gate_pair(gp + 4)),
-                       resid2(v.w, res.w, gate_pair(gp + 6)));
-    }
-    fence_async_shared();
-    bar_sync(1, RW_NC);
-    if (sp_tid() == 0) {
-#pragma unroll
-      for (int kc = 0; kc < D / 64; ++kc)
-        tma_store_l2(&m_y, X + kc * 8192, 64 * kc, r0, l2_evict_first());
-      bulk_commit();
-      bulk_wait<0, true>();  // read: the next y1 may land
-      mbar_arrive(&xfree);
-    }
-  }
-  if (sp_tid() == 0) bulk_wait<0, false>();
-  if constexpr (CL > 1) sp_cluster_sync();
 }
 
 // --------------------------------------------------------------- launches
@@ -984,75 +379,24 @@ cudaError_t launch_sp_rows(const bf16* a, const float* mod, const bf16* w,
   const void* k = (const void*)split_rows_tc_kernel<D, PROJ>;
   const cudaError_t e = set_smem(k, smem_sp_rows(D));
   if (e != cudaSuccess) return e;
-  const SplitArgs g{mod, bias, nullptr, rows, N, 0, eps};
+  const SplitArgs g{mod, bias, rows, N, eps};
   split_rows_tc_kernel<D, PROJ><<<grid, RW_NT, smem_sp_rows(D), st>>>(
       g, ma, mw, PROJ ? mr : ma, mo);
   return cudaGetLastError();
 }
 
-// (4+5) on `rows` rows: y1 and out (rows, D), w1 (D, hidden), w2 (hidden,
-// D); hidden a multiple of 128. CL > 1: clusters of CL blocks sharing each
-// weight item by multicast, as many as can be resident at once
-template <int D, int CL = 1>
-cudaError_t launch_sp_mlp(const bf16* y1, const float* mod, const bf16* w1,
-                          const bf16* b1, const bf16* w2, const bf16* b2,
-                          bf16* out, int rows, int N, int hidden, float eps,
-                          cudaStream_t st) {
-  const int tiles = (rows + 63) / 64;
-  int grid = sp_grid(tiles);
-  CUtensorMap mx, m1, m2, my;
-  if (grid <= 0 || !make_tmap(&mx, y1, rows, D, 64) ||
-      !make_tmap(&m1, w1, D, hidden, 64) ||
-      !make_tmap(&m2, w2, hidden, D, 32) || !make_tmap(&my, out, rows, D, 64))
-    return cudaErrorInvalidValue;
-  auto kern = split_mlp_tc_kernel<D, CL>;
-  cudaError_t e = set_smem((const void*)kern, smem_sp_mlp(D));
-  if (e != cudaSuccess) return e;
-  const SplitArgs g{mod, b1, b2, rows, N, hidden, eps, y1};
-  if constexpr (CL == 1) {
-    kern<<<grid, RW_NT, smem_sp_mlp(D), st>>>(g, mx, m1, m2, my);
-    return cudaGetLastError();
-  } else {
-    cudaLaunchAttribute at[1];
-    at[0].id = cudaLaunchAttributeClusterDimension;
-    at[0].val.clusterDim.x = CL;
-    at[0].val.clusterDim.y = 1;
-    at[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.blockDim = dim3(RW_NT);
-    cfg.dynamicSmemBytes = smem_sp_mlp(D);
-    cfg.stream = st;
-    cfg.attrs = at;
-    cfg.numAttrs = 1;
-    cfg.gridDim = dim3(CL * 132);
-    int clusters = 0;
-    if ((e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern,
-                                            &cfg)) != cudaSuccess)
-      return e;
-    if (clusters <= 0) return cudaErrorInvalidValue;
-    const int need = (tiles + CL - 1) / CL;
-    grid = CL * (need < clusters ? need : clusters);
-    cfg.gridDim = dim3(grid);
-    return cudaLaunchKernelEx(&cfg, kern, g, mx, m1, m2, my);
-  }
-}
-
-// stage 0 qkv, 1 proj, 4 the MLP half at width D on the kernels above (the
-// caller has checked sp_width(D) and the shapes)
+// stage 0 qkv, 1 proj at width D on the kernel above (the caller has
+// checked sp_width(D) and the shapes)
 inline cudaError_t launch_sp(int stage, int D, const bf16* a,
                              const float* mod, const bf16* w,
-                             const bf16* bias, const bf16* res,
-                             const bf16* w2, const bf16* b2, bf16* out,
-                             int rows, int N, int hidden, float eps,
-                             cudaStream_t st) {
-#define T2MS_SP_CASE(DD)                                                      \
-  case DD:                                                                    \
-    return stage == 0   ? launch_sp_rows<DD, false>(a, mod, w, bias, nullptr, \
-                                                    out, rows, N, eps, st)    \
-           : stage == 1 ? launch_sp_rows<DD, true>(a, mod, w, bias, res, out, \
-                                                   rows, N, eps, st)          \
-                        : launch_sp_mlp<DD, 1>(a, mod, w, bias, w2, b2, out,  \
-                                            rows, N, hidden, eps, st);
+                             const bf16* bias, const bf16* res, bf16* out,
+                             int rows, int N, float eps, cudaStream_t st) {
+#define T2MS_SP_CASE(DD)                                                     \
+  case DD:                                                                   \
+    return stage == 0 ? launch_sp_rows<DD, false>(a, mod, w, bias, nullptr,  \
+                                                  out, rows, N, eps, st)     \
+                      : launch_sp_rows<DD, true>(a, mod, w, bias, res, out,  \
+                                                 rows, N, eps, st);
   switch (D) {
     T2MS_SP_CASE(128)
     T2MS_SP_CASE(256)

@@ -14,7 +14,7 @@
 // rounding points of the stack's kernels):
 //
 //   BIAS   T(acc + f32(T(bias)))
-//   GELU   T(gelu_tanh(rnd(acc + bias)))
+//   GELU   T(gelu_fast(rnd(acc + bias)))  (tanh-GELU from exp(-2u))
 //   RESID  T(res + rnd(rnd(T(gate)) * rnd(acc + bias))), gate = mod[b, igate]
 //
 // mod is (B, 6, width) in f32, width K for LN and cols for RESID; b is a
@@ -468,14 +468,25 @@ __device__ __forceinline__ void wg_modln(unsigned char* A, int valid,
 
 // ------------------------------------------------------------- the kernel
 
+// tanh-GELU in f32 written as v * sigmoid(2u), u = sqrt(2/pi) (v + 0.044715
+// v^3), since 0.5 (1 + tanh(u)) = 1 / (1 + exp(-2u)): the exponential on the
+// exponent unit (ex2, relative error about 2^-22) and a fast reciprocal, no
+// branch (tanhf's range split kept the unrolled epilogue from overlapping
+// its values). The value differs from tanhf's in the last f32 bits, so a
+// bf16 rounding of h flips now and then, as with the attention's exp.
+__device__ __forceinline__ float gelu_fast(float v) {
+  const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+  return __fdividef(v, 1.0f + ex2(-2.0f * LOG2E * u));
+}
+
 // the epilogue's value of a column pair before any residual: BIAS T(v),
-// GELU T(gelu_tanh(rnd(v))), RESID T(v) (the residual comes after)
+// GELU T(gelu_fast(rnd(v))), RESID T(v) (the residual comes after)
 template <int EPI>
 __device__ __forceinline__ uint32_t epi_pair(float v0, float v1) {
   if constexpr (EPI == WG_EPI_GELU) {
     float x0, x1;
     round2(v0, v1, x0, x1);
-    return pack_bf16(gelu_tanh(x0), gelu_tanh(x1));
+    return pack_bf16(gelu_fast(x0), gelu_fast(x1));
   } else {
     return pack_bf16(v0, v1);
   }

@@ -45,7 +45,7 @@ __all__ = ["fused_dit_stack", "fused_dit_stack_reference",
            "mlp_half_bwd_reference", "qkv_half_bwd_reference",
            "fused_dit_block_split", "split_kernel_supported",
            "split_gemm_reference", "split_gemm_route", "SPLIT_GEMM_STAGES",
-           "SPLIT_GEMM_KERNEL", "split_mlp_reference", "SPLIT_MLP_KERNEL",
+           "SPLIT_GEMM_KERNEL",
            "mod_ln_diffable", "mod_ln_reference", "mod_ln_supported",
            "res_mod_ln_diffable", "res_mod_ln_reference",
            "res_mod_ln_supported", "STACK_KERNEL", "BLOCK_KERNEL",
@@ -57,7 +57,6 @@ BLOCK_KERNEL = "fused_dit_block"
 BLOCK_BWD_KERNEL = "_fused_block_diff_bwd"
 SPLIT_KERNEL = "fused_dit_block_split"
 SPLIT_GEMM_KERNEL = "split_gemm"
-SPLIT_MLP_KERNEL = "split_mlp"
 MOD_LN_KERNEL = "_mod_ln_call"
 MOD_LN_BWD_KERNEL = "_mod_ln_diff_bwd"
 RES_MOD_LN_KERNEL = "_res_mod_ln_call"
@@ -113,21 +112,9 @@ def dit_stack_reference_block(x, mod, wqkv, bqkv, wproj, bproj, wfc1, bfc1,
     attn = fused_heads_reference(qkv[..., :D], qkv[..., D:2 * D],
                                  qkv[..., 2 * D:], num_heads)
     x = x + m(2).to(dt) * _dense(attn, wproj, bproj)
-    return _mlp_half(x, mod, wfc1, bfc1, wfc2, bfc2, eps, _gelu_tanh)
-
-
-def _gelu_tanh(a):
-    """T(gelu(a)) with tanh (JAX's ``jax.nn.gelu(approximate=True)``)."""
-    return F.gelu(a, approximate="tanh")
-
-
-def _mlp_half(x, mod, wfc1, bfc1, wfc2, bfc2, eps, gelu):
-    """The block's MLP half (``_mlp_half`` in JAX): x + T(gate5) *
-    _dense(gelu(_dense(modLN(x; mod3, mod4), wfc1, bfc1)), wfc2, bfc2),
-    ``gelu`` taking and returning x's dtype."""
-    m = lambda i: mod[:, i][:, None, :]
-    h1 = gelu(_dense(_mod_ln(x, m(3), m(4), eps), wfc1, bfc1))
-    return x + m(5).to(x.dtype) * _dense(h1, wfc2, bfc2)
+    h1 = F.gelu(_dense(_mod_ln(x, m(3), m(4), eps), wfc1, bfc1),
+                approximate="tanh")
+    return x + m(5).to(dt) * _dense(h1, wfc2, bfc2)
 
 
 def block_attn_stats(q, k, v, do, num_heads: int, scale: float):
@@ -193,11 +180,6 @@ def _gelu_exp(v):
     value differing in the last f32 bits."""
     u = _GELU_K * (v + _GELU_C * v * v * v)
     return v / (1.0 + torch.exp(-2.0 * u))
-
-
-def _gelu_exp_rounded(a):
-    """T(gelu(a)) in the exponential form, as the bf16 MLP kernels take it."""
-    return _gelu_exp(a.float()).to(a.dtype)
 
 
 def _gelu_exp_grad(v):
@@ -308,17 +290,6 @@ def split_gemm_reference(a, mod, w, bias, res, stage: str,
                       approximate="tanh")
     gate = m(2 if stage == "proj" else 5).to(a.dtype)
     return res + gate * _dense(a, w, bias)
-
-
-def split_mlp_reference(y1, mod, w1, b1, w2, b2, eps: float = 1e-6):
-    """Plain twin of the split block's MLP half in one launch
-    (``split_mlp_tc_kernel`` in csrc/split_tc.cuh): y = y1 + T(gate5) *
-    T(T(gelu(T(modLN(y1; mod3, mod4) @ w1 + b1))) @ w2 + b2), each product
-    summed in f32 with the f32 bias added, then rounded to y1's dtype, the
-    GELU as the kernel takes it (``_gelu_exp``) on the rounded fc1 output,
-    rounded. y1 (B, N, D), mod (B, 6, D), w1 (D, hidden), b1 (hidden,),
-    w2 (hidden, D), b2 (D,) in y1's dtype."""
-    return _mlp_half(y1, mod, w1, b1, w2, b2, eps, _gelu_exp_rounded)
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -435,14 +406,15 @@ def _launch_split(x, mod, ws, num_heads, eps):
 _SPLIT_ROUTES = ("none", "narrow", "wide", "persistent")
 
 
-def split_gemm_route(D: int) -> str:
-    """Which wgmma route the bf16 split block takes at width D on the
-    current device (``dit_split_route``): "persistent" (qkv and proj on
-    csrc/split_tc.cuh's persistent kernel, fc1 and fc2 on wg_gemm.cuh's
-    128-row blocks; D 128, 256 and 512), else its LayerNorm GEMMs' route
-    on wg_gemm.cuh for all four: "wide" (128-row blocks, 128-column steps),
-    "narrow" (64-row blocks, 64-column steps) or "none"."""
-    return _SPLIT_ROUTES[_build.load("dit_split").dit_split_route(D)]
+def split_gemm_route(D: int, rows: int) -> str:
+    """Which wgmma route a bf16 split-block call of ``rows`` rows takes at
+    width D on the current device (``dit_split_route``): "persistent" (qkv
+    and proj on csrc/split_tc.cuh's persistent kernel, fc1 and fc2 on
+    wg_gemm.cuh's 128-row blocks: D 128, 256 and 512 at more rows than one
+    128-row tile a SM, 16,896 on a 132-SM H100), else its LayerNorm GEMMs'
+    route on wg_gemm.cuh for all four: "wide" (128-row blocks, 128-column
+    steps), "narrow" (64-row blocks, 64-column steps) or "none"."""
+    return _SPLIT_ROUTES[_build.load("dit_split").dit_split_route(D, rows)]
 
 
 def _launch_split_gemm(a, mod, w, bias, res, stage, eps=1e-6):
@@ -472,39 +444,6 @@ def _launch_split_gemm(a, mod, w, bias, res, stage, eps=1e-6):
                   a.device, a.contiguous(), mod.float().contiguous(),
                   w.contiguous(), bias.contiguous(), res, out, B * N, N, K,
                   cols, SPLIT_GEMM_STAGES.index(stage), float(eps))
-    return out
-
-
-def _launch_split_mlp(y1, mod, w1, b1, w2, b2, eps=1e-6, cluster=1):
-    """The bf16 split block's MLP half alone in one launch
-    (``dit_split_mlp_bf16``: ``split_mlp_tc_kernel``, h1 kept on chip, at
-    the widths of the persistent route; on no route of the block, which
-    runs fc1 and fc2 where it is faster), with ``split_mlp_reference``'s
-    operands; counted as ``split_mlp``. Another width is refused. For
-    measurements and tests."""
-    B, N, D = y1.shape
-    hidden = w1.shape[-1]
-    want = [("w1", w1, (D, hidden)), ("b1", b1, (hidden,)),
-            ("w2", w2, (hidden, D)), ("b2", b2, (D,)),
-            ("mod", mod, (B, 6, D))]
-    for name, t, shape in want:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{SPLIT_MLP_KERNEL}: {name} must be {shape}, "
-                             f"got {tuple(t.shape)}")
-    refused = ValueError(f"{SPLIT_MLP_KERNEL} does not take B={B} N={N} "
-                         f"D={D} hidden={hidden} dtype={y1.dtype}")
-    if y1.dtype != torch.bfloat16:
-        raise refused
-    lib = _build.load("dit_split")
-    out = torch.empty_like(y1)
-    # cluster 2 or 4: the same kernel in clusters sharing each weight item
-    # by multicast (D 512; a measurement)
-    entry, extra = (("dit_split_mlp_bf16", ()) if cluster == 1 else
-                    ("dit_split_mlp_cluster_bf16", (int(cluster),)))
-    _build.launch(lib, entry, SPLIT_MLP_KERNEL, refused,
-                  y1.device, y1.contiguous(), mod.float().contiguous(),
-                  *(t.to(y1.dtype).contiguous() for t in (w1, b1, w2, b2)),
-                  out, B * N, N, D, hidden, float(eps), *extra)
     return out
 
 

@@ -721,13 +721,13 @@ def _stage_args(dev, stage, D, hidden, B=3, N=130, seed=11):
                                       (640, 1280), (1024, 2048),
                                       (1536, 1536)])
 def test_split_gemm_stage_matches_twin_on_card(cuda, stage, D, hidden):
-    """Each bf16 GEMM stage of the split block alone (qkv and proj on the
-    persistent kernel at D 128, 256 and 512, else and fc1 and fc2 always on
-    the wgmma row GEMM; from D 640 the LayerNorm stages take the 64-row
-    route) against its twin at ragged rows (B=3, N=130): 1e-2 * max|ref|
-    (the same f32 products in another order, so at most a rounding flip of
-    the LayerNorm's output or of the result) and correlation >= 0.999; one
-    launch."""
+    """Each bf16 GEMM stage of the split block alone (the wgmma row GEMM:
+    the call's 390 rows are below the persistent kernel's row threshold,
+    which test_split_rows_kernel_matches_twin_on_card crosses; from D 640
+    the LayerNorm stages take the 64-row route) against its twin at ragged
+    rows (B=3, N=130): 1e-2 * max|ref| (the same f32 products in another
+    order, so at most a rounding flip of the LayerNorm's output or of the
+    result) and correlation >= 0.999; one launch."""
     args = _stage_args(cuda, stage, D, hidden)
     _build.reset_launch_counts()
     got = tblock._launch_split_gemm(*args, stage)
@@ -744,16 +744,23 @@ def test_split_gemm_stage_matches_twin_on_card(cuda, stage, D, hidden):
 @pytest.mark.cuda
 def test_split_gemm_routes_by_width(cuda):
     """D 128, 256 and 512 take the persistent kernel for qkv and proj
-    (split_tc.cuh; fc1 and fc2 on the 128-row blocks); elsewhere the
-    LayerNorm GEMMs stage a 128 x D tile (128-row blocks) while it, the
-    ring and the output tiles fit 227 KB, else a 64 x D tile (64-row
-    blocks), up to the widest D the split kernel took before the wgmma
-    GEMMs (1536)."""
+    (split_tc.cuh; fc1 and fc2 on the 128-row blocks) on a call of more
+    rows than one 128-row tile a SM (the scaled CFG call's 32,768), and the
+    128-row blocks for all four on fewer (one server request's 2048);
+    elsewhere the LayerNorm GEMMs stage a 128 x D tile (128-row blocks)
+    while it, the ring and the output tiles fit 227 KB, else a 64 x D tile
+    (64-row blocks), up to the widest D the split kernel took before the
+    wgmma GEMMs (1536), whatever the rows."""
     route = tblock.split_gemm_route
-    assert [route(d) for d in (128, 256, 512)] == ["persistent"] * 3
-    assert route(384) == "wide"
-    assert [route(d) for d in (640, 1024, 1536)] == ["narrow"] * 3
-    assert route(1664) == "none"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows in (32 * 1024, 128 * sms + 1):
+        assert [route(d, rows) for d in (128, 256, 512)] == ["persistent"] * 3
+    for rows in (2 * 1024, 128 * sms, 51):
+        assert [route(d, rows) for d in (128, 256, 512)] == ["wide"] * 3
+    for rows in (32 * 1024, 2 * 1024):
+        assert route(384, rows) == "wide"
+        assert [route(d, rows) for d in (640, 1024, 1536)] == ["narrow"] * 3
+        assert route(1664, rows) == "none"
     ok = tblock.split_kernel_supported
     assert ok(1536, 256, 12, torch.bfloat16)
     assert not ok(1664, 256, 13, torch.bfloat16)
@@ -769,7 +776,8 @@ def test_bf16_split_kernel_narrow_route_matches_twin_on_card(cuda, D, hidden,
     384, its 64-row route from D 640; h1 through device memory), held as
     test_split_kernel_matches_twin_on_card holds the others."""
     args = _split_args(cuda, torch.bfloat16, D=D, hidden=hidden)
-    assert tblock.split_gemm_route(D) == route
+    assert tblock.split_gemm_route(D, args[0].shape[0] * args[0].shape[1]) \
+        == route
     with torch.no_grad():
         got = tblock.fused_dit_block_split(*args, num_heads=heads).float()
         want = tblock.fused_dit_block_reference(*args, heads).float()
@@ -779,48 +787,53 @@ def test_bf16_split_kernel_narrow_route_matches_twin_on_card(cuda, D, hidden,
     assert (got - truth).abs().mean() <= 1.5 * (want - truth).abs().mean()
 
 
-# (D, B, N) of the persistent route's kernels alone: the scaled CFG call
-# (2B=32 x 1024 tokens), one server request's 2048 rows and a ragged B=3 x
-# N=17 at D 512, the last two at D 128 and 256
-_SPLIT_TC_CALLS = [(512, 32, 1024), (512, 2, 1024), (512, 3, 17),
-                   (256, 2, 1024), (256, 3, 17), (128, 2, 1024),
-                   (128, 3, 17)]
+# a call past the persistent kernel's row threshold on a 132-SM H100
+# (16,896 rows) whose last 64-row tile is ragged: 17 x 1025 = 17,425 rows
+_PAST_THRESHOLD = (17, 1025)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,B,N", _SPLIT_TC_CALLS)
-def test_split_mlp_kernel_matches_twin_on_card(cuda, D, B, N):
-    """The MLP half in one launch (split_mlp_tc_kernel, hidden 4D, reached
-    alone) against split_mlp_reference: 3e-2 * max|ref| (rounding flips of
-    h feed fc2, the block-level bf16 bound), correlation >= 0.999, and a
-    mean error against the f32 twin at most 1.5x the bf16 twin's; one
-    launch counted as split_mlp; repeated bit for bit."""
-    hidden = 4 * D
-    y1, mod, w1, b1, res = _stage_args(cuda, "fc1", D, hidden, B, N, 21)
-    _, _, w2, b2, _ = _stage_args(cuda, "fc2", D, hidden, B, N, 22)
-    _build.reset_launch_counts()
-    got = tblock._launch_split_mlp(y1, mod, w1, b1, w2, b2)
-    torch.cuda.synchronize()
-    assert dict(_build.launch_counts) == {tblock.SPLIT_MLP_KERNEL: 1}
-    want = tblock.split_mlp_reference(y1, mod, w1, b1, w2, b2)
-    assert got.dtype == want.dtype == torch.bfloat16
-    assert got.shape == want.shape == (B, N, D)
+@pytest.mark.parametrize("D,hidden,heads", [(512, 2048, 8), (256, 1024, 4),
+                                            (128, 256, 4)])
+def test_bf16_split_kernel_persistent_route_matches_twin_on_card(
+        cuda, D, hidden, heads):
+    """The block with qkv and proj on split_rows_tc_kernel (a call past its
+    row threshold, ragged last tile), held as
+    test_split_kernel_matches_twin_on_card holds the others."""
+    B, N = _PAST_THRESHOLD
+    args = _split_args(cuda, torch.bfloat16, B=B, N=N, D=D, hidden=hidden)
+    assert tblock.split_gemm_route(D, B * N) == "persistent"
+    with torch.no_grad():
+        got = tblock.fused_dit_block_split(*args, num_heads=heads).float()
+        want = tblock.fused_dit_block_reference(*args, heads).float()
+        truth = tblock.fused_dit_block_reference(
+            *(a.float() for a in args), heads)
     _close_to_twin(got, want, 3e-2)
-    g_, w_ = got.float().flatten(), want.float().flatten()
-    assert torch.corrcoef(torch.stack([g_, w_]))[0, 1].item() >= 0.999
-    truth = tblock.split_mlp_reference(
-        *(t.float() for t in (y1, mod, w1, b1, w2, b2))).flatten()
-    assert (g_ - truth).abs().mean() <= 1.5 * (w_ - truth).abs().mean()
-    assert torch.equal(got, tblock._launch_split_mlp(y1, mod, w1, b1, w2, b2))
+    assert (got - truth).abs().mean() <= 1.5 * (want - truth).abs().mean()
+
+
+# (D, B, N) of qkv and proj alone, on either side of the persistent
+# kernel's row threshold: the scaled CFG call (2B=32 x 1024 tokens) and a
+# ragged call past the threshold at each D (the persistent kernel), one
+# server request's 2048 rows and a ragged B=3 x N=17 (wg_gemm.cuh's
+# 128-row kernel)
+_SPLIT_TC_CALLS = [(512, 32, 1024), (512, *_PAST_THRESHOLD),
+                   (256, *_PAST_THRESHOLD), (128, *_PAST_THRESHOLD),
+                   (512, 2, 1024), (512, 3, 17), (256, 2, 1024), (256, 3, 17),
+                   (128, 2, 1024), (128, 3, 17)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", ["qkv", "proj"])
 @pytest.mark.parametrize("D,B,N", _SPLIT_TC_CALLS)
 def test_split_rows_kernel_matches_twin_on_card(cuda, stage, D, B, N):
-    """qkv and proj on split_rows_tc_kernel at the persistent route's calls
-    against their twin, as test_split_gemm_stage_matches_twin_on_card
-    holds them at B=3, N=130."""
+    """qkv and proj at the persistent route's widths, on split_rows_tc_kernel
+    past its row threshold and on wg_gemm.cuh's 128-row kernel below it,
+    against their twin, as test_split_gemm_stage_matches_twin_on_card holds
+    them at B=3, N=130; repeated bit for bit."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tblock.split_gemm_route(D, B * N) == (
+        "persistent" if B * N > 128 * sms else "wide")
     args = _stage_args(cuda, stage, D, 4 * D, B, N, 23)
     got = tblock._launch_split_gemm(*args, stage)
     torch.cuda.synchronize()
@@ -829,11 +842,14 @@ def test_split_rows_kernel_matches_twin_on_card(cuda, stage, D, B, N):
     _close_to_twin(got, want, 1e-2)
     a, b = got.float().flatten(), want.float().flatten()
     assert torch.corrcoef(torch.stack([a, b]))[0, 1].item() >= 0.999
+    assert torch.equal(got, tblock._launch_split_gemm(*args, stage))
 
 
 @pytest.mark.cuda
-def test_bf16_split_kernel_repeats_bit_for_bit(cuda):
-    args = _split_args(cuda, torch.bfloat16, B=2, N=1024)
+@pytest.mark.parametrize("B,N", [(2, 1024), _PAST_THRESHOLD])
+def test_bf16_split_kernel_repeats_bit_for_bit(cuda, B, N):
+    """On either side of the persistent kernel's row threshold."""
+    args = _split_args(cuda, torch.bfloat16, B=B, N=N)
     with torch.no_grad():
         a = tblock.fused_dit_block_split(*args, num_heads=8)
         b = tblock.fused_dit_block_split(*args, num_heads=8)
@@ -841,21 +857,29 @@ def test_bf16_split_kernel_repeats_bit_for_bit(cuda):
 
 
 @pytest.mark.cuda
-def test_bf16_split_kernel_runs_the_wgmma_gemms(cuda):
+@pytest.mark.parametrize("B,N,persistent", [(32, 1024, True),
+                                            (2, 130, False)])
+def test_bf16_split_kernel_runs_the_wgmma_gemms(cuda, B, N, persistent):
     """One bf16 split block's profile at D 512: the attention on
-    heads_fwd_kernel, qkv and proj on the persistent split_rows_tc_kernel,
-    fc1 and fc2 on wg_gemm_kernel's 128-row route, and neither
-    wg_gemm_kernel's qkv nor the first version's WMMA gemm_kernel."""
-    args = _split_args(cuda, torch.bfloat16, B=2, N=130)
+    heads_fwd_kernel, fc1 and fc2 on wg_gemm_kernel's 128-row route; qkv
+    and proj on the persistent split_rows_tc_kernel at the scaled CFG call
+    (past its row threshold) and on wg_gemm_kernel's 128-row route at a
+    small call, never both; never the first version's WMMA gemm_kernel."""
+    args = _split_args(cuda, torch.bfloat16, B=B, N=N)
     with torch.no_grad():
         names, named = _profile_names(
             lambda: tblock.fused_dit_block_split(*args, num_heads=8))
-    for n in ("heads_fwd_kernel", "split_rows_tc_kernel<512, false>",
-              "split_rows_tc_kernel<512, true>",
-              "wg_gemm_kernel<0, 1, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>"):
+    tc = ("split_rows_tc_kernel<512, false>",
+          "split_rows_tc_kernel<512, true>")
+    wg_qkv = "wg_gemm_kernel<0, 0, 2, 128>"
+    for n in ("heads_fwd_kernel", "wg_gemm_kernel<0, 1, 2, 128>",
+              "wg_gemm_kernel<1, 2, 2, 128>",
+              *(tc if persistent else (wg_qkv,))):
         assert named(n), (n, sorted(names))
-    assert not named("wg_gemm_kernel<0, 0, 2, 128>"), sorted(names)
+    for n in ((wg_qkv,) if persistent else tc):
+        assert not named(n), (n, sorted(names))
     assert not named("gemm_kernel"), sorted(names)
+
 
 
 @pytest.mark.cuda

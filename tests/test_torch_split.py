@@ -117,7 +117,7 @@ class _FakeLib:
 
     ENTRIES = ("dit_stack_forward_bf16", "dit_stack_forward_f32",
                "dit_split_forward_bf16", "dit_split_forward_f32",
-               "dit_split_gemm_bf16", "dit_split_mlp_bf16",
+               "dit_split_gemm_bf16",
                "dit_block_backward_bf16", "dit_block_backward_f32",
                "dit_block_check", "dit_block_backward_workspace",
                "dit_block_mlp_bwd_bf16", "dit_block_qkv_bwd_bf16",
@@ -199,33 +199,6 @@ def test_launchers_pass_each_entry_its_declared_arguments(
     assert qscale.value == float(torch.tensor(8 ** -0.5, dtype=dt))
 
 
-def test_split_mlp_launcher_passes_its_declared_arguments(monkeypatch):
-    """The MLP half alone against the fake library: seven pointers (y1
-    first, the output last), rows, N, D and hidden as ints, eps and the
-    stream last; one launch counted as split_mlp; the weights cast to
-    y1's dtype; an input other than bf16 or a mismatched operand refused
-    before any call."""
-    lib = _rehearse(monkeypatch)
-    B, N, D, hidden = 2, 8, 32, 128
-    bf = lambda *s: torch.randn(*s).to(torch.bfloat16)
-    y1, mod = bf(B, N, D), torch.randn(B, 6, D)
-    ws = [torch.randn(D, hidden), torch.randn(hidden), bf(hidden, D), bf(D)]
-    out = tblock._launch_split_mlp(y1, mod, *ws)
-    *ptrs, rows, n, d, h, eps, stream = _one_launch(
-        lib, "dit_split_mlp", torch.bfloat16)
-    assert dict(_build.launch_counts) == {tblock.SPLIT_MLP_KERNEL: 1}
-    assert len(ptrs) == 7
-    assert ptrs[0].value == y1.data_ptr() and ptrs[6].value == out.data_ptr()
-    assert (rows, n, d, h) == (B * N, N, D, hidden)
-    assert eps.value == pytest.approx(1e-6) and stream.value == 7
-    assert out.shape == (B, N, D) and out.dtype == torch.bfloat16
-    with pytest.raises(ValueError, match="does not take"):
-        tblock._launch_split_mlp(y1.float(), mod, *ws)
-    with pytest.raises(ValueError, match="w2 must be"):
-        tblock._launch_split_mlp(y1, mod, ws[0], ws[1], ws[2][:-1], ws[3])
-    assert len(lib.calls) == 1
-
-
 @pytest.mark.parametrize("stage", tblock.SPLIT_GEMM_STAGES)
 def test_split_gemm_launcher_passes_its_declared_arguments(monkeypatch,
                                                            stage):
@@ -257,6 +230,30 @@ def test_split_gemm_launcher_passes_its_declared_arguments(monkeypatch,
         tblock._launch_split_gemm(a, torch.randn(B, 6, D), w, bias[:-1],
                                   res, stage)
     assert len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("rows", [2 * 1024, 32 * 1024])
+@pytest.mark.parametrize("code,route", [(0, "none"), (1, "narrow"),
+                                        (2, "wide"), (3, "persistent")])
+def test_split_gemm_route_asks_the_library_for_a_calls_rows(monkeypatch, rows,
+                                                            code, route):
+    """split_gemm_route passes the width and the call's rows (one server
+    request's CFG batch and the scaled sampler's, the two sides of the
+    persistent kernel's row threshold) to dit_split_route as the two ints
+    it declares, and names the route the library answers."""
+    calls = []
+
+    def dit_split_route(*args):
+        assert len(args) == len(dit_split_route.argtypes) == 2
+        assert all(t is ctypes.c_int for t in dit_split_route.argtypes)
+        calls.append(args)
+        return code
+
+    lib = types.SimpleNamespace(dit_split_route=dit_split_route)
+    _build._declare(lib)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    assert tblock.split_gemm_route(512, rows) == route
+    assert calls == [(512, rows)]
 
 
 @pytest.mark.parametrize("half", ["mlp", "qkv"])
