@@ -25,7 +25,7 @@ failing with a non-zero exit on any error:
    ``mlp_bwd_tc_kernel<D>`` and ``qkv_bwd_tc_kernel<D>`` at D 64 and 128,
    checked the same way, ``attn_out_bwd_tc_kernel``, ``wgrad_tc_kernel``),
    and of the split block's wgmma GEMMs as built into csrc/dit_split.cu
-   (csrc/split_tc.cuh: ``split_rows_tc_kernel<D, PROJ>`` at D 128, 256
+   (csrc/split_tc.cuh: ``split_rows_tc_kernel<D, MODE>`` at D 128, 256
    and 512; csrc/wg_gemm.cuh:
    ``wg_gemm_kernel`` on each route), checked to spill nothing and to draw
    no ptxas C7512 ("wgmma serialized"), and of the bf16 #8 kernel on
@@ -105,9 +105,9 @@ failing with a non-zero exit on any error:
    again in f32 at a small batch, and against the stack kernel at the
    reference geometry; CUDA-event times, the twin's time, the bound,
    device time by kernel and split into attention and GEMMs (the bf16
-   call checked to run on ``split_rows_tc_kernel`` for qkv and proj,
-   ``wg_gemm_kernel`` for fc1 and fc2, and on neither ``wg_gemm_kernel``'s
-   qkv instance nor a bf16 ``gemm_kernel``), each stage alone (through
+   call checked to run on ``split_rows_tc_kernel`` for qkv, proj and fc1,
+   ``wg_gemm_kernel`` for fc2, and on neither ``wg_gemm_kernel``'s qkv or
+   fc1 instance nor a bf16 ``gemm_kernel``), each stage alone (through
    ``dit_split_gemm_bf16``; the MLP half as fc1 then fc2): device time,
    TFLOP/s and share of its bound, and torch SDPA over the block's
    attention and cuBLAS over its four dense products as yardsticks; the
@@ -1069,18 +1069,18 @@ def train_phase(dit, vae, gen):
 
 # the CUDA kernels of one bf16 fused_dit_block_split call at the scaled DiT's
 # width (D 512) and 8 heads of 64, by their names in the profile:
-# split_rows_tc_kernel<512, false> modLN+qkv and <512, true> proj with its
-# gated residual (csrc/split_tc.cuh, persistent), wg_gemm_kernel<0, 1, 2,
-# 128> modLN+fc1+GELU and <1, 2, 2, 128> fc2 with its gated residual
+# split_rows_tc_kernel<512, 0> modLN+qkv, <512, 1> proj with its gated
+# residual and <512, 2> modLN+fc1+GELU (csrc/split_tc.cuh, persistent),
+# wg_gemm_kernel<1, 2, 2, 128> fc2 with its gated residual
 # (csrc/wg_gemm.cuh, 128-row blocks), heads_fwd_kernel<64> (attn_heads.cuh)
-# the attention. Neither wg_gemm_kernel's qkv <0, 0, 2, 128> nor the first
-# version's WMMA gemm_kernel.
+# the attention. Neither wg_gemm_kernel's qkv <0, 0, 2, 128> or fc1 <0, 1,
+# 2, 128> nor the first version's WMMA gemm_kernel.
 SPLIT_ATTN = "heads_fwd_kernel<64>"
-SPLIT_GEMMS = ("split_rows_tc_kernel<512, false>",
-               "split_rows_tc_kernel<512, true>",
-               "wg_gemm_kernel<0, 1, 2, 128>", "wg_gemm_kernel<1, 2, 2, 128>")
+SPLIT_GEMMS = ("split_rows_tc_kernel<512, 0>", "split_rows_tc_kernel<512, 1>",
+               "split_rows_tc_kernel<512, 2>", "wg_gemm_kernel<1, 2, 2, 128>")
 SPLIT_PARTS = (SPLIT_GEMMS[0], SPLIT_ATTN) + SPLIT_GEMMS[1:]
-SPLIT_ABSENT = ("gemm_kernel<__nv_bfloat16", "wg_gemm_kernel<0, 0, 2, 128>")
+SPLIT_ABSENT = ("gemm_kernel<__nv_bfloat16", "wg_gemm_kernel<0, 0, 2, 128>",
+                "wg_gemm_kernel<0, 1, 2, 128>")
 
 
 def split_inputs(gen, B, N, D, hidden, dt):
@@ -1145,9 +1145,9 @@ def split_phase(gen):
                 split = device_split_on_route("split bf16", run, SPLIT_PARTS,
                                               SPLIT_ABSENT)
             log("split bf16 device time by kernel (torch.profiler, one call; "
-                "split_rows_tc_kernel<512, false> modLN+qkv, <512, true> "
-                "proj with its gated residual, wg_gemm_kernel<0, 1> "
-                "modLN+fc1+GELU, <1, 2> fc2 with its gated residual): "
+                "split_rows_tc_kernel<512, 0> modLN+qkv, <512, 1> proj "
+                "with its gated residual, <512, 2> modLN+fc1+GELU, "
+                "wg_gemm_kernel<1, 2> fc2 with its gated residual): "
                 + fmt_split(split))
             if split:
                 attn = split.get(SPLIT_ATTN, 0.0)
@@ -1185,9 +1185,9 @@ def split_phase(gen):
     for rows, want in ((2 * SC_B * SC_N, "persistent"), (2 * SC_N, "wide")):
         routes = {d: split_gemm_route(d, rows)
                   for d in (128, 512, 640, 1024, 1536)}
-        log(f"split bf16 route by D at {rows} rows (persistent: qkv and "
-            f"proj on split_tc.cuh; else the LayerNorm GEMMs' wide: 128-row "
-            f"blocks, narrow: 64-row): {routes}")
+        log(f"split bf16 route by D at {rows} rows (persistent: qkv, proj "
+            f"and fc1 on split_tc.cuh; else the LayerNorm GEMMs' wide: "
+            f"128-row blocks, narrow: 64-row): {routes}")
         check(routes[SC_D] == want, f"split route at {rows} rows "
               f"{routes[SC_D]}")
     return out
@@ -1611,7 +1611,7 @@ def log_block_bwd_resources():
 def log_split_resources():
     """ptxas's registers, stack, spills and static shared memory of the
     split block's kernels as built into csrc/dit_split.cu: the persistent
-    wgmma kernel of csrc/split_tc.cuh (``split_rows_tc_kernel<D, PROJ>`` at
+    wgmma kernel of csrc/split_tc.cuh (``split_rows_tc_kernel<D, MODE>`` at
     D 128, 256 and 512) and csrc/wg_gemm.cuh's ``wg_gemm_kernel`` (the
     LayerNorm GEMMs on the 128-row and 64-row routes, the streamed one),
     with their dynamic shared memory (``dit_split_smem``: the persistent
@@ -1629,7 +1629,7 @@ def log_split_resources():
     for chunk in text.split("Compiling entry function")[1:]:
         m = re.search(r"wg_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                       chunk)
-        r = re.search(r"split_rows_tc_kernelILi(\d+)ELb([01])E", chunk)
+        r = re.search(r"split_rows_tc_kernelILi(\d+)ELi([012])E", chunk)
         if m is not None:
             pro, epi, wg, bn = (int(v) for v in m.groups())
             stage = 1 if pro else (0 if epi == 0 else 2)
@@ -1637,9 +1637,8 @@ def log_split_resources():
             name = f"wg_gemm_kernel<{pro}, {epi}, {wg}, {bn}> (K={K})"
             kind = "wg_gemm_kernel"
         elif r is not None:
-            K, proj = (int(v) for v in r.groups())
-            stage = 1 if proj else 0
-            name = f"split_rows_tc_kernel<{K}, {str(bool(proj)).lower()}>"
+            K, stage = (int(v) for v in r.groups())
+            name = f"split_rows_tc_kernel<{K}, {stage}>"
             kind = "split_rows_tc_kernel"
         else:
             continue
@@ -1648,7 +1647,7 @@ def log_split_resources():
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", chunk)]
         check(not any(spills), f"{name} spills {spills}")
         seen[kind] += 1
-    check(seen == {"wg_gemm_kernel": 5, "split_rows_tc_kernel": 6},
+    check(seen == {"wg_gemm_kernel": 5, "split_rows_tc_kernel": 9},
           f"split kernel instances in the build log: {seen}")
     check("C7512" not in text, "ptxas serialized a wgmma in dit_split.cu "
           "(C7512): " + "; ".join(l_ for l_ in text.splitlines()

@@ -18,15 +18,16 @@
 //                                 + bfc1))
 //   (5) STREAM GEMM, RESID  y   = y1 + T(gate5) * T(h1 @ wfc2 + bfc2)
 //
-// In bf16 at D 128, 256 and 512 (ROUTE_TC) (1) and (3) run on split_tc.cuh's
-// persistent, warp-specialised kernel (split_rows_tc_kernel) once a call has
-// more rows than one 128-row tile a SM (sp_rows_take: the scaled CFG call's
-// 32,768); on fewer (one server request's 2048) wg_gemm.cuh's kernel was as
-// fast or faster (PERF.md). The MLP half stays two launches with h1 through
-// device memory: one launch that keeps h1 on chip was built and measured
-// slower (PERF.md: 0.76 ms against 0.43 for (4) and (5) at the scaled call,
-// its 64-row tiles streaming 2.2 GB of weights through L2, and slower still
-// in clusters of two and four blocks sharing each weight item).
+// In bf16 at D 128, 256 and 512 (ROUTE_TC) (1), (3) and (4) run on
+// split_tc.cuh's persistent, warp-specialised kernel (split_rows_tc_kernel)
+// once a call has more rows than one 128-row tile a SM (sp_rows_take: the
+// scaled CFG call's 32,768); on fewer (one server request's 2048)
+// wg_gemm.cuh's kernel was as fast or faster (PERF.md). The MLP half stays
+// two launches with h1 through device memory: one launch that keeps h1 on
+// chip was built and measured slower (PERF.md: 0.76 ms against 0.43 for (4)
+// and (5) at the scaled call, its 64-row tiles streaming 2.2 GB of weights
+// through L2, and slower still in clusters of two and four blocks sharing
+// each weight item).
 //
 // Numerics are the stack's: LayerNorm in f32 (eps from the caller), every
 // product accumulated in f32 with the rounded bias added in f32 and then
@@ -45,7 +46,7 @@
 // bytes and operations bound it alike: proj is bound by bytes (101 MB
 // against 17.2 GFLOP), the others by operations.
 //
-// Elsewhere, and (4) and (5) always, the GEMMs run on wg_gemm.cuh's wgmma
+// Elsewhere, and (5) always, the GEMMs run on wg_gemm.cuh's wgmma
 // row GEMM: 128-row blocks of two consumer warpgroups, 128-column steps,
 // both operands through 128-byte-swizzled shared memory filled by TMA from
 // a producer warp, and the epilogue from the accumulator registers through
@@ -153,23 +154,23 @@ inline int ln_route(int D, long long optin) {
   if (smem_wg<1, 64>(true, D) <= (size_t)optin) return ROUTE_NARROW;
   return ROUTE_NONE;
 }
-// The bf16 block's route at width D: qkv and proj on split_tc.cuh's
+// The bf16 block's route at width D: qkv, proj and fc1 on split_tc.cuh's
 // persistent kernel where it has an instance and fits the opt-in beside its
-// static barriers (fc1 and fc2 then on ln_route's 128-row kernels), else
-// ln_route's for all four
+// static barriers (fc2 then on ln_route's 128-row kernel), else ln_route's
+// for all four
 inline int split_route(int D, long long optin) {
   if (sp_width(D) && smem_sp_rows(D) + RW_STATIC <= (size_t)optin &&
       ln_route(D, optin) == ROUTE_WIDE)
     return ROUTE_TC;
   return ln_route(D, optin);
 }
-// Whether a call of `rows` rows on ROUTE_TC runs qkv and proj on the
+// Whether a call of `rows` rows on ROUTE_TC runs qkv, proj and fc1 on the
 // persistent kernel: with more rows than one 128-row tile a SM, the 128-row
 // kernel needs a second wave and the persistent one overlaps one group's
 // LayerNorm and epilogue with the other's products; with fewer, each of its
 // groups has one tile at most, nothing to overlap, and it was no faster
 // (qkv) or slower (proj, 0.0225 against 0.0212 ms at 2048 rows, PERF.md),
-// so wg_gemm.cuh's 128-row kernel takes them (ROUTE_WIDE)
+// so wg_gemm.cuh's 128-row kernels take them (ROUTE_WIDE)
 inline bool sp_rows_take(int rows) {
   const int sms = rw_sms();
   return sms > 0 && (long long)rows > 128LL * sms;
@@ -340,6 +341,9 @@ __global__ void __launch_bounds__(NT) gemm_kernel(const GemmArgs<T> g) {
 
 // the four GEMMs of a block, by their place in it
 enum { STAGE_QKV, STAGE_PROJ, STAGE_FC1, STAGE_FC2 };
+static_assert(STAGE_QKV == SP_QKV && STAGE_PROJ == SP_PROJ &&
+                  STAGE_FC1 == SP_FC1,
+              "launch_sp takes the block's stage");
 
 template <typename T, int PRO, int EPI>
 cudaError_t launch_gemm(const GemmArgs<T>& g, cudaStream_t st) {
@@ -407,17 +411,17 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
                   const T* res, T* o, int K, int cols) {
     using Args = std::conditional_t<sizeof(T) == 2, WgArgs, GemmArgs<T>>;
     const Args g{a, mod, w, bias, res, o, B * N, N, K, cols, 0, 0, 0, eps};
-    // fc1 and fc2 on ROUTE_TC take the 128-row kernels (ln_route's wide)
+    // fc2 on ROUTE_TC takes the 128-row kernel (ln_route's wide)
     return launch_stage(stage, g, route == ROUTE_TC ? ROUTE_WIDE : route, st);
   };
-  // qkv and proj: on ROUTE_TC split_tc.cuh's persistent kernel
+  // qkv, proj and fc1: on ROUTE_TC split_tc.cuh's persistent kernel
   auto rows_gemm = [&](int stage, const T* a, const T* w, const T* bias,
                        const T* res, T* o, int cols) -> cudaError_t {
     if constexpr (sizeof(T) == 2)
       if (route == ROUTE_TC)
         return launch_sp(stage, D, (const bf16*)a, mod, (const bf16*)w,
                          (const bf16*)bias, (const bf16*)res, (bf16*)o,
-                         B * N, N, eps, st);
+                         B * N, N, cols, eps, st);
     return gemm(stage, a, w, bias, res, o, D, cols);
   };
   cudaError_t e;
@@ -429,19 +433,18 @@ int run_split(const T* x, const float* mod, const T* wqkv, const T* bqkv,
                                 W3, attn, B, N, D, H, qscale, st)))
     return e;
   if ((e = rows_gemm(STAGE_PROJ, attn, wproj, bproj, x, y1, D))) return e;
-  if ((e = gemm(STAGE_FC1, y1, wfc1, bfc1, nullptr, h1, D, hidden)))
+  if ((e = rows_gemm(STAGE_FC1, y1, wfc1, bfc1, nullptr, h1, hidden)))
     return e;
   if ((e = gemm(STAGE_FC2, h1, wfc2, bfc2, y1, out, hidden, D))) return e;
   return cudaGetLastError();
 }
 
 // dynamic shared memory of a bf16 GEMM stage at depth K on its route
-// (split_route at D = K: qkv and proj on ROUTE_TC at the persistent
+// (split_route at D = K: qkv, proj and fc1 on ROUTE_TC at the persistent
 // kernel's); 0 for a stage or K the kernels do not take on this device
 size_t stage_smem(int stage, int K, long long optin) {
   const bool tc = split_route(K, optin) == ROUTE_TC;
-  if (tc && (stage == STAGE_QKV || stage == STAGE_PROJ))
-    return smem_sp_rows(K);
+  if (tc && stage != STAGE_FC2) return smem_sp_rows(K);
   if (stage == STAGE_PROJ || stage == STAGE_FC2)
     return smem_wg<2, 128>(false, 0) <= (size_t)optin
                ? smem_wg<2, 128>(false, 0)
@@ -482,9 +485,9 @@ extern "C" int dit_split_check(int D, int hidden, int H, int is_bf16) {
 // STAGE_FC1 2, STAGE_FC2 3) on `rows` rows, N a batch element: a (rows, K),
 // mod (rows / N, 6, width) f32, w (K, cols), bias (cols), res (rows, cols)
 // for proj and fc2 (else unread), out (rows, cols); K and cols multiples
-// of 128. The block's launches run the same kernels: qkv and proj on
-// split_tc.cuh's where call_route takes K and rows (cols 3K and K), else
-// on wg_gemm.cuh's, as fc1 and fc2 always.
+// of 128. The block's launches run the same kernels: qkv, proj and fc1 on
+// split_tc.cuh's where call_route takes K and rows (cols 3K, K and any),
+// else on wg_gemm.cuh's, as fc2 always.
 extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
                                    const void* w, const void* bias,
                                    const void* res, void* out, int rows,
@@ -499,10 +502,10 @@ extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
   cudaError_t e;
   if (call_route(K, rows, optin) == ROUTE_TC &&
       ((stage == STAGE_QKV && cols == 3 * K) ||
-       (stage == STAGE_PROJ && cols == K))) {
+       (stage == STAGE_PROJ && cols == K) || stage == STAGE_FC1)) {
     e = launch_sp(stage, K, (const bf16*)a, (const float*)mod,
                   (const bf16*)w, (const bf16*)bias, (const bf16*)res,
-                  (bf16*)out, rows, N, eps, (cudaStream_t)stream);
+                  (bf16*)out, rows, N, cols, eps, (cudaStream_t)stream);
   } else {
     const WgArgs g{(const bf16*)a, (const float*)mod, (const bf16*)w,
                    (const bf16*)bias, (const bf16*)res, (bf16*)out, rows, N,
@@ -512,8 +515,8 @@ extern "C" int dit_split_gemm_bf16(const void* a, const void* mod,
   return e ? (int)e : (int)cudaGetLastError();
 }
 
-// The bf16 route a call of `rows` rows takes at width D: ROUTE_TC 3 (qkv
-// and proj on split_tc.cuh), ROUTE_WIDE 2 (128-row blocks), ROUTE_NARROW 1
+// The bf16 route a call of `rows` rows takes at width D: ROUTE_TC 3 (qkv,
+// proj and fc1 on split_tc.cuh), ROUTE_WIDE 2 (128-row blocks), ROUTE_NARROW 1
 // (64-row blocks) or ROUTE_NONE 0
 extern "C" int dit_split_route(int D, int rows) {
   const long long optin = smem_optin();

@@ -1,21 +1,24 @@
-// The split block's qkv and proj GEMMs as a persistent, warp-specialised
-// wgmma kernel for Hopper (sm_90a), at D 128, 256 and 512:
+// The split block's qkv, proj and fc1 GEMMs as a persistent,
+// warp-specialised wgmma kernel for Hopper (sm_90a), at D 128, 256 and 512:
 //
-//   split_rows_tc_kernel<D, false>  (1) qkv = T(modLN(x; mod0, mod1) @ wqkv
-//                                       + T(bqkv))
-//   split_rows_tc_kernel<D, true>   (3) y1  = x + T(gate2) * T(o @ wproj
-//                                       + T(bproj))
+//   split_rows_tc_kernel<D, SP_QKV>   (1) qkv = T(modLN(x; mod0, mod1) @
+//                                         wqkv + T(bqkv))
+//   split_rows_tc_kernel<D, SP_PROJ>  (3) y1  = x + T(gate2) * T(o @ wproj
+//                                         + T(bproj))
+//   split_rows_tc_kernel<D, SP_FC1>   (4) h1  = T(gelu(T(modLN(y1; mod3,
+//                                         mod4) @ w1 + T(b1))))
 //
-// dit_split.cu's ROUTE_TC runs (1) and (3) here in place of wg_gemm_kernel
-// on calls of more rows than one 128-row tile a SM (sp_rows_take); the MLP
-// half stays on wg_gemm.cuh's fc1 and fc2. The rounding points are
-// wg_gemm.cuh's: f32 LayerNorm statistics and one rounding of the
-// modulated row, every product summed in f32 with the rounded bias added in
-// f32 and one rounding, gated residuals in bf16.
+// dit_split.cu's ROUTE_TC runs them here in place of wg_gemm_kernel on
+// calls of more rows than one 128-row tile a SM (sp_rows_take); fc2 stays
+// on wg_gemm.cuh's. The rounding points are wg_gemm.cuh's: f32 LayerNorm
+// statistics and one rounding of the modulated row, every product summed
+// in f32 with the rounded bias added in f32 and one rounding, the GELU
+// (gelu_fast) on the rounded fc1 output, gated residuals in bf16.
 //
-// Bound on an H100 SXM at the scaled DiT's CFG call (32,768 rows, D 512):
-// qkv 51.5 GFLOP (0.052 ms at 989 TFLOP/s), proj 17.2 GFLOP against 101 MB
-// (0.030 ms at 3.35 TB/s: bytes).
+// Bound on an H100 SXM at the scaled DiT's CFG call (32,768 rows, D 512,
+// hidden 2048): qkv 51.5 GFLOP (0.052 ms at 989 TFLOP/s), proj 17.2 GFLOP
+// against 101 MB (0.030 ms at 3.35 TB/s: bytes), fc1 68.7 GFLOP (0.069
+// ms).
 //
 // Design (rw_common.cuh's pieces, as dit_layer.cuh's kernels):
 // - Grid: at most one block an SM, 384 threads: two consumer warpgroups and
@@ -36,11 +39,11 @@
 // - wgmma with both operands through swizzled descriptors (A K-major, B
 //   MN-major as the weights are stored). No wgmma sits under a branch, so
 //   ptxas serialises none (C7512).
-// - A group's A tile (64 x D: x, normalised in place, or o) stays in shared
-//   memory for all its column steps; its 64 x 128 C tile takes each step's
-//   output (qkv) or first the step's residual, by TMA under the step's
-//   products (proj), then the gated sum over it; out by TMA store. The
-//   producer's waits are bounded (sp_wait: a fault traps instead of
+// - A group's A tile (64 x D: x or y1, normalised in place, or o) stays in
+//   shared memory for all its column steps; its 64 x 128 C tile takes each
+//   step's output (qkv, fc1) or first the step's residual, by TMA under the
+//   step's products (proj), then the gated sum over it; out by TMA store.
+//   The producer's waits are bounded (sp_wait: a fault traps instead of
 //   hanging the card).
 //
 // Shared memory (227 KB opt-in): the ring, then two A tiles (128 D bytes
@@ -145,9 +148,13 @@ __host__ __device__ constexpr bool sp_width(int D) {
 struct SplitArgs {
   const float* mod;  // (B, 6, D) adaLN vectors, f32
   const bf16* bias;  // (cols)
-  int rows, N;
+  int rows, N, cols;
   float eps;
 };
+
+// what an instance of split_rows_tc_kernel computes: the block's stages
+// (1), (3) and (4)
+enum { SP_QKV = 0, SP_PROJ = 1, SP_FC1 = 2 };
 
 // The weight ring's consumer side: item g in slot g % S, phase (g / S) & 1,
 // released by lane 0 of each warp that reads it
@@ -181,18 +188,26 @@ __device__ __forceinline__ void sp_put(uint64_t* full, uint64_t* empty,
 }
 
 // ---------------------------------------------------------------------------
-// (1) and (3): out = epilogue(A @ w + T(bias)), A the normalised x tile (qkv)
-//     or the o tile (proj, its epilogue the gated residual on x)
+// (1), (3) and (4): out = epilogue(A @ w + T(bias)), A the normalised x tile
+//     (qkv: mod rows 0 and 1, the rounded sum out; fc1: y1's tile, mod rows
+//     3 and 4, the GELU of the rounded sum out) or the o tile (proj, its
+//     epilogue the gated residual on x)
 
-template <int D, bool PROJ>
+template <int D, int MODE>
 __global__ void __launch_bounds__(RW_NT, 1)
     split_rows_tc_kernel(const SplitArgs g,
                          const __grid_constant__ CUtensorMap m_a,
                          const __grid_constant__ CUtensorMap m_w,
                          const __grid_constant__ CUtensorMap m_r,
                          const __grid_constant__ CUtensorMap m_o) {
-  constexpr int NK = D / 64, NCS = (PROJ ? D : 3 * D) / 128;
-  constexpr int ITEMS = NCS * NK;  // weight items a block iteration
+  constexpr bool PROJ = MODE == SP_PROJ;
+  constexpr int NK = D / 64, ISH = MODE == SP_FC1 ? 3 : 0;
+  // column steps of 128 (fc1's from its hidden width) and weight items a
+  // block iteration
+  const int ncs = MODE == SP_QKV ? 3 * D / 128
+                  : PROJ         ? D / 128
+                                 : g.cols / 128;
+  const int items = ncs * NK;
   constexpr int S = sp_slots(sp_rows_fixed(D)), TILE = 128 * D;
   extern __shared__ unsigned char sp_raw[];
   __shared__ uint64_t full[S], empty[S];
@@ -225,7 +240,7 @@ __global__ void __launch_bounds__(RW_NT, 1)
       const CUtensorMap* mw = &m_w;
       uint32_t gi = 0;
       for (int j = 0; j < iters; ++j)
-        for (int k = 0; k < ITEMS; ++k)
+        for (int k = 0; k < items; ++k)
           sp_put<S>(full, empty, ring, gi, SP_SLOT,
                     [&](unsigned char* dst, uint64_t* bar) {
                       const int cs = k / NK, kc = k % NK;
@@ -249,8 +264,8 @@ __global__ void __launch_bounds__(RW_NT, 1)
           tma_load_l2(A + kc * 8192, &m_a, 64 * kc, 64 * t, &afull[w],
                       l2_evict_first());
         if constexpr (PROJ) {
-          for (int cs = 0; cs < NCS; ++cs) {
-            const int u = j * NCS + cs;
+          for (int cs = 0; cs < ncs; ++cs) {
+            const int u = j * ncs + cs;
             if (u > 0) sp_wait(&cempty[w], (u - 1) & 1);
             mbar_expect(&cfull[w], SP_CT);
 #pragma unroll
@@ -280,15 +295,15 @@ __global__ void __launch_bounds__(RW_NT, 1)
     for (int j = 0; j < iters; ++j) {
       const int t = (j * (int)gridDim.x + (int)blockIdx.x) * 2 + w;
       const int r0 = 64 * t;
-      const uint32_t gt = (uint32_t)j * ITEMS;
+      const uint32_t gt = (uint32_t)j * items;
       sp_wait(&afull[w], j & 1);
       if constexpr (!PROJ) {
-        wg_modln_rows<64, 128>(A, A, g.rows - r0, D, g.eps, 0, 1, wt,
+        wg_modln_rows<64, 128>(A, A, g.rows - r0, D, g.eps, ISH, ISH + 1, wt,
                                [&](int i) { return modrow(r0 + i); });
         fence_async_shared();  // the LayerNorm's stores, to wgmma
         bar_sync(1 + w, 128);
       }
-      for (int cs = 0; cs < NCS; ++cs) {
+      for (int cs = 0; cs < ncs; ++cs) {
         for (int kc = 0; kc < NK; ++kc) {
           const uint32_t gi = gt + cs * NK + kc;
           ring_c.wait(gi);
@@ -308,13 +323,13 @@ __global__ void __launch_bounds__(RW_NT, 1)
         ring_c.release(pend);
         pend = ~0u;
         // the last step's products were the A tile's last readers
-        if (cs == NCS - 1) {
+        if (cs == ncs - 1) {
           __syncwarp();
           if (lane == 0) mbar_arrive(&aempty[w]);
         }
         // Epilogue into the C tile (out_at: two 64-column slabs), then out
         if constexpr (PROJ) {
-          sp_wait(&cfull[w], (j * NCS + cs) & 1);  // the residual is in
+          sp_wait(&cfull[w], (j * ncs + cs) & 1);  // the residual is in
         } else {
           if (wt == 0) bulk_wait<0, true>();  // the last step's store read C
           bar_sync(1 + w, 128);
@@ -332,6 +347,8 @@ __global__ void __launch_bounds__(RW_NT, 1)
             if constexpr (PROJ)
               *o = resid2(bias_pair<WG_EPI_RESID>(acc[nt], h, bp), *o,
                           gate_pair(gate + 8 * nt));
+            else if constexpr (MODE == SP_FC1)
+              *o = bias_pair<WG_EPI_GELU>(acc[nt], h, bp);
             else
               *o = bias_pair<WG_EPI_BIAS>(acc[nt], h, bp);
           }
@@ -362,13 +379,15 @@ inline int sp_grid(int units) {
   return sms <= 0 ? 0 : units < sms ? units : sms;
 }
 
-// (1) or (3) on `rows` rows: a (rows, D) x or o, w (D, cols), bias (cols),
-// res (rows, D) for proj, out (rows, cols)
-template <int D, bool PROJ>
+// (1), (3) or (4) on `rows` rows: a (rows, D) x, o or y1, w (D, cols),
+// bias (cols), res (rows, D) for proj, out (rows, cols); cols 3D for qkv,
+// D for proj, a multiple of 128 for fc1
+template <int D, int MODE>
 cudaError_t launch_sp_rows(const bf16* a, const float* mod, const bf16* w,
                            const bf16* bias, const bf16* res, bf16* out,
-                           int rows, int N, float eps, cudaStream_t st) {
-  const int cols = PROJ ? D : 3 * D;
+                           int rows, int N, int cols, float eps,
+                           cudaStream_t st) {
+  constexpr bool PROJ = MODE == SP_PROJ;
   const int grid = sp_grid(((rows + 63) / 64 + 1) / 2);
   CUtensorMap ma, mw, mr, mo;
   if (grid <= 0 || !make_tmap(&ma, a, rows, D, 64) ||
@@ -376,27 +395,32 @@ cudaError_t launch_sp_rows(const bf16* a, const float* mod, const bf16* w,
       (PROJ && !make_tmap(&mr, res, rows, D, 64)) ||
       !make_tmap(&mo, out, rows, cols, 64))
     return cudaErrorInvalidValue;
-  const void* k = (const void*)split_rows_tc_kernel<D, PROJ>;
+  const void* k = (const void*)split_rows_tc_kernel<D, MODE>;
   const cudaError_t e = set_smem(k, smem_sp_rows(D));
   if (e != cudaSuccess) return e;
-  const SplitArgs g{mod, bias, rows, N, eps};
-  split_rows_tc_kernel<D, PROJ><<<grid, RW_NT, smem_sp_rows(D), st>>>(
+  const SplitArgs g{mod, bias, rows, N, cols, eps};
+  split_rows_tc_kernel<D, MODE><<<grid, RW_NT, smem_sp_rows(D), st>>>(
       g, ma, mw, PROJ ? mr : ma, mo);
   return cudaGetLastError();
 }
 
-// stage 0 qkv, 1 proj at width D on the kernel above (the caller has
-// checked sp_width(D) and the shapes)
+// stage SP_QKV, SP_PROJ or SP_FC1 at width D on the kernel above (the
+// caller has checked sp_width(D) and the shapes)
 inline cudaError_t launch_sp(int stage, int D, const bf16* a,
                              const float* mod, const bf16* w,
                              const bf16* bias, const bf16* res, bf16* out,
-                             int rows, int N, float eps, cudaStream_t st) {
+                             int rows, int N, int cols, float eps,
+                             cudaStream_t st) {
 #define T2MS_SP_CASE(DD)                                                     \
   case DD:                                                                   \
-    return stage == 0 ? launch_sp_rows<DD, false>(a, mod, w, bias, nullptr,  \
-                                                  out, rows, N, eps, st)     \
-                      : launch_sp_rows<DD, true>(a, mod, w, bias, res, out,  \
-                                                 rows, N, eps, st);
+    return stage == SP_QKV ? launch_sp_rows<DD, SP_QKV>(                     \
+                                 a, mod, w, bias, nullptr, out, rows, N,     \
+                                 cols, eps, st)                              \
+           : stage == SP_PROJ                                                \
+               ? launch_sp_rows<DD, SP_PROJ>(a, mod, w, bias, res, out,      \
+                                             rows, N, cols, eps, st)         \
+               : launch_sp_rows<DD, SP_FC1>(a, mod, w, bias, nullptr, out,   \
+                                            rows, N, cols, eps, st);
   switch (D) {
     T2MS_SP_CASE(128)
     T2MS_SP_CASE(256)

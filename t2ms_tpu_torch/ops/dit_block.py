@@ -408,8 +408,8 @@ _SPLIT_ROUTES = ("none", "narrow", "wide", "persistent")
 
 def split_gemm_route(D: int, rows: int) -> str:
     """Which wgmma route a bf16 split-block call of ``rows`` rows takes at
-    width D on the current device (``dit_split_route``): "persistent" (qkv
-    and proj on csrc/split_tc.cuh's persistent kernel, fc1 and fc2 on
+    width D on the current device (``dit_split_route``): "persistent" (qkv,
+    proj and fc1 on csrc/split_tc.cuh's persistent kernel, fc2 on
     wg_gemm.cuh's 128-row blocks: D 128, 256 and 512 at more rows than one
     128-row tile a SM, 16,896 on a 132-SM H100), else its LayerNorm GEMMs'
     route on wg_gemm.cuh for all four: "wide" (128-row blocks, 128-column

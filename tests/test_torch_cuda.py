@@ -743,8 +743,8 @@ def test_split_gemm_stage_matches_twin_on_card(cuda, stage, D, hidden):
 
 @pytest.mark.cuda
 def test_split_gemm_routes_by_width(cuda):
-    """D 128, 256 and 512 take the persistent kernel for qkv and proj
-    (split_tc.cuh; fc1 and fc2 on the 128-row blocks) on a call of more
+    """D 128, 256 and 512 take the persistent kernel for qkv, proj and fc1
+    (split_tc.cuh; fc2 on the 128-row blocks) on a call of more
     rows than one 128-row tile a SM (the scaled CFG call's 32,768), and the
     128-row blocks for all four on fewer (one server request's 2048);
     elsewhere the LayerNorm GEMMs stage a 128 x D tile (128-row blocks)
@@ -797,8 +797,8 @@ _PAST_THRESHOLD = (17, 1025)
                                             (128, 256, 4)])
 def test_bf16_split_kernel_persistent_route_matches_twin_on_card(
         cuda, D, hidden, heads):
-    """The block with qkv and proj on split_rows_tc_kernel (a call past its
-    row threshold, ragged last tile), held as
+    """The block with qkv, proj and fc1 on split_rows_tc_kernel (a call
+    past its row threshold, ragged last tile), held as
     test_split_kernel_matches_twin_on_card holds the others."""
     B, N = _PAST_THRESHOLD
     args = _split_args(cuda, torch.bfloat16, B=B, N=N, D=D, hidden=hidden)
@@ -812,7 +812,7 @@ def test_bf16_split_kernel_persistent_route_matches_twin_on_card(
     assert (got - truth).abs().mean() <= 1.5 * (want - truth).abs().mean()
 
 
-# (D, B, N) of qkv and proj alone, on either side of the persistent
+# (D, B, N) of qkv, proj and fc1 alone, on either side of the persistent
 # kernel's row threshold: the scaled CFG call (2B=32 x 1024 tokens) and a
 # ragged call past the threshold at each D (the persistent kernel), one
 # server request's 2048 rows and a ragged B=3 x N=17 (wg_gemm.cuh's
@@ -824,13 +824,14 @@ _SPLIT_TC_CALLS = [(512, 32, 1024), (512, *_PAST_THRESHOLD),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stage", ["qkv", "proj"])
+@pytest.mark.parametrize("stage", ["qkv", "proj", "fc1"])
 @pytest.mark.parametrize("D,B,N", _SPLIT_TC_CALLS)
 def test_split_rows_kernel_matches_twin_on_card(cuda, stage, D, B, N):
-    """qkv and proj at the persistent route's widths, on split_rows_tc_kernel
-    past its row threshold and on wg_gemm.cuh's 128-row kernel below it,
-    against their twin, as test_split_gemm_stage_matches_twin_on_card holds
-    them at B=3, N=130; repeated bit for bit."""
+    """qkv, proj and fc1 (hidden 4D) at the persistent route's widths, on
+    split_rows_tc_kernel past its row threshold and on wg_gemm.cuh's
+    128-row kernels below it, against their twin, as
+    test_split_gemm_stage_matches_twin_on_card holds them at B=3, N=130;
+    repeated bit for bit."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert tblock.split_gemm_route(D, B * N) == (
         "persistent" if B * N > 128 * sms else "wide")
@@ -861,22 +862,21 @@ def test_bf16_split_kernel_repeats_bit_for_bit(cuda, B, N):
                                             (2, 130, False)])
 def test_bf16_split_kernel_runs_the_wgmma_gemms(cuda, B, N, persistent):
     """One bf16 split block's profile at D 512: the attention on
-    heads_fwd_kernel, fc1 and fc2 on wg_gemm_kernel's 128-row route; qkv
-    and proj on the persistent split_rows_tc_kernel at the scaled CFG call
-    (past its row threshold) and on wg_gemm_kernel's 128-row route at a
-    small call, never both; never the first version's WMMA gemm_kernel."""
+    heads_fwd_kernel, fc2 on wg_gemm_kernel's 128-row route; qkv, proj and
+    fc1 on the persistent split_rows_tc_kernel at the scaled CFG call (past
+    its row threshold) and on wg_gemm_kernel's 128-row route at a small
+    call, never both; never the first version's WMMA gemm_kernel."""
     args = _split_args(cuda, torch.bfloat16, B=B, N=N)
     with torch.no_grad():
         names, named = _profile_names(
             lambda: tblock.fused_dit_block_split(*args, num_heads=8))
-    tc = ("split_rows_tc_kernel<512, false>",
-          "split_rows_tc_kernel<512, true>")
-    wg_qkv = "wg_gemm_kernel<0, 0, 2, 128>"
-    for n in ("heads_fwd_kernel", "wg_gemm_kernel<0, 1, 2, 128>",
-              "wg_gemm_kernel<1, 2, 2, 128>",
-              *(tc if persistent else (wg_qkv,))):
+    tc = ("split_rows_tc_kernel<512, 0>", "split_rows_tc_kernel<512, 1>",
+          "split_rows_tc_kernel<512, 2>")
+    wg = ("wg_gemm_kernel<0, 0, 2, 128>", "wg_gemm_kernel<0, 1, 2, 128>")
+    for n in ("heads_fwd_kernel", "wg_gemm_kernel<1, 2, 2, 128>",
+              *(tc if persistent else wg)):
         assert named(n), (n, sorted(names))
-    for n in ((wg_qkv,) if persistent else tc):
+    for n in (wg if persistent else tc):
         assert not named(n), (n, sorted(names))
     assert not named("gemm_kernel"), sorted(names)
 
