@@ -28,9 +28,10 @@ failing with a non-zero exit on any error:
    (csrc/split_tc.cuh: ``split_rows_tc_kernel<D, MODE>`` at D 128, 256
    and 512; csrc/wg_gemm.cuh:
    ``wg_gemm_kernel`` on each route), checked to spill nothing and to draw
-   no ptxas C7512 ("wgmma serialized"), and of the bf16 #8 kernel on
-   16-byte chunks
-   (csrc/mod_ln.cu: ``res_mod_ln_bwd_vec_kernel`` at each lane split);
+   no ptxas C7512 ("wgmma serialized"), and of the bf16 LayerNorm
+   kernels on 16-byte chunks (csrc/mod_ln.cu: #8's
+   ``res_mod_ln_bwd_vec_kernel``, #7's ``res_mod_ln_fwd_vec_kernel`` and
+   #6's ``mod_ln_bwd_vec_kernel`` at each lane split);
    every ``heads_fwd_kernel`` instance of fused_heads.cu, dit_stack.cu,
    dit_split.cu and dit_block_bwd.cu checked the same way, with its SASS
    instructions by pipe (``cuobjdump -sass``); then the attention
@@ -63,7 +64,16 @@ failing with a non-zero exit on any error:
    against their twins, each stage's device time by kernel, operations,
    bytes, share of its bound and cuBLAS over its products, and the whole
    block's device time by kernel (``--split_gemms [--root DIR]`` runs this
-   section only);
+   section only); the LayerNorm kernels #5-#8 alone at the scaled and the
+   long-series train steps' calls (``MOD_LN_SHAPES``, bf16, the
+   modulation as the flax path's views of one (B, 6, D) tensor, the long
+   call's operands rotated past the L2), their outputs against the twins,
+   each one's device time by kernel (its own, ``dmod_reduce_kernel``, the
+   wrapper's casts), CUDA-event ms of one synchronised call and a launch
+   in a run of 50, host us to enqueue a call, bytes, bound, share and
+   PyTorch elementwise passes moving as many tensors (``--mod_ln [--root
+   DIR]`` runs this section only, after the chunk kernels' ptxas
+   lines);
 3. kernel phase: ``fused_dit_stack`` on the card against its plain PyTorch
    twin on the same inputs (random adaLN vectors), at the main path's full
    width in bf16 and again in f32 at a smaller batch, with errors, stated
@@ -124,9 +134,12 @@ failing with a non-zero exit on any error:
    alone against the same seed inside a full batch;
 11. mod_ln phase: the LayerNorm + modulate kernels ``_mod_ln_call`` and
    ``_mod_ln_diff_bwd`` at the scaled train step's call (B=64, N=1024,
-   d_model 512, bf16, random shift/scale) against the twin and autograd
-   over it, again in f32 at a small batch; CUDA-event times, the twin's
-   times and the bounds, and in bf16 each one's device time by kernel;
+   d_model 512) and the long-series call (B=8, N=4096, d 128) in bf16,
+   mod2 the flax path's view of a random (B, 6, D) modulation, against the
+   twin and autograd over it, again in f32 at a small batch; CUDA-event
+   times, the twin's times and the bounds, and in bf16 each one's device
+   time by kernel, the backward checked to run on the 16-byte-chunk
+   kernel;
 12. fused-heads phase: ``fused_heads_attention`` and
    ``fused_heads_attention_bwd`` at the same call (8 heads of 64, q/k/v
    the column slices of one qkv tensor) against their twins, with the mean
@@ -150,11 +163,11 @@ failing with a non-zero exit on any error:
 14. res_mod_ln phase: the gated residual + LayerNorm + modulate kernels
    ``_res_mod_ln_call`` and ``_res_mod_ln_diff_bwd`` at the scaled call
    (B=64, N=1024, d 512) and the long-series call (B=8, N=4096, d 128) in
-   bf16, random x, h and gm3, against the twin and autograd over it, again
-   in f32 at a small batch; CUDA-event times, the twin's times and the
-   bounds; in bf16 each one's device time by kernel (its own, the ordered
-   dmod sum, the wrapper's casts), the backward checked to run on the
-   16-byte-chunk kernel;
+   bf16, random x and h, gm3 the flax path's view of a random (B, 6, D)
+   modulation, against the twin and autograd over it, again in f32 at a
+   small batch; CUDA-event times, the twin's times and the bounds; in bf16
+   each one's device time by kernel (its own, the ordered dmod sum, the
+   wrapper's casts), both checked to run on the 16-byte-chunk kernels;
 15. two-pass phase: ``fused_heads_attention_bwd_two_pass`` at the
    long-series train step's call (B=8, N=4096, 4 heads of 32, q/k/v the
    column slices of one qkv tensor) against its twin, with the mean error
@@ -1476,9 +1489,12 @@ def scaled_server_phase(dit, vae, seed):
 # ---------------------------- the scaled train step's flax-path kernels
 
 # the CUDA kernels of the flax path, by their names in the profile
-MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
+MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_vec_kernel",
+                "mod_ln_bwd_kernel", "res_mod_ln_fwd_vec_kernel",
                 "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_vec_kernel",
                 "res_mod_ln_bwd_kernel", "dmod_reduce_kernel")
+# the lane-strided #6 and #7, which a bf16 step at D % 8 == 0 must not run
+OLD_LN_KERNELS = ("mod_ln_bwd_kernel", "res_mod_ln_fwd_kernel")
 HEADS_PARTS = ("heads_fwd_kernel", "heads_bwd_q_kernel",
                "heads_bwd_kv_kernel")
 # the library kernels around them, by name fragments: the dense products
@@ -1658,23 +1674,29 @@ def log_split_resources():
 
 def log_mod_ln_resources():
     """ptxas's registers, stack, spills and static shared memory of the
-    bf16 #8 kernel on 16-byte chunks (csrc/mod_ln.cu's
-    ``res_mod_ln_bwd_vec_kernel<CPL, G>``, CPL chunks a lane in groups of
-    G lanes: D 128 takes <1, 16>, D 512 <2, 32>), with its dynamic shared
-    memory at the widest D it serves, 8 CPL G (a 4 x 3 x D f32 buffer)."""
+    bf16 kernels on 16-byte chunks (csrc/mod_ln.cu's
+    ``res_mod_ln_bwd_vec_kernel<CPL, G>`` (#8), ``res_mod_ln_fwd_vec_kernel
+    <CPL, G, M>`` (#7) and ``mod_ln_bwd_vec_kernel<CPL, G, M>`` (#6), CPL
+    chunks a lane in groups of G lanes: D 128 takes <1, 16>, D 512 <2, 32>;
+    M the modulation's type), with their dynamic shared memory at the
+    widest D each serves, 8 CPL G (the backwards' 4 x W x D f32 buffer)."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("mod_ln")
     if not text:
         log("mod_ln kernel resources: not measured (mod_ln.cu was not "
             "built in this process)")
         return
+    sums = {"res_mod_ln_bwd_vec_kernel": 3, "res_mod_ln_fwd_vec_kernel": 0,
+            "mod_ln_bwd_vec_kernel": 2}
     for chunk in text.split("Compiling entry function")[1:]:
-        m = re.search(r"res_mod_ln_bwd_vec_kernelILi(\d+)ELi(\d+)E", chunk)
+        m = re.search(r"\d((?:res_)?mod_ln_(?:fwd|bwd)_vec_kernel)ILi(\d+)ELi"
+                      r"(\d+)E(f|13__nv_bfloat16)?E", chunk)
         if m:
-            cpl, g = int(m[1]), int(m[2])
-            _log_resources(f"mod_ln kernel resources res_mod_ln_bwd_vec_"
-                           f"kernel<{cpl}, {g}> (D={8 * cpl * g})", chunk,
-                           4 * 3 * 4 * 8 * cpl * g)
+            kern, cpl, g = m[1], int(m[2]), int(m[3])
+            mt = {"f": ", f32", None: ""}.get(m[4], ", bf16")
+            _log_resources(f"mod_ln kernel resources {kern}<{cpl}, {g}{mt}> "
+                           f"(D={8 * cpl * g})", chunk,
+                           4 * sums[kern] * 4 * 8 * cpl * g)
 
 
 def log_attention_resources():
@@ -1730,18 +1752,22 @@ def _check_err(what, g, w, tol, truth=None, truth_twin=None):
 
 
 def mod_ln_phase(gen):
-    """Kernels #5 and #6 at the scaled train step's call against the twin
-    and autograd over it. Tolerances: bf16 1e-2 * max|ref| (one rounding
-    flip after f32 sums in another order), f32 1e-4 (summation order)."""
+    """Kernels #5 and #6 at the scaled and the long-series train steps'
+    calls in bf16, mod2 the flax path's view of a (B, 6, D) modulation,
+    against the twin and autograd over it; again in f32 at a small batch.
+    Tolerances: bf16 1e-2 * max|ref| (one rounding flip after f32 sums in
+    another order), f32 1e-4 (summation order)."""
     from t2ms_tpu_torch.ops.dit_block import (_launch_mod_ln,
                                               _launch_mod_ln_bwd,
                                               mod_ln_reference)
     f = lambda *s_: torch.randn(*s_, generator=gen, device="cuda")
     out = {}
-    for dt, B, tol in ((torch.bfloat16, SC_TRAIN_B, 1e-2),
-                       (torch.float32, 4, 1e-4)):
-        x, mod2 = f(B, SC_N, SC_D).to(dt), (0.3 * f(B, 2, SC_D)).to(dt)
-        dy = f(B, SC_N, SC_D).to(dt)
+    for call, dt, B, N, D, tol in (
+            ("scaled", torch.bfloat16, SC_TRAIN_B, SC_N, SC_D, 1e-2),
+            ("long", torch.bfloat16, LS_TRAIN_B, LS_N, D_MODEL, 1e-2),
+            ("f32", torch.float32, 4, SC_N, SC_D, 1e-4)):
+        x, dy = f(B, N, D).to(dt), f(B, N, D).to(dt)
+        mod2 = (0.3 * f(B, 6, D)).to(dt)[:, 0:2]
         fwd = lambda: _launch_mod_ln(x, mod2, 1e-6)
         bwd = lambda: _launch_mod_ln_bwd(x, mod2, dy, 1e-6)
         got_y, (got_dx, got_dm) = fwd(), bwd()
@@ -1750,7 +1776,7 @@ def mod_ln_phase(gen):
         want_dx, want_dm = torch.autograd.grad(graph, ts, dy,
                                                retain_graph=True)
         torch.cuda.synchronize()
-        what = f"mod_ln {dt} B={B} N={SC_N} D={SC_D}"
+        what = f"mod_ln {dt} B={B} N={N} D={D}"
         e_f = _check_err(f"{what} out", got_y, graph.detach(), tol)
         e_b = max(_check_err(f"{what} dx", got_dx, want_dx, tol),
                   _check_err(f"{what} dmod2", got_dm, want_dm, tol))
@@ -1765,22 +1791,198 @@ def mod_ln_phase(gen):
         # f32 operations per element: LN statistics and normalisation
         # about 6, the modulate 3; the backward about twice that
         n = x.numel()
-        out[dt] = {
+        out[call] = {
             "fwd": _row(e_f, ms_f, plain_f, 9 * n, _nbytes(x, mod2, got_y),
                         H100_F32_FLOPS),
             "bwd": _row(e_b, ms_b, plain_b, 18 * n,
                         _nbytes(x, mod2, dy, got_dx, got_dm),
                         H100_F32_FLOPS)}
         for k in ("fwd", "bwd"):
-            r = out[dt][k]
-            log(f"mod_ln {dt} B={B} {k}: {r['ms']:.4f} ms, twin "
+            r = out[call][k]
+            log(f"mod_ln {dt} B={B} N={N} D={D} {k}: {r['ms']:.4f} ms, twin "
                 f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
                 f"({r['by']})")
-        if dt == torch.bfloat16:
-            ln_device_time(f"mod_ln {dt} B={B}", (
+        if dt == torch.bfloat16:   # #6 on 16-byte chunks (D % 8 == 0)
+            ln_device_time(f"mod_ln {call} B={B} N={N} D={D}", (
                 ("fwd", fwd, "mod_ln_fwd_kernel", ()),
-                ("bwd", bwd, "mod_ln_bwd_kernel", ())), out[dt])
+                ("bwd", bwd, "mod_ln_bwd_vec_kernel",
+                 ("mod_ln_bwd_kernel",))), out[call])
         del x, mod2, dy, got_y, got_dx, got_dm, want_dx, want_dm
+        torch.cuda.empty_cache()
+    return out
+
+
+# #5-#8 alone at the flax path's calls, for --mod_ln: (what, B, N, D, sets
+# of operands a launch rotates through). The long call's tensors are 8.4
+# MB and #7 moves four of them: six sets put 168 MB or more between two
+# uses of one, past the 50 MB L2.
+MOD_LN_SHAPES = (("scaled", SC_TRAIN_B, SC_N, SC_D, 1),
+                 ("long", LS_TRAIN_B, LS_N, D_MODEL, 6))
+# kernel -> (this tree's kernel, the lane-strided one it replaced)
+MOD_LN_OWN = {"#5": ("mod_ln_fwd_kernel",),
+              "#6": ("mod_ln_bwd_vec_kernel", "mod_ln_bwd_kernel"),
+              "#7": ("res_mod_ln_fwd_vec_kernel", "res_mod_ln_fwd_kernel"),
+              "#8": ("res_mod_ln_bwd_vec_kernel", "res_mod_ln_bwd_kernel")}
+MOD_LN_RUN = 50   # back-to-back launches a run of the events' second time
+
+
+def mod_ln_calls(db, sets):
+    """#5-#8 through their wrappers, each call on the next set of operands
+    (x, h, do, dy, the (B, 6, D) modulation m; mod2 = m[:, 0:2] and gm3 =
+    m[:, 2:5], the flax path's views): kernel -> (call, outputs' bytes)."""
+    turn = [0]
+
+    def rot(fn):
+        def call():
+            x, h, do, dy, m = sets[turn[0] % len(sets)]
+            turn[0] += 1
+            return fn(x, h, do, dy, m)
+        return call
+    return {
+        "#5": rot(lambda x, h, do, dy, m: db._launch_mod_ln(
+            x, m[:, 0:2], 1e-6)),
+        "#6": rot(lambda x, h, do, dy, m: db._launch_mod_ln_bwd(
+            x, m[:, 0:2], dy, 1e-6)),
+        "#7": rot(lambda x, h, do, dy, m: db._launch_res_mod_ln(
+            x, h, m[:, 2:5], 1e-6)),
+        "#8": rot(lambda x, h, do, dy, m: db._launch_res_mod_ln_bwd(
+            x, h, m[:, 2:5], do, dy, 1e-6))}
+
+
+def mod_ln_twin_check(db, what, x, h, do, dy, m):
+    """Each of #5-#8's outputs against the twin and autograd over it
+    within 1e-2 * max|twin| (one rounding flip after f32 sums in another
+    order)."""
+    mod2, gm3 = m[:, 0:2], m[:, 2:5]
+    ts = [t.detach().requires_grad_() for t in (x, mod2)]
+    ref = db.mod_ln_reference(*ts)
+    want = [ref.detach(), *torch.autograd.grad(ref, ts, dy)]
+    got = [db._launch_mod_ln(x, mod2, 1e-6),
+           *db._launch_mod_ln_bwd(x, mod2, dy, 1e-6)]
+    ts = [t.detach().requires_grad_() for t in (x, h, gm3)]
+    ref = db.res_mod_ln_reference(*ts)
+    want += [r.detach() for r in ref] + list(torch.autograd.grad(
+        ref, ts, (do, dy)))
+    got += [*db._launch_res_mod_ln(x, h, gm3, 1e-6),
+            *db._launch_res_mod_ln_bwd(x, h, gm3, do, dy, 1e-6)]
+    names = ("#5 out", "#6 dx", "#6 dmod2", "#7 out", "#7 y", "#8 dx",
+             "#8 dh", "#8 dgm3")
+    for n, g, w in zip(names, got, want):
+        _check_err(f"mod_ln section {what} {n}", g, w, 1e-2)
+
+
+def mod_ln_streams(sets):
+    """A yardstick of each of #5-#8 (the port never calls it): elementwise
+    PyTorch passes that read and write as many (B, N, D) tensors as the
+    kernel (#5 one copy, #6 one add, #7 two copies, #8 two adds), each call
+    on the next set of operands."""
+    x0 = sets[0][0]
+    o1, o2 = torch.empty_like(x0), torch.empty_like(x0)
+    turn = [0]
+
+    def rot(fn):
+        def call():
+            s_ = sets[turn[0] % len(sets)]
+            turn[0] += 1
+            fn(*s_[:4])
+        return call
+    return {"#5": rot(lambda x, h, do, dy: o1.copy_(x)),
+            "#6": rot(lambda x, h, do, dy: torch.add(x, dy, out=o1)),
+            "#7": rot(lambda x, h, do, dy: (o1.copy_(x), o2.copy_(h))),
+            "#8": rot(lambda x, h, do, dy: (torch.add(x, h, out=o1),
+                                            torch.add(do, dy, out=o2)))}
+
+
+def enqueue_us(fn, n=20, reps=21):
+    """Host time (us) to enqueue one call of ``fn`` in a run of ``n``
+    back-to-back calls (the host clock stops before the synchronise), the
+    least and the median of ``reps`` runs. The host's path of a call is
+    the least: the machine's other work only adds to a run."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return min(times), statistics.median(times)
+
+
+def mod_ln_section(gen, check_twin=True):
+    """#5-#8 at every call of MOD_LN_SHAPES in bf16 through their
+    wrappers, the modulation as the flax path's views: the outputs against
+    the twins on this tree; for each kernel its device time by
+    torch.profiler (its own kernel, dmod_reduce_kernel, the rest: the
+    wrapper's casts), CUDA-event ms of one synchronised call (median of 7)
+    and per launch over runs of MOD_LN_RUN back to back (median of 3), the
+    host time to enqueue a call (``enqueue_us``: the least and the median
+    of 21 runs of 20 calls), the bytes it must move
+    (inputs once, outputs once), its bound at 3.35 TB/s and the share of
+    it, and the device time of PyTorch passes moving as many tensors
+    (``mod_ln_streams``). Returns {what: {kernel: row}}."""
+    from t2ms_tpu_torch.ops import dit_block as db
+    out = {}
+    for what, B, N, D, nsets in MOD_LN_SHAPES:
+        f = lambda *s_: torch.randn(*s_, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+        sets = [(f(B, N, D), f(B, N, D), f(B, N, D), f(B, N, D),
+                 0.3 * f(B, 6, D)) for _ in range(nsets)]
+        if check_twin:
+            mod_ln_twin_check(db, what, *sets[0])
+            torch.cuda.synchronize()
+        rows = {}
+        streams = mod_ln_streams(sets)
+        with torch.no_grad():
+            for k, call in mod_ln_calls(db, sets).items():
+                res = call()
+                res = res if isinstance(res, tuple) else (res,)
+                x, h, do, dy, m = sets[0]
+                ins = {"#5": (x, m[:, 0:2]), "#6": (x, m[:, 0:2], dy),
+                       "#7": (x, h, m[:, 2:5]),
+                       "#8": (x, h, m[:, 2:5], do, dy)}[k]
+                nb = _nbytes(*ins, *res)
+                bound = nb / H100_BYTES * 1e3
+                times = device_ms_all(call)
+                ran = sorted(n for n in MOD_LN_OWN[k]
+                             if any(_named(t, n) for t in times))
+                own = sum(v for t, v in times.items()
+                          if any(_named(t, n) for n in MOD_LN_OWN[k]))
+                red = sum(v for t, v in times.items()
+                          if _named(t, "dmod_reduce_kernel"))
+                rest = sum(times.values()) - own - red
+                ev = cuda_ms(call)
+                runs = []
+                for _ in range(3):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    for _ in range(MOD_LN_RUN):
+                        call()
+                    e1.record()
+                    e1.synchronize()
+                    runs.append(e0.elapsed_time(e1) / MOD_LN_RUN)
+                run = statistics.median(runs)
+                host_us, host_med = enqueue_us(call)
+                stream = sum(device_ms_all(streams[k]).values())
+                rows[k] = dict(kernel=ran, device_ms=own, reduce_ms=red,
+                               rest_ms=rest, event_ms=ev, run_ms=run,
+                               host_us=host_us, host_median_us=host_med,
+                               mb=nb / 1e6, bound_ms=bound,
+                               share=bound / own if own else None,
+                               stream_ms=stream)
+                log(f"mod_ln section {what} B={B} N={N} D={D} {k} ({ran}): "
+                    f"device {own:.4f} ms ({bound / own:.2%} of its bound "
+                    f"{bound:.4f} ms, {nb / 1e6:.2f} MB), dmod_reduce_kernel "
+                    f"{red:.4f}, the rest (the wrapper's casts) {rest:.4f}; "
+                    f"events {ev:.4f} ms one synchronised call, {run:.4f} "
+                    f"ms a launch over {MOD_LN_RUN} back to back; host "
+                    f"{host_us:.1f} us to enqueue a call (median "
+                    f"{host_med:.1f}); PyTorch passes "
+                    f"moving as many tensors {stream:.4f} ms "
+                    f"({bound / stream:.2%} of the bound)")
+        out[what] = rows
+        del sets
         torch.cuda.empty_cache()
     return out
 
@@ -2610,7 +2812,8 @@ def scaled_train_phase(sc_dit, sc_vae, gen):
         f"{peak_gb:.3f} GB, "
         f"launches {launches} ({want} per step), losses "
         f"{[round(v, 5) for v in lv]}")
-    log_device_time("scaled train step", lambda: step(z, emb, generator=g))
+    log_device_time("scaled train step", lambda: step(z, emb, generator=g),
+                    absent=OLD_LN_KERNELS)
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -2659,14 +2862,17 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def log_device_time(what, fn, parts=MOD_LN_PARTS + HEADS_PARTS):
+def log_device_time(what, fn, parts=MOD_LN_PARTS + HEADS_PARTS, absent=()):
     """One call of ``fn`` under torch.profiler: the total device time, the
-    port's kernels named in ``parts``, and the rest by kind; then the host
-    time to enqueue one call (``host_ms``) against that device time."""
+    port's kernels named in ``parts``, and the rest by kind, checked to run
+    none of ``absent``; then the host time to enqueue one call
+    (``host_ms``) against that device time."""
     times = device_ms_all(fn)
     if not times:
         log(f"{what} device time: not measured (no device time recorded)")
         return
+    off = sorted(k for k in times for a in absent if _named(k, a))
+    check(not off, f"{what} ran {off}, none of {absent} expected")
     total = sum(times.values())
     ours = {n: sum(ms for key, ms in times.items() if _named(key, n))
             for n in parts}
@@ -2795,8 +3001,9 @@ def sampler_vs_eager(what, dit, make_dit, vae, x1, emb, x_t0, out_len,
 
 def res_mod_ln_phase(gen):
     """Kernels #7 and #8 at the scaled train step's call and at the
-    long-series call in bf16, against the twin and autograd over it; again
-    in f32 at a small batch. Tolerances: bf16 1e-2 * max|ref| (one rounding
+    long-series call in bf16, gm3 the flax path's view of a (B, 6, D)
+    modulation, against the twin and autograd over it; again in f32 at a
+    small batch. Tolerances: bf16 1e-2 * max|ref| (one rounding
     flip after f32 sums in another order), f32 1e-4 (summation order)."""
     from t2ms_tpu_torch.ops.dit_block import (_launch_res_mod_ln,
                                               _launch_res_mod_ln_bwd,
@@ -2808,7 +3015,7 @@ def res_mod_ln_phase(gen):
             ("long", torch.bfloat16, LS_TRAIN_B, LS_N, D_MODEL, 1e-2),
             ("f32", torch.float32, 4, SC_N, SC_D, 1e-4)):
         x, h, do, dy = (f(B, N, D).to(dt) for _ in range(4))
-        gm3 = (0.3 * f(B, 3, D)).to(dt)
+        gm3 = (0.3 * f(B, 6, D)).to(dt)[:, 2:5]    # the flax path's view
         fwd = lambda: _launch_res_mod_ln(x, h, gm3, 1e-6)
         bwd = lambda: _launch_res_mod_ln_bwd(x, h, gm3, do, dy, 1e-6)
         got_f, got_b = fwd(), bwd()
@@ -2845,9 +3052,10 @@ def res_mod_ln_phase(gen):
             log(f"res_mod_ln {dt} B={B} N={N} D={D} {k}: {r['ms']:.4f} ms, "
                 f"twin {r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
                 f"({r['by']})")
-        if dt == torch.bfloat16:   # #8 on 16-byte chunks (D % 8 == 0)
+        if dt == torch.bfloat16:   # #7, #8 on 16-byte chunks (D % 8 == 0)
             ln_device_time(f"res_mod_ln {call} B={B} N={N} D={D}", (
-                ("fwd", fwd, "res_mod_ln_fwd_kernel", ()),
+                ("fwd", fwd, "res_mod_ln_fwd_vec_kernel",
+                 ("res_mod_ln_fwd_kernel",)),
                 ("bwd", bwd, "res_mod_ln_bwd_vec_kernel",
                  ("res_mod_ln_bwd_kernel",))), out[call])
         del x, h, do, dy, gm3, got_f, got_b, want_b
@@ -3070,7 +3278,8 @@ def long_train_phase(dit, vae, gen):
         f"{peak_gb:.3f} GB, "
         f"launches {launches} ({want} per step), losses "
         f"{[round(v, 5) for v in lv]}")
-    log_device_time("long train step", lambda: step(x, emb, generator=g))
+    log_device_time("long train step", lambda: step(x, emb, generator=g),
+                    absent=OLD_LN_KERNELS)
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -5472,6 +5681,78 @@ def split_gemms_only(seed, root):
     return 0
 
 
+def mod_ln_host_ab(gen, root):
+    """The host path of #5-#8's wrappers, ``root``'s package (imported
+    first) against this tree's in one process: at each call of
+    MOD_LN_SHAPES, 21 pairs of runs of 20 back-to-back calls (``enqueue_
+    us``'s runs), the order alternating, on the same operands. Returns
+    {what: {kernel: {"parent_us", "change_us": [least, median],
+    "change_wins": share of pairs}}}."""
+    import t2ms_tpu_torch.ops.dit_block as parent
+    for k in [k for k in sys.modules
+              if k == "t2ms_tpu_torch" or k.startswith("t2ms_tpu_torch.")]:
+        del sys.modules[k]    # parent's functions keep their own modules
+    sys.path.remove(os.path.abspath(root))
+    change = importlib.import_module("t2ms_tpu_torch.ops.dit_block")
+    check(change.__file__ != parent.__file__, "two packages to compare")
+    out = {}
+    for what, B, N, D, nsets in MOD_LN_SHAPES:
+        f = lambda *s_: torch.randn(*s_, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+        sets = [(f(B, N, D), f(B, N, D), f(B, N, D), f(B, N, D),
+                 0.3 * f(B, 6, D)) for _ in range(nsets)]
+        pc, cc = mod_ln_calls(parent, sets), mod_ln_calls(change, sets)
+        rows = {}
+        with torch.no_grad():
+            for k in pc:
+                pc[k](), cc[k]()
+                runs = {"parent": [], "change": []}
+                for i in range(21):
+                    for side in (("parent", "change") if i % 2 else
+                                 ("change", "parent")):
+                        fn = pc[k] if side == "parent" else cc[k]
+                        runs[side].append(enqueue_us(fn, reps=1)[0])
+                wins = sum(c < p_ for p_, c in zip(runs["parent"],
+                                                   runs["change"])) / 21
+                rows[k] = {f"{side}_us": [min(v), statistics.median(v)]
+                           for side, v in runs.items()}
+                rows[k]["change_wins"] = wins
+                log(f"mod_ln host A/B {what} {k}: parent "
+                    f"{min(runs['parent']):.1f} us (median "
+                    f"{statistics.median(runs['parent']):.1f}), this tree "
+                    f"{min(runs['change']):.1f} us (median "
+                    f"{statistics.median(runs['change']):.1f}) to enqueue a "
+                    f"call; this tree faster in {wins:.0%} of 21 pairs")
+        out[what] = rows
+        del sets, pc, cc
+        torch.cuda.empty_cache()
+    return out
+
+
+def mod_ln_only(seed, root):
+    """The LayerNorm kernels' section alone, on this tree's package or on
+    ``root``'s: the card, the build of mod_ln.cu (this tree's chunk
+    kernels' resources logged), then mod_ln_section (the twin checks on
+    this tree only) and, with ``root``, mod_ln_host_ab; the last line is
+    {"mod_ln": {what: {kernel: row}}, "host_ab": ..., "root": ...}."""
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
+    from t2ms_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    log(f"card: {smi}; package {os.path.dirname(_build.__file__)}")
+    log(f"build: {_build.build_all(['mod_ln'])}")
+    if root is None:
+        log_mod_ln_resources()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    rows = mod_ln_section(gen, check_twin=root is None)
+    host = mod_ln_host_ab(gen, root) if root is not None else None
+    print(json.dumps({"mod_ln": rows, "host_ab": host, "root": root or ".",
+                      "card": smi}), flush=True)
+    return 0
+
+
 def attention_backward_only(seed, root):
     """The attention backward's section alone, on this tree's package or
     on ``root``'s: the card, the build of fused_heads.cu and
@@ -5510,11 +5791,14 @@ def main(argv=None):
     ap.add_argument("--split_gemms", action="store_true",
                     help="build, then run only the split block's GEMM "
                     "section, its last line a JSON of each call's stages")
+    ap.add_argument("--mod_ln", action="store_true",
+                    help="build, then run only the LayerNorm kernels' (#5-#8)"
+                    " section, its last line a JSON of each call's rows")
     ap.add_argument("--root", default=None,
                     help="with --attention_forward, --attention_backward, "
-                    "--row_gemms or --split_gemms: import t2ms_tpu_torch "
-                    "from this tree (another checkout, to time it beside "
-                    "this one)")
+                    "--row_gemms, --split_gemms or --mod_ln: import "
+                    "t2ms_tpu_torch from this tree (another checkout, to "
+                    "time it beside this one)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
@@ -5528,6 +5812,8 @@ def main(argv=None):
         return row_gemms_only(args.seed, args.root)
     if args.split_gemms:
         return split_gemms_only(args.seed, args.root)
+    if args.mod_ln:
+        return mod_ln_only(args.seed, args.root)
     from t2ms_tpu_torch.ops import _build
     from t2ms_tpu_torch.ops.attention import (
         FLASH_KERNEL, FUSED_HEADS_BWD_KERNEL, FUSED_HEADS_KERNEL,
@@ -5584,7 +5870,7 @@ def main(argv=None):
     sc_dit, sc_vae = build_scaled_models(args.seed)
     sc_launches = scaled_offline_phase(sc_dit, sc_vae, gen)
     scaled_server_phase(sc_dit, sc_vae, args.seed)
-    mln = mod_ln_phase(gen)[torch.bfloat16]
+    mln = mod_ln_phase(gen)["scaled"]
     fh = fused_heads_phase(gen)[torch.bfloat16]
     tr_launches = scaled_train_phase(sc_dit, sc_vae, gen)
     rln = res_mod_ln_phase(gen)["scaled"]

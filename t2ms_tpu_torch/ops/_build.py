@@ -147,8 +147,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_block_mlp_bwd": [P] * 13 + [I] * 4 + [F, P],
         "dit_block_qkv_bwd": [P] * 7 + [I] * 3 + [F, P],
         "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
-        "mod_ln_backward": [P] * 6 + [I] * 3 + [F, P],
-        "res_mod_ln_forward": [P] * 5 + [I] * 3 + [F, P],
+        "mod_ln_backward": [P, P, L, I] + [P] * 4 + [I] * 3 + [F, P],
+        "res_mod_ln_forward": [P] * 3 + [L, I, P, P] + [I] * 3 + [F, P],
         "res_mod_ln_backward": [P] * 9 + [I] * 3 + [F, P],
         "fused_heads_forward": [P] * 4 + [I] * 4 + [L] * 6 + [F, P],
         "fused_heads_forward_stats": [P] * 5 + [I] * 4 + [L] * 6 + [F, P],
@@ -201,12 +201,13 @@ def supported(library: str, check: str, *args: int) -> bool:
     return err == 0
 
 
-def launch(lib: ctypes.CDLL, entry: str, name: str, refused: Exception,
+def launch(lib: ctypes.CDLL, entry: str, name: str, refused,
            dev: torch.device, *args) -> None:
     """Call the C entry ``entry`` of ``lib`` on dev's current stream, with
     each tensor of ``args`` passed as its pointer and each float as a C
-    float. Raise ``refused`` for a shape the kernels do not take and
-    RuntimeError for a failed launch; count the launch under ``name``."""
+    float. Raise ``refused`` (an exception, or a function that makes one)
+    for a shape the kernels do not take and RuntimeError for a failed
+    launch; count the launch under ``name``."""
     conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
             else ctypes.c_float(a) if isinstance(a, float) else a
             for a in args]
@@ -214,7 +215,7 @@ def launch(lib: ctypes.CDLL, entry: str, name: str, refused: Exception,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(*conv, ctypes.c_void_p(stream))
     if err == UNSUPPORTED_SHAPE:
-        raise refused
+        raise refused() if callable(refused) else refused
     if err:
         raise RuntimeError(f"{name} CUDA launch failed: "
                            f"{cuda_error_string(lib, err)}")

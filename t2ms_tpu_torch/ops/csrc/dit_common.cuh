@@ -522,23 +522,25 @@ mlp_kernel(const T* __restrict__ x, const float* __restrict__ mod,
 // ---------------------------------------------------------------------------
 // Per-element sums of per-tile partials, in a fixed order (no atomics, so
 // runs repeat bit for bit): dmod[b][j] = sum over t of part[b * tiles + t][j]
-// for j < W (W = 6*D adaLN rows in the block backward, 2*D in mod_ln).
+// for j < W (W = 6*D adaLN rows in the block backward, 2*D or 3*D in
+// mod_ln), written in O (f32, or bf16 rounded once from the f32 total).
 
+template <typename O>
 __global__ void dmod_reduce_kernel(const float* __restrict__ part, int B,
-                                   int tiles, int W,
-                                   float* __restrict__ dmod) {
+                                   int tiles, int W, O* __restrict__ dmod) {
   const size_t n = (size_t)B * W;
   for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < n;
        e += (size_t)gridDim.x * NT) {
     const size_t b = e / W, j = e % W;
     float s = 0.0f;
     for (int t = 0; t < tiles; ++t) s += part[(b * tiles + t) * W + j];
-    dmod[e] = s;
+    dmod[e] = from_f<O>(s);
   }
 }
 
+template <typename O>
 inline void launch_dmod_reduce(const float* part, int B, int tiles, int W,
-                               float* dmod, cudaStream_t st) {
+                               O* dmod, cudaStream_t st) {
   const size_t blocks = ((size_t)B * W + NT - 1) / NT;
   dmod_reduce_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), NT, 0,
                        st>>>(part, B, tiles, W, dmod);

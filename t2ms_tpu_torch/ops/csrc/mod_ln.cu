@@ -29,7 +29,12 @@
 //             with jax.vjp inside its body; here it is written out.
 //
 // mod2 is (B, 2, D) = [shift, scale] and gm3 (B, 3, D) = [gate, shift,
-// scale], both in f32 (the wrappers convert them).
+// scale]. The mod_ln forward and the res backward take them in f32, rows
+// of D contiguous (the wrappers convert them); the res forward and the
+// mod_ln backward read them in place, bf16 or f32 (converted exactly in
+// registers), at the caller's batch stride (the flax path hands over
+// views of the (B, 6, D) modulation), and the mod_ln backward writes
+// dmod2 in mod2's dtype, rounded once from the f32 total.
 //
 // Bound on an H100 SXM: every kernel here moves a few (B, N, D) tensors and
 // does a few f32 operations per element, so bytes bound it. At the scaled
@@ -54,6 +59,23 @@
 // warp), and keeps the per-column partials in registers, summed over the
 // warps through a buffer half the size of the warp partials' above.
 //
+// The bf16 res forward and mod_ln backward (D a multiple of 8; f32 and
+// other widths keep the lane-strided kernels) take the 16-byte chunks and
+// lane groups above too, hold the lane's columns of the per-sample
+// vectors in registers while its rows stay in one batch element (rather
+// than read 3 * D of them for every row), and issue the next row's loads
+// before this row's sums. res_mod_ln_fwd_vec_kernel is
+// persistent: each block walks one contiguous run of rows, its warps on
+// neighbouring rows, reloading the vectors where the run crosses into the
+// next element, so every block ends together. mod_ln_bwd_vec_kernel keeps
+// the backward's 64-row tiles of one element and its ordered fold of the
+// per-column partials. Both reach about 80% of their byte bound at the
+// scaled call (B=64, N=1024, D=512), near 90% of the rate of PyTorch's
+// own elementwise passes moving as many tensors; the res forward's loads
+// and stores alone reach 84%, and neither the number of warps, the rows
+// in flight, L2 policies nor the order of the rows moved it
+// (chip_smoke.py --mod_ln).
+//
 // C interface for ctypes: {mod_ln,res_mod_ln}_{forward,backward}_{bf16,f32}
 // launch on the given stream and return cudaGetLastError(), or
 // T2MS_UNSUPPORTED_SHAPE (launching nothing) for a shape the kernels do not
@@ -61,6 +83,9 @@
 // allocates; mod_ln_check and res_mod_ln_check answer the shape question.
 
 #include "dit_common.cuh"
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -91,7 +116,8 @@ __device__ __forceinline__ float row_stats(const float (&v)[V], int D,
 template <typename T> struct Args {
   const T* x;
   const T* h;       // the residual branch (res kernels)
-  const float* mod; // mod2 (B, 2, D) or gm3 (B, 3, D)
+  const void* mod;  // mod2 (B, 2, D) or gm3 (B, 3, D), in M (below)
+  long long ms;     // its batch stride in elements
   const T* dout;    // the cotangent of the modulated output (backwards)
   const T* dy;      // the cotangent of the stream y (res backward)
   T* out;           // the forward's output, or dx
@@ -143,10 +169,10 @@ __device__ void flush_partials(const float* Ps, int W, int D,
 
 // One block per 64-row tile of one element: dx of its rows and the tile's
 // f32 partials part[blockIdx.x] = [sum dy, sum dy * xh] (2 x D).
-template <typename T, int V>
+template <typename T, typename M, int V>
 __global__ void __launch_bounds__(NT)
-mod_ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
-                  const T* __restrict__ dy, T* __restrict__ dx,
+mod_ln_bwd_kernel(const T* __restrict__ x, const M* __restrict__ mod2,
+                  long long ms, const T* __restrict__ dy, T* __restrict__ dx,
                   float* __restrict__ part, int N, int D, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ps = reinterpret_cast<float*>(smem);  // NW x 2 x D warp partials
@@ -154,12 +180,12 @@ mod_ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
   const int tiles = (N + MLN_ROWS - 1) / MLN_ROWS;
   const int b = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * MLN_ROWS;
   const int valid = min(MLN_ROWS, N - n0);
-  const float* sc = mod2 + (size_t)b * 2 * D + D;
+  const M* sc = mod2 + b * ms + D;
   float scp[V], psh[V], psc[V];
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     const int c = lane + 32 * u;
-    scp[u] = c < D ? 1.0f + sc[c] : 0.0f;
+    scp[u] = c < D ? 1.0f + to_f<M>(sc[c]) : 0.0f;
     psh[u] = psc[u] = 0.0f;
   }
   for (int i = warp; i < valid; i += NW) {
@@ -222,22 +248,23 @@ __device__ __forceinline__ void res_row(const T* __restrict__ xr,
   }
 }
 
-template <typename T, int V>
+template <typename T, typename M, int V>
 __global__ void __launch_bounds__(NT)
 res_mod_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
-                      const float* __restrict__ gm3, T* __restrict__ out,
-                      T* __restrict__ y, int rows, int N, int D, float eps) {
+                      const M* __restrict__ gm3, long long ms,
+                      T* __restrict__ out, T* __restrict__ y, int rows, int N,
+                      int D, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = blockIdx.x * NW + warp;
   if (r >= rows) return;
-  const float* gate = gm3 + (size_t)(r / N) * 3 * D;
-  const float* sh = gate + D;
-  const float* sc = gate + 2 * D;
+  const M* gate = gm3 + (r / N) * ms;
+  const M* sh = gate + D;
+  const M* sc = gate + 2 * D;
   float gt[V], v[V], hv[V];
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     const int c = lane + 32 * u;
-    gt[u] = c < D ? rnd<T>(gate[c]) : 0.0f;
+    gt[u] = c < D ? rnd<T>(to_f<M>(gate[c])) : 0.0f;
   }
   res_row<T, V>(x + (size_t)r * D, h + (size_t)r * D, D, gt, v, hv);
   T* yo = y + (size_t)r * D;
@@ -252,7 +279,9 @@ res_mod_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     const int c = lane + 32 * u;
-    if (c < D) o[c] = from_f<T>((v[u] - mu) * rs * (1.0f + sc[c]) + sh[c]);
+    if (c < D)
+      o[c] = from_f<T>((v[u] - mu) * rs * (1.0f + to_f<M>(sc[c])) +
+                       to_f<M>(sh[c]));
   }
 }
 
@@ -375,6 +404,61 @@ __device__ __forceinline__ void ldg8(const float* q, float (&f)[8]) {
                : "l"(q));
 }
 
+// the sum over an aligned group of G lanes (G a power of two)
+template <int G> __device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The lane's per-column sums p (W x D over the block) added up across the
+// warp's groups (shuffles), then warp w + half into warp w for half =
+// NW / 2, ..., 1 through Ps ((NW / 2) x W x D floats): a fixed order; warp
+// 0's sums go to out (W x D).
+template <int CPL, int G, int W>
+__device__ __forceinline__ void fold_partials(float (&p)[W][CPL][8],
+                                              float* Ps,
+                                              float* __restrict__ out,
+                                              int D) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gi = lane / G, l = lane % G, nch = D / 8;
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          p[u][j][k] += __shfl_xor_sync(0xffffffffu, p[u][j][k], o);
+      }
+    }
+  }
+  auto io = [&](float* buf, bool add) {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (l + G * j >= nch) continue;
+#pragma unroll
+      for (int u = 0; u < W; ++u) {
+        float* c = buf + u * D + 8 * (l + G * j);
+        if (add)
+          add8(c, p[u][j]);
+        else
+          put8(c, p[u][j]);
+      }
+    }
+  };
+#pragma unroll
+  for (int half = NW / 2; half >= 1; half /= 2) {
+    if (gi == 0 && warp >= half && warp < 2 * half)
+      io(Ps + (size_t)(warp - half) * W * D, false);
+    __syncthreads();
+    if (gi == 0 && warp < half) io(Ps + (size_t)warp * W * D, true);
+    __syncthreads();
+  }
+  if (warp == 0 && gi == 0) io(out, false);
+}
+
 template <int CPL, int G>
 __global__ void __launch_bounds__(NT, CPL <= 2 ? 2 : 1)
 res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
@@ -385,7 +469,6 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
                           bf16* __restrict__ dh, float* __restrict__ part,
                           int N, int D, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Ps = reinterpret_cast<float*>(smem);  // (NW / 2) x 3 x D
   constexpr int RPW = 32 / G;                  // rows of a warp at once
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gi = lane / G, l = lane % G, nch = D / 8;
@@ -394,14 +477,12 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
   const int valid = min(MLN_ROWS, N - n0);
   const float* gate = gm3 + (size_t)b * 3 * D;
   const float* sc = gate + 2 * D;
-  auto group_sum = [](float v) {
-#pragma unroll
-    for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-  };
   // the lane's chunk j: its first column (clamped for a lane without one)
   auto col = [&](int j) { return 8 * min(l + G * j, nch - 1); };
-  float pg[CPL][8], psh[CPL][8], psc[CPL][8];
+  float p[3][CPL][8];  // [sum dt * h, sum do, sum do * xh]
+  auto& pg = p[0];
+  auto& psh = p[1];
+  auto& psc = p[2];
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
 #pragma unroll
@@ -439,7 +520,7 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
         s += on[j] ? v[j][k] : 0.0f;
       }
     }
-    const float mu = group_sum(s) / D;
+    const float mu = group_sum<G>(s) / D;
     float q = 0.0f;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
@@ -449,7 +530,7 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
         q += dv * dv;
       }
     }
-    const float rs = rsqrtf(group_sum(q) / D + eps);
+    const float rs = rsqrtf(group_sum<G>(q) / D + eps);
     // xh, the column sums of do and do * xh, g = do * (1 + scale) (formed
     // again below from the packed do: fewer live registers)
     auto grad = [&](int j, float (&d)[8]) {
@@ -474,7 +555,7 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
         sgx += g[k] * v[j][k];
       }
     }
-    const float mg = group_sum(sg) / D, mgx = group_sum(sgx) / D;
+    const float mg = group_sum<G>(sg) / D, mgx = group_sum<G>(sgx) / D;
     // dt = T(T(dln) + dy): dx = dt, dh = T(dt * T(gate)), dgate += dt * h
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
@@ -505,42 +586,261 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
     }
   }
 
-  // the warp's groups into group 0 (shuffles), then warp w + half into
-  // warp w for half = 4, 2, 1 through Ps, then warp 0's sums out
+  fold_partials<CPL, G, 3>(p, reinterpret_cast<float*>(smem),
+                           part + (size_t)blockIdx.x * 3 * D, D);
+}
+
+// ---------- bf16 res forward and mod_ln backward on 16-byte chunks
+
+// The eight values of a per-sample vector (gate, shift or scale) at a
+// lane's chunk, held in registers while the lane's rows stay in one batch
+// element: bf16 as its bits (4 registers), f32 as is. Scalar loads, so the
+// caller's views need no alignment; they run once per element a lane
+// meets.
+template <typename M> struct Mod8;
+template <> struct Mod8<bf16> {
+  uint32_t w[4];
+  __device__ __forceinline__ void load(const bf16* p) {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
-  for (int o = G; o < 32; o <<= 1) {
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        pg[j][k] += __shfl_xor_sync(0xffffffffu, pg[j][k], o);
-        psh[j][k] += __shfl_xor_sync(0xffffffffu, psh[j][k], o);
-        psc[j][k] += __shfl_xor_sync(0xffffffffu, psc[j][k], o);
-      }
-    }
+    for (int k = 0; k < 4; ++k)
+      w[k] = (uint32_t)q[2 * k] | (uint32_t)q[2 * k + 1] << 16;
   }
-  // the lane's sums into (or added from) a 3 x D buffer [pg, psh, psc]
-  auto io = [&](float* buf, bool add) {
+  __device__ __forceinline__ void round_to_bf16() {}  // exact already
+  __device__ __forceinline__ float operator[](int k) const {
+    return __uint_as_float(k % 2 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16);
+  }
+};
+template <> struct Mod8<float> {
+  float f[8];
+  __device__ __forceinline__ void load(const float* p) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = p[k];
+  }
+  __device__ __forceinline__ void round_to_bf16() {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] = rnd<bf16>(f[k]);
+  }
+  __device__ __forceinline__ float operator[](int k) const { return f[k]; }
+};
+
+__device__ __forceinline__ uint4 ld16(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void st16(bf16* p, const uint4& v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// The res forward, y = T(x + T(T(gate) * h)) and out = T((y - mu) * rs *
+// (1 + scale) + shift), with res_row's and row_stats' rounding points and
+// f32 statistics (the mean, then the variance of the centred row). A row
+// is D / 8 chunks over a group of G lanes, RPW = 32 / G rows a warp at
+// once (one "slot"). Persistent: block k of the grid's K takes the slots
+// [k * S / K, (k + 1) * S / K) of all S, so runs differ by one slot at
+// most, its warp w the slots w, w + NW, ... of them (the block's warps on
+// neighbouring rows), and each warp loads its next slot while it reduces
+// and stores this one.
+template <int CPL, int G, typename M>
+__global__ void __launch_bounds__(NT, CPL <= 2 ? 2 : 1)
+res_mod_ln_fwd_vec_kernel(const bf16* __restrict__ x,
+                          const bf16* __restrict__ h,
+                          const M* __restrict__ gm3, long long ms,
+                          bf16* __restrict__ out, bf16* __restrict__ y,
+                          int rows, int N, int D, float eps) {
+  constexpr int RPW = 32 / G;
+  const int lane = threadIdx.x % 32, gi = lane / G, l = lane % G;
+  const int nch = D / 8;
+  const long long S = (rows + RPW - 1) / RPW;
+  const long long s1 = (blockIdx.x + 1LL) * S / gridDim.x;
+  const long long s0 = blockIdx.x * S / gridDim.x + threadIdx.x / 32;
+  auto col = [&](int j) { return 8 * min(l + G * j, nch - 1); };
+  auto on = [&](long long r, int j) { return r < rows && l + G * j < nch; };
+  auto fetch = [&](long long s, uint4 (&ux)[CPL], uint4 (&uh)[CPL]) {
+    const long long r = s * RPW + gi;
+    const size_t base = (size_t)min(r, (long long)rows - 1) * D;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
-      if (l + G * j >= nch) continue;
-      float* c = buf + 8 * (l + G * j);
-      if (add) {
-        add8(c, pg[j]), add8(c + D, psh[j]), add8(c + 2 * D, psc[j]);
-      } else {
-        put8(c, pg[j]), put8(c + D, psh[j]), put8(c + 2 * D, psc[j]);
-      }
+      ux[j] = on(r, j) ? ld16(x + base + col(j)) : z;
+      uh[j] = on(r, j) ? ld16(h + base + col(j)) : z;
     }
   };
+  Mod8<M> gt[CPL], sh[CPL], sc[CPL];
+  long long cb = -1;  // the element whose vectors the lane holds
+  uint4 ux[CPL], uh[CPL];
+  if (s0 < s1) fetch(s0, ux, uh);
+  for (long long s = s0; s < s1; s += NW) {
+    uint4 nx[CPL], nh[CPL];
+    if (s + NW < s1) fetch(s + NW, nx, nh);
+    const long long r = s * RPW + gi;
+    if (r < rows && r / N != cb) {
+      cb = r / N;
+      const M* g = gm3 + cb * ms;
 #pragma unroll
-  for (int half = NW / 2; half >= 1; half /= 2) {
-    if (gi == 0 && warp >= half && warp < 2 * half)
-      io(Ps + (size_t)(warp - half) * 3 * D, false);
-    __syncthreads();
-    if (gi == 0 && warp < half) io(Ps + (size_t)warp * 3 * D, true);
-    __syncthreads();
+      for (int j = 0; j < CPL; ++j) {
+        gt[j].load(g + col(j));
+        gt[j].round_to_bf16();
+        sh[j].load(g + D + col(j));
+        sc[j].load(g + 2 * D + col(j));
+      }
+    }
+    // y as bf16 bits (exact: it is rounded), its mean and 1 / sqrt(var + eps)
+    uint4 yc[CPL];
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8], hv[8], yv[8];
+      unpack8(ux[j], xv);
+      unpack8(uh[j], hv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        yv[k] = rnd<bf16>(xv[k] + rnd<bf16>(gt[j][k] * hv[k]));
+        sum += on(r, j) ? yv[k] : 0.0f;
+      }
+      yc[j] = make_uint4(pack2(yv[0], yv[1]), pack2(yv[2], yv[3]),
+                         pack2(yv[4], yv[5]), pack2(yv[6], yv[7]));
+    }
+    const float mu = group_sum<G>(sum) / D;
+    float q = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float yv[8];
+      unpack8(yc[j], yv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = on(r, j) ? yv[k] - mu : 0.0f;
+        q += d * d;
+      }
+    }
+    const float rs = rsqrtf(group_sum<G>(q) / D + eps);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (!on(r, j)) continue;
+      float yv[8], o[8];
+      unpack8(yc[j], yv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        o[k] = (yv[k] - mu) * rs * (1.0f + sc[j][k]) + sh[j][k];
+      const size_t at = (size_t)r * D + col(j);
+      st16(y + at, yc[j]);
+      st16(out + at, make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]),
+                                pack2(o[4], o[5]), pack2(o[6], o[7])));
+    }
+    if (s + NW < s1) {
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) ux[j] = nx[j], uh[j] = nh[j];
+    }
   }
-  if (warp == 0 && gi == 0) io(part + (size_t)blockIdx.x * 3 * D, false);
+}
+
+// The mod_ln backward on the chunks and lane groups above, one block per
+// 64-row tile of one element, with mod_ln_bwd_kernel's arithmetic: dx of
+// its rows and part[blockIdx.x] = [sum dy, sum dy * xh] (2 x D). The
+// lane's (1 + scale) columns are read once; each warp loads its next rows
+// while it reduces and stores these.
+template <int CPL, int G, typename M>
+__global__ void __launch_bounds__(NT, CPL <= 2 ? 2 : 1)
+mod_ln_bwd_vec_kernel(const bf16* __restrict__ x, const M* __restrict__ mod2,
+                      long long ms, const bf16* __restrict__ dy,
+                      bf16* __restrict__ dx, float* __restrict__ part, int N,
+                      int D, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int RPW = 32 / G, STEP = NW * RPW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gi = lane / G, l = lane % G, nch = D / 8;
+  const int tiles = (N + MLN_ROWS - 1) / MLN_ROWS;
+  const int b = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * MLN_ROWS;
+  const int valid = min(MLN_ROWS, N - n0);
+  auto col = [&](int j) { return 8 * min(l + G * j, nch - 1); };
+  auto on = [&](int i, int j) { return i < valid && l + G * j < nch; };
+  auto fetch = [&](int i0, uint4 (&ux)[CPL], uint4 (&ud)[CPL]) {
+    const int i = i0 + gi;
+    const size_t base = ((size_t)b * N + n0 + min(i, valid - 1)) * D;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      ux[j] = on(i, j) ? ld16(x + base + col(j)) : z;
+      ud[j] = on(i, j) ? ld16(dy + base + col(j)) : z;
+    }
+  };
+  Mod8<M> sc[CPL];
+  float p[2][CPL][8];  // [sum dy, sum dy * xh] of the lane's columns
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    sc[j].load(mod2 + b * ms + D + col(j));
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p[0][j][k] = p[1][j][k] = 0.0f;
+  }
+  // every lane of a warp runs every pass (the shuffles take the whole
+  // warp); a row past `valid` loads zeros and adds nothing
+  uint4 ux[CPL], ud[CPL];
+  if (warp * RPW < valid) fetch(warp * RPW, ux, ud);
+  for (int i0 = warp * RPW; i0 < valid; i0 += STEP) {
+    uint4 nx[CPL], nd[CPL];
+    if (i0 + STEP < valid) fetch(i0 + STEP, nx, nd);
+    const int i = i0 + gi;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8];
+      unpack8(ux[j], xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += on(i, j) ? xv[k] : 0.0f;
+    }
+    const float mu = group_sum<G>(sum) / D;
+    float q = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8];
+      unpack8(ux[j], xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = on(i, j) ? xv[k] - mu : 0.0f;
+        q += d * d;
+      }
+    }
+    const float rs = rsqrtf(group_sum<G>(q) / D + eps);
+    // xh, the column sums of dy and dy * xh, g = dy * (1 + scale) (xh and g
+    // formed again below from the packed rows: fewer live registers)
+    float sg = 0.0f, sgx = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8], d[8];
+      unpack8(ux[j], xv);
+      unpack8(ud[j], d);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float xh = on(i, j) ? (xv[k] - mu) * rs : 0.0f;
+        const float g = d[k] * (1.0f + sc[j][k]);
+        p[0][j][k] += d[k];
+        p[1][j][k] += d[k] * xh;
+        sg += g;
+        sgx += g * xh;
+      }
+    }
+    const float mg = group_sum<G>(sg) / D, mgx = group_sum<G>(sgx) / D;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (!on(i, j)) continue;
+      float xv[8], d[8], o[8];
+      unpack8(ux[j], xv);
+      unpack8(ud[j], d);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float xh = (xv[k] - mu) * rs;
+        o[k] = rs * (d[k] * (1.0f + sc[j][k]) - mg - xh * mgx);
+      }
+      st16(dx + ((size_t)b * N + n0 + i) * D + col(j),
+           make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]),
+                      pack2(o[6], o[7])));
+    }
+    if (i0 + STEP < valid) {
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) ux[j] = nx[j], ud[j] = nd[j];
+    }
+  }
+  fold_partials<CPL, G, 2>(p, reinterpret_cast<float*>(smem),
+                           part + (size_t)blockIdx.x * 2 * D, D);
 }
 
 // ------------------------------------------------------------ launches
@@ -559,23 +859,33 @@ int check_rows(int D, int W) {
   return smem_bwd(W, D) <= (size_t)optin ? 0 : T2MS_UNSUPPORTED_SHAPE;
 }
 
+// 0 when the kernels take (B, N, D) with W backward sums (rows of (B*N, D)
+// and the backward's B * tiles blocks are indexed as int), else as
+// check_rows
+int check_call(int B, int N, int D, int W) {
+  if (B < 1 || N < 1 || (long long)B * N > INT_MAX)
+    return T2MS_UNSUPPORTED_SHAPE;
+  return check_rows(D, W);
+}
+
 // the forwards: one warp per row of (B*N, D)
-template <typename T, int V, bool RES> struct Forward {
+template <typename T, typename M, int V, bool RES> struct Forward {
   static cudaError_t run(const Args<T>& a, cudaStream_t st) {
     const int rows = a.B * a.N;
     const unsigned blocks = (unsigned)(((long long)rows + NW - 1) / NW);
     if constexpr (RES)
-      res_mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(
-          a.x, a.h, a.mod, a.out, a.out2, rows, a.N, a.D, a.eps);
+      res_mod_ln_fwd_kernel<T, M, V><<<blocks, NT, 0, st>>>(
+          a.x, a.h, (const M*)a.mod, a.ms, a.out, a.out2, rows, a.N, a.D,
+          a.eps);
     else
-      mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(a.x, a.mod, a.out, rows,
-                                                     a.N, a.D, a.eps);
+      mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(
+          a.x, (const float*)a.mod, a.out, rows, a.N, a.D, a.eps);
     return cudaGetLastError();
   }
 };
 
 // the backwards: one block per 64-row tile of one element
-template <typename T, int V, bool RES> struct Backward {
+template <typename T, typename M, int V, bool RES> struct Backward {
   static cudaError_t run(const Args<T>& a, cudaStream_t st) {
     const size_t s = smem_bwd(RES ? 3 : 2, a.D);
     const int blocks = a.B * ((a.N + MLN_ROWS - 1) / MLN_ROWS);
@@ -584,71 +894,144 @@ template <typename T, int V, bool RES> struct Backward {
       if ((e = set_smem((const void*)res_mod_ln_bwd_kernel<T, V>, s)))
         return e;
       res_mod_ln_bwd_kernel<T, V><<<blocks, NT, s, st>>>(
-          a.x, a.h, a.mod, a.dout, a.dy, a.out, a.out2, a.part, a.N, a.D,
-          a.eps);
+          a.x, a.h, (const float*)a.mod, a.dout, a.dy, a.out, a.out2, a.part,
+          a.N, a.D, a.eps);
     } else {
-      if ((e = set_smem((const void*)mod_ln_bwd_kernel<T, V>, s))) return e;
-      mod_ln_bwd_kernel<T, V><<<blocks, NT, s, st>>>(
-          a.x, a.mod, a.dout, a.out, a.part, a.N, a.D, a.eps);
+      if ((e = set_smem((const void*)mod_ln_bwd_kernel<T, M, V>, s)))
+        return e;
+      mod_ln_bwd_kernel<T, M, V><<<blocks, NT, s, st>>>(
+          a.x, (const M*)a.mod, a.ms, a.dout, a.out, a.part, a.N, a.D, a.eps);
     }
     return cudaGetLastError();
   }
 };
 
-// L<T, V, RES>::run with V the values a lane holds for a row of D (the next
-// power of two of D / 32), after the shape checks.
-template <template <typename, int, bool> class L, typename T, bool RES>
+// L<T, M, V, RES>::run with V the values a lane holds for a row of D (the
+// next power of two of D / 32), after the shape checks.
+template <template <typename, typename, int, bool> class L, typename T,
+          typename M, bool RES>
 int by_lanes(const Args<T>& a, cudaStream_t st) {
-  // rows of (B*N, D) and the backward's B * tiles blocks are indexed as int
-  if (a.B < 1 || a.N < 1 || (long long)a.B * a.N > INT_MAX)
-    return T2MS_UNSUPPORTED_SHAPE;
-  const int ok = check_rows(a.D, RES ? 3 : 2);
+  const int ok = check_call(a.B, a.N, a.D, RES ? 3 : 2);
   if (ok) return ok;
-  if (a.D <= 32) return L<T, 1, RES>::run(a, st);
-  if (a.D <= 64) return L<T, 2, RES>::run(a, st);
-  if (a.D <= 128) return L<T, 4, RES>::run(a, st);
-  if (a.D <= 256) return L<T, 8, RES>::run(a, st);
-  if (a.D <= 512) return L<T, 16, RES>::run(a, st);
-  return L<T, 32, RES>::run(a, st);
+  if (a.D <= 32) return L<T, M, 1, RES>::run(a, st);
+  if (a.D <= 64) return L<T, M, 2, RES>::run(a, st);
+  if (a.D <= 128) return L<T, M, 4, RES>::run(a, st);
+  if (a.D <= 256) return L<T, M, 8, RES>::run(a, st);
+  if (a.D <= 512) return L<T, M, 16, RES>::run(a, st);
+  return L<T, M, 32, RES>::run(a, st);
 }
 
-// the bf16 gated-residual backward on 16-byte chunks (D a multiple of 8):
-// CPL chunks a lane in groups of G lanes, after by_lanes' shape checks
-template <int CPL, int G>
-cudaError_t launch_res_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
-  const size_t s = (size_t)(NW / 2) * 3 * a.D * 4;
-  const cudaError_t e =
-      set_smem((const void*)res_mod_ln_bwd_vec_kernel<CPL, G>, s);
+// The bf16 kernels on 16-byte chunks (D a multiple of 8): f(CPL, G) with
+// CPL chunks a lane in groups of G lanes, after the shape checks; the
+// chunks' tensors 16-byte aligned (the wrappers see to it).
+template <typename F>
+int by_chunks(const Args<bf16>& a, int W, F&& f) {
+  const int ok = check_call(a.B, a.N, a.D, W);
+  if (ok) return ok;
+  for (const void* p : {(const void*)a.x, (const void*)a.h,
+                        (const void*)a.dout, (const void*)a.dy,
+                        (const void*)a.out, (const void*)a.out2})
+    if ((uintptr_t)p % 16) return T2MS_UNSUPPORTED_SHAPE;
+  using std::integral_constant;
+  const int nch = a.D / 8;
+  if (nch <= 8)
+    return f(integral_constant<int, 1>(), integral_constant<int, 8>());
+  if (nch <= 16)
+    return f(integral_constant<int, 1>(), integral_constant<int, 16>());
+  if (nch <= 32)
+    return f(integral_constant<int, 1>(), integral_constant<int, 32>());
+  if (nch <= 64)
+    return f(integral_constant<int, 2>(), integral_constant<int, 32>());
+  if (nch <= 96)
+    return f(integral_constant<int, 3>(), integral_constant<int, 32>());
+  return f(integral_constant<int, 4>(), integral_constant<int, 32>());
+}
+
+// the bf16 backwards on 16-byte chunks: one block per 64-row tile, the
+// warps' partials summed through (NW / 2) x W x D floats
+template <int W, typename K, typename... P>
+cudaError_t launch_tiles(K kernel, const Args<bf16>& a, cudaStream_t st,
+                         P... args) {
+  const size_t s = (size_t)(NW / 2) * W * a.D * 4;
+  const cudaError_t e = set_smem((const void*)kernel, s);
   if (e) return e;
   const int blocks = a.B * ((a.N + MLN_ROWS - 1) / MLN_ROWS);
-  res_mod_ln_bwd_vec_kernel<CPL, G><<<blocks, NT, s, st>>>(
-      a.x, a.h, a.mod, a.dout, a.dy, a.out, a.out2, a.part, a.N, a.D, a.eps);
+  kernel<<<blocks, NT, s, st>>>(args...);
   return cudaGetLastError();
 }
 
 int res_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
-  if (a.B < 1 || a.N < 1 || (long long)a.B * a.N > INT_MAX)
-    return T2MS_UNSUPPORTED_SHAPE;
-  const int ok = check_rows(a.D, 3);
-  if (ok) return ok;
-  const int nch = a.D / 8;
-  if (nch <= 8) return launch_res_bwd_vec<1, 8>(a, st);
-  if (nch <= 16) return launch_res_bwd_vec<1, 16>(a, st);
-  if (nch <= 32) return launch_res_bwd_vec<1, 32>(a, st);
-  if (nch <= 64) return launch_res_bwd_vec<2, 32>(a, st);
-  if (nch <= 96) return launch_res_bwd_vec<3, 32>(a, st);
-  return launch_res_bwd_vec<4, 32>(a, st);
+  return by_chunks(a, 3, [&](auto cpl, auto g) {
+    return launch_tiles<3>(
+        res_mod_ln_bwd_vec_kernel<decltype(cpl)::value, decltype(g)::value>,
+        a, st, a.x, a.h, (const float*)a.mod, a.dout, a.dy, a.out, a.out2,
+        a.part, a.N, a.D, a.eps);
+  });
 }
 
-// the backward, then the ordered sum of its W x D partials over the tiles
-// (the bf16 gated residual's on 16-byte chunks where D allows)
-template <typename T, bool RES>
-int run_backward(const Args<T>& a, float* dmod, cudaStream_t st) {
+template <typename M> int mod_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
+  return by_chunks(a, 2, [&](auto cpl, auto g) {
+    return launch_tiles<2>(
+        mod_ln_bwd_vec_kernel<decltype(cpl)::value, decltype(g)::value, M>,
+        a, st, a.x, (const M*)a.mod, a.ms, a.dout, a.out, a.part, a.N, a.D,
+        a.eps);
+  });
+}
+
+// Blocks of `kernel` (NT threads, no dynamic shared memory) an SM holds
+// at once, or a negative CUDA error.
+int blocks_per_sm(const void* kernel) {
+  int n = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, 0);
+  return e ? -(int)e : n;
+}
+
+// the persistent res forward: as many blocks as the device holds at once,
+// fewer for a call of fewer slots than that holds warps
+template <typename M> int res_fwd_vec(const Args<bf16>& a, cudaStream_t st) {
+  return by_chunks(a, 3, [&](auto cpl, auto g) -> int {
+    constexpr int CPL = decltype(cpl)::value, G = decltype(g)::value;
+    const auto kernel = res_mod_ln_fwd_vec_kernel<CPL, G, M>;
+    static const int per_sm = blocks_per_sm((const void*)kernel);
+    if (per_sm <= 0)
+      return per_sm ? -per_sm : (int)cudaErrorInvalidConfiguration;
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+    if (e) return e;
+    const int rows = a.B * a.N;
+    const long long slots = (rows + 32 / G - 1) / (32 / G);
+    const long long blocks =
+        std::min((long long)sms * per_sm, (slots + NW - 1) / NW);
+    kernel<<<(unsigned)blocks, NT, 0, st>>>(a.x, a.h, (const M*)a.mod, a.ms,
+                                            a.out, a.out2, rows, a.N, a.D,
+                                            a.eps);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T, typename M>
+int res_forward(const Args<T>& a, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2)
+    if (a.D % 8 == 0) return res_fwd_vec<M>(a, st);
+  return by_lanes<Forward, T, M, true>(a, st);
+}
+
+// the backward (on 16-byte chunks where T is bf16 and D a multiple of 8),
+// then the ordered sum of its W x D partials over the tiles into dmod
+template <typename T, typename M, bool RES>
+int run_backward(const Args<T>& a, M* dmod, cudaStream_t st) {
   int e;
-  if constexpr (RES && sizeof(T) == 2)
-    e = a.D % 8 ? by_lanes<Backward, T, RES>(a, st) : res_bwd_vec(a, st);
-  else
-    e = by_lanes<Backward, T, RES>(a, st);
+  if constexpr (sizeof(T) == 2) {
+    if (a.D % 8)
+      e = by_lanes<Backward, T, M, RES>(a, st);
+    else
+      e = RES ? res_bwd_vec(a, st) : mod_bwd_vec<M>(a, st);
+  } else {
+    e = by_lanes<Backward, T, M, RES>(a, st);
+  }
   if (e) return e;
   launch_dmod_reduce(a.part, a.B, (a.N + MLN_ROWS - 1) / MLN_ROWS,
                      (RES ? 3 : 2) * a.D, dmod, st);
@@ -665,32 +1048,39 @@ long long workspace(int B, int N, int D, int W) {
   extern "C" int mod_ln_forward_##SUFFIX(const void* x, const void* mod2,     \
                                          void* out, int B, int N, int D,      \
                                          float eps, void* stream) {           \
-    const Args<T> a{(const T*)x, nullptr, (const float*)mod2, nullptr,       \
-                    nullptr, (T*)out, nullptr, nullptr, B, N, D, eps};        \
-    return by_lanes<Forward, T, false>(a, (cudaStream_t)stream);              \
+    const Args<T> a{(const T*)x, nullptr, mod2, 2LL * D, nullptr, nullptr,   \
+                    (T*)out, nullptr, nullptr, B, N, D, eps};                 \
+    return by_lanes<Forward, T, float, false>(a, (cudaStream_t)stream);       \
   }                                                                           \
   extern "C" int mod_ln_backward_##SUFFIX(                                    \
-      const void* x, const void* mod2, const void* dy, void* dx, void* dmod2, \
-      void* work, int B, int N, int D, float eps, void* stream) {             \
-    const Args<T> a{(const T*)x, nullptr, (const float*)mod2, (const T*)dy,  \
+      const void* x, const void* mod2, long long mod2_stride, int mod2_bf16,  \
+      const void* dy, void* dx, void* dmod2, void* work, int B, int N, int D, \
+      float eps, void* stream) {                                              \
+    const Args<T> a{(const T*)x, nullptr, mod2, mod2_stride, (const T*)dy,   \
                     nullptr, (T*)dx, nullptr, (float*)work, B, N, D, eps};    \
-    return run_backward<T, false>(a, (float*)dmod2, (cudaStream_t)stream);    \
+    const cudaStream_t st = (cudaStream_t)stream;                             \
+    return mod2_bf16 ? run_backward<T, bf16, false>(a, (bf16*)dmod2, st)      \
+                     : run_backward<T, float, false>(a, (float*)dmod2, st);   \
   }                                                                           \
   extern "C" int res_mod_ln_forward_##SUFFIX(                                 \
-      const void* x, const void* h, const void* gm3, void* out, void* y,      \
-      int B, int N, int D, float eps, void* stream) {                         \
-    const Args<T> a{(const T*)x, (const T*)h, (const float*)gm3, nullptr,    \
+      const void* x, const void* h, const void* gm3, long long gm3_stride,    \
+      int gm3_bf16, void* out, void* y, int B, int N, int D, float eps,       \
+      void* stream) {                                                         \
+    const Args<T> a{(const T*)x, (const T*)h, gm3, gm3_stride, nullptr,      \
                     nullptr, (T*)out, (T*)y, nullptr, B, N, D, eps};          \
-    return by_lanes<Forward, T, true>(a, (cudaStream_t)stream);               \
+    const cudaStream_t st = (cudaStream_t)stream;                             \
+    return gm3_bf16 ? res_forward<T, bf16>(a, st)                             \
+                    : res_forward<T, float>(a, st);                           \
   }                                                                           \
   extern "C" int res_mod_ln_backward_##SUFFIX(                                \
       const void* x, const void* h, const void* gm3, const void* dout,        \
       const void* dy, void* dx, void* dh, void* dgm3, void* work, int B,      \
       int N, int D, float eps, void* stream) {                                \
-    const Args<T> a{(const T*)x, (const T*)h, (const float*)gm3,             \
-                    (const T*)dout, (const T*)dy, (T*)dx, (T*)dh,            \
-                    (float*)work, B, N, D, eps};                              \
-    return run_backward<T, true>(a, (float*)dgm3, (cudaStream_t)stream);      \
+    const Args<T> a{(const T*)x, (const T*)h, gm3, 3LL * D, (const T*)dout, \
+                    (const T*)dy, (T*)dx, (T*)dh, (float*)work, B, N, D,     \
+                    eps};                                                     \
+    return run_backward<T, float, true>(a, (float*)dgm3,                      \
+                                        (cudaStream_t)stream);                \
   }
 
 T2MS_MOD_LN_ENTRIES(bf16, __nv_bfloat16)

@@ -702,38 +702,69 @@ def _check_mod2(x, mod2):
                          f"{tuple(mod2.shape)}")
 
 
-def _mod_ln_operands(name, x, mod):
-    """What the LayerNorm entries take: x contiguous and the per-sample
-    vectors (mod2 or gm3) in f32."""
+def _rows(t, dt):
+    """A (B, N, D) operand as the LayerNorm kernels read it: in ``dt``,
+    contiguous, 16-byte aligned (the bf16 kernels move 16-byte chunks)."""
+    t = t.to(dtype=dt).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _refused_rows(name, x):
     B, N, D = x.shape
-    refused = ValueError(f"{name} CUDA kernel does not take B={B} N={N} "
-                         f"D={D} dtype={x.dtype}")
+    return ValueError(f"{name} CUDA kernel does not take B={B} N={N} D={D} "
+                      f"dtype={x.dtype}")
+
+
+def _ln_operands(name, x):
+    """The LayerNorm library and x as its entries take it (``_rows``); a
+    dtype they do not take is refused here, a shape by the launch (which
+    builds the refusal only then)."""
     if x.dtype not in _MOD_LN_ENTRY:
-        raise refused
-    return (refused, _build.load("mod_ln"), x.contiguous(),
-            mod.to(device=x.device, dtype=torch.float32).contiguous())
+        raise _refused_rows(name, x)
+    return _build.load("mod_ln"), _rows(x, x.dtype)
+
+
+def _mod_f32(x, mod):
+    """The per-sample vectors as #5's and #8's entries take them: f32,
+    contiguous."""
+    return mod.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def _mod_in_place(x, mod):
+    """The per-sample vectors (mod2 or gm3, (B, k, D)) as the kernels read
+    them in place: bf16 or f32 (another dtype goes over in f32), rows of D
+    contiguous, at any batch stride; with that stride and whether they are
+    bf16."""
+    if mod.dtype not in _MOD_LN_ENTRY or mod.device != x.device:
+        mod = mod.to(device=x.device, dtype=torch.float32)
+    if mod.stride(2) != 1 or mod.stride(1) != mod.shape[2]:
+        mod = mod.contiguous()
+    return mod, mod.stride(0), int(mod.dtype == torch.bfloat16)
 
 
 def _launch_mod_ln(x, mod2, eps):
-    refused, lib, x, m = _mod_ln_operands(MOD_LN_KERNEL, x, mod2)
+    lib, x = _ln_operands(MOD_LN_KERNEL, x)
     out = torch.empty_like(x)
-    _build.launch(lib, _MOD_LN_ENTRY[x.dtype], MOD_LN_KERNEL, refused,
-                  x.device, x, m, out, *x.shape, float(eps))
+    _build.launch(lib, _MOD_LN_ENTRY[x.dtype], MOD_LN_KERNEL,
+                  lambda: _refused_rows(MOD_LN_KERNEL, x), x.device, x,
+                  _mod_f32(x, mod2), out, *x.shape, float(eps))
     return out
 
 
 def _launch_mod_ln_bwd(x, mod2, dy, eps):
-    """dx in x's dtype and dmod2 in mod2's: the kernel sums dshift and
-    dscale in f32 and they are rounded once here."""
-    refused, lib, x, m = _mod_ln_operands(MOD_LN_BWD_KERNEL, x, mod2)
-    dy = dy.to(dtype=x.dtype).contiguous()
+    """dx in x's dtype and dmod2 in mod2's: the kernel reads mod2 in place,
+    sums dshift and dscale in f32 and rounds them once to mod2's dtype
+    (bf16 or f32; another dtype gets f32 sums, rounded here)."""
+    lib, x = _ln_operands(MOD_LN_BWD_KERNEL, x)
+    dy = _rows(dy, x.dtype)
+    m, ms, mbf16 = _mod_in_place(x, mod2)
     dx = torch.empty_like(x)
-    dmod = torch.empty(m.shape, device=x.device, dtype=torch.float32)
+    dmod = torch.empty(m.shape, device=x.device, dtype=m.dtype)
     work = torch.empty(lib.mod_ln_backward_workspace(*x.shape),
                        device=x.device, dtype=torch.uint8)
     _build.launch(lib, _MOD_LN_BWD_ENTRY[x.dtype], MOD_LN_BWD_KERNEL,
-                  refused, x.device, x, m, dy, dx, dmod, work, *x.shape,
-                  float(eps))
+                  lambda: _refused_rows(MOD_LN_BWD_KERNEL, x), x.device, x,
+                  m, ms, mbf16, dy, dx, dmod, work, *x.shape, float(eps))
     return dx, dmod.to(mod2.dtype)
 
 
@@ -815,27 +846,31 @@ def _check_gm3(x, h, gm3):
 
 
 def _launch_res_mod_ln(x, h, gm3, eps):
-    refused, lib, x, m = _mod_ln_operands(RES_MOD_LN_KERNEL, x, gm3)
-    h = h.to(dtype=x.dtype).contiguous()
+    """(out, y) in x's dtype; the kernel reads gm3 in place (bf16 or f32,
+    at its batch stride: the flax path's view of the modulation)."""
+    lib, x = _ln_operands(RES_MOD_LN_KERNEL, x)
+    h = _rows(h, x.dtype)
+    m, ms, mbf16 = _mod_in_place(x, gm3)
     out, y = torch.empty_like(x), torch.empty_like(x)
-    _build.launch(lib, _RES_ENTRY[x.dtype], RES_MOD_LN_KERNEL, refused,
-                  x.device, x, h, m, out, y, *x.shape, float(eps))
+    _build.launch(lib, _RES_ENTRY[x.dtype], RES_MOD_LN_KERNEL,
+                  lambda: _refused_rows(RES_MOD_LN_KERNEL, x), x.device, x,
+                  h, m, ms, mbf16, out, y, *x.shape, float(eps))
     return out, y
 
 
 def _launch_res_mod_ln_bwd(x, h, gm3, do, dy, eps):
     """dx in x's dtype, dh in h's and dgm3 in gm3's: the kernel sums
     dgate, dshift and dscale in f32 and they are rounded once here."""
-    refused, lib, xc, m = _mod_ln_operands(RES_MOD_LN_BWD_KERNEL, x, gm3)
-    dt = xc.dtype
-    hc, do, dy = (t.to(dtype=dt).contiguous() for t in (h, do, dy))
+    lib, xc = _ln_operands(RES_MOD_LN_BWD_KERNEL, x)
+    dt, m = xc.dtype, _mod_f32(xc, gm3)
+    hc, do, dy = (_rows(t, dt) for t in (h, do, dy))
     dx, dh = torch.empty_like(xc), torch.empty_like(xc)
     dgm = torch.empty(m.shape, device=x.device, dtype=torch.float32)
     work = torch.empty(lib.res_mod_ln_backward_workspace(*x.shape),
                        device=x.device, dtype=torch.uint8)
-    _build.launch(lib, _RES_BWD_ENTRY[dt], RES_MOD_LN_BWD_KERNEL, refused,
-                  x.device, xc, hc, m, do, dy, dx, dh, dgm, work, *x.shape,
-                  float(eps))
+    _build.launch(lib, _RES_BWD_ENTRY[dt], RES_MOD_LN_BWD_KERNEL,
+                  lambda: _refused_rows(RES_MOD_LN_BWD_KERNEL, xc), x.device,
+                  xc, hc, m, do, dy, dx, dh, dgm, work, *x.shape, float(eps))
     return dx, dh.to(h.dtype), dgm.to(gm3.dtype)
 
 

@@ -129,6 +129,46 @@ def test_mod_ln_refuses_mismatched_mod2():
         tblock.mod_ln_diffable(x, torch.zeros(2, 6, 32))
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [128, 512])
+def test_ln_twins_match_jax_on_views_of_one_modulation(dt, D):
+    """The flax path's own operands: mod2 = m[:, 0:2] and gm3 = m[:, 2:5],
+    views of one (B, 6, D) modulation, through the twins of #5/#6
+    (``mod_ln_diffable``) and #7/#8 (``res_mod_ln_diffable``) against the
+    JAX kernels in interpret mode: the three outputs and the gradients of
+    x, h and the whole modulation (both views' cotangents land in m's).
+    dm holds dgate, which the JAX kernel sums at bf16 width (see
+    ``test_res_mod_ln_twin_matches_jax_kernel``): 3e-2 * max|ref| in
+    bf16."""
+    B, N = 2, 16
+    f = _rng(7)
+    x, h, m = f(B, N, D), f(B, N, D), 0.3 * f(B, 6, D)
+    ws = [f(B, N, D) for _ in range(3)]
+    jdt, tdt = jnp.dtype(dt), getattr(torch, dt)
+
+    def jloss(a, b, mm):
+        z = jblock.mod_ln_diffable(a, mm[:, 0:2], 1e-6, 0, True)
+        o, y = jblock.res_mod_ln_diffable(a, b, mm[:, 2:5], 1e-6, 0, True)
+        return sum(jnp.sum(t.astype(jnp.float32) * w)
+                   for t, w in zip((z, o, y), ws)), (z, o, y)
+
+    (_, jouts), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                        has_aux=True)(
+        *(jnp.asarray(a, jdt) for a in (x, h, m)))
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (x, h, m)]
+    _build.reset_launch_counts()
+    z = tblock.mod_ln_diffable(ts[0], ts[2][:, 0:2])
+    o, y = tblock.res_mod_ln_diffable(ts[0], ts[1], ts[2][:, 2:5])
+    tg = torch.autograd.grad(sum((t.float() * torch.from_numpy(w)).sum()
+                                 for t, w in zip((z, o, y), ws)), ts)
+    assert not _build.launch_counts                 # CPU: the twins only
+    assert [t.dtype for t in (z, o, y, *tg)] == [tdt] * 6
+    for name, g, want in zip(("z", "out", "y", "dx", "dh"), (z, o, y, *tg),
+                             (*jouts, *jg)):
+        _close(g.float(), want, dt, err_msg=name)
+    _close(tg[2].float(), jg[2], dt, tol16=3e-2, err_msg="dm")
+
+
 # ------------------------------------------------- fused heads (#9, #11)
 
 def _qkv_slices(B, N, HD, dt, seed=0):

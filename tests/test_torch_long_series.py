@@ -562,12 +562,14 @@ def test_sampler_third_route_matches_jax(monkeypatch):
     ("_launch_res_mod_ln_bwd", "res_mod_ln_backward")])
 def test_res_mod_ln_launchers_pass_their_declared_arguments(
         monkeypatch, launcher, entry, dt):
-    """The residual + LayerNorm launchers against the fake library: gm3
-    goes over in f32, the shape as (B, N, D), eps and the stream last; the
-    backward returns dx, dh and dgm3 in the inputs' dtypes."""
+    """The residual + LayerNorm launchers against the fake library, gm3
+    the flax path's view of a (B, 6, D) modulation: the forward reads it
+    in place, with its batch stride and whether it is bf16; the backward
+    gets it in f32, contiguous, and returns dx, dh and dgm3 in the inputs'
+    dtypes. The shape goes over as (B, N, D), eps and the stream last."""
     lib = _rehearse(monkeypatch)
     x = torch.randn(2, 8, 32).to(dt)
-    gm3 = torch.randn(2, 3, 32).to(dt)
+    gm3 = torch.randn(2, 6, 32).to(dt)[:, 2:5]
     args = (x, x, gm3, 1e-6) if launcher == "_launch_res_mod_ln" else (
         x, x, gm3, x, x, 1e-6)
     out = getattr(tblock, launcher)(*args)
@@ -576,7 +578,12 @@ def test_res_mod_ln_launchers_pass_their_declared_arguments(
     assert (B, N, D) == (2, 8, 32) and stream.value == 7
     assert eps.value == pytest.approx(1e-6)
     assert [o.dtype for o in out] == [dt] * len(out)
-    if launcher == "_launch_res_mod_ln_bwd":
+    if launcher == "_launch_res_mod_ln":
+        m, ms, mbf16 = call[2:5]
+        assert m.value == gm3.data_ptr() and ms == 6 * 32
+        assert mbf16 == int(dt == torch.bfloat16)
+    else:
+        assert call[2].value != gm3.data_ptr()
         assert tuple(out[2].shape) == (2, 3, 32)
 
 

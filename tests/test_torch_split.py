@@ -307,12 +307,14 @@ def test_row_backward_launchers_pass_their_declared_arguments(monkeypatch,
     ("_launch_mod_ln_bwd", "mod_ln_backward")])
 def test_mod_ln_launchers_pass_their_declared_arguments(
         monkeypatch, launcher, entry, dt):
-    """The LayerNorm + modulate launchers against the fake library: mod2
-    goes over in f32, the shape as (B, N, D), eps and the stream last; the
-    backward's dmod2 comes back in mod2's dtype."""
+    """The LayerNorm + modulate launchers against the fake library, mod2
+    the flax path's view of a (B, 6, D) modulation: the forward gets it in
+    f32, contiguous; the backward reads it in place, with its batch stride
+    and whether it is bf16, and its dmod2 comes back in mod2's dtype. The
+    shape goes over as (B, N, D), eps and the stream last."""
     lib = _rehearse(monkeypatch)
     x = torch.randn(2, 8, 32).to(dt)
-    mod2 = torch.randn(2, 2, 32).to(dt)
+    mod2 = torch.randn(2, 6, 32).to(dt)[:, 0:2]
     args = (x, mod2, 1e-6) if launcher == "_launch_mod_ln" else (
         x, mod2, x, 1e-6)
     out = getattr(tblock, launcher)(*args)
@@ -321,8 +323,13 @@ def test_mod_ln_launchers_pass_their_declared_arguments(
     assert (B, N, D) == (2, 8, 32) and stream.value == 7
     assert eps.value == pytest.approx(1e-6)
     if launcher == "_launch_mod_ln_bwd":
+        m, ms, mbf16 = call[1:4]
+        assert m.value == mod2.data_ptr() and ms == 6 * 32
+        assert mbf16 == int(dt == torch.bfloat16)
         assert out[0].dtype == dt and out[1].dtype == dt
         assert tuple(out[1].shape) == (2, 2, 32)
+    else:
+        assert call[1].value != mod2.data_ptr()
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
