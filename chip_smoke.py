@@ -30,8 +30,9 @@ failing with a non-zero exit on any error:
    ``wg_gemm_kernel`` on each route), checked to spill nothing and to draw
    no ptxas C7512 ("wgmma serialized"), and of the bf16 LayerNorm
    kernels on 16-byte chunks (csrc/mod_ln.cu: #8's
-   ``res_mod_ln_bwd_vec_kernel``, #7's ``res_mod_ln_fwd_vec_kernel`` and
-   #6's ``mod_ln_bwd_vec_kernel`` at each lane split);
+   ``res_mod_ln_bwd_vec_kernel``, its spills checked, #7's
+   ``res_mod_ln_fwd_vec_kernel``, #6's ``mod_ln_bwd_vec_kernel`` and #5's
+   ``mod_ln_fwd_vec_kernel`` at each lane split);
    every ``heads_fwd_kernel`` instance of fused_heads.cu, dit_stack.cu,
    dit_split.cu and dit_block_bwd.cu checked the same way, with its SASS
    instructions by pipe (``cuobjdump -sass``); then the attention
@@ -138,8 +139,8 @@ failing with a non-zero exit on any error:
    mod2 the flax path's view of a random (B, 6, D) modulation, against the
    twin and autograd over it, again in f32 at a small batch; CUDA-event
    times, the twin's times and the bounds, and in bf16 each one's device
-   time by kernel, the backward checked to run on the 16-byte-chunk
-   kernel;
+   time by kernel, both directions checked to run on the 16-byte-chunk
+   kernels with no copy or cast beside them;
 12. fused-heads phase: ``fused_heads_attention`` and
    ``fused_heads_attention_bwd`` at the same call (8 heads of 64, q/k/v
    the column slices of one qkv tensor) against their twins, with the mean
@@ -632,25 +633,29 @@ def device_ms_all(fn, reps: int = 3):
     left out), and each name's time is its mean per launch times its
     launches per call (its count over ``reps``, rounded): the profiler
     drops a window's first kernel now and then, so one launch may be
-    missing."""
+    missing, and now and then all of them: a window that recorded no
+    kernel is profiled again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     totals = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if (us <= 0 or getattr(ev, "device_type", None) != DeviceType.CUDA
-                or "spin_kernel" in ev.key):
-            continue
-        t, n = totals.get(ev.key, (0.0, 0))
-        totals[ev.key] = (t + us / 1e3, n + ev.count)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if (us <= 0 or getattr(ev, "device_type", None) != DeviceType.CUDA
+                    or "spin_kernel" in ev.key):
+                continue
+            t, n = totals.get(ev.key, (0.0, 0))
+            totals[ev.key] = (t + us / 1e3, n + ev.count)
+        if totals:
+            break
     return {key: t / n * max(round(n / reps), 1)
             for key, (t, n) in totals.items()}
 
@@ -1489,12 +1494,15 @@ def scaled_server_phase(dit, vae, seed):
 # ---------------------------- the scaled train step's flax-path kernels
 
 # the CUDA kernels of the flax path, by their names in the profile
-MOD_LN_PARTS = ("mod_ln_fwd_kernel", "mod_ln_bwd_vec_kernel",
-                "mod_ln_bwd_kernel", "res_mod_ln_fwd_vec_kernel",
-                "res_mod_ln_fwd_kernel", "res_mod_ln_bwd_vec_kernel",
-                "res_mod_ln_bwd_kernel", "dmod_reduce_kernel")
-# the lane-strided #6 and #7, which a bf16 step at D % 8 == 0 must not run
-OLD_LN_KERNELS = ("mod_ln_bwd_kernel", "res_mod_ln_fwd_kernel")
+MOD_LN_PARTS = ("mod_ln_fwd_vec_kernel", "mod_ln_fwd_kernel",
+                "mod_ln_bwd_vec_kernel", "mod_ln_bwd_kernel",
+                "res_mod_ln_fwd_vec_kernel", "res_mod_ln_fwd_kernel",
+                "res_mod_ln_bwd_vec_kernel", "res_mod_ln_bwd_kernel",
+                "dmod_reduce_kernel")
+# the lane-strided #5, #6 and #7, which a bf16 step at D % 8 == 0 must not
+# run
+OLD_LN_KERNELS = ("mod_ln_fwd_kernel", "mod_ln_bwd_kernel",
+                  "res_mod_ln_fwd_kernel")
 HEADS_PARTS = ("heads_fwd_kernel", "heads_bwd_q_kernel",
                "heads_bwd_kv_kernel")
 # the library kernels around them, by name fragments: the dense products
@@ -1675,11 +1683,14 @@ def log_split_resources():
 def log_mod_ln_resources():
     """ptxas's registers, stack, spills and static shared memory of the
     bf16 kernels on 16-byte chunks (csrc/mod_ln.cu's
-    ``res_mod_ln_bwd_vec_kernel<CPL, G>`` (#8), ``res_mod_ln_fwd_vec_kernel
-    <CPL, G, M>`` (#7) and ``mod_ln_bwd_vec_kernel<CPL, G, M>`` (#6), CPL
-    chunks a lane in groups of G lanes: D 128 takes <1, 16>, D 512 <2, 32>;
-    M the modulation's type), with their dynamic shared memory at the
-    widest D each serves, 8 CPL G (the backwards' 4 x W x D f32 buffer)."""
+    ``mod_ln_fwd_vec_kernel<CPL, G, M>`` (#5), ``mod_ln_bwd_vec_kernel``
+    (#6), ``res_mod_ln_fwd_vec_kernel`` (#7) and
+    ``res_mod_ln_bwd_vec_kernel`` (#8), CPL chunks a lane in groups of G
+    lanes: D 128 takes <1, 16>, D 512 <2, 32>; M the modulation's type),
+    with their dynamic shared memory at the widest D each serves, 8 CPL G
+    (the backwards' 4 x W x D f32 buffer). #8's spills are checked against
+    its line before it read gm3 in place: 40 B at D 512, 20 B at D 1024
+    (stores and loads each)."""
     from t2ms_tpu_torch.ops import _build
     text = _build.build_logs.get("mod_ln")
     if not text:
@@ -1687,7 +1698,9 @@ def log_mod_ln_resources():
             "built in this process)")
         return
     sums = {"res_mod_ln_bwd_vec_kernel": 3, "res_mod_ln_fwd_vec_kernel": 0,
-            "mod_ln_bwd_vec_kernel": 2}
+            "mod_ln_bwd_vec_kernel": 2, "mod_ln_fwd_vec_kernel": 0}
+    spill_cap = {512: 40, 1024: 20}   # #8's at those D
+    over = []
     for chunk in text.split("Compiling entry function")[1:]:
         m = re.search(r"\d((?:res_)?mod_ln_(?:fwd|bwd)_vec_kernel)ILi(\d+)ELi"
                       r"(\d+)E(f|13__nv_bfloat16)?E", chunk)
@@ -1697,6 +1710,13 @@ def log_mod_ln_resources():
             _log_resources(f"mod_ln kernel resources {kern}<{cpl}, {g}{mt}> "
                            f"(D={8 * cpl * g})", chunk,
                            4 * sums[kern] * 4 * 8 * cpl * g)
+            cap = spill_cap.get(8 * cpl * g)
+            if kern == "res_mod_ln_bwd_vec_kernel" and cap is not None:
+                spills = [int(v) for v in
+                          re.findall(r"(\d+) bytes spill", chunk)]
+                if max(spills, default=0) > cap:
+                    over.append(f"{kern}<{cpl}, {g}{mt}> {spills} B > {cap}")
+    check(not over, f"#8 spills more than before: {over}")
 
 
 def log_attention_resources():
@@ -1802,9 +1822,9 @@ def mod_ln_phase(gen):
             log(f"mod_ln {dt} B={B} N={N} D={D} {k}: {r['ms']:.4f} ms, twin "
                 f"{r['plain']:.4f} ms, bound {r['bound']:.4f} ms "
                 f"({r['by']})")
-        if dt == torch.bfloat16:   # #6 on 16-byte chunks (D % 8 == 0)
+        if dt == torch.bfloat16:   # #5, #6 on 16-byte chunks (D % 8 == 0)
             ln_device_time(f"mod_ln {call} B={B} N={N} D={D}", (
-                ("fwd", fwd, "mod_ln_fwd_kernel", ()),
+                ("fwd", fwd, "mod_ln_fwd_vec_kernel", ("mod_ln_fwd_kernel",)),
                 ("bwd", bwd, "mod_ln_bwd_vec_kernel",
                  ("mod_ln_bwd_kernel",))), out[call])
         del x, mod2, dy, got_y, got_dx, got_dm, want_dx, want_dm
@@ -1819,7 +1839,7 @@ def mod_ln_phase(gen):
 MOD_LN_SHAPES = (("scaled", SC_TRAIN_B, SC_N, SC_D, 1),
                  ("long", LS_TRAIN_B, LS_N, D_MODEL, 6))
 # kernel -> (this tree's kernel, the lane-strided one it replaced)
-MOD_LN_OWN = {"#5": ("mod_ln_fwd_kernel",),
+MOD_LN_OWN = {"#5": ("mod_ln_fwd_vec_kernel", "mod_ln_fwd_kernel"),
               "#6": ("mod_ln_bwd_vec_kernel", "mod_ln_bwd_kernel"),
               "#7": ("res_mod_ln_fwd_vec_kernel", "res_mod_ln_fwd_kernel"),
               "#8": ("res_mod_ln_bwd_vec_kernel", "res_mod_ln_bwd_kernel")}
@@ -3068,8 +3088,9 @@ def ln_device_time(what, parts, rows):
     kernels #5-#8: for each (key, fn, own kernel, kernels that must not
     run) of ``parts``, the own kernel's, ``dmod_reduce_kernel``'s (a
     backward's ordered sum over tiles) and the rest (the wrappers' casts);
-    checked to run on the own kernel and none of the others. rows[key]
-    gains "device" (the own kernel's ms)."""
+    checked to run on the own kernel, none of the others and nothing but
+    it and dmod_reduce_kernel (the modulation's views read in place, no
+    copy or cast). rows[key] gains "device" (the own kernel's ms)."""
     for k, fn, own, absent in parts:
         times = device_ms_all(fn)
         if not times:
@@ -3083,6 +3104,10 @@ def ln_device_time(what, parts, rows):
         off = sorted(n for n in times for a in absent if _named(n, a))
         check(mine > 0 and not off, f"{what} {k} ran {sorted(times)}: want "
               f"{own} and none of {absent}")
+        glue = sorted(n for n in times if not _named(n, own)
+                      and not _named(n, "dmod_reduce_kernel"))
+        check(not glue, f"{what} {k} ran {glue} beside {own}: a copy or "
+              "cast of an operand")
         rows[k]["device"] = mine
         log(f"{what} {k} device time (torch.profiler, one call): {own} "
             f"{mine:.4f} ms ({rows[k]['bound'] / mine:.2%} of its bound "

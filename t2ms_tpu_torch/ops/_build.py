@@ -146,10 +146,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         "dit_block_attention_bwd": [P] * 4 + [I] * 4 + [F, P],
         "dit_block_mlp_bwd": [P] * 13 + [I] * 4 + [F, P],
         "dit_block_qkv_bwd": [P] * 7 + [I] * 3 + [F, P],
-        "mod_ln_forward": [P] * 3 + [I] * 3 + [F, P],
+        "mod_ln_forward": [P, P, L, I, P] + [I] * 3 + [F, P],
         "mod_ln_backward": [P, P, L, I] + [P] * 4 + [I] * 3 + [F, P],
         "res_mod_ln_forward": [P] * 3 + [L, I, P, P] + [I] * 3 + [F, P],
-        "res_mod_ln_backward": [P] * 9 + [I] * 3 + [F, P],
+        "res_mod_ln_backward": [P] * 3 + [L, I] + [P] * 6 + [I] * 3
+                               + [F, P],
         "fused_heads_forward": [P] * 4 + [I] * 4 + [L] * 6 + [F, P],
         "fused_heads_forward_stats": [P] * 5 + [I] * 4 + [L] * 6 + [F, P],
         "fused_heads_backward": [P] * 8 + [I] * 4 + [L] * 8 + [I, F, F, P],

@@ -25,16 +25,15 @@
 //             cotangent is dt = T(T(dln) + dy), and dx = dt,
 //             dh = T(dt * T(gate)), dgate = sum over rows of dt * h,
 //             dshift = sum of do, dscale = sum of do * LN(y) (f32 sums,
-//             rounded once by the wrapper). The JAX kernel takes this VJP
+//             rounded once to gm3's dtype). The JAX kernel takes this VJP
 //             with jax.vjp inside its body; here it is written out.
 //
 // mod2 is (B, 2, D) = [shift, scale] and gm3 (B, 3, D) = [gate, shift,
-// scale]. The mod_ln forward and the res backward take them in f32, rows
-// of D contiguous (the wrappers convert them); the res forward and the
-// mod_ln backward read them in place, bf16 or f32 (converted exactly in
-// registers), at the caller's batch stride (the flax path hands over
-// views of the (B, 6, D) modulation), and the mod_ln backward writes
-// dmod2 in mod2's dtype, rounded once from the f32 total.
+// scale]. Every kernel reads them in place, bf16 or f32 (converted
+// exactly in registers), rows of D contiguous at the caller's batch
+// stride (the flax path hands over views of the (B, 6, D) modulation),
+// and the backwards write dmod2 and dgm3 in the modulation's dtype,
+// rounded once from the f32 totals.
 //
 // Bound on an H100 SXM: every kernel here moves a few (B, N, D) tensors and
 // does a few f32 operations per element, so bytes bound it. At the scaled
@@ -59,22 +58,27 @@
 // warp), and keeps the per-column partials in registers, summed over the
 // warps through a buffer half the size of the warp partials' above.
 //
-// The bf16 res forward and mod_ln backward (D a multiple of 8; f32 and
-// other widths keep the lane-strided kernels) take the 16-byte chunks and
-// lane groups above too, hold the lane's columns of the per-sample
-// vectors in registers while its rows stay in one batch element (rather
-// than read 3 * D of them for every row), and issue the next row's loads
-// before this row's sums. res_mod_ln_fwd_vec_kernel is
-// persistent: each block walks one contiguous run of rows, its warps on
-// neighbouring rows, reloading the vectors where the run crosses into the
-// next element, so every block ends together. mod_ln_bwd_vec_kernel keeps
-// the backward's 64-row tiles of one element and its ordered fold of the
-// per-column partials. Both reach about 80% of their byte bound at the
-// scaled call (B=64, N=1024, D=512), near 90% of the rate of PyTorch's
-// own elementwise passes moving as many tensors; the res forward's loads
-// and stores alone reach 84%, and neither the number of warps, the rows
-// in flight, L2 policies nor the order of the rows moved it
-// (chip_smoke.py --mod_ln).
+// The bf16 forwards and mod_ln backward (D a multiple of 8; f32 and other
+// widths keep the lane-strided kernels) take the 16-byte chunks and lane
+// groups above too, hold the lane's columns of the per-sample vectors in
+// registers while its rows stay in one batch element (rather than read
+// 2 * D or 3 * D of them for every row), and issue the next row's loads
+// before this row's sums. mod_ln_fwd_vec_kernel and
+// res_mod_ln_fwd_vec_kernel are persistent: each block walks one
+// contiguous run of rows, its warps on neighbouring rows, reloading the
+// vectors where the run crosses into the next element, so every block
+// ends together. mod_ln_bwd_vec_kernel keeps the backward's 64-row tiles
+// of one element and its ordered fold of the per-column partials. All
+// three reach about 80% of their byte bound at the scaled call (B=64,
+// N=1024, D=512), near 90% of the rate of PyTorch's own elementwise
+// passes moving as many tensors; their loads and stores alone reach
+// 79-84%, and neither the number of warps, the rows in flight, L2
+// policies, the order of the rows nor a grid that is not persistent
+// moved them (chip_smoke.py --mod_ln). The res backward reads its gate and scale
+// again for each row with 16-byte loads (held in registers they made it
+// spill), so its entry takes that route only for a bf16 gm3 view the
+// loads may address or a contiguous f32 gm3; another goes to the
+// lane-strided kernel.
 //
 // C interface for ctypes: {mod_ln,res_mod_ln}_{forward,backward}_{bf16,f32}
 // launch on the given stream and return cudaGetLastError(), or
@@ -129,10 +133,11 @@ template <typename T> struct Args {
 
 // ------------------------------------------------------------- mod_ln
 
-template <typename T, int V>
+template <typename T, typename M, int V>
 __global__ void __launch_bounds__(NT)
-mod_ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
-                  T* __restrict__ out, int rows, int N, int D, float eps) {
+mod_ln_fwd_kernel(const T* __restrict__ x, const M* __restrict__ mod2,
+                  long long ms, T* __restrict__ out, int rows, int N, int D,
+                  float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = blockIdx.x * NW + warp;
   if (r >= rows) return;
@@ -145,13 +150,15 @@ mod_ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mod2,
   }
   float rs;
   const float mu = row_stats<V>(v, D, eps, rs);
-  const float* sh = mod2 + (size_t)(r / N) * 2 * D;
-  const float* sc = sh + D;
+  const M* sh = mod2 + (r / N) * ms;
+  const M* sc = sh + D;
   T* o = out + (size_t)r * D;
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     const int c = lane + 32 * u;
-    if (c < D) o[c] = from_f<T>((v[u] - mu) * rs * (1.0f + sc[c]) + sh[c]);
+    if (c < D)
+      o[c] = from_f<T>((v[u] - mu) * rs * (1.0f + to_f<M>(sc[c])) +
+                       to_f<M>(sh[c]));
   }
 }
 
@@ -288,10 +295,10 @@ res_mod_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
 // One block per 64-row tile of one element: dx and dh of its rows and the
 // tile's f32 partials part[blockIdx.x] = [sum dt * h, sum do, sum do * xh]
 // (3 x D), the forward recomputed from x and h.
-template <typename T, int V>
+template <typename T, typename M, int V>
 __global__ void __launch_bounds__(NT)
 res_mod_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
-                      const float* __restrict__ gm3,
+                      const M* __restrict__ gm3, long long ms,
                       const T* __restrict__ dout, const T* __restrict__ dy,
                       T* __restrict__ dx, T* __restrict__ dh,
                       float* __restrict__ part, int N, int D, float eps) {
@@ -301,14 +308,14 @@ res_mod_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
   const int tiles = (N + MLN_ROWS - 1) / MLN_ROWS;
   const int b = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * MLN_ROWS;
   const int valid = min(MLN_ROWS, N - n0);
-  const float* gate = gm3 + (size_t)b * 3 * D;
-  const float* sc = gate + 2 * D;
+  const M* gate = gm3 + b * ms;
+  const M* sc = gate + 2 * D;
   float gt[V], scp[V], pg[V], psh[V], psc[V];
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     const int c = lane + 32 * u;
-    gt[u] = c < D ? rnd<T>(gate[c]) : 0.0f;
-    scp[u] = c < D ? 1.0f + sc[c] : 0.0f;
+    gt[u] = c < D ? rnd<T>(to_f<M>(gate[c])) : 0.0f;
+    scp[u] = c < D ? 1.0f + to_f<M>(sc[c]) : 0.0f;
     pg[u] = psh[u] = psc[u] = 0.0f;
   }
   for (int i = warp; i < valid; i += NW) {
@@ -372,7 +379,9 @@ res_mod_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
 // stay in registers over the warp's rows, then add up across the warp's
 // groups (shuffles) and across the 8 warps through a (NW / 2) x 3 x D
 // buffer, warp w + h into warp w for h = 4, 2, 1: a fixed order. The
-// arithmetic and its rounding points are res_mod_ln_bwd_kernel's.
+// arithmetic and its rounding points are res_mod_ln_bwd_kernel's. gm3 is
+// read in place by 16-byte loads: its rows must be 16-byte aligned, and an
+// f32 one contiguous (the entry checks).
 
 using bf16 = __nv_bfloat16;
 
@@ -392,9 +401,9 @@ __device__ __forceinline__ void add8(const float* q, float (&p)[8]) {
   p[0] += a.x, p[1] += a.y, p[2] += a.z, p[3] += a.w;
   p[4] += c.x, p[5] += c.y, p[6] += c.z, p[7] += c.w;
 }
-// the 8 floats at q (16-byte aligned), loaded where they are used: the
-// volatile loads stay in the row loop (the gate and scale, hoisted into
-// registers for the whole loop, made the kernel spill)
+// the 8 values at q (16-byte aligned) as floats, loaded where they are
+// used: the volatile loads stay in the row loop (the gate and scale,
+// hoisted into registers for the whole loop, made the kernel spill)
 __device__ __forceinline__ void ldg8(const float* q, float (&f)[8]) {
   asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(f[0]), "=f"(f[1]), "=f"(f[2]), "=f"(f[3])
@@ -402,6 +411,13 @@ __device__ __forceinline__ void ldg8(const float* q, float (&f)[8]) {
   asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4+16];\n"
                : "=f"(f[4]), "=f"(f[5]), "=f"(f[6]), "=f"(f[7])
                : "l"(q));
+}
+__device__ __forceinline__ void ldg8(const bf16* q, float (&f)[8]) {
+  uint4 u;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "l"(q));
+  unpack8(u, f);
 }
 
 // the sum over an aligned group of G lanes (G a power of two)
@@ -459,11 +475,11 @@ __device__ __forceinline__ void fold_partials(float (&p)[W][CPL][8],
   if (warp == 0 && gi == 0) io(out, false);
 }
 
-template <int CPL, int G>
+template <int CPL, int G, typename M>
 __global__ void __launch_bounds__(NT, CPL <= 2 ? 2 : 1)
 res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ h,
-                          const float* __restrict__ gm3,
+                          const M* __restrict__ gm3, long long ms,
                           const bf16* __restrict__ dout,
                           const bf16* __restrict__ dy, bf16* __restrict__ dx,
                           bf16* __restrict__ dh, float* __restrict__ part,
@@ -475,8 +491,10 @@ res_mod_ln_bwd_vec_kernel(const bf16* __restrict__ x,
   const int tiles = (N + MLN_ROWS - 1) / MLN_ROWS;
   const int b = blockIdx.x / tiles, n0 = (blockIdx.x % tiles) * MLN_ROWS;
   const int valid = min(MLN_ROWS, N - n0);
-  const float* gate = gm3 + (size_t)b * 3 * D;
-  const float* sc = gate + 2 * D;
+  // an f32 gm3 comes contiguous (the entry sees to it) and its stride is
+  // formed here: with the stride parameter ptxas spilled 20 B more at D 512
+  const M* gate = gm3 + (sizeof(M) == 4 ? (size_t)b * 3 * D : b * ms);
+  const M* sc = gate + 2 * D;
   // the lane's chunk j: its first column (clamped for a lane without one)
   auto col = [&](int j) { return 8 * min(l + G * j, nch - 1); };
   float p[3][CPL][8];  // [sum dt * h, sum do, sum do * xh]
@@ -733,6 +751,100 @@ res_mod_ln_fwd_vec_kernel(const bf16* __restrict__ x,
   }
 }
 
+// The mod_ln forward, out = T((x - mu) * rs * (1 + scale) + shift) with
+// mod_ln_fwd_kernel's arithmetic, on the chunks, lane groups and
+// persistent runs of slots of res_mod_ln_fwd_vec_kernel (without its
+// residual): the lane's columns of shift and scale held in registers
+// while its rows stay in one element, the next slot's x loaded while
+// this one is reduced and stored. Slots and rows are counted in 32 bits
+// (B * N <= INT_MAX, so rows + 31 fits an unsigned): at the long call (D
+// 128, two rows a slot) the 64-bit counters of res_mod_ln_fwd_vec_kernel
+// cost this kernel a tenth of its time. A lane divides by N only where
+// its row passes the end of the element whose vectors it holds.
+template <int CPL, int G, typename M>
+__global__ void __launch_bounds__(NT, CPL <= 2 ? 2 : 1)
+mod_ln_fwd_vec_kernel(const bf16* __restrict__ x, const M* __restrict__ mod2,
+                      long long ms, bf16* __restrict__ out, int rows, int N,
+                      int D, float eps) {
+  constexpr int RPW = 32 / G;
+  const int lane = threadIdx.x % 32, gi = lane / G, l = lane % G;
+  const int nch = D / 8;
+  const unsigned S = ((unsigned)rows + RPW - 1) / RPW;
+  const unsigned s1 = (unsigned)((blockIdx.x + 1ULL) * S / gridDim.x);
+  const unsigned s0 =
+      (unsigned)(blockIdx.x * (unsigned long long)S / gridDim.x) +
+      threadIdx.x / 32;
+  auto col = [&](int j) { return 8 * min(l + G * j, nch - 1); };
+  auto on = [&](unsigned r, int j) {
+    return r < (unsigned)rows && l + G * j < nch;
+  };
+  auto fetch = [&](unsigned s, uint4 (&ux)[CPL]) {
+    const unsigned r = s * RPW + gi;
+    const size_t base = (size_t)min(r, (unsigned)rows - 1) * D;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      ux[j] = on(r, j) ? ld16(x + base + col(j)) : z;
+  };
+  Mod8<M> sh[CPL], sc[CPL];
+  unsigned nb = 0;  // the end row of the element whose vectors it holds
+  uint4 ux[CPL];
+  if (s0 < s1) fetch(s0, ux);
+  for (unsigned s = s0; s < s1; s += NW) {
+    uint4 nx[CPL];
+    if (s + NW < s1) fetch(s + NW, nx);
+    const unsigned r = s * RPW + gi;
+    if (r < (unsigned)rows && r >= nb) {
+      const unsigned cb = r / N;
+      nb = (cb + 1) * N;
+      const M* m = mod2 + (long long)cb * ms;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        sh[j].load(m + col(j));
+        sc[j].load(m + D + col(j));
+      }
+    }
+    // the row's f32 mean, then 1 / sqrt(var + eps) of the centred row
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8];
+      unpack8(ux[j], xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += on(r, j) ? xv[k] : 0.0f;
+    }
+    const float mu = group_sum<G>(sum) / D;
+    float q = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float xv[8];
+      unpack8(ux[j], xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = on(r, j) ? xv[k] - mu : 0.0f;
+        q += d * d;
+      }
+    }
+    const float rs = rsqrtf(group_sum<G>(q) / D + eps);
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      if (!on(r, j)) continue;
+      float xv[8], o[8];
+      unpack8(ux[j], xv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        o[k] = (xv[k] - mu) * rs * (1.0f + sc[j][k]) + sh[j][k];
+      st16(out + (size_t)r * D + col(j),
+           make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]),
+                      pack2(o[6], o[7])));
+    }
+    if (s + NW < s1) {
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) ux[j] = nx[j];
+    }
+  }
+}
+
 // The mod_ln backward on the chunks and lane groups above, one block per
 // 64-row tile of one element, with mod_ln_bwd_kernel's arithmetic: dx of
 // its rows and part[blockIdx.x] = [sum dy, sum dy * xh] (2 x D). The
@@ -878,8 +990,8 @@ template <typename T, typename M, int V, bool RES> struct Forward {
           a.x, a.h, (const M*)a.mod, a.ms, a.out, a.out2, rows, a.N, a.D,
           a.eps);
     else
-      mod_ln_fwd_kernel<T, V><<<blocks, NT, 0, st>>>(
-          a.x, (const float*)a.mod, a.out, rows, a.N, a.D, a.eps);
+      mod_ln_fwd_kernel<T, M, V><<<blocks, NT, 0, st>>>(
+          a.x, (const M*)a.mod, a.ms, a.out, rows, a.N, a.D, a.eps);
     return cudaGetLastError();
   }
 };
@@ -891,11 +1003,11 @@ template <typename T, typename M, int V, bool RES> struct Backward {
     const int blocks = a.B * ((a.N + MLN_ROWS - 1) / MLN_ROWS);
     cudaError_t e;
     if constexpr (RES) {
-      if ((e = set_smem((const void*)res_mod_ln_bwd_kernel<T, V>, s)))
+      if ((e = set_smem((const void*)res_mod_ln_bwd_kernel<T, M, V>, s)))
         return e;
-      res_mod_ln_bwd_kernel<T, V><<<blocks, NT, s, st>>>(
-          a.x, a.h, (const float*)a.mod, a.dout, a.dy, a.out, a.out2, a.part,
-          a.N, a.D, a.eps);
+      res_mod_ln_bwd_kernel<T, M, V><<<blocks, NT, s, st>>>(
+          a.x, a.h, (const M*)a.mod, a.ms, a.dout, a.dy, a.out, a.out2,
+          a.part, a.N, a.D, a.eps);
     } else {
       if ((e = set_smem((const void*)mod_ln_bwd_kernel<T, M, V>, s)))
         return e;
@@ -960,11 +1072,12 @@ cudaError_t launch_tiles(K kernel, const Args<bf16>& a, cudaStream_t st,
   return cudaGetLastError();
 }
 
-int res_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
+template <typename M> int res_bwd_vec(const Args<bf16>& a, cudaStream_t st) {
   return by_chunks(a, 3, [&](auto cpl, auto g) {
     return launch_tiles<3>(
-        res_mod_ln_bwd_vec_kernel<decltype(cpl)::value, decltype(g)::value>,
-        a, st, a.x, a.h, (const float*)a.mod, a.dout, a.dy, a.out, a.out2,
+        res_mod_ln_bwd_vec_kernel<decltype(cpl)::value, decltype(g)::value,
+                                  M>,
+        a, st, a.x, a.h, (const M*)a.mod, a.ms, a.dout, a.dy, a.out, a.out2,
         a.part, a.N, a.D, a.eps);
   });
 }
@@ -987,48 +1100,74 @@ int blocks_per_sm(const void* kernel) {
   return e ? -(int)e : n;
 }
 
-// the persistent res forward: as many blocks as the device holds at once,
-// fewer for a call of fewer slots than that holds warps
-template <typename M> int res_fwd_vec(const Args<bf16>& a, cudaStream_t st) {
-  return by_chunks(a, 3, [&](auto cpl, auto g) -> int {
+// The grid of a persistent forward over `rows` rows in lane groups of G:
+// as many blocks as the device holds at once (per_sm a SM), fewer for a
+// call of fewer slots than that holds warps; or a negative CUDA error.
+long long persistent_blocks(int per_sm, int rows, int G) {
+  if (per_sm <= 0)
+    return per_sm ? per_sm : -(long long)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+  if (e) return -(long long)e;
+  const long long slots = (rows + 32 / G - 1) / (32 / G);
+  return std::min((long long)sms * per_sm, (slots + NW - 1) / NW);
+}
+
+// the persistent bf16 forwards, the res forward (RES) or the mod_ln one
+template <typename M, bool RES>
+int fwd_vec(const Args<bf16>& a, cudaStream_t st) {
+  return by_chunks(a, RES ? 3 : 2, [&](auto cpl, auto g) -> int {
     constexpr int CPL = decltype(cpl)::value, G = decltype(g)::value;
-    const auto kernel = res_mod_ln_fwd_vec_kernel<CPL, G, M>;
-    static const int per_sm = blocks_per_sm((const void*)kernel);
-    if (per_sm <= 0)
-      return per_sm ? -per_sm : (int)cudaErrorInvalidConfiguration;
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (!e) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev);
-    if (e) return e;
     const int rows = a.B * a.N;
-    const long long slots = (rows + 32 / G - 1) / (32 / G);
-    const long long blocks =
-        std::min((long long)sms * per_sm, (slots + NW - 1) / NW);
-    kernel<<<(unsigned)blocks, NT, 0, st>>>(a.x, a.h, (const M*)a.mod, a.ms,
-                                            a.out, a.out2, rows, a.N, a.D,
-                                            a.eps);
+    if constexpr (RES) {
+      const auto kernel = res_mod_ln_fwd_vec_kernel<CPL, G, M>;
+      static const int per_sm = blocks_per_sm((const void*)kernel);
+      const long long blocks = persistent_blocks(per_sm, rows, G);
+      if (blocks < 0) return (int)-blocks;
+      kernel<<<(unsigned)blocks, NT, 0, st>>>(a.x, a.h, (const M*)a.mod,
+                                              a.ms, a.out, a.out2, rows, a.N,
+                                              a.D, a.eps);
+    } else {
+      const auto kernel = mod_ln_fwd_vec_kernel<CPL, G, M>;
+      static const int per_sm = blocks_per_sm((const void*)kernel);
+      const long long blocks = persistent_blocks(per_sm, rows, G);
+      if (blocks < 0) return (int)-blocks;
+      kernel<<<(unsigned)blocks, NT, 0, st>>>(a.x, (const M*)a.mod, a.ms,
+                                              a.out, rows, a.N, a.D, a.eps);
+    }
     return cudaGetLastError();
   });
 }
 
-template <typename T, typename M>
-int res_forward(const Args<T>& a, cudaStream_t st) {
+// the forward (persistent on 16-byte chunks where T is bf16 and D a
+// multiple of 8)
+template <typename T, typename M, bool RES>
+int run_forward(const Args<T>& a, cudaStream_t st) {
   if constexpr (sizeof(T) == 2)
-    if (a.D % 8 == 0) return res_fwd_vec<M>(a, st);
-  return by_lanes<Forward, T, M, true>(a, st);
+    if (a.D % 8 == 0) return fwd_vec<M, RES>(a, st);
+  return by_lanes<Forward, T, M, RES>(a, st);
 }
 
-// the backward (on 16-byte chunks where T is bf16 and D a multiple of 8),
-// then the ordered sum of its W x D partials over the tiles into dmod
+// Whether res_mod_ln_bwd_vec_kernel reads a's gm3: its 16-byte loads need
+// the rows' starts 16-byte aligned, and an f32 gm3 must be contiguous
+template <typename M> bool gm3_for_chunks(const Args<bf16>& a) {
+  return (uintptr_t)a.mod % 16 == 0 && a.ms * (long long)sizeof(M) % 16 == 0
+         && (sizeof(M) == 2 || a.ms == 3LL * a.D);
+}
+
+// the backward (on 16-byte chunks where T is bf16, D a multiple of 8 and,
+// for the res backward, gm3_for_chunks), then the ordered sum of its W x D
+// partials over the tiles into dmod, rounded once to M
 template <typename T, typename M, bool RES>
 int run_backward(const Args<T>& a, M* dmod, cudaStream_t st) {
   int e;
   if constexpr (sizeof(T) == 2) {
-    if (a.D % 8)
+    if (a.D % 8 || (RES && !gm3_for_chunks<M>(a)))
       e = by_lanes<Backward, T, M, RES>(a, st);
     else
-      e = RES ? res_bwd_vec(a, st) : mod_bwd_vec<M>(a, st);
+      e = RES ? res_bwd_vec<M>(a, st) : mod_bwd_vec<M>(a, st);
   } else {
     e = by_lanes<Backward, T, M, RES>(a, st);
   }
@@ -1044,13 +1183,18 @@ long long workspace(int B, int N, int D, int W) {
 
 }  // namespace
 
+// Each entry takes the modulation (mod2 or gm3) in place: its pointer, its
+// batch stride in elements and whether it is bf16 (else f32); the
+// backwards write dmod2 and dgm3 in that dtype.
 #define T2MS_MOD_LN_ENTRIES(SUFFIX, T)                                        \
-  extern "C" int mod_ln_forward_##SUFFIX(const void* x, const void* mod2,     \
-                                         void* out, int B, int N, int D,      \
-                                         float eps, void* stream) {           \
-    const Args<T> a{(const T*)x, nullptr, mod2, 2LL * D, nullptr, nullptr,   \
-                    (T*)out, nullptr, nullptr, B, N, D, eps};                 \
-    return by_lanes<Forward, T, float, false>(a, (cudaStream_t)stream);       \
+  extern "C" int mod_ln_forward_##SUFFIX(                                     \
+      const void* x, const void* mod2, long long mod2_stride, int mod2_bf16,  \
+      void* out, int B, int N, int D, float eps, void* stream) {              \
+    const Args<T> a{(const T*)x, nullptr, mod2, mod2_stride, nullptr,        \
+                    nullptr, (T*)out, nullptr, nullptr, B, N, D, eps};        \
+    const cudaStream_t st = (cudaStream_t)stream;                             \
+    return mod2_bf16 ? run_forward<T, bf16, false>(a, st)                     \
+                     : run_forward<T, float, false>(a, st);                   \
   }                                                                           \
   extern "C" int mod_ln_backward_##SUFFIX(                                    \
       const void* x, const void* mod2, long long mod2_stride, int mod2_bf16,  \
@@ -1069,18 +1213,19 @@ long long workspace(int B, int N, int D, int W) {
     const Args<T> a{(const T*)x, (const T*)h, gm3, gm3_stride, nullptr,      \
                     nullptr, (T*)out, (T*)y, nullptr, B, N, D, eps};          \
     const cudaStream_t st = (cudaStream_t)stream;                             \
-    return gm3_bf16 ? res_forward<T, bf16>(a, st)                             \
-                    : res_forward<T, float>(a, st);                           \
+    return gm3_bf16 ? run_forward<T, bf16, true>(a, st)                       \
+                    : run_forward<T, float, true>(a, st);                     \
   }                                                                           \
   extern "C" int res_mod_ln_backward_##SUFFIX(                                \
-      const void* x, const void* h, const void* gm3, const void* dout,        \
-      const void* dy, void* dx, void* dh, void* dgm3, void* work, int B,      \
-      int N, int D, float eps, void* stream) {                                \
-    const Args<T> a{(const T*)x, (const T*)h, gm3, 3LL * D, (const T*)dout, \
+      const void* x, const void* h, const void* gm3, long long gm3_stride,    \
+      int gm3_bf16, const void* dout, const void* dy, void* dx, void* dh,     \
+      void* dgm3, void* work, int B, int N, int D, float eps, void* stream) { \
+    const Args<T> a{(const T*)x, (const T*)h, gm3, gm3_stride, (const T*)dout,\
                     (const T*)dy, (T*)dx, (T*)dh, (float*)work, B, N, D,     \
                     eps};                                                     \
-    return run_backward<T, float, true>(a, (float*)dgm3,                      \
-                                        (cudaStream_t)stream);                \
+    const cudaStream_t st = (cudaStream_t)stream;                             \
+    return gm3_bf16 ? run_backward<T, bf16, true>(a, (bf16*)dgm3, st)         \
+                    : run_backward<T, float, true>(a, (float*)dgm3, st);      \
   }
 
 T2MS_MOD_LN_ENTRIES(bf16, __nv_bfloat16)

@@ -724,16 +724,11 @@ def _ln_operands(name, x):
     return _build.load("mod_ln"), _rows(x, x.dtype)
 
 
-def _mod_f32(x, mod):
-    """The per-sample vectors as #5's and #8's entries take them: f32,
-    contiguous."""
-    return mod.to(device=x.device, dtype=torch.float32).contiguous()
-
-
 def _mod_in_place(x, mod):
-    """The per-sample vectors (mod2 or gm3, (B, k, D)) as the kernels read
-    them in place: bf16 or f32 (another dtype goes over in f32), rows of D
-    contiguous, at any batch stride; with that stride and whether they are
+    """The per-sample vectors (mod2 or gm3, (B, k, D)) as #5-#8 read them
+    in place: bf16 or f32 (another dtype goes over in f32), rows of D
+    contiguous, at any batch stride (the flax path's views of the (B, 6, D)
+    modulation go over as they are); with that stride and whether they are
     bf16."""
     if mod.dtype not in _MOD_LN_ENTRY or mod.device != x.device:
         mod = mod.to(device=x.device, dtype=torch.float32)
@@ -743,11 +738,14 @@ def _mod_in_place(x, mod):
 
 
 def _launch_mod_ln(x, mod2, eps):
+    """out in x's dtype; the kernel reads mod2 in place (bf16 or f32, at
+    its batch stride: the flax path's view of the modulation)."""
     lib, x = _ln_operands(MOD_LN_KERNEL, x)
+    m, ms, mbf16 = _mod_in_place(x, mod2)
     out = torch.empty_like(x)
     _build.launch(lib, _MOD_LN_ENTRY[x.dtype], MOD_LN_KERNEL,
                   lambda: _refused_rows(MOD_LN_KERNEL, x), x.device, x,
-                  _mod_f32(x, mod2), out, *x.shape, float(eps))
+                  m, ms, mbf16, out, *x.shape, float(eps))
     return out
 
 
@@ -859,18 +857,22 @@ def _launch_res_mod_ln(x, h, gm3, eps):
 
 
 def _launch_res_mod_ln_bwd(x, h, gm3, do, dy, eps):
-    """dx in x's dtype, dh in h's and dgm3 in gm3's: the kernel sums
-    dgate, dshift and dscale in f32 and they are rounded once here."""
+    """dx in x's dtype, dh in h's and dgm3 in gm3's: the kernel reads gm3
+    in place, sums dgate, dshift and dscale in f32 and rounds them once to
+    gm3's dtype (bf16 or f32; another dtype gets f32 sums, rounded
+    here)."""
     lib, xc = _ln_operands(RES_MOD_LN_BWD_KERNEL, x)
-    dt, m = xc.dtype, _mod_f32(xc, gm3)
+    dt = xc.dtype
+    m, ms, mbf16 = _mod_in_place(xc, gm3)
     hc, do, dy = (_rows(t, dt) for t in (h, do, dy))
     dx, dh = torch.empty_like(xc), torch.empty_like(xc)
-    dgm = torch.empty(m.shape, device=x.device, dtype=torch.float32)
+    dgm = torch.empty(m.shape, device=x.device, dtype=m.dtype)
     work = torch.empty(lib.res_mod_ln_backward_workspace(*x.shape),
                        device=x.device, dtype=torch.uint8)
     _build.launch(lib, _RES_BWD_ENTRY[dt], RES_MOD_LN_BWD_KERNEL,
                   lambda: _refused_rows(RES_MOD_LN_BWD_KERNEL, xc), x.device,
-                  xc, hc, m, do, dy, dx, dh, dgm, work, *x.shape, float(eps))
+                  xc, hc, m, ms, mbf16, do, dy, dx, dh, dgm, work, *x.shape,
+                  float(eps))
     return dx, dh.to(h.dtype), dgm.to(gm3.dtype)
 
 

@@ -1018,6 +1018,53 @@ def test_mod_ln_backward_reads_mod2_views_in_place(cuda, D):
     assert torch.equal(dm_v, dm_c.to(torch.bfloat16))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [512, 128, 100])
+def test_mod_ln_forward_reads_mod2_views_in_place(cuda, D):
+    """mod2 handed over as the bf16 view ``m[:, 0:2]`` of a (B, 6, D)
+    modulation, as the flax path does, gives out bit-equal to a contiguous
+    f32 copy of it, and no copy or cast runs before the kernel."""
+    x, _, _ = _mod_ln_args(cuda, torch.bfloat16, D=D)
+    m = (0.3 * torch.randn(3, 6, D, device=cuda)).to(torch.bfloat16)
+    view = m[:, 0:2]
+    got = tblock._launch_mod_ln(x, view, 1e-6)
+    want = tblock._launch_mod_ln(x, view.float().contiguous(), 1e-6)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    names, named = _profile_names(lambda: tblock._launch_mod_ln(x, view,
+                                                                1e-6))
+    assert names and all("mod_ln_fwd" in n for n in names), sorted(names)
+
+
+# the forward's widths: D 8 (8 lanes a row, 4 rows a warp), 128 (16 lanes,
+# 2 rows), 136 (17 chunks on 32 lanes), 512 (2 chunks a lane), 1024 (4);
+# D 100 and f32 the lane-strided kernel
+_LN_FWD_WIDTHS = [8, 100, 128, 136, 512, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.bfloat16, 1e-2),
+                                    (torch.float32, 1e-4)])
+@pytest.mark.parametrize("N", [130, 77])
+@pytest.mark.parametrize("D", _LN_FWD_WIDTHS)
+def test_mod_ln_forward_matches_twin_across_widths(cuda, D, N, dt, tol):
+    """#5 against its twin at ragged token counts (B=3: 390 and 231 rows,
+    231 a multiple of no lane group's rows a warp): out within tol *
+    max|ref| (bf16: one rounding flip after f32 sums in another order;
+    f32: summation order), in x's dtype. The profile names
+    ``mod_ln_fwd_vec_kernel`` for bf16 at D % 8 == 0 and
+    ``mod_ln_fwd_kernel`` elsewhere."""
+    x, mod2, _ = _mod_ln_args(cuda, dt, N=N, D=D)
+    got = tblock._launch_mod_ln(x, mod2, 1e-6)
+    want = tblock.mod_ln_reference(x, mod2)
+    assert got.dtype == want.dtype == dt and got.shape == want.shape
+    _close_to_twin(got, want, tol)
+    names, named = _profile_names(lambda: tblock._launch_mod_ln(x, mod2,
+                                                                1e-6))
+    vec = dt == torch.bfloat16 and D % 8 == 0
+    assert named("mod_ln_fwd_vec_kernel") == vec, sorted(names)
+    assert named("mod_ln_fwd_kernel") == (not vec), sorted(names)
+
+
 def _heads_args(dev, dt, B=3, N=130, HD=512, seed=4):
     """q, k, v as strided column slices of one qkv tensor, and g."""
     r = np.random.default_rng(seed)
@@ -1275,6 +1322,63 @@ def test_res_mod_ln_forward_reads_gm3_views_in_place(cuda, D):
     got = tblock._launch_res_mod_ln(x, h, view, 1e-6)
     want = tblock._launch_res_mod_ln(x, h, view.float().contiguous(), 1e-6)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [512, 128, 100])
+def test_res_mod_ln_backward_reads_gm3_views_in_place(cuda, D):
+    """gm3 handed over as the bf16 view ``m[:, 2:5]`` of a (B, 6, D)
+    modulation, as the flax path does, gives dx and dh bit-equal to a
+    contiguous f32 copy of it and dgm3 in bf16, bit-equal to that call's
+    f32 sums rounded to bf16 (the kernel rounds the same f32 totals once);
+    no copy or cast runs before the kernel."""
+    x, h, _, do, dy = _res_args(cuda, torch.bfloat16, D=D)
+    m = (0.3 * torch.randn(3, 6, D, device=cuda)).to(torch.bfloat16)
+    view = m[:, 2:5]
+    dx_v, dh_v, dg_v = tblock._launch_res_mod_ln_bwd(x, h, view, do, dy,
+                                                     1e-6)
+    dx_c, dh_c, dg_c = tblock._launch_res_mod_ln_bwd(
+        x, h, view.float().contiguous(), do, dy, 1e-6)
+    assert dg_v.dtype == torch.bfloat16 and dg_c.dtype == torch.float32
+    assert torch.equal(dx_v, dx_c) and torch.equal(dh_v, dh_c)
+    assert torch.equal(dg_v, dg_c.to(torch.bfloat16))
+    names, named = _profile_names(lambda: tblock._launch_res_mod_ln_bwd(
+        x, h, view, do, dy, 1e-6))
+    assert all("res_mod_ln_bwd" in n or "dmod_reduce_kernel" in n
+               for n in names), sorted(names)
+    assert named("res_mod_ln_bwd_vec_kernel") == (D % 8 == 0), sorted(names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["unaligned", "f32"])
+def test_res_mod_ln_backward_takes_other_gm3_views_on_the_lane_strided_kernel(
+        cuda, view):
+    """A gm3 view the chunk kernel does not read runs on
+    ``res_mod_ln_bwd_kernel``: a bf16 one whose rows start off a 16-byte
+    boundary (one value into its storage) and an f32 one with the (B, 6,
+    D) modulation's batch stride (the chunk kernel takes f32 contiguous
+    only). dx, dh and dgm3 within 1e-2 * max|ref| of autograd over the
+    twin, dgm3 in gm3's dtype."""
+    D = 512
+    x, h, gm3, do, dy = _res_args(cuda, torch.bfloat16, D=D)
+    if view == "unaligned":
+        flat = torch.empty(3 * 3 * D + 1, device=cuda, dtype=torch.bfloat16)
+        g = flat[1:].view(3, 3, D)
+        g.copy_(gm3)
+        assert g.data_ptr() % 16
+    else:
+        g = torch.zeros(3, 6, D, device=cuda)[:, 2:5]
+        g.copy_(gm3)
+    got = tblock._launch_res_mod_ln_bwd(x, h, g, do, dy, 1e-6)
+    want = _res_grads(x, h, g, do, dy, twin=True)[2:]
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        _close_to_twin(a, w, 1e-2)
+    assert got[2].dtype == g.dtype
+    names, named = _profile_names(lambda: tblock._launch_res_mod_ln_bwd(
+        x, h, g, do, dy, 1e-6))
+    assert named("res_mod_ln_bwd_kernel"), sorted(names)
+    assert not named("res_mod_ln_bwd_vec_kernel"), sorted(names)
 
 
 @pytest.mark.cuda

@@ -44,7 +44,8 @@ from t2ms_tpu_torch.ops import attention as tattn
 from t2ms_tpu_torch.ops import dit_block as tblock
 from t2ms_tpu_torch.sampling import make_cfg_sampler
 
-from test_torch_split import _one_launch, _rehearse
+from test_torch_split import (_check_ln_launch, _modulation, _one_launch,
+                              _rehearse)
 
 
 def _rng(seed):
@@ -556,6 +557,18 @@ def test_sampler_third_route_matches_jax(monkeypatch):
 
 # ------------------------------------------ launchers, fake library
 
+def _check_res_mod_ln_launch(monkeypatch, launcher, entry, dt, gm3):
+    x = torch.randn(2, 8, 32).to(dt)
+    args = (x, x, gm3, 1e-6) if launcher == "_launch_res_mod_ln" else (
+        x, x, gm3, x, x, 1e-6)
+    out = _check_ln_launch(monkeypatch, launcher, entry, dt, gm3, 2, args)
+    if launcher == "_launch_res_mod_ln":
+        assert [o.dtype for o in out] == [dt, dt]
+    else:
+        assert [o.dtype for o in out] == [dt, dt, gm3.dtype]
+        assert tuple(out[2].shape) == (2, 3, 32)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("launcher,entry", [
     ("_launch_res_mod_ln", "res_mod_ln_forward"),
@@ -563,28 +576,27 @@ def test_sampler_third_route_matches_jax(monkeypatch):
 def test_res_mod_ln_launchers_pass_their_declared_arguments(
         monkeypatch, launcher, entry, dt):
     """The residual + LayerNorm launchers against the fake library, gm3
-    the flax path's view of a (B, 6, D) modulation: the forward reads it
-    in place, with its batch stride and whether it is bf16; the backward
-    gets it in f32, contiguous, and returns dx, dh and dgm3 in the inputs'
-    dtypes. The shape goes over as (B, N, D), eps and the stream last."""
-    lib = _rehearse(monkeypatch)
-    x = torch.randn(2, 8, 32).to(dt)
-    gm3 = torch.randn(2, 6, 32).to(dt)[:, 2:5]
-    args = (x, x, gm3, 1e-6) if launcher == "_launch_res_mod_ln" else (
-        x, x, gm3, x, x, 1e-6)
-    out = getattr(tblock, launcher)(*args)
-    call = _one_launch(lib, entry, dt)
-    *_, B, N, D, eps, stream = call
-    assert (B, N, D) == (2, 8, 32) and stream.value == 7
-    assert eps.value == pytest.approx(1e-6)
-    assert [o.dtype for o in out] == [dt] * len(out)
-    if launcher == "_launch_res_mod_ln":
-        m, ms, mbf16 = call[2:5]
-        assert m.value == gm3.data_ptr() and ms == 6 * 32
-        assert mbf16 == int(dt == torch.bfloat16)
-    else:
-        assert call[2].value != gm3.data_ptr()
-        assert tuple(out[2].shape) == (2, 3, 32)
+    the flax path's view of a (B, 6, D) modulation: both read it in place,
+    with its batch stride of 6 * D and whether it is bf16, and the
+    backward returns dx, dh and dgm3 in the inputs' dtypes. The shape goes
+    over as (B, N, D), eps and the stream last."""
+    gm3 = _modulation("view", 2, 3, 32, dt)
+    assert gm3.stride(0) == 6 * 32
+    _check_res_mod_ln_launch(monkeypatch, launcher, entry, dt, gm3)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "f16"])
+@pytest.mark.parametrize("launcher,entry", [
+    ("_launch_res_mod_ln", "res_mod_ln_forward"),
+    ("_launch_res_mod_ln_bwd", "res_mod_ln_backward")])
+def test_res_mod_ln_launchers_take_contiguous_and_f16_modulations(
+        monkeypatch, launcher, entry, layout, dt):
+    """The same launchers with gm3 a contiguous (B, 3, D) tensor (read in
+    place at stride 3 * D) and a float16 one (a contiguous f32 copy goes
+    over; dgm3 comes back in float16)."""
+    _check_res_mod_ln_launch(monkeypatch, launcher, entry, dt,
+                             _modulation(layout, 2, 3, 32, dt))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

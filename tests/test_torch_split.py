@@ -301,6 +301,51 @@ def test_row_backward_launchers_pass_their_declared_arguments(monkeypatch,
     assert len(lib.calls) == 1
 
 
+def _modulation(layout, B, k, D, dt):
+    """A (B, k, D) modulation as a caller hands it over: ``view`` the flax
+    path's slice of a (B, 6, D) one in ``dt``, ``contiguous`` its own
+    tensor in ``dt``, ``f16`` its own tensor in float16 (a dtype the
+    kernels do not read)."""
+    if layout == "view":   # mod2 = m[:, 0:2], gm3 = m[:, 2:5]
+        return torch.randn(B, 6, D).to(dt)[:, 0:2] if k == 2 else \
+            torch.randn(B, 6, D).to(dt)[:, 2:5]
+    return torch.randn(B, k, D).to(torch.float16 if layout == "f16" else dt)
+
+
+def _check_ln_launch(monkeypatch, launcher, entry, dt, mod, at, args):
+    """One LayerNorm launcher against the fake library: the modulation
+    ``mod`` goes over in place (its pointer, its batch stride, whether it
+    is bf16) at argument ``at``, or, in float16, as a contiguous f32 copy;
+    the shape as (B, N, D), eps and the stream last; one launch. Returns
+    the outputs."""
+    lib = _rehearse(monkeypatch)
+    out = getattr(tblock, launcher)(*args)
+    call = _one_launch(lib, entry, dt)
+    *_, B, N, D, eps, stream = call
+    assert (B, N, D) == tuple(args[0].shape) and stream.value == 7
+    assert eps.value == pytest.approx(1e-6)
+    m, ms, mbf16 = call[at:at + 3]
+    if mod.dtype == torch.float16:
+        assert m.value != mod.data_ptr() and ms == mod.shape[1] * D
+        assert mbf16 == 0
+    else:
+        assert m.value == mod.data_ptr() and ms == mod.stride(0)
+        assert mbf16 == int(mod.dtype == torch.bfloat16)
+    return out
+
+
+def _check_mod_ln_launch(monkeypatch, launcher, entry, dt, mod2):
+    x = torch.randn(2, 8, 32).to(dt)
+    args = (x, mod2, 1e-6) if launcher == "_launch_mod_ln" else (
+        x, mod2, x, 1e-6)
+    out = _check_ln_launch(monkeypatch, launcher, entry, dt, mod2, 1, args)
+    if launcher == "_launch_mod_ln_bwd":
+        assert out[0].dtype == dt and out[1].dtype == mod2.dtype
+        assert tuple(out[1].shape) == (2, 2, 32)
+    else:
+        assert out.dtype == dt and tuple(out.shape) == (2, 8, 32)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("launcher,entry", [
     ("_launch_mod_ln", "mod_ln_forward"),
@@ -308,28 +353,27 @@ def test_row_backward_launchers_pass_their_declared_arguments(monkeypatch,
 def test_mod_ln_launchers_pass_their_declared_arguments(
         monkeypatch, launcher, entry, dt):
     """The LayerNorm + modulate launchers against the fake library, mod2
-    the flax path's view of a (B, 6, D) modulation: the forward gets it in
-    f32, contiguous; the backward reads it in place, with its batch stride
-    and whether it is bf16, and its dmod2 comes back in mod2's dtype. The
-    shape goes over as (B, N, D), eps and the stream last."""
-    lib = _rehearse(monkeypatch)
-    x = torch.randn(2, 8, 32).to(dt)
-    mod2 = torch.randn(2, 6, 32).to(dt)[:, 0:2]
-    args = (x, mod2, 1e-6) if launcher == "_launch_mod_ln" else (
-        x, mod2, x, 1e-6)
-    out = getattr(tblock, launcher)(*args)
-    call = _one_launch(lib, entry, dt)
-    *_, B, N, D, eps, stream = call
-    assert (B, N, D) == (2, 8, 32) and stream.value == 7
-    assert eps.value == pytest.approx(1e-6)
-    if launcher == "_launch_mod_ln_bwd":
-        m, ms, mbf16 = call[1:4]
-        assert m.value == mod2.data_ptr() and ms == 6 * 32
-        assert mbf16 == int(dt == torch.bfloat16)
-        assert out[0].dtype == dt and out[1].dtype == dt
-        assert tuple(out[1].shape) == (2, 2, 32)
-    else:
-        assert call[1].value != mod2.data_ptr()
+    the flax path's view of a (B, 6, D) modulation: both read it in place,
+    with its batch stride of 6 * D and whether it is bf16, and the
+    backward's dmod2 comes back in mod2's dtype. The shape goes over as
+    (B, N, D), eps and the stream last."""
+    mod2 = _modulation("view", 2, 2, 32, dt)
+    assert mod2.stride(0) == 6 * 32
+    _check_mod_ln_launch(monkeypatch, launcher, entry, dt, mod2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "f16"])
+@pytest.mark.parametrize("launcher,entry", [
+    ("_launch_mod_ln", "mod_ln_forward"),
+    ("_launch_mod_ln_bwd", "mod_ln_backward")])
+def test_mod_ln_launchers_take_contiguous_and_f16_modulations(
+        monkeypatch, launcher, entry, layout, dt):
+    """The same launchers with mod2 a contiguous (B, 2, D) tensor (read in
+    place at stride 2 * D) and a float16 one (a contiguous f32 copy goes
+    over; dmod2 comes back in float16)."""
+    _check_mod_ln_launch(monkeypatch, launcher, entry, dt,
+                         _modulation(layout, 2, 2, 32, dt))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
